@@ -1,0 +1,256 @@
+"""Engine configuration (ref: src/storage/src/config.rs).
+
+Field names and defaults track the reference's TOML keys so configs are
+interchangeable: scheduler (config.rs:24-50), parquet encodings (52-94),
+per-column overrides (96-103), write props (105-133), manifest (135-155),
+UpdateMode (166-172).  Unknown keys are rejected (serde deny_unknown_fields
+equivalent) by `from_dict`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import functools
+import typing
+from dataclasses import dataclass, field
+from typing import Any, Optional
+
+from horaedb_tpu_torch.common import Error, ReadableDuration, ReadableSize, ensure
+
+
+class UpdateMode(enum.Enum):
+    """Row-merge semantics for duplicate primary keys (ref: config.rs:166-172).
+
+    OVERWRITE keeps the row with the highest sequence (LastValueOperator);
+    APPEND concatenates binary value columns (BytesMergeOperator).
+    """
+
+    OVERWRITE = "Overwrite"
+    APPEND = "Append"
+
+
+class CompressionCodec(enum.Enum):
+    UNCOMPRESSED = "uncompressed"
+    SNAPPY = "snappy"
+    ZSTD = "zstd"
+    LZ4 = "lz4"
+    GZIP = "gzip"
+
+
+@dataclass
+class SchedulerConfig:
+    """Compaction scheduler knobs (ref: config.rs:24-50).  Parsed so that
+    configs stay interchangeable with the JAX package; the port has no
+    compaction scheduler yet, so nothing reads them."""
+
+    schedule_interval: ReadableDuration = field(
+        default_factory=lambda: ReadableDuration.from_secs(10))
+    max_pending_compaction_tasks: int = 10
+    # Executor memory gate (ref: executor.rs:93-114 uses 2 GiB default).
+    memory_limit: ReadableSize = field(default_factory=lambda: ReadableSize.gb(2))
+    # Picker thresholds (ref: picker.rs defaults).
+    max_record_batch_size: int = 8192
+    input_sst_max_num: int = 30
+    input_sst_min_num: int = 5
+    new_sst_max_size: ReadableSize = field(default_factory=lambda: ReadableSize.gb(1))
+    ttl: Optional[ReadableDuration] = None
+
+
+@dataclass
+class ColumnOptions:
+    """Per-column parquet writer overrides (ref: config.rs:96-103)."""
+
+    enable_dict: Optional[bool] = None
+    enable_bloom_filter: Optional[bool] = None
+    encoding: Optional[str] = None
+    compression: Optional[CompressionCodec] = None
+
+
+@dataclass
+class WriteConfig:
+    """Parquet writer properties (ref: config.rs:105-133)."""
+
+    max_row_group_size: int = 8192
+    write_batch_size: int = 1024
+    enable_sorting_columns: bool = True
+    enable_dict: bool = False
+    enable_bloom_filter: bool = False
+    encoding: Optional[str] = None
+    compression: CompressionCodec = CompressionCodec.SNAPPY
+    column_options: dict[str, ColumnOptions] = field(default_factory=dict)
+    # persist a device-layout sidecar ({id}.enc) next to each OVERWRITE
+    # -mode SST so cold scans skip parquet decode + re-encode entirely
+    # (no reference analogue; see storage/sidecar.py)
+    enable_sidecar: bool = True
+    # compaction outputs above this row count skip the sidecar.  NOTE:
+    # unlike the parquet rewrite (streamed, ~MBs of RSS), the sidecar's
+    # encoded columns accumulate in RAM until the rewrite finishes —
+    # ~12 bytes/row, so the default caps that at ~768 MiB.  Lower it on
+    # memory-constrained nodes; large compactions past the cap simply
+    # fall back to parquet-only cold reads.
+    sidecar_max_rows: int = 64 << 20
+
+
+@dataclass
+class ManifestConfig:
+    """Manifest merge thresholds (ref: config.rs:135-155, manifest/mod.rs:48-50)."""
+
+    channel_size: int = 3
+    merge_interval: ReadableDuration = field(
+        default_factory=lambda: ReadableDuration.from_secs(5))
+    min_merge_threshold: int = 10
+    hard_merge_threshold: int = 90
+    soft_merge_threshold: int = 50
+    # how long a writer may throttle waiting for the background fold to
+    # drain below the soft threshold before proceeding toward the hard
+    # limit (no reference analogue: its merger runs on its own threads)
+    soft_merge_max_wait: ReadableDuration = field(
+        default_factory=lambda: ReadableDuration.from_secs(2))
+
+
+@dataclass
+class ScanConfig:
+    """Device scan execution knobs (no reference analogue)."""
+
+    # max rows per merge window; segments larger than this are processed
+    # as PK-range-partitioned windows
+    max_window_rows: int = 1 << 20
+    # post-merge window cache budget in rows (0 disables); keyed by
+    # (segment, SST set, columns) so writes invalidate structurally.
+    # The cache accounts BYTES; this row knob converts at
+    # read._CACHE_BYTES_PER_ROW unless cache_max_bytes overrides it.
+    cache_max_rows: int = 4 << 20
+    # explicit budget in bytes for the scan cache (0 = derive from
+    # cache_max_rows)
+    cache_max_bytes: int = 0
+    # windows (across segments) batched into one fused aggregate round —
+    # the window axis of one bucket_window_partials launch
+    agg_batch_windows: int = 16
+    # read device-layout sidecars ({id}.enc) on bulk segment reads when
+    # present (see storage/sidecar.py); disable to force parquet decode
+    use_sidecar: bool = True
+    # segment reads in flight ahead of the merge position
+    prefetch_segments: int = 4
+    # width of the "sst" decode pool; 0 = threads.sst_thread_num
+    decode_workers: int = 0
+
+
+@dataclass
+class ThreadsConfig:
+    """Worker-pool sizes (ref: the server's threads config feeding
+    StorageRuntimes, src/server/src/main.rs:104-109)."""
+
+    sst_thread_num: int = 4
+    compact_thread_num: int = 2
+    manifest_thread_num: int = 1
+
+
+@dataclass
+class StorageConfig:
+    """Top-level engine config (ref: config.rs:157-164)."""
+
+    write: WriteConfig = field(default_factory=WriteConfig)
+    manifest: ManifestConfig = field(default_factory=ManifestConfig)
+    scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
+    scan: ScanConfig = field(default_factory=ScanConfig)
+    threads: ThreadsConfig = field(default_factory=ThreadsConfig)
+    update_mode: UpdateMode = UpdateMode.OVERWRITE
+
+
+_DURATION_FIELDS = {"schedule_interval", "merge_interval", "ttl",
+                    "soft_merge_max_wait"}
+_SIZE_FIELDS = {"memory_limit", "new_sst_max_size"}
+# Nested sections, keyed by field name.  This dict is THE mechanism for
+# nested coercion: add new nested config dataclasses here.
+_NESTED = {
+    "write": WriteConfig,
+    "manifest": ManifestConfig,
+    "scheduler": SchedulerConfig,
+    "scan": ScanConfig,
+    "threads": ThreadsConfig,
+}
+
+
+def _coerce(cls: type, f: dataclasses.Field, value: Any) -> Any:
+    where = f"{cls.__name__}.{f.name}"
+    if value is None:
+        return None
+    if f.name in _DURATION_FIELDS:
+        if isinstance(value, ReadableDuration):
+            return value
+        ensure(isinstance(value, str), f'{where} expects a duration string like "10s"')
+        return ReadableDuration.parse(value)
+    if f.name in _SIZE_FIELDS:
+        if isinstance(value, ReadableSize):
+            return value
+        ensure(isinstance(value, str), f'{where} expects a size string like "2GB"')
+        return ReadableSize.parse(value)
+    if f.name == "update_mode":
+        if isinstance(value, UpdateMode):
+            return value
+        try:
+            return UpdateMode(value)
+        except ValueError as e:
+            raise Error.context(
+                f"{where}: expected one of {[m.value for m in UpdateMode]}", e)
+    if f.name == "compression":
+        if isinstance(value, CompressionCodec):
+            return value
+        try:
+            return CompressionCodec(str(value).lower())
+        except ValueError as e:
+            raise Error.context(
+                f"{where}: expected one of {[c.value for c in CompressionCodec]}", e)
+    if f.name == "column_options":
+        ensure(isinstance(value, dict), f"{where} expects a table of column options")
+        return {k: from_dict(ColumnOptions, v) for k, v in value.items()}
+    if f.name in _NESTED:
+        ensure(isinstance(value, dict), f"{where} expects a config table")
+        return from_dict(_NESTED[f.name], value)
+    return _check_scalar(cls, f, value, where)
+
+
+def _check_scalar(cls: type, f: dataclasses.Field, value: Any, where: str) -> Any:
+    """Validate plain int/bool/str fields against their declared type so
+    misconfigurations fail at load, not mid-flight (bool checked before int
+    since bool subclasses int)."""
+    hints = _type_hints(cls)
+    declared = hints.get(f.name)
+    if declared is None:
+        return value
+    origin = typing.get_origin(declared)
+    if origin is typing.Union:  # Optional[T]
+        args = [a for a in typing.get_args(declared) if a is not type(None)]
+        if len(args) != 1:
+            return value
+        declared = args[0]
+    if declared is bool:
+        ensure(isinstance(value, bool), f"{where} expects a boolean")
+    elif declared is int:
+        ensure(isinstance(value, int) and not isinstance(value, bool),
+               f"{where} expects an integer")
+    elif declared is str:
+        ensure(isinstance(value, str), f"{where} expects a string")
+    return value
+
+
+@functools.lru_cache(maxsize=None)
+def _type_hints(cls: type) -> dict[str, Any]:
+    return typing.get_type_hints(cls)
+
+
+def from_dict(cls: type, data: dict[str, Any]) -> Any:
+    """Build a config dataclass from a parsed TOML/JSON dict.
+
+    Rejects unknown keys, mirroring serde's deny_unknown_fields
+    (ref: config.rs:24-26 and every config struct), and validates value
+    types at load time so misconfigurations fail here, not mid-flight.
+    """
+    ensure(isinstance(data, dict), f"{cls.__name__} config must be a table")
+    names = {f.name: f for f in dataclasses.fields(cls)}
+    unknown = set(data) - set(names)
+    if unknown:
+        raise Error(f"unknown config keys for {cls.__name__}: {sorted(unknown)}")
+    kwargs = {key: _coerce(cls, names[key], value) for key, value in data.items()}
+    return cls(**kwargs)
