@@ -9,17 +9,32 @@ no result line:
 
 1. device: find the card, print `nvidia-smi` name and power limit.
 2. build: compile every kernel of the main path with nvcc (sm_90a).
-3. kernel: each kernel against its plain PyTorch version on the card,
-   at the main path's shapes plus edge cases, with times (CUDA events),
-   the bound, and a one-call PyTorch yardstick.
+3. kernel: both entries of csrc/bucket_agg.cu (bucket_window_partials,
+   bucket_round_accumulate) against their plain PyTorch versions on the
+   card, by each route ("global", "shared") the input allows — random
+   rows, edge cases, int32 wrap of the shifted and rebased timestamps,
+   NaN/+-inf values, a large group count (global route only), `last` ties across windows and rounds, a dense round
+   (1024 rows per cell: the shared route by size), and a round shaped
+   like the main path's (merge-ordered rows, 72,000 valid of 131,072
+   slots) — then their times at that round (device time of back-to-back
+   calls, CUDA events), the bound, the slice route (partial grids +
+   per-window torch slice updates) and a one-call `index_add_`
+   yardstick, and both routes' times over dense rounds of 8 to 1024 rows
+   per cell.
 4. end to end: the north-star workload (BASELINE config 1 of bench.py:
    10M rows, 100 hosts, 10 s scrape, 1 m buckets, 2 h segments, an
    in-memory object store, 1M-row write chunks) through
    MetricEngine.write_arrow and query_downsample(aggs=("avg",)), once
    cold and 5 times cached, checked against a numpy bincount of the
-   same rows; the kernel's launch count over that run must equal the
-   fused rounds it ran.
-5. a JSON line of per-kernel numbers, the card line again, and the last
+   same rows; bucket_round_accumulate's launch count over that run must
+   equal the fused rounds it ran.  Then one cached query under
+   torch.profiler (kernel launches and device time by kernel name), for
+   the new route and for the slice route.
+5. op path: ops.downsample.time_bucket_aggregate over the same 10M rows
+   as one batch (time-major rows: runs of one row per cell), checked
+   against the bincount; bucket_window_partials' launch count over that
+   call must be one.
+6. a JSON line of per-kernel numbers, the card line again, and the last
    line {"ok": true, "device": {...}}.
 
 Needs one CUDA card; a missing card is a failure, never a CPU run.
@@ -40,6 +55,10 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 
 ALL_AGGS = ("count", "sum", "min", "max", "avg", "last")
+BMS = 60_000  # 1 min buckets
+F32_MAX = 3.4028234663852886e38
+SOURCE = "horaedb_tpu_torch/csrc/bucket_agg.cu"
+REPLACES = "horaedb_tpu/ops/pallas_kernels.py:48"
 
 
 def log(msg: str) -> None:
@@ -57,7 +76,8 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
-    """Median per-call time of `fn` on the card, one event pair per call."""
+    """Median per-call time of `fn` on the card, one event pair per call
+    (host launch overhead included when it exceeds the device work)."""
     import torch
 
     for _ in range(warmup):
@@ -74,9 +94,38 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fns, reps: int = 40) -> float:
+    """Device time per call of `reps` back-to-back calls, cycling through
+    `fns` (copies of the inputs larger than L2 in all, so each call reads
+    from HBM): a sleep kernel holds the card while the host enqueues the
+    calls, so the event pair times the queued device work alone."""
+    import torch
+
+    fns = list(fns) if isinstance(fns, (list, tuple)) else [fns]
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        fns[i % len(fns)]()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2.0 * host_s + 2e-3) * 2e9))
+    s.record()
+    for i in range(reps):
+        fns[i % len(fns)]()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / reps
+
+
 def compare(got: dict, ref: dict, what: str) -> float:
-    """count/min/max/last/last_ts exact, sum within rtol 1e-5; returns
-    the largest absolute difference (inf == inf counts as 0)."""
+    """NaN-aware: the isnan masks must agree; where neither side is NaN,
+    count/min/max/last/last_ts are exact and sum is within rtol 1e-5.
+    Returns the largest absolute difference there (inf == inf counts
+    as 0)."""
     import torch
 
     if set(got) != set(ref):
@@ -84,8 +133,16 @@ def compare(got: dict, ref: dict, what: str) -> float:
     worst = 0.0
     for f in ref:
         a, b = got[f].cpu(), ref[f].cpu()
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{what}: field {f}: {a.shape} {a.dtype} "
+                                 f"!= {b.shape} {b.dtype}")
+        if a.is_floating_point():
+            nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+            if not torch.equal(nan_a, nan_b):
+                raise AssertionError(f"{what}: field {f}: NaN cells differ")
+            a, b = a[~nan_a], b[~nan_b]
         if f == "sum":
-            ok = torch.allclose(a, b, rtol=1e-5, atol=0.0)
+            ok = bool(torch.isclose(a, b, rtol=1e-5, atol=0.0).all())
         else:
             ok = torch.equal(a, b)
         if not ok:
@@ -96,98 +153,414 @@ def compare(got: dict, ref: dict, what: str) -> float:
     return worst
 
 
-def kernel_phase(ba) -> dict:
-    """bucket_window_partials against its plain version on the card."""
+def _bits(u: int):
+    import numpy as np
+
+    return np.array([u], np.uint32).view(np.float32)[0]
+
+
+def main_path_round(rng, W=16, cap=131072, series=100, ticks=720, G=128):
+    """A round shaped like the main path's: window d is 2 h segment d,
+    its rows merge-ordered by (series, ts) at a 10 s scrape (100 series
+    x 720 ticks = 72,000 valid rows of `cap`), the rest padding; lo
+    steps by 120 one-minute buckets."""
+    import numpy as np
+
+    n = series * ticks
+    seg_ms = ticks * 10_000
+    ts = np.zeros((W, cap), np.int32)
+    gid = np.full((W, cap), -1, np.int32)
+    vals = np.zeros((W, cap), np.float32)
+    for d in range(W):
+        ts[d, :n] = np.tile(np.arange(ticks, dtype=np.int32) * 10_000, series)
+        gid[d, :n] = np.repeat(np.arange(series, dtype=np.int32), ticks)
+        vals[d, :n] = (rng.random(n) * 100).astype(np.float32)
+    remap = np.tile(np.arange(G, dtype=np.int32), (W, 1))
+    shift = (np.arange(W) * seg_ms).astype(np.int32)
+    lo = (shift // BMS).astype(np.int32)
+    nv = np.full(W, n, np.int32)
+    total = W * seg_ms // BMS
+    return (ts, gid, vals, remap, shift, lo, nv), total
+
+
+def kernel_phase(ba, fused) -> list:
+    """Both entries against their plain versions on the card, then their
+    times at the main path's round shape."""
     import numpy as np
     import torch
 
-    W, cap, G, width = 16, 131072, 128, 128
-    bms, total = 60_000, 150
+    dev = torch.device("cuda")
+
+    def d(a):
+        return None if a is None else torch.from_numpy(
+            np.ascontiguousarray(a)).to(dev)
+
+    worst = {"bucket_window_partials": 0.0, "bucket_round_accumulate": 0.0}
+
+    routes_taken = set()
+
+    def routes(G, width, which):
+        # every route the kernel can take on this input
+        return [r for r in ("shared", "global")
+                if r == "global" or ba.shared_bytes(which, G, width)
+                <= ba.SHARED_BYTES_PER_BLOCK]
+
+    def check_partials(what, stack, G, width, total, which, n_valid=None):
+        ts, gid, vals, remap, shift, lo = stack[:6]
+        args = [d(ts), d(gid), d(vals), d(remap), d(shift), d(lo), total, BMS]
+        kw = dict(num_groups=G, width=width, which=which, n_valid=n_valid)
+        ref = ba.bucket_window_partials_plain(*args, **kw)
+        for route in routes(G, width, which):
+            got = ba.bucket_window_partials(*args, route=route, **kw)
+            torch.cuda.synchronize()
+            routes_taken.add(route)
+            worst["bucket_window_partials"] = max(
+                worst["bucket_window_partials"],
+                compare(got, ref, f"partials {what} {which} {route}"))
+        return got
+
+    def check_rounds(what, rounds, G, width, total, which):
+        acc_p = fused.fused_acc_init(num_groups=G, num_buckets=total,
+                                     which=which, device=dev)
+        stacks = []
+        for ts, gid, vals, remap, shift, lo, nv in rounds:
+            args = [d(ts), d(gid), d(vals), d(remap), d(shift), d(lo),
+                    total, BMS]
+            kw = dict(num_groups=G, width=width, which=which, n_valid=d(nv),
+                      lo_host=lo)
+            stacks.append((args, kw, nv))
+            ba.bucket_round_accumulate_plain(acc_p, *args, **kw)
+        for route in routes(G, width, which):
+            acc_k = fused.fused_acc_init(num_groups=G, num_buckets=total,
+                                         which=which, device=dev)
+            for args, kw, nv in stacks:
+                ba.bucket_round_accumulate(acc_k, *args, n_valid_host=nv,
+                                           route=route, **kw)
+            torch.cuda.synchronize()
+            routes_taken.add(route)
+            worst["bucket_round_accumulate"] = max(
+                worst["bucket_round_accumulate"],
+                compare(acc_k, acc_p, f"round {what} {which} {route}"))
+        return acc_k
+
+    def check_both(what, stack, G, width, total, whiches=(ALL_AGGS,)):
+        nv = stack[6]
+        scalar = int(nv[0]) if (nv == nv[0]).all() else None
+        for which in whiches:
+            if scalar is not None:
+                check_partials(what, stack, G, width, total, which, scalar)
+            check_rounds(what, [stack], G, width, total, which)
+
     rng = np.random.default_rng(0)
-    ts = rng.integers(-2 * bms, 140 * bms, (W, cap)).astype(np.int32)
+    # random rows over the main path's round size: every
+    # row its own run; duplicate max-ts rows across a 1024-row tile
+    W, cap, G, width, total = 16, 131072, 128, 128, 150
+    ts = rng.integers(-2 * BMS, 140 * BMS, (W, cap)).astype(np.int32)
     gid = rng.integers(-1, 110, (W, cap)).astype(np.int32)
     vals = (rng.random((W, cap)) * 100).astype(np.float32)
-    # duplicate max-ts rows across the kernel's 2048-row block boundary
-    # (and a plain cell-internal run): the later row must win
-    ts[:, 2040:2060] = 7 * bms + 5
+    ts[:, 2040:2060] = 7 * BMS + 5
     gid[:, 2040:2060] = 3
-    remap = np.stack([rng.permutation(G).astype(np.int32)
-                      for _ in range(W)])
-    shift = rng.integers(-bms, bms, W).astype(np.int32)
+    remap = np.stack([rng.permutation(G).astype(np.int32) for _ in range(W)])
+    shift = rng.integers(-BMS, BMS, W).astype(np.int32)
     lo = rng.integers(0, 30, W).astype(np.int32)
-    dev = torch.device("cuda")
-    d = lambda a: torch.from_numpy(a).to(dev)
-    args = [d(ts), d(gid), d(vals), d(remap), d(shift), d(lo), total, bms]
-    worst = 0.0
-    for which in (ALL_AGGS, ("avg",)):
-        got = ba.bucket_window_partials(*args, num_groups=G, width=width,
-                                        which=which)
-        torch.cuda.synchronize()
-        ref = ba.bucket_window_partials_plain(*args, num_groups=G,
-                                              width=width, which=which)
-        worst = max(worst, compare(got, ref, f"main shape {which}"))
+    random_stack = (ts, gid, vals, remap, shift, lo, np.full(W, cap, np.int32))
+    check_both("random", random_stack, G, width, total, (ALL_AGGS, ("avg",)))
+
     # edge cases: identity remap with gids past the grid (and -1 and a
     # huge one that would overflow gid*width), rows past n_valid, rows
     # past the total bucket count, negative local offsets
-    e_ts = rng.integers(-3 * bms, 40 * bms, (2, 4096)).astype(np.int32)
+    e_ts = rng.integers(-3 * BMS, 40 * BMS, (2, 4096)).astype(np.int32)
     e_gid = rng.integers(-1, G + 6, (2, 4096)).astype(np.int32)
     e_gid[0, 7] = 2**30
     e_vals = (rng.random((2, 4096)) * 10).astype(np.float32)
     for n_valid in (4096, 3000):
-        e_args = [d(e_ts), d(e_gid), d(e_vals), None,
-                  d(np.array([5, -bms], np.int32)),
-                  d(np.array([0, 3], np.int32)), 30, bms]
-        got = ba.bucket_window_partials(*e_args, num_groups=G, width=32,
-                                        which=ALL_AGGS, n_valid=n_valid)
-        ref = ba.bucket_window_partials_plain(*e_args, num_groups=G,
-                                              width=32, which=ALL_AGGS,
-                                              n_valid=n_valid)
-        worst = max(worst, compare(got, ref, f"edge n_valid={n_valid}"))
-    log(f"kernel: bucket_window_partials matches plain "
-        f"(max_abs_err {worst!r})")
+        check_both(f"edge n_valid={n_valid}",
+                   (e_ts, e_gid, e_vals, None, np.array([5, -BMS], np.int32),
+                    np.array([0, 3], np.int32), np.full(2, n_valid, np.int32)),
+                   G, 32, 30)
+    # int32 wrap: ts near 2^31 and a shift past it, so tg wraps negative
+    # in window 1, and lo far out, so tl wraps too
+    lo_far = 2**31 // BMS - 30
+    w_ts = rng.integers(lo_far * BMS, 2**31 - 1, (2, 4096)).astype(np.int32)
+    w_gid = rng.integers(-1, 16, (2, 4096)).astype(np.int32)
+    check_both("wrap", (w_ts, w_gid, e_vals, None,
+                        np.array([0, 20 * BMS], np.int32),
+                        np.array([lo_far, lo_far - 40], np.int32),
+                        np.full(2, 4096, np.int32)), 16, 64, lo_far + 60)
 
-    # times at the main path's round shape and aggregate set (avg)
+    # NaN and +-inf: +NaN and -NaN in different cells among finite values,
+    # a cell holding only +inf and one holding only -inf (identity remap,
+    # no shift/lo: group g, bucket b <- gid g, ts b * BMS + k)
+    W, cap, G, width, total = 2, 4096, 16, 16, 40
+    n_ts = (rng.integers(0, width, (W, cap)) * BMS
+            + rng.integers(0, BMS, (W, cap))).astype(np.int32)
+    n_gid = rng.integers(5, G, (W, cap)).astype(np.int32)
+    n_vals = (rng.random((W, cap)) * 10).astype(np.float32)
+    special = [  # (window, group, bucket, values)
+        (0, 1, 2, [1.0, _bits(0x7FC00000), 3.0, 2.0]),
+        (0, 2, 3, [5.0, _bits(0xFFC00000), 4.0, 6.0]),
+        (1, 3, 4, [np.inf, np.inf]),
+        (1, 4, 5, [-np.inf]),
+    ]
+    row = 100
+    for w, g, b, vs in special:
+        for k, v in enumerate(vs):
+            n_ts[w, row], n_gid[w, row], n_vals[w, row] = b * BMS + k, g, v
+            row += 37
+    n_vals[1, 3000:3010] = _bits(0x7FC00000)  # NaNs among random cells
+    nan_stack = (n_ts, n_gid, n_vals, None, None, np.zeros(W, np.int32),
+                 np.full(W, cap, np.int32))
+    for which in (ALL_AGGS, ("min", "max")):
+        p = check_partials("nan", nan_stack, G, width, total, which)
+        acc = check_rounds("nan", [nan_stack], G, width, total, which)
+        for f in ("min", "max"):
+            if not (torch.isnan(p[f][0, 1, 2]) and torch.isnan(p[f][0, 2, 3])
+                    and torch.isnan(acc[f][1, 2])
+                    and torch.isnan(acc[f][2, 3])):
+                raise AssertionError(f"nan: a NaN value did not make {f} NaN")
+        if not (float(p["min"][1, 3, 4]) == math.inf
+                and float(acc["min"][3, 4]) == F32_MAX
+                and float(p["max"][1, 4, 5]) == -math.inf
+                and float(acc["max"][4, 5]) == -F32_MAX):
+            raise AssertionError("nan: +-inf-only cells break the identities")
+
+    # a large group count: 8192 groups x 128 buckets per window
+    W, cap, G, width, total = 2, 8192, 8192, 128, 256
+    big = (rng.integers(0, 200 * BMS, (W, cap)).astype(np.int32),
+           rng.integers(-1, G, (W, cap)).astype(np.int32),
+           (rng.random((W, cap)) * 100).astype(np.float32),
+           np.stack([rng.permutation(G).astype(np.int32) for _ in range(W)]),
+           np.zeros(W, np.int32), rng.integers(0, 100, W).astype(np.int32),
+           np.full(W, cap, np.int32))
+    if ba.pick_route(cap, G, width, ALL_AGGS) != "global":
+        raise AssertionError("large G: the grid must take the global route")
+    check_both("large G", big, G, width, total)
+
+    # `last` ties: every window of two rounds ends its rows on the same
+    # max ts of union cell (1, 5); round 2 has a padding window
+    W, cap, G, width, total = 4, 1024, 4, 8, 12
+    tie_rounds = []
+    for r in range(2):
+        t_ts = rng.integers(0, 6 * BMS, (W, cap)).astype(np.int32)
+        t_gid = rng.integers(-1, G, (W, cap)).astype(np.int32)
+        t_vals = (rng.random((W, cap)) * 100).astype(np.float32)
+        t_remap = np.stack([rng.permutation(G).astype(np.int32)
+                            for _ in range(W)])
+        t_shift = rng.integers(0, 3 * BMS, W).astype(np.int32)
+        t_lo = rng.integers(0, 4, W).astype(np.int32)
+        t_nv = np.array([cap, cap - 7, cap - 100, 0 if r else cap], np.int32)
+        for w in range(W):
+            t_remap[w, 0] = 1
+            for k in (1, 5, 9):  # in-window ties too: the later row wins
+                t_ts[w, t_nv[w] - k] = 6 * BMS - 1 - int(t_shift[w])
+                t_gid[w, t_nv[w] - k] = 0
+                t_vals[w, t_nv[w] - k] = 1000.0 * (r + 1) + 10 * w + k
+        tie_rounds.append((t_ts, t_gid, t_vals, t_remap, t_shift, t_lo,
+                           t_nv))
+    for which in (ALL_AGGS, ("last",)):
+        acc = check_rounds("ties", tie_rounds, G, width, total, which)
+        if float(acc["last"][1, 5]) != 2000.0 + 10 * (W - 2) + 1:
+            raise AssertionError("ties: the last window of round 2 must win")
+
+    # the main path's round shape
+    main_stack, m_total = main_path_round(rng)
+    W, cap, G, width = 16, 131072, 128, 128
+    check_both("main-path", main_stack, G, width, m_total,
+               (ALL_AGGS, ("avg",)))
+    if routes_taken != {"shared", "global"}:
+        raise AssertionError(f"kernel: routes taken {routes_taken}")
+    log(f"kernel: both entries match plain on random, edge, int32-wrap, "
+        f"NaN/inf, large-G, tie, dense and main-path rounds, by every "
+        f"route each input "
+        f"allows (max_abs_err {worst!r}); updates run-length reduced in "
+        f"registers")
+
+    # times at the main path's round (avg set): 4 copies of the stacks
+    # (4 x 25 MB > 50 MB of L2)
     which = ("avg",)
-    ms = cuda_ms(lambda: ba.bucket_window_partials(
-        *args, num_groups=G, width=width, which=which), reps=30)
-    ms_all = cuda_ms(lambda: ba.bucket_window_partials(
-        *args, num_groups=G, width=width, which=ALL_AGGS), reps=30)
-    plain_ms = cuda_ms(lambda: ba.bucket_window_partials_plain(
-        *args, num_groups=G, width=width, which=which), reps=10, warmup=2)
-    # yardstick: one index_add_ folding (count, value) pairs into
-    # precomputed flat cells (the prologue is not part of the call)
-    g_t = torch.where(args[1] >= 0, torch.gather(
-        args[3], 1, args[1].clamp(0, G - 1).long()),
-        torch.full_like(args[1], -1))
-    tg = args[0] + args[4][:, None]
-    g_t = torch.where(torch.div(tg, bms, rounding_mode="floor") < total,
-                      g_t, torch.full_like(g_t, -1))
-    b_t = torch.div(tg - args[5][:, None] * bms, bms, rounding_mode="floor")
-    ok = (g_t >= 0) & (g_t < G) & (b_t >= 0) & (b_t < width)
-    ncell = G * width
-    flat = (torch.arange(W, device=dev)[:, None] * (ncell + 1)
-            + torch.where(ok, g_t.long() * width + b_t.long(),
-                          torch.full_like(b_t, ncell, dtype=torch.int64))
-            ).reshape(-1)
-    pairs = torch.stack([torch.ones_like(args[2]).reshape(-1),
-                         args[2].reshape(-1)], dim=1)
-    library_ms = cuda_ms(lambda: torch.zeros(
-        W * (ncell + 1), 2, device=dev).index_add_(0, flat, pairs), reps=30)
-    nfields = len(ba.fields_for(which))
-    in_bytes = W * cap * 12 + W * G * 4 + W * 8
-    out_bytes = W * G * width * 4 * nfields
-    bound_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    log(f"kernel: W={W} cap={cap} G={G} width={width} which={which}: "
-        f"{ms:.4f} ms (all aggs {ms_all:.4f} ms), plain {plain_ms:.4f} ms, "
-        f"index_add_ yardstick {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({in_bytes + out_bytes} bytes)")
-    return {"name": "bucket_window_partials", "route": "cuda",
-            "source": "horaedb_tpu_torch/csrc/bucket_agg.cu",
-            "replaces": "horaedb_tpu/ops/pallas_kernels.py:48",
-            "launches": 0, "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes", "library_ms": library_ms,
-            "ms_all_aggs": ms_all}
+    ts, gid, vals, remap, shift, lo, nv = main_stack
+    copies = [[d(ts), d(gid), d(vals)] for _ in range(4)]
+    remap_d, shift_d, lo_d, nv_d = d(remap), d(shift), d(lo), d(nv)
+    n_rows = int(nv.sum())
+    acc = fused.fused_acc_init(num_groups=G, num_buckets=m_total,
+                               which=which, device=dev)
+
+    auto = ba.pick_route(int(nv.max()), G, width, which)
+
+    def round_fn(c, which=which, a=acc, route=None):
+        a = a if which == ("avg",) else fused.fused_acc_init(
+            num_groups=G, num_buckets=m_total, which=which, device=dev)
+        return lambda: ba.bucket_round_accumulate(
+            a, *c, remap_d, shift_d, lo_d, m_total, BMS, num_groups=G,
+            width=width, which=which, n_valid=nv_d, lo_host=lo,
+            n_valid_host=nv, route=route)
+
+    def partials_fn(c, which=which, route=None):
+        return lambda: ba.bucket_window_partials(
+            *c, remap_d, shift_d, lo_d, m_total, BMS, num_groups=G,
+            width=width, which=which, n_valid=int(nv[0]), route=route)
+
+    def by_route(make, which=which):
+        # device ms of each route the input allows, the one chosen first
+        rs = sorted(routes(G, width, which), key=lambda r: r != auto)
+        return {r: device_ms([make(c, which=which, route=r) for c in copies])
+                for r in rs}
+
+    def slice_fn(c):
+        return lambda: ba.fold_window_partials(
+            acc, ba.bucket_window_partials(
+                *c, remap_d, shift_d, lo_d, m_total, BMS, num_groups=G,
+                width=width, which=which, route="global"), lo, m_total,
+            BMS, width)
+
+    r_routes = by_route(round_fn)
+    r_all_routes = by_route(round_fn, which=ALL_AGGS)
+    r_ms, r_all_ms = r_routes[auto], r_all_routes[auto]
+    r_call_ms = cuda_ms(round_fn(copies[0]), reps=30)
+    r_plain_ms = device_ms([lambda c=c: ba.bucket_round_accumulate_plain(
+        acc, *c, remap_d, shift_d, lo_d, m_total, BMS, num_groups=G,
+        width=width, which=which, n_valid=nv_d, lo_host=lo)
+        for c in copies], reps=8)
+    slice_ms = device_ms([slice_fn(c) for c in copies], reps=12)
+    p_routes = by_route(partials_fn)
+    p_all_routes = by_route(partials_fn, which=ALL_AGGS)
+    p_ms, p_all_ms = p_routes[auto], p_all_routes[auto]
+    p_plain_ms = device_ms([lambda c=c: ba.bucket_window_partials_plain(
+        *c, remap_d, shift_d, lo_d, m_total, BMS, num_groups=G, width=width,
+        which=which, n_valid=int(nv[0])) for c in copies], reps=8)
+
+    # yardsticks: one index_add_ of (1, v) pairs at precomputed cells
+    # of the valid rows (the prologue is not part of the call)
+    valid = np.arange(cap)[None, :] < nv[:, None]
+    g_u = np.take_along_axis(remap, np.clip(gid, 0, G - 1), 1)
+    tg = ts.astype(np.int64) + shift[:, None]
+    b = tg // BMS - lo[:, None]
+    col = lo[:, None] + b
+    acc_cell = (g_u.astype(np.int64) * m_total + col)[valid]
+    win_cell = ((np.arange(W)[:, None] * G + g_u) * width + b)[valid]
+    pairs = torch.stack([torch.ones(n_rows, device=dev),
+                         d(vals[valid])], dim=1)
+    acc_idx, win_idx = d(acc_cell), d(win_cell)
+    r_lib_ms = device_ms(lambda: torch.zeros(
+        G * m_total, 2, device=dev).index_add_(0, acc_idx, pairs))
+    p_lib_ms = device_ms(lambda: torch.zeros(
+        W * G * width, 2, device=dev).index_add_(0, win_idx, pairs))
+    # bounds: valid rows read once (12 B), per-window scalars, and each
+    # output cell written once (partials) or each touched accumulator
+    # cell read and written once (round), 2 fields for avg
+    touched = len(np.unique(acc_cell))
+    in_bytes = n_rows * 12 + W * (G * 4 + 12)
+    r_bytes = in_bytes + touched * 2 * 4 * 2
+    p_bytes = in_bytes + W * G * width * 2 * 4
+    r_bound = r_bytes / HBM_BYTES_PER_S * 1e3
+    p_bound = p_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"kernel: main-path round (W={W} cap={cap} valid={n_rows} G={G} "
+        f"width={width} total={m_total} which={which}), route by size: "
+        f"{auto} (the shared route would need "
+        f"{ba.shared_bytes(which, G, width)} B shared memory per block):")
+    log(f"kernel:   bucket_round_accumulate {r_ms!r} ms (all aggs "
+        f"{r_all_ms!r} ms; one call with host overhead {r_call_ms!r} ms; "
+        f"by route {r_routes!r}, all aggs {r_all_routes!r}), plain "
+        f"{r_plain_ms!r} ms, slice route (partials + slice updates) "
+        f"{slice_ms!r} ms, index_add_ {r_lib_ms!r} ms, bound {r_bound!r} ms "
+        f"({r_bytes} bytes, {touched} touched cells)")
+    log(f"kernel:   bucket_window_partials {p_ms!r} ms (all aggs "
+        f"{p_all_ms!r} ms; by route {p_routes!r}, all aggs "
+        f"{p_all_routes!r}), plain {p_plain_ms!r} ms, index_add_ "
+        f"{p_lib_ms!r} ms, bound {p_bound!r} ms ({p_bytes} bytes)")
+
+    # the random input's partial grids, also timed with one event pair
+    # per call (host launch overhead included), as the port's first
+    # kernel was timed
+    ts, gid, vals, remap, shift, lo, _nv = random_stack
+    rnd = [d(ts), d(gid), d(vals), d(remap), d(shift), d(lo), 150, BMS]
+    p_rand_call_ms = cuda_ms(lambda: ba.bucket_window_partials(
+        *rnd, num_groups=G, width=width, which=which), reps=30)
+    p_rand_routes = {r: device_ms(lambda r=r: ba.bucket_window_partials(
+        *rnd, num_groups=G, width=width, which=which, route=r))
+        for r in routes(G, width, which)}
+    p_rand_ms = p_rand_routes[ba.pick_route(cap, G, width, which)]
+    log(f"kernel: random input, bucket_window_partials: "
+        f"{p_rand_call_ms!r} ms per call (event pair), {p_rand_ms!r} ms "
+        f"device; by route {p_rand_routes!r}")
+
+    # dense rounds: 16 windows of 131,072 unsorted rows over few cells,
+    # the shapes where privatising the grid in shared memory should pay;
+    # the densest is checked against plain on both routes, and each is
+    # timed on both routes (round entry, avg set) to place the crossover
+    # that pick_route's SHARED_MIN_ROWS_PER_CELL encodes
+    dense = {}
+    for G_d, width_d in ((8, 16), (16, 32), (32, 32), (32, 64), (64, 64),
+                         (64, 128)):
+        d_ts = rng.integers(0, width_d * BMS, (W, cap)).astype(np.int32)
+        d_gid = rng.integers(0, G_d, (W, cap)).astype(np.int32)
+        d_vals = (rng.random((W, cap)) * 100).astype(np.float32)
+        stack = (d_ts, d_gid, d_vals, None, None, None,
+                 np.full(W, cap, np.int32))
+        if G_d == 8:
+            check_both("dense", stack, G_d, width_d, width_d,
+                       (ALL_AGGS, ("avg",)))
+            if ba.pick_route(cap, G_d, width_d, which) != "shared":
+                raise AssertionError("dense: must take the shared route")
+        dd = [d(d_ts), d(d_gid), d(d_vals)]
+        acc_d = fused.fused_acc_init(num_groups=G_d, num_buckets=width_d,
+                                     which=which, device=dev)
+        dense[f"{cap // (G_d * width_d)} rows/cell"] = {
+            r: device_ms(lambda r=r: ba.bucket_round_accumulate(
+                acc_d, *dd, None, None, None, width_d, BMS, num_groups=G_d,
+                width=width_d, which=which, route=r))
+            for r in ("shared", "global")}
+    log(f"kernel: dense unsorted rounds (W={W} cap={cap}), "
+        f"bucket_round_accumulate ms by route: {dense!r}")
+    log(f"kernel: max_abs_err over every check, dense rounds included "
+        f"(sums near 8e5): {worst!r}")
+
+    common = {"route": "cuda", "source": SOURCE, "replaces": REPLACES,
+              "bound_by": "bytes", "kernel_route": auto}
+    return [
+        dict(common, name="bucket_window_partials", launches=0,
+             max_abs_err=worst["bucket_window_partials"], ms=p_ms,
+             plain_ms=p_plain_ms, bound_ms=p_bound, library_ms=p_lib_ms,
+             ms_all_aggs=p_all_ms, ms_by_route=p_routes,
+             ms_all_aggs_by_route=p_all_routes, random_input_ms=p_rand_ms,
+             random_input_ms_by_route=p_rand_routes,
+             random_input_call_ms=p_rand_call_ms),
+        dict(common, name="bucket_round_accumulate", launches=0,
+             also_replaces="horaedb_tpu/storage/read.py:4501",
+             max_abs_err=worst["bucket_round_accumulate"], ms=r_ms,
+             plain_ms=r_plain_ms, bound_ms=r_bound, library_ms=r_lib_ms,
+             ms_all_aggs=r_all_ms, ms_by_route=r_routes,
+             ms_all_aggs_by_route=r_all_routes, call_ms=r_call_ms,
+             slice_route_ms=slice_ms, dense_ms_by_route=dense),
+    ]
+
+
+async def profile_query(query) -> dict:
+    """One query under torch.profiler: device kernels (and copies) by
+    name with their summed device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = await query()
+    busy: dict = {}
+    kernels = copies = 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        busy[e.name] = busy.get(e.name, 0.0) + e.time_range.elapsed_us()
+        if e.name.startswith(("Memcpy", "Memset")):
+            copies += 1
+        else:
+            kernels += 1
+    runtime_launches = sum(1 for e in prof.events()
+                           if e.name.startswith("cudaLaunchKernel"))
+    return {"out": out, "kernels": kernels, "copies_and_sets": copies,
+            "runtime_launch_calls": runtime_launches,
+            "device_busy_us": sum(busy.values()),
+            "busy_us_by_name": dict(sorted(busy.items(),
+                                           key=lambda kv: -kv[1])[:12])}
 
 
 async def end_to_end(rows: int, ba) -> dict:
@@ -287,13 +660,18 @@ async def end_to_end(rows: int, ba) -> dict:
             cached.append(time.perf_counter() - t0)
         cached_stages = stages(snap)
         cached_h2d = h2d_bytes() - h2d0
-        launches = ba.LAUNCHES["bucket_window_partials"]
+        launches = ba.LAUNCHES["bucket_round_accumulate"]
+        routes = dict(ba.ROUTE_LAUNCHES)
         windows = sum(len(ws) for ws in reader.scan_cache.values())
         per_query = math.ceil(windows / cfg.scan.agg_batch_windows)
         if launches == 0 or launches != 6 * per_query:
             raise AssertionError(
                 f"kernel launches {launches} != 6 queries x {per_query} "
                 f"rounds ({windows} windows)")
+        if ba.LAUNCHES["bucket_window_partials"] != 0:
+            raise AssertionError("e2e: the fused path wrote partial grids")
+        log(f"e2e: bucket_round_accumulate launches {launches} = 6 queries "
+            f"x {per_query} rounds; by route {routes!r}")
 
         # correctness: numpy bincount of the same rows
         cell = host_id.astype(np.int64) * num_buckets + (ts - T0) // bucket_ms
@@ -321,6 +699,9 @@ async def end_to_end(rows: int, ba) -> dict:
             raise AssertionError("e2e: avg has non-finite occupied cells "
                                  "or non-NaN empty cells")
         np.testing.assert_allclose(got_avg[occ], want_avg[occ], rtol=1e-5)
+        log("e2e: grids match the numpy bincount (count exact, avg rtol "
+            "1e-5)")
+        profiles = await profile_routes(query, out, ba)
         cached_p50 = statistics.median(cached)
         res = {"rows": n, "ingest_s": ingest_s, "cold_ms": cold_s * 1e3,
                "cached_p50_ms": cached_p50 * 1e3,
@@ -331,13 +712,115 @@ async def end_to_end(rows: int, ba) -> dict:
                "cold_stage_s": cold_stages, "cold_h2d_bytes": cold_h2d,
                "last_cached_stage_s": cached_stages,
                "last_cached_h2d_bytes": cached_h2d,
-               "launches": launches,
+               "launches": launches, "launches_by_route": routes,
+               "profiles": profiles,
                "max_memory_allocated": torch.cuda.max_memory_allocated()}
-        log("e2e: grids match the numpy bincount (count exact, avg rtol "
-            "1e-5); " + json.dumps(res))
+        log("e2e: " + json.dumps(res))
+        res["op"] = op_path(ba, ts - T0, host_id, vals, hosts, num_buckets,
+                            counts, sums)
         return res
     finally:
         await e.close()
+
+
+async def profile_routes(query, want: dict, ba) -> dict:
+    """One cached query under torch.profiler through the new route, and
+    one through the slice route (partial grids, then per-window torch
+    slice updates) for comparison; both must give the same grids."""
+    import numpy as np
+
+    from horaedb_tpu_torch.storage import read as read_mod
+
+    async def profiled():
+        before = sum(ba.LAUNCHES.values())
+        prof = await profile_query(query)
+        prof["wrapper_launches"] = sum(ba.LAUNCHES.values()) - before
+        return prof
+
+    new = await profiled()
+
+    def slice_route(acc, ts, gid, vals, remap, shift, lo, lo_host, total,
+                  bucket_ms, *, num_groups, width, which, n_valid=None,
+                  n_valid_host=None):
+        p = ba.bucket_window_partials(ts, gid, vals, remap, shift, lo, total,
+                                      bucket_ms, num_groups=num_groups,
+                                      width=width, which=which,
+                                      route="global")
+        return ba.fold_window_partials(acc, p, lo_host, total, bucket_ms,
+                                       width)
+
+    kept = read_mod.fused_round_accumulate
+    read_mod.fused_round_accumulate = slice_route
+    try:
+        sliced = await profiled()
+    finally:
+        read_mod.fused_round_accumulate = kept
+    for prof in (new, sliced):
+        got = prof.pop("out")
+        if not np.array_equal(got["aggs"]["count"].cpu().numpy(),
+                              want["aggs"]["count"].cpu().numpy()):
+            raise AssertionError("profile: a route's count grid differs")
+        np.testing.assert_allclose(got["aggs"]["avg"].cpu().numpy(),
+                                   want["aggs"]["avg"].cpu().numpy(),
+                                   rtol=1e-5)
+    for name, prof in (("new route", new), ("slice route", sliced)):
+        if prof["kernels"] == 0:
+            log(f"profile ({name}): torch.profiler shows no device time; "
+                f"the wrapper counted {prof['wrapper_launches']} kernel "
+                f"launches instead")
+        log(f"profile ({name}): one cached query: {prof['kernels']} device "
+            f"kernels, {prof['copies_and_sets']} copies/sets, "
+            f"{prof['runtime_launch_calls']} cudaLaunchKernel calls, "
+            f"device busy {prof['device_busy_us']!r} us; by name: "
+            + json.dumps(prof["busy_us_by_name"]))
+    return {"new_route": new, "slice_route": sliced}
+
+
+def op_path(ba, ts_off, host_id, vals, hosts: int, num_buckets: int,
+            counts, sums) -> dict:
+    """ops.downsample.time_bucket_aggregate over all rows as one batch:
+    launch count from 0, checked against the bincount, then timed."""
+    import numpy as np
+    import torch
+
+    from horaedb_tpu_torch.ops import downsample
+
+    ts32 = ts_off.astype(np.int32)
+    v32 = vals.astype(np.float32)
+    n = len(ts32)
+    ba.reset_launches()
+    out = downsample.time_bucket_aggregate(
+        ts32, host_id, v32, n, BMS, hosts, num_buckets, which=("avg",),
+        device="cuda")
+    torch.cuda.synchronize()
+    launches = ba.LAUNCHES["bucket_window_partials"]
+    route = [r for r, n in ba.ROUTE_LAUNCHES.items() if n][0]
+    if launches != 1:
+        raise AssertionError(f"op: {launches} launches for one call")
+    if not np.array_equal(out["count"].cpu().numpy(),
+                          counts.astype(np.float32)):
+        raise AssertionError("op: count grid differs from bincount")
+    occ = counts > 0
+    np.testing.assert_allclose(out["avg"].cpu().numpy()[occ],
+                               sums[occ] / counts[occ], rtol=1e-5)
+    dev = torch.device("cuda")
+    args = [torch.from_numpy(a[None, :]).to(dev) for a in (ts32, host_id,
+                                                           v32)]
+    run = lambda: ba.bucket_window_partials(  # noqa: E731
+        *args, None, None, None, num_buckets, BMS, num_groups=hosts,
+        width=num_buckets, which=("avg",), n_valid=n)
+    ms = device_ms(run, reps=10)
+    plain_ms = device_ms(lambda: ba.bucket_window_partials_plain(
+        *args, None, None, None, num_buckets, BMS, num_groups=hosts,
+        width=num_buckets, which=("avg",), n_valid=n), reps=3)
+    nbytes = n * 12 + hosts * num_buckets * 2 * 4
+    res = {"rows": n, "launches": launches, "route": route, "ms": ms,
+           "plain_ms": plain_ms,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
+    log(f"op: time_bucket_aggregate over {n:,} time-major rows matches the "
+        f"bincount; bucket_window_partials {ms!r} ms, plain {plain_ms!r} "
+        f"ms, bound {res['bound_ms']!r} ms; route {route}")
+    return res
 
 
 def main() -> int:
@@ -361,6 +844,7 @@ def main() -> int:
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from horaedb_tpu_torch.ops import bucket_agg as ba
+    from horaedb_tpu_torch.storage import read as fused
 
     t0 = time.perf_counter()
     ba.build()
@@ -369,15 +853,19 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log(f"build: {line.strip()}")
 
-    kern = kernel_phase(ba)
+    kernels = kernel_phase(ba, fused)
     e2e = asyncio.run(end_to_end(args.rows, ba))
-    kern["launches"] = e2e["launches"]
+    for k in kernels:
+        # launches on each entry's own path, counted from 0 around it
+        k["launches"] = (e2e["op"]["launches"]
+                         if k["name"] == "bucket_window_partials"
+                         else e2e["launches"])
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
-            json.dump({"card": card, "kernels": [kern], "e2e": e2e}, f,
+            json.dump({"card": card, "kernels": kernels, "e2e": e2e}, f,
                       indent=1)
-    log(json.dumps({"kernels": [kern]}))
+    log(json.dumps({"kernels": kernels}))
     log(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,45 +1,89 @@
-// bucket_window_partials: the per-window partial grids of one fused
-// aggregate round, hand-written for Hopper (sm_90a).
+// Time-bucket aggregate of a round of windows, hand-written for Hopper
+// (sm_90a): one accumulate core, two routes, two epilogues.
 //
 // Replaces: horaedb_tpu/ops/pallas_kernels.py::_agg_kernel (launched by
 // _pallas_partial_grids; entry points pallas_time_bucket_aggregate and
-// pallas_window_partials), fused with the window prologue of
-// horaedb_tpu/ops/downsample.py::window_local_partials.
+// pallas_window_partials) fused with the window prologue of
+// horaedb_tpu/ops/downsample.py::window_local_partials, and, in the
+// round epilogue, the whole XLA program
+// horaedb_tpu/storage/read.py::_fused_round_accumulate_jit (vmapped
+// window partials, then a per-window scatter into the donated
+// query-global accumulator).
 //
-// What it computes, per window w and row r (rows [0, n_valid) real):
+// What the core computes, per window w and row r < n_valid[w]:
 //   g  = remap ? (gid < 0 ? -1 : remap[w, clamp(gid, 0, R-1)]) : gid
 //   tg = ts + shift[w]                     (int32, wrapping)
 //   g  = floor(tg / bucket_ms) < total ? g : -1
 //   tl = tg - lo[w] * bucket_ms            (int32, wrapping)
 //   b  = floor(tl / bucket_ms)
-//   the row lands in cell (w, g, b) when 0 <= g < G and 0 <= b < width;
-// per cell: count, sum, min, max, and `last` = the value at the max tl,
-// the later row winning ties, with last_ts = that tl.  Empty cells read
-// count 0, sum 0, min +inf, max -inf, last 0, last_ts INT32_MIN — the
-// partial conventions the fused accumulate consumes.
+//   the row counts when 0 <= g < G and 0 <= b < width (and, in the
+//   round epilogue, lo[w] + b < total); its window cell is g * width + b.
+// Epilogues:
+//   partials (horaedb_bucket_window_partials): cell (w, g, b) of W
+//     window grids: count, sum, min, max, and `last` = the value at the
+//     max tl, the later row winning ties, with last_ts = that tl.  Empty
+//     cells read count 0, sum 0, min +inf, max -inf, last 0, last_ts
+//     INT32_MIN.
+//   round (horaedb_bucket_round_accumulate): cell (g, lo[w] + b) of the
+//     query-global accumulator (G, total), updated in place; columns at
+//     or past `total` are dropped.  count/sum add, min/max fold (the
+//     accumulator starts at +/-F32_MAX, so a cell whose only value is
+//     +inf keeps min F32_MAX, as in the reference), and `last` takes the
+//     round's value where its range-relative ts tg >= the accumulator's
+//     (the later round wins ties).
+// A NaN value makes its cell's min and max NaN in both epilogues.
 //
-// Bound: the kernel must read every row slot once, 12 bytes per slot
-// (ts, gid, value), plus remap/shift/lo, and write the grids once
-// (4 bytes per cell per field).  At the main path's round shape
-// (W=16, cap=131072, G=128, width=128, count+sum) that is 25.2 MB in
-// and 2.1 MB out: ~8 us at 3.35 TB/s.  Memory, not arithmetic, bounds
-// it: each row costs a handful of integer ops.
+// Bound: bytes.  Each valid row is read once (ts, gid, value: 12 B), and
+// each touched cell is read and written once per field; a handful of
+// integer ops per row is far below the card's rate.  At the main path's
+// round (16 windows x ~72,000 valid rows of 131,072 slots, 128 groups,
+// count+sum) that is ~14 MB in and ~3 MB of accumulator cells: ~5 us
+// at 3.35 TB/s.
 //
-// Design: the TPU kernel compared every row with every cell of a tile
-// (O(rows x cells)); here each thread computes its row's cell directly
-// and folds into it with one atomic per field, so the work is O(rows).
-// Loads are coalesced (neighbouring threads, neighbouring rows); the
-// grids accumulate in global memory, where they stay L2-resident (a
-// round's grids are a few MB against 50 MB of L2).  count is an int32
-// atomic, sum an f32 atomicAdd (its order varies run to run: sums agree
-// with the plain version within rounding, not bit for bit), min/max are
-// int32 atomicMin/atomicMax on an order-preserving int image of the
-// float, and `last` is a 64-bit atomicMax on the packed key
-// ((uint32)(tl ^ 0x80000000) << 32) | row — max ts first, later row on
-// ties — whose winning row's value a finalize pass gathers.  Three
-// launches per call: identity fill, accumulate, finalize.
-// Shared-memory privatisation of the grids and TMA row loads are left
-// for a later change.
+// Design, against that bound:
+// - Per-window row counts (n_valid) bound every read: padding slots are
+//   never touched, and a block wholly past its window's rows exits.
+// - 16-byte loads: each thread reads 4 consecutive rows of each column
+//   with one int4/float4 load (scalar loads on a ragged tail).
+// - Cheap per-row arithmetic: the window's remap row is staged in shared
+//   memory (no dependent global load per row), and the bucket is one
+//   floor division by a double reciprocal with an exact correction, the
+//   local bucket following from the global one unless int32 wrapped.
+// - Run-length reduction in registers: merge-ordered rows (series, then
+//   time) put ~6 consecutive rows in one cell.  A thread folds its own 4
+//   rows run by run; a segmented warp scan (__shfl_up_sync) carries the
+//   run that crosses lanes, and only the lane that ends a run issues its
+//   update.  count/sum add; min, max and the `last` key take the max of
+//   order-preserving images.  Unsorted rows give runs of length 1 and the
+//   same answer.
+// - Two routes for the updates, chosen by size in the wrapper:
+//   * global: atomics straight into the destination, one block per tile
+//     of rows.  After the run-length reduction, merge-ordered rows leave
+//     about one atomic per touched cell, to neighbouring addresses: the
+//     main path's route.
+//   * shared: each block takes a chunk of a window's rows (at least four
+//     per grid cell) into a private copy of the window grid in shared
+//     memory, then flushes each cell it touched with one update per
+//     field.  Taken where the grid fits a block's shared memory and the
+//     window has 16 rows or more per cell: there, unsorted rows would
+//     send up to thousands of global atomics to each address, and the
+//     copies cut that to one per block.  (A first version kept ONE copy per window,
+//     sliced over a thread-block cluster's distributed shared memory; it
+//     was slower than the global route at every density measured, since
+//     every update still met the others at the owner's slice: PERF.md.)
+//   Neither route writes partial grids in the round epilogue.
+// - min/max into float storage use integer atomics on the float bits
+//   (atomicMin on the int for a clear sign bit, atomicMax on the
+//   unsigned for a set one), which orders floats exactly; in registers
+//   and shared memory they are order-preserving int images.  A NaN
+//   enters as 0xFFFFFFFF (min) or 0x7FFFFFFF (max), whose images are
+//   INT32_MIN / INT32_MAX: they beat every other value, stay put, and
+//   decode back to a NaN.
+// - `last` is one 64-bit atomicMax on ((tg or tl) ^ 0x80000000) << 32 |
+//   (w * cap + row + 1): max ts, then later window, then later row.  The
+//   values live only for the round, so a second short pass over the
+//   round's columns gathers each winner and folds it into the
+//   accumulator with the reference's `>=`.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,107 +95,453 @@ constexpr int kFieldMin = 4;
 constexpr int kFieldMax = 8;
 constexpr int kFieldLast = 16;
 
-constexpr int kThreads = 256;
-constexpr int kRowsPerThread = 8;
+constexpr int kThreads = 256;         // global route: one tile per block
+constexpr int kSharedThreads = 512;   // shared route: a block loops tiles
+constexpr int kRowsPerThread = 4;     // 16-byte loads, 4 rows each
+constexpr int kTileRows = kThreads * kRowsPerThread;
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+constexpr int kImagePosInf = 0x7F800000;            // image of +inf
+constexpr int kImageNegInf = (int)0x807FFFFFu;      // image of -inf
 
-__device__ __forceinline__ int floor_div(int a, int b) {
-  int q = a / b;
-  int r = a % b;
-  if (r != 0 && ((r < 0) != (b < 0))) q -= 1;
+struct Args {
+  const int* ts;
+  const int* gid;
+  const float* vals;
+  const int* remap;
+  const int* shift;
+  const int* lo;
+  const int* n_valid_w;  // per-window row counts, or null: n_valid
+  int remap_len, n_valid, cap, num_groups, width, total, bucket_ms, fields;
+  int vec;  // 16-byte loads allowed (aligned columns, cap % 4 == 0)
+  double inv_bucket;  // 1.0 / bucket_ms
+  float* count;
+  float* sum;
+  float* mn;
+  float* mx;
+  unsigned long long* key;
+  int col0, span;  // round epilogue: the key scratch's columns
+  int chunk;       // shared route: rows per block (0: global route)
+};
+
+// one run's aggregate; mn/mx are order-preserving int images
+struct Agg {
+  float cnt, sum;
+  int mn, mx;
+  unsigned long long key;
+};
+
+// shared route: offsets of each field's grid in a block's shared memory
+struct Layout {
+  int key, cnt, sum, mn, mx, bytes;
+};
+
+__host__ __device__ inline Layout layout(int fields, int cells) {
+  Layout l;
+  int off = 0;
+  l.key = off;
+  if (fields & kFieldLast) off += cells * 8;
+  l.cnt = off;
+  off += cells * 4;
+  l.sum = off;
+  if (fields & kFieldSum) off += cells * 4;
+  l.mn = off;
+  if (fields & kFieldMin) off += cells * 4;
+  l.mx = off;
+  if (fields & kFieldMax) off += cells * 4;
+  l.bytes = off;
+  return l;
+}
+
+// floor(a / b) for b > 0, exactly: a double-precision estimate (off by
+// at most one, as a < 2^31 and inv carries 53 bits) and one correction;
+// cheaper than the integer division the compiler would emit
+__device__ __forceinline__ int floor_div(int a, int b, double inv) {
+  int q = (int)floor((double)a * inv);
+  const long long r = (long long)a - (long long)q * b;
+  if (r < 0)
+    --q;
+  else if (r >= b)
+    ++q;
   return q;
 }
 
 // order-preserving int image of a float (an involution): signed int
-// comparison of the images matches float comparison of non-NaN values
+// comparison of the images matches float comparison
 __device__ __forceinline__ int ordered(int bits) {
   return bits >= 0 ? bits : bits ^ 0x7FFFFFFF;
 }
 
-__global__ void init_kernel(long long cells, int fields, int* count_i,
-                            float* sum, int* mn_i, int* mx_i,
-                            unsigned long long* key) {
-  const int pos_inf = ordered((int)0x7F800000u);  // +inf
-  const int neg_inf = ordered((int)0xFF800000u);  // -inf
+// NaN canonicalised to the image that wins the min (INT32_MIN) / the
+// max (INT32_MAX); both decode back to a NaN
+__device__ __forceinline__ int min_image(float v) {
+  return ordered(isnan(v) ? (int)0xFFFFFFFFu : __float_as_int(v));
+}
+__device__ __forceinline__ int max_image(float v) {
+  return ordered(isnan(v) ? 0x7FFFFFFF : __float_as_int(v));
+}
+
+// exact float min/max on float storage through integer atomics
+__device__ __forceinline__ void atomic_min_bits(float* p, int bits) {
+  if (bits >= 0)
+    atomicMin(reinterpret_cast<int*>(p), bits);
+  else
+    atomicMax(reinterpret_cast<unsigned*>(p), (unsigned)bits);
+}
+__device__ __forceinline__ void atomic_max_bits(float* p, int bits) {
+  if (bits >= 0)
+    atomicMax(reinterpret_cast<int*>(p), bits);
+  else
+    atomicMin(reinterpret_cast<unsigned*>(p), (unsigned)bits);
+}
+
+__device__ __forceinline__ int key_ts(unsigned long long k) {
+  return (int)((unsigned)(k >> 32) ^ 0x80000000u);
+}
+
+template <bool kExtra>
+__device__ __forceinline__ Agg combine(const Agg& a, const Agg& b) {
+  Agg r;
+  r.cnt = a.cnt + b.cnt;
+  r.sum = a.sum + b.sum;
+  r.mn = kExtra ? min(a.mn, b.mn) : 0;
+  r.mx = kExtra ? max(a.mx, b.mx) : 0;
+  r.key = kExtra ? (a.key > b.key ? a.key : b.key) : 0ull;
+  return r;
+}
+
+template <bool kExtra>
+__device__ __forceinline__ Agg shfl_up(const Agg& x, int off) {
+  Agg r;
+  r.cnt = __shfl_up_sync(kFullMask, x.cnt, off);
+  r.sum = __shfl_up_sync(kFullMask, x.sum, off);
+  r.mn = kExtra ? __shfl_up_sync(kFullMask, x.mn, off) : 0;
+  r.mx = kExtra ? __shfl_up_sync(kFullMask, x.mx, off) : 0;
+  r.key = kExtra ? __shfl_up_sync(kFullMask, x.key, off) : 0ull;
+  return r;
+}
+
+// window cell (g * width + b) of one row, or -1 when the row does not
+// count; *t gets the ts that orders `last` (tg for the round, tl for
+// partials).  remap_w: the window's remap row (or null: identity).
+template <bool kRound>
+__device__ __forceinline__ int row_cell(const Args& a, const int* remap_w,
+                                        int sh, int lo_w, int g, int ts,
+                                        int* t) {
+  if (remap_w) {
+    const int gi = g < 0 ? 0 : (g >= a.remap_len ? a.remap_len - 1 : g);
+    g = g >= 0 ? remap_w[gi] : -1;
+  }
+  const int tg = (int)((unsigned)ts + (unsigned)sh);
+  const int q = floor_div(tg, a.bucket_ms, a.inv_bucket);
+  if (q >= a.total) g = -1;
+  const int tl = (int)((unsigned)tg - (unsigned)lo_w * (unsigned)a.bucket_ms);
+  // floor(tl / bucket_ms) is q - lo_w unless tl wrapped around int32
+  const bool wrapped =
+      (long long)tl != (long long)tg - (long long)lo_w * a.bucket_ms;
+  const int b = wrapped ? floor_div(tl, a.bucket_ms, a.inv_bucket) : q - lo_w;
+  *t = kRound ? tg : tl;
+  // the group bound is checked BEFORE the cell index is formed: an
+  // oversized gid must be dropped, never wrapped into a valid cell
+  if (g < 0 || g >= a.num_groups || b < 0 || b >= a.width) return -1;
+  if (kRound) {
+    const long long c = (long long)lo_w + b;
+    if (c < 0 || c >= a.total) return -1;
+  }
+  return g * a.width + b;
+}
+
+// global route: a run's update straight into the destination
+template <bool kRound, bool kExtra>
+struct GlobalSink {
+  const Args& a;
+  int w, lo_w;
+  __device__ __forceinline__ void emit(int lc, const Agg& x) const {
+    if (lc < 0) return;
+    long long cell, k = -1;
+    if (kRound) {
+      const int g = lc / a.width;
+      const int c = lo_w + (lc - g * a.width);
+      cell = (long long)g * a.total + c;
+      if (c >= a.col0 && c < a.col0 + a.span)
+        k = (long long)g * a.span + (c - a.col0);
+    } else {
+      cell = (long long)w * a.num_groups * a.width + lc;
+      k = cell;
+    }
+    atomicAdd(a.count + cell, x.cnt);
+    if (a.fields & kFieldSum) atomicAdd(a.sum + cell, x.sum);
+    if (!kExtra) return;
+    if (a.fields & kFieldMin) atomic_min_bits(a.mn + cell, ordered(x.mn));
+    if (a.fields & kFieldMax) atomic_max_bits(a.mx + cell, ordered(x.mx));
+    if ((a.fields & kFieldLast) && k >= 0) atomicMax(a.key + k, x.key);
+  }
+};
+
+// 64-bit max in shared memory as a compare-and-swap loop: atomicMax on a
+// u64 lost updates on the card when an earlier version of the shared
+// route applied it to distributed shared memory (~10% of `last` cells
+// disagreed with the plain version); this loop was exact there
+__device__ __forceinline__ void shared_max_u64(unsigned long long* p,
+                                               unsigned long long v) {
+  unsigned long long old = *reinterpret_cast<volatile unsigned long long*>(p);
+  while (old < v) {
+    const unsigned long long seen = atomicCAS(p, old, v);
+    if (seen == old) break;
+    old = seen;
+  }
+}
+
+// shared route: a run's update into the block's private copy of the
+// window grid in shared memory
+template <bool kExtra>
+struct SharedSink {
+  const Args& a;
+  float* cnt;
+  float* sum;
+  int* mn;
+  int* mx;
+  unsigned long long* key;
+  __device__ __forceinline__ void emit(int lc, const Agg& x) const {
+    if (lc < 0) return;
+    atomicAdd(cnt + lc, x.cnt);
+    if (a.fields & kFieldSum) atomicAdd(sum + lc, x.sum);
+    if (!kExtra) return;
+    if (a.fields & kFieldMin) atomicMin(mn + lc, x.mn);
+    if (a.fields & kFieldMax) atomicMax(mx + lc, x.mx);
+    if (a.fields & kFieldLast) shared_max_u64(key + lc, x.key);
+  }
+};
+
+// The accumulate core over the block's tile of rows starting at tile0
+// (blockDim.x * 4 rows): load, cell, run-length reduction, warp scan,
+// one sink update per run.  Every thread of the block calls it.
+template <bool kRound, bool kExtra, class Sink>
+__device__ __forceinline__ void accumulate_tile(const Args& a, int w, int nv,
+                                                int tile0, const int* remap_w,
+                                                int sh, int lo_w,
+                                                const Sink& sink) {
+  const int lane = threadIdx.x & 31;
+  const long long base = (long long)w * a.cap;
+  const int r0 = tile0 + threadIdx.x * kRowsPerThread;
+
+  int ts4[kRowsPerThread], g4[kRowsPerThread];
+  float v4[kRowsPerThread];
+  if (a.vec && r0 + kRowsPerThread <= nv) {
+#pragma unroll
+    for (int q = 0; q < kRowsPerThread; q += 4) {
+      const long long r = base + r0 + q;
+      const int4 t = __ldg(reinterpret_cast<const int4*>(a.ts + r));
+      const int4 g = __ldg(reinterpret_cast<const int4*>(a.gid + r));
+      const float4 v = __ldg(reinterpret_cast<const float4*>(a.vals + r));
+      ts4[q] = t.x; ts4[q + 1] = t.y; ts4[q + 2] = t.z; ts4[q + 3] = t.w;
+      g4[q] = g.x; g4[q + 1] = g.y; g4[q + 2] = g.z; g4[q + 3] = g.w;
+      v4[q] = v.x; v4[q + 1] = v.y; v4[q + 2] = v.z; v4[q + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kRowsPerThread; ++k) {
+      const int r = r0 + k;
+      const bool ok = r < nv;
+      ts4[k] = ok ? __ldg(a.ts + base + r) : 0;
+      g4[k] = ok ? __ldg(a.gid + base + r) : -1;
+      v4[k] = ok ? __ldg(a.vals + base + r) : 0.0f;
+    }
+  }
+
+  int cell[kRowsPerThread];
+  Agg x[kRowsPerThread];
+#pragma unroll
+  for (int k = 0; k < kRowsPerThread; ++k) {
+    int t;
+    cell[k] = row_cell<kRound>(a, remap_w, sh, lo_w, g4[k], ts4[k], &t);
+    x[k].cnt = 1.0f;
+    x[k].sum = v4[k];
+    x[k].mn = kExtra ? min_image(v4[k]) : 0;
+    x[k].mx = kExtra ? max_image(v4[k]) : 0;
+    x[k].key = kExtra ? ((unsigned long long)((unsigned)t ^ 0x80000000u)
+                             << 32) |
+                            (unsigned long long)(base + r0 + k + 1)
+                      : 0ull;
+  }
+
+  // the thread's own rows, run by run: the head run (from its first
+  // row) and the tail run (to its last row) may continue in the
+  // neighbouring lanes; runs strictly inside are complete
+  Agg head = x[0], run = x[0];
+  const int head_cell = cell[0];
+  int run_cell = cell[0];
+  bool full = true;  // all rows in one run: head == tail
+#pragma unroll
+  for (int k = 1; k < kRowsPerThread; ++k) {
+    if (cell[k] == run_cell) {
+      run = combine<kExtra>(run, x[k]);
+    } else {
+      if (full) {
+        head = run;
+        full = false;
+      } else {
+        sink.emit(run_cell, run);
+      }
+      run = x[k];
+      run_cell = cell[k];
+    }
+  }
+  const int tail_cell = run_cell;
+
+  // segmented inclusive scan of the tail runs across the warp: a lane
+  // whose rows are one run (`open`) joins the run that ends in the lane
+  // before it when the cells match
+  Agg s = run;
+  bool open = full;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const Agg o = shfl_up<kExtra>(s, off);
+    const int o_cell = __shfl_up_sync(kFullMask, tail_cell, off);
+    const int o_open = __shfl_up_sync(kFullMask, (int)open, off);
+    if (lane >= off) {
+      if (open && o_cell == tail_cell) {
+        s = combine<kExtra>(o, s);
+        open = o_open != 0;
+      } else {
+        open = false;
+      }
+    }
+  }
+  const Agg carry = shfl_up<kExtra>(s, 1);
+  const int prev_cell = __shfl_up_sync(kFullMask, tail_cell, 1);
+  const int next_head = __shfl_down_sync(kFullMask, head_cell, 1);
+  if (!full)
+    sink.emit(head_cell, (lane > 0 && prev_cell == head_cell)
+                             ? combine<kExtra>(carry, head)
+                             : head);
+  // the lane that ends a run issues it
+  if (lane == 31 || next_head != tail_cell) sink.emit(tail_cell, s);
+}
+
+__device__ __forceinline__ int window_rows(const Args& a, int w) {
+  return a.n_valid_w ? min(max(a.n_valid_w[w], 0), a.cap) : a.n_valid;
+}
+
+// window w's remap row, copied into the block's shared memory where it
+// fits (every row looks its group up there); every thread calls it
+constexpr int kRemapShared = 1024;
+__device__ __forceinline__ const int* stage_remap(const Args& a, int w,
+                                                  int* s_remap) {
+  if (!a.remap) return nullptr;
+  const int* row = a.remap + (long long)w * a.remap_len;
+  if (a.remap_len > kRemapShared) return row;
+  for (int i = threadIdx.x; i < a.remap_len; i += blockDim.x)
+    s_remap[i] = __ldg(row + i);
+  __syncthreads();
+  return s_remap;
+}
+
+// global route: one tile of kTileRows rows of window blockIdx.y per block
+template <bool kRound, bool kExtra>
+__global__ void __launch_bounds__(kThreads) global_kernel(const Args a) {
+  const int w = blockIdx.y;
+  const int nv = window_rows(a, w);
+  const int tile0 = blockIdx.x * kTileRows;
+  if (tile0 >= nv) return;  // whole block past the window's rows
+  __shared__ int s_remap[kRemapShared];
+  const int* remap_w = stage_remap(a, w, s_remap);
+  const int lo_w = a.lo ? a.lo[w] : 0;
+  const GlobalSink<kRound, kExtra> sink{a, w, lo_w};
+  accumulate_tile<kRound, kExtra>(a, w, nv, tile0, remap_w,
+                                  a.shift ? a.shift[w] : 0, lo_w, sink);
+}
+
+// shared route: block (k, w) takes rows [k * chunk, (k + 1) * chunk) of
+// window w into a private copy of the window grid in shared memory, then
+// flushes each cell it touched with one update per field
+template <bool kRound, bool kExtra>
+__global__ void __launch_bounds__(kSharedThreads) shared_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int w = blockIdx.y;
+  const int row0 = blockIdx.x * a.chunk;
+  const int nv = min(window_rows(a, w), row0 + a.chunk);
+  if (row0 >= nv) return;  // whole block past the window's rows
+  const int cells = a.num_groups * a.width;
+  const Layout l = layout(a.fields, cells);
+  const SharedSink<kExtra> sink{
+      a, reinterpret_cast<float*>(smem + l.cnt),
+      reinterpret_cast<float*>(smem + l.sum),
+      reinterpret_cast<int*>(smem + l.mn), reinterpret_cast<int*>(smem + l.mx),
+      reinterpret_cast<unsigned long long*>(smem + l.key)};
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+    sink.cnt[i] = 0.0f;
+    if (a.fields & kFieldSum) sink.sum[i] = 0.0f;
+    if (a.fields & kFieldMin) sink.mn[i] = kImagePosInf;
+    if (a.fields & kFieldMax) sink.mx[i] = kImageNegInf;
+    if (a.fields & kFieldLast) sink.key[i] = 0ull;
+  }
+  __syncthreads();
+
+  __shared__ int s_remap[kRemapShared];
+  const int* remap_w = stage_remap(a, w, s_remap);
+  const int sh = a.shift ? a.shift[w] : 0;
+  const int lo_w = a.lo ? a.lo[w] : 0;
+  for (int tile0 = row0; tile0 < nv; tile0 += blockDim.x * kRowsPerThread)
+    accumulate_tile<kRound, kExtra>(a, w, nv, tile0, remap_w, sh, lo_w,
+                                    sink);
+  __syncthreads();
+
+  const GlobalSink<kRound, kExtra> out{a, w, lo_w};
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+    Agg x;
+    x.cnt = sink.cnt[i];
+    if (x.cnt == 0.0f) continue;  // untouched by this block
+    x.sum = (a.fields & kFieldSum) ? sink.sum[i] : 0.0f;
+    x.mn = (a.fields & kFieldMin) ? sink.mn[i] : 0;
+    x.mx = (a.fields & kFieldMax) ? sink.mx[i] : 0;
+    x.key = (a.fields & kFieldLast) ? sink.key[i] : 0ull;
+    out.emit(i, x);
+  }
+}
+
+__global__ void partials_init_kernel(long long cells, int fields,
+                                     float* count, float* sum, float* mn,
+                                     float* mx, unsigned long long* key) {
   for (long long c = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        c < cells; c += (long long)gridDim.x * blockDim.x) {
-    count_i[c] = 0;
+    count[c] = 0.0f;
     if (fields & kFieldSum) sum[c] = 0.0f;
-    if (fields & kFieldMin) mn_i[c] = pos_inf;
-    if (fields & kFieldMax) mx_i[c] = neg_inf;
+    if (fields & kFieldMin) mn[c] = __int_as_float(kImagePosInf);  // +inf
+    if (fields & kFieldMax) mx[c] = __int_as_float((int)0xFF800000u);
     if (fields & kFieldLast) key[c] = 0ull;
   }
 }
 
-__global__ void accumulate_kernel(
-    const int* __restrict__ ts, const int* __restrict__ gid,
-    const float* __restrict__ vals, const int* __restrict__ remap,
-    int remap_len, const int* __restrict__ shift,
-    const int* __restrict__ lo, int cap, int n_valid, int num_groups,
-    int width, int total_buckets, int bucket_ms, int fields, int* count_i,
-    float* sum, int* mn_i, int* mx_i, unsigned long long* key) {
-  const int w = blockIdx.y;
-  const long long base = (long long)w * cap;
-  const int sh = shift ? shift[w] : 0;
-  const int lo_w = lo ? lo[w] : 0;
-  const unsigned lo_ms = (unsigned)lo_w * (unsigned)bucket_ms;
-  const int row0 = blockIdx.x * (kThreads * kRowsPerThread) + threadIdx.x;
-#pragma unroll
-  for (int k = 0; k < kRowsPerThread; ++k) {
-    const int r = row0 + k * kThreads;
-    if (r >= cap || r >= n_valid) break;
-    int g = gid[base + r];
-    if (remap) {
-      const int gi = g < 0 ? 0 : (g >= remap_len ? remap_len - 1 : g);
-      g = g >= 0 ? remap[(long long)w * remap_len + gi] : -1;
-    }
-    const int tg = (int)((unsigned)ts[base + r] + (unsigned)sh);
-    if (floor_div(tg, bucket_ms) >= total_buckets) g = -1;
-    const int tl = (int)((unsigned)tg - lo_ms);
-    const int b = floor_div(tl, bucket_ms);
-    // the group bound is checked BEFORE the cell index is formed: an
-    // oversized gid must be dropped, never wrapped into a valid cell
-    if (g < 0 || g >= num_groups || b < 0 || b >= width) continue;
-    const long long cell = ((long long)w * num_groups + g) * width + b;
-    const float v = vals[base + r];
-    atomicAdd(count_i + cell, 1);
-    if (fields & kFieldSum) atomicAdd(sum + cell, v);
-    if (fields & kFieldMin) atomicMin(mn_i + cell, ordered(__float_as_int(v)));
-    if (fields & kFieldMax) atomicMax(mx_i + cell, ordered(__float_as_int(v)));
-    if (fields & kFieldLast) {
-      const unsigned long long k64 =
-          ((unsigned long long)((unsigned)tl ^ 0x80000000u) << 32) |
-          (unsigned)r;
-      atomicMax(key + cell, k64);
-    }
+// partials, global route: each cell's winning row -> last, last_ts
+__global__ void partials_last_kernel(long long cells,
+                                     const unsigned long long* __restrict__ key,
+                                     const float* __restrict__ vals,
+                                     float* last, int* last_ts) {
+  for (long long c = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       c < cells; c += (long long)gridDim.x * blockDim.x) {
+    const unsigned long long k = key[c];
+    last[c] = k ? vals[(k & 0xFFFFFFFFull) - 1] : 0.0f;
+    last_ts[c] = k ? key_ts(k) : (int)0x80000000u;
   }
 }
 
-__global__ void finalize_kernel(long long cells, int cells_per_window,
-                                int cap, int fields,
-                                const float* __restrict__ vals,
-                                int* count_i, int* mn_i, int* mx_i,
-                                const unsigned long long* __restrict__ key,
-                                float* last, int* last_ts) {
-  for (long long c = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       c < cells; c += (long long)gridDim.x * blockDim.x) {
-    const int n = count_i[c];
-    // count, min and max are converted IN PLACE: the int images live in
-    // the float output buffers
-    reinterpret_cast<float*>(count_i)[c] = (float)n;
-    if (fields & kFieldMin)
-      reinterpret_cast<float*>(mn_i)[c] = __int_as_float(ordered(mn_i[c]));
-    if (fields & kFieldMax)
-      reinterpret_cast<float*>(mx_i)[c] = __int_as_float(ordered(mx_i[c]));
-    if (fields & kFieldLast) {
-      if (n > 0) {
-        const unsigned long long k = key[c];
-        const long long w = c / cells_per_window;
-        last[c] = vals[w * cap + (unsigned)(k & 0xFFFFFFFFull)];
-        last_ts[c] = (int)((unsigned)(k >> 32) ^ 0x80000000u);
-      } else {
-        last[c] = 0.0f;
-        last_ts[c] = (int)0x80000000u;
-      }
+// round: each of the round's cells that took a row -> fold its winner
+// into the accumulator where its ts >= the accumulator's
+__global__ void round_last_kernel(long long cells, int span, int col0,
+                                  int total,
+                                  const unsigned long long* __restrict__ key,
+                                  const float* __restrict__ vals,
+                                  float* acc_last, int* acc_last_ts) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < cells; i += (long long)gridDim.x * blockDim.x) {
+    const unsigned long long k = key[i];
+    if (!k) continue;
+    const long long g = i / span;
+    const long long cell = g * total + col0 + (i - g * span);
+    const int ts = key_ts(k);
+    if (ts >= acc_last_ts[cell]) {
+      acc_last[cell] = vals[(k & 0xFFFFFFFFull) - 1];
+      acc_last_ts[cell] = ts;
     }
   }
 }
@@ -162,48 +552,171 @@ int grid_for(long long n) {
   return (int)(blocks < 1 ? 1 : blocks);
 }
 
+int aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// shared route: rows per block, a whole number of tiles and at least
+// four per cell of the block's private grid (its init and flush are
+// per cell)
+int shared_chunk(int cells) {
+  const int tile = kSharedThreads * kRowsPerThread;
+  const long long want = cells * 4LL > tile ? cells * 4LL : tile;
+  return (int)((want + tile - 1) / tile * tile);
+}
+
+template <bool kRound, bool kExtra>
+int launch_shared_t(const Args& a, int num_windows, int max_rows,
+                    cudaStream_t s) {
+  const int bytes = layout(a.fields, a.num_groups * a.width).bytes;
+  auto kernel = shared_kernel<kRound, kExtra>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((max_rows + a.chunk - 1) / a.chunk, num_windows);
+  kernel<<<grid, kSharedThreads, bytes, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// the accumulate core over rows [0, max_rows) of each window, by the
+// route the wrapper chose (a.chunk > 0: the shared route)
+int launch_accumulate(const Args& a, bool round, int num_windows,
+                      int max_rows, cudaStream_t s) {
+  if (num_windows <= 0 || max_rows <= 0) return 0;
+  if (num_windows > 65535) return (int)cudaErrorInvalidConfiguration;
+  const bool extra = (a.fields & (kFieldMin | kFieldMax | kFieldLast)) != 0;
+  if (a.chunk > 0) {
+    const int m = max_rows;
+    if (round)
+      return extra ? launch_shared_t<true, true>(a, num_windows, m, s)
+                   : launch_shared_t<true, false>(a, num_windows, m, s);
+    return extra ? launch_shared_t<false, true>(a, num_windows, m, s)
+                 : launch_shared_t<false, false>(a, num_windows, m, s);
+  }
+  const dim3 grid((max_rows + kTileRows - 1) / kTileRows, num_windows);
+  if (round) {
+    if (extra)
+      global_kernel<true, true><<<grid, kThreads, 0, s>>>(a);
+    else
+      global_kernel<true, false><<<grid, kThreads, 0, s>>>(a);
+  } else {
+    if (extra)
+      global_kernel<false, true><<<grid, kThreads, 0, s>>>(a);
+    else
+      global_kernel<false, false><<<grid, kThreads, 0, s>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+Args make_args(const int* ts, const int* gid, const float* vals,
+               const int* remap, int remap_len, const int* shift,
+               const int* lo, const int* n_valid_w, int n_valid, int cap,
+               int num_groups, int width, int total, int bucket_ms,
+               int fields, int shared) {
+  Args a{};
+  a.ts = ts;
+  a.gid = gid;
+  a.vals = vals;
+  a.remap = remap;
+  a.remap_len = remap_len;
+  a.shift = shift;
+  a.lo = lo;
+  a.n_valid_w = n_valid_w;
+  a.n_valid = n_valid;
+  a.cap = cap;
+  a.num_groups = num_groups;
+  a.width = width;
+  a.total = total;
+  a.bucket_ms = bucket_ms;
+  a.inv_bucket = 1.0 / bucket_ms;
+  a.fields = fields;
+  a.vec = cap % kRowsPerThread == 0 && aligned16(ts) && aligned16(gid) &&
+          aligned16(vals);
+  a.chunk = shared ? shared_chunk(num_groups * width) : 0;
+  return a;
+}
+
 }  // namespace
 
-// Plain C entry point (bound through ctypes).  Pointers are device
+// Plain C entry points (bound through ctypes).  Pointers are device
 // pointers; remap, shift and lo may be null (identity remap, zero
-// shift/lo).  count, min and max are float32 outputs of W*G*width
-// cells; key is an int64 scratch of the same cell count (only read
-// when `last` is requested).  Returns the cudaError_t of the first
-// failing launch, 0 on success.
+// shift/lo).  `shared` picks the route: 1 the shared route, 0 the
+// global route.  Each returns the cudaError_t of the first failing
+// launch, 0 on success.
+
+// Partial grids: count, sum, min, max, last float32 and last_ts int32
+// outputs of W*G*width cells; key is an int64 scratch of the same cell
+// count (only touched when `last` is requested).  Launches: init,
+// accumulate, and a `last` gather when requested.
 extern "C" int horaedb_bucket_window_partials(
     const int* ts, const int* gid, const float* vals, const int* remap,
     int remap_len, const int* shift, const int* lo, int num_windows,
     int cap, int n_valid, int num_groups, int width, int total_buckets,
     int bucket_ms, int fields, float* count, float* sum, float* mn,
-    float* mx, float* last, int* last_ts, long long* key, void* stream) {
+    float* mx, float* last, int* last_ts, long long* key, int shared,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long cells = (long long)num_windows * num_groups * width;
   if (cells == 0) return 0;
-  int* count_i = reinterpret_cast<int*>(count);
-  int* mn_i = reinterpret_cast<int*>(mn);
-  int* mx_i = reinterpret_cast<int*>(mx);
   unsigned long long* key_u = reinterpret_cast<unsigned long long*>(key);
+  Args a = make_args(ts, gid, vals, remap, remap_len, shift, lo, nullptr,
+                     n_valid, cap, num_groups, width, total_buckets,
+                     bucket_ms, fields, shared);
+  a.count = count;
+  a.sum = sum;
+  a.mn = mn;
+  a.mx = mx;
+  a.key = key_u;
+  partials_init_kernel<<<grid_for(cells), kThreads, 0, s>>>(
+      cells, fields, count, sum, mn, mx, key_u);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  err = launch_accumulate(a, false, num_windows, n_valid, s);
+  if (err || !(fields & kFieldLast)) return err;
+  partials_last_kernel<<<grid_for(cells), kThreads, 0, s>>>(
+      cells, key_u, vals, last, last_ts);
+  return (int)cudaGetLastError();
+}
 
-  init_kernel<<<grid_for(cells), kThreads, 0, s>>>(cells, fields, count_i,
-                                                   sum, mn_i, mx_i, key_u);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  if (cap > 0 && num_windows > 0) {
-    dim3 grid((cap + kThreads * kRowsPerThread - 1) /
-                  (kThreads * kRowsPerThread),
-              num_windows);
-    accumulate_kernel<<<grid, kThreads, 0, s>>>(
-        ts, gid, vals, remap, remap_len, shift, lo, cap, n_valid,
-        num_groups, width, total_buckets, bucket_ms, fields, count_i, sum,
-        mn_i, mx_i, key_u);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+// One round folded into the query-global accumulator (G, total) in
+// place.  n_valid_w: per-window row counts (or null: max_rows rows in
+// every window); max_rows bounds the global route's grid.  key: an int64
+// scratch of G x span cells for the round's columns [col0, col0 + span)
+// (only touched when `last` is requested; zeroed here).  Launches:
+// accumulate, and a `last` fold when requested.
+extern "C" int horaedb_bucket_round_accumulate(
+    const int* ts, const int* gid, const float* vals, const int* remap,
+    int remap_len, const int* shift, const int* lo, const int* n_valid_w,
+    int num_windows, int cap, int max_rows, int num_groups, int width,
+    int total_buckets, int bucket_ms, int fields, float* acc_count,
+    float* acc_sum, float* acc_min, float* acc_max, float* acc_last,
+    int* acc_last_ts, long long* key, int col0, int span, int shared,
+    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned long long* key_u = reinterpret_cast<unsigned long long*>(key);
+  const long long key_cells = (long long)num_groups * span;
+  const bool want_last = (fields & kFieldLast) && key_cells > 0;
+  if (want_last) {
+    int err = (int)cudaMemsetAsync(key_u, 0, key_cells * sizeof(*key_u), s);
+    if (err) return err;
   }
-
-  finalize_kernel<<<grid_for(cells), kThreads, 0, s>>>(
-      cells, num_groups * width, cap, fields, vals, count_i, mn_i, mx_i,
-      key_u, last, last_ts);
-  err = cudaGetLastError();
-  return (int)err;
+  Args a = make_args(ts, gid, vals, remap, remap_len, shift, lo, n_valid_w,
+                     max_rows, cap, num_groups, width, total_buckets,
+                     bucket_ms, want_last ? fields : fields & ~kFieldLast,
+                     shared);
+  a.count = acc_count;
+  a.sum = acc_sum;
+  a.mn = acc_min;
+  a.mx = acc_max;
+  a.key = key_u;
+  a.col0 = col0;
+  a.span = span;
+  int err = launch_accumulate(a, true, num_windows, max_rows, s);
+  if (err || !want_last) return err;
+  round_last_kernel<<<grid_for(key_cells), kThreads, 0, s>>>(
+      key_cells, span, col0, total_buckets, key_u, vals, acc_last,
+      acc_last_ts);
+  return (int)cudaGetLastError();
 }

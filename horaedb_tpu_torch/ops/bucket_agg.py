@@ -1,17 +1,25 @@
-"""Time-bucket window partials: the hand-written CUDA kernel
-(csrc/bucket_agg.cu) and its plain PyTorch version.
+"""Time-bucket aggregate of a round of windows: the hand-written CUDA
+kernel (csrc/bucket_agg.cu) and its plain PyTorch versions.
 
-Counterpart of horaedb_tpu/ops/pallas_kernels.py.  One call computes the
-partial grids of W windows at once — the window prologue of
-ops.downsample.window_local_partials (remap, shift, total-bucket drop,
-lo rebase) fused with the segmented aggregate — so a fused aggregate
-round is one launch.
+Counterpart of horaedb_tpu/ops/pallas_kernels.py and of the XLA program
+horaedb_tpu/storage/read.py::_fused_round_accumulate_jit.  One kernel
+source, one accumulate core (the window prologue of
+ops.downsample.window_local_partials — remap, shift, total-bucket drop,
+lo rebase — fused with the segmented aggregate), two entries:
 
-`bucket_window_partials` dispatches on where its tensors lie: CUDA
-tensors launch the kernel (or raise), CPU tensors take
-`bucket_window_partials_plain`.  There is no fallback from one to the
-other.  The kernel builds with nvcc at first use into
-horaedb_tpu_torch/build/ and binds through ctypes.
+- `bucket_window_partials`: the partial grids of W windows,
+  (W, num_groups, width) per field.
+- `bucket_round_accumulate`: the same rows folded straight into the
+  query-global accumulator of storage.read.fused_acc_init, in place; no
+  partial grid is written.
+
+Each entry dispatches on where its tensors lie: CUDA tensors launch the
+kernel (or raise), CPU tensors take the entry's plain version.  There is
+no fallback from one to the other.  On the card the kernel takes one of
+two routes, chosen by size (pick_route): "shared" (private copies of
+the window grid in each block's shared memory) or "global" (atomics
+straight into the destination).  The kernel builds with nvcc at first
+use into horaedb_tpu_torch/build/ and binds through ctypes.
 """
 
 from __future__ import annotations
@@ -39,9 +47,22 @@ _PKG = os.path.dirname(_HERE)
 SOURCE = os.path.join(_PKG, "csrc", "bucket_agg.cu")
 BUILD_DIR = os.path.join(_PKG, "build")
 
-# launches of the kernel, counted by the wrapper where it launches and
-# nowhere else (the plain version does not count)
-LAUNCHES = {"bucket_window_partials": 0}
+# launches of the kernel, counted by each entry's wrapper where it
+# launches and nowhere else (the plain versions do not count), in all
+# and by route
+LAUNCHES = {"bucket_window_partials": 0, "bucket_round_accumulate": 0}
+ROUTE_LAUNCHES = {"shared": 0, "global": 0}
+
+# The shared route: each block folds a chunk of a window's rows into a
+# private copy of the window grid in shared memory and flushes it once.
+# Taken where the grid fits SHARED_BYTES_PER_BLOCK (two blocks still fit
+# an SM) and a window has SHARED_MIN_ROWS_PER_CELL rows or more per grid
+# cell (below that, the run-length-reduced global atomics are faster on
+# the card: see PERF.md); the global route (atomics straight into the
+# destination) otherwise.
+SHARED_BYTES_PER_BLOCK = 96 * 1024
+SHARED_MIN_ROWS_PER_CELL = 16
+_FIELD_BYTES = {"count": 4, "sum": 4, "min": 4, "max": 4, "last": 8}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -60,8 +81,31 @@ def fields_for(which) -> tuple:
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ROUTE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def shared_bytes(which, num_groups: int, width: int) -> int:
+    """Shared memory one block of the shared route needs: the window
+    grid, 4 bytes a cell per field (8 for the `last` key)."""
+    return num_groups * width * sum(_FIELD_BYTES.get(f, 0)
+                                    for f in fields_for(which))
+
+
+def pick_route(rows: int, num_groups: int, width: int, which,
+               route: Optional[str] = None) -> str:
+    """The kernel's route for windows of up to `rows` rows: `route` when
+    given ("shared" or "global"), else chosen by size (see
+    SHARED_BYTES_PER_BLOCK)."""
+    fits = shared_bytes(which, num_groups, width) <= SHARED_BYTES_PER_BLOCK
+    if route is None:
+        dense = rows >= SHARED_MIN_ROWS_PER_CELL * num_groups * width
+        return "shared" if fits and dense else "global"
+    ensure(route in ROUTE_LAUNCHES, f"unknown route {route!r}")
+    ensure(route == "global" or fits,
+           "the window grid does not fit the shared route")
+    return route
 
 
 def library_path() -> str:
@@ -113,10 +157,14 @@ def _load():
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            fn = lib.horaedb_bucket_window_partials
             P, I = ctypes.c_void_p, ctypes.c_int
+            fn = lib.horaedb_bucket_window_partials
             fn.argtypes = [P, P, P, P, I, P, P, I, I, I, I, I, I, I, I,
-                           P, P, P, P, P, P, P, P]
+                           P, P, P, P, P, P, P, I, P]
+            fn.restype = I
+            fn = lib.horaedb_bucket_round_accumulate
+            fn.argtypes = [P, P, P, P, I, P, P, P, I, I, I, I, I, I, I, I,
+                           P, P, P, P, P, P, P, I, I, I, P]
             fn.restype = I
             _lib = lib
         return _lib
@@ -133,29 +181,14 @@ def _check(name: str, t, dtype, shape: tuple, device) -> None:
     ensure(t.is_contiguous(), f"{name} must be contiguous")
 
 
-def bucket_window_partials(ts, gid_local, vals, remap, shift, lo,
-                           total_buckets: int, bucket_ms: int, *,
-                           num_groups: int, width: int, which: tuple,
-                           n_valid: Optional[int] = None) -> dict:
-    """Partial grids of W windows: {field: (W, num_groups, width)}.
-
-    ts, gid_local: int32 (W, cap); vals: float32 (W, cap); remap: int32
-    (W, R) local code -> union group row, or None for the identity (gids
-    pass through and are range-checked); shift, lo: int32 (W,) or None
-    for zeros.  Rows at or past `n_valid` (default cap) are dropped, as
-    are rows whose query-global bucket reaches `total_buckets`.  See
-    csrc/bucket_agg.cu for the arithmetic and the empty-cell
-    conventions.  CUDA tensors launch the kernel; CPU tensors run the
-    plain version."""
+def _check_round(entry: str, ts, gid_local, vals, remap, shift, lo,
+                 bucket_ms: int, num_groups: int, width: int) -> tuple:
+    """Checks shared by both entries on a CUDA round; returns
+    (W, cap, remap_len)."""
     import torch
 
-    if ts.device.type == "cpu":
-        return bucket_window_partials_plain(
-            ts, gid_local, vals, remap, shift, lo, total_buckets, bucket_ms,
-            num_groups=num_groups, width=width, which=which,
-            n_valid=n_valid)
     ensure(ts.device.type == "cuda",
-           f"bucket_window_partials runs on cuda or cpu, not {ts.device}")
+           f"{entry} runs on cuda or cpu, not {ts.device}")
     dev = ts.device
     ensure(ts.dim() == 2, "ts must be (windows, capacity)")
     W, cap = ts.shape
@@ -173,13 +206,59 @@ def bucket_window_partials(ts, gid_local, vals, remap, shift, lo,
             _check(name, t, torch.int32, (W,), dev)
     ensure(bucket_ms > 0, "bucket_ms must be positive")
     ensure(num_groups >= 0 and width >= 0, "negative grid extent")
-    ensure(W * num_groups * width < 2**31, "grid too large")
-    n_valid = cap if n_valid is None else max(0, min(int(n_valid), cap))
-    fields = fields_for(which)
+    # the `last` key packs w * cap + row + 1 into 32 bits
+    ensure(W * cap < 2**32 - 1, "round too large for the `last` key")
+    return W, cap, remap_len
+
+
+def _field_mask(fields: tuple) -> int:
     mask = 1
     for f, bit in _FIELD_BITS.items():
         if f in fields:
             mask |= bit
+    return mask
+
+
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _shared(route: str) -> int:
+    return int(route == "shared")
+
+
+def bucket_window_partials(ts, gid_local, vals, remap, shift, lo,
+                           total_buckets: int, bucket_ms: int, *,
+                           num_groups: int, width: int, which: tuple,
+                           n_valid: Optional[int] = None,
+                           route: Optional[str] = None) -> dict:
+    """Partial grids of W windows: {field: (W, num_groups, width)}.
+
+    ts, gid_local: int32 (W, cap); vals: float32 (W, cap); remap: int32
+    (W, R) local code -> union group row, or None for the identity (gids
+    pass through and are range-checked); shift, lo: int32 (W,) or None
+    for zeros.  Rows at or past `n_valid` (default cap) are dropped, as
+    are rows whose query-global bucket reaches `total_buckets`.  See
+    csrc/bucket_agg.cu for the arithmetic and the empty-cell
+    conventions.  CUDA tensors launch the kernel by the route
+    pick_route chooses by size (`route` forces one, so that both can be
+    checked and timed on one input); CPU tensors run the plain
+    version."""
+    import torch
+
+    if ts.device.type == "cpu":
+        return bucket_window_partials_plain(
+            ts, gid_local, vals, remap, shift, lo, total_buckets, bucket_ms,
+            num_groups=num_groups, width=width, which=which,
+            n_valid=n_valid)
+    W, cap, remap_len = _check_round(
+        "bucket_window_partials", ts, gid_local, vals, remap, shift, lo,
+        bucket_ms, num_groups, width)
+    dev = ts.device
+    ensure(W * num_groups * width < 2**31, "grid too large")
+    n_valid = cap if n_valid is None else max(0, min(int(n_valid), cap))
+    fields = fields_for(which)
+    route = pick_route(n_valid, num_groups, width, which, route)
     shape = (W, num_groups, width)
     out = {}
     for f in fields:
@@ -187,20 +266,107 @@ def bucket_window_partials(ts, gid_local, vals, remap, shift, lo,
                              else torch.float32, device=dev)
     key = (torch.empty(shape, dtype=torch.int64, device=dev)
            if "last" in fields else None)
-    ptr = lambda t: None if t is None else t.data_ptr()
     lib = _load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.horaedb_bucket_window_partials(
-            ptr(ts), ptr(gid_local), ptr(vals), ptr(remap), remap_len,
-            ptr(shift), ptr(lo), W, cap, n_valid, num_groups, width,
-            int(total_buckets), int(bucket_ms), mask, ptr(out["count"]),
-            ptr(out.get("sum")), ptr(out.get("min")), ptr(out.get("max")),
-            ptr(out.get("last")), ptr(out.get("last_ts")), ptr(key), stream)
+            _ptr(ts), _ptr(gid_local), _ptr(vals), _ptr(remap), remap_len,
+            _ptr(shift), _ptr(lo), W, cap, n_valid, num_groups, width,
+            int(total_buckets), int(bucket_ms), _field_mask(fields),
+            _ptr(out["count"]), _ptr(out.get("sum")), _ptr(out.get("min")),
+            _ptr(out.get("max")), _ptr(out.get("last")),
+            _ptr(out.get("last_ts")), _ptr(key), _shared(route), stream)
     if rc != 0:
         raise Error(f"bucket_window_partials launch failed: cudaError {rc}")
     LAUNCHES["bucket_window_partials"] += 1
+    ROUTE_LAUNCHES[route] += 1
     return out
+
+
+def _round_columns(lo_host, n_valid_host, width: int,
+                  total_buckets: int) -> tuple:
+    """Accumulator columns [c0, c1) a round can touch: the union of its
+    non-empty windows' [lo, lo + width), cut at total_buckets."""
+    lo_h = np.asarray(lo_host, dtype=np.int64)
+    if n_valid_host is not None:
+        lo_h = lo_h[np.asarray(n_valid_host) > 0]
+    if not len(lo_h):
+        return 0, 0
+    c0 = int(max(0, lo_h.min()))
+    c1 = int(min(total_buckets, lo_h.max() + width))
+    return c0, max(c0, c1)
+
+
+def bucket_round_accumulate(acc: dict, ts, gid_local, vals, remap, shift,
+                            lo, total_buckets: int, bucket_ms: int, *,
+                            num_groups: int, width: int, which: tuple,
+                            n_valid=None, lo_host=None,
+                            n_valid_host=None,
+                            route: Optional[str] = None) -> dict:
+    """Fold one round of W windows straight into the query-global
+    accumulator `acc` (storage.read.fused_acc_init's grids, each
+    (num_groups, total_buckets)), in place, and return it.
+
+    Window d's rows land at accumulator column lo[d] + b; columns at or
+    past `total_buckets` are dropped.  count/sum add, min/max fold, and
+    `last` takes the round's value where its range-relative ts is >=
+    the accumulator's (later windows, then later rounds, win ties) —
+    the semantics of the JAX package's _fused_round_accumulate_jit.
+    n_valid: int32 (W,) rows per window, or None for all `cap` rows.
+    lo_host / n_valid_host: host copies of lo / n_valid (numpy); they
+    bound the grid and the `last` pass to the round's rows and columns
+    without a device read.  CUDA tensors launch the kernel by the route
+    pick_route chooses by size (`route` forces one, as above; one launch
+    counted per round); CPU tensors run the plain version."""
+    import torch
+
+    if ts.device.type == "cpu":
+        return bucket_round_accumulate_plain(
+            acc, ts, gid_local, vals, remap, shift, lo, total_buckets,
+            bucket_ms, num_groups=num_groups, width=width, which=which,
+            n_valid=n_valid, lo_host=lo_host)
+    W, cap, remap_len = _check_round(
+        "bucket_round_accumulate", ts, gid_local, vals, remap, shift, lo,
+        bucket_ms, num_groups, width)
+    dev = ts.device
+    total = int(total_buckets)
+    ensure(num_groups * total < 2**31, "accumulator too large")
+    fields = fields_for(which)
+    for f in fields:
+        ensure(f in acc, f"accumulator lacks field {f!r}")
+        _check(f"acc[{f!r}]", acc[f], torch.int32 if f == "last_ts"
+               else torch.float32, (num_groups, total), dev)
+    max_rows = cap
+    if n_valid is not None:
+        _check("n_valid", n_valid, torch.int32, (W,), dev)
+        if n_valid_host is not None:
+            max_rows = int(np.clip(np.asarray(n_valid_host), 0, cap).max(
+                initial=0))
+    route = pick_route(max_rows, num_groups, width, which, route)
+    if lo_host is not None:
+        ensure(int(np.asarray(lo_host).min(initial=0)) >= 0,
+               "lo must be non-negative")
+        c0, c1 = _round_columns(lo_host, n_valid_host, width, total)
+    else:
+        c0, c1 = 0, total
+    key = (torch.empty((num_groups, c1 - c0), dtype=torch.int64, device=dev)
+           if "last" in fields and c1 > c0 else None)
+    lib = _load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.horaedb_bucket_round_accumulate(
+            _ptr(ts), _ptr(gid_local), _ptr(vals), _ptr(remap), remap_len,
+            _ptr(shift), _ptr(lo), _ptr(n_valid), W, cap, max_rows,
+            num_groups, width, total, int(bucket_ms), _field_mask(fields),
+            _ptr(acc["count"]), _ptr(acc.get("sum")), _ptr(acc.get("min")),
+            _ptr(acc.get("max")), _ptr(acc.get("last")),
+            _ptr(acc.get("last_ts")), _ptr(key), c0, c1 - c0,
+            _shared(route), stream)
+    if rc != 0:
+        raise Error(f"bucket_round_accumulate launch failed: cudaError {rc}")
+    LAUNCHES["bucket_round_accumulate"] += 1
+    ROUTE_LAUNCHES[route] += 1
+    return acc
 
 
 def _floor_div(a, b: int):
@@ -212,17 +378,23 @@ def _floor_div(a, b: int):
 def bucket_window_partials_plain(ts, gid_local, vals, remap, shift, lo,
                                  total_buckets: int, bucket_ms: int, *,
                                  num_groups: int, width: int, which: tuple,
-                                 n_valid: Optional[int] = None) -> dict:
+                                 n_valid=None) -> dict:
     """Plain PyTorch version of the kernel (same signature and outputs),
     mirroring horaedb_tpu's window_local_partials -> partial_aggregate:
     segment sum/min/max into a grid with one overflow cell per window,
-    and a two-pass `last` (max ts per cell, then max row at that ts)."""
+    and a two-pass `last` (max ts per cell, then max row at that ts).
+    n_valid may also be an int32 (W,) tensor of rows per window."""
     import torch
 
     W, cap = ts.shape
     dev = ts.device
     i32 = torch.int32
-    n_valid = cap if n_valid is None else max(0, min(int(n_valid), cap))
+    iota = torch.arange(cap, dtype=torch.int64, device=dev)
+    if isinstance(n_valid, torch.Tensor):
+        valid = iota[None, :] < n_valid.to(dev, torch.int64)[:, None]
+    else:
+        n_valid = cap if n_valid is None else max(0, min(int(n_valid), cap))
+        valid = (iota < n_valid)[None, :]
     g = gid_local
     if remap is not None:
         idx = gid_local.clamp(0, remap.shape[1] - 1).long()
@@ -237,8 +409,7 @@ def bucket_window_partials_plain(ts, gid_local, vals, remap, shift, lo,
                     torch.full_like(g, -1))
     ts_local = ts_global - lo_w * bucket_ms
     bucket = _floor_div(ts_local, bucket_ms)
-    iota = torch.arange(cap, dtype=torch.int64, device=dev)
-    in_grid = ((iota < n_valid)[None, :] & (bucket >= 0) & (bucket < width)
+    in_grid = (valid & (bucket >= 0) & (bucket < width)
                & (g >= 0) & (g < num_groups))
     ncell = num_groups * width
     seg = torch.where(in_grid, g.long() * width + bucket.long(),
@@ -286,3 +457,59 @@ def bucket_window_partials_plain(ts, gid_local, vals, remap, shift, lo,
                                        torch.zeros_like(pick)))
         out["last_ts"] = grid(tmax)
     return {f: out[f] for f in fields}
+
+
+def fold_window_partials(acc: dict, p: dict, lo_host, total_buckets: int,
+                         bucket_ms: int, width: int) -> dict:
+    """Scatter W window partial grids into the query-global accumulator,
+    in place: a slice update per window, in window order — count/sum
+    add, min/max fold, and `last` takes the window's value where its
+    range-relative ts is >= the accumulator's (the later window wins
+    ties)."""
+    import torch
+
+    for d in range(p["count"].shape[0]):
+        c0 = int(lo_host[d])
+        n = min(width, total_buckets - c0)
+        if n <= 0:
+            continue
+        cols = slice(c0, c0 + n)
+        acc["count"][:, cols] += p["count"][d, :, :n]
+        if "sum" in acc:
+            acc["sum"][:, cols] += p["sum"][d, :, :n]
+        if "min" in acc:
+            acc["min"][:, cols] = torch.minimum(acc["min"][:, cols],
+                                                p["min"][d, :, :n])
+        if "max" in acc:
+            acc["max"][:, cols] = torch.maximum(acc["max"][:, cols],
+                                                p["max"][d, :, :n])
+        if "last" in acc:
+            cur_ts = acc["last_ts"][:, cols]
+            cur_last = acc["last"][:, cols]
+            win_has = p["count"][d, :, :n] > 0
+            win_ts = torch.where(win_has,
+                                 p["last_ts"][d, :, :n] + c0 * bucket_ms,
+                                 torch.full_like(cur_ts, _I32_MIN))
+            take = win_has & (win_ts >= cur_ts)
+            acc["last"][:, cols] = torch.where(take, p["last"][d, :, :n],
+                                               cur_last)
+            acc["last_ts"][:, cols] = torch.where(take, win_ts, cur_ts)
+    return acc
+
+
+def bucket_round_accumulate_plain(acc: dict, ts, gid_local, vals, remap,
+                                  shift, lo, total_buckets: int,
+                                  bucket_ms: int, *, num_groups: int,
+                                  width: int, which: tuple, n_valid=None,
+                                  lo_host=None) -> dict:
+    """Plain PyTorch version of bucket_round_accumulate: the round's
+    partial grids (bucket_window_partials_plain), then the per-window
+    slice updates of fold_window_partials."""
+    p = bucket_window_partials_plain(
+        ts, gid_local, vals, remap, shift, lo, total_buckets, bucket_ms,
+        num_groups=num_groups, width=width, which=which, n_valid=n_valid)
+    if lo_host is None:
+        lo_host = (lo.cpu().numpy() if lo is not None
+                   else np.zeros(ts.shape[0], np.int32))
+    return fold_window_partials(acc, p, lo_host, total_buckets, bucket_ms,
+                                width)

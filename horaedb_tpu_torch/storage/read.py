@@ -9,8 +9,8 @@ Per time segment (ref: src/storage/src/read.rs:429-494):
   Filter (host mask)         — predicate tree -> row mask (gid -1)
   FusedAggregate (device)    — rounds of windows go host-to-device as
                                one stack per array; each round is ONE
-                               bucket_window_partials launch plus an
-                               in-place scatter into a query-global
+                               bucket_round_accumulate call that folds
+                               its rows straight into a query-global
                                accumulator; only the final grids leave
                                the device
 
@@ -500,11 +500,13 @@ class ParquetReader:
         t0 = time.perf_counter()
         acc = fused_acc_init(num_groups=g_pad, num_buckets=spec.num_buckets,
                              which=spec.which, device=self.device)
-        for ts_s, gid_s, val_s, remap_d, shift_d, lo_d, lo_h in rounds:
+        for (ts_s, gid_s, val_s, remap_d, shift_d, lo_d, nv_d, lo_h,
+             nv_h) in rounds:
             fused_round_accumulate(acc, ts_s, gid_s, val_s, remap_d, shift_d,
                                    lo_d, lo_h, spec.num_buckets,
                                    spec.bucket_ms, num_groups=g_pad,
-                                   width=width, which=spec.which)
+                                   width=width, which=spec.which,
+                                   n_valid=nv_d, n_valid_host=nv_h)
         final = fused_finalize(acc, spec.which)
         out = {k: v[:g] for k, v in final.items()}
         if torch.device(self.device).type == "cuda":
@@ -582,8 +584,9 @@ class ParquetReader:
                             group_space: np.ndarray, local_ok: bool):
         """Stack one round of host windows in numpy and copy each array
         to the device once.  Windows past len(items) pad the round with
-        no-op rows (gid -1).  Returns (ts, gid, val, remap, shift, lo)
-        on the device plus lo on the host (the scatter's slice bounds)."""
+        no-op rows (gid -1).  Returns (ts, gid, val, remap, shift, lo,
+        n_valid) on the device plus lo and n_valid on the host (they
+        bound the round's columns and rows without a device read)."""
         t0 = time.perf_counter()
         ts_m = np.zeros((batch_w, cap), dtype=np.int32)
         gid_m = np.full((batch_w, cap), -1, dtype=np.int32)
@@ -591,17 +594,19 @@ class ParquetReader:
         remap = np.zeros((batch_w, g_pad), dtype=np.int32)
         shift = np.zeros(batch_w, dtype=np.int32)
         lo = np.zeros(batch_w, dtype=np.int32)
+        n_valid = np.zeros(batch_w, dtype=np.int32)
         for d, (_seg_start, w, (values, gid, sh)) in enumerate(items):
             ts_m[d, :w.capacity] = w.columns[spec.ts_col]
             gid_m[d, :w.capacity] = gid
             val_m[d, :w.capacity] = w.columns[spec.value_col]
             remap[d, :len(values)] = np.searchsorted(group_space, values)
             shift[d] = sh
+            n_valid[d] = w.n_valid
             if local_ok:
                 lo[d] = max(0, sh // spec.bucket_ms)
         put = lambda a: encode.to_device(a, self.device)
         out = (put(ts_m), put(gid_m), put(val_m), put(remap), put(shift),
-               put(lo), lo)
+               put(lo), put(n_valid), lo, n_valid)
         _STAGE_SECONDS["stack_build"].observe(time.perf_counter() - t0)
         return out
 
@@ -639,49 +644,19 @@ def fused_acc_init(*, num_groups: int, num_buckets: int, which: tuple,
 
 def fused_round_accumulate(acc: dict, ts, gid, vals, remap, shift, lo,
                            lo_host, total: int, bucket_ms: int, *,
-                           num_groups: int, width: int, which: tuple) -> dict:
-    """One round of windows aggregated (one bucket_window_partials
-    launch) AND scattered into the query-global accumulator.
-
-    `acc` is updated IN PLACE round over round (the JAX program donated
-    its accumulator buffers for the same effect).  Window d's grid
-    covers global buckets [lo[d], lo[d] + width); columns past `total`
-    are dropped, like the JAX scatter's mode="drop".  The scatter is a
-    slice update per window, in window order: count/sum add, min/max
-    fold, and `last` takes the window's value where its absolute ts is
-    >= the accumulator's (the later window wins ties)."""
-    import torch
-
-    p = bucket_agg.bucket_window_partials(
-        ts, gid, vals, remap, shift, lo, total, bucket_ms,
-        num_groups=num_groups, width=width, which=which)
-    for d in range(ts.shape[0]):
-        c0 = int(lo_host[d])
-        n = min(width, total - c0)
-        if n <= 0:
-            continue
-        cols = slice(c0, c0 + n)
-        acc["count"][:, cols] += p["count"][d, :, :n]
-        if "sum" in acc:
-            acc["sum"][:, cols] += p["sum"][d, :, :n]
-        if "min" in acc:
-            acc["min"][:, cols] = torch.minimum(acc["min"][:, cols],
-                                                p["min"][d, :, :n])
-        if "max" in acc:
-            acc["max"][:, cols] = torch.maximum(acc["max"][:, cols],
-                                                p["max"][d, :, :n])
-        if "last" in acc:
-            cur_ts = acc["last_ts"][:, cols]
-            cur_last = acc["last"][:, cols]
-            win_has = p["count"][d, :, :n] > 0
-            win_ts = torch.where(win_has,
-                                 p["last_ts"][d, :, :n] + c0 * bucket_ms,
-                                 torch.full_like(cur_ts, _ACC_TS_MIN))
-            take = win_has & (win_ts >= cur_ts)
-            acc["last"][:, cols] = torch.where(take, p["last"][d, :, :n],
-                                               cur_last)
-            acc["last_ts"][:, cols] = torch.where(take, win_ts, cur_ts)
-    return acc
+                           num_groups: int, width: int, which: tuple,
+                           n_valid=None, n_valid_host=None) -> dict:
+    """One round of windows aggregated straight into the query-global
+    accumulator, IN PLACE round over round (the JAX program donated its
+    accumulator buffers for the same effect): one
+    bucket_agg.bucket_round_accumulate call.  Window d covers global
+    buckets [lo[d], lo[d] + width); columns past `total` are dropped,
+    like the JAX scatter's mode="drop".  n_valid (device) and
+    n_valid_host bound each window's rows; lo_host is lo on the host."""
+    return bucket_agg.bucket_round_accumulate(
+        acc, ts, gid, vals, remap, shift, lo, total, bucket_ms,
+        num_groups=num_groups, width=width, which=which, n_valid=n_valid,
+        lo_host=lo_host, n_valid_host=n_valid_host)
 
 
 def fused_finalize(acc: dict, which: tuple) -> dict:

@@ -78,7 +78,33 @@ def _case(name: str):
         ts = rng.integers(0, 3 * B * BUCKET, cap).astype(np.int32)
         gid = rng.integers(0, G, cap).astype(np.int32)
         return ts, gid, (rng.random(cap) * 5).astype(np.float32), n, G, B
+    if name == "nan_inf":
+        # +NaN and -NaN in different cells among finite values, a cell
+        # holding only +inf and one holding only -inf (Prometheus
+        # staleness markers are NaN); random rows stay out of those cells
+        cap, n, G, B = 512, 400, 5, 6
+        ts = rng.integers(0, B * BUCKET, cap).astype(np.int32)
+        gid = rng.integers(0, G, cap).astype(np.int32)
+        vals = (rng.random(cap) * 5).astype(np.float32)
+        hit = np.isin(gid * B + ts // BUCKET,
+                      [g * B + b for g, b in NAN_INF_CELLS])
+        ts[hit] = ts[hit] % BUCKET  # bucket 0 holds no special cell
+        row = 3
+        for (g, b), vs in NAN_INF_CELLS.items():
+            for k, v in enumerate(vs):
+                ts[row], gid[row], vals[row] = b * BUCKET + k, g, v
+                row += 31
+        return ts, gid, vals, n, G, B
     raise KeyError(name)
+
+
+# (group, bucket) -> values of the nan_inf case
+NAN_INF_CELLS = {
+    (1, 2): [1.0, np.uint32(0x7FC00000).view(np.float32), 3.0, 2.0],
+    (2, 3): [5.0, np.uint32(0xFFC00000).view(np.float32), 4.0, 6.0],
+    (3, 4): [np.inf, np.inf],
+    (4, 5): [-np.inf],
+}
 
 
 def port_ds_pad(n: int) -> int:
@@ -88,7 +114,7 @@ def port_ds_pad(n: int) -> int:
 
 
 CASES = ["p0", "p1", "p2", "p3", "tie_across_blocks", "oversized_gid",
-         "negative_ts", "past_total"]
+         "negative_ts", "past_total", "nan_inf"]
 WHICHES = [port_ds.ALL_AGGS, ("avg",), ("last", "min"), ("count", "max")]
 
 
@@ -102,14 +128,34 @@ def test_time_bucket_aggregate_matches_xla_and_pallas(case, which):
     xla = ref_ds.time_bucket_aggregate(*args, num_groups=G, num_buckets=B,
                                        which=which)
     _assert_grids(got, {k: np.asarray(v) for k, v in xla.items()})
-    pallas = pallas_time_bucket_aggregate(*args, num_groups=G, num_buckets=B,
-                                          which=which, interpret=True)
-    _assert_grids(got, {k: np.asarray(v) for k, v in pallas.items()})
+    pallas = {k: np.array(v) for k, v in pallas_time_bucket_aggregate(
+        *args, num_groups=G, num_buckets=B, which=which,
+        interpret=True).items()}
+    if case == "nan_inf":
+        # the Pallas kernel folds into +/-F32_MAX, not +/-inf, so its
+        # +inf-only (-inf-only) cell reads min F32_MAX (max -F32_MAX)
+        # where its own XLA path reads +inf (-inf); the port follows XLA
+        f32_max = np.finfo(np.float32).max
+        for f, cell, sign in (("min", (3, 4), 1), ("max", (4, 5), -1)):
+            if f in pallas:
+                assert pallas[f][cell] == sign * f32_max
+                pallas[f][cell] = sign * np.inf
+    _assert_grids(got, pallas)
     if case == "tie_across_blocks" and "last" in which:
         assert float(got["last"][0, 0]) == float(n - 1)
     if case == "oversized_gid":
         assert float(got["count"].sum()) == float(
             np.sum((gid[:n] >= 0) & (gid[:n] < G)))
+    if case == "nan_inf":
+        # a NaN makes its cell's min and max NaN, whatever its sign; a
+        # non-empty +inf-only (-inf-only) cell reads min +inf (max -inf)
+        for f in ("min", "max"):
+            if f in got:
+                assert np.isnan(got[f][1, 2]) and np.isnan(got[f][2, 3]), f
+        if "min" in got:
+            assert got["min"][3, 4] == np.inf and got["count"][3, 4] == 2
+        if "max" in got:
+            assert got["max"][4, 5] == -np.inf and got["count"][4, 5] == 1
 
 
 def test_every_which_subset_matches_xla():
