@@ -11,16 +11,14 @@ no result line:
 2. build: compile every kernel of the main path with nvcc (sm_90a).
 3. kernel: both entries of csrc/bucket_agg.cu (bucket_window_partials,
    bucket_round_accumulate) against their plain PyTorch versions on the
-   card, by each route ("global", "shared") the input allows — random
-   rows, edge cases, int32 wrap of the shifted and rebased timestamps,
-   NaN/+-inf values, a large group count (global route only), `last` ties across windows and rounds, a dense round
-   (1024 rows per cell: the shared route by size), and a round shaped
-   like the main path's (merge-ordered rows, 72,000 valid of 131,072
-   slots) — then their times at that round (device time of back-to-back
-   calls, CUDA events), the bound, the slice route (partial grids +
-   per-window torch slice updates) and a one-call `index_add_`
-   yardstick, and both routes' times over dense rounds of 8 to 1024 rows
-   per cell.
+   card — random rows, edge cases, int32 wrap of the shifted and rebased
+   timestamps, NaN/+-inf values, a large group count, `last` ties across
+   windows and rounds, and a round shaped like the main path's
+   (merge-ordered rows, 72,000 valid of 131,072 slots) — then their
+   times at that round (device time of back-to-back calls, CUDA
+   events), the bound, the slice route of the first port (partial grids
+   + per-window torch slice updates) and a one-call `index_add_`
+   yardstick.
 4. end to end: the north-star workload (BASELINE config 1 of bench.py:
    10M rows, 100 hosts, 10 s scrape, 1 m buckets, 2 h segments, an
    in-memory object store, 1M-row write chunks) through
@@ -28,8 +26,7 @@ no result line:
    cold and 5 times cached, checked against a numpy bincount of the
    same rows; bucket_round_accumulate's launch count over that run must
    equal the fused rounds it ran.  Then one cached query under
-   torch.profiler (kernel launches and device time by kernel name), for
-   the new route and for the slice route.
+   torch.profiler (kernel launches and device time by kernel name).
 5. op path: ops.downsample.time_bucket_aggregate over the same 10M rows
    as one batch (time-major rows: runs of one row per cell), checked
    against the bincount; bucket_window_partials' launch count over that
@@ -197,26 +194,16 @@ def kernel_phase(ba, fused) -> list:
 
     worst = {"bucket_window_partials": 0.0, "bucket_round_accumulate": 0.0}
 
-    routes_taken = set()
-
-    def routes(G, width, which):
-        # every route the kernel can take on this input
-        return [r for r in ("shared", "global")
-                if r == "global" or ba.shared_bytes(which, G, width)
-                <= ba.SHARED_BYTES_PER_BLOCK]
-
     def check_partials(what, stack, G, width, total, which, n_valid=None):
         ts, gid, vals, remap, shift, lo = stack[:6]
         args = [d(ts), d(gid), d(vals), d(remap), d(shift), d(lo), total, BMS]
         kw = dict(num_groups=G, width=width, which=which, n_valid=n_valid)
         ref = ba.bucket_window_partials_plain(*args, **kw)
-        for route in routes(G, width, which):
-            got = ba.bucket_window_partials(*args, route=route, **kw)
-            torch.cuda.synchronize()
-            routes_taken.add(route)
-            worst["bucket_window_partials"] = max(
-                worst["bucket_window_partials"],
-                compare(got, ref, f"partials {what} {which} {route}"))
+        got = ba.bucket_window_partials(*args, **kw)
+        torch.cuda.synchronize()
+        worst["bucket_window_partials"] = max(
+            worst["bucket_window_partials"],
+            compare(got, ref, f"partials {what} {which}"))
         return got
 
     def check_rounds(what, rounds, G, width, total, which):
@@ -230,17 +217,14 @@ def kernel_phase(ba, fused) -> list:
                       lo_host=lo)
             stacks.append((args, kw, nv))
             ba.bucket_round_accumulate_plain(acc_p, *args, **kw)
-        for route in routes(G, width, which):
-            acc_k = fused.fused_acc_init(num_groups=G, num_buckets=total,
-                                         which=which, device=dev)
-            for args, kw, nv in stacks:
-                ba.bucket_round_accumulate(acc_k, *args, n_valid_host=nv,
-                                           route=route, **kw)
-            torch.cuda.synchronize()
-            routes_taken.add(route)
-            worst["bucket_round_accumulate"] = max(
-                worst["bucket_round_accumulate"],
-                compare(acc_k, acc_p, f"round {what} {which} {route}"))
+        acc_k = fused.fused_acc_init(num_groups=G, num_buckets=total,
+                                     which=which, device=dev)
+        for args, kw, nv in stacks:
+            ba.bucket_round_accumulate(acc_k, *args, n_valid_host=nv, **kw)
+        torch.cuda.synchronize()
+        worst["bucket_round_accumulate"] = max(
+            worst["bucket_round_accumulate"],
+            compare(acc_k, acc_p, f"round {what} {which}"))
         return acc_k
 
     def check_both(what, stack, G, width, total, whiches=(ALL_AGGS,)):
@@ -332,8 +316,6 @@ def kernel_phase(ba, fused) -> list:
            np.stack([rng.permutation(G).astype(np.int32) for _ in range(W)]),
            np.zeros(W, np.int32), rng.integers(0, 100, W).astype(np.int32),
            np.full(W, cap, np.int32))
-    if ba.pick_route(cap, G, width, ALL_AGGS) != "global":
-        raise AssertionError("large G: the grid must take the global route")
     check_both("large G", big, G, width, total)
 
     # `last` ties: every window of two rounds ends its rows on the same
@@ -367,13 +349,10 @@ def kernel_phase(ba, fused) -> list:
     W, cap, G, width = 16, 131072, 128, 128
     check_both("main-path", main_stack, G, width, m_total,
                (ALL_AGGS, ("avg",)))
-    if routes_taken != {"shared", "global"}:
-        raise AssertionError(f"kernel: routes taken {routes_taken}")
     log(f"kernel: both entries match plain on random, edge, int32-wrap, "
-        f"NaN/inf, large-G, tie, dense and main-path rounds, by every "
-        f"route each input "
-        f"allows (max_abs_err {worst!r}); updates run-length reduced in "
-        f"registers")
+        f"NaN/inf, large-G, tie and main-path rounds (max_abs_err "
+        f"{worst!r}); updates run-length reduced in registers, then "
+        f"global atomics (the kernel's one route)")
 
     # times at the main path's round (avg set): 4 copies of the stacks
     # (4 x 25 MB > 50 MB of L2)
@@ -385,46 +364,35 @@ def kernel_phase(ba, fused) -> list:
     acc = fused.fused_acc_init(num_groups=G, num_buckets=m_total,
                                which=which, device=dev)
 
-    auto = ba.pick_route(int(nv.max()), G, width, which)
-
-    def round_fn(c, which=which, a=acc, route=None):
-        a = a if which == ("avg",) else fused.fused_acc_init(
+    def round_fn(c, which=which):
+        a = acc if which == ("avg",) else fused.fused_acc_init(
             num_groups=G, num_buckets=m_total, which=which, device=dev)
         return lambda: ba.bucket_round_accumulate(
             a, *c, remap_d, shift_d, lo_d, m_total, BMS, num_groups=G,
             width=width, which=which, n_valid=nv_d, lo_host=lo,
-            n_valid_host=nv, route=route)
+            n_valid_host=nv)
 
-    def partials_fn(c, which=which, route=None):
+    def partials_fn(c, which=which):
         return lambda: ba.bucket_window_partials(
             *c, remap_d, shift_d, lo_d, m_total, BMS, num_groups=G,
-            width=width, which=which, n_valid=int(nv[0]), route=route)
-
-    def by_route(make, which=which):
-        # device ms of each route the input allows, the one chosen first
-        rs = sorted(routes(G, width, which), key=lambda r: r != auto)
-        return {r: device_ms([make(c, which=which, route=r) for c in copies])
-                for r in rs}
+            width=width, which=which, n_valid=int(nv[0]))
 
     def slice_fn(c):
         return lambda: ba.fold_window_partials(
             acc, ba.bucket_window_partials(
                 *c, remap_d, shift_d, lo_d, m_total, BMS, num_groups=G,
-                width=width, which=which, route="global"), lo, m_total,
-            BMS, width)
+                width=width, which=which), lo, m_total, BMS, width)
 
-    r_routes = by_route(round_fn)
-    r_all_routes = by_route(round_fn, which=ALL_AGGS)
-    r_ms, r_all_ms = r_routes[auto], r_all_routes[auto]
+    r_ms = device_ms([round_fn(c) for c in copies])
+    r_all_ms = device_ms([round_fn(c, ALL_AGGS) for c in copies])
     r_call_ms = cuda_ms(round_fn(copies[0]), reps=30)
     r_plain_ms = device_ms([lambda c=c: ba.bucket_round_accumulate_plain(
         acc, *c, remap_d, shift_d, lo_d, m_total, BMS, num_groups=G,
         width=width, which=which, n_valid=nv_d, lo_host=lo)
         for c in copies], reps=8)
     slice_ms = device_ms([slice_fn(c) for c in copies], reps=12)
-    p_routes = by_route(partials_fn)
-    p_all_routes = by_route(partials_fn, which=ALL_AGGS)
-    p_ms, p_all_ms = p_routes[auto], p_all_routes[auto]
+    p_ms = device_ms([partials_fn(c) for c in copies])
+    p_all_ms = device_ms([partials_fn(c, ALL_AGGS) for c in copies])
     p_plain_ms = device_ms([lambda c=c: ba.bucket_window_partials_plain(
         *c, remap_d, shift_d, lo_d, m_total, BMS, num_groups=G, width=width,
         which=which, n_valid=int(nv[0])) for c in copies], reps=8)
@@ -455,18 +423,14 @@ def kernel_phase(ba, fused) -> list:
     r_bound = r_bytes / HBM_BYTES_PER_S * 1e3
     p_bound = p_bytes / HBM_BYTES_PER_S * 1e3
     log(f"kernel: main-path round (W={W} cap={cap} valid={n_rows} G={G} "
-        f"width={width} total={m_total} which={which}), route by size: "
-        f"{auto} (the shared route would need "
-        f"{ba.shared_bytes(which, G, width)} B shared memory per block):")
+        f"width={width} total={m_total} which={which}):")
     log(f"kernel:   bucket_round_accumulate {r_ms!r} ms (all aggs "
-        f"{r_all_ms!r} ms; one call with host overhead {r_call_ms!r} ms; "
-        f"by route {r_routes!r}, all aggs {r_all_routes!r}), plain "
-        f"{r_plain_ms!r} ms, slice route (partials + slice updates) "
+        f"{r_all_ms!r} ms; one call with host overhead {r_call_ms!r} ms), "
+        f"plain {r_plain_ms!r} ms, slice route (partials + slice updates) "
         f"{slice_ms!r} ms, index_add_ {r_lib_ms!r} ms, bound {r_bound!r} ms "
         f"({r_bytes} bytes, {touched} touched cells)")
     log(f"kernel:   bucket_window_partials {p_ms!r} ms (all aggs "
-        f"{p_all_ms!r} ms; by route {p_routes!r}, all aggs "
-        f"{p_all_routes!r}), plain {p_plain_ms!r} ms, index_add_ "
+        f"{p_all_ms!r} ms), plain {p_plain_ms!r} ms, index_add_ "
         f"{p_lib_ms!r} ms, bound {p_bound!r} ms ({p_bytes} bytes)")
 
     # the random input's partial grids, also timed with one event pair
@@ -476,62 +440,26 @@ def kernel_phase(ba, fused) -> list:
     rnd = [d(ts), d(gid), d(vals), d(remap), d(shift), d(lo), 150, BMS]
     p_rand_call_ms = cuda_ms(lambda: ba.bucket_window_partials(
         *rnd, num_groups=G, width=width, which=which), reps=30)
-    p_rand_routes = {r: device_ms(lambda r=r: ba.bucket_window_partials(
-        *rnd, num_groups=G, width=width, which=which, route=r))
-        for r in routes(G, width, which)}
-    p_rand_ms = p_rand_routes[ba.pick_route(cap, G, width, which)]
+    p_rand_ms = device_ms(lambda: ba.bucket_window_partials(
+        *rnd, num_groups=G, width=width, which=which))
     log(f"kernel: random input, bucket_window_partials: "
         f"{p_rand_call_ms!r} ms per call (event pair), {p_rand_ms!r} ms "
-        f"device; by route {p_rand_routes!r}")
-
-    # dense rounds: 16 windows of 131,072 unsorted rows over few cells,
-    # the shapes where privatising the grid in shared memory should pay;
-    # the densest is checked against plain on both routes, and each is
-    # timed on both routes (round entry, avg set) to place the crossover
-    # that pick_route's SHARED_MIN_ROWS_PER_CELL encodes
-    dense = {}
-    for G_d, width_d in ((8, 16), (16, 32), (32, 32), (32, 64), (64, 64),
-                         (64, 128)):
-        d_ts = rng.integers(0, width_d * BMS, (W, cap)).astype(np.int32)
-        d_gid = rng.integers(0, G_d, (W, cap)).astype(np.int32)
-        d_vals = (rng.random((W, cap)) * 100).astype(np.float32)
-        stack = (d_ts, d_gid, d_vals, None, None, None,
-                 np.full(W, cap, np.int32))
-        if G_d == 8:
-            check_both("dense", stack, G_d, width_d, width_d,
-                       (ALL_AGGS, ("avg",)))
-            if ba.pick_route(cap, G_d, width_d, which) != "shared":
-                raise AssertionError("dense: must take the shared route")
-        dd = [d(d_ts), d(d_gid), d(d_vals)]
-        acc_d = fused.fused_acc_init(num_groups=G_d, num_buckets=width_d,
-                                     which=which, device=dev)
-        dense[f"{cap // (G_d * width_d)} rows/cell"] = {
-            r: device_ms(lambda r=r: ba.bucket_round_accumulate(
-                acc_d, *dd, None, None, None, width_d, BMS, num_groups=G_d,
-                width=width_d, which=which, route=r))
-            for r in ("shared", "global")}
-    log(f"kernel: dense unsorted rounds (W={W} cap={cap}), "
-        f"bucket_round_accumulate ms by route: {dense!r}")
-    log(f"kernel: max_abs_err over every check, dense rounds included "
-        f"(sums near 8e5): {worst!r}")
+        f"device")
 
     common = {"route": "cuda", "source": SOURCE, "replaces": REPLACES,
-              "bound_by": "bytes", "kernel_route": auto}
+              "bound_by": "bytes"}
     return [
         dict(common, name="bucket_window_partials", launches=0,
              max_abs_err=worst["bucket_window_partials"], ms=p_ms,
              plain_ms=p_plain_ms, bound_ms=p_bound, library_ms=p_lib_ms,
-             ms_all_aggs=p_all_ms, ms_by_route=p_routes,
-             ms_all_aggs_by_route=p_all_routes, random_input_ms=p_rand_ms,
-             random_input_ms_by_route=p_rand_routes,
+             ms_all_aggs=p_all_ms, random_input_ms=p_rand_ms,
              random_input_call_ms=p_rand_call_ms),
         dict(common, name="bucket_round_accumulate", launches=0,
              also_replaces="horaedb_tpu/storage/read.py:4501",
              max_abs_err=worst["bucket_round_accumulate"], ms=r_ms,
              plain_ms=r_plain_ms, bound_ms=r_bound, library_ms=r_lib_ms,
-             ms_all_aggs=r_all_ms, ms_by_route=r_routes,
-             ms_all_aggs_by_route=r_all_routes, call_ms=r_call_ms,
-             slice_route_ms=slice_ms, dense_ms_by_route=dense),
+             ms_all_aggs=r_all_ms, call_ms=r_call_ms,
+             slice_route_ms=slice_ms),
     ]
 
 
@@ -661,7 +589,6 @@ async def end_to_end(rows: int, ba) -> dict:
         cached_stages = stages(snap)
         cached_h2d = h2d_bytes() - h2d0
         launches = ba.LAUNCHES["bucket_round_accumulate"]
-        routes = dict(ba.ROUTE_LAUNCHES)
         windows = sum(len(ws) for ws in reader.scan_cache.values())
         per_query = math.ceil(windows / cfg.scan.agg_batch_windows)
         if launches == 0 or launches != 6 * per_query:
@@ -671,7 +598,7 @@ async def end_to_end(rows: int, ba) -> dict:
         if ba.LAUNCHES["bucket_window_partials"] != 0:
             raise AssertionError("e2e: the fused path wrote partial grids")
         log(f"e2e: bucket_round_accumulate launches {launches} = 6 queries "
-            f"x {per_query} rounds; by route {routes!r}")
+            f"x {per_query} rounds")
 
         # correctness: numpy bincount of the same rows
         cell = host_id.astype(np.int64) * num_buckets + (ts - T0) // bucket_ms
@@ -701,7 +628,7 @@ async def end_to_end(rows: int, ba) -> dict:
         np.testing.assert_allclose(got_avg[occ], want_avg[occ], rtol=1e-5)
         log("e2e: grids match the numpy bincount (count exact, avg rtol "
             "1e-5)")
-        profiles = await profile_routes(query, out, ba)
+        profile = await profile_cached(query, out, ba)
         cached_p50 = statistics.median(cached)
         res = {"rows": n, "ingest_s": ingest_s, "cold_ms": cold_s * 1e3,
                "cached_p50_ms": cached_p50 * 1e3,
@@ -712,8 +639,7 @@ async def end_to_end(rows: int, ba) -> dict:
                "cold_stage_s": cold_stages, "cold_h2d_bytes": cold_h2d,
                "last_cached_stage_s": cached_stages,
                "last_cached_h2d_bytes": cached_h2d,
-               "launches": launches, "launches_by_route": routes,
-               "profiles": profiles,
+               "launches": launches, "profile": profile,
                "max_memory_allocated": torch.cuda.max_memory_allocated()}
         log("e2e: " + json.dumps(res))
         res["op"] = op_path(ba, ts - T0, host_id, vals, hosts, num_buckets,
@@ -723,57 +649,29 @@ async def end_to_end(rows: int, ba) -> dict:
         await e.close()
 
 
-async def profile_routes(query, want: dict, ba) -> dict:
-    """One cached query under torch.profiler through the new route, and
-    one through the slice route (partial grids, then per-window torch
-    slice updates) for comparison; both must give the same grids."""
+async def profile_cached(query, want: dict, ba) -> dict:
+    """One cached query under torch.profiler; its grids must equal the
+    query's own."""
     import numpy as np
 
-    from horaedb_tpu_torch.storage import read as read_mod
-
-    async def profiled():
-        before = sum(ba.LAUNCHES.values())
-        prof = await profile_query(query)
-        prof["wrapper_launches"] = sum(ba.LAUNCHES.values()) - before
-        return prof
-
-    new = await profiled()
-
-    def slice_route(acc, ts, gid, vals, remap, shift, lo, lo_host, total,
-                  bucket_ms, *, num_groups, width, which, n_valid=None,
-                  n_valid_host=None):
-        p = ba.bucket_window_partials(ts, gid, vals, remap, shift, lo, total,
-                                      bucket_ms, num_groups=num_groups,
-                                      width=width, which=which,
-                                      route="global")
-        return ba.fold_window_partials(acc, p, lo_host, total, bucket_ms,
-                                       width)
-
-    kept = read_mod.fused_round_accumulate
-    read_mod.fused_round_accumulate = slice_route
-    try:
-        sliced = await profiled()
-    finally:
-        read_mod.fused_round_accumulate = kept
-    for prof in (new, sliced):
-        got = prof.pop("out")
-        if not np.array_equal(got["aggs"]["count"].cpu().numpy(),
-                              want["aggs"]["count"].cpu().numpy()):
-            raise AssertionError("profile: a route's count grid differs")
-        np.testing.assert_allclose(got["aggs"]["avg"].cpu().numpy(),
-                                   want["aggs"]["avg"].cpu().numpy(),
-                                   rtol=1e-5)
-    for name, prof in (("new route", new), ("slice route", sliced)):
-        if prof["kernels"] == 0:
-            log(f"profile ({name}): torch.profiler shows no device time; "
-                f"the wrapper counted {prof['wrapper_launches']} kernel "
-                f"launches instead")
-        log(f"profile ({name}): one cached query: {prof['kernels']} device "
-            f"kernels, {prof['copies_and_sets']} copies/sets, "
-            f"{prof['runtime_launch_calls']} cudaLaunchKernel calls, "
-            f"device busy {prof['device_busy_us']!r} us; by name: "
-            + json.dumps(prof["busy_us_by_name"]))
-    return {"new_route": new, "slice_route": sliced}
+    before = sum(ba.LAUNCHES.values())
+    prof = await profile_query(query)
+    prof["wrapper_launches"] = sum(ba.LAUNCHES.values()) - before
+    got = prof.pop("out")
+    if not np.array_equal(got["aggs"]["count"].cpu().numpy(),
+                          want["aggs"]["count"].cpu().numpy()):
+        raise AssertionError("profile: the count grid differs")
+    np.testing.assert_allclose(got["aggs"]["avg"].cpu().numpy(),
+                               want["aggs"]["avg"].cpu().numpy(), rtol=1e-5)
+    if prof["kernels"] == 0:
+        log(f"profile: torch.profiler shows no device time; the wrapper "
+            f"counted {prof['wrapper_launches']} kernel launches instead")
+    log(f"profile: one cached query: {prof['kernels']} device kernels, "
+        f"{prof['copies_and_sets']} copies/sets, "
+        f"{prof['runtime_launch_calls']} cudaLaunchKernel calls, device "
+        f"busy {prof['device_busy_us']!r} us; by name: "
+        + json.dumps(prof["busy_us_by_name"]))
+    return prof
 
 
 def op_path(ba, ts_off, host_id, vals, hosts: int, num_buckets: int,
@@ -794,7 +692,6 @@ def op_path(ba, ts_off, host_id, vals, hosts: int, num_buckets: int,
         device="cuda")
     torch.cuda.synchronize()
     launches = ba.LAUNCHES["bucket_window_partials"]
-    route = [r for r, n in ba.ROUTE_LAUNCHES.items() if n][0]
     if launches != 1:
         raise AssertionError(f"op: {launches} launches for one call")
     if not np.array_equal(out["count"].cpu().numpy(),
@@ -814,12 +711,12 @@ def op_path(ba, ts_off, host_id, vals, hosts: int, num_buckets: int,
         *args, None, None, None, num_buckets, BMS, num_groups=hosts,
         width=num_buckets, which=("avg",), n_valid=n), reps=3)
     nbytes = n * 12 + hosts * num_buckets * 2 * 4
-    res = {"rows": n, "launches": launches, "route": route, "ms": ms,
+    res = {"rows": n, "launches": launches, "ms": ms,
            "plain_ms": plain_ms,
            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
     log(f"op: time_bucket_aggregate over {n:,} time-major rows matches the "
         f"bincount; bucket_window_partials {ms!r} ms, plain {plain_ms!r} "
-        f"ms, bound {res['bound_ms']!r} ms; route {route}")
+        f"ms, bound {res['bound_ms']!r} ms")
     return res
 
 

@@ -1,5 +1,5 @@
 // Time-bucket aggregate of a round of windows, hand-written for Hopper
-// (sm_90a): one accumulate core, two routes, two epilogues.
+// (sm_90a): one accumulate core, two epilogues.
 //
 // Replaces: horaedb_tpu/ops/pallas_kernels.py::_agg_kernel (launched by
 // _pallas_partial_grids; entry points pallas_time_bucket_aggregate and
@@ -56,26 +56,18 @@
 //   update.  count/sum add; min, max and the `last` key take the max of
 //   order-preserving images.  Unsorted rows give runs of length 1 and the
 //   same answer.
-// - Two routes for the updates, chosen by size in the wrapper:
-//   * global: atomics straight into the destination, one block per tile
-//     of rows.  After the run-length reduction, merge-ordered rows leave
-//     about one atomic per touched cell, to neighbouring addresses: the
-//     main path's route.
-//   * shared: each block takes a chunk of a window's rows (at least four
-//     per grid cell) into a private copy of the window grid in shared
-//     memory, then flushes each cell it touched with one update per
-//     field.  Taken where the grid fits a block's shared memory and the
-//     window has 16 rows or more per cell: there, unsorted rows would
-//     send up to thousands of global atomics to each address, and the
-//     copies cut that to one per block.  (A first version kept ONE copy per window,
-//     sliced over a thread-block cluster's distributed shared memory; it
-//     was slower than the global route at every density measured, since
-//     every update still met the others at the owner's slice: PERF.md.)
-//   Neither route writes partial grids in the round epilogue.
+// - Updates are atomics straight into the destination, one block per
+//   tile of rows; the round epilogue writes no partial grid.  After the
+//   run-length reduction, merge-ordered rows leave about one atomic per
+//   cell and per warp its run spans, to neighbouring addresses.  The
+//   engine groups by series, so a cell's rows in a window are one run at
+//   any bucket width, and privatising the grid in shared memory (per
+//   block, or per window over a cluster's distributed shared memory)
+//   measured slower on the rounds real queries send: PERF.md.
 // - min/max into float storage use integer atomics on the float bits
 //   (atomicMin on the int for a clear sign bit, atomicMax on the
 //   unsigned for a set one), which orders floats exactly; in registers
-//   and shared memory they are order-preserving int images.  A NaN
+//   they are order-preserving int images.  A NaN
 //   enters as 0xFFFFFFFF (min) or 0x7FFFFFFF (max), whose images are
 //   INT32_MIN / INT32_MAX: they beat every other value, stay put, and
 //   decode back to a NaN.
@@ -95,13 +87,10 @@ constexpr int kFieldMin = 4;
 constexpr int kFieldMax = 8;
 constexpr int kFieldLast = 16;
 
-constexpr int kThreads = 256;         // global route: one tile per block
-constexpr int kSharedThreads = 512;   // shared route: a block loops tiles
+constexpr int kThreads = 256;         // one tile of rows per block
 constexpr int kRowsPerThread = 4;     // 16-byte loads, 4 rows each
 constexpr int kTileRows = kThreads * kRowsPerThread;
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
-constexpr int kImagePosInf = 0x7F800000;            // image of +inf
-constexpr int kImageNegInf = (int)0x807FFFFFu;      // image of -inf
 
 struct Args {
   const int* ts;
@@ -120,7 +109,6 @@ struct Args {
   float* mx;
   unsigned long long* key;
   int col0, span;  // round epilogue: the key scratch's columns
-  int chunk;       // shared route: rows per block (0: global route)
 };
 
 // one run's aggregate; mn/mx are order-preserving int images
@@ -129,28 +117,6 @@ struct Agg {
   int mn, mx;
   unsigned long long key;
 };
-
-// shared route: offsets of each field's grid in a block's shared memory
-struct Layout {
-  int key, cnt, sum, mn, mx, bytes;
-};
-
-__host__ __device__ inline Layout layout(int fields, int cells) {
-  Layout l;
-  int off = 0;
-  l.key = off;
-  if (fields & kFieldLast) off += cells * 8;
-  l.cnt = off;
-  off += cells * 4;
-  l.sum = off;
-  if (fields & kFieldSum) off += cells * 4;
-  l.mn = off;
-  if (fields & kFieldMin) off += cells * 4;
-  l.mx = off;
-  if (fields & kFieldMax) off += cells * 4;
-  l.bytes = off;
-  return l;
-}
 
 // floor(a / b) for b > 0, exactly: a double-precision estimate (off by
 // at most one, as a < 2^31 and inv carries 53 bits) and one correction;
@@ -250,9 +216,9 @@ __device__ __forceinline__ int row_cell(const Args& a, const int* remap_w,
   return g * a.width + b;
 }
 
-// global route: a run's update straight into the destination
+// a run's update straight into the destination
 template <bool kRound, bool kExtra>
-struct GlobalSink {
+struct Sink {
   const Args& a;
   int w, lo_w;
   __device__ __forceinline__ void emit(int lc, const Agg& x) const {
@@ -277,49 +243,13 @@ struct GlobalSink {
   }
 };
 
-// 64-bit max in shared memory as a compare-and-swap loop: atomicMax on a
-// u64 lost updates on the card when an earlier version of the shared
-// route applied it to distributed shared memory (~10% of `last` cells
-// disagreed with the plain version); this loop was exact there
-__device__ __forceinline__ void shared_max_u64(unsigned long long* p,
-                                               unsigned long long v) {
-  unsigned long long old = *reinterpret_cast<volatile unsigned long long*>(p);
-  while (old < v) {
-    const unsigned long long seen = atomicCAS(p, old, v);
-    if (seen == old) break;
-    old = seen;
-  }
-}
-
-// shared route: a run's update into the block's private copy of the
-// window grid in shared memory
-template <bool kExtra>
-struct SharedSink {
-  const Args& a;
-  float* cnt;
-  float* sum;
-  int* mn;
-  int* mx;
-  unsigned long long* key;
-  __device__ __forceinline__ void emit(int lc, const Agg& x) const {
-    if (lc < 0) return;
-    atomicAdd(cnt + lc, x.cnt);
-    if (a.fields & kFieldSum) atomicAdd(sum + lc, x.sum);
-    if (!kExtra) return;
-    if (a.fields & kFieldMin) atomicMin(mn + lc, x.mn);
-    if (a.fields & kFieldMax) atomicMax(mx + lc, x.mx);
-    if (a.fields & kFieldLast) shared_max_u64(key + lc, x.key);
-  }
-};
-
 // The accumulate core over the block's tile of rows starting at tile0
 // (blockDim.x * 4 rows): load, cell, run-length reduction, warp scan,
 // one sink update per run.  Every thread of the block calls it.
-template <bool kRound, bool kExtra, class Sink>
-__device__ __forceinline__ void accumulate_tile(const Args& a, int w, int nv,
-                                                int tile0, const int* remap_w,
-                                                int sh, int lo_w,
-                                                const Sink& sink) {
+template <bool kRound, bool kExtra>
+__device__ __forceinline__ void accumulate_tile(
+    const Args& a, int w, int nv, int tile0, const int* remap_w, int sh,
+    int lo_w, const Sink<kRound, kExtra>& sink) {
   const int lane = threadIdx.x & 31;
   const long long base = (long long)w * a.cap;
   const int r0 = tile0 + threadIdx.x * kRowsPerThread;
@@ -436,9 +366,9 @@ __device__ __forceinline__ const int* stage_remap(const Args& a, int w,
   return s_remap;
 }
 
-// global route: one tile of kTileRows rows of window blockIdx.y per block
+// one tile of kTileRows rows of window blockIdx.y per block
 template <bool kRound, bool kExtra>
-__global__ void __launch_bounds__(kThreads) global_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads) accumulate_kernel(const Args a) {
   const int w = blockIdx.y;
   const int nv = window_rows(a, w);
   const int tile0 = blockIdx.x * kTileRows;
@@ -446,57 +376,9 @@ __global__ void __launch_bounds__(kThreads) global_kernel(const Args a) {
   __shared__ int s_remap[kRemapShared];
   const int* remap_w = stage_remap(a, w, s_remap);
   const int lo_w = a.lo ? a.lo[w] : 0;
-  const GlobalSink<kRound, kExtra> sink{a, w, lo_w};
+  const Sink<kRound, kExtra> sink{a, w, lo_w};
   accumulate_tile<kRound, kExtra>(a, w, nv, tile0, remap_w,
                                   a.shift ? a.shift[w] : 0, lo_w, sink);
-}
-
-// shared route: block (k, w) takes rows [k * chunk, (k + 1) * chunk) of
-// window w into a private copy of the window grid in shared memory, then
-// flushes each cell it touched with one update per field
-template <bool kRound, bool kExtra>
-__global__ void __launch_bounds__(kSharedThreads) shared_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int w = blockIdx.y;
-  const int row0 = blockIdx.x * a.chunk;
-  const int nv = min(window_rows(a, w), row0 + a.chunk);
-  if (row0 >= nv) return;  // whole block past the window's rows
-  const int cells = a.num_groups * a.width;
-  const Layout l = layout(a.fields, cells);
-  const SharedSink<kExtra> sink{
-      a, reinterpret_cast<float*>(smem + l.cnt),
-      reinterpret_cast<float*>(smem + l.sum),
-      reinterpret_cast<int*>(smem + l.mn), reinterpret_cast<int*>(smem + l.mx),
-      reinterpret_cast<unsigned long long*>(smem + l.key)};
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    sink.cnt[i] = 0.0f;
-    if (a.fields & kFieldSum) sink.sum[i] = 0.0f;
-    if (a.fields & kFieldMin) sink.mn[i] = kImagePosInf;
-    if (a.fields & kFieldMax) sink.mx[i] = kImageNegInf;
-    if (a.fields & kFieldLast) sink.key[i] = 0ull;
-  }
-  __syncthreads();
-
-  __shared__ int s_remap[kRemapShared];
-  const int* remap_w = stage_remap(a, w, s_remap);
-  const int sh = a.shift ? a.shift[w] : 0;
-  const int lo_w = a.lo ? a.lo[w] : 0;
-  for (int tile0 = row0; tile0 < nv; tile0 += blockDim.x * kRowsPerThread)
-    accumulate_tile<kRound, kExtra>(a, w, nv, tile0, remap_w, sh, lo_w,
-                                    sink);
-  __syncthreads();
-
-  const GlobalSink<kRound, kExtra> out{a, w, lo_w};
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    Agg x;
-    x.cnt = sink.cnt[i];
-    if (x.cnt == 0.0f) continue;  // untouched by this block
-    x.sum = (a.fields & kFieldSum) ? sink.sum[i] : 0.0f;
-    x.mn = (a.fields & kFieldMin) ? sink.mn[i] : 0;
-    x.mx = (a.fields & kFieldMax) ? sink.mx[i] : 0;
-    x.key = (a.fields & kFieldLast) ? sink.key[i] : 0ull;
-    out.emit(i, x);
-  }
 }
 
 __global__ void partials_init_kernel(long long cells, int fields,
@@ -506,13 +388,13 @@ __global__ void partials_init_kernel(long long cells, int fields,
        c < cells; c += (long long)gridDim.x * blockDim.x) {
     count[c] = 0.0f;
     if (fields & kFieldSum) sum[c] = 0.0f;
-    if (fields & kFieldMin) mn[c] = __int_as_float(kImagePosInf);  // +inf
+    if (fields & kFieldMin) mn[c] = __int_as_float(0x7F800000);  // +inf
     if (fields & kFieldMax) mx[c] = __int_as_float((int)0xFF800000u);
     if (fields & kFieldLast) key[c] = 0ull;
   }
 }
 
-// partials, global route: each cell's winning row -> last, last_ts
+// partials: each cell's winning row -> last, last_ts
 __global__ void partials_last_kernel(long long cells,
                                      const unsigned long long* __restrict__ key,
                                      const float* __restrict__ vals,
@@ -556,56 +438,23 @@ int aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-// shared route: rows per block, a whole number of tiles and at least
-// four per cell of the block's private grid (its init and flush are
-// per cell)
-int shared_chunk(int cells) {
-  const int tile = kSharedThreads * kRowsPerThread;
-  const long long want = cells * 4LL > tile ? cells * 4LL : tile;
-  return (int)((want + tile - 1) / tile * tile);
-}
-
-template <bool kRound, bool kExtra>
-int launch_shared_t(const Args& a, int num_windows, int max_rows,
-                    cudaStream_t s) {
-  const int bytes = layout(a.fields, a.num_groups * a.width).bytes;
-  auto kernel = shared_kernel<kRound, kExtra>;
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((max_rows + a.chunk - 1) / a.chunk, num_windows);
-  kernel<<<grid, kSharedThreads, bytes, s>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// the accumulate core over rows [0, max_rows) of each window, by the
-// route the wrapper chose (a.chunk > 0: the shared route)
+// the accumulate core over rows [0, max_rows) of each window
 int launch_accumulate(const Args& a, bool round, int num_windows,
                       int max_rows, cudaStream_t s) {
   if (num_windows <= 0 || max_rows <= 0) return 0;
   if (num_windows > 65535) return (int)cudaErrorInvalidConfiguration;
   const bool extra = (a.fields & (kFieldMin | kFieldMax | kFieldLast)) != 0;
-  if (a.chunk > 0) {
-    const int m = max_rows;
-    if (round)
-      return extra ? launch_shared_t<true, true>(a, num_windows, m, s)
-                   : launch_shared_t<true, false>(a, num_windows, m, s);
-    return extra ? launch_shared_t<false, true>(a, num_windows, m, s)
-                 : launch_shared_t<false, false>(a, num_windows, m, s);
-  }
   const dim3 grid((max_rows + kTileRows - 1) / kTileRows, num_windows);
   if (round) {
     if (extra)
-      global_kernel<true, true><<<grid, kThreads, 0, s>>>(a);
+      accumulate_kernel<true, true><<<grid, kThreads, 0, s>>>(a);
     else
-      global_kernel<true, false><<<grid, kThreads, 0, s>>>(a);
+      accumulate_kernel<true, false><<<grid, kThreads, 0, s>>>(a);
   } else {
     if (extra)
-      global_kernel<false, true><<<grid, kThreads, 0, s>>>(a);
+      accumulate_kernel<false, true><<<grid, kThreads, 0, s>>>(a);
     else
-      global_kernel<false, false><<<grid, kThreads, 0, s>>>(a);
+      accumulate_kernel<false, false><<<grid, kThreads, 0, s>>>(a);
   }
   return (int)cudaGetLastError();
 }
@@ -614,7 +463,7 @@ Args make_args(const int* ts, const int* gid, const float* vals,
                const int* remap, int remap_len, const int* shift,
                const int* lo, const int* n_valid_w, int n_valid, int cap,
                int num_groups, int width, int total, int bucket_ms,
-               int fields, int shared) {
+               int fields) {
   Args a{};
   a.ts = ts;
   a.gid = gid;
@@ -634,7 +483,6 @@ Args make_args(const int* ts, const int* gid, const float* vals,
   a.fields = fields;
   a.vec = cap % kRowsPerThread == 0 && aligned16(ts) && aligned16(gid) &&
           aligned16(vals);
-  a.chunk = shared ? shared_chunk(num_groups * width) : 0;
   return a;
 }
 
@@ -642,8 +490,7 @@ Args make_args(const int* ts, const int* gid, const float* vals,
 
 // Plain C entry points (bound through ctypes).  Pointers are device
 // pointers; remap, shift and lo may be null (identity remap, zero
-// shift/lo).  `shared` picks the route: 1 the shared route, 0 the
-// global route.  Each returns the cudaError_t of the first failing
+// shift/lo).  Each returns the cudaError_t of the first failing
 // launch, 0 on success.
 
 // Partial grids: count, sum, min, max, last float32 and last_ts int32
@@ -655,15 +502,14 @@ extern "C" int horaedb_bucket_window_partials(
     int remap_len, const int* shift, const int* lo, int num_windows,
     int cap, int n_valid, int num_groups, int width, int total_buckets,
     int bucket_ms, int fields, float* count, float* sum, float* mn,
-    float* mx, float* last, int* last_ts, long long* key, int shared,
-    void* stream) {
+    float* mx, float* last, int* last_ts, long long* key, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long cells = (long long)num_windows * num_groups * width;
   if (cells == 0) return 0;
   unsigned long long* key_u = reinterpret_cast<unsigned long long*>(key);
   Args a = make_args(ts, gid, vals, remap, remap_len, shift, lo, nullptr,
                      n_valid, cap, num_groups, width, total_buckets,
-                     bucket_ms, fields, shared);
+                     bucket_ms, fields);
   a.count = count;
   a.sum = sum;
   a.mn = mn;
@@ -682,7 +528,7 @@ extern "C" int horaedb_bucket_window_partials(
 
 // One round folded into the query-global accumulator (G, total) in
 // place.  n_valid_w: per-window row counts (or null: max_rows rows in
-// every window); max_rows bounds the global route's grid.  key: an int64
+// every window); max_rows bounds the launch grid.  key: an int64
 // scratch of G x span cells for the round's columns [col0, col0 + span)
 // (only touched when `last` is requested; zeroed here).  Launches:
 // accumulate, and a `last` fold when requested.
@@ -692,8 +538,7 @@ extern "C" int horaedb_bucket_round_accumulate(
     int num_windows, int cap, int max_rows, int num_groups, int width,
     int total_buckets, int bucket_ms, int fields, float* acc_count,
     float* acc_sum, float* acc_min, float* acc_max, float* acc_last,
-    int* acc_last_ts, long long* key, int col0, int span, int shared,
-    void* stream) {
+    int* acc_last_ts, long long* key, int col0, int span, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   unsigned long long* key_u = reinterpret_cast<unsigned long long*>(key);
   const long long key_cells = (long long)num_groups * span;
@@ -704,8 +549,7 @@ extern "C" int horaedb_bucket_round_accumulate(
   }
   Args a = make_args(ts, gid, vals, remap, remap_len, shift, lo, n_valid_w,
                      max_rows, cap, num_groups, width, total_buckets,
-                     bucket_ms, want_last ? fields : fields & ~kFieldLast,
-                     shared);
+                     bucket_ms, want_last ? fields : fields & ~kFieldLast);
   a.count = acc_count;
   a.sum = acc_sum;
   a.mn = acc_min;

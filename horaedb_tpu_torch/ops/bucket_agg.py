@@ -15,10 +15,7 @@ lo rebase — fused with the segmented aggregate), two entries:
 
 Each entry dispatches on where its tensors lie: CUDA tensors launch the
 kernel (or raise), CPU tensors take the entry's plain version.  There is
-no fallback from one to the other.  On the card the kernel takes one of
-two routes, chosen by size (pick_route): "shared" (private copies of
-the window grid in each block's shared memory) or "global" (atomics
-straight into the destination).  The kernel builds with nvcc at first
+no fallback from one to the other.  The kernel builds with nvcc at first
 use into horaedb_tpu_torch/build/ and binds through ctypes.
 """
 
@@ -48,21 +45,8 @@ SOURCE = os.path.join(_PKG, "csrc", "bucket_agg.cu")
 BUILD_DIR = os.path.join(_PKG, "build")
 
 # launches of the kernel, counted by each entry's wrapper where it
-# launches and nowhere else (the plain versions do not count), in all
-# and by route
+# launches and nowhere else (the plain versions do not count)
 LAUNCHES = {"bucket_window_partials": 0, "bucket_round_accumulate": 0}
-ROUTE_LAUNCHES = {"shared": 0, "global": 0}
-
-# The shared route: each block folds a chunk of a window's rows into a
-# private copy of the window grid in shared memory and flushes it once.
-# Taken where the grid fits SHARED_BYTES_PER_BLOCK (two blocks still fit
-# an SM) and a window has SHARED_MIN_ROWS_PER_CELL rows or more per grid
-# cell (below that, the run-length-reduced global atomics are faster on
-# the card: see PERF.md); the global route (atomics straight into the
-# destination) otherwise.
-SHARED_BYTES_PER_BLOCK = 96 * 1024
-SHARED_MIN_ROWS_PER_CELL = 16
-_FIELD_BYTES = {"count": 4, "sum": 4, "min": 4, "max": 4, "last": 8}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -81,31 +65,8 @@ def fields_for(which) -> tuple:
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, ROUTE_LAUNCHES):
-        for k in counts:
-            counts[k] = 0
-
-
-def shared_bytes(which, num_groups: int, width: int) -> int:
-    """Shared memory one block of the shared route needs: the window
-    grid, 4 bytes a cell per field (8 for the `last` key)."""
-    return num_groups * width * sum(_FIELD_BYTES.get(f, 0)
-                                    for f in fields_for(which))
-
-
-def pick_route(rows: int, num_groups: int, width: int, which,
-               route: Optional[str] = None) -> str:
-    """The kernel's route for windows of up to `rows` rows: `route` when
-    given ("shared" or "global"), else chosen by size (see
-    SHARED_BYTES_PER_BLOCK)."""
-    fits = shared_bytes(which, num_groups, width) <= SHARED_BYTES_PER_BLOCK
-    if route is None:
-        dense = rows >= SHARED_MIN_ROWS_PER_CELL * num_groups * width
-        return "shared" if fits and dense else "global"
-    ensure(route in ROUTE_LAUNCHES, f"unknown route {route!r}")
-    ensure(route == "global" or fits,
-           "the window grid does not fit the shared route")
-    return route
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def library_path() -> str:
@@ -160,11 +121,11 @@ def _load():
             P, I = ctypes.c_void_p, ctypes.c_int
             fn = lib.horaedb_bucket_window_partials
             fn.argtypes = [P, P, P, P, I, P, P, I, I, I, I, I, I, I, I,
-                           P, P, P, P, P, P, P, I, P]
+                           P, P, P, P, P, P, P, P]
             fn.restype = I
             fn = lib.horaedb_bucket_round_accumulate
             fn.argtypes = [P, P, P, P, I, P, P, P, I, I, I, I, I, I, I, I,
-                           P, P, P, P, P, P, P, I, I, I, P]
+                           P, P, P, P, P, P, P, I, I, P]
             fn.restype = I
             _lib = lib
         return _lib
@@ -223,15 +184,10 @@ def _ptr(t) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _shared(route: str) -> int:
-    return int(route == "shared")
-
-
 def bucket_window_partials(ts, gid_local, vals, remap, shift, lo,
                            total_buckets: int, bucket_ms: int, *,
                            num_groups: int, width: int, which: tuple,
-                           n_valid: Optional[int] = None,
-                           route: Optional[str] = None) -> dict:
+                           n_valid: Optional[int] = None) -> dict:
     """Partial grids of W windows: {field: (W, num_groups, width)}.
 
     ts, gid_local: int32 (W, cap); vals: float32 (W, cap); remap: int32
@@ -240,10 +196,8 @@ def bucket_window_partials(ts, gid_local, vals, remap, shift, lo,
     for zeros.  Rows at or past `n_valid` (default cap) are dropped, as
     are rows whose query-global bucket reaches `total_buckets`.  See
     csrc/bucket_agg.cu for the arithmetic and the empty-cell
-    conventions.  CUDA tensors launch the kernel by the route
-    pick_route chooses by size (`route` forces one, so that both can be
-    checked and timed on one input); CPU tensors run the plain
-    version."""
+    conventions.  CUDA tensors launch the kernel; CPU tensors run the
+    plain version."""
     import torch
 
     if ts.device.type == "cpu":
@@ -258,7 +212,6 @@ def bucket_window_partials(ts, gid_local, vals, remap, shift, lo,
     ensure(W * num_groups * width < 2**31, "grid too large")
     n_valid = cap if n_valid is None else max(0, min(int(n_valid), cap))
     fields = fields_for(which)
-    route = pick_route(n_valid, num_groups, width, which, route)
     shape = (W, num_groups, width)
     out = {}
     for f in fields:
@@ -275,11 +228,10 @@ def bucket_window_partials(ts, gid_local, vals, remap, shift, lo,
             int(total_buckets), int(bucket_ms), _field_mask(fields),
             _ptr(out["count"]), _ptr(out.get("sum")), _ptr(out.get("min")),
             _ptr(out.get("max")), _ptr(out.get("last")),
-            _ptr(out.get("last_ts")), _ptr(key), _shared(route), stream)
+            _ptr(out.get("last_ts")), _ptr(key), stream)
     if rc != 0:
         raise Error(f"bucket_window_partials launch failed: cudaError {rc}")
     LAUNCHES["bucket_window_partials"] += 1
-    ROUTE_LAUNCHES[route] += 1
     return out
 
 
@@ -301,8 +253,7 @@ def bucket_round_accumulate(acc: dict, ts, gid_local, vals, remap, shift,
                             lo, total_buckets: int, bucket_ms: int, *,
                             num_groups: int, width: int, which: tuple,
                             n_valid=None, lo_host=None,
-                            n_valid_host=None,
-                            route: Optional[str] = None) -> dict:
+                            n_valid_host=None) -> dict:
     """Fold one round of W windows straight into the query-global
     accumulator `acc` (storage.read.fused_acc_init's grids, each
     (num_groups, total_buckets)), in place, and return it.
@@ -315,11 +266,13 @@ def bucket_round_accumulate(acc: dict, ts, gid_local, vals, remap, shift,
     n_valid: int32 (W,) rows per window, or None for all `cap` rows.
     lo_host / n_valid_host: host copies of lo / n_valid (numpy); they
     bound the grid and the `last` pass to the round's rows and columns
-    without a device read.  CUDA tensors launch the kernel by the route
-    pick_route chooses by size (`route` forces one, as above; one launch
-    counted per round); CPU tensors run the plain version."""
+    without a device read, so n_valid_host comes with n_valid or not at
+    all.  CUDA tensors launch the kernel (one launch counted per round);
+    CPU tensors run the plain version."""
     import torch
 
+    ensure(n_valid_host is None or n_valid is not None,
+           "n_valid_host needs the n_valid it copies")
     if ts.device.type == "cpu":
         return bucket_round_accumulate_plain(
             acc, ts, gid_local, vals, remap, shift, lo, total_buckets,
@@ -342,7 +295,6 @@ def bucket_round_accumulate(acc: dict, ts, gid_local, vals, remap, shift,
         if n_valid_host is not None:
             max_rows = int(np.clip(np.asarray(n_valid_host), 0, cap).max(
                 initial=0))
-    route = pick_route(max_rows, num_groups, width, which, route)
     if lo_host is not None:
         ensure(int(np.asarray(lo_host).min(initial=0)) >= 0,
                "lo must be non-negative")
@@ -360,12 +312,10 @@ def bucket_round_accumulate(acc: dict, ts, gid_local, vals, remap, shift,
             num_groups, width, total, int(bucket_ms), _field_mask(fields),
             _ptr(acc["count"]), _ptr(acc.get("sum")), _ptr(acc.get("min")),
             _ptr(acc.get("max")), _ptr(acc.get("last")),
-            _ptr(acc.get("last_ts")), _ptr(key), c0, c1 - c0,
-            _shared(route), stream)
+            _ptr(acc.get("last_ts")), _ptr(key), c0, c1 - c0, stream)
     if rc != 0:
         raise Error(f"bucket_round_accumulate launch failed: cudaError {rc}")
     LAUNCHES["bucket_round_accumulate"] += 1
-    ROUTE_LAUNCHES[route] += 1
     return acc
 
 

@@ -1,9 +1,10 @@
 """The aggregate kernel's wrappers (ops/bucket_agg.py) on the CPU: the
-route each round takes on the card, chosen by size; the round entry's
-dispatch (the plain version for CPU tensors only, never a fallback for
-others); and the fused reader sending every round through that entry
-with its windows' row counts.  The kernel itself runs only on the card
-(chip_smoke.py holds it against these plain versions there)."""
+build command and its output path, the fields each aggregate set
+needs, the columns a round touches, the round entry's argument checks
+and dispatch (the plain version for CPU tensors only, never a fallback
+for others), and the fused reader sending every round through that
+entry with its windows' row counts.  The kernel itself runs only on
+the card (chip_smoke.py holds it against these plain versions there)."""
 
 import asyncio
 import math
@@ -26,39 +27,47 @@ SEG = 2 * 3600 * 1000
 T0 = (1_700_000_000_000 // SEG) * SEG
 
 
-@pytest.mark.parametrize("rows,G,width,which,want", [
-    # the main path's round: merge-ordered, ~4.4 rows per cell, and a
-    # grid of 128 KB (count+sum) past a block's shared memory
-    (72_000, 128, 128, ("avg",), "global"),
-    # random rows over the same grid: 8 rows per cell
-    (131_072, 128, 128, ALL_AGGS, "global"),
-    # a large group count never fits
-    (1 << 20, 8192, 128, ("avg",), "global"),
-    # dense grids: 1024 and 16 rows per cell
-    (131_072, 8, 16, ("avg",), "shared"),
-    (131_072, 8, 16, ALL_AGGS, "shared"),
-    (16 * 64 * 64, 64, 64, ("avg",), "shared"),
-    (16 * 64 * 64 - 1, 64, 64, ("avg",), "global"),
-    # all aggregates of 4096 cells: 96 KB, the most a block takes
-    (1 << 20, 64, 64, ALL_AGGS, "shared"),
-    (1 << 20, 64, 65, ALL_AGGS, "global"),
-], ids=lambda v: "-".join(v) if isinstance(v, tuple) else str(v))
-def test_route_is_chosen_by_size(rows, G, width, which, want):
-    assert bucket_agg.pick_route(rows, G, width, which) == want
+def test_build_targets_hopper_and_keys_the_library_by_source(monkeypatch,
+                                                          tmp_path):
+    cmd = bucket_agg.nvcc_command("out.so")
+    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+    assert cmd[-1] == bucket_agg.SOURCE
+    src = tmp_path / "k.cu"
+    src.write_text("// one")
+    monkeypatch.setattr(bucket_agg, "SOURCE", str(src))
+    first = bucket_agg.library_path()
+    assert first == bucket_agg.library_path()
+    src.write_text("// two")
+    assert bucket_agg.library_path() != first
+    assert first.startswith(bucket_agg.BUILD_DIR)
 
 
-def test_route_can_be_forced_only_where_it_fits():
-    assert bucket_agg.pick_route(100, 8, 16, ("avg",),
-                                 route="shared") == "shared"
-    assert bucket_agg.pick_route(1 << 20, 8, 16, ("avg",),
-                                 route="global") == "global"
-    with pytest.raises(Error, match="does not fit"):
-        bucket_agg.pick_route(1 << 20, 128, 128, ("avg",),
-                              route="shared")
-    with pytest.raises(Error, match="unknown route"):
-        bucket_agg.pick_route(1 << 20, 8, 16, ("avg",), route="cluster")
-    assert bucket_agg.shared_bytes(ALL_AGGS, 64, 64) == 64 * 64 * 24
-    assert bucket_agg.shared_bytes(("avg",), 64, 64) == 64 * 64 * 8
+@pytest.mark.parametrize("which,want", [
+    (("avg",), ("count", "sum")),
+    (("min",), ("count", "min")),
+    (("last",), ("count", "last_ts", "last")),
+    (ALL_AGGS, ("count", "sum", "min", "max", "last_ts", "last")),
+], ids=lambda v: "-".join(v))
+def test_fields_for_adds_dependencies_in_output_order(which, want):
+    assert bucket_agg.fields_for(which) == want
+
+
+@pytest.mark.parametrize("lo,nv,width,total,want", [
+    # the union of the windows' [lo, lo + width)
+    ([0, 120, 240], None, 128, 1000, (0, 368)),
+    # cut at the total bucket count
+    ([0, 120, 240], None, 128, 300, (0, 300)),
+    # an empty window (a padding slot of the round) touches nothing
+    ([0, 120, 240], [0, 5, 5], 128, 1000, (120, 368)),
+    ([0, 120, 240], [5, 5, 0], 128, 1000, (0, 248)),
+    # a round of empty windows touches no column
+    ([3, 4], [0, 0], 8, 100, (0, 0)),
+], ids=["union", "cut", "empty-first", "empty-last", "all-empty"])
+def test_round_columns_cover_the_non_empty_windows(lo, nv, width, total,
+                                                   want):
+    nv = None if nv is None else np.asarray(nv, np.int32)
+    assert bucket_agg._round_columns(np.asarray(lo, np.int32), nv, width,
+                                     total) == want
 
 
 def _round(W=2, cap=256, n_valid=(256, 200)):
@@ -77,13 +86,12 @@ def test_round_entry_takes_plain_only_for_cpu_tensors(monkeypatch):
     ts, gid, vals, nv = _round()
     acc = read.fused_acc_init(num_groups=2, num_buckets=4, which=("avg",),
                               device="cpu")
-    before = (dict(bucket_agg.LAUNCHES), dict(bucket_agg.ROUTE_LAUNCHES))
+    before = dict(bucket_agg.LAUNCHES)
     read.fused_round_accumulate(
         acc, ts, gid, vals, None, None, None, np.zeros(2, np.int32), 4, 100,
         num_groups=2, width=4, which=("avg",), n_valid=torch.from_numpy(nv),
         n_valid_host=nv)
-    assert (dict(bucket_agg.LAUNCHES),
-            dict(bucket_agg.ROUTE_LAUNCHES)) == before
+    assert dict(bucket_agg.LAUNCHES) == before
     # rows past each window's n_valid are dropped
     assert float(acc["count"].sum()) == float(nv.sum())
     assert float(acc["sum"].sum()) == float(nv.sum())
@@ -102,13 +110,28 @@ def test_round_entry_takes_plain_only_for_cpu_tensors(monkeypatch):
             n_valid=torch.from_numpy(nv).to("meta"), n_valid_host=nv)
 
 
+def test_round_entry_refuses_host_row_counts_without_device_ones():
+    """n_valid_host bounds the round's columns; without the n_valid it
+    copies the kernel would read rows those columns leave out."""
+    ts, gid, vals, nv = _round()
+    acc = read.fused_acc_init(num_groups=2, num_buckets=4, which=("last",),
+                              device="cpu")
+    with pytest.raises(Error, match="n_valid_host needs the n_valid"):
+        bucket_agg.bucket_round_accumulate(
+            acc, ts, gid, vals, None, None, None, 4, 100, num_groups=2,
+            width=4, which=("last",), lo_host=np.zeros(2, np.int32),
+            n_valid_host=nv)
+
+
 @pytest.mark.parametrize("which", [("avg",), ALL_AGGS],
                          ids=lambda w: "-".join(w))
 def test_fused_reader_sends_each_round_through_the_round_entry(monkeypatch,
                                                                which):
     """One bucket_round_accumulate call per fused round, each with its
     windows' row counts as an int32 (W,) tensor beside the same counts
-    on the host; no partial grid is written on the way."""
+    on the host; the reader never calls the partial-grid entry itself
+    (on the card, chip_smoke.py checks that the fused path launches no
+    partial-grid kernel)."""
     calls = []
     entry = bucket_agg.bucket_round_accumulate
 
@@ -117,7 +140,7 @@ def test_fused_reader_sends_each_round_through_the_round_entry(monkeypatch,
         return entry(acc, ts, *args, **kw)
 
     def boom(*_a, **_k):
-        raise AssertionError("the fused path wrote partial grids")
+        raise AssertionError("the fused reader called the partial-grid entry")
 
     monkeypatch.setattr(bucket_agg, "bucket_round_accumulate", spy)
     monkeypatch.setattr(bucket_agg, "bucket_window_partials", boom)
