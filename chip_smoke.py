@@ -4,8 +4,8 @@ NVIDIA GPU.
 
     python3 chip_smoke.py [--rows N] [--json PATH]
 
-Phases, each printed as it runs; any failure exits non-zero and prints
-no result line:
+Phases, each printed as it runs with its seconds; any failure exits
+non-zero and prints no result line:
 
 1. device: find the card, print `nvidia-smi` name and power limit.
 2. build: compile every kernel of the main path with nvcc (sm_90a).
@@ -17,21 +17,42 @@ no result line:
    (merge-ordered rows, 72,000 valid of 131,072 slots) — then their
    times at that round (device time of back-to-back calls, CUDA
    events), the bound, the slice route of the first port (partial grids
-   + per-window torch slice updates) and a one-call `index_add_`
-   yardstick.
-4. end to end: the north-star workload (BASELINE config 1 of bench.py:
-   10M rows, 100 hosts, 10 s scrape, 1 m buckets, 2 h segments, an
-   in-memory object store, 1M-row write chunks) through
-   MetricEngine.write_arrow and query_downsample(aggs=("avg",)), once
-   cold and 5 times cached, checked against a numpy bincount of the
-   same rows; bucket_round_accumulate's launch count over that run must
-   equal the fused rounds it ran.  Then one cached query under
-   torch.profiler (kernel launches and device time by kernel name).
-5. op path: ops.downsample.time_bucket_aggregate over the same 10M rows
+   + per-window torch slice updates), the partials' one-pass float
+   atomic sum, and a one-call `index_add_` yardstick.
+4. determinism: bucket_window_partials launched twice on the same
+   merge-ordered round (W=16, cap=131072, G=128) at 1 min, 1 h and 1 day
+   buckets (6, 360 and 8,640 rows per cell) and on unsorted random rows
+   (sparse and 1,024 rows per cell): every field byte-equal between the
+   launches and within rtol of the plain version; the float atomic sum
+   counted over 5 launches beside it; the ordered entry timed at 1 h.
+5. end to end, fused: the north-star workload (BASELINE config 1 of
+   bench.py: 10M rows, 100 hosts, 10 s scrape, 1 m buckets, 2 h
+   segments, an in-memory object store, 1M-row write chunks) through
+   MetricEngine.write_arrow and query_downsample(aggs=("avg",)) with the
+   scan cache at 4 x rows (bench.py's setting, so the fused path
+   serves), once cold and 5 times cached, checked against a numpy
+   bincount of the same rows; bucket_round_accumulate's launch count
+   over that run must equal the fused rounds it ran.  Then one cached
+   query under torch.profiler (kernel launches and device time by
+   kernel name).
+6. op path: ops.downsample.time_bucket_aggregate over the same 10M rows
    as one batch (time-major rows: runs of one row per cell), checked
    against the bincount; bucket_window_partials' launch count over that
    call must be one.
-6. a JSON line of per-kernel numbers, the card line again, and the last
+7. end to end, parts: a second MetricEngine on the same store with the
+   default StorageConfig, whose fused gate declines the 10M rows; cold
+   avg at 1 min (launches: one bucket_window_partials per round, no
+   round entry) and all aggregates at 1 h against numpy; the repeat
+   served from the PartsMemo (all 139 segments); a narrowed range whose
+   memo-served bytes equal a cold recompute in sparse and dense combine;
+   two cold 1 h queries byte-equal.
+8. compaction: 4 overlapping SSTs in each of 12 segments (newer values
+   on some hosts), queried on both paths, compacted by the scheduler to
+   one SST per segment, queried again (count/min/max/last and the parts
+   path's sum/avg byte-equal, the fused sum/avg within rtol 1e-5, the
+   caches missing structurally); then the scrubber deletes one injected
+   orphan and keeps every referenced SST and sidecar.
+9. a JSON line of per-kernel numbers, the card line again, and the last
    line {"ok": true, "device": {...}}.
 
 Needs one CUDA card; a missing card is a failure, never a CPU run.
@@ -156,11 +177,12 @@ def _bits(u: int):
     return np.array([u], np.uint32).view(np.float32)[0]
 
 
-def main_path_round(rng, W=16, cap=131072, series=100, ticks=720, G=128):
-    """A round shaped like the main path's: window d is 2 h segment d,
-    its rows merge-ordered by (series, ts) at a 10 s scrape (100 series
-    x 720 ticks = 72,000 valid rows of `cap`), the rest padding; lo
-    steps by 120 one-minute buckets."""
+def main_path_round(rng, W=16, cap=131072, series=100, ticks=720, G=128,
+                    bucket_ms=BMS):
+    """A round shaped like the main path's: window d is segment d (2 h
+    at the default 720 ticks), its rows merge-ordered by (series, ts) at
+    a 10 s scrape (100 series x 720 ticks = 72,000 valid rows of `cap`),
+    the rest padding; lo steps by the window's whole buckets."""
     import numpy as np
 
     n = series * ticks
@@ -174,10 +196,72 @@ def main_path_round(rng, W=16, cap=131072, series=100, ticks=720, G=128):
         vals[d, :n] = (rng.random(n) * 100).astype(np.float32)
     remap = np.tile(np.arange(G, dtype=np.int32), (W, 1))
     shift = (np.arange(W) * seg_ms).astype(np.int32)
-    lo = (shift // BMS).astype(np.int32)
+    lo = (shift // bucket_ms).astype(np.int32)
     nv = np.full(W, n, np.int32)
-    total = W * seg_ms // BMS
+    total = W * seg_ms // bucket_ms
     return (ts, gid, vals, remap, shift, lo, nv), total
+
+
+def window_width(window_ms: int, bucket_ms: int) -> int:
+    """The reader's per-window grid width (read._window_grid_width)."""
+    need = window_ms // bucket_ms + 2
+    return max(8, 1 << (need - 1).bit_length())
+
+
+def partials_times(ba, stack, total: int, G: int, width: int,
+                   bucket_ms: int, plain_reps: int = 8) -> dict:
+    """bucket_window_partials (ordered sum, and the one-pass float
+    atomic sum) at one round shape, avg set and all aggregates: device
+    ms over 4 copies of the row stacks (4 x 25 MB > 50 MB of L2), the
+    plain version, a one-call index_add_ of (1, v) pairs into the
+    precomputed window cells, and the bytes bound."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda")
+
+    def d(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    ts, gid, vals, remap, shift, lo, nv = stack
+    W, cap = ts.shape
+    n_valid = int(nv.max())
+    copies = [[d(ts), d(gid), d(vals)] for _ in range(4)]
+    small = [d(remap), d(shift), d(lo)]
+
+    def fn(c, which=("avg",), ordered=True):
+        return lambda: ba._launch_partials(
+            *c, *small, total, bucket_ms, num_groups=G, width=width,
+            which=which, n_valid=n_valid, ordered=ordered)
+
+    out = {"ms": device_ms([fn(c) for c in copies]),
+           "ms_atomic_sum": device_ms([fn(c, ordered=False)
+                                       for c in copies]),
+           "ms_all_aggs": device_ms([fn(c, ALL_AGGS) for c in copies]),
+           "ms_all_aggs_atomic_sum": device_ms(
+               [fn(c, ALL_AGGS, False) for c in copies]),
+           "plain_ms": device_ms([lambda c=c: ba.bucket_window_partials_plain(
+               *c, *small, total, bucket_ms, num_groups=G, width=width,
+               which=("avg",), n_valid=n_valid) for c in copies],
+               reps=plain_reps)}
+    valid = np.arange(cap)[None, :] < nv[:, None]
+    g_u = np.take_along_axis(remap, np.clip(gid, 0, G - 1), 1)
+    tg = ts.astype(np.int64) + shift[:, None]
+    b = tg // bucket_ms - lo[:, None]
+    win_cell = ((np.arange(W)[:, None] * G + g_u) * width + b)[valid]
+    n_rows = int(valid.sum())
+    pairs = torch.stack([torch.ones(n_rows, device=dev),
+                         d(vals[valid])], dim=1)
+    win_idx = d(win_cell)
+    out["library_ms"] = device_ms(lambda: torch.zeros(
+        W * G * width, 2, device=dev).index_add_(0, win_idx, pairs))
+    # valid rows read once (12 B), per-window scalars, and each output
+    # cell of count and sum written once
+    nbytes = n_rows * 12 + W * (G * 4 + 12) + W * G * width * 2 * 4
+    out["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    out["bytes"] = nbytes
+    out["rows"] = n_rows
+    return out
 
 
 def kernel_phase(ba, fused) -> list:
@@ -352,7 +436,7 @@ def kernel_phase(ba, fused) -> list:
     log(f"kernel: both entries match plain on random, edge, int32-wrap, "
         f"NaN/inf, large-G, tie and main-path rounds (max_abs_err "
         f"{worst!r}); updates run-length reduced in registers, then "
-        f"global atomics (the kernel's one route)")
+        f"global atomics (the partials' sum as int64 fixed point)")
 
     # times at the main path's round (avg set): 4 copies of the stacks
     # (4 x 25 MB > 50 MB of L2)
@@ -372,11 +456,6 @@ def kernel_phase(ba, fused) -> list:
             width=width, which=which, n_valid=nv_d, lo_host=lo,
             n_valid_host=nv)
 
-    def partials_fn(c, which=which):
-        return lambda: ba.bucket_window_partials(
-            *c, remap_d, shift_d, lo_d, m_total, BMS, num_groups=G,
-            width=width, which=which, n_valid=int(nv[0]))
-
     def slice_fn(c):
         return lambda: ba.fold_window_partials(
             acc, ba.bucket_window_partials(
@@ -391,11 +470,7 @@ def kernel_phase(ba, fused) -> list:
         width=width, which=which, n_valid=nv_d, lo_host=lo)
         for c in copies], reps=8)
     slice_ms = device_ms([slice_fn(c) for c in copies], reps=12)
-    p_ms = device_ms([partials_fn(c) for c in copies])
-    p_all_ms = device_ms([partials_fn(c, ALL_AGGS) for c in copies])
-    p_plain_ms = device_ms([lambda c=c: ba.bucket_window_partials_plain(
-        *c, remap_d, shift_d, lo_d, m_total, BMS, num_groups=G, width=width,
-        which=which, n_valid=int(nv[0])) for c in copies], reps=8)
+    pt = partials_times(ba, main_stack, m_total, G, width, BMS)
 
     # yardsticks: one index_add_ of (1, v) pairs at precomputed cells
     # of the valid rows (the prologue is not part of the call)
@@ -405,23 +480,17 @@ def kernel_phase(ba, fused) -> list:
     b = tg // BMS - lo[:, None]
     col = lo[:, None] + b
     acc_cell = (g_u.astype(np.int64) * m_total + col)[valid]
-    win_cell = ((np.arange(W)[:, None] * G + g_u) * width + b)[valid]
     pairs = torch.stack([torch.ones(n_rows, device=dev),
                          d(vals[valid])], dim=1)
-    acc_idx, win_idx = d(acc_cell), d(win_cell)
+    acc_idx = d(acc_cell)
     r_lib_ms = device_ms(lambda: torch.zeros(
         G * m_total, 2, device=dev).index_add_(0, acc_idx, pairs))
-    p_lib_ms = device_ms(lambda: torch.zeros(
-        W * G * width, 2, device=dev).index_add_(0, win_idx, pairs))
-    # bounds: valid rows read once (12 B), per-window scalars, and each
-    # output cell written once (partials) or each touched accumulator
-    # cell read and written once (round), 2 fields for avg
+    # bound: valid rows read once (12 B), per-window scalars, and each
+    # touched accumulator cell read and written once, 2 fields for avg
     touched = len(np.unique(acc_cell))
     in_bytes = n_rows * 12 + W * (G * 4 + 12)
     r_bytes = in_bytes + touched * 2 * 4 * 2
-    p_bytes = in_bytes + W * G * width * 2 * 4
     r_bound = r_bytes / HBM_BYTES_PER_S * 1e3
-    p_bound = p_bytes / HBM_BYTES_PER_S * 1e3
     log(f"kernel: main-path round (W={W} cap={cap} valid={n_rows} G={G} "
         f"width={width} total={m_total} which={which}):")
     log(f"kernel:   bucket_round_accumulate {r_ms!r} ms (all aggs "
@@ -429,9 +498,12 @@ def kernel_phase(ba, fused) -> list:
         f"plain {r_plain_ms!r} ms, slice route (partials + slice updates) "
         f"{slice_ms!r} ms, index_add_ {r_lib_ms!r} ms, bound {r_bound!r} ms "
         f"({r_bytes} bytes, {touched} touched cells)")
-    log(f"kernel:   bucket_window_partials {p_ms!r} ms (all aggs "
-        f"{p_all_ms!r} ms), plain {p_plain_ms!r} ms, index_add_ "
-        f"{p_lib_ms!r} ms, bound {p_bound!r} ms ({p_bytes} bytes)")
+    log(f"kernel:   bucket_window_partials (ordered sum) {pt['ms']!r} ms "
+        f"(all aggs {pt['ms_all_aggs']!r} ms); one-pass float atomic sum "
+        f"{pt['ms_atomic_sum']!r} ms (all aggs "
+        f"{pt['ms_all_aggs_atomic_sum']!r} ms); plain {pt['plain_ms']!r} "
+        f"ms, index_add_ {pt['library_ms']!r} ms, bound "
+        f"{pt['bound_ms']!r} ms ({pt['bytes']} bytes)")
 
     # the random input's partial grids, also timed with one event pair
     # per call (host launch overhead included), as the port's first
@@ -450,9 +522,12 @@ def kernel_phase(ba, fused) -> list:
               "bound_by": "bytes"}
     return [
         dict(common, name="bucket_window_partials", launches=0,
-             max_abs_err=worst["bucket_window_partials"], ms=p_ms,
-             plain_ms=p_plain_ms, bound_ms=p_bound, library_ms=p_lib_ms,
-             ms_all_aggs=p_all_ms, random_input_ms=p_rand_ms,
+             max_abs_err=worst["bucket_window_partials"], ms=pt["ms"],
+             plain_ms=pt["plain_ms"], bound_ms=pt["bound_ms"],
+             library_ms=pt["library_ms"], ms_all_aggs=pt["ms_all_aggs"],
+             ms_atomic_sum=pt["ms_atomic_sum"],
+             ms_all_aggs_atomic_sum=pt["ms_all_aggs_atomic_sum"],
+             random_input_ms=p_rand_ms,
              random_input_call_ms=p_rand_call_ms),
         dict(common, name="bucket_round_accumulate", launches=0,
              also_replaces="horaedb_tpu/storage/read.py:4501",
@@ -461,6 +536,89 @@ def kernel_phase(ba, fused) -> list:
              ms_all_aggs=r_all_ms, call_ms=r_call_ms,
              slice_route_ms=slice_ms),
     ]
+
+
+def determinism_phase(ba) -> dict:
+    """bucket_window_partials launched twice on the same round: every
+    field must be byte-equal between the launches and within rtol of
+    the plain version.  Merge-ordered rounds at 1 min, 1 h and 1 day
+    buckets, and unsorted random rows.  The one-pass float atomic sum is
+    launched 5 times on each round beside it, and its distinct byte
+    patterns counted (the fault the ordered sum removes)."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda")
+
+    def d(a):
+        return None if a is None else torch.from_numpy(
+            np.ascontiguousarray(a)).to(dev)
+
+    rng = np.random.default_rng(1)
+    W, cap, G = 16, 131072, 128
+    cases = []
+    for name, bucket, series, ticks in (("1 min", 60_000, 100, 720),
+                                        ("1 h", 3_600_000, 100, 720),
+                                        ("1 day", 86_400_000, 15, 8640)):
+        stack, total = main_path_round(rng, W, cap, series, ticks, G, bucket)
+        cases.append((name, stack, total,
+                      window_width(ticks * 10_000, bucket), bucket,
+                      min(ticks, bucket // 10_000)))
+    # unsorted rows: sparse random cells, and dense ones (1,024 rows per
+    # cell: 16 groups x 8 buckets per window)
+    for name, groups, span_b in (("unsorted", 110, 140),
+                                 ("unsorted dense", 16, 8)):
+        ts = rng.integers(0, span_b * BMS, (W, cap)).astype(np.int32)
+        gid = rng.integers(0, groups, (W, cap)).astype(np.int32)
+        vals = (rng.random((W, cap)) * 100).astype(np.float32)
+        remap = np.stack([rng.permutation(G).astype(np.int32)
+                          for _ in range(W)])
+        stack = (ts, gid, vals, remap, np.zeros(W, np.int32),
+                 np.zeros(W, np.int32), np.full(W, cap, np.int32))
+        cases.append((name, stack, span_b, window_width(span_b * BMS, BMS),
+                      BMS, cap // (groups * span_b)))
+    out = {}
+    for name, stack, total, width, bucket, per_cell in cases:
+        ts, gid, vals, remap, shift, lo, nv = stack
+        args = [d(ts), d(gid), d(vals), d(remap), d(shift), d(lo), total,
+                bucket]
+        n_valid = int(nv.max())
+        worst = 0.0
+        for which in (ALL_AGGS, ("avg",)):
+            kw = dict(num_groups=G, width=width, which=which,
+                      n_valid=n_valid)
+            first = ba.bucket_window_partials(*args, **kw)
+            second = ba.bucket_window_partials(*args, **kw)
+            torch.cuda.synchronize()
+            for f in first:
+                if (first[f].cpu().numpy().tobytes()
+                        != second[f].cpu().numpy().tobytes()):
+                    raise AssertionError(
+                        f"determinism {name} {which}: field {f} differs "
+                        f"between two launches")
+            worst = max(worst, compare(
+                first, ba.bucket_window_partials_plain(*args, **kw),
+                f"determinism {name} {which}"))
+        atomic = {ba._launch_partials(
+            *args, num_groups=G, width=width, which=("avg",),
+            n_valid=n_valid, ordered=False)["sum"].cpu().numpy().tobytes()
+            for _ in range(5)}
+        out[name] = {"rows_per_cell": per_cell, "width": width,
+                     "max_abs_err": worst,
+                     "atomic_sum_patterns_in_5": len(atomic)}
+        log(f"determinism: {name} ({per_cell} rows per cell): two "
+            f"launches byte-equal in every field, max_abs_err {worst!r} "
+            f"against plain; the float atomic sum gave {len(atomic)} "
+            f"distinct byte patterns in 5 launches")
+    name, stack, total, width, bucket, _per_cell = cases[1]
+    out["times_1h"] = partials_times(ba, stack, total, G, width, bucket)
+    t = out["times_1h"]
+    log(f"determinism: 1 h round (width {width}): ordered {t['ms']!r} ms "
+        f"(all aggs {t['ms_all_aggs']!r}), float atomic sum "
+        f"{t['ms_atomic_sum']!r} ms (all aggs "
+        f"{t['ms_all_aggs_atomic_sum']!r}), plain {t['plain_ms']!r} ms, "
+        f"index_add_ {t['library_ms']!r} ms, bound {t['bound_ms']!r} ms")
+    return out
 
 
 async def profile_query(query) -> dict:
@@ -525,8 +683,9 @@ async def end_to_end(rows: int, ba) -> dict:
         "scheduler": {"schedule_interval": "1h"},
         "scan": {"cache_max_rows": rows * 4}})
     torch.cuda.reset_peak_memory_stats()
-    e = await MetricEngine.open("bench", MemoryObjectStore(),
-                                segment_ms=segment_ms, config=cfg)
+    store = MemoryObjectStore()
+    e = await MetricEngine.open("bench", store, segment_ms=segment_ms,
+                                config=cfg)
     try:
         t0 = time.perf_counter()
         chunk = max(1, 1_000_000 // hosts) * hosts
@@ -644,7 +803,316 @@ async def end_to_end(rows: int, ba) -> dict:
         log("e2e: " + json.dumps(res))
         res["op"] = op_path(ba, ts - T0, host_id, vals, hosts, num_buckets,
                             counts, sums)
-        return res
+    finally:
+        await e.close()
+    t0 = time.perf_counter()
+    res["parts"] = await parts_phase(ba, store, T0, per_host, hosts,
+                                     interval, segment_ms, vals)
+    log(f"phase parts: {time.perf_counter() - t0!r} s")
+    return res
+
+
+def host_major_reference(vals32, hosts: int, per_host: int, T0: int,
+                         interval: int, bucket_ms: int,
+                         num_buckets: int) -> dict:
+    """numpy grids of the end-to-end rows (row i: tick i // hosts, host
+    i % hosts, bucket-aligned T0) in host order, with the combine's
+    empty-cell conventions: count, sum, min, max, avg, last, last_ts
+    (absolute ms)."""
+    import numpy as np
+
+    vh = vals32.reshape(per_host, hosts).T  # (hosts, ticks), time order
+    tpb = bucket_ms // interval
+    starts = np.arange(0, per_host, tpb)
+    ends = np.append(starts[1:], per_host)
+    k = len(starts)
+    out = {"count": np.zeros((hosts, num_buckets)),
+           "sum": np.zeros((hosts, num_buckets)),
+           "min": np.full((hosts, num_buckets), np.inf),
+           "max": np.full((hosts, num_buckets), -np.inf),
+           "avg": np.full((hosts, num_buckets), np.nan),
+           "last": np.full((hosts, num_buckets), np.nan),
+           "last_ts": np.full((hosts, num_buckets), np.nan)}
+    out["count"][:, :k] = ends - starts
+    out["sum"][:, :k] = np.add.reduceat(vh.astype(np.float64), starts, 1)
+    out["min"][:, :k] = np.minimum.reduceat(vh, starts, 1)
+    out["max"][:, :k] = np.maximum.reduceat(vh, starts, 1)
+    out["avg"][:, :k] = out["sum"][:, :k] / out["count"][:, :k]
+    out["last"][:, :k] = vh[:, ends - 1]
+    out["last_ts"][:, :k] = T0 + (ends - 1) * interval
+    return out
+
+
+def same_bytes(a: dict, b: dict, what: str) -> None:
+    """Two query_downsample results byte for byte: tsids and every grid
+    (host arrays or tensors)."""
+    import numpy as np
+
+    if a["tsids"] != b["tsids"] or sorted(a["aggs"]) != sorted(b["aggs"]):
+        raise AssertionError(f"{what}: tsids or aggregates differ")
+    for k in a["aggs"]:
+        x, y = (np.asarray(v if isinstance(v, np.ndarray)
+                           else v.cpu().numpy())
+                for v in (a["aggs"][k], b["aggs"][k]))
+        if x.dtype != y.dtype or x.tobytes() != y.tobytes():
+            raise AssertionError(f"{what}: grid {k} differs in its bytes")
+
+
+async def parts_phase(ba, store, T0: int, per_host: int, hosts: int,
+                      interval: int, segment_ms: int, vals) -> dict:
+    """BASELINE config 1 on the parts path: a second engine on the same
+    store, with the default StorageConfig."""
+    import numpy as np
+    import torch
+
+    from horaedb_tpu_torch.metric_engine import MetricEngine
+    from horaedb_tpu_torch.metric_engine.types import Label, tsid_of
+    from horaedb_tpu_torch.storage.config import StorageConfig
+    from horaedb_tpu_torch.storage.read import ScanRequest
+    from horaedb_tpu_torch.storage.types import TimeRange
+    from horaedb_tpu_torch.utils import registry
+
+    e = await MetricEngine.open("bench", store, segment_ms=segment_ms,
+                                config=StorageConfig())
+    try:
+        data = e.tables["data"]
+        reader = data.reader
+        n_seg = -(-per_host * interval // segment_ms)
+        # the full range, whole segments: bucket-aligned at 1 min and 1 h,
+        # so it carries no time leaf and a narrowed range shares its memo
+        full = (T0, T0 + n_seg * segment_ms)
+        plan = await data.build_scan_plan(
+            ScanRequest(range=TimeRange.new(*full)))
+        est = sum(f.meta.num_rows for sg in plan.segments for f in sg.ssts)
+        if reader.fused_aggregate_ok(plan):
+            raise AssertionError("parts: the fused gate took the plan at "
+                                 "the default budget")
+        log(f"parts: the fused gate declines at the default budget: {est:,} "
+            f"rows x 32 B = {est * 32:,} B > {reader.cache_budget_bytes:,} B "
+            f"({len(plan.segments)} segments)")
+        tsid_of_host = np.array([tsid_of("cpu", [Label("host",
+                                                       f"host_{i:03d}")])
+                                 for i in range(hosts)], dtype=np.uint64)
+        order = np.argsort(tsid_of_host)
+        vals32 = vals.astype(np.float32)
+
+        def delta(before: dict) -> dict:
+            now = registry.snapshot()
+            return {k: now[k] - before.get(k, 0.0) for k in now
+                    if k.startswith(("scan_stage_seconds:", "scan_parts_",
+                                     "scan_partials_", "scan_combine_memo"))}
+
+        async def query(rng, bucket_ms, aggs):
+            snap = registry.snapshot()
+            t0 = time.perf_counter()
+            out = await e.query_downsample("cpu", [], TimeRange.new(*rng),
+                                           bucket_ms=bucket_ms, aggs=aggs)
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3, delta(snap)
+
+        def check(out, bucket_ms, exact, close):
+            nb = (full[1] - full[0]) // bucket_ms
+            want = host_major_reference(vals32, hosts, per_host, T0,
+                                        interval, bucket_ms, nb)
+            if out["tsids"] != [int(t) for t in tsid_of_host[order]]:
+                raise AssertionError("parts: tsids differ")
+            for k in exact:
+                if not np.array_equal(out["aggs"][k], want[k][order],
+                                      equal_nan=True):
+                    raise AssertionError(f"parts: {k} differs from numpy")
+            for k in close:
+                np.testing.assert_allclose(out["aggs"][k], want[k][order],
+                                           rtol=1e-5)
+
+        # the main path's run: launch counts from 0, read right after
+        ba.reset_launches()
+        cold, cold_ms, cold_d = await query(full, BMS, ("avg",))
+        launches = dict(ba.LAUNCHES)
+        rounds = int(cold_d["scan_parts_rounds_total"])
+        if not (launches["bucket_window_partials"] == rounds > 0
+                and launches["bucket_round_accumulate"] == 0):
+            raise AssertionError(f"parts: launches {launches} for {rounds} "
+                                 f"rounds")
+        check(cold, BMS, ("count",), ("avg",))
+        log(f"parts: cold avg at 1 min {cold_ms!r} ms; launches {launches} "
+            f"= {rounds} rounds; grids match numpy (count exact, avg rtol "
+            f"1e-5); stages {json.dumps(cold_d)}")
+
+        memo0 = reader.parts_memo.stats()["hits"]
+        repeat, repeat_ms, repeat_d = await query(full, BMS, ("avg",))
+        hits = reader.parts_memo.stats()["hits"] - memo0
+        if hits != len(plan.segments):
+            raise AssertionError(f"parts: repeat served {hits} of "
+                                 f"{len(plan.segments)} segments from memo")
+        same_bytes(repeat, cold, "parts: memo-served repeat")
+        log(f"parts: repeat {repeat_ms!r} ms, all {hits} segments from the "
+            f"PartsMemo, bytes equal to the cold run")
+
+        # interior whole segments: the same bucket phase and no time leaf
+        a, b = n_seg // 4, n_seg - n_seg // 4
+        narrow = (T0 + a * segment_ms, T0 + b * segment_ms)
+        memo0 = reader.parts_memo.stats()["hits"]
+        nar, nar_ms, nar_d = await query(narrow, BMS, ("avg",))
+        hits = reader.parts_memo.stats()["hits"] - memo0
+        if hits != b - a:
+            raise AssertionError(f"parts: narrowed range: {hits} memo hits "
+                                 f"for {b - a} interior segments")
+        recompute = {}
+        for mode in ("sparse", "dense"):
+            data.config.scan.combine.mode = mode
+            reader.scan_cache.clear()
+            reader.parts_memo.clear()
+            recompute[mode] = (await query(narrow, BMS, ("avg",)))[0]
+            same_bytes(nar, recompute[mode], f"parts: narrowed vs {mode}")
+        data.config.scan.combine.mode = "sparse"
+        log(f"parts: narrowed range (segments {a}-{b - 1}) {nar_ms!r} ms, "
+            f"{hits} memo hits = its interior segments; bytes equal to cold "
+            f"recomputes in sparse and dense combine")
+
+        hour = []
+        for _ in range(2):
+            reader.scan_cache.clear()
+            reader.parts_memo.clear()
+            hour.append(await query(full, 3_600_000, ALL_AGGS))
+        check(hour[0][0], 3_600_000,
+              ("count", "min", "max", "last", "last_ts"), ("sum", "avg"))
+        same_bytes(hour[0][0], hour[1][0], "parts: cold 1 h twice")
+        log(f"parts: all aggregates at 1 h, cold, {hour[0][1]!r} / "
+            f"{hour[1][1]!r} ms: match numpy (count, min, max, last exact; "
+            f"sum, avg rtol 1e-5) and byte-equal between the two runs; "
+            f"stages {json.dumps(hour[0][2])}")
+        return {"launches": launches["bucket_window_partials"],
+                "rounds": rounds, "segments": len(plan.segments),
+                "est_rows": est, "budget_bytes": reader.cache_budget_bytes,
+                "cold_ms": cold_ms, "memo_ms": repeat_ms,
+                "narrowed_ms": nar_ms,
+                "hour_cold_ms": [h[1] for h in hour],
+                "cold_stages": cold_d, "memo_stages": repeat_d,
+                "narrowed_stages": nar_d, "hour_stages": hour[0][2],
+                "cold_d2h_bytes": cold_d["scan_partials_d2h_bytes_total"]}
+    finally:
+        await e.close()
+
+
+async def compaction_phase() -> dict:
+    """4 overlapping SSTs in each of 12 segments, both paths, compaction
+    to one SST per segment, both paths again, then the scrubber."""
+    import numpy as np
+    import pyarrow as pa
+
+    from horaedb_tpu_torch.metric_engine import MetricEngine
+    from horaedb_tpu_torch.objstore import MemoryObjectStore
+    from horaedb_tpu_torch.storage.config import StorageConfig, from_dict
+    from horaedb_tpu_torch.storage.sst import segment_of
+    from horaedb_tpu_torch.storage.types import TimeRange
+
+    hosts, interval, segment_ms, n_seg = 100, 10_000, 2 * 3600 * 1000, 12
+    ticks = n_seg * segment_ms // interval
+    T0 = (1_700_000_000_000 // segment_ms) * segment_ms
+    rng = np.random.default_rng(2)
+    names = pa.array([f"host_{i:03d}" for i in range(hosts)])
+    store = MemoryObjectStore()
+    cfg = from_dict(StorageConfig, {"scheduler": {
+        "schedule_interval": "1h", "input_sst_min_num": 4}})
+    e = await MetricEngine.open("compact", store, segment_ms=segment_ms,
+                                config=cfg)
+    try:
+        # batch 0: every host; batches 1-3: 30 hosts each, newer values
+        for k, hs in enumerate((np.arange(hosts), np.arange(0, 30),
+                                np.arange(20, 50), np.arange(40, 70))):
+            tick = np.repeat(np.arange(ticks, dtype=np.int64), len(hs))
+            host = np.tile(hs.astype(np.int32), ticks)
+            await e.write_arrow("cpu", ["host"], pa.record_batch({
+                "host": pa.DictionaryArray.from_arrays(pa.array(host), names),
+                "timestamp": pa.array(T0 + tick * interval),
+                "value": pa.array(rng.random(len(tick)) * 100 + 1000 * k)}))
+        data = e.tables["data"]
+
+        async def per_segment() -> list:
+            return [segment_of(f, segment_ms)
+                    for f in await data.manifest.all_ssts()]
+
+        segs = await per_segment()
+        if sorted(segs.count(s) for s in set(segs)) != [4] * n_seg:
+            raise AssertionError(f"compaction: SSTs per segment "
+                                 f"{sorted(segs.count(s) for s in set(segs))}")
+        rng_q = TimeRange.new(T0, T0 + n_seg * segment_ms)
+
+        async def both() -> dict:
+            out = {}
+            for path, flag in (("fused", "1"), ("parts", "0")):
+                os.environ["HORAEDB_FUSED_AGG"] = flag
+                try:
+                    out[path] = await e.query_downsample(
+                        "cpu", [], rng_q, bucket_ms=600_000, aggs=ALL_AGGS)
+                finally:
+                    del os.environ["HORAEDB_FUSED_AGG"]
+            return out
+
+        before = await both()
+        for path, out in before.items():
+            count = np.asarray(out["aggs"]["count"] if path == "parts"
+                               else out["aggs"]["count"].cpu().numpy())
+            if count.shape != (hosts, n_seg * 12) or not (count == 60).all():
+                raise AssertionError(f"compaction: {path} counts before "
+                                     f"compaction are not 60 per cell")
+        t0 = time.perf_counter()
+        deadline = t0 + 300
+        while True:
+            segs = await per_segment()
+            if len(segs) == len(set(segs)) == n_seg:
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError("compaction: segments not compacted "
+                                     "within 300 s")
+            await data.compact()
+            await asyncio.sleep(0.25)
+        compact_s = time.perf_counter() - t0
+        misses0 = data.reader.scan_cache.misses
+        memo0 = data.reader.parts_memo.stats()
+        after = await both()
+        memo1 = data.reader.parts_memo.stats()
+        if (data.reader.scan_cache.misses - misses0 < n_seg
+                or memo1["hits"] != memo0["hits"]
+                or memo1["misses"] - memo0["misses"] < n_seg):
+            raise AssertionError("compaction: the scan cache or the memo "
+                                 "served compacted segments")
+        same_bytes(after["parts"], before["parts"],
+                   "compaction: parts path before/after")
+        exact = {k: v for k, v in after["fused"]["aggs"].items()
+                 if k not in ("sum", "avg")}
+        same_bytes({"tsids": after["fused"]["tsids"], "aggs": exact},
+                   {"tsids": before["fused"]["tsids"],
+                    "aggs": {k: before["fused"]["aggs"][k] for k in exact}},
+                   "compaction: fused path before/after")
+        worst = 0.0
+        for k in ("sum", "avg"):
+            a = after["fused"]["aggs"][k].cpu().numpy()
+            b = before["fused"]["aggs"][k].cpu().numpy()
+            np.testing.assert_allclose(a, b, rtol=1e-5)
+            worst = max(worst, float(np.abs(a.astype(np.float64) - b).max()))
+        log(f"compaction: 48 SSTs -> {n_seg} in {compact_s!r} s; after it "
+            f"the parts path is byte-equal to before, the fused path exact "
+            f"in count/min/max/last and within rtol 1e-5 in sum/avg "
+            f"(max_abs_err {worst!r}); scan cache and memo missed every "
+            f"compacted segment")
+
+        data_dir = "compact/data/data/"
+        live = sorted(m.path for m in await store.list(data_dir))
+        orphan = f"{data_dir}1.sst"
+        await store.put(orphan, b"orphan")
+        report = await data.scrub(grace_override_s=0.0)
+        left = sorted(m.path for m in await store.list(data_dir))
+        ids = {f.id for f in await data.manifest.all_ssts()}
+        want = sorted(f"{data_dir}{i}{ext}" for i in ids
+                      for ext in (".sst", ".enc"))
+        if report.orphans_deleted != 1 or left != live or left != want:
+            raise AssertionError(f"compaction: scrub {report.as_dict()}")
+        log(f"compaction: the scrubber deleted the injected orphan and kept "
+            f"all {len(ids)} referenced SSTs and their sidecars "
+            f"({report.as_dict()})")
+        return {"compact_s": compact_s, "fused_max_abs_err": worst,
+                "scrub": report.as_dict()}
     finally:
         await e.close()
 
@@ -750,18 +1218,29 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log(f"build: {line.strip()}")
 
-    kernels = kernel_phase(ba, fused)
-    e2e = asyncio.run(end_to_end(args.rows, ba))
+    def phase(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        log(f"phase {name}: {time.perf_counter() - t0!r} s")
+        return out
+
+    kernels = phase("kernel", kernel_phase, ba, fused)
+    determinism = phase("determinism", determinism_phase, ba)
+    e2e = phase("end to end (fused, op, parts)", asyncio.run,
+                end_to_end(args.rows, ba))
+    compaction = phase("compaction", asyncio.run, compaction_phase())
     for k in kernels:
-        # launches on each entry's own path, counted from 0 around it
-        k["launches"] = (e2e["op"]["launches"]
+        # launches on each entry's engine path, counted from 0 around it:
+        # the parts path's cold query, the fused path's six queries
+        k["launches"] = (e2e["parts"]["launches"]
                          if k["name"] == "bucket_window_partials"
                          else e2e["launches"])
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
-            json.dump({"card": card, "kernels": kernels, "e2e": e2e}, f,
-                      indent=1)
+            json.dump({"card": card, "kernels": kernels, "e2e": e2e,
+                       "determinism": determinism,
+                       "compaction": compaction}, f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,8 @@
 //     window grids: count, sum, min, max, and `last` = the value at the
 //     max tl, the later row winning ties, with last_ts = that tl.  Empty
 //     cells read count 0, sum 0, min +inf, max -inf, last 0, last_ts
-//     INT32_MIN.
+//     INT32_MIN.  The sum is the same bytes on every launch, whatever
+//     the rows' order (see "Ordered sum" below).
 //   round (horaedb_bucket_round_accumulate): cell (g, lo[w] + b) of the
 //     query-global accumulator (G, total), updated in place; columns at
 //     or past `total` are dropped.  count/sum add, min/max fold (the
@@ -76,6 +77,30 @@
 //   values live only for the round, so a second short pass over the
 //   round's columns gathers each winner and folds it into the
 //   accumulator with the reference's `>=`.
+//
+// Ordered sum (partials).  count, min, max and `last` above are
+// order-free: integral float adds below 2^24 and integer atomics.  A
+// float atomicAdd sum is not: a cell whose rows span several warps gets
+// one add per warp in launch order, so its bytes change from launch to
+// launch, and the parts path's PartsMemo promises that a memo-served
+// part equals a recompute byte for byte.  The partials entry therefore
+// sums in integers, whose addition is associative:
+//   pass 1 (the accumulate core, sum left out) also takes each cell's
+//     exponent bound E = max frexp exponent of its finite non-zero
+//     values (atomicMax), and ORs NaN / +inf / -inf flags;
+//   pass 2 reads the rows again and adds each finite value as the
+//     int64 q = rint(v * 2^(B - E)), |q| <= 2^B, run-length reduced
+//     like the other fields, with one 64-bit atomicAdd per run; B =
+//     62 - bits(rows per window), so no cell's sum can overflow;
+//   a finish pass writes sum = float(q_sum * 2^(E - B)), or NaN / +-inf
+//     where the flags say so (NaN, or +inf with -inf, gives NaN).
+// Each value keeps at least B - 24 >= 6 bits below its own last bit
+// relative to the cell's largest value, so the sum is at least as close
+// to the exact one as a float32 sum in any order, and it is one fixed
+// function of the cell's multiset of values.  The cost is a second read
+// of the rows: `ordered = 0` keeps the one-pass float atomicAdd sum
+// (chip_smoke.py times both); the round entry keeps its float atomics
+// (its accumulator is float32 round over round).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -91,6 +116,14 @@ constexpr int kThreads = 256;         // one tile of rows per block
 constexpr int kRowsPerThread = 4;     // 16-byte loads, 4 rows each
 constexpr int kTileRows = kThreads * kRowsPerThread;
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
+
+// exponent images of the ordered sum: E + kExpBias > 0 for a cell with
+// a finite non-zero value (frexp exponents lie in [-148, 128]), 0 for
+// none; special-value flags
+constexpr int kExpBias = 256;
+constexpr int kSpecNan = 1;
+constexpr int kSpecPosInf = 2;
+constexpr int kSpecNegInf = 4;
 
 struct Args {
   const int* ts;
@@ -109,13 +142,21 @@ struct Args {
   float* mx;
   unsigned long long* key;
   int col0, span;  // round epilogue: the key scratch's columns
+  // ordered sum (partials): per-cell exponent images, special flags,
+  // int64 sums, and B
+  int* ex;
+  int* sp;
+  long long* isum;
+  int sum_bits;
 };
 
-// one run's aggregate; mn/mx are order-preserving int images
+// one run's aggregate; mn/mx are order-preserving int images, ex/sp the
+// ordered sum's exponent image (max) and special flags (or)
 struct Agg {
   float cnt, sum;
   int mn, mx;
   unsigned long long key;
+  int ex, sp;
 };
 
 // floor(a / b) for b > 0, exactly: a double-precision estimate (off by
@@ -164,26 +205,17 @@ __device__ __forceinline__ int key_ts(unsigned long long k) {
   return (int)((unsigned)(k >> 32) ^ 0x80000000u);
 }
 
-template <bool kExtra>
-__device__ __forceinline__ Agg combine(const Agg& a, const Agg& b) {
-  Agg r;
-  r.cnt = a.cnt + b.cnt;
-  r.sum = a.sum + b.sum;
-  r.mn = kExtra ? min(a.mn, b.mn) : 0;
-  r.mx = kExtra ? max(a.mx, b.mx) : 0;
-  r.key = kExtra ? (a.key > b.key ? a.key : b.key) : 0ull;
-  return r;
+__device__ __forceinline__ int exp_image(float v) {
+  if (!isfinite(v) || v == 0.0f) return 0;
+  int e;
+  frexpf(v, &e);
+  return e + kExpBias;
 }
 
-template <bool kExtra>
-__device__ __forceinline__ Agg shfl_up(const Agg& x, int off) {
-  Agg r;
-  r.cnt = __shfl_up_sync(kFullMask, x.cnt, off);
-  r.sum = __shfl_up_sync(kFullMask, x.sum, off);
-  r.mn = kExtra ? __shfl_up_sync(kFullMask, x.mn, off) : 0;
-  r.mx = kExtra ? __shfl_up_sync(kFullMask, x.mx, off) : 0;
-  r.key = kExtra ? __shfl_up_sync(kFullMask, x.key, off) : 0ull;
-  return r;
+__device__ __forceinline__ int special_bits(float v) {
+  if (isnan(v)) return kSpecNan;
+  if (isinf(v)) return v > 0.0f ? kSpecPosInf : kSpecNegInf;
+  return 0;
 }
 
 // window cell (g * width + b) of one row, or -1 when the row does not
@@ -216,12 +248,58 @@ __device__ __forceinline__ int row_cell(const Args& a, const int* remap_w,
   return g * a.width + b;
 }
 
-// a run's update straight into the destination
-template <bool kRound, bool kExtra>
-struct Sink {
+// What the accumulate core folds per row and how a run reaches memory.
+// An op provides T (one run's aggregate), make (one row's T), combine,
+// shfl_up and emit (a run's update straight into the destination).
+//
+// AggOp: count, sum, min, max, `last`; with kOrd (partials, ordered
+// sum) the float sum is left out and the exponent image and special
+// flags of the ordered sum are taken instead.
+template <bool kRound, bool kExtra, bool kOrd>
+struct AggOp {
+  using T = Agg;
+  static constexpr bool kIsRound = kRound;
   const Args& a;
   int w, lo_w;
-  __device__ __forceinline__ void emit(int lc, const Agg& x) const {
+
+  __device__ __forceinline__ T make(float v, int t, long long row,
+                                    int /*lc*/) const {
+    T x;
+    x.cnt = 1.0f;
+    x.sum = v;
+    x.mn = kExtra ? min_image(v) : 0;
+    x.mx = kExtra ? max_image(v) : 0;
+    x.key = kExtra ? ((unsigned long long)((unsigned)t ^ 0x80000000u)
+                      << 32) |
+                         (unsigned long long)(row + 1)
+                   : 0ull;
+    x.ex = kOrd ? exp_image(v) : 0;
+    x.sp = kOrd ? special_bits(v) : 0;
+    return x;
+  }
+  static __device__ __forceinline__ T combine(const T& x, const T& y) {
+    T r;
+    r.cnt = x.cnt + y.cnt;
+    r.sum = kOrd ? 0.0f : x.sum + y.sum;
+    r.mn = kExtra ? min(x.mn, y.mn) : 0;
+    r.mx = kExtra ? max(x.mx, y.mx) : 0;
+    r.key = kExtra ? (x.key > y.key ? x.key : y.key) : 0ull;
+    r.ex = kOrd ? max(x.ex, y.ex) : 0;
+    r.sp = kOrd ? (x.sp | y.sp) : 0;
+    return r;
+  }
+  static __device__ __forceinline__ T shfl_up(const T& x, int off) {
+    T r;
+    r.cnt = __shfl_up_sync(kFullMask, x.cnt, off);
+    r.sum = kOrd ? 0.0f : __shfl_up_sync(kFullMask, x.sum, off);
+    r.mn = kExtra ? __shfl_up_sync(kFullMask, x.mn, off) : 0;
+    r.mx = kExtra ? __shfl_up_sync(kFullMask, x.mx, off) : 0;
+    r.key = kExtra ? __shfl_up_sync(kFullMask, x.key, off) : 0ull;
+    r.ex = kOrd ? __shfl_up_sync(kFullMask, x.ex, off) : 0;
+    r.sp = kOrd ? __shfl_up_sync(kFullMask, x.sp, off) : 0;
+    return r;
+  }
+  __device__ __forceinline__ void emit(int lc, const T& x) const {
     if (lc < 0) return;
     long long cell, k = -1;
     if (kRound) {
@@ -235,7 +313,11 @@ struct Sink {
       k = cell;
     }
     atomicAdd(a.count + cell, x.cnt);
-    if (a.fields & kFieldSum) atomicAdd(a.sum + cell, x.sum);
+    if (!kOrd && (a.fields & kFieldSum)) atomicAdd(a.sum + cell, x.sum);
+    if (kOrd) {
+      if (x.ex) atomicMax(a.ex + cell, x.ex);
+      if (x.sp) atomicOr(a.sp + cell, x.sp);
+    }
     if (!kExtra) return;
     if (a.fields & kFieldMin) atomic_min_bits(a.mn + cell, ordered(x.mn));
     if (a.fields & kFieldMax) atomic_max_bits(a.mx + cell, ordered(x.mx));
@@ -243,13 +325,44 @@ struct Sink {
   }
 };
 
+// SumOp: pass 2 of the ordered sum (partials): each finite value as
+// the int64 q = rint(v * 2^(B - E)) of its cell's exponent bound E
+// (from pass 1), summed exactly.
+struct SumOp {
+  using T = long long;
+  static constexpr bool kIsRound = false;
+  const Args& a;
+  int w;
+
+  __device__ __forceinline__ T make(float v, int /*t*/, long long /*row*/,
+                                    int lc) const {
+    if (lc < 0 || !isfinite(v) || v == 0.0f) return 0;
+    const long long cell = (long long)w * a.num_groups * a.width + lc;
+    // |v| < 2^E for every finite value of the cell, so |q| <= 2^B
+    const int e = __ldg(a.ex + cell) - kExpBias;
+    return __double2ll_rn(scalbn((double)v, a.sum_bits - e));
+  }
+  static __device__ __forceinline__ T combine(T x, T y) { return x + y; }
+  static __device__ __forceinline__ T shfl_up(T x, int off) {
+    return __shfl_up_sync(kFullMask, x, off);
+  }
+  __device__ __forceinline__ void emit(int lc, T x) const {
+    if (lc < 0 || x == 0) return;
+    const long long cell = (long long)w * a.num_groups * a.width + lc;
+    atomicAdd(reinterpret_cast<unsigned long long*>(a.isum) + cell,
+              (unsigned long long)x);
+  }
+};
+
 // The accumulate core over the block's tile of rows starting at tile0
 // (blockDim.x * 4 rows): load, cell, run-length reduction, warp scan,
-// one sink update per run.  Every thread of the block calls it.
-template <bool kRound, bool kExtra>
+// one op update per run.  Every thread of the block calls it.  The
+// fold's structure depends on the rows alone, never on timing.
+template <class Op>
 __device__ __forceinline__ void accumulate_tile(
     const Args& a, int w, int nv, int tile0, const int* remap_w, int sh,
-    int lo_w, const Sink<kRound, kExtra>& sink) {
+    int lo_w, const Op& op) {
+  using T = typename Op::T;
   const int lane = threadIdx.x & 31;
   const long long base = (long long)w * a.cap;
   const int r0 = tile0 + threadIdx.x * kRowsPerThread;
@@ -279,38 +392,32 @@ __device__ __forceinline__ void accumulate_tile(
   }
 
   int cell[kRowsPerThread];
-  Agg x[kRowsPerThread];
+  T x[kRowsPerThread];
 #pragma unroll
   for (int k = 0; k < kRowsPerThread; ++k) {
     int t;
-    cell[k] = row_cell<kRound>(a, remap_w, sh, lo_w, g4[k], ts4[k], &t);
-    x[k].cnt = 1.0f;
-    x[k].sum = v4[k];
-    x[k].mn = kExtra ? min_image(v4[k]) : 0;
-    x[k].mx = kExtra ? max_image(v4[k]) : 0;
-    x[k].key = kExtra ? ((unsigned long long)((unsigned)t ^ 0x80000000u)
-                             << 32) |
-                            (unsigned long long)(base + r0 + k + 1)
-                      : 0ull;
+    cell[k] = row_cell<Op::kIsRound>(a, remap_w, sh, lo_w, g4[k], ts4[k],
+                                     &t);
+    x[k] = op.make(v4[k], t, base + r0 + k, cell[k]);
   }
 
   // the thread's own rows, run by run: the head run (from its first
   // row) and the tail run (to its last row) may continue in the
   // neighbouring lanes; runs strictly inside are complete
-  Agg head = x[0], run = x[0];
+  T head = x[0], run = x[0];
   const int head_cell = cell[0];
   int run_cell = cell[0];
   bool full = true;  // all rows in one run: head == tail
 #pragma unroll
   for (int k = 1; k < kRowsPerThread; ++k) {
     if (cell[k] == run_cell) {
-      run = combine<kExtra>(run, x[k]);
+      run = Op::combine(run, x[k]);
     } else {
       if (full) {
         head = run;
         full = false;
       } else {
-        sink.emit(run_cell, run);
+        op.emit(run_cell, run);
       }
       run = x[k];
       run_cell = cell[k];
@@ -321,31 +428,31 @@ __device__ __forceinline__ void accumulate_tile(
   // segmented inclusive scan of the tail runs across the warp: a lane
   // whose rows are one run (`open`) joins the run that ends in the lane
   // before it when the cells match
-  Agg s = run;
+  T s = run;
   bool open = full;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    const Agg o = shfl_up<kExtra>(s, off);
+    const T o = Op::shfl_up(s, off);
     const int o_cell = __shfl_up_sync(kFullMask, tail_cell, off);
     const int o_open = __shfl_up_sync(kFullMask, (int)open, off);
     if (lane >= off) {
       if (open && o_cell == tail_cell) {
-        s = combine<kExtra>(o, s);
+        s = Op::combine(o, s);
         open = o_open != 0;
       } else {
         open = false;
       }
     }
   }
-  const Agg carry = shfl_up<kExtra>(s, 1);
+  const T carry = Op::shfl_up(s, 1);
   const int prev_cell = __shfl_up_sync(kFullMask, tail_cell, 1);
   const int next_head = __shfl_down_sync(kFullMask, head_cell, 1);
   if (!full)
-    sink.emit(head_cell, (lane > 0 && prev_cell == head_cell)
-                             ? combine<kExtra>(carry, head)
-                             : head);
+    op.emit(head_cell, (lane > 0 && prev_cell == head_cell)
+                           ? Op::combine(carry, head)
+                           : head);
   // the lane that ends a run issues it
-  if (lane == 31 || next_head != tail_cell) sink.emit(tail_cell, s);
+  if (lane == 31 || next_head != tail_cell) op.emit(tail_cell, s);
 }
 
 __device__ __forceinline__ int window_rows(const Args& a, int w) {
@@ -366,8 +473,9 @@ __device__ __forceinline__ const int* stage_remap(const Args& a, int w,
   return s_remap;
 }
 
-// one tile of kTileRows rows of window blockIdx.y per block
-template <bool kRound, bool kExtra>
+// one tile of kTileRows rows of window blockIdx.y per block; kPass 0
+// is the AggOp pass, kPass 1 the ordered sum's SumOp pass
+template <bool kRound, bool kExtra, bool kOrd, int kPass>
 __global__ void __launch_bounds__(kThreads) accumulate_kernel(const Args a) {
   const int w = blockIdx.y;
   const int nv = window_rows(a, w);
@@ -376,14 +484,20 @@ __global__ void __launch_bounds__(kThreads) accumulate_kernel(const Args a) {
   __shared__ int s_remap[kRemapShared];
   const int* remap_w = stage_remap(a, w, s_remap);
   const int lo_w = a.lo ? a.lo[w] : 0;
-  const Sink<kRound, kExtra> sink{a, w, lo_w};
-  accumulate_tile<kRound, kExtra>(a, w, nv, tile0, remap_w,
-                                  a.shift ? a.shift[w] : 0, lo_w, sink);
+  const int sh = a.shift ? a.shift[w] : 0;
+  if constexpr (kPass == 0) {
+    const AggOp<kRound, kExtra, kOrd> op{a, w, lo_w};
+    accumulate_tile(a, w, nv, tile0, remap_w, sh, lo_w, op);
+  } else {
+    const SumOp op{a, w};
+    accumulate_tile(a, w, nv, tile0, remap_w, sh, lo_w, op);
+  }
 }
 
-__global__ void partials_init_kernel(long long cells, int fields,
+__global__ void partials_init_kernel(long long cells, int fields, int ord,
                                      float* count, float* sum, float* mn,
-                                     float* mx, unsigned long long* key) {
+                                     float* mx, unsigned long long* key,
+                                     int* ex, int* sp, long long* isum) {
   for (long long c = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        c < cells; c += (long long)gridDim.x * blockDim.x) {
     count[c] = 0.0f;
@@ -391,19 +505,47 @@ __global__ void partials_init_kernel(long long cells, int fields,
     if (fields & kFieldMin) mn[c] = __int_as_float(0x7F800000);  // +inf
     if (fields & kFieldMax) mx[c] = __int_as_float((int)0xFF800000u);
     if (fields & kFieldLast) key[c] = 0ull;
+    if (ord) {
+      ex[c] = 0;
+      sp[c] = 0;
+      isum[c] = 0;
+    }
   }
 }
 
-// partials: each cell's winning row -> last, last_ts
-__global__ void partials_last_kernel(long long cells,
-                                     const unsigned long long* __restrict__ key,
-                                     const float* __restrict__ vals,
-                                     float* last, int* last_ts) {
+// partials: each cell's ordered sum (when `ord`) and its winning row ->
+// last, last_ts (when `last` is asked)
+__global__ void partials_finish_kernel(long long cells, int fields, int ord,
+                                       int sum_bits, const int* __restrict__ ex,
+                                       const int* __restrict__ sp,
+                                       const long long* __restrict__ isum,
+                                       float* sum,
+                                       const unsigned long long* __restrict__ key,
+                                       const float* __restrict__ vals,
+                                       float* last, int* last_ts) {
   for (long long c = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        c < cells; c += (long long)gridDim.x * blockDim.x) {
-    const unsigned long long k = key[c];
-    last[c] = k ? vals[(k & 0xFFFFFFFFull) - 1] : 0.0f;
-    last_ts[c] = k ? key_ts(k) : (int)0x80000000u;
+    if (ord) {
+      const int f = sp[c];
+      float r;
+      if ((f & kSpecNan) || (f & (kSpecPosInf | kSpecNegInf)) ==
+                                (kSpecPosInf | kSpecNegInf))
+        r = __int_as_float(0x7FC00000);
+      else if (f & kSpecPosInf)
+        r = __int_as_float(0x7F800000);
+      else if (f & kSpecNegInf)
+        r = __int_as_float((int)0xFF800000u);
+      else
+        r = ex[c] ? (float)scalbn((double)isum[c],
+                                  ex[c] - kExpBias - sum_bits)
+                  : 0.0f;
+      sum[c] = r;
+    }
+    if (fields & kFieldLast) {
+      const unsigned long long k = key[c];
+      last[c] = k ? vals[(k & 0xFFFFFFFFull) - 1] : 0.0f;
+      last_ts[c] = k ? key_ts(k) : (int)0x80000000u;
+    }
   }
 }
 
@@ -438,23 +580,40 @@ int aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-// the accumulate core over rows [0, max_rows) of each window
-int launch_accumulate(const Args& a, bool round, int num_windows,
+// the accumulate core over rows [0, max_rows) of each window: the
+// round epilogue, or partials pass 1 (ord: the ordered sum's pass 1) or
+// pass 2 (the ordered sum's int64 adds)
+enum Launch { kLaunchRound, kLaunchPartials, kLaunchPartialsOrd,
+              kLaunchOrdSum };
+
+int launch_accumulate(const Args& a, Launch which, int num_windows,
                       int max_rows, cudaStream_t s) {
   if (num_windows <= 0 || max_rows <= 0) return 0;
   if (num_windows > 65535) return (int)cudaErrorInvalidConfiguration;
   const bool extra = (a.fields & (kFieldMin | kFieldMax | kFieldLast)) != 0;
   const dim3 grid((max_rows + kTileRows - 1) / kTileRows, num_windows);
-  if (round) {
-    if (extra)
-      accumulate_kernel<true, true><<<grid, kThreads, 0, s>>>(a);
-    else
-      accumulate_kernel<true, false><<<grid, kThreads, 0, s>>>(a);
-  } else {
-    if (extra)
-      accumulate_kernel<false, true><<<grid, kThreads, 0, s>>>(a);
-    else
-      accumulate_kernel<false, false><<<grid, kThreads, 0, s>>>(a);
+  switch (which) {
+    case kLaunchRound:
+      if (extra)
+        accumulate_kernel<true, true, false, 0><<<grid, kThreads, 0, s>>>(a);
+      else
+        accumulate_kernel<true, false, false, 0><<<grid, kThreads, 0, s>>>(a);
+      break;
+    case kLaunchPartials:
+      if (extra)
+        accumulate_kernel<false, true, false, 0><<<grid, kThreads, 0, s>>>(a);
+      else
+        accumulate_kernel<false, false, false, 0><<<grid, kThreads, 0, s>>>(a);
+      break;
+    case kLaunchPartialsOrd:
+      if (extra)
+        accumulate_kernel<false, true, true, 0><<<grid, kThreads, 0, s>>>(a);
+      else
+        accumulate_kernel<false, false, true, 0><<<grid, kThreads, 0, s>>>(a);
+      break;
+    case kLaunchOrdSum:
+      accumulate_kernel<false, false, false, 1><<<grid, kThreads, 0, s>>>(a);
+      break;
   }
   return (int)cudaGetLastError();
 }
@@ -495,17 +654,22 @@ Args make_args(const int* ts, const int* gid, const float* vals,
 
 // Partial grids: count, sum, min, max, last float32 and last_ts int32
 // outputs of W*G*width cells; key is an int64 scratch of the same cell
-// count (only touched when `last` is requested).  Launches: init,
-// accumulate, and a `last` gather when requested.
+// count (only touched when `last` is requested).  With `ordered` and a
+// sum asked, ex/sp (int32) and isum (int64) are per-cell scratch of the
+// ordered sum and sum_bits its B.  Launches: init, accumulate (twice
+// for the ordered sum), and a finish pass for the ordered sum and
+// `last`.
 extern "C" int horaedb_bucket_window_partials(
     const int* ts, const int* gid, const float* vals, const int* remap,
     int remap_len, const int* shift, const int* lo, int num_windows,
     int cap, int n_valid, int num_groups, int width, int total_buckets,
     int bucket_ms, int fields, float* count, float* sum, float* mn,
-    float* mx, float* last, int* last_ts, long long* key, void* stream) {
+    float* mx, float* last, int* last_ts, long long* key, int ordered,
+    int* ex, int* sp, long long* isum, int sum_bits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long cells = (long long)num_windows * num_groups * width;
   if (cells == 0) return 0;
+  const int ord = ordered && (fields & kFieldSum);
   unsigned long long* key_u = reinterpret_cast<unsigned long long*>(key);
   Args a = make_args(ts, gid, vals, remap, remap_len, shift, lo, nullptr,
                      n_valid, cap, num_groups, width, total_buckets,
@@ -515,14 +679,25 @@ extern "C" int horaedb_bucket_window_partials(
   a.mn = mn;
   a.mx = mx;
   a.key = key_u;
+  a.ex = ex;
+  a.sp = sp;
+  a.isum = isum;
+  a.sum_bits = sum_bits;
   partials_init_kernel<<<grid_for(cells), kThreads, 0, s>>>(
-      cells, fields, count, sum, mn, mx, key_u);
+      cells, fields, ord, count, sum, mn, mx, key_u, ex, sp, isum);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  err = launch_accumulate(a, false, num_windows, n_valid, s);
-  if (err || !(fields & kFieldLast)) return err;
-  partials_last_kernel<<<grid_for(cells), kThreads, 0, s>>>(
-      cells, key_u, vals, last, last_ts);
+  err = launch_accumulate(a, ord ? kLaunchPartialsOrd : kLaunchPartials,
+                          num_windows, n_valid, s);
+  if (err) return err;
+  if (ord) {
+    err = launch_accumulate(a, kLaunchOrdSum, num_windows, n_valid, s);
+    if (err) return err;
+  }
+  if (!ord && !(fields & kFieldLast)) return 0;
+  partials_finish_kernel<<<grid_for(cells), kThreads, 0, s>>>(
+      cells, fields, ord, sum_bits, ex, sp, isum, sum, key_u, vals, last,
+      last_ts);
   return (int)cudaGetLastError();
 }
 
@@ -557,7 +732,7 @@ extern "C" int horaedb_bucket_round_accumulate(
   a.key = key_u;
   a.col0 = col0;
   a.span = span;
-  int err = launch_accumulate(a, true, num_windows, max_rows, s);
+  int err = launch_accumulate(a, kLaunchRound, num_windows, max_rows, s);
   if (err || !want_last) return err;
   round_last_kernel<<<grid_for(key_cells), kThreads, 0, s>>>(
       key_cells, span, col0, total_buckets, key_u, vals, acc_last,

@@ -18,9 +18,10 @@ The engine runs on one torch device, chosen at open() and carried down
 to the readers: "cuda" by default, and open() raises when no card is
 present rather than carrying on on the CPU.  device="cpu" is for tests.
 
-Ported: open/close, the bulk Arrow ingest (row layout), metric and
+Ported: open/close (each table's compaction scheduler and scrubber
+start and stop with it), the bulk Arrow ingest (row layout), metric and
 series resolution, raw row queries and the downsample query on the raw
-path.  Not ported yet: the scalar write path, the chunked data layout,
+path, by the fused or the parts aggregate.  Not ported yet: the scalar write path, the chunked data layout,
 the WAL, rollups, self-monitoring, scan agents, top-k and multi-field
 queries (see ROADMAP.md).
 """
@@ -341,6 +342,8 @@ class MetricEngine:
         return self
 
     async def close(self) -> None:
+        """Close the five tables: their compaction schedulers and scrub
+        loops stop first, then their manifests and readers."""
         for t in self.tables.values():
             await t.close()
         if self._runtimes is not None:
@@ -531,10 +534,14 @@ class MetricEngine:
         as an aggregate pushdown on the engine's device.  `aggs` restricts
         which aggregates are computed (count always rides along).
         Returns {tsids, num_buckets, aggs: {agg -> (series, bucket)
-        grid}}: tensors on the engine's device, except `last_ts`, a host
-        float64 array of absolute ms.  `use_rollup` is accepted for API
-        parity; the port has no rollups, so every query takes the raw
-        path."""
+        grid}} as the path that served the query gives them, as the
+        reference does: the fused path's grids are tensors on the
+        engine's device (except `last_ts`, a host float64 array of
+        absolute ms); the parts path's (taken when the plan's rows
+        exceed the scan-cache budget, storage/read.py
+        fused_aggregate_ok) are the combine's host float64 arrays.
+        `use_rollup` is accepted for API parity; the port has no
+        rollups, so every query takes the raw path."""
         num_buckets, aligned = self._downsample_grid(time_range, bucket_ms)
         with span("resolve"):
             pred = await self._data_predicate(metric, filters, time_range,

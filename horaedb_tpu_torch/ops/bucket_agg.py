@@ -8,7 +8,9 @@ ops.downsample.window_local_partials — remap, shift, total-bucket drop,
 lo rebase — fused with the segmented aggregate), two entries:
 
 - `bucket_window_partials`: the partial grids of W windows,
-  (W, num_groups, width) per field.
+  (W, num_groups, width) per field, the same bytes on every launch: its
+  sum is an integer sum of per-cell fixed-point images, so it does not
+  depend on the order of the atomics (see csrc/bucket_agg.cu).
 - `bucket_round_accumulate`: the same rows folded straight into the
   query-global accumulator of storage.read.fused_acc_init, in place; no
   partial grid is written.
@@ -121,7 +123,7 @@ def _load():
             P, I = ctypes.c_void_p, ctypes.c_int
             fn = lib.horaedb_bucket_window_partials
             fn.argtypes = [P, P, P, P, I, P, P, I, I, I, I, I, I, I, I,
-                           P, P, P, P, P, P, P, P]
+                           P, P, P, P, P, P, P, I, P, P, P, I, P]
             fn.restype = I
             fn = lib.horaedb_bucket_round_accumulate
             fn.argtypes = [P, P, P, P, I, P, P, P, I, I, I, I, I, I, I, I,
@@ -196,15 +198,37 @@ def bucket_window_partials(ts, gid_local, vals, remap, shift, lo,
     for zeros.  Rows at or past `n_valid` (default cap) are dropped, as
     are rows whose query-global bucket reaches `total_buckets`.  See
     csrc/bucket_agg.cu for the arithmetic and the empty-cell
-    conventions.  CUDA tensors launch the kernel; CPU tensors run the
-    plain version."""
-    import torch
-
+    conventions.  On the card every field, the sum included, is the
+    same bytes on every launch for the same input (the ordered sum).
+    CUDA tensors launch the kernel; CPU tensors run the plain version."""
     if ts.device.type == "cpu":
         return bucket_window_partials_plain(
             ts, gid_local, vals, remap, shift, lo, total_buckets, bucket_ms,
             num_groups=num_groups, width=width, which=which,
             n_valid=n_valid)
+    return _launch_partials(ts, gid_local, vals, remap, shift, lo,
+                            total_buckets, bucket_ms, num_groups=num_groups,
+                            width=width, which=which, n_valid=n_valid,
+                            ordered=True)
+
+
+def _sum_bits(n_valid: int) -> int:
+    """B of the ordered sum: each value enters as an int64 of at most
+    2^B in magnitude, and a cell holds at most n_valid rows, so
+    n_valid * 2^B < 2^62."""
+    return 62 - max(1, int(n_valid)).bit_length()
+
+
+def _launch_partials(ts, gid_local, vals, remap, shift, lo,
+                     total_buckets: int, bucket_ms: int, *, num_groups: int,
+                     width: int, which: tuple, n_valid: Optional[int],
+                     ordered: bool) -> dict:
+    """The partial-grid kernel on CUDA tensors.  `ordered` False keeps
+    the one-pass float atomicAdd sum, whose bytes vary from launch to
+    launch; only chip_smoke.py asks for it, to time it beside the
+    ordered sum."""
+    import torch
+
     W, cap, remap_len = _check_round(
         "bucket_window_partials", ts, gid_local, vals, remap, shift, lo,
         bucket_ms, num_groups, width)
@@ -219,6 +243,12 @@ def bucket_window_partials(ts, gid_local, vals, remap, shift, lo,
                              else torch.float32, device=dev)
     key = (torch.empty(shape, dtype=torch.int64, device=dev)
            if "last" in fields else None)
+    ordered = ordered and "sum" in fields
+    ex = sp = isum = None
+    if ordered:
+        ex = torch.empty(shape, dtype=torch.int32, device=dev)
+        sp = torch.empty(shape, dtype=torch.int32, device=dev)
+        isum = torch.empty(shape, dtype=torch.int64, device=dev)
     lib = _load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -228,7 +258,8 @@ def bucket_window_partials(ts, gid_local, vals, remap, shift, lo,
             int(total_buckets), int(bucket_ms), _field_mask(fields),
             _ptr(out["count"]), _ptr(out.get("sum")), _ptr(out.get("min")),
             _ptr(out.get("max")), _ptr(out.get("last")),
-            _ptr(out.get("last_ts")), _ptr(key), stream)
+            _ptr(out.get("last_ts")), _ptr(key), int(ordered), _ptr(ex),
+            _ptr(sp), _ptr(isum), _sum_bits(n_valid), stream)
     if rc != 0:
         raise Error(f"bucket_window_partials launch failed: cudaError {rc}")
     LAUNCHES["bucket_window_partials"] += 1

@@ -1,0 +1,417 @@
+"""Cross-part aggregate combine of the parts path (a copy of the JAX
+package's storage/combine.py, trimmed to what the single-device engine
+path needs).
+
+Per-window partial grids (each covering LOCAL buckets [lo, lo + width)
+of the query's bucket range) fold on the host, in float64, into the
+user-facing (groups, num_buckets) grids:
+
+  sparse combine   parts fold straight into the FINAL output buffers —
+                   full-group parts (every window of a scan carries all
+                   series) paste as in-place column-slice ops, and
+                   finalize converts in place.  The default.
+  dense combine    one f64 accumulator set, fancy-indexed
+                   read-modify-write per part, then a separate output
+                   set: the bit-identity control ([scan.combine]
+                   mode = "dense").
+  PartsMemo        a byte-bounded per-segment partial memo, keyed by the
+                   segment's exact SST set + the range-independent
+                   aggregate fingerprint, serves narrowed/refined
+                   ranges from prior partials and recomputes only the
+                   delta segments.
+
+Bit-identity contract: for the same parts, sparse and dense give
+byte-equal grids — f64 folds run in the same part order with the same
+casts, and empty cells read count 0, sum 0, min +inf, max -inf,
+avg/last/last_ts NaN.  The fold order and casts are the JAX package's,
+so the port's folds equal the reference's for the same parts.
+
+Not here yet: the top-k pushdown (combine_top_k, rank_top_k) and the
+cluster tier's merge_downsample_results.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from horaedb_tpu_torch.common.error import ensure
+from horaedb_tpu_torch.ops.downsample import ALL_AGGS
+from horaedb_tpu_torch.storage.scan_cache import ByteLRU
+from horaedb_tpu_torch.utils import registry
+
+COMBINE_MODES = ("sparse", "dense")
+
+_I64_MIN = np.iinfo(np.int64).min
+
+# combine economics: touched cells (sum of part run cells) against the
+# dense output-grid cells, and the output cells actually allocated
+_TOUCHED = registry.counter(
+    "scan_combine_touched_cells_total",
+    "aggregate part cells folded by combine (groups x run width, "
+    "summed over parts)")
+_GRID = registry.counter(
+    "scan_combine_grid_cells_total",
+    "dense output-grid cells (groups x buckets) per combine call")
+_MATERIALIZED = registry.counter(
+    "scan_combine_materialized_cells_total",
+    "output cells allocated by combine/finalize")
+_MEMO_HITS = registry.counter(
+    "scan_combine_memo_hits_total",
+    "delta-summation memo hits (a segment's partials served without "
+    "re-scanning)")
+_MEMO_MISSES = registry.counter(
+    "scan_combine_memo_misses_total", "delta-summation memo misses")
+_MEMO_UNCOVERED = registry.counter(
+    "scan_combine_memo_uncovered_total",
+    "memo entries present but unusable: the new query's grid reaches "
+    "buckets the stored partials were clipped away from")
+_MEMO_PARTS = registry.counter(
+    "scan_combine_memo_parts_served_total",
+    "aggregate parts served from the delta-summation memo")
+
+
+def expand_which(which) -> set:
+    """Requested aggregates plus their computation dependencies: avg
+    needs sum, count always rides along."""
+    want = set(which) | {"count"}
+    if "avg" in want:
+        want.add("sum")
+    return want
+
+
+def emitted_aggs(which) -> list[str]:
+    """Output grid keys for a request, in the canonical emit order."""
+    requested = set(which) | {"count"}
+    return [k for k in ("count", "sum", "min", "max", "avg", "last",
+                        "last_ts")
+            if k in requested or (k == "last_ts" and "last" in requested)]
+
+
+def _empty_result(num_buckets: int, which) -> tuple[np.ndarray, dict]:
+    empty = np.zeros((0, num_buckets), dtype=np.float32)
+    return np.asarray([]), {k: empty.copy() for k in emitted_aggs(which)}
+
+
+def _identity_grids(g: int, num_buckets: int, want: set) -> dict:
+    """f64 accumulator grids with combine-identity fills, matching the
+    partial grids' conventions."""
+    acc: dict = {"count": np.zeros((g, num_buckets), dtype=np.float64)}
+    if "sum" in want:
+        acc["sum"] = np.zeros((g, num_buckets), dtype=np.float64)
+    if "min" in want:
+        acc["min"] = np.full((g, num_buckets), np.inf, dtype=np.float64)
+    if "max" in want:
+        acc["max"] = np.full((g, num_buckets), -np.inf, dtype=np.float64)
+    if "last" in want:
+        acc["last"] = np.zeros((g, num_buckets), dtype=np.float64)
+        acc["last_ts"] = np.full((g, num_buckets), _I64_MIN,
+                                 dtype=np.int64)
+    return acc
+
+
+def _union_values(parts: list) -> np.ndarray:
+    return np.unique(np.concatenate([v for v, _, _ in parts]))
+
+
+def combine_aggregate_parts(parts: list[tuple[np.ndarray, int, dict]],
+                            num_buckets: int,
+                            which: tuple = ALL_AGGS
+                            ) -> tuple[np.ndarray, dict]:
+    """The DENSE fold ([scan.combine] mode = "dense"): one f64
+    accumulator set, per-part fancy-indexed read-modify-write, then a
+    separate output set built with np.where passes.  Each part is
+    (group_values, bucket_lo, grids) with grids covering LOCAL buckets
+    [bucket_lo, bucket_lo + width).  `last` combines by latest
+    (range-relative) timestamp, the later part winning ties (parts
+    arrive in segment/window order)."""
+    requested = set(which) | {"count"}
+    want = expand_which(requested)
+    if not parts:
+        return _empty_result(num_buckets, which)
+    all_values = _union_values(parts)
+    g = len(all_values)
+    _GRID.inc(g * num_buckets)
+    acc = _identity_grids(g, num_buckets, want)
+    for values, lo, p in parts:
+        _TOUCHED.inc(len(values) * p["count"].shape[1])
+        rows = np.searchsorted(all_values, values)
+        width = p["count"].shape[1]
+        sl = slice(lo, lo + width)
+        acc["count"][rows, sl] += p["count"]
+        if "sum" in acc:
+            acc["sum"][rows, sl] += p["sum"]
+        if "min" in acc:
+            acc["min"][rows, sl] = np.minimum(acc["min"][rows, sl],
+                                              p["min"])
+        if "max" in acc:
+            acc["max"][rows, sl] = np.maximum(acc["max"][rows, sl],
+                                              p["max"])
+        if "last" in acc:
+            newer = p["last_ts"].astype(np.int64) >= acc["last_ts"][rows,
+                                                                    sl]
+            has_data = p["count"] > 0
+            take = newer & has_data
+            last_rows = acc["last"][rows, sl]
+            last_rows[take] = p["last"][take]
+            acc["last"][rows, sl] = last_rows
+            lt_rows = acc["last_ts"][rows, sl]
+            lt_rows[take] = p["last_ts"].astype(np.int64)[take]
+            acc["last_ts"][rows, sl] = lt_rows
+    empty = acc["count"] == 0
+    out = {"count": acc["count"]}
+    # sum only when EXPLICITLY requested: it may be present in acc
+    # merely as avg's dependency
+    if "sum" in acc and "sum" in requested:
+        out["sum"] = acc["sum"]
+    if "sum" in acc and "avg" in want:
+        with np.errstate(invalid="ignore", divide="ignore"):
+            out["avg"] = np.where(empty, np.nan,
+                                  acc["sum"] / np.maximum(acc["count"], 1))
+    # count-0 cells read the +/-inf identities regardless of part
+    # coverage, as the fused finalize does
+    if "min" in acc:
+        out["min"] = np.where(empty, np.inf, acc["min"])
+    if "max" in acc:
+        out["max"] = np.where(empty, -np.inf, acc["max"])
+    if "last" in acc:
+        out["last"] = np.where(empty, np.nan, acc["last"])
+        out["last_ts"] = np.where(empty, np.nan,
+                                  acc["last_ts"].astype(np.float64))
+    _MATERIALIZED.inc(g * num_buckets * len(out))
+    return all_values, out
+
+
+def _fold_part(acc: dict, rows, sl: slice, p: dict) -> None:
+    """Fold one part into the output buffers.  `rows` is None for a
+    FULL part (its group set == the union): the fold is then pure
+    in-place column-slice arithmetic.  Subset parts take the same
+    fancy-indexed path as the dense fold, so cell values cannot differ
+    between the branches."""
+    if rows is None:
+        acc["count"][:, sl] += p["count"]
+        if "sum" in acc:
+            acc["sum"][:, sl] += p["sum"]
+        if "min" in acc:
+            mv = acc["min"][:, sl]
+            np.minimum(mv, p["min"], out=mv)
+        if "max" in acc:
+            xv = acc["max"][:, sl]
+            np.maximum(xv, p["max"], out=xv)
+        if "last" in acc:
+            lt_view = acc["last_ts"][:, sl]
+            newer = p["last_ts"].astype(np.int64) >= lt_view
+            take = newer & (p["count"] > 0)
+            np.copyto(acc["last"][:, sl], p["last"], where=take,
+                      casting="same_kind")
+            np.copyto(lt_view, p["last_ts"].astype(np.int64), where=take)
+        return
+    acc["count"][rows, sl] += p["count"]
+    if "sum" in acc:
+        acc["sum"][rows, sl] += p["sum"]
+    if "min" in acc:
+        acc["min"][rows, sl] = np.minimum(acc["min"][rows, sl], p["min"])
+    if "max" in acc:
+        acc["max"][rows, sl] = np.maximum(acc["max"][rows, sl], p["max"])
+    if "last" in acc:
+        newer = p["last_ts"].astype(np.int64) >= acc["last_ts"][rows, sl]
+        take = newer & (p["count"] > 0)
+        last_rows = acc["last"][rows, sl]
+        last_rows[take] = p["last"][take]
+        acc["last"][rows, sl] = last_rows
+        lt_rows = acc["last_ts"][rows, sl]
+        lt_rows[take] = p["last_ts"].astype(np.int64)[take]
+        acc["last_ts"][rows, sl] = lt_rows
+
+
+def _finalize_in_place(acc: dict, requested: set, want: set) -> dict:
+    """Turn fold buffers into the output dict with the dense path's
+    cell conventions, in place.  avg divides only where count > 0
+    (identical values to sum / max(count, 1) there) and NaNs the
+    rest."""
+    out = {"count": acc["count"]}
+    empty = None
+    if "avg" in want or "last" in acc or "min" in acc or "max" in acc:
+        empty = acc["count"] == 0
+    if "sum" in acc and "sum" in requested:
+        out["sum"] = acc["sum"]
+    if "sum" in acc and "avg" in want:
+        avg = np.empty_like(acc["sum"])
+        np.divide(acc["sum"], acc["count"], out=avg, where=~empty)
+        avg[empty] = np.nan
+        out["avg"] = avg
+    if "min" in acc:
+        mv = acc["min"]
+        mv[empty] = np.inf
+        out["min"] = mv
+    if "max" in acc:
+        xv = acc["max"]
+        xv[empty] = -np.inf
+        out["max"] = xv
+    if "last" in acc:
+        last = acc["last"]
+        last[empty] = np.nan
+        out["last"] = last
+        lt = acc["last_ts"].astype(np.float64)
+        lt[empty] = np.nan
+        out["last_ts"] = lt
+    return out
+
+
+def sparse_combine_parts(parts: list[tuple[np.ndarray, int, dict]],
+                         num_buckets: int,
+                         which: tuple = ALL_AGGS
+                         ) -> tuple[np.ndarray, dict]:
+    """The sparse fold ([scan.combine] mode = "sparse", the default):
+    parts paste straight into the FINAL output buffers and finalize
+    runs in place, so combine allocates exactly ONE grid set.
+    Bit-identical to combine_aggregate_parts."""
+    requested = set(which) | {"count"}
+    want = expand_which(requested)
+    if not parts:
+        return _empty_result(num_buckets, which)
+    all_values = _union_values(parts)
+    g = len(all_values)
+    _GRID.inc(g * num_buckets)
+    acc = _identity_grids(g, num_buckets, want)
+    touched = 0
+    for values, lo, p in parts:
+        width = p["count"].shape[1]
+        touched += len(values) * width
+        rows = None if len(values) == g else np.searchsorted(all_values,
+                                                             values)
+        _fold_part(acc, rows, slice(lo, lo + width), p)
+    _TOUCHED.inc(touched)
+    out = _finalize_in_place(acc, requested, want)
+    _MATERIALIZED.inc(g * num_buckets * len(out))
+    return all_values, out
+
+
+def combine_parts(parts: list, num_buckets: int, which: tuple = ALL_AGGS,
+                  mode: str = "sparse") -> tuple[np.ndarray, dict]:
+    """Mode-dispatched combine — the one entry point the reader uses."""
+    ensure(mode in COMBINE_MODES,
+           f"unknown [scan.combine] mode {mode!r}; expected one of "
+           f"{COMBINE_MODES}")
+    if mode == "dense":
+        return combine_aggregate_parts(parts, num_buckets, which=which)
+    return sparse_combine_parts(parts, num_buckets, which=which)
+
+
+class PartsMemo:
+    """Byte-bounded per-segment aggregate-partial memo (the delta
+    -summation tier).
+
+    Key: the segment's scan-cache identity (segment start + exact SST
+    id set + columns + pushdown) plus the RANGE-INDEPENDENT aggregate
+    fingerprint (group/ts/value columns, bucket width, bucket PHASE =
+    range_start % bucket_ms, requested aggs, canonical predicate).  Any
+    write, flush or compaction changes the SST set and misses
+    structurally, with no explicit invalidation.
+
+    Value: the segment's combined parts in the recording query's grid
+    coordinates, plus that grid's (range_start, num_buckets).  A later
+    query with the same phase REBASES: shift each part's bucket_lo by
+    the whole-bucket range delta, clip to the new grid, and re-relative
+    last_ts — pure slicing, so served parts are bit-identical to a
+    recompute (on the card this needs the partial-grid kernel's sum to
+    be the same bytes on every launch).  Serving requires the segment's
+    overlap with the NEW grid to lie inside the RECORDED grid: a
+    widened range reaches buckets the stored parts were clipped away
+    from and recomputes.
+
+    Event-loop owned, like the scan cache."""
+
+    def __init__(self, max_bytes: int):
+        self.lru = ByteLRU(max_bytes, hits=_MEMO_HITS, misses=_MEMO_MISSES)
+
+    @property
+    def enabled(self) -> bool:
+        return self.lru.max_bytes > 0
+
+    @staticmethod
+    def key(seg_key: tuple, spec, pred_key: str) -> tuple:
+        phase = spec.range_start % spec.bucket_ms
+        return (seg_key, spec.group_col, spec.ts_col, spec.value_col,
+                spec.bucket_ms, phase, spec.which, pred_key)
+
+    def probe(self, seg_key: tuple, seg_start: int, segment_ms: int,
+              spec, pred_key: str) -> Optional[list]:
+        """Rebased parts for one segment, or None (miss / uncovered)."""
+        if not self.enabled:
+            return None
+        key = self.key(seg_key, spec, pred_key)
+        # peek first: an entry that fails the coverage check must NOT
+        # count as a hit, so hit/miss is recorded once coverage is known
+        entry = self.lru.peek_entry(key)
+        if entry is None:
+            self.lru.record_miss()
+            return None
+        old_start = entry["range_start"]
+        old_nb = entry["num_buckets"]
+        b = spec.bucket_ms
+        # same phase (it's in the key), so the range delta is whole
+        # buckets and rebasing is exact integer arithmetic
+        shift = (old_start - spec.range_start) // b
+        b_lo = (seg_start - old_start) // b
+        b_hi = (seg_start + segment_ms - 1 - old_start) // b
+        lo_i = max(b_lo, -shift)
+        hi_i = min(b_hi, -shift + spec.num_buckets - 1)
+        if lo_i <= hi_i and (lo_i < 0 or hi_i > old_nb - 1):
+            # the new grid reaches buckets outside the recorded grid:
+            # stored parts were clipped there — recompute
+            _MEMO_UNCOVERED.inc()
+            self.lru.record_miss()
+            return None
+        self.lru.record_hit(key)
+        out = []
+        delta = old_start - spec.range_start
+        for values, lo, p in entry["parts"]:
+            nl = lo + shift
+            cut = max(0, -nl)
+            width = p["count"].shape[1]
+            w_eff = min(width - cut, spec.num_buckets - (nl + cut))
+            if w_eff <= 0:
+                continue
+            sl = slice(cut, cut + w_eff)
+            grids = {k: v[:, sl] for k, v in p.items() if k != "last_ts"}
+            if "last_ts" in p:
+                lt = p["last_ts"][:, sl]
+                # stored relative to the recording range; re-relative
+                # where there is data, keep the sentinel elsewhere
+                grids["last_ts"] = np.where(grids["count"] > 0,
+                                            lt + delta, lt)
+            out.append((values, nl + cut, grids))
+        _MEMO_PARTS.inc(len(out))
+        return out
+
+    def store(self, seg_key: tuple, spec, pred_key: str,
+              parts: list) -> None:
+        """Record one segment's COMPLETE parts (aggregate_segments
+        yields a segment only once all its windows folded).  Parts are
+        deep-copied: the originals are views into per-round grid
+        stacks, and storing views would pin the whole stack while the
+        byte accounting saw only the slice."""
+        if not self.enabled:
+            return
+        copied = []
+        nbytes = 0
+        for values, lo, p in parts:
+            grids = {k: v.copy() for k, v in p.items()}
+            values = values.copy()
+            nbytes += values.nbytes + sum(v.nbytes
+                                          for v in grids.values())
+            copied.append((values, lo, grids))
+        entry = {"range_start": spec.range_start,
+                 "num_buckets": spec.num_buckets, "parts": copied}
+        self.lru.put(self.key(seg_key, spec, pred_key), entry,
+                     nbytes + 256)
+
+    def clear(self) -> None:
+        self.lru.clear()
+
+    def stats(self) -> dict:
+        return {"entries": len(self.lru), "bytes": self.lru.total_bytes,
+                "max_bytes": self.lru.max_bytes, "hits": self.lru.hits,
+                "misses": self.lru.misses}

@@ -40,9 +40,8 @@ class CompressionCodec(enum.Enum):
 
 @dataclass
 class SchedulerConfig:
-    """Compaction scheduler knobs (ref: config.rs:24-50).  Parsed so that
-    configs stay interchangeable with the JAX package; the port has no
-    compaction scheduler yet, so nothing reads them."""
+    """Compaction scheduler knobs (ref: config.rs:24-50), read by
+    storage/compaction.py."""
 
     schedule_interval: ReadableDuration = field(
         default_factory=lambda: ReadableDuration.from_secs(10))
@@ -110,6 +109,36 @@ class ManifestConfig:
 
 
 @dataclass
+class ScrubConfig:
+    """Orphan scrubber (storage/gc.py): reconciles data/ objects against
+    the manifest and deletes unreferenced objects that stay orphaned for
+    a full grace period.  The grace period must comfortably exceed the
+    longest plausible gap between an SST put and its manifest add (a
+    write or compaction in flight) — minutes, not seconds."""
+
+    enabled: bool = True
+    interval: ReadableDuration = field(
+        default_factory=lambda: ReadableDuration.from_secs(600))
+    grace_period: ReadableDuration = field(
+        default_factory=lambda: ReadableDuration.from_secs(600))
+
+
+@dataclass
+class ScanCombineConfig:
+    """Aggregate combine/finalize knobs of the parts path ([scan.combine];
+    see storage/combine.py).  `mode = "sparse"` (default) folds partial
+    grids straight into the final output buffers; `"dense"` is the
+    accumulator fold kept as the bit-identity control."""
+
+    mode: str = "sparse"
+    # byte budget for the delta-summation memo: per-segment aggregate
+    # partials keyed by the segment's exact SST set, served to
+    # narrowed/refined ranges of the same query shape so only delta
+    # segments recompute.  0 disables the memo.
+    memo_max_bytes: int = 128 << 20
+
+
+@dataclass
 class ScanConfig:
     """Device scan execution knobs (no reference analogue)."""
 
@@ -124,8 +153,8 @@ class ScanConfig:
     # explicit budget in bytes for the scan cache (0 = derive from
     # cache_max_rows)
     cache_max_bytes: int = 0
-    # windows (across segments) batched into one fused aggregate round —
-    # the window axis of one bucket_window_partials launch
+    # windows (across segments) batched into one aggregate round — the
+    # window axis of one kernel launch (fused and parts paths)
     agg_batch_windows: int = 16
     # read device-layout sidecars ({id}.enc) on bulk segment reads when
     # present (see storage/sidecar.py); disable to force parquet decode
@@ -134,6 +163,7 @@ class ScanConfig:
     prefetch_segments: int = 4
     # width of the "sst" decode pool; 0 = threads.sst_thread_num
     decode_workers: int = 0
+    combine: ScanCombineConfig = field(default_factory=ScanCombineConfig)
 
 
 @dataclass
@@ -155,11 +185,12 @@ class StorageConfig:
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
     scan: ScanConfig = field(default_factory=ScanConfig)
     threads: ThreadsConfig = field(default_factory=ThreadsConfig)
+    scrub: ScrubConfig = field(default_factory=ScrubConfig)
     update_mode: UpdateMode = UpdateMode.OVERWRITE
 
 
 _DURATION_FIELDS = {"schedule_interval", "merge_interval", "ttl",
-                    "soft_merge_max_wait"}
+                    "soft_merge_max_wait", "interval", "grace_period"}
 _SIZE_FIELDS = {"memory_limit", "new_sst_max_size"}
 # Nested sections, keyed by field name.  This dict is THE mechanism for
 # nested coercion: add new nested config dataclasses here.
@@ -168,7 +199,9 @@ _NESTED = {
     "manifest": ManifestConfig,
     "scheduler": SchedulerConfig,
     "scan": ScanConfig,
+    "combine": ScanCombineConfig,
     "threads": ThreadsConfig,
+    "scrub": ScrubConfig,
 }
 
 

@@ -266,6 +266,12 @@ class Manifest:
                 dels = set(update.to_deletes)
                 self._ssts = [f for f in self._ssts if f.id not in dels]
 
+    async def all_ssts(self) -> list[SstFile]:
+        """Every live SST (the compaction picker and the scrubber read
+        this)."""
+        async with self._cache_lock:
+            return list(self._ssts)
+
     async def find_ssts(self, time_range: TimeRange) -> list[SstFile]:
         async with self._cache_lock:
             return [f for f in self._ssts if f.meta.time_range.overlaps(time_range)]

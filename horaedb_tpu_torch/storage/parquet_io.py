@@ -114,6 +114,97 @@ async def write_sst(store: ObjectStore, path: str,
     return len(data)
 
 
+class _DrainableSink(io.RawIOBase):
+    """File-like sink the ParquetWriter writes into; drain() hands the
+    bytes accumulated since the last drain to the store stream, so the
+    encoded SST never exists in one buffer."""
+
+    def __init__(self) -> None:
+        self._chunks: list[bytes] = []
+        self._pos = 0
+
+    def writable(self) -> bool:
+        return True
+
+    def write(self, b) -> int:
+        data = bytes(b)
+        self._chunks.append(data)
+        self._pos += len(data)
+        return len(data)
+
+    def tell(self) -> int:
+        return self._pos
+
+    def drain(self) -> bytes:
+        out = b"".join(self._chunks)
+        self._chunks.clear()
+        return out
+
+
+async def write_sst_streaming(store: ObjectStore, path: str, batches,
+                              config: WriteConfig, schema: StorageSchema,
+                              runtimes=None, pool: str = "compact"
+                              ) -> tuple[int, int]:
+    """Stream an async iterator of sorted batches through the parquet
+    encoder INTO the store: each flushed row group is handed to
+    store.put_stream as it encodes, so peak RSS for a large SST is about
+    one row group (ref: storage.rs:192-212, executor.rs:155-222).  A
+    mid-stream failure propagates out of put_stream's iterator and
+    leaves no readable object.  Returns (size, num_rows)."""
+    import asyncio
+
+    sink = _DrainableSink()
+    writer = pq.ParquetWriter(sink, schema.arrow_schema,
+                              **writer_options(config, schema))
+    rows = 0
+
+    async def chunks():
+        nonlocal rows
+        closed = False
+        pending = None  # the in-flight pool job using `writer`
+
+        async def run_writer(fn, *args, **kwargs):
+            # shielded so a CANCELLED caller leaves `pending` visible:
+            # the pool job keeps running after cancellation, and the
+            # finally below waits it out before touching the writer
+            # (ParquetWriter is not thread-safe)
+            nonlocal pending
+            pending = asyncio.ensure_future(
+                _run(runtimes, pool, fn, *args, **kwargs))
+            try:
+                return await asyncio.shield(pending)
+            finally:
+                if pending.done():
+                    pending = None
+
+        try:
+            async for batch in batches:
+                rows += batch.num_rows
+                # slice to row-group size so every flushed group drains
+                # to the store before the next encodes
+                step = max(1, config.max_row_group_size)
+                for off in range(0, batch.num_rows, step):
+                    await run_writer(writer.write_batch,
+                                     batch.slice(off, step),
+                                     row_group_size=step)
+                    data = sink.drain()
+                    if data:
+                        yield data
+            await run_writer(writer.close)
+            closed = True
+            tail = sink.drain()
+            if tail:
+                yield tail
+        finally:
+            if pending is not None and not pending.done():
+                await asyncio.gather(pending, return_exceptions=True)
+            if not closed:
+                writer.close()
+
+    size = await store.put_stream(path, chunks())
+    return size, rows
+
+
 def conjunct_leaves_ex(pred, allowed: set) -> tuple[Optional[list], bool]:
     """conjunct_leaves plus a `complete` flag: True iff EVERY leaf of
     the predicate was collected (And-of-leaves shape, all columns in

@@ -7,31 +7,38 @@ Per time segment (ref: src/storage/src/read.rs:429-494):
                                pre-sorted SST runs + keep-last dedup,
                                cut into PK-range windows
   Filter (host mask)         — predicate tree -> row mask (gid -1)
-  FusedAggregate (device)    — rounds of windows go host-to-device as
-                               one stack per array; each round is ONE
-                               bucket_round_accumulate call that folds
-                               its rows straight into a query-global
-                               accumulator; only the final grids leave
-                               the device
+  Aggregate (device), one of two paths (fused_aggregate_ok decides):
+    fused  — rounds of windows go host-to-device as one stack per
+             array; each round is ONE bucket_round_accumulate call that
+             folds its rows straight into a query-global accumulator;
+             only the final grids leave the device.  Two-phase: every
+             window is collected (pinned in host RAM) before the first
+             round runs.
+    parts  — segments stream through rounds of ONE
+             bucket_window_partials call each; the round's partial
+             grids come to the host once and fold in float64 in
+             storage/combine.py (sparse or dense), behind a per-segment
+             partial memo (PartsMemo) that serves narrowed ranges.
 
 Row scans decode the merged windows back to Arrow on the host.  Post-
 merge windows are cached per segment (storage/scan_cache.py), so a
 repeat query skips the read and the merge.
 
 Only OVERWRITE (last-value) tables are served; the JAX package's Append
-merge, parts path, device decode, mesh rounds and stack/replay caches
-are not ported yet.  The JAX package gated the fused aggregate to
-accelerator backends; here it is the one aggregate path, and it runs on
-whatever device the reader was opened for.
+merge, device decode, mesh rounds, near-data router, pipelined pump and
+stack/replay caches are not ported yet.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import os
 import threading
 import time
+from collections import deque
 from dataclasses import dataclass
+from dataclasses import replace as dc_replace
 from typing import AsyncIterator, Optional
 
 import numpy as np
@@ -41,6 +48,7 @@ from horaedb_tpu_torch.common.error import ensure
 from horaedb_tpu_torch.objstore import NotFoundError, ObjectStore
 from horaedb_tpu_torch.ops import bucket_agg, encode, filter as filter_ops
 from horaedb_tpu_torch.ops.downsample import ALL_AGGS, canonical_which
+from horaedb_tpu_torch.storage import combine as combine_mod
 from horaedb_tpu_torch.storage import parquet_io, sidecar
 from horaedb_tpu_torch.storage.config import StorageConfig, UpdateMode
 from horaedb_tpu_torch.storage.scan_cache import (
@@ -64,8 +72,16 @@ _ROWS_SCANNED = registry.counter(
 _STAGE_SECONDS = {
     s: registry.histogram(f"scan_stage_seconds:{s}",
                           f"wall seconds in the {s} plan stage")
-    for s in ("segment_read", "merge", "stack_build", "device_aggregate")
+    for s in ("segment_read", "merge", "stack_build", "device_aggregate",
+              "combine")
 }
+# the parts path's rounds (one bucket_window_partials launch each) and
+# its one device-to-host copy per round: the round's partial grids
+_PARTS_ROUNDS = registry.counter(
+    "scan_parts_rounds_total", "aggregate rounds run by the parts path")
+_PARTIALS_D2H_BYTES = registry.counter(
+    "scan_partials_d2h_bytes_total",
+    "bytes of partial grids copied device-to-host by the parts path")
 # rows -> bytes conversion for the cache_max_rows knob: a typical engine
 # window is ~4 int32/f32 columns (16B) plus the memo allowance
 _CACHE_BYTES_PER_ROW = 32
@@ -152,6 +168,12 @@ class ScanPlan:
     # is a no-op and is skipped
     pushed_complete: bool = False
     range: Optional[TimeRange] = None
+    # False for a compaction rewrite: its inputs are deleted right
+    # after, so caching their merge would only evict hot entries
+    use_cache: bool = True
+    # worker pool of the plan's CPU work ("compact" for rewrites, so
+    # they queue behind each other, not in front of serving scans)
+    pool: str = "sst"
 
 
 class ParquetReader:
@@ -170,10 +192,16 @@ class ParquetReader:
         self.device = device
         ensure(schema.update_mode is UpdateMode.OVERWRITE,
                "the port serves OVERWRITE tables only")
+        ensure(config.scan.combine.mode in combine_mod.COMBINE_MODES,
+               f"unknown [scan.combine] mode "
+               f"{config.scan.combine.mode!r}; expected one of "
+               f"{combine_mod.COMBINE_MODES}")
         cache_bytes = (config.scan.cache_max_bytes
                        or config.scan.cache_max_rows * _CACHE_BYTES_PER_ROW)
         self.cache_budget_bytes = cache_bytes
         self.scan_cache = ScanCache(cache_bytes)
+        self.parts_memo = combine_mod.PartsMemo(
+            config.scan.combine.memo_max_bytes)
         # SST ids whose sidecar is known missing or invalid (ids are
         # immutable, and a sidecar is written before its SST becomes
         # visible, so a miss is permanent)
@@ -181,12 +209,14 @@ class ParquetReader:
 
     def close(self) -> None:
         self.scan_cache.clear()
+        self.parts_memo.clear()
         self._sidecar_missing.clear()
 
     # ---- plan construction -------------------------------------------------
 
     def build_plan(self, ssts: list[SstFile], request: ScanRequest,
-                   keep_builtin: bool = False) -> ScanPlan:
+                   keep_builtin: bool = False, use_cache: bool = True,
+                   pool: str = "sst") -> ScanPlan:
         columns = plan_columns(self.schema, request.projections)
         by_segment: dict[int, list[SstFile]] = {}
         for f in ssts:
@@ -212,24 +242,39 @@ class ParquetReader:
                         pushdown_key=pushdown_key,
                         prune_leaves=prune_leaves,
                         pushed_complete=pushed_complete,
-                        range=request.range)
+                        range=request.range, use_cache=use_cache,
+                        pool=pool)
 
     # ---- row scans ---------------------------------------------------------
 
     async def execute(self, plan: ScanPlan) -> AsyncIterator[pa.RecordBatch]:
         """Row scan: one Arrow batch per non-empty merge window, in
         segment order."""
+        seg_iter = self.execute_segments(plan)
+        try:
+            async for _seg_start, batch in seg_iter:
+                if batch is not None:
+                    yield batch
+        finally:
+            await seg_iter.aclose()
+
+    async def execute_segments(self, plan: ScanPlan):
+        """Row scan with segment attribution: (segment_start, batch) per
+        non-empty merge window, then (segment_start, None) once the
+        segment is complete — the unit a compaction-race replan skips
+        (storage.CloudObjectStorage.scan_segments)."""
         windows_iter = self._cached_windows(plan)
         try:
             async for seg, windows in windows_iter:
                 for w in windows:
                     part = await self._run_pool(
                         self._window_to_arrow, w,
-                        list(seg.columns), plan)
+                        list(seg.columns), plan, pool=plan.pool)
                     if part is not None and part.num_rows:
                         part = self._strip_builtin(part, plan)
                         _ROWS_SCANNED.inc(part.num_rows)
-                        yield part
+                        yield seg.segment_start, part
+                yield seg.segment_start, None
         finally:
             await windows_iter.aclose()
 
@@ -267,11 +312,12 @@ class ParquetReader:
         from the scan cache when the segment's (SST set, columns,
         pushdown) is unchanged, else by reading and merging (with up to
         `prefetch_segments` segments in flight) and populating the
+        cache.  A plan with use_cache False neither reads nor fills the
         cache."""
         sem = asyncio.Semaphore(max(1, self.config.scan.prefetch_segments))
         tasks: dict[int, asyncio.Task] = {}
         cached: dict[int, list] = {}
-        for seg in plan.segments:
+        for seg in plan.segments if plan.use_cache else ():
             windows = self.scan_cache.get(self._cache_key(seg, plan))
             if windows is not None:
                 cached[id(seg)] = windows
@@ -282,7 +328,8 @@ class ParquetReader:
                 table = await self._read_segment_any(seg, plan)
                 _STAGE_SECONDS["segment_read"].observe(
                     time.perf_counter() - t0)
-                return await self._run_pool(self._merge_segment, table)
+                return await self._run_pool(self._merge_segment, table,
+                                            pool=plan.pool)
 
         try:
             for seg in plan.segments:
@@ -293,7 +340,8 @@ class ParquetReader:
                     yield seg, cached[id(seg)]
                     continue
                 windows = await tasks.pop(id(seg))
-                self.scan_cache.put(self._cache_key(seg, plan), windows)
+                if plan.use_cache:
+                    self.scan_cache.put(self._cache_key(seg, plan), windows)
                 yield seg, windows
         finally:
             # deterministic teardown: no read may outlive the scan
@@ -301,12 +349,12 @@ class ParquetReader:
                 t.cancel()
             await asyncio.gather(*tasks.values(), return_exceptions=True)
 
-    async def _run_pool(self, fn, *args, **kwargs):
+    async def _run_pool(self, fn, *args, pool: str = "sst"):
         """CPU work (parquet codec, host merge, numpy prep, device
-        dispatch) runs on the `sst` worker pool, never on the event loop
-        (ref: dedicated runtimes, storage.rs:91-104)."""
-        return await parquet_io._run(self.runtimes, "sst", fn, *args,
-                                     **kwargs)
+        dispatch) runs on a worker pool (`sst` unless the plan names
+        another), never on the event loop (ref: dedicated runtimes,
+        storage.rs:91-104)."""
+        return await parquet_io._run(self.runtimes, pool, fn, *args)
 
     async def _read_segment_any(self, seg: SegmentPlan, plan: ScanPlan):
         """One segment's read: sidecars first, parquet when any SST's
@@ -426,10 +474,250 @@ class ParquetReader:
                     dev, host_cols, sort_pk_names, seq_h, seq_ordered,
                     selections, n)]
 
+    # ---- aggregate dispatch ------------------------------------------------
+
+    async def execute_aggregate(self, plan: ScanPlan, spec: AggregateSpec):
+        """Merge + downsample, returning (group_values, grids) combined
+        across all segments and windows, by the path fused_aggregate_ok
+        picks: fused grids are tensors on the reader's device (last_ts a
+        host float64 array), parts grids are the combine's host float64
+        arrays."""
+        if self.fused_aggregate_ok(plan):
+            return await self.execute_aggregate_fused(plan, spec)
+        # collected per segment and folded in segment order: memo-served
+        # segments yield out of plan order, and the combine fold order
+        # is part of the bit-identity contract
+        done: dict[int, list] = {}
+        async for seg_start, seg_parts in self.aggregate_segments(plan,
+                                                                  spec):
+            done[seg_start] = seg_parts
+        parts = [p for s in sorted(done) for p in done[s]]
+        return self.finalize_aggregate(parts, spec)
+
+    def fused_aggregate_ok(self, plan: Optional[ScanPlan] = None) -> bool:
+        """Whether the fused device-accumulated aggregate serves this
+        scan.  The fused path is two-phase (all windows are collected
+        before the union group space is known), so unlike the parts
+        path it pins every window in host RAM for the query: a plan
+        whose estimated rows x _CACHE_BYTES_PER_ROW exceed the scan
+        cache budget takes the parts path.  HORAEDB_FUSED_AGG=1/0
+        forces the fused path on/off, the budget included.
+
+        The JAX package also declines on its XLA-CPU backend, where
+        downloads are free and scatters slow.  That clause encodes
+        XLA-CPU economics; the port's device="cpu" is a test mode, so
+        it has no such clause and its CPU tests keep the fused path."""
+        forced = os.environ.get("HORAEDB_FUSED_AGG", "")
+        if forced == "1":
+            return True
+        if forced == "0":
+            return False
+        if plan is not None:
+            est_rows = sum(f.meta.num_rows
+                           for seg in plan.segments for f in seg.ssts)
+            if est_rows * _CACHE_BYTES_PER_ROW > self.cache_budget_bytes:
+                return False
+        return True
+
+    # ---- the parts path ----------------------------------------------------
+
+    async def aggregate_segments(self, plan: ScanPlan, spec: AggregateSpec):
+        """Per segment, yield (segment_start, partial parts) — the
+        retryable unit of scan_aggregate (segments already yielded are
+        skipped on a replan; a segment is yielded only once ALL its
+        windows are aggregated).
+
+        Memo-served segments come first and are dropped from the scan
+        plan, so a narrowed/refined range re-scans only the delta
+        segments; callers fold parts in sorted segment order, so yield
+        order is free."""
+        ensure(plan.mode is UpdateMode.OVERWRITE,
+               "aggregate pushdown requires Overwrite mode")
+        memo = self.parts_memo
+        use_memo = memo.enabled and plan.use_cache
+        seg_keys: dict[int, tuple] = {}
+        memo_pred_key = ""
+        if use_memo:
+            memo_pred_key = filter_ops.canonical_predicate_key(
+                plan.predicate)
+            remaining = []
+            for seg in plan.segments:
+                key = self._cache_key(seg, plan)
+                seg_keys[seg.segment_start] = key
+                got = memo.probe(key, seg.segment_start,
+                                 self.segment_duration_ms, spec,
+                                 memo_pred_key)
+                if got is None:
+                    remaining.append(seg)
+                else:
+                    yield seg.segment_start, got
+            if len(remaining) < len(plan.segments):
+                plan = dc_replace(plan, segments=remaining)
+            if not remaining:
+                return
+
+        def memo_store(seg_start: int, parts: list) -> None:
+            if use_memo:
+                memo.store(seg_keys[seg_start], spec, memo_pred_key,
+                           parts)
+
+        pump = self._aggregate_segments_pump(plan, spec, memo_store)
+        try:
+            async for out in pump:
+                yield out
+        finally:
+            await pump.aclose()
+
+    async def _aggregate_segments_pump(self, plan: ScanPlan,
+                                       spec: AggregateSpec, memo_store):
+        """The local aggregate pipeline (read -> merge -> device rounds)
+        over `plan.segments`, flushing rounds sequentially.
+
+        Windows from different segments batch into rounds of
+        `scan.agg_batch_windows`, one kernel launch per round.  Segments
+        partition time and windows partition PKs, so no two windows
+        share a (group, bucket, timestamp) cell and the host combine has
+        no tie-break subtleties."""
+        batch_w = max(1, self.config.scan.agg_batch_windows)
+        queue: list = []
+        parts: dict[int, list] = {}
+        pending: dict[int, int] = {}
+        arrived: deque = deque()
+
+        async def flush(k: int) -> None:
+            chunk = queue[:k]
+            del queue[:k]
+            for seg_start, part in await self._run_pool(
+                    self._flush_host_round, chunk, spec, plan,
+                    pool=plan.pool):
+                parts[seg_start].append(part)
+                pending[seg_start] -= 1
+
+        def finished():
+            while arrived and pending[arrived[0]] == 0:
+                s0 = arrived.popleft()
+                seg_parts = parts.pop(s0)
+                memo_store(s0, seg_parts)
+                yield s0, seg_parts
+
+        windows_iter = self._cached_windows(plan)
+        try:
+            async for seg, windows in windows_iter:
+                s = seg.segment_start
+                arrived.append(s)
+                parts[s] = []
+                pending[s] = 0
+
+                def prep_windows(ws=windows):
+                    out = []
+                    for w in ws:
+                        # same semantics as the row path: post-dedup rows
+                        _ROWS_SCANNED.inc(w.n_valid)
+                        prep = self._window_groups(w, spec, plan)
+                        if prep is not None:
+                            out.append((w, prep))
+                    return out
+
+                for w, prep in await self._run_pool(prep_windows,
+                                                    pool=plan.pool):
+                    queue.append((s, w, prep))
+                    pending[s] += 1
+                while len(queue) >= batch_w:
+                    await flush(batch_w)
+                for out in finished():
+                    yield out
+        finally:
+            await windows_iter.aclose()
+        if queue:
+            await flush(len(queue))
+        for out in finished():
+            yield out
+
+    def _flush_host_round(self, items: list, spec: AggregateSpec,
+                          plan: ScanPlan) -> list:
+        """One round of host windows (possibly from several segments) as
+        ONE bucket_window_partials launch over the round's stacks.
+
+        items: [(seg_start, window, (group_values, gid_full, shift))].
+        Returns [(seg_start, (round_values, bucket_lo, partial grids))]
+        in item order; every part shares the round's union group values
+        (rows a window didn't touch have count 0 and fold away in the
+        combine).  The partial grids come to the host once per round;
+        padding windows and groups are sliced away on the device first,
+        and window-local last_ts is re-based to range-relative."""
+        # pow2 width >= len(items): full rounds share one shape, tail
+        # rounds use narrower ones
+        batch_w = min(max(1, self.config.scan.agg_batch_windows),
+                      1 << (len(items) - 1).bit_length())
+        round_values = np.unique(np.concatenate([it[2][0] for it in items]))
+        g = len(round_values)
+        g_pad = max(8, 1 << (g - 1).bit_length())
+        cap = max(it[1].capacity for it in items)
+        # offset-encoded ts columns bound each window's bucket range (the
+        # epoch is the segment table's min ts); anything else takes
+        # full-range grids with lo=0
+        local_ok = all(it[1].encodings[spec.ts_col].kind == "offset"
+                       for it in items)
+        width = (self._window_grid_width(spec) if local_ok
+                 else spec.num_buckets)
+        (ts_s, gid_s, val_s, remap_d, shift_d, lo_d, _nv_d, lo,
+         nv_h) = self._build_round_stacks(items, spec, batch_w, cap, g_pad,
+                                          round_values, local_ok)
+        t_dev = time.perf_counter()
+        # rows past a window's own n_valid carry gid -1, so the round's
+        # largest row count bounds every window
+        stacked = bucket_agg.bucket_window_partials(
+            ts_s, gid_s, val_s, remap_d, shift_d, lo_d, spec.num_buckets,
+            spec.bucket_ms, num_groups=g_pad, width=width, which=spec.which,
+            n_valid=int(nv_h.max()))
+        _PARTS_ROUNDS.inc()
+        host = {k: v[:len(items), :g].cpu().numpy()
+                for k, v in stacked.items()}
+        _PARTIALS_D2H_BYTES.inc(sum(int(v.nbytes) for v in host.values()))
+        _STAGE_SECONDS["device_aggregate"].observe(
+            time.perf_counter() - t_dev)
+        parts = []
+        for d in range(len(items)):
+            lo_w = int(lo[d])
+            w_eff = min(width, spec.num_buckets - lo_w)
+            grids = {k: v[d, :, :w_eff] for k, v in host.items()}
+            if "last_ts" in grids:
+                # window-local last_ts -> range_start-relative, so parts
+                # with different offsets compare correctly
+                lt = grids["last_ts"].astype(np.int64)
+                grids["last_ts"] = np.where(
+                    grids["count"] > 0, lt + lo_w * spec.bucket_ms, lt)
+            parts.append((items[d][0], (round_values, lo_w, grids)))
+        return parts
+
+    def finalize_aggregate(self, parts: list, spec: AggregateSpec):
+        """Combine per-window parts into the user-facing grids
+        (storage/combine.py, [scan.combine] mode), drop groups with no
+        row in any bucket, and expose last_ts as absolute ms."""
+        t0 = time.perf_counter()
+        try:
+            group_values, grids = combine_mod.combine_parts(
+                parts, spec.num_buckets, which=spec.which,
+                mode=self.config.scan.combine.mode)
+            # the aligned fast path omits the ts leaf (query_downsample),
+            # so boundary-segment rows outside [start, end) can register
+            # a group whose every cell is empty
+            if len(group_values):
+                nonzero = grids["count"].sum(axis=1) > 0
+                if not nonzero.all():
+                    group_values = group_values[nonzero]
+                    grids = {k: v[nonzero] for k, v in grids.items()}
+        finally:
+            _STAGE_SECONDS["combine"].observe(time.perf_counter() - t0)
+        if len(group_values) and "last_ts" in grids:
+            grids["last_ts"] = grids["last_ts"] + spec.range_start
+        return group_values, grids
+
     # ---- fused aggregate ---------------------------------------------------
 
     async def execute_aggregate_fused(self, plan: ScanPlan,
-                                      spec: AggregateSpec):
+                                      spec: AggregateSpec,
+                                      counted: Optional[set] = None):
         """Merge + downsample with a QUERY-GLOBAL device accumulator:
         rounds of stacked windows aggregate and scatter into one
         (groups, buckets) grid set on the device; nothing is downloaded
@@ -441,17 +729,23 @@ class ParquetReader:
 
         Returns (group_values, grids): grids are tensors on the reader's
         device, except `last_ts`, which comes back as host float64
-        absolute ms (int64 range needed)."""
+        absolute ms (int64 range needed).  `counted`: segments whose rows
+        an earlier attempt of the same query already counted (a restart
+        after a compaction race counts them once)."""
         items: list = []
         windows_iter = self._cached_windows(plan)
         try:
             async for seg, windows in windows_iter:
                 s = seg.segment_start
+                count_rows = counted is None or s not in counted
+                if counted is not None:
+                    counted.add(s)
 
-                def prep(ws=windows, s=s):
+                def prep(ws=windows, s=s, count_rows=count_rows):
                     out = []
                     for w in ws:
-                        _ROWS_SCANNED.inc(w.n_valid)
+                        if count_rows:
+                            _ROWS_SCANNED.inc(w.n_valid)
                         pr = self._window_groups(w, spec, plan)
                         if pr is not None:
                             out.append((s, w, pr))

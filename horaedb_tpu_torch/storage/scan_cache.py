@@ -50,41 +50,67 @@ def windows_nbytes(windows: list) -> int:
     return total
 
 
-class ScanCache:
-    """Byte-budgeted LRU of post-merge windows (event-loop owned — no
-    lock)."""
+class ByteLRU:
+    """Byte-budgeted LRU core (event-loop owned — no lock).  Counters
+    are the caller's registry counters."""
 
-    def __init__(self, max_bytes: int):
+    def __init__(self, max_bytes: int, hits=None, misses=None,
+                 evictions=None):
         self.max_bytes = max_bytes
-        self._entries: "OrderedDict[CacheKey, tuple[list, int]]" = \
+        self._entries: "OrderedDict[CacheKey, tuple[object, int]]" = \
             OrderedDict()
         self._total_bytes = 0
+        self._hits = hits
+        self._misses = misses
+        self._evictions = evictions
         self.hits = 0
         self.misses = 0
 
     def get(self, key: CacheKey):
         entry = self._entries.get(key)
         if entry is None:
-            self.misses += 1
-            _MISSES.inc()
+            self.record_miss()
             return None
         self._entries.move_to_end(key)
-        self.hits += 1
-        _HITS.inc()
+        self._count_hit()
         return entry[0]
 
-    def put(self, key: CacheKey, windows: list) -> None:
-        nbytes = windows_nbytes(windows)
+    def peek_entry(self, key: CacheKey):
+        """Stats-free, recency-free lookup, for callers that must
+        VALIDATE an entry before it counts as served (PartsMemo
+        coverage): they account the outcome themselves through
+        record_hit / record_miss."""
+        entry = self._entries.get(key)
+        return None if entry is None else entry[0]
+
+    def record_miss(self) -> None:
+        self.misses += 1
+        if self._misses is not None:
+            self._misses.inc()
+
+    def record_hit(self, key: CacheKey) -> None:
+        if key not in self._entries:
+            return
+        self._entries.move_to_end(key)
+        self._count_hit()
+
+    def _count_hit(self) -> None:
+        self.hits += 1
+        if self._hits is not None:
+            self._hits.inc()
+
+    def put(self, key: CacheKey, value, nbytes: int) -> None:
         if self.max_bytes <= 0 or nbytes > self.max_bytes:
             return
         if key in self._entries:
             self._total_bytes -= self._entries.pop(key)[1]
-        self._entries[key] = (windows, nbytes)
+        self._entries[key] = (value, nbytes)
         self._total_bytes += nbytes
         while self._total_bytes > self.max_bytes and self._entries:
             _, (_, evicted) = self._entries.popitem(last=False)
             self._total_bytes -= evicted
-            _EVICTIONS.inc()
+            if self._evictions is not None:
+                self._evictions.inc()
 
     def clear(self) -> None:
         """Drop every entry.  Used by cold-path measurements and tests;
@@ -95,6 +121,22 @@ class ScanCache:
     def __len__(self) -> int:
         return len(self._entries)
 
+    @property
+    def total_bytes(self) -> int:
+        return self._total_bytes
+
     def values(self) -> list:
-        """Cached window lists in LRU order (no recency update)."""
+        """Cached values in LRU order (no recency update)."""
         return [v for v, _nbytes in self._entries.values()]
+
+
+class ScanCache(ByteLRU):
+    """Post-merge window cache (see module docstring): the ByteLRU core
+    with window-aware byte accounting and the scan_cache_* counters."""
+
+    def __init__(self, max_bytes: int):
+        super().__init__(max_bytes, hits=_HITS, misses=_MISSES,
+                         evictions=_EVICTIONS)
+
+    def put(self, key: CacheKey, windows: list) -> None:  # type: ignore[override]
+        super().put(key, windows, windows_nbytes(windows))

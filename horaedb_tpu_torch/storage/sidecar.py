@@ -423,6 +423,22 @@ def _concat_as_dict(arrs: list, encs: list, arrow_t) -> tuple:
                                         dictionary=dictionary)
 
 
+def merge_parts(parts: list[dict]) -> Optional[tuple[dict, int]]:
+    """Concat per-batch encoded parts into ONE part ({name: (arr,
+    enc)}, n_rows), or None when the parts aren't mergeable.  Streamed
+    writers (compaction) serialize the result into one sidecar."""
+    if not parts:
+        return None
+    names = list(parts[0].keys())
+    if any(list(p.keys()) != names for p in parts[1:]):
+        return None
+    cc = concat_encoded(parts, names)
+    if cc is None:
+        return None
+    cols, encs, n = cc
+    return {nm: (cols[nm], encs[nm]) for nm in names}, n
+
+
 # ---------------------------------------------------------------------------
 # read-side assembly
 # ---------------------------------------------------------------------------

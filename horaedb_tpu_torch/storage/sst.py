@@ -11,7 +11,7 @@ from dataclasses import dataclass
 
 from horaedb_tpu_torch.common.error import ensure
 from horaedb_tpu_torch.common.id_alloc import MonotonicIdAllocator
-from horaedb_tpu_torch.storage.types import TimeRange
+from horaedb_tpu_torch.storage.types import TimeRange, Timestamp
 
 DATA_PREFIX = "data"
 
@@ -49,15 +49,34 @@ class FileMeta:
 
 
 class SstFile:
-    __slots__ = ("id", "meta")
+    __slots__ = ("id", "meta", "_in_compaction")
 
     def __init__(self, file_id: FileId, meta: FileMeta):
         self.id = file_id
         self.meta = meta
+        self._in_compaction = False
 
     @staticmethod
     def allocate_id() -> FileId:
         return _SST_IDS.allocate()
+
+    def mark_compaction(self) -> None:
+        """The picker's lock: a marked file is never picked again until
+        its task fails and unmarks it (ref: sst.rs)."""
+        self._in_compaction = True
+
+    def unmark_compaction(self) -> None:
+        self._in_compaction = False
+
+    @property
+    def in_compaction(self) -> bool:
+        return self._in_compaction
+
+    def is_expired(self, expire_time: "Timestamp | None") -> bool:
+        """TTL check: a file is expired when it ends before `expire_time`
+        (ref: sst.rs:109-114)."""
+        return (expire_time is not None
+                and self.meta.time_range.end < expire_time)
 
     @property
     def size(self) -> int:
@@ -76,7 +95,8 @@ class SstFile:
     def __repr__(self) -> str:
         return (
             f"SstFile(id={self.id}, rows={self.meta.num_rows}, "
-            f"size={self.meta.size}, range={self.meta.time_range})"
+            f"size={self.meta.size}, range={self.meta.time_range}, "
+            f"in_compaction={self._in_compaction})"
         )
 
 

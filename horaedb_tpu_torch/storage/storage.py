@@ -4,8 +4,11 @@
 write() sorts a batch by PK, stamps builtin columns with the file id as
 sequence, writes one Parquet SST plus its device-layout sidecar, and
 records it in the manifest (ref: storage.rs:188-224, 306-332).  scan()
-merges per segment on the host; scan_aggregate() runs the fused device
-aggregate (storage/read.py).  On-disk layout matches the reference
+merges per segment on the host; scan_aggregate() runs the fused or the
+parts aggregate (storage/read.py).  Both replan when a compaction
+deletes an SST under them.  open() starts the compaction scheduler and
+the orphan scrubber's loop (storage/compaction.py, storage/gc.py);
+close() stops them.  On-disk layout matches the reference
 (storage.rs:125-135) and the JAX package byte for byte:
 
     {root_path}/manifest/snapshot
@@ -13,8 +16,7 @@ aggregate (storage/read.py).  On-disk layout matches the reference
     {root_path}/data/{id}.sst
     {root_path}/data/{id}.enc
 
-The compaction scheduler, the orphan scrubber and the manifest retry
-layer of the JAX package are not ported yet.
+The manifest retry layer of the JAX package is not ported yet.
 """
 
 from __future__ import annotations
@@ -30,9 +32,10 @@ import pyarrow.compute as pc
 
 from horaedb_tpu_torch.common import runtimes as runtimes_mod
 from horaedb_tpu_torch.common.error import ensure
-from horaedb_tpu_torch.objstore import ObjectStore
+from horaedb_tpu_torch.objstore import NotFoundError, ObjectStore
 from horaedb_tpu_torch.storage import parquet_io, sidecar
 from horaedb_tpu_torch.storage.config import StorageConfig, UpdateMode
+from horaedb_tpu_torch.storage.gc import Scrubber, ScrubReport
 from horaedb_tpu_torch.storage.manifest import Manifest
 from horaedb_tpu_torch.storage.read import ParquetReader, ScanPlan, ScanRequest
 from horaedb_tpu_torch.storage.sst import FileMeta, SstFile, sst_path
@@ -78,6 +81,8 @@ class CloudObjectStorage:
         self._schema = StorageSchema.try_new(user_schema, num_primary_keys,
                                              config.update_mode)
         self.manifest: Optional[Manifest] = None
+        self.scrubber: Optional[Scrubber] = None
+        self.compact_scheduler = None  # populated by open()
         # dedicated worker pools (ref: StorageRuntimes, storage.rs:91-104);
         # shared when a parent (e.g. MetricEngine) passes its own
         self._own_runtimes = runtimes is None
@@ -93,9 +98,29 @@ class CloudObjectStorage:
         self.manifest = await Manifest.open(self.root_path, self.store,
                                             self.config.manifest,
                                             runtimes=self.runtimes)
+        self.scrubber = Scrubber(self.root_path, self.store, self.manifest,
+                                 self.config.scrub.grace_period.seconds)
+        from horaedb_tpu_torch.storage.compaction import Scheduler
+
+        self.compact_scheduler = Scheduler(self)
+        await self.compact_scheduler.start()
         return self
 
+    async def scrub(self, grace_override_s: Optional[float] = None
+                    ) -> ScrubReport:
+        """One orphan-reconcile pass (see storage/gc.py)."""
+        ensure(self.scrubber is not None, "storage not opened")
+        return await self.scrubber.scrub(grace_override_s=grace_override_s)
+
+    async def compact(self) -> None:
+        """Wake the compaction picker now (it also runs every
+        scheduler.schedule_interval)."""
+        if self.compact_scheduler is not None:
+            await self.compact_scheduler.trigger()
+
     async def close(self) -> None:
+        if self.compact_scheduler is not None:
+            await self.compact_scheduler.stop()
         if self.manifest is not None:
             await self.manifest.close()
         self.reader.close()
@@ -197,27 +222,97 @@ class CloudObjectStorage:
             logger.warning("sidecar write failed for sst %s: %s",
                            file_id, exc)
 
+    # Scans race with compaction: the manifest can reference an SST that
+    # compaction deletes before the scan's read runs.  The data lives on
+    # in the compacted output, so the remedy is a fresh plan for the
+    # not-yet-finished segments (bounded retries).
+    _SCAN_RETRIES = 3
+
     async def scan(self, req: ScanRequest,
                    first_plan: Optional[ScanPlan] = None,
                    keep_builtin: bool = False
                    ) -> AsyncIterator[pa.RecordBatch]:
-        plan = first_plan if first_plan is not None \
-            else await self.build_scan_plan(req, keep_builtin=keep_builtin)
-        batches = self.reader.execute(plan)
+        seg_iter = self.scan_segments(req, first_plan=first_plan,
+                                      keep_builtin=keep_builtin)
         try:
-            async for batch in batches:
-                yield batch
+            async for _seg, batch in seg_iter:
+                if batch is not None:
+                    yield batch
         finally:
-            await batches.aclose()
+            await seg_iter.aclose()
+
+    async def scan_segments(self, req: ScanRequest,
+                            first_plan: Optional[ScanPlan] = None,
+                            keep_builtin: bool = False):
+        """scan() with segment attribution: yields (segment_start,
+        batch) parts plus a (segment_start, None) completion marker per
+        segment.  On a compaction race (NotFoundError) it replans and
+        skips the segments already completed."""
+        done: set[int] = set()
+        for attempt in range(self._SCAN_RETRIES + 1):
+            # attempt 0 may reuse a caller-built plan (plan_query)
+            plan = (first_plan if attempt == 0 and first_plan is not None
+                    else await self.build_scan_plan(
+                        req, keep_builtin=keep_builtin))
+            plan.segments = [s for s in plan.segments
+                             if s.segment_start not in done]
+            exec_iter = self.reader.execute_segments(plan)
+            try:
+                async for seg_start, batch in exec_iter:
+                    if batch is None:
+                        # only now is the segment retry-safe to skip
+                        done.add(seg_start)
+                    yield seg_start, batch
+                return
+            except NotFoundError:
+                if attempt == self._SCAN_RETRIES:
+                    raise
+                logger.info("scan raced a compaction (sst vanished); "
+                            "replanning remaining segments")
+            finally:
+                await exec_iter.aclose()
 
     async def scan_aggregate(self, req: ScanRequest, spec,
                              first_plan: Optional[ScanPlan] = None):
-        """Downsample pushdown: merge + GROUP BY group_col, time(bucket)
-        with the fused device aggregate; returns (group_values, grids).
-        See read.AggregateSpec."""
-        plan = first_plan if first_plan is not None \
-            else await self.build_scan_plan(req)
-        return await self.reader.execute_aggregate_fused(plan, spec)
+        """Downsample pushdown: merge + GROUP BY group_col, time(bucket);
+        returns (group_values, grids).  See read.AggregateSpec and
+        read.ParquetReader.execute_aggregate for the two paths.  On a
+        compaction race the fused path restarts whole; the parts path
+        skips the segments it finished before the race."""
+        if first_plan is None:
+            first_plan = await self.build_scan_plan(req)
+        if self.reader.fused_aggregate_ok(first_plan):
+            counted: set = set()  # rows scanned count once per query
+            plan = first_plan
+            for attempt in range(self._SCAN_RETRIES + 1):
+                try:
+                    return await self.reader.execute_aggregate_fused(
+                        plan, spec, counted=counted)
+                except NotFoundError:
+                    if attempt == self._SCAN_RETRIES:
+                        raise
+                    logger.info("fused aggregate raced a compaction; "
+                                "restarting")
+                    plan = await self.build_scan_plan(req)
+        done: dict[int, list] = {}
+        for attempt in range(self._SCAN_RETRIES + 1):
+            # attempt 0 reuses the plan built for the fused gate
+            plan = first_plan if attempt == 0 \
+                else await self.build_scan_plan(req)
+            plan.segments = [s for s in plan.segments
+                             if s.segment_start not in done]
+            try:
+                async for seg_start, parts in \
+                        self.reader.aggregate_segments(plan, spec):
+                    done[seg_start] = parts
+                break
+            except NotFoundError:
+                if attempt == self._SCAN_RETRIES:
+                    raise
+                logger.info("aggregate scan raced a compaction; "
+                            "replanning")
+        all_parts = [p for seg in sorted(done) for p in done[seg]]
+        return self.reader.finalize_aggregate(all_parts, spec)
 
     async def build_scan_plan(self, req: ScanRequest,
                               keep_builtin: bool = False) -> ScanPlan:

@@ -129,21 +129,37 @@ def test_fused_reader_sends_each_round_through_the_round_entry(monkeypatch,
                                                                which):
     """One bucket_round_accumulate call per fused round, each with its
     windows' row counts as an int32 (W,) tensor beside the same counts
-    on the host; the reader never calls the partial-grid entry itself
-    (on the card, chip_smoke.py checks that the fused path launches no
-    partial-grid kernel)."""
+    on the host; the reader never computes partial grids itself (on the
+    card, chip_smoke.py checks that the fused path launches no
+    partial-grid kernel).  On the CPU the partial-grid entry dispatches
+    to its plain twin, so both are patched: the twin may run only inside
+    the round entry, whose plain version builds on it."""
     calls = []
     entry = bucket_agg.bucket_round_accumulate
+    plain = bucket_agg.bucket_window_partials_plain
+    inside = {"round": False}
 
     def spy(acc, ts, *args, **kw):
         calls.append((tuple(ts.shape), kw["n_valid"], kw["n_valid_host"]))
-        return entry(acc, ts, *args, **kw)
+        inside["round"] = True
+        try:
+            return entry(acc, ts, *args, **kw)
+        finally:
+            inside["round"] = False
 
     def boom(*_a, **_k):
         raise AssertionError("the fused reader called the partial-grid entry")
 
+    def plain_in_round_only(*a, **k):
+        if not inside["round"]:
+            raise AssertionError("the fused reader computed partial grids "
+                                 "outside the round entry")
+        return plain(*a, **k)
+
     monkeypatch.setattr(bucket_agg, "bucket_round_accumulate", spy)
     monkeypatch.setattr(bucket_agg, "bucket_window_partials", boom)
+    monkeypatch.setattr(bucket_agg, "bucket_window_partials_plain",
+                        plain_in_round_only)
     hosts, ticks, batch_w = 8, 3 * 720, 3
     cfg = from_dict(StorageConfig, {"scan": {
         "max_window_rows": 2000, "agg_batch_windows": batch_w}})

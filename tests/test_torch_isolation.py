@@ -28,6 +28,19 @@ def _port_modules() -> list[str]:
     return sorted(mods)
 
 
+def test_the_scan_covers_every_port_module():
+    """The walk below finds every module of the port, the parts path's,
+    compaction's and the scrubber's included."""
+    mods = _port_modules()
+    for m in ("horaedb_tpu_torch.common.loops",
+              "horaedb_tpu_torch.storage.combine",
+              "horaedb_tpu_torch.storage.compaction",
+              "horaedb_tpu_torch.storage.gc",
+              "horaedb_tpu_torch.storage.read",
+              "horaedb_tpu_torch.ops.bucket_agg"):
+        assert m in mods, m
+
+
 def test_import_pulls_in_no_jax_and_no_reference_module():
     # a subprocess: this test process has JAX loaded by tests/conftest.py
     code = (
