@@ -8,7 +8,9 @@ Phases, each printed as it runs with its seconds; any failure exits
 non-zero and prints no result line:
 
 1. device: find the card, print `nvidia-smi` name and power limit.
-2. build: compile every kernel of the main path with nvcc (sm_90a).
+2. build: compile every kernel of the main path with nvcc (sm_90a), one
+   compiler per source (csrc/bucket_agg.cu, csrc/merge_path.cu), started
+   together.
 3. kernel: both entries of csrc/bucket_agg.cu (bucket_window_partials,
    bucket_round_accumulate) against their plain PyTorch versions on the
    card — random rows, edge cases, int32 wrap of the shifted and rebased
@@ -19,40 +21,58 @@ non-zero and prints no result line:
    events), the bound, the slice route of the first port (partial grids
    + per-window torch slice updates), the partials' one-pass float
    atomic sum, and a one-call `index_add_` yardstick.
-4. determinism: bucket_window_partials launched twice on the same
+4. merge kernel: kway_merge_perm (csrc/merge_path.cu) byte for byte
+   against its plain version and np.lexsort on (row, keys..., pad) at 2,
+   4, 8, 64 and 128 runs, empty runs, equal keys across runs, int32
+   extremes, no pad zone and the main path's segment (two SST runs of
+   config 1, 72,000 rows of 131,072 slots); decode_rows_core on the card
+   against its CPU run (3 routes x 9 leaf programs); then the kernel
+   timed at the main path's segment beside its bound, its plain version
+   and the multi-pass stable torch.sort the sort route would pay.
+5. determinism: bucket_window_partials launched twice on the same
    merge-ordered round (W=16, cap=131072, G=128) at 1 min, 1 h and 1 day
    buckets (6, 360 and 8,640 rows per cell) and on unsorted random rows
    (sparse and 1,024 rows per cell): every field byte-equal between the
    launches and within rtol of the plain version; the float atomic sum
    counted over 5 launches beside it; the ordered entry timed at 1 h.
-5. end to end, fused: the north-star workload (BASELINE config 1 of
+6. end to end, fused: the north-star workload (BASELINE config 1 of
    bench.py: 10M rows, 100 hosts, 10 s scrape, 1 m buckets, 2 h
    segments, an in-memory object store, 1M-row write chunks) through
    MetricEngine.write_arrow and query_downsample(aggs=("avg",)) with the
    scan cache at 4 x rows (bench.py's setting, so the fused path
    serves), once cold and 5 times cached, checked against a numpy
    bincount of the same rows; bucket_round_accumulate's launch count
-   over that run must equal the fused rounds it ran.  Then one cached
-   query under torch.profiler (kernel launches and device time by
-   kernel name).
-6. op path: ops.downsample.time_bucket_aggregate over the same 10M rows
+   over that run must equal the fused rounds it ran, and the device
+   decode must not engage.  Then one cached query under torch.profiler
+   (kernel launches and device time by kernel name).
+7. op path: ops.downsample.time_bucket_aggregate over the same 10M rows
    as one batch (time-major rows: runs of one row per cell), checked
    against the bincount; bucket_window_partials' launch count over that
    call must be one.
-7. end to end, parts: a second MetricEngine on the same store with the
-   default StorageConfig, whose fused gate declines the 10M rows; cold
-   avg at 1 min (launches: one bucket_window_partials per round, no
-   round entry) and all aggregates at 1 h against numpy; the repeat
-   served from the PartsMemo (all 139 segments); a narrowed range whose
-   memo-served bytes equal a cold recompute in sparse and dense combine;
-   two cold 1 h queries byte-equal.
-8. compaction: 4 overlapping SSTs in each of 12 segments (newer values
-   on some hosts), queried on both paths, compacted by the scheduler to
-   one SST per segment, queried again (count/min/max/last and the parts
-   path's sum/avg byte-equal, the fused sum/avg within rtol 1e-5, the
-   caches missing structurally); then the scrubber deletes one injected
-   orphan and keeps every referenced SST and sidecar.
-9. a JSON line of per-kernel numbers, the card line again, and the last
+8. end to end, parts: two more MetricEngines on the same store with the
+   default StorageConfig, whose fused gate declines the 10M rows: one as
+   it is ([scan.decode] mode "auto": device decode on the card) and one
+   with mode "host" (host decode, the control), in turns device, host,
+   device, host.  Each: cold avg at 1 min (device leg: every segment
+   decoded on the card, no fallback, no sort, one bucket_window_partials
+   launch per segment and one kway_merge_perm launch per merge level of
+   each multi-SST segment; host leg: one partials launch per round) and
+   all aggregates at 1 h against numpy; the repeat served from the
+   PartsMemo (all 139 segments); a narrowed range whose memo-served
+   bytes equal a cold recompute in sparse and dense combine; two cold
+   1 h queries byte-equal; and the two legs' grids byte-equal.  Then
+   single segments decoded alone (host clock, host cProfile) and one
+   cold device-decode query under torch.profiler.
+9. compaction: 4 overlapping SSTs in each of 12 segments (newer values
+   on some hosts), queried on the fused path and on the parts path with
+   device decode (the k-way route, 8 runs) and with host decode,
+   compacted by the scheduler to one SST per segment, queried again
+   (device decode on the compacted route; count/min/max/last and the
+   parts path's sum/avg byte-equal, device and host decode byte-equal,
+   the fused sum/avg within rtol 1e-5, the caches missing
+   structurally); then the scrubber deletes one injected orphan and
+   keeps every referenced SST and sidecar.
+10. a JSON line of per-kernel numbers, the card line again, and the last
    line {"ok": true, "device": {...}}.
 
 Needs one CUDA card; a missing card is a failure, never a CPU run.
@@ -62,13 +82,16 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import cProfile
 import json
 import math
 import os
+import pstats
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 
@@ -621,6 +644,209 @@ def determinism_phase(ba) -> dict:
     return out
 
 
+def kway_case(rng, real_runs: int, max_len: int = 3000, nkeys: int = 5,
+              ties: bool = False, extremes: bool = False,
+              empty: bool = False, full: bool = False):
+    """Presorted runs of int32 keys laid out as the device decode lays
+    out a segment: the runs, then the zero pad zone as its own run, the
+    run count padded to a power of two with empty runs.  Returns (keys
+    (nkeys, cap), offsets, num_runs, n)."""
+    import numpy as np
+
+    lens = rng.integers(1, max_len, real_runs)
+    if empty:
+        lens[rng.random(real_runs) < 0.4] = 0
+    n = int(lens.sum())
+    cap = n if full else max(128, 1 << max(0, n - 1).bit_length())
+    hi = 2 if ties else 1000
+    runs = []
+    for length in lens:
+        k = rng.integers(-hi, hi, (int(length), nkeys)).astype(np.int32)
+        if extremes:
+            k[:, 0] = rng.choice(np.array([-2**31, 2**31 - 1, 0], np.int32),
+                                 int(length))
+            k[:, -1] = rng.choice(np.array([-2**31, 2**31 - 1], np.int32),
+                                  int(length))
+        runs.append(k[np.lexsort(k.T[::-1])])
+    keys = np.zeros((cap, nkeys), np.int32)
+    keys[:n] = np.concatenate(runs)
+    num_runs = 1 << max(1, real_runs).bit_length()
+    offs = np.full(num_runs + 1, cap, np.int32)
+    offs[:real_runs + 1] = np.concatenate([[0], np.cumsum(lens)])
+    offs[real_runs] = n
+    return np.ascontiguousarray(keys.T), offs, num_runs, n
+
+
+def main_path_segment(series=100, ticks=720, split=640):
+    """The keys of one two-SST segment of BASELINE config 1: the data
+    table's PK codes (metric_id, tsid, field_id, timestamp) and __seq__,
+    run 0 the ticks before a 1M-row write chunk's boundary, run 1 the
+    rest; 72,000 rows of 131,072 slots."""
+    import numpy as np
+
+    runs = []
+    for r, (t0, t1) in enumerate(((0, split), (split, ticks))):
+        m = series * (t1 - t0)
+        runs.append(np.stack([
+            np.zeros(m, np.int32),
+            np.repeat(np.arange(series, dtype=np.int32), t1 - t0),
+            np.zeros(m, np.int32),
+            np.tile(np.arange(t0, t1, dtype=np.int32) * 10_000, series),
+            np.full(m, r, np.int32)]))
+    n = series * ticks
+    cap = 1 << (n - 1).bit_length()
+    keys = np.zeros((5, cap), np.int32)
+    keys[:, :n] = np.concatenate(runs, axis=1)
+    offs = np.array([0, series * split, n, cap, cap], np.int32)
+    return keys, offs, 4, n
+
+
+def merge_kernel_phase(mg, dd) -> dict:
+    """kway_merge_perm against its plain version (byte for byte) and
+    np.lexsort on (row, keys..., pad) on seeded inputs; decode_rows_core
+    on the card against its CPU run on every leaf opcode and all three
+    routes; then the kernel timed at the main path's segment."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    cases = {
+        "2 runs": kway_case(rng, 1),
+        "4 runs": kway_case(rng, 3),
+        "8 runs": kway_case(rng, 7),
+        "64 runs": kway_case(rng, 63, max_len=400),
+        "128 runs": kway_case(rng, 64, max_len=400),
+        "empty runs": kway_case(rng, 12, empty=True),
+        "equal keys across runs": kway_case(rng, 6, ties=True),
+        "int32 extremes": kway_case(rng, 5, extremes=True),
+        "no pad zone": kway_case(rng, 4, full=True),
+        "main path": main_path_segment(),
+    }
+    for name, (keys, offs, num_runs, n) in cases.items():
+        kd = tuple(torch.from_numpy(k).to(dev) for k in keys)
+        od = torch.from_numpy(offs).to(dev)
+        got = mg.kway_merge_perm(kd, od, num_runs=num_runs, n_valid=n)
+        plain = mg.kway_merge_perm_plain(kd, od, num_runs=num_runs,
+                                         n_valid=n)
+        torch.cuda.synchronize()
+        got = got.cpu().numpy()
+        if got.tobytes() != plain.cpu().numpy().tobytes():
+            raise AssertionError(f"kway {name}: kernel != plain")
+        cap = keys.shape[1]
+        pad = (np.arange(cap) >= n).astype(np.int32)
+        want = np.lexsort((np.arange(cap),) + tuple(keys[::-1]) + (pad,))
+        if not np.array_equal(got, want):
+            raise AssertionError(f"kway {name}: kernel != np.lexsort")
+    log(f"kernel: kway_merge_perm byte-equal to its plain version and to "
+        f"np.lexsort on {len(cases)} inputs ({', '.join(cases)})")
+
+    # decode_rows_core: a 3-run segment (k, ts, seq, v, n), on the card
+    # and on the CPU
+    seg_rng = np.random.default_rng(4)
+    parts, lens = [], []
+    for r in range(3):
+        m = 20_000
+        k = seg_rng.integers(0, 64, m)
+        ts = seg_rng.integers(0, 2000, m) * 1000
+        order = np.lexsort((ts, k))
+        k, ts = k[order], ts[order]
+        keep = np.ones(m, bool)
+        keep[1:] = (k[1:] != k[:-1]) | (ts[1:] != ts[:-1])
+        k, ts = k[keep], ts[keep]
+        v = (seg_rng.random(len(k)) * 100).astype(np.float32)
+        parts.append(np.stack([k, ts, np.full(len(k), r), v.view(np.int32),
+                               seg_rng.integers(-3, 3, len(k))]))
+        lens.append(len(k))
+    n = sum(lens)
+    cap = 1 << (n - 1).bit_length()
+    cols = np.zeros((5, cap), np.int32)
+    cols[:, :n] = np.concatenate(parts, axis=1)
+    offs = np.array([0, lens[0], lens[0] + lens[1], n, cap], np.int32)
+    one_run = cols.copy()
+    order = np.lexsort((one_run[1, :n], one_run[0, :n]))
+    one_run[:, :n] = one_run[:, :n][:, order]
+    progs = {
+        "none": ((), ()),
+        "eq": (((0, dd._OP_EQ),), ([3],)),
+        "lt": (((1, dd._OP_LT),), ([900_000],)),
+        "le": (((1, dd._OP_LE),), ([900_000],)),
+        "gt": (((1, dd._OP_GT),), ([400_000],)),
+        "ge": (((0, dd._OP_GE),), ([9],)),
+        "range": (((1, dd._OP_RANGE),), ([200_000, 1_700_000],)),
+        "in": (((0, dd._OP_IN),), ([1, 4, 6, 40, 63],)),
+        "leaf-only column": (((4, dd._OP_GE),), ([0],)),
+    }
+
+    def on(device, arr):
+        t = [torch.from_numpy(c.copy()).to(device) for c in arr]
+        t[3] = t[3].view(torch.float32)
+        return tuple(t)
+
+    checked = 0
+    for route in ("presorted", "kway", "sorted"):
+        src = one_run if route == "presorted" else cols
+        for name, (prog, consts) in progs.items():
+            outs = []
+            for device in ("cpu", dev):
+                c = tuple(torch.tensor(x, dtype=torch.int32, device=device)
+                          for x in consts)
+                o = None if route != "kway" else torch.from_numpy(offs).to(
+                    device)
+                outs.append(dd.decode_rows_core(
+                    on(device, src), n, c, o, key_slots=(0, 1, 2), num_pks=2,
+                    group_pos=0, val_slot=3, leaf_prog=prog, route=route,
+                    num_runs=4 if route == "kway" else 0))
+            torch.cuda.synchronize()
+            (ck, cg, cv, cn), (gk, gg, gv, gn) = outs
+            same = (all(a.numpy().tobytes() == b.cpu().numpy().tobytes()
+                        for a, b in zip(ck + (cg, cv), gk + (gg, gv)))
+                    and int(cn) == int(gn))
+            if not same:
+                raise AssertionError(f"decode_rows_core {route} {name}: "
+                                     f"card != CPU")
+            checked += 1
+    log(f"kernel: decode_rows_core on the card byte-equal to its CPU run in "
+        f"{checked} cases (3 routes x {len(progs)} leaf programs, "
+        f"{n} rows)")
+
+    # times at the main path's segment: 20 copies of the keys (52 MB >
+    # 50 MB of L2), so each call reads from HBM as after an upload
+    keys, offs, num_runs, n = cases["main path"]
+    cap = keys.shape[1]
+    copies = [tuple(torch.from_numpy(k).to(dev) for k in keys)
+              for _ in range(20)]
+    od = torch.from_numpy(offs).to(dev)
+    iota = torch.arange(cap, dtype=torch.int32, device=dev)
+    pad = (iota >= n).to(torch.int32)
+    ms = device_ms([lambda c=c: mg.kway_merge_perm(
+        c, od, num_runs=num_runs, n_valid=n) for c in copies])
+    call_ms = cuda_ms(lambda: mg.kway_merge_perm(
+        copies[0], od, num_runs=num_runs, n_valid=n), reps=30)
+    plain_ms = device_ms([lambda c=c: mg.kway_merge_perm_plain(
+        c, od, num_runs=num_runs, n_valid=n) for c in copies], reps=6)
+    # the sorted route's cost: stable torch.sort per key, pad bit first
+    sort_ms = device_ms([lambda c=c: mg.lex_sort(
+        (pad,) + c + (iota,), num_keys=1 + len(c)) for c in copies], reps=10)
+    # the function moves each key column in once and perm out once
+    nbytes = cap * 4 * (len(keys) + 1) + offs.nbytes
+    levels = num_runs.bit_length() - 1
+    level_bytes = cap * (4 * len(keys) + 8)
+    out = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+           "library_ms": sort_ms, "bytes": nbytes,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "levels": levels,
+           "level_bytes": level_bytes,
+           "level_bound_ms": level_bytes / HBM_BYTES_PER_S * 1e3,
+           "cap": cap, "n": n, "num_runs": num_runs, "max_abs_err": 0}
+    log(f"kernel: kway_merge_perm at the main-path segment (cap {cap}, "
+        f"{n} rows, {num_runs} runs, {levels} levels, {len(keys)} keys): "
+        f"{ms!r} ms device ({call_ms!r} ms per call with host overhead), "
+        f"plain {plain_ms!r} ms, multi-pass stable torch.sort {sort_ms!r} "
+        f"ms, bound {out['bound_ms']!r} ms ({nbytes} bytes; the design's "
+        f"traffic {level_bytes} bytes a level)")
+    return out
+
+
 async def profile_query(query) -> dict:
     """One query under torch.profiler: device kernels (and copies) by
     name with their summed device time."""
@@ -649,7 +875,7 @@ async def profile_query(query) -> dict:
                                            key=lambda kv: -kv[1])[:12])}
 
 
-async def end_to_end(rows: int, ba) -> dict:
+async def end_to_end(rows: int, ba, mg) -> dict:
     """BASELINE config 1 through the port's public entry points."""
     import numpy as np
     import pyarrow as pa
@@ -733,6 +959,8 @@ async def end_to_end(rows: int, ba) -> dict:
 
         # the main path's run: launch counts from 0, read right after
         ba.reset_launches()
+        mg.reset_launches()
+        decode0 = decode_counts()
         snap, h2d0 = registry.snapshot(), h2d_bytes()
         t0 = time.perf_counter()
         out = await query()
@@ -756,8 +984,12 @@ async def end_to_end(rows: int, ba) -> dict:
                 f"rounds ({windows} windows)")
         if ba.LAUNCHES["bucket_window_partials"] != 0:
             raise AssertionError("e2e: the fused path wrote partial grids")
+        if any(counts_delta(decode0, decode_counts()).values()) \
+                or mg.LAUNCHES["kway_merge_perm"]:
+            raise AssertionError("e2e: the device decode engaged on the "
+                                 "fused path")
         log(f"e2e: bucket_round_accumulate launches {launches} = 6 queries "
-            f"x {per_query} rounds")
+            f"x {per_query} rounds; the device decode did not engage")
 
         # correctness: numpy bincount of the same rows
         cell = host_id.astype(np.int64) * num_buckets + (ts - T0) // bucket_ms
@@ -806,7 +1038,7 @@ async def end_to_end(rows: int, ba) -> dict:
     finally:
         await e.close()
     t0 = time.perf_counter()
-    res["parts"] = await parts_phase(ba, store, T0, per_host, hosts,
+    res["parts"] = await parts_phase(ba, mg, store, T0, per_host, hosts,
                                      interval, segment_ms, vals)
     log(f"phase parts: {time.perf_counter() - t0!r} s")
     return res
@@ -858,38 +1090,152 @@ def same_bytes(a: dict, b: dict, what: str) -> None:
             raise AssertionError(f"{what}: grid {k} differs in its bytes")
 
 
-async def parts_phase(ba, store, T0: int, per_host: int, hosts: int,
+def decode_counts() -> dict:
+    """The device decode's counters: stage rows, routes, fallbacks."""
+    from horaedb_tpu_torch.ops import device_decode as dd
+
+    out = {"rows": dd._STAGE_ROWS.value, "sorted": dd._SORT_RAN.value}
+    out.update({r: c.value for r, c in dd._SORT_SKIPPED.items()})
+    out.update({f"fallback:{r}": v for r, v in dd.fallback_counts().items()})
+    return out
+
+
+def counts_delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after}
+
+
+async def decode_alone(e, full: tuple, plan) -> dict:
+    """The device decode of single segments with nothing else running:
+    the engine's own plan and predicate, each segment read, then
+    dispatched and finalized alone, timed on the host clock to its
+    synchronized end (the k-way segments and the first 16 others)."""
+    import torch
+
+    from horaedb_tpu_torch.storage.read import AggregateSpec, ScanRequest
+    from horaedb_tpu_torch.storage.types import TimeRange
+
+    data = e.tables["data"]
+    reader = data.reader
+    pred = await e._data_predicate("cpu", [], TimeRange.new(*full), "value",
+                                   ts_leaf=False)
+    spec = AggregateSpec(group_col="tsid", ts_col="timestamp",
+                         value_col="value", range_start=full[0],
+                         bucket_ms=BMS,
+                         num_buckets=(full[1] - full[0]) // BMS,
+                         which=("avg",))
+    qplan = await data.build_scan_plan(ScanRequest(
+        range=TimeRange.new(*full), predicate=pred))
+    qplan.decode_spec = spec
+    multi = [s for s in qplan.segments if len(s.ssts) > 1]
+    single = [s for s in qplan.segments if len(s.ssts) == 1][:16]
+    out = {}
+    prof = cProfile.Profile()
+    reads = []
+    for name, segs in (("compacted", single), ("kway", multi)):
+        read = [await reader._read_segment_encoded(seg, qplan)
+                for seg in segs]
+        reads += read
+        times = []
+        for es in read:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            part = reader._dispatch_device_decode(es, qplan)
+            times.append((time.perf_counter() - t0) * 1e3)
+            if part is None or part.part is None:
+                raise AssertionError(f"decode alone: {name} segment "
+                                     f"declined")
+        # the same dispatches again under the profiler (its cost shifts
+        # the proportions, so the times above are taken without it)
+        for es in read:
+            prof.enable()
+            reader._dispatch_device_decode(es, qplan)
+            prof.disable()
+        out[name] = {"segments": len(segs), "ms": times,
+                     "median_ms": statistics.median(times) if times else None}
+    log(f"parts: device decode of one segment alone, median "
+        f"{out['compacted']['median_ms']!r} ms over "
+        f"{out['compacted']['segments']} single-SST segments, "
+        f"{out['kway']['median_ms']!r} ms over {out['kway']['segments']} "
+        f"k-way segments (host clock, to the synchronized end)")
+    # all of them again from 4 threads at once, nothing else running:
+    # does a dispatch slow down beside other dispatches alone?
+    def timed(es):
+        t0 = time.perf_counter()
+        reader._dispatch_device_decode(es, qplan)
+        return (time.perf_counter() - t0) * 1e3
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        conc = list(pool.map(timed, reads))
+    wall = (time.perf_counter() - t0) * 1e3
+    out["concurrent"] = {"threads": 4, "segments": len(reads),
+                         "median_ms": statistics.median(conc),
+                         "wall_ms": wall, "ms": conc}
+    log(f"parts: the same {len(reads)} dispatches from 4 threads at once: "
+        f"median {statistics.median(conc)!r} ms each, {wall!r} ms wall "
+        f"(sequential: {sum(out['compacted']['ms'] + out['kway']['ms'])!r} "
+        f"ms)")
+    # where the host time of those dispatches goes, by function
+    st = pstats.Stats(prof)
+    rows = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:15]
+    out["host_profile"] = [
+        {"fn": f"{os.path.basename(f)}:{ln}:{fn}", "calls": nc,
+         "tottime_ms": tt * 1e3, "cumtime_ms": ct * 1e3}
+        for (f, ln, fn), (_cc, nc, tt, ct, _callers) in rows]
+    for r in out["host_profile"]:
+        log(f"parts: decode alone host profile: {r['fn']} calls "
+            f"{r['calls']} self {r['tottime_ms']:.3f} ms cumulative "
+            f"{r['cumtime_ms']:.3f} ms")
+    return out
+
+
+async def parts_phase(ba, mg, store, T0: int, per_host: int, hosts: int,
                       interval: int, segment_ms: int, vals) -> dict:
-    """BASELINE config 1 on the parts path: a second engine on the same
-    store, with the default StorageConfig."""
+    """BASELINE config 1 on the parts path: two more engines on the same
+    store with the default StorageConfig, one as it is ([scan.decode]
+    mode "auto": device decode on the card) and one with mode "host"
+    (host decode, the control), run in turns: device, host, device,
+    host."""
     import numpy as np
     import torch
 
     from horaedb_tpu_torch.metric_engine import MetricEngine
     from horaedb_tpu_torch.metric_engine.types import Label, tsid_of
-    from horaedb_tpu_torch.storage.config import StorageConfig
+    from horaedb_tpu_torch.ops.encode import h2d_bytes
+    from horaedb_tpu_torch.storage.config import StorageConfig, from_dict
     from horaedb_tpu_torch.storage.read import ScanRequest
     from horaedb_tpu_torch.storage.types import TimeRange
     from horaedb_tpu_torch.utils import registry
 
-    e = await MetricEngine.open("bench", store, segment_ms=segment_ms,
-                                config=StorageConfig())
+    engines = {
+        "device": await MetricEngine.open("bench", store,
+                                          segment_ms=segment_ms,
+                                          config=StorageConfig()),
+        "host": await MetricEngine.open("bench", store,
+                                        segment_ms=segment_ms,
+                                        config=from_dict(StorageConfig, {
+                                            "scan": {"decode": {
+                                                "mode": "host"}}}))}
     try:
-        data = e.tables["data"]
-        reader = data.reader
         n_seg = -(-per_host * interval // segment_ms)
         # the full range, whole segments: bucket-aligned at 1 min and 1 h,
         # so it carries no time leaf and a narrowed range shares its memo
         full = (T0, T0 + n_seg * segment_ms)
+        data = engines["device"].tables["data"]
         plan = await data.build_scan_plan(
             ScanRequest(range=TimeRange.new(*full)))
         est = sum(f.meta.num_rows for sg in plan.segments for f in sg.ssts)
-        if reader.fused_aggregate_ok(plan):
-            raise AssertionError("parts: the fused gate took the plan at "
-                                 "the default budget")
+        for name, e in engines.items():
+            if e.tables["data"].reader.fused_aggregate_ok(plan):
+                raise AssertionError(f"parts: the fused gate took the plan "
+                                     f"at the default budget ({name})")
+        multi = [len(sg.ssts) for sg in plan.segments if len(sg.ssts) > 1]
         log(f"parts: the fused gate declines at the default budget: {est:,} "
-            f"rows x 32 B = {est * 32:,} B > {reader.cache_budget_bytes:,} B "
-            f"({len(plan.segments)} segments)")
+            f"rows x 32 B = {est * 32:,} B > "
+            f"{data.reader.cache_budget_bytes:,} B ({len(plan.segments)} "
+            f"segments, {len(multi)} of them with more than one SST: "
+            f"{multi})")
         tsid_of_host = np.array([tsid_of("cpu", [Label("host",
                                                        f"host_{i:03d}")])
                                  for i in range(hosts)], dtype=np.uint64)
@@ -898,17 +1244,13 @@ async def parts_phase(ba, store, T0: int, per_host: int, hosts: int,
 
         def delta(before: dict) -> dict:
             now = registry.snapshot()
-            return {k: now[k] - before.get(k, 0.0) for k in now
-                    if k.startswith(("scan_stage_seconds:", "scan_parts_",
-                                     "scan_partials_", "scan_combine_memo"))}
-
-        async def query(rng, bucket_ms, aggs):
-            snap = registry.snapshot()
-            t0 = time.perf_counter()
-            out = await e.query_downsample("cpu", [], TimeRange.new(*rng),
-                                           bucket_ms=bucket_ms, aggs=aggs)
-            torch.cuda.synchronize()
-            return out, (time.perf_counter() - t0) * 1e3, delta(snap)
+            d = {k: now[k] - before.get(k, 0.0) for k in now
+                 if k.startswith(("scan_stage_seconds:", "scan_parts_",
+                                  "scan_partials_", "scan_combine_memo",
+                                  "scan_decode_", "scan_stage_rows",
+                                  "scan_stage_bytes"))}
+            return {k: v for k, v in d.items()
+                    if v or k == "scan_parts_rounds_total"}
 
         def check(out, bucket_ms, exact, close):
             nb = (full[1] - full[0]) // bucket_ms
@@ -924,79 +1266,155 @@ async def parts_phase(ba, store, T0: int, per_host: int, hosts: int,
                 np.testing.assert_allclose(out["aggs"][k], want[k][order],
                                            rtol=1e-5)
 
-        # the main path's run: launch counts from 0, read right after
-        ba.reset_launches()
-        cold, cold_ms, cold_d = await query(full, BMS, ("avg",))
-        launches = dict(ba.LAUNCHES)
-        rounds = int(cold_d["scan_parts_rounds_total"])
-        if not (launches["bucket_window_partials"] == rounds > 0
-                and launches["bucket_round_accumulate"] == 0):
-            raise AssertionError(f"parts: launches {launches} for {rounds} "
-                                 f"rounds")
-        check(cold, BMS, ("count",), ("avg",))
-        log(f"parts: cold avg at 1 min {cold_ms!r} ms; launches {launches} "
-            f"= {rounds} rounds; grids match numpy (count exact, avg rtol "
-            f"1e-5); stages {json.dumps(cold_d)}")
+        async def leg(name: str, turn: int) -> dict:
+            e = engines[name]
+            data = e.tables["data"]
+            reader = data.reader
 
-        memo0 = reader.parts_memo.stats()["hits"]
-        repeat, repeat_ms, repeat_d = await query(full, BMS, ("avg",))
-        hits = reader.parts_memo.stats()["hits"] - memo0
-        if hits != len(plan.segments):
-            raise AssertionError(f"parts: repeat served {hits} of "
-                                 f"{len(plan.segments)} segments from memo")
-        same_bytes(repeat, cold, "parts: memo-served repeat")
-        log(f"parts: repeat {repeat_ms!r} ms, all {hits} segments from the "
-            f"PartsMemo, bytes equal to the cold run")
+            async def query(rng, bucket_ms, aggs):
+                snap, h2d0 = registry.snapshot(), h2d_bytes()
+                t0 = time.perf_counter()
+                out = await e.query_downsample(
+                    "cpu", [], TimeRange.new(*rng), bucket_ms=bucket_ms,
+                    aggs=aggs)
+                torch.cuda.synchronize()
+                d = delta(snap)
+                d["h2d_bytes"] = h2d_bytes() - h2d0
+                return out, (time.perf_counter() - t0) * 1e3, d
 
-        # interior whole segments: the same bucket phase and no time leaf
-        a, b = n_seg // 4, n_seg - n_seg // 4
-        narrow = (T0 + a * segment_ms, T0 + b * segment_ms)
-        memo0 = reader.parts_memo.stats()["hits"]
-        nar, nar_ms, nar_d = await query(narrow, BMS, ("avg",))
-        hits = reader.parts_memo.stats()["hits"] - memo0
-        if hits != b - a:
-            raise AssertionError(f"parts: narrowed range: {hits} memo hits "
-                                 f"for {b - a} interior segments")
-        recompute = {}
-        for mode in ("sparse", "dense"):
-            data.config.scan.combine.mode = mode
+            tag = f"parts [{name} decode, turn {turn}]"
             reader.scan_cache.clear()
             reader.parts_memo.clear()
-            recompute[mode] = (await query(narrow, BMS, ("avg",)))[0]
-            same_bytes(nar, recompute[mode], f"parts: narrowed vs {mode}")
-        data.config.scan.combine.mode = "sparse"
-        log(f"parts: narrowed range (segments {a}-{b - 1}) {nar_ms!r} ms, "
-            f"{hits} memo hits = its interior segments; bytes equal to cold "
-            f"recomputes in sparse and dense combine")
+            # the main path's run: launch counts from 0, read right after
+            ba.reset_launches()
+            mg.reset_launches()
+            c0 = decode_counts()
+            torch.cuda.reset_peak_memory_stats()
+            cold, cold_ms, cold_d = await query(full, BMS, ("avg",))
+            peak = torch.cuda.max_memory_allocated()
+            launches = dict(ba.LAUNCHES, **mg.LAUNCHES)
+            dc = counts_delta(c0, decode_counts())
+            rounds = int(cold_d["scan_parts_rounds_total"])
+            falls = {k: v for k, v in dc.items()
+                     if k.startswith("fallback:") and v}
+            dc = {k: v for k, v in dc.items() if not k.startswith("fallback:")}
+            if name == "device":
+                routed = dc["compacted"] + dc["checked"] + dc["kway"]
+                levels = sum(k.bit_length() for k in multi)
+                if not (dc["rows"] == est and routed == len(plan.segments)
+                        and dc["sorted"] == 0 and not falls
+                        and dc["kway"] == len(multi)):
+                    raise AssertionError(f"{tag}: device decode did not "
+                                         f"serve every segment: {dc}")
+                if not (launches["bucket_window_partials"] == routed
+                        and rounds == 0
+                        and launches["bucket_round_accumulate"] == 0
+                        and launches["kway_merge_perm"] == levels):
+                    raise AssertionError(
+                        f"{tag}: launches {launches}, {rounds} host rounds; "
+                        f"want {routed} partials and {levels} merge levels")
+            elif not (launches["bucket_window_partials"] == rounds > 0
+                      and launches["bucket_round_accumulate"] == 0
+                      and launches["kway_merge_perm"] == 0
+                      and dc["rows"] == 0 and not falls):
+                raise AssertionError(f"{tag}: launches {launches} for "
+                                     f"{rounds} rounds, decode {dc}")
+            check(cold, BMS, ("count",), ("avg",))
+            log(f"{tag}: cold avg at 1 min {cold_ms!r} ms; launches "
+                f"{launches}, {rounds} host rounds; decode counters {dc}; "
+                f"grids match numpy (count exact, avg rtol 1e-5); peak "
+                f"device memory {peak} B; stages {json.dumps(cold_d)}")
 
-        hour = []
-        for _ in range(2):
-            reader.scan_cache.clear()
-            reader.parts_memo.clear()
-            hour.append(await query(full, 3_600_000, ALL_AGGS))
-        check(hour[0][0], 3_600_000,
-              ("count", "min", "max", "last", "last_ts"), ("sum", "avg"))
-        same_bytes(hour[0][0], hour[1][0], "parts: cold 1 h twice")
-        log(f"parts: all aggregates at 1 h, cold, {hour[0][1]!r} / "
-            f"{hour[1][1]!r} ms: match numpy (count, min, max, last exact; "
-            f"sum, avg rtol 1e-5) and byte-equal between the two runs; "
-            f"stages {json.dumps(hour[0][2])}")
-        return {"launches": launches["bucket_window_partials"],
-                "rounds": rounds, "segments": len(plan.segments),
-                "est_rows": est, "budget_bytes": reader.cache_budget_bytes,
+            memo0 = reader.parts_memo.stats()["hits"]
+            repeat, repeat_ms, repeat_d = await query(full, BMS, ("avg",))
+            hits = reader.parts_memo.stats()["hits"] - memo0
+            if hits != len(plan.segments):
+                raise AssertionError(f"{tag}: repeat served {hits} of "
+                                     f"{len(plan.segments)} segments from "
+                                     f"memo")
+            same_bytes(repeat, cold, f"{tag}: memo-served repeat")
+
+            # interior whole segments: the same bucket phase, no time leaf
+            a, b = n_seg // 4, n_seg - n_seg // 4
+            narrow = (T0 + a * segment_ms, T0 + b * segment_ms)
+            memo0 = reader.parts_memo.stats()["hits"]
+            nar, nar_ms, nar_d = await query(narrow, BMS, ("avg",))
+            nar_hits = reader.parts_memo.stats()["hits"] - memo0
+            if nar_hits != b - a:
+                raise AssertionError(f"{tag}: narrowed range: {nar_hits} "
+                                     f"memo hits for {b - a} segments")
+            for mode in ("sparse", "dense"):
+                data.config.scan.combine.mode = mode
+                reader.scan_cache.clear()
+                reader.parts_memo.clear()
+                same_bytes(nar, (await query(narrow, BMS, ("avg",)))[0],
+                           f"{tag}: narrowed vs {mode}")
+            data.config.scan.combine.mode = "sparse"
+
+            hour = []
+            for _ in range(2):
+                reader.scan_cache.clear()
+                reader.parts_memo.clear()
+                hour.append(await query(full, 3_600_000, ALL_AGGS))
+            check(hour[0][0], 3_600_000,
+                  ("count", "min", "max", "last", "last_ts"), ("sum", "avg"))
+            same_bytes(hour[0][0], hour[1][0], f"{tag}: cold 1 h twice")
+            log(f"{tag}: memo-served repeat {repeat_ms!r} ms ({hits} memo "
+                f"hits); narrowed (segments {a}-{b - 1}) {nar_ms!r} ms "
+                f"({nar_hits} hits, bytes equal to sparse and dense "
+                f"recomputes); cold 1 h all aggregates {hour[0][1]!r} / "
+                f"{hour[1][1]!r} ms, numpy-checked, byte-equal")
+            return {"cold": cold, "hour": hour[0][0], "numbers": {
                 "cold_ms": cold_ms, "memo_ms": repeat_ms,
-                "narrowed_ms": nar_ms,
-                "hour_cold_ms": [h[1] for h in hour],
+                "narrowed_ms": nar_ms, "hour_cold_ms": [h[1] for h in hour],
+                "launches": launches, "host_rounds": rounds,
+                "decode_counts": dc, "peak_device_memory": peak,
                 "cold_stages": cold_d, "memo_stages": repeat_d,
-                "narrowed_stages": nar_d, "hour_stages": hour[0][2],
-                "cold_d2h_bytes": cold_d["scan_partials_d2h_bytes_total"]}
+                "narrowed_stages": nar_d, "hour_stages": hour[0][2]}}
+
+        turns = {"device": [], "host": []}
+        for turn in (1, 2):
+            for name in ("device", "host"):
+                turns[name].append(await leg(name, turn))
+        for turn in range(2):
+            dev, host = turns["device"][turn], turns["host"][turn]
+            same_bytes(dev["cold"], host["cold"],
+                       f"parts: device vs host decode, cold 1 min avg, "
+                       f"turn {turn + 1}")
+            same_bytes(dev["hour"], host["hour"],
+                       f"parts: device vs host decode, cold 1 h all "
+                       f"aggregates, turn {turn + 1}")
+        log("parts: device decode and host decode byte-equal (cold 1 min "
+            "avg, cold 1 h all aggregates) in both turns")
+        alone = await decode_alone(engines["device"], full, plan)
+        e = engines["device"]
+        e.tables["data"].reader.parts_memo.clear()
+        e.tables["data"].reader.scan_cache.clear()
+        prof = await profile_query(lambda: e.query_downsample(
+            "cpu", [], TimeRange.new(*full), bucket_ms=BMS, aggs=("avg",)))
+        prof.pop("out")
+        log(f"parts: one cold device-decode query under torch.profiler: "
+            f"{prof['kernels']} device kernels, {prof['copies_and_sets']} "
+            f"copies/sets, device busy {prof['device_busy_us']!r} us; by "
+            f"name: " + json.dumps(prof["busy_us_by_name"]))
+        first = turns["device"][0]["numbers"]["launches"]
+        return {"launches": first["bucket_window_partials"],
+                "kway_launches": first["kway_merge_perm"],
+                "segments": len(plan.segments), "multi_sst_segments": multi,
+                "est_rows": est,
+                "budget_bytes": data.reader.cache_budget_bytes,
+                "device": [t["numbers"] for t in turns["device"]],
+                "host": [t["numbers"] for t in turns["host"]],
+                "decode_alone": alone, "cold_profile": prof}
     finally:
-        await e.close()
+        for e in engines.values():
+            await e.close()
 
 
-async def compaction_phase() -> dict:
-    """4 overlapping SSTs in each of 12 segments, both paths, compaction
-    to one SST per segment, both paths again, then the scrubber."""
+async def compaction_phase(ba, mg) -> dict:
+    """4 overlapping SSTs in each of 12 segments, both paths (the parts
+    path with device decode and with host decode), compaction to one SST
+    per segment, all three again, then the scrubber."""
     import numpy as np
     import pyarrow as pa
 
@@ -1038,21 +1456,57 @@ async def compaction_phase() -> dict:
                                  f"{sorted(segs.count(s) for s in set(segs))}")
         rng_q = TimeRange.new(T0, T0 + n_seg * segment_ms)
 
-        async def both() -> dict:
+        async def both(when: str) -> dict:
+            """The fused path, then the parts path with device decode
+            ("auto" on the card) and with host decode, every cache cold
+            before each parts leg (so neither is served the other's
+            windows or parts)."""
             out = {}
-            for path, flag in (("fused", "1"), ("parts", "0")):
-                os.environ["HORAEDB_FUSED_AGG"] = flag
+            for path, flags in (
+                    ("fused", {"HORAEDB_FUSED_AGG": "1"}),
+                    ("parts", {"HORAEDB_FUSED_AGG": "0"}),
+                    ("parts_host", {"HORAEDB_FUSED_AGG": "0",
+                                    "HORAEDB_DEVICE_DECODE": "0"})):
+                if path != "fused":
+                    data.reader.scan_cache.clear()
+                    data.reader.parts_memo.clear()
+                os.environ.update(flags)
+                ba.reset_launches()
+                mg.reset_launches()
+                c0 = decode_counts()
                 try:
                     out[path] = await e.query_downsample(
                         "cpu", [], rng_q, bucket_ms=600_000, aggs=ALL_AGGS)
                 finally:
-                    del os.environ["HORAEDB_FUSED_AGG"]
+                    for k in flags:
+                        del os.environ[k]
+                dc = counts_delta(c0, decode_counts())
+                kway = mg.LAUNCHES["kway_merge_perm"]
+                if path == "parts":
+                    route = "kway" if when == "before" else "compacted"
+                    if not (dc[route] == n_seg and dc["sorted"] == 0
+                            and kway == (3 * n_seg if route == "kway" else 0)
+                            and not any(v for k, v in dc.items()
+                                        if k.startswith("fallback:"))):
+                        raise AssertionError(
+                            f"compaction: device decode {when} compaction: "
+                            f"{dc}, {kway} merge launches")
+                    log(f"compaction: {when} compaction the parts path's "
+                        f"{n_seg} segments took the {route} route on the "
+                        f"card ({kway} kway_merge_perm launches, "
+                        f"{int(dc['rows'])} source rows decoded)")
+                elif dc["rows"] or kway:
+                    raise AssertionError(f"compaction: {path} engaged the "
+                                         f"device decode")
+            same_bytes(out["parts"], out["parts_host"],
+                       f"compaction: device vs host decode {when}")
             return out
 
-        before = await both()
+        before = await both("before")
         for path, out in before.items():
-            count = np.asarray(out["aggs"]["count"] if path == "parts"
-                               else out["aggs"]["count"].cpu().numpy())
+            count = out["aggs"]["count"]
+            count = np.asarray(count if isinstance(count, np.ndarray)
+                               else count.cpu().numpy())
             if count.shape != (hosts, n_seg * 12) or not (count == 60).all():
                 raise AssertionError(f"compaction: {path} counts before "
                                      f"compaction are not 60 per cell")
@@ -1070,7 +1524,7 @@ async def compaction_phase() -> dict:
         compact_s = time.perf_counter() - t0
         misses0 = data.reader.scan_cache.misses
         memo0 = data.reader.parts_memo.stats()
-        after = await both()
+        after = await both("after")
         memo1 = data.reader.parts_memo.stats()
         if (data.reader.scan_cache.misses - misses0 < n_seg
                 or memo1["hits"] != memo0["hits"]
@@ -1091,7 +1545,8 @@ async def compaction_phase() -> dict:
             b = before["fused"]["aggs"][k].cpu().numpy()
             np.testing.assert_allclose(a, b, rtol=1e-5)
             worst = max(worst, float(np.abs(a.astype(np.float64) - b).max()))
-        log(f"compaction: 48 SSTs -> {n_seg} in {compact_s!r} s; after it "
+        log(f"compaction: 48 SSTs -> {n_seg} in {compact_s!r} s; device "
+            f"and host decode byte-equal before and after it; after it "
             f"the parts path is byte-equal to before, the fused path exact "
             f"in count/min/max/last and within rtol 1e-5 in sum/avg "
             f"(max_abs_err {worst!r}); scan cache and memo missed every "
@@ -1209,14 +1664,24 @@ def main() -> int:
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from horaedb_tpu_torch.ops import bucket_agg as ba
+    from horaedb_tpu_torch.ops import device_decode as dd
+    from horaedb_tpu_torch.ops import merge as mg
     from horaedb_tpu_torch.storage import read as fused
 
-    t0 = time.perf_counter()
-    ba.build()
-    log(f"build: bucket_agg.cu in {time.perf_counter() - t0!r} s")
-    for line in ba.build_log().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"build: {line.strip()}")
+    # one nvcc per source, all started together
+    def timed_build(mod):
+        t0 = time.perf_counter()
+        mod.build()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        built = {mod: pool.submit(timed_build, mod) for mod in (ba, mg)}
+        built = {mod: f.result() for mod, f in built.items()}
+    for mod, secs in built.items():
+        log(f"build: {os.path.basename(mod.SOURCE)} in {secs!r} s")
+        for line in mod.build_log().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"build: {line.strip()}")
 
     def phase(name, fn, *a):
         t0 = time.perf_counter()
@@ -1225,21 +1690,35 @@ def main() -> int:
         return out
 
     kernels = phase("kernel", kernel_phase, ba, fused)
+    merge_k = phase("merge kernel", merge_kernel_phase, mg, dd)
     determinism = phase("determinism", determinism_phase, ba)
     e2e = phase("end to end (fused, op, parts)", asyncio.run,
-                end_to_end(args.rows, ba))
-    compaction = phase("compaction", asyncio.run, compaction_phase())
+                end_to_end(args.rows, ba, mg))
+    compaction = phase("compaction", asyncio.run, compaction_phase(ba, mg))
+    kernels.append({
+        "name": "kway_merge_perm", "route": "cuda",
+        "source": "horaedb_tpu_torch/csrc/merge_path.cu",
+        "replaces": "horaedb_tpu/ops/merge.py:84",
+        "launches": 0, "max_abs_err": merge_k["max_abs_err"],
+        "ms": merge_k["ms"], "plain_ms": merge_k["plain_ms"],
+        "bound_ms": merge_k["bound_ms"], "bound_by": "bytes",
+        "library_ms": merge_k["library_ms"],
+        "library_call": "multi-pass stable torch.sort (ops/merge.lex_sort)",
+        "call_ms": merge_k["call_ms"], "levels": merge_k["levels"],
+        "level_bound_ms": merge_k["level_bound_ms"]})
     for k in kernels:
-        # launches on each entry's engine path, counted from 0 around it:
-        # the parts path's cold query, the fused path's six queries
-        k["launches"] = (e2e["parts"]["launches"]
-                         if k["name"] == "bucket_window_partials"
-                         else e2e["launches"])
+        # launches on each kernel's engine path, counted from 0 around
+        # it: the device-decode leg's cold parts query (one partials
+        # launch per segment, one merge launch per level of each k-way
+        # segment), the fused path's six queries
+        k["launches"] = {"bucket_window_partials": e2e["parts"]["launches"],
+                         "kway_merge_perm": e2e["parts"]["kway_launches"],
+                         "bucket_round_accumulate": e2e["launches"]}[k["name"]]
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
             json.dump({"card": card, "kernels": kernels, "e2e": e2e,
-                       "determinism": determinism,
+                       "merge_kernel": merge_k, "determinism": determinism,
                        "compaction": compaction}, f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(card_line())

@@ -24,15 +24,14 @@ use into horaedb_tpu_torch/build/ and binds through ctypes.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
 import threading
 from typing import Optional
 
 import numpy as np
 
 from horaedb_tpu_torch.common.error import Error, ensure
+from horaedb_tpu_torch.ops import nvcc
 
 _F32_MAX = float(np.finfo(np.float32).max)
 _I32_MIN = -(2**31)
@@ -41,10 +40,8 @@ _I32_MIN = -(2**31)
 FIELDS = ("count", "sum", "min", "max", "last_ts", "last")
 _FIELD_BITS = {"sum": 2, "min": 4, "max": 8, "last": 16}
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_PKG = os.path.dirname(_HERE)
-SOURCE = os.path.join(_PKG, "csrc", "bucket_agg.cu")
-BUILD_DIR = os.path.join(_PKG, "build")
+SOURCE = os.path.join(nvcc.CSRC, "bucket_agg.cu")
+BUILD_DIR = nvcc.BUILD_DIR
 
 # launches of the kernel, counted by each entry's wrapper where it
 # launches and nowhere else (the plain versions do not count)
@@ -72,47 +69,21 @@ def reset_launches() -> None:
 
 
 def library_path() -> str:
-    """Build output for the current source (keyed by its content, so an
-    edited source rebuilds)."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"libbucket_agg_{digest}.so")
+    return nvcc.library_path(SOURCE)
 
 
 def nvcc_command(out_path: str) -> list:
-    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-    if not os.path.exists(nvcc):
-        nvcc = "nvcc"
-    return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-            "-Xptxas", "-v", "-o", out_path, SOURCE]
+    return nvcc.nvcc_command(SOURCE, out_path)
 
 
-def build(verbose: bool = False) -> str:
-    """Compile the kernel (if this source's library is not built yet)
-    and return the library path.  The compiler's report (registers,
-    spills) is returned in verbose mode through build_log()."""
-    path = library_path()
-    if os.path.exists(path):
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
-    proc = subprocess.run(nvcc_command(tmp), capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise Error(f"nvcc failed for {SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, path)
-    _BUILD_LOG["text"] = proc.stderr
-    if verbose:
-        print(proc.stderr)
-    return path
-
-
-_BUILD_LOG = {"text": ""}
+def build() -> str:
+    """Compile the kernel unless this source's library is built; return
+    the library path (the compiler's report: build_log())."""
+    return nvcc.build(SOURCE)
 
 
 def build_log() -> str:
-    return _BUILD_LOG["text"]
+    return nvcc.build_log(SOURCE)
 
 
 def _load():

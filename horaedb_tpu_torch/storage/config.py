@@ -139,6 +139,31 @@ class ScanCombineConfig:
 
 
 @dataclass
+class ScanDecodeConfig:
+    """Device-native decode ([scan.decode]; see ops/device_decode.py):
+    an eligible aggregate scan uploads each segment's ENCODED sidecar
+    columns raw, and the card runs leaf filter + merge + keep-last dedup
+    + bucket_window_partials on them, so the host only moves the bytes.
+
+    mode:
+      "auto"   — engage on a CUDA reader for plans the fused aggregate
+                 declines (the oversized cold shape); a CPU reader
+                 keeps host decode.
+      "device" — the dispatch wherever structurally eligible (it also
+                 outranks the fused aggregate for such plans).
+      "host"   — host decode and host merge everywhere: the bit-identity
+                 control.
+    HORAEDB_DEVICE_DECODE=1/0 forces device/host over the config.
+    Ineligible plans and segments fall back per reason, counted in
+    scan_decode_fallback_total:<reason>."""
+
+    mode: str = "auto"
+    # device-memory admission per segment: a segment whose padded upload
+    # would exceed this decodes on the host instead (reason "budget")
+    max_upload_bytes: int = 256 << 20
+
+
+@dataclass
 class ScanConfig:
     """Device scan execution knobs (no reference analogue)."""
 
@@ -164,6 +189,7 @@ class ScanConfig:
     # width of the "sst" decode pool; 0 = threads.sst_thread_num
     decode_workers: int = 0
     combine: ScanCombineConfig = field(default_factory=ScanCombineConfig)
+    decode: ScanDecodeConfig = field(default_factory=ScanDecodeConfig)
 
 
 @dataclass
@@ -200,6 +226,7 @@ _NESTED = {
     "scheduler": SchedulerConfig,
     "scan": ScanConfig,
     "combine": ScanCombineConfig,
+    "decode": ScanDecodeConfig,
     "threads": ThreadsConfig,
     "scrub": ScrubConfig,
 }

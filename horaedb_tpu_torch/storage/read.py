@@ -20,13 +20,21 @@ Per time segment (ref: src/storage/src/read.rs:429-494):
              storage/combine.py (sparse or dense), behind a per-segment
              partial memo (PartsMemo) that serves narrowed ranges.
 
+Device decode ([scan.decode], ops/device_decode.py): on the parts path,
+an eligible plan sends each sidecar segment's ENCODED columns to the
+card raw, where leaf filter, merge, keep-last dedup and one
+bucket_window_partials launch replace the host merge, the window cut and
+the round stacks; the segment comes back as one finished part.  Mode
+"auto" engages on a CUDA reader for the plans the fused gate declines;
+"host" keeps host decode everywhere, the bit-identity control.
+
 Row scans decode the merged windows back to Arrow on the host.  Post-
-merge windows are cached per segment (storage/scan_cache.py), so a
+merge host windows are cached per segment (storage/scan_cache.py), so a
 repeat query skips the read and the merge.
 
 Only OVERWRITE (last-value) tables are served; the JAX package's Append
-merge, device decode, mesh rounds, near-data router, pipelined pump and
-stack/replay caches are not ported yet.
+merge, mesh rounds (and their decode rounds), near-data router,
+pipelined pump and stack/replay caches are not ported yet.
 """
 
 from __future__ import annotations
@@ -46,7 +54,8 @@ import pyarrow as pa
 
 from horaedb_tpu_torch.common.error import ensure
 from horaedb_tpu_torch.objstore import NotFoundError, ObjectStore
-from horaedb_tpu_torch.ops import bucket_agg, encode, filter as filter_ops
+from horaedb_tpu_torch.ops import bucket_agg, device_decode, encode
+from horaedb_tpu_torch.ops import filter as filter_ops
 from horaedb_tpu_torch.ops.downsample import ALL_AGGS, canonical_which
 from horaedb_tpu_torch.storage import combine as combine_mod
 from horaedb_tpu_torch.storage import parquet_io, sidecar
@@ -88,6 +97,9 @@ _CACHE_BYTES_PER_ROW = 32
 # accumulator identity of `last_ts` (and of an empty cell's partial)
 _ACC_TS_MIN = -(2**31)
 _F32_MAX = float(np.finfo(np.float32).max)
+
+# [scan.decode] modes (storage/config.ScanDecodeConfig)
+DECODE_MODES = ("auto", "device", "host")
 
 # guards every window's memo put: memo stores run on worker-pool
 # threads, and the byte accounting must not drift
@@ -174,6 +186,9 @@ class ScanPlan:
     # worker pool of the plan's CPU work ("compact" for rewrites, so
     # they queue behind each other, not in front of serving scans)
     pool: str = "sst"
+    # set by aggregate_segments when the plan takes the device decode:
+    # sidecar segments then come back as finished DeviceParts
+    decode_spec: Optional["AggregateSpec"] = None
 
 
 class ParquetReader:
@@ -196,6 +211,10 @@ class ParquetReader:
                f"unknown [scan.combine] mode "
                f"{config.scan.combine.mode!r}; expected one of "
                f"{combine_mod.COMBINE_MODES}")
+        # bad TOML fails the open, not a dashboard's first cold scan
+        ensure(config.scan.decode.mode in DECODE_MODES,
+               f"unknown [scan.decode] mode {config.scan.decode.mode!r}; "
+               f"expected one of {DECODE_MODES}")
         cache_bytes = (config.scan.cache_max_bytes
                        or config.scan.cache_max_rows * _CACHE_BYTES_PER_ROW)
         self.cache_budget_bytes = cache_bytes
@@ -206,6 +225,12 @@ class ParquetReader:
         # immutable, and a sidecar is written before its SST becomes
         # visible, so a miss is permanent)
         self._sidecar_missing: set = set()
+
+    @property
+    def on_cuda(self) -> bool:
+        import torch
+
+        return torch.device(self.device).type == "cuda"
 
     def close(self) -> None:
         self.scan_cache.clear()
@@ -329,7 +354,7 @@ class ParquetReader:
                 _STAGE_SECONDS["segment_read"].observe(
                     time.perf_counter() - t0)
                 return await self._run_pool(self._merge_segment, table,
-                                            pool=plan.pool)
+                                            plan, pool=plan.pool)
 
         try:
             for seg in plan.segments:
@@ -340,7 +365,7 @@ class ParquetReader:
                     yield seg, cached[id(seg)]
                     continue
                 windows = await tasks.pop(id(seg))
-                if plan.use_cache:
+                if plan.use_cache and _cacheable_windows(windows):
                     self.scan_cache.put(self._cache_key(seg, plan), windows)
                 yield seg, windows
         finally:
@@ -398,13 +423,21 @@ class ParquetReader:
                 logger.warning("sidecar fetch failed for sst %s: %s",
                                f.id, res)
                 return None
+        # a device-decode plan DEFERS the exact leaf mask: the card
+        # evaluates the conjunction in encoded space, so the host never
+        # pays the mask and the per-column compaction (a per-segment
+        # fallback resolves the pending leaves on the host)
+        defer = plan.decode_spec is not None
         try:
-            return await runner(sidecar.assemble_parts, list(got),
-                                list(seg.columns), leaves)
+            es = await runner(sidecar.assemble_parts, list(got),
+                              list(seg.columns), None if defer else leaves)
         except Exception as exc:  # noqa: BLE001 — cache read only
             logger.warning("sidecar assembly raised for segment %s: %s",
                            seg.segment_start, exc)
             return None
+        if es is not None and defer:
+            es.pending_leaves = list(leaves or [])
+        return es
 
     async def _read_segment_table(self, seg: SegmentPlan,
                                   plan: ScanPlan) -> pa.Table:
@@ -421,9 +454,26 @@ class ParquetReader:
         present = set(columns)
         return [n for n in self.schema.primary_key_names if n in present]
 
-    def _merge_segment(self, table) -> list:
+    def _merge_segment(self, table, plan: Optional[ScanPlan] = None
+                       ) -> list:
         """Pool-side encode + host merge of one segment's read result
-        (pa.Table or sidecar.EncodedSegment) into post-merge windows."""
+        (pa.Table or sidecar.EncodedSegment) into post-merge windows.
+
+        A plan routed to the device decode (plan.decode_spec set) sends
+        an EncodedSegment through the dispatch instead: [DevicePart],
+        the segment's finished aggregate partial.  A segment the
+        dispatch declines takes the host merge with its reason counted,
+        its deferred leaves applied first; a parquet segment of such a
+        plan counts "parquet"."""
+        decode = plan is not None and plan.decode_spec is not None
+        if isinstance(table, sidecar.EncodedSegment):
+            if decode:
+                part = self._dispatch_device_decode(table, plan)
+                if part is not None:
+                    return [part]
+            table = sidecar.apply_leaves_host(table)
+        elif decode:
+            device_decode.note_fallback("parquet")
         t0 = time.perf_counter()
         try:
             if isinstance(table, sidecar.EncodedSegment):
@@ -436,6 +486,23 @@ class ParquetReader:
                                        list(batch.schema.names))
         finally:
             _STAGE_SECONDS["merge"].observe(time.perf_counter() - t0)
+
+    def _dispatch_device_decode(self, es: sidecar.EncodedSegment,
+                                plan: ScanPlan
+                                ) -> Optional[device_decode.DevicePart]:
+        """One EncodedSegment through the device decode, finished; None
+        (the reason counted) when its layout can't ride it."""
+        spec = plan.decode_spec
+        got = device_decode.prepare_dispatch(
+            es, spec, pk_names=self._pk_names_in(list(es.names)),
+            seq_name=SEQ_COLUMN_NAME, leaves=es.pending_leaves or [],
+            max_bytes=self.config.scan.decode.max_upload_bytes,
+            width=self._window_grid_width(spec),
+            pad_capacity=encode.pad_capacity, device=self.device)
+        if isinstance(got, str):
+            device_decode.note_fallback(got)
+            return None
+        return got
 
     def _merge_windows(self, dev: encode.DeviceBatch, names: list) -> list:
         """The host merge (the JAX package's default host_perm layout):
@@ -496,9 +563,23 @@ class ParquetReader:
 
     def fused_aggregate_ok(self, plan: Optional[ScanPlan] = None) -> bool:
         """Whether the fused device-accumulated aggregate serves this
-        scan.  The fused path is two-phase (all windows are collected
-        before the union group space is known), so unlike the parts
-        path it pins every window in host RAM for the query: a plan
+        scan (see _fused_agg_ok_base for its own gates).  An explicit
+        [scan.decode] mode = "device" outranks it for decode-eligible
+        plans: the fused accumulator pays host decode for every window,
+        the wall the device decode removes.  HORAEDB_FUSED_AGG=1 still
+        wins."""
+        if not self._fused_agg_ok_base(plan):
+            return False
+        if os.environ.get("HORAEDB_FUSED_AGG", "") == "1":
+            return True
+        return not (plan is not None and self._decode_mode() == "device"
+                    and self._device_decode_plan_ok(plan, count=False))
+
+    def _fused_agg_ok_base(self, plan: Optional[ScanPlan] = None) -> bool:
+        """The fused aggregate's own gate.  The fused path is two-phase
+        (all windows are collected before the union group space is
+        known), so unlike the parts path it pins every window in host
+        RAM for the query: a plan
         whose estimated rows x _CACHE_BYTES_PER_ROW exceed the scan
         cache budget takes the parts path.  HORAEDB_FUSED_AGG=1/0
         forces the fused path on/off, the budget included.
@@ -519,6 +600,53 @@ class ParquetReader:
                 return False
         return True
 
+    def _decode_mode(self) -> str:
+        """The [scan.decode] mode in force: HORAEDB_DEVICE_DECODE=1/0
+        forces device/host over the config."""
+        forced = os.environ.get("HORAEDB_DEVICE_DECODE", "")
+        if forced == "1":
+            return "device"
+        if forced == "0":
+            return "host"
+        return self.config.scan.decode.mode
+
+    def _device_decode_plan_ok(self, plan: ScanPlan,
+                               count: bool = True) -> bool:
+        """Plan-level gate of the device decode (ops/device_decode.py).
+        Declines are counted in scan_decode_fallback_total:<reason>
+        unless `count` is False (the fused gate probes without counting).
+
+        "auto" engages on a CUDA reader for plans the fused aggregate
+        declines on its own terms (the oversized cold shape whose
+        windows can't pin in RAM anyway); a CPU reader keeps host
+        decode.  "device" forces the dispatch wherever structurally
+        possible; "host" is the bit-identity control.  The per-SEGMENT
+        gates (encodings, dtype, upload budget) are in plan_dispatch."""
+        mode = self._decode_mode()
+        note = device_decode.note_fallback if count else (lambda _r: None)
+        if mode == "host":
+            return False
+        if mode == "auto" and (not self.on_cuda
+                               or self._fused_agg_ok_base(plan)):
+            return False
+        if plan.mode is not UpdateMode.OVERWRITE:
+            note("append_mode")
+            return False
+        if plan.predicate is not None and not plan.pushed_complete:
+            # value-column leaves interact with last-value dedup, and
+            # Or/Not shapes have no pushed conjunction: host decode
+            # evaluates those after the merge.  Checked before the
+            # sidecar gate, which such a predicate also fails
+            note("predicate")
+            return False
+        if not device_decode.leaf_shape_supported(plan.prune_leaves):
+            note("predicate")
+            return False
+        if not self._sidecar_plan_ok(plan):
+            note("no_sidecar")
+            return False
+        return True
+
     # ---- the parts path ----------------------------------------------------
 
     async def aggregate_segments(self, plan: ScanPlan, spec: AggregateSpec):
@@ -533,6 +661,11 @@ class ParquetReader:
         order is free."""
         ensure(plan.mode is UpdateMode.OVERWRITE,
                "aggregate pushdown requires Overwrite mode")
+        # device decode: an eligible plan threads the spec to the segment
+        # reads, whose sidecar segments come back as finished DeviceParts
+        # (a copy, so the caller's plan stays reusable)
+        if self._device_decode_plan_ok(plan):
+            plan = dc_replace(plan, decode_spec=spec)
         memo = self.parts_memo
         use_memo = memo.enabled and plan.use_cache
         seg_keys: dict[int, tuple] = {}
@@ -613,6 +746,14 @@ class ParquetReader:
                     for w in ws:
                         # same semantics as the row path: post-dedup rows
                         _ROWS_SCANNED.inc(w.n_valid)
+                        if isinstance(w, device_decode.DevicePart):
+                            # a finished partial rides the queue with
+                            # prep None, so a segment's parts keep their
+                            # order; a provably empty one never enqueues
+                            # (no flush would repay its pending count)
+                            if w.part is not None:
+                                out.append((w, None))
+                            continue
                         prep = self._window_groups(w, spec, plan)
                         if prep is not None:
                             out.append((w, prep))
@@ -644,7 +785,16 @@ class ParquetReader:
         (rows a window didn't touch have count 0 and fold away in the
         combine).  The partial grids come to the host once per round;
         padding windows and groups are sliced away on the device first,
-        and window-local last_ts is re-based to range-relative."""
+        and window-local last_ts is re-based to range-relative.
+
+        Device-decode items (window a DevicePart, prep None) pass their
+        finished part through in position, with no launch of their own."""
+        if any(it[2] is None for it in items):
+            host = [it for it in items if it[2] is not None]
+            done = iter(self._flush_host_round(host, spec, plan)
+                        if host else ())
+            return [(s, w.part) if prep is None else next(done)
+                    for s, w, prep in items]
         # pow2 width >= len(items): full rounds share one shape, tail
         # rounds use narrower ones
         batch_w = min(max(1, self.config.scan.agg_batch_windows),
@@ -803,7 +953,7 @@ class ParquetReader:
                                    n_valid=nv_d, n_valid_host=nv_h)
         final = fused_finalize(acc, spec.which)
         out = {k: v[:g] for k, v in final.items()}
-        if torch.device(self.device).type == "cuda":
+        if self.on_cuda:
             torch.cuda.synchronize(self.device)
         _STAGE_SECONDS["device_aggregate"].observe(time.perf_counter() - t0)
         return out
@@ -1008,6 +1158,14 @@ def _fused_last_ts_to_abs(grids: dict, spec: AggregateSpec) -> dict:
         grids["last_ts"] = np.where(count_h > 0, lt + spec.range_start,
                                     np.nan)
     return grids
+
+
+def _cacheable_windows(windows: list) -> bool:
+    """Only host-decoded window lists enter the scan cache: a DevicePart
+    is an aggregate partial of one spec (serving it to a row scan or
+    another aggregate would be wrong), and repeat aggregates are served
+    by the PartsMemo already."""
+    return all(isinstance(w, encode.DeviceBatch) for w in windows)
 
 
 def _encoded_to_device_batch(es: sidecar.EncodedSegment

@@ -449,12 +449,27 @@ class EncodedSegment:
     """One segment's rows straight from sidecars — the parquet-free twin
     of the Arrow table the parquet read returns.  Columns are unpadded,
     filtered (prune leaves applied) and concatenated in SST/run order,
-    ready for the merge's window prep."""
+    ready for the merge's window prep.
+
+    `pending_leaves` is set (a list, possibly empty) when the read
+    DEFERRED the exact leaf mask to the device-decode dispatch
+    (ops/device_decode.py), which evaluates the conjunction in encoded
+    space on the card; None means the leaves were applied here.  A host
+    fallback for a deferred segment calls apply_leaves_host first."""
 
     columns: dict
     encodings: dict
     n: int
     names: list
+    pending_leaves: Optional[list] = None
+    # sorted SST runs concatenated (None = unknown).  One run is (pk,
+    # seq)-sorted by construction: both write paths sort before the SST
+    # put and compaction emits merge-sorted output
+    source_runs: Optional[int] = None
+    # rows per run in concatenation order (sum == n), so the device
+    # decode can k-way merge the presorted runs (ops/merge.py); None =
+    # boundaries unknown, and the decode takes the sort route
+    run_lengths: Optional[tuple] = None
 
     @property
     def num_rows(self) -> int:
@@ -465,16 +480,49 @@ class EncodedSegment:
         return sum(int(a.nbytes) for a in self.columns.values())
 
 
+def apply_leaves_host(es: EncodedSegment) -> EncodedSegment:
+    """Resolve a deferred leaf conjunction on the host — the fallback
+    when a segment routed to the device decode turns out ineligible at
+    dispatch: the mask and compaction assemble_parts would have done,
+    with each run's survivors counted so the run boundaries stay valid.
+    No-op for a segment with nothing pending."""
+    from horaedb_tpu_torch.ops import filter as filter_ops
+
+    leaves = es.pending_leaves
+    if not leaves:
+        es.pending_leaves = None
+        return es
+    cols = es.columns
+    run_lengths = es.run_lengths
+    if es.n:
+        batch = encode.DeviceBatch(columns=cols, encodings=es.encodings,
+                                   n_valid=es.n, capacity=es.n)
+        mask = np.asarray(filter_ops.eval_predicate(
+            filter_ops.And(tuple(leaves)), batch))
+        if not mask.all():
+            cols = {nm: a[mask] for nm, a in cols.items()}
+            if run_lengths is not None:
+                starts = np.cumsum((0,) + tuple(run_lengths))
+                run_lengths = tuple(int(mask[a:b].sum())
+                                    for a, b in zip(starts[:-1], starts[1:]))
+    n = len(next(iter(cols.values()))) if cols else 0
+    return EncodedSegment(columns=cols, encodings=es.encodings, n=n,
+                          names=es.names, source_runs=es.source_runs,
+                          run_lengths=run_lengths)
+
+
 def assemble_parts(parts: list, columns: list,
                    leaves: Optional[list]) -> Optional[EncodedSegment]:
     """Apply the pruned-read leaf conjunction per SST part (row-level
     equivalent to the parquet path's read_pruned / filters=pushdown) and
-    concatenate the runs in SST order.  `parts` are (cols, n) pairs as
-    returned by deserialize()/load_sst_encoded()."""
+    concatenate the runs in SST order, recording each run's rows.
+    `parts` are (cols, n) pairs as returned by
+    deserialize()/load_sst_encoded()."""
     from horaedb_tpu_torch.ops import filter as filter_ops
 
     leaves = leaves or []
     out_parts = []
+    run_lengths = []
     for cols, n in parts:
         if leaves and n:
             batch = encode.DeviceBatch(
@@ -488,12 +536,15 @@ def assemble_parts(parts: list, columns: list,
                 cols = {nm: (a[idx], e) for nm, (a, e) in cols.items()}
                 n = len(idx)
         out_parts.append({nm: cols[nm] for nm in columns})
+        run_lengths.append(int(n))
     cc = concat_encoded(out_parts, list(columns))
     if cc is None:
         return None
     out_cols, out_encs, n_total = cc
     return EncodedSegment(columns=out_cols, encodings=out_encs,
-                          n=n_total, names=list(columns))
+                          n=n_total, names=list(columns),
+                          source_runs=len(parts),
+                          run_lengths=tuple(run_lengths))
 
 
 def _decode_blob_dict(offs: np.ndarray, blob: bytes,

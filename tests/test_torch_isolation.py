@@ -30,14 +30,17 @@ def _port_modules() -> list[str]:
 
 def test_the_scan_covers_every_port_module():
     """The walk below finds every module of the port, the parts path's,
-    compaction's and the scrubber's included."""
+    compaction's, the scrubber's and the device decode's included."""
     mods = _port_modules()
     for m in ("horaedb_tpu_torch.common.loops",
               "horaedb_tpu_torch.storage.combine",
               "horaedb_tpu_torch.storage.compaction",
               "horaedb_tpu_torch.storage.gc",
               "horaedb_tpu_torch.storage.read",
-              "horaedb_tpu_torch.ops.bucket_agg"):
+              "horaedb_tpu_torch.ops.bucket_agg",
+              "horaedb_tpu_torch.ops.device_decode",
+              "horaedb_tpu_torch.ops.merge",
+              "horaedb_tpu_torch.ops.nvcc"):
         assert m in mods, m
 
 
