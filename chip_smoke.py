@@ -646,28 +646,51 @@ def determinism_phase(ba) -> dict:
 
 def kway_case(rng, real_runs: int, max_len: int = 3000, nkeys: int = 5,
               ties: bool = False, extremes: bool = False,
-              empty: bool = False, full: bool = False):
+              empty: bool = False, full: bool = False, lens=None,
+              layout=None):
     """Presorted runs of int32 keys laid out as the device decode lays
     out a segment: the runs, then the zero pad zone as its own run, the
-    run count padded to a power of two with empty runs.  Returns (keys
-    (nkeys, cap), offsets, num_runs, n)."""
+    run count padded to a power of two with empty runs.  `lens` fixes
+    the run lengths.  `layout` cuts one sorted sequence into the runs:
+    "in order" (each run above the one before), "reverse" (each run
+    below it) or "junction" (in order, each run starting with the row
+    that ends the one before); "tie block" gives every run equal keys
+    but for 3 low rows at its head and 3 high rows at its tail, so each
+    pair still merges.  Returns (keys (nkeys, cap), offsets, num_runs,
+    n)."""
     import numpy as np
 
-    lens = rng.integers(1, max_len, real_runs)
+    lens = (rng.integers(1, max_len, real_runs) if lens is None
+            else np.asarray(lens, np.int64))
     if empty:
         lens[rng.random(real_runs) < 0.4] = 0
     n = int(lens.sum())
     cap = n if full else max(128, 1 << max(0, n - 1).bit_length())
     hi = 2 if ties else 1000
-    runs = []
-    for length in lens:
-        k = rng.integers(-hi, hi, (int(length), nkeys)).astype(np.int32)
-        if extremes:
-            k[:, 0] = rng.choice(np.array([-2**31, 2**31 - 1, 0], np.int32),
-                                 int(length))
-            k[:, -1] = rng.choice(np.array([-2**31, 2**31 - 1], np.int32),
-                                  int(length))
-        runs.append(k[np.lexsort(k.T[::-1])])
+    if layout in ("in order", "reverse", "junction"):
+        rows = rng.integers(-hi, hi, (n, nkeys)).astype(np.int32)
+        rows = rows[np.lexsort(rows.T[::-1])]
+        bounds = np.cumsum(lens)[:-1]
+        if layout == "junction":
+            rows[bounds] = rows[bounds - 1]
+        runs = np.split(rows, bounds)
+        if layout == "reverse":
+            # run r takes the r-th slice from the top, each sorted
+            runs = np.split(rows[::-1], np.cumsum(lens)[:-1])
+            runs = [r[::-1] for r in runs]
+    else:
+        runs = []
+        for length in lens:
+            k = rng.integers(-hi, hi, (int(length), nkeys)).astype(np.int32)
+            if extremes:
+                k[:, 0] = rng.choice(np.array([-2**31, 2**31 - 1, 0],
+                                              np.int32), int(length))
+                k[:, -1] = rng.choice(np.array([-2**31, 2**31 - 1],
+                                               np.int32), int(length))
+            if layout == "tie block":
+                k[:] = 0
+                k[:3, 0], k[-3:, 0] = -1, 1
+            runs.append(k[np.lexsort(k.T[::-1])])
     keys = np.zeros((cap, nkeys), np.int32)
     keys[:n] = np.concatenate(runs)
     num_runs = 1 << max(1, real_runs).bit_length()
@@ -677,41 +700,161 @@ def kway_case(rng, real_runs: int, max_len: int = 3000, nkeys: int = 5,
     return np.ascontiguousarray(keys.T), offs, num_runs, n
 
 
-def main_path_segment(series=100, ticks=720, split=640):
-    """The keys of one two-SST segment of BASELINE config 1: the data
-    table's PK codes (metric_id, tsid, field_id, timestamp) and __seq__,
-    run 0 the ticks before a 1M-row write chunk's boundary, run 1 the
-    rest; 72,000 rows of 131,072 slots."""
+def segment_keys(runs):
+    """The merge keys of one segment of the data table, (metric_id,
+    tsid, field_id, timestamp, __seq__) as the device decode uploads
+    them: one run per SST, each a (series, ticks) block in (series, tick)
+    order with __seq__ the SST's index, at a 10 s scrape; then the pad
+    zone and empty runs up to a power of two.  `runs` is a list of
+    (series ids, first tick, end tick).  Returns (keys (5, cap),
+    offsets, num_runs, n)."""
     import numpy as np
 
-    runs = []
-    for r, (t0, t1) in enumerate(((0, split), (split, ticks))):
-        m = series * (t1 - t0)
-        runs.append(np.stack([
+    cols = []
+    for r, (series, t0, t1) in enumerate(runs):
+        series = np.asarray(series, np.int32)
+        m = len(series) * (t1 - t0)
+        cols.append(np.stack([
             np.zeros(m, np.int32),
-            np.repeat(np.arange(series, dtype=np.int32), t1 - t0),
+            np.repeat(series, t1 - t0),
             np.zeros(m, np.int32),
-            np.tile(np.arange(t0, t1, dtype=np.int32) * 10_000, series),
+            np.tile(np.arange(t0, t1, dtype=np.int32) * 10_000, len(series)),
             np.full(m, r, np.int32)]))
-    n = series * ticks
+    lens = [c.shape[1] for c in cols]
+    n = sum(lens)
     cap = 1 << (n - 1).bit_length()
     keys = np.zeros((5, cap), np.int32)
-    keys[:, :n] = np.concatenate(runs, axis=1)
-    offs = np.array([0, series * split, n, cap, cap], np.int32)
-    return keys, offs, 4, n
+    keys[:, :n] = np.concatenate(cols, axis=1)
+    num_runs = 1 << len(runs).bit_length()
+    offs = np.full(num_runs + 1, cap, np.int32)
+    offs[:len(runs) + 1] = np.concatenate([[0], np.cumsum(lens)])
+    return keys, offs, num_runs, n
 
 
-def merge_kernel_phase(mg, dd) -> dict:
-    """kway_merge_perm against its plain version (byte for byte) and
-    np.lexsort on (row, keys..., pad) on seeded inputs; decode_rows_core
-    on the card against its CPU run on every leaf opcode and all three
-    routes; then the kernel timed at the main path's segment."""
-    import numpy as np
+def main_path_segment(series=100, ticks=720, split=640):
+    """One two-SST segment of BASELINE config 1: run 0 the ticks before
+    a 1M-row write chunk's boundary, run 1 the rest; 72,000 rows of
+    131,072 slots, 4 runs (2 levels)."""
+    hosts = range(series)
+    return segment_keys([(hosts, 0, split), (hosts, split, ticks)])
+
+
+def compaction_segment():
+    """One segment of the compaction phase before compaction: 4 SSTs
+    (every host, then hosts 0-29, 20-49 and 40-69 with newer values),
+    720 ticks x 190 host series = 136,800 rows of 262,144 slots, 8 runs
+    (3 levels)."""
+    return segment_keys([(range(100), 0, 720), (range(0, 30), 0, 720),
+                         (range(20, 50), 0, 720), (range(40, 70), 0, 720)])
+
+
+def flush_segment(flushes=64, series=100, ticks=720):
+    """A segment written in `flushes` small flushes before compaction
+    caught up: each SST every series over its slice of the 720 ticks;
+    at 64 (the most the device decode's k-way route admits) 72,000 rows
+    of 131,072 slots, 128 runs (7 levels)."""
+    cuts = [round(ticks * f / flushes) for f in range(flushes + 1)]
+    return segment_keys([(range(series), cuts[f], cuts[f + 1])
+                         for f in range(flushes)])
+
+
+def level_ms(run, copies, reps: int = 12) -> list:
+    """Device time of each merge level (one kernel launch each) of
+    `run`, cycling through `copies` of the keys: the median over `reps`
+    calls of the kernel's CUPTI record under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run(copies[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            run(copies[i % len(copies)])
+        torch.cuda.synchronize()
+    recs = sorted((e.time_range.start, e.time_range.elapsed_us())
+                  for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and "kway_merge_level" in e.name)
+    if not recs or len(recs) % reps:
+        raise AssertionError(f"merge levels: {len(recs)} kernel records "
+                             f"over {reps} calls")
+    per = len(recs) // reps
+    return [statistics.median(d for _, d in recs[lv::per]) / 1e3
+            for lv in range(per)]
+
+
+def time_merge_shape(mg, case, parent=None) -> dict:
+    """kway_merge_perm timed at one segment shape, keys read from HBM (as
+    many copies as exceed L2, cycled): device time of the whole call
+    (back-to-back calls, CUDA events), of each level (torch.profiler),
+    and per call with host overhead; beside the plain version, the
+    multi-pass stable torch.sort the sorted route pays, and the bytes
+    bound.  With `parent` (the merge module of another checkout), that
+    kernel too, in turns parent, this, this, parent."""
     import torch
 
     dev = torch.device("cuda")
+    keys, offs, num_runs, n = case
+    cap = keys.shape[1]
+    copies = [tuple(torch.from_numpy(k).to(dev) for k in keys)
+              for _ in range(max(4, math.ceil(60e6 / keys.nbytes)))]
+    od = torch.from_numpy(offs).to(dev)
+    plain = mg.kway_merge_perm_plain(copies[0], od, num_runs=num_runs,
+                                     n_valid=n).cpu().numpy().tobytes()
+
+    def timed(mod) -> dict:
+        def run(c):
+            return mod.kway_merge_perm(c, od, num_runs=num_runs, n_valid=n)
+
+        if run(copies[0]).cpu().numpy().tobytes() != plain:
+            raise AssertionError(f"kway at cap {cap}, {num_runs} runs: "
+                                 f"{mod.__name__} != plain")
+        return {"ms": device_ms([lambda c=c: run(c) for c in copies]),
+                "level_ms": level_ms(run, copies),
+                "call_ms": cuda_ms(lambda: run(copies[0]), reps=30)}
+
+    turns = {"this": [], "parent": []}
+    for who in ["parent", "this", "this", "parent"] if parent else ["this"]:
+        turns[who].append(timed(parent if who == "parent" else mg))
+
+    def summary(ts: list) -> dict:
+        return {"ms": statistics.median(t["ms"] for t in ts),
+                "level_ms": [statistics.median(lv) for lv in
+                             zip(*(t["level_ms"] for t in ts))],
+                "call_ms": statistics.median(t["call_ms"] for t in ts)}
+
+    iota = torch.arange(cap, dtype=torch.int32, device=dev)
+    pad = (iota >= n).to(torch.int32)
+    # the function moves each key column in once and perm out once
+    nbytes = cap * 4 * (len(keys) + 1) + offs.nbytes
+    out = {"cap": cap, "n": n, "num_runs": num_runs, "keys": len(keys),
+           "levels": num_runs.bit_length() - 1, **summary(turns["this"]),
+           "plain_ms": device_ms([lambda c=c: mg.kway_merge_perm_plain(
+               c, od, num_runs=num_runs, n_valid=n) for c in copies],
+               reps=4),
+           # the sorted route's cost: stable torch.sort per key, pad first
+           "library_ms": device_ms([lambda c=c: mg.lex_sort(
+               (pad,) + c + (iota,), num_keys=1 + len(c)) for c in copies],
+               reps=10),
+           "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "turns": turns}
+    if parent:
+        out["parent"] = summary(turns["parent"])
+    return out
+
+
+def merge_cases(T: int) -> dict:
+    """The merge kernel's inputs, seeded: random runs at 2-128 runs,
+    empty runs, ties, int32 extremes, no pad zone; pairs in order, in
+    reverse and equal at the junction; runs of T - 1, T, T + 1 and
+    2 T + 3 rows for a tile of T slots; a tile of equal keys across two
+    runs; and three segments of the engine's own shape."""
+    import numpy as np
+
     rng = np.random.default_rng(3)
-    cases = {
+    return {
         "2 runs": kway_case(rng, 1),
         "4 runs": kway_case(rng, 3),
         "8 runs": kway_case(rng, 7),
@@ -721,8 +864,30 @@ def merge_kernel_phase(mg, dd) -> dict:
         "equal keys across runs": kway_case(rng, 6, ties=True),
         "int32 extremes": kway_case(rng, 5, extremes=True),
         "no pad zone": kway_case(rng, 4, full=True),
+        "pairs in order": kway_case(rng, 5, layout="in order"),
+        "pairs in reverse": kway_case(rng, 5, layout="reverse"),
+        "pairs equal at the junction": kway_case(rng, 5, layout="junction"),
+        "runs of TILE-1, TILE, TILE+1, 2 TILE+3": kway_case(
+            rng, 4, lens=[T - 1, T, T + 1, 2 * T + 3]),
+        "a tile of equal keys across two runs": kway_case(
+            rng, 2, lens=[T + 500, T + 700], layout="tie block"),
         "main path": main_path_segment(),
+        "compaction segment": compaction_segment(),
+        "64 flushes": flush_segment(),
     }
+
+
+def merge_kernel_phase(mg, dd, parent=None) -> dict:
+    """kway_merge_perm against its plain version (byte for byte) and
+    np.lexsort on (row, keys..., pad) on seeded inputs; decode_rows_core
+    on the card against its CPU run on every leaf opcode and all three
+    routes; then the kernel timed at three segment shapes (beside the
+    kernel of `parent`, another checkout's merge module, if given)."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda")
+    cases = merge_cases(mg.TILE)
     for name, (keys, offs, num_runs, n) in cases.items():
         kd = tuple(torch.from_numpy(k).to(dev) for k in keys)
         od = torch.from_numpy(offs).to(dev)
@@ -810,40 +975,25 @@ def merge_kernel_phase(mg, dd) -> dict:
         f"{checked} cases (3 routes x {len(progs)} leaf programs, "
         f"{n} rows)")
 
-    # times at the main path's segment: 20 copies of the keys (52 MB >
-    # 50 MB of L2), so each call reads from HBM as after an upload
-    keys, offs, num_runs, n = cases["main path"]
-    cap = keys.shape[1]
-    copies = [tuple(torch.from_numpy(k).to(dev) for k in keys)
-              for _ in range(20)]
-    od = torch.from_numpy(offs).to(dev)
-    iota = torch.arange(cap, dtype=torch.int32, device=dev)
-    pad = (iota >= n).to(torch.int32)
-    ms = device_ms([lambda c=c: mg.kway_merge_perm(
-        c, od, num_runs=num_runs, n_valid=n) for c in copies])
-    call_ms = cuda_ms(lambda: mg.kway_merge_perm(
-        copies[0], od, num_runs=num_runs, n_valid=n), reps=30)
-    plain_ms = device_ms([lambda c=c: mg.kway_merge_perm_plain(
-        c, od, num_runs=num_runs, n_valid=n) for c in copies], reps=6)
-    # the sorted route's cost: stable torch.sort per key, pad bit first
-    sort_ms = device_ms([lambda c=c: mg.lex_sort(
-        (pad,) + c + (iota,), num_keys=1 + len(c)) for c in copies], reps=10)
-    # the function moves each key column in once and perm out once
-    nbytes = cap * 4 * (len(keys) + 1) + offs.nbytes
-    levels = num_runs.bit_length() - 1
-    level_bytes = cap * (4 * len(keys) + 8)
-    out = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-           "library_ms": sort_ms, "bytes": nbytes,
-           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "levels": levels,
-           "level_bytes": level_bytes,
-           "level_bound_ms": level_bytes / HBM_BYTES_PER_S * 1e3,
-           "cap": cap, "n": n, "num_runs": num_runs, "max_abs_err": 0}
-    log(f"kernel: kway_merge_perm at the main-path segment (cap {cap}, "
-        f"{n} rows, {num_runs} runs, {levels} levels, {len(keys)} keys): "
-        f"{ms!r} ms device ({call_ms!r} ms per call with host overhead), "
-        f"plain {plain_ms!r} ms, multi-pass stable torch.sort {sort_ms!r} "
-        f"ms, bound {out['bound_ms']!r} ms ({nbytes} bytes; the design's "
-        f"traffic {level_bytes} bytes a level)")
+    # times at three shapes: the main path's two-SST segment, the
+    # compaction phase's four-SST segment, a segment of 64 flushes
+    out = {"shapes": {}, "max_abs_err": 0}
+    for name in ("main path", "compaction segment", "64 flushes"):
+        t = out["shapes"][name] = time_merge_shape(mg, cases[name], parent)
+        vs = (f"; parent {t['parent']['ms']!r} ms device, levels "
+              f"{t['parent']['level_ms']!r} ms, {t['parent']['call_ms']!r} "
+              f"ms per call" if parent else "")
+        log(f"kernel: kway_merge_perm at the {name} (cap {t['cap']}, "
+            f"{t['n']} rows, {t['num_runs']} runs, {t['levels']} levels, "
+            f"{t['keys']} keys): {t['ms']!r} ms device, levels "
+            f"{t['level_ms']!r} ms, {t['call_ms']!r} ms per call with host "
+            f"overhead; plain {t['plain_ms']!r} ms, multi-pass stable "
+            f"torch.sort {t['library_ms']!r} ms, bound {t['bound_ms']!r} ms "
+            f"({t['bytes']} bytes){vs}")
+    main = out["shapes"]["main path"]
+    for k in ("ms", "level_ms", "call_ms", "plain_ms", "library_ms",
+              "bound_ms", "levels"):
+        out[k] = main[k]
     return out
 
 
@@ -1643,12 +1793,32 @@ def op_path(ba, ts_off, host_id, vals, hosts: int, num_buckets: int,
     return res
 
 
+def load_merge_module(root: str):
+    """ops/merge.py of another checkout at `root`, loaded under its own
+    name and pointed at that checkout's csrc/merge_path.cu (it builds
+    into this checkout's build directory, keyed by the source's
+    content)."""
+    import importlib.util
+
+    path = os.path.join(root, "horaedb_tpu_torch", "ops", "merge.py")
+    spec = importlib.util.spec_from_file_location("parent_merge", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.SOURCE = os.path.join(root, "horaedb_tpu_torch", "csrc",
+                              "merge_path.cu")
+    return mod
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=10_000_000,
                     help="rows of the end-to-end phase (a cut is printed)")
     ap.add_argument("--json", default=None,
                     help="also write every number of the run to this file")
+    ap.add_argument("--parent", default=None,
+                    help="root of another checkout of this repo (e.g. a git "
+                         "archive of the parent commit): its merge kernel is "
+                         "timed beside this one, in turns")
     args = ap.parse_args()
 
     import torch
@@ -1674,11 +1844,13 @@ def main() -> int:
         mod.build()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        built = {mod: pool.submit(timed_build, mod) for mod in (ba, mg)}
+    parent = load_merge_module(args.parent) if args.parent else None
+    mods = (ba, mg) + ((parent,) if parent else ())
+    with ThreadPoolExecutor(max_workers=len(mods)) as pool:
+        built = {mod: pool.submit(timed_build, mod) for mod in mods}
         built = {mod: f.result() for mod, f in built.items()}
     for mod, secs in built.items():
-        log(f"build: {os.path.basename(mod.SOURCE)} in {secs!r} s")
+        log(f"build: {os.path.relpath(mod.SOURCE)} in {secs!r} s")
         for line in mod.build_log().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"build: {line.strip()}")
@@ -1690,7 +1862,7 @@ def main() -> int:
         return out
 
     kernels = phase("kernel", kernel_phase, ba, fused)
-    merge_k = phase("merge kernel", merge_kernel_phase, mg, dd)
+    merge_k = phase("merge kernel", merge_kernel_phase, mg, dd, parent)
     determinism = phase("determinism", determinism_phase, ba)
     e2e = phase("end to end (fused, op, parts)", asyncio.run,
                 end_to_end(args.rows, ba, mg))
@@ -1705,7 +1877,9 @@ def main() -> int:
         "library_ms": merge_k["library_ms"],
         "library_call": "multi-pass stable torch.sort (ops/merge.lex_sort)",
         "call_ms": merge_k["call_ms"], "levels": merge_k["levels"],
-        "level_bound_ms": merge_k["level_bound_ms"]})
+        "level_ms": merge_k["level_ms"],
+        "shapes": {name: {k: v for k, v in t.items() if k != "turns"}
+                   for name, t in merge_k["shapes"].items()}})
     for k in kernels:
         # launches on each kernel's engine path, counted from 0 around
         # it: the device-decode leg's cold parts query (one partials

@@ -9,14 +9,15 @@ Counterpart of horaedb_tpu/ops/merge.py's `lex_sort`,
   first, so equal keys keep their row order (lax.sort with the row
   index as the final key).
 - `kway_merge_perm` is the hand-written CUDA kernel of
-  csrc/merge_path.cu (one launch per level of a pairwise merge tree) on
-  a CUDA tensor and its plain version, `kway_merge_perm_plain`, on a
-  CPU tensor; any other device raises.  There is no fallback from one
-  to the other.
+  csrc/merge_path.cu (one launch per level of a pairwise merge tree,
+  each pair of blocks cut into shared-memory tiles) on a CUDA tensor
+  and its plain version, `kway_merge_perm_plain`, on a CPU tensor; any
+  other device raises.  There is no fallback from one to the other.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import threading
@@ -27,9 +28,14 @@ from horaedb_tpu_torch.common.error import Error, ensure
 from horaedb_tpu_torch.ops import nvcc
 
 SOURCE = os.path.join(nvcc.CSRC, "merge_path.cu")
-# the kernel's static limits (csrc/merge_path.cu MAX_KEYS, MAX_RUNS)
+# the kernel's static limits and tile (csrc/merge_path.cu MAX_KEYS,
+# MAX_RUNS, THREADS, ITEMS, TILE): a block of THREADS threads merges a
+# tile of TILE output slots, ITEMS a thread
 MAX_KEYS = 16
 MAX_RUNS = 128
+THREADS = 128
+ITEMS = 8
+TILE = THREADS * ITEMS
 
 # launches of the kernel (one per merge level), counted by the wrapper
 # where it launches and nowhere else
@@ -53,6 +59,8 @@ def build_log() -> str:
 
 def _load():
     global _lib
+    if _lib is not None:
+        return _lib
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
@@ -128,11 +136,16 @@ def kway_merge_perm(keys: tuple, run_offsets, *, num_runs: int,
         return torch.arange(cap, dtype=torch.int32, device=dev)
     lib = _load()
     key_ptrs = (ctypes.c_void_p * len(keys))(*[k.data_ptr() for k in keys])
-    bufs = [torch.empty(cap, dtype=torch.int32, device=dev) for _ in range(2)]
+    # each level writes the row of one scratch tensor that the level
+    # before did not; the last level's row is returned
+    bufs = torch.empty((2, cap), dtype=torch.int32, device=dev).unbind()
+    current = torch.cuda.current_device()
+    idx = current if dev.index is None else dev.index
     src = None
     level = 1
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with (contextlib.nullcontext() if idx == current
+          else torch.cuda.device(idx)):
+        stream = torch.cuda.current_stream(idx).cuda_stream
         while level < num_runs:
             dst = bufs[0] if src is not bufs[0] else bufs[1]
             rc = lib.horaedb_kway_merge_level(
