@@ -850,7 +850,8 @@ def merge_cases(T: int) -> dict:
     empty runs, ties, int32 extremes, no pad zone; pairs in order, in
     reverse and equal at the junction; runs of T - 1, T, T + 1 and
     2 T + 3 rows for a tile of T slots; a tile of equal keys across two
-    runs; and three segments of the engine's own shape."""
+    runs; 2 and 16 key columns; and three segments of the engine's own
+    shape."""
     import numpy as np
 
     rng = np.random.default_rng(3)
@@ -871,6 +872,9 @@ def merge_cases(T: int) -> dict:
             rng, 4, lens=[T - 1, T, T + 1, 2 * T + 3]),
         "a tile of equal keys across two runs": kway_case(
             rng, 2, lens=[T + 500, T + 700], layout="tie block"),
+        "2 keys": kway_case(rng, 5, nkeys=2, ties=True),
+        "16 keys (72 KB of shared memory a tile)": kway_case(
+            rng, 5, nkeys=16, ties=True),
         "main path": main_path_segment(),
         "compaction segment": compaction_segment(),
         "64 flushes": flush_segment(),

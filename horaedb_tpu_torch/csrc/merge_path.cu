@@ -67,47 +67,46 @@ __device__ __forceinline__ int elem_at(const int32_t* perm_in, int slot) {
   return perm_in ? __ldg(perm_in + slot) : slot;
 }
 
-// Key i of the element at `slot`, element `e`: gathered through the
-// permutation, or read in slot order from the previous level's keys.
-template <bool PINGPONG>
-__device__ __forceinline__ int32_t key_at(const KeyCols& keys, int i,
-                                          int slot, int e) {
-  return __ldg(keys.col[i] + (PINGPONG ? slot : e));
-}
-
-// (pad, keys...) of the element at slot sa <= that of the element at sb,
-// read from device memory: every key word is loaded before any compare.
-template <bool PINGPONG>
-__device__ __forceinline__ bool le_global(const KeyCols& keys, int nkeys,
-                                          int n_valid,
-                                          const int32_t* perm_in, int sa,
-                                          int sb) {
-  const int ea = elem_at(perm_in, sa);
-  const int eb = elem_at(perm_in, sb);
-  int32_t ka[MAX_KEYS], kb[MAX_KEYS];
-#pragma unroll
-  for (int i = 0; i < MAX_KEYS; ++i) {
-    ka[i] = i < nkeys ? key_at<PINGPONG>(keys, i, sa, ea) : 0;
-    kb[i] = i < nkeys ? key_at<PINGPONG>(keys, i, sb, eb) : 0;
-  }
+// (pad, keys...) order of two elements whose key words are in registers:
+// <0, 0, >0.  KMAX bounds nkeys; the words past nkeys are 0 on both sides.
+template <int KMAX>
+__device__ __forceinline__ int compare(int ea, const int32_t (&ka)[KMAX],
+                                       int eb, const int32_t (&kb)[KMAX],
+                                       int n_valid) {
   int c = (ea >= n_valid) - (eb >= n_valid);
 #pragma unroll
-  for (int i = 0; i < MAX_KEYS; ++i)
+  for (int i = 0; i < KMAX; ++i)
     if (c == 0) c = (ka[i] > kb[i]) - (ka[i] < kb[i]);
-  return c <= 0;
+  return c;
 }
 
-// The same order on two staged elements, x and y positions of the tile.
-__device__ __forceinline__ bool le_shared(const int32_t* s_elem,
-                                          const int32_t* s_key, int nkeys,
-                                          int n_valid, int x, int y) {
-  const int c = (s_elem[x] >= n_valid) - (s_elem[y] >= n_valid);
-  if (c != 0) return c < 0;
-  for (int i = 0; i < nkeys; ++i) {
-    const int32_t a = s_key[i * TILE + x], b = s_key[i * TILE + y];
-    if (a != b) return a < b;
-  }
-  return true;
+// key words of element e from device memory, all loads issued at once
+template <int KMAX>
+__device__ __forceinline__ void load_global(const KeyCols& keys, int nkeys,
+                                            int e, int32_t (&k)[KMAX]) {
+#pragma unroll
+  for (int i = 0; i < KMAX; ++i) k[i] = i < nkeys ? __ldg(keys.col[i] + e) : 0;
+}
+
+// key words of the staged element at tile position x
+template <int KMAX>
+__device__ __forceinline__ void load_shared(const int32_t* s_key, int nkeys,
+                                            int x, int32_t (&k)[KMAX]) {
+#pragma unroll
+  for (int i = 0; i < KMAX; ++i) k[i] = i < nkeys ? s_key[i * TILE + x] : 0;
+}
+
+// the element at slot sa goes before the element at slot sb
+template <int KMAX>
+__device__ __forceinline__ bool before_global(const KeyCols& keys, int nkeys,
+                                              int n_valid,
+                                              const int32_t* perm_in, int sa,
+                                              int sb) {
+  const int ea = elem_at(perm_in, sa), eb = elem_at(perm_in, sb);
+  int32_t ka[KMAX], kb[KMAX];
+  load_global<KMAX>(keys, nkeys, ea, ka);
+  load_global<KMAX>(keys, nkeys, eb, kb);
+  return compare<KMAX>(ea, ka, eb, kb, n_valid) <= 0;
 }
 
 // Co-rank of diagonal d in the merge of A = slots [a_lo, a_lo + na) and
@@ -116,7 +115,7 @@ __device__ __forceinline__ bool le_shared(const int32_t* s_elem,
 // A[i] does not go before B[d - i - 1].  Run by one whole warp: each
 // step probes 32 points of [lo, hi) and keeps the part between the last
 // probe that goes before and the first that does not.
-template <bool PINGPONG>
+template <int KMAX>
 __device__ int corank_warp(const KeyCols& keys, int nkeys, int n_valid,
                            const int32_t* perm_in, int a_lo, int na,
                            int b_lo, int nb, int d) {
@@ -126,7 +125,7 @@ __device__ int corank_warp(const KeyCols& keys, int nkeys, int n_valid,
     const int n = hi - lo;
     const int m =
         n <= 32 ? lo + lane : lo + (int)(((long long)lane * n) >> 5);
-    const bool p = m < hi && le_global<PINGPONG>(keys, nkeys, n_valid,
+    const bool p = m < hi && before_global<KMAX>(keys, nkeys, n_valid,
                                                  perm_in, a_lo + m,
                                                  b_lo + d - m - 1);
     const int c = __popc(__ballot_sync(0xffffffffu, p));
@@ -139,12 +138,12 @@ __device__ int corank_warp(const KeyCols& keys, int nkeys, int n_valid,
   return lo;
 }
 
-template <bool PINGPONG>
+template <int KMAX>
 __global__ void __launch_bounds__(THREADS)
 kway_merge_level(KeyCols keys, int nkeys,
-                 const int32_t* __restrict__ offsets, int num_runs, int cap,
+                 const int32_t* __restrict__ offsets, int num_runs,
                  int n_valid, int level, const int32_t* __restrict__ perm_in,
-                 int32_t* __restrict__ perm_out, int32_t* __restrict__ keys_out) {
+                 int32_t* __restrict__ perm_out) {
   extern __shared__ int32_t smem[];
   int32_t* s_elem = smem;            // the tile's A elements, then B's
   int32_t* s_from = smem + TILE;     // output x came from position s_from[x]
@@ -181,22 +180,18 @@ kway_merge_level(KeyCols keys, int nkeys,
 
   if (tid == 0)
     s_copy = na == 0 || nb == 0 ||
-             le_global<PINGPONG>(keys, nkeys, n_valid, perm_in, mid - 1, mid);
+             before_global<KMAX>(keys, nkeys, n_valid, perm_in, mid - 1, mid);
   __syncthreads();
   if (s_copy) {
-    for (int x = tid; x < n; x += THREADS) {
+    for (int x = tid; x < n; x += THREADS)
       perm_out[out0 + x] = elem_at(perm_in, out0 + x);
-      if (PINGPONG && keys_out)
-        for (int i = 0; i < nkeys; ++i)
-          keys_out[(size_t)i * cap + out0 + x] = __ldg(keys.col[i] + out0 + x);
-    }
     return;
   }
 
   const int warp = tid >> 5;
   if (warp < 2) {
-    const int a = corank_warp<PINGPONG>(keys, nkeys, n_valid, perm_in, start,
-                                        na, mid, nb, warp ? d1 : d0);
+    const int a = corank_warp<KMAX>(keys, nkeys, n_valid, perm_in, start, na,
+                                    mid, nb, warp ? d1 : d0);
     if ((tid & 31) == 0) s_corank[warp] = a;
   }
   __syncthreads();
@@ -205,82 +200,90 @@ kway_merge_level(KeyCols keys, int nkeys,
   const int b0 = d0 - a0;
 
   // stage: the elements with coalesced reads, then their keys
-  int slot[ITEMS], e[ITEMS];
+  int e[ITEMS];
 #pragma unroll
   for (int k = 0; k < ITEMS; ++k) {
     const int x = tid + k * THREADS;
-    slot[k] = x < la ? start + a0 + x : mid + b0 + (x - la);
-    e[k] = x < n ? elem_at(perm_in, slot[k]) : 0;
+    e[k] = x < n ? elem_at(perm_in, x < la ? start + a0 + x
+                                           : mid + b0 + (x - la))
+                 : 0;
   }
 #pragma unroll
   for (int k = 0; k < ITEMS; ++k)
     if (tid + k * THREADS < n) s_elem[tid + k * THREADS] = e[k];
 #pragma unroll
-  for (int i = 0; i < MAX_KEYS; ++i) {
+  for (int i = 0; i < KMAX; ++i) {
     if (i >= nkeys) break;
 #pragma unroll
     for (int k = 0; k < ITEMS; ++k)
       if (tid + k * THREADS < n)
-        s_key[i * TILE + tid + k * THREADS] =
-            key_at<PINGPONG>(keys, i, slot[k], e[k]);
+        s_key[i * TILE + tid + k * THREADS] = __ldg(keys.col[i] + e[k]);
   }
   __syncthreads();
 
-  // this thread's diagonal, then its ITEMS outputs
+  // this thread's diagonal, then its ITEMS outputs, the head of each
+  // side held in registers
   const int dt = tid * ITEMS;
   if (dt < n) {
+    int32_t ka[KMAX], kb[KMAX];
     int lo = max(0, dt - lb), hi = min(dt, la);
     while (lo < hi) {
       const int m = (lo + hi) >> 1;
-      if (le_shared(s_elem, s_key, nkeys, n_valid, m, la + dt - m - 1))
+      const int y = la + dt - m - 1;
+      load_shared<KMAX>(s_key, nkeys, m, ka);
+      load_shared<KMAX>(s_key, nkeys, y, kb);
+      if (compare<KMAX>(s_elem[m], ka, s_elem[y], kb, n_valid) <= 0)
         lo = m + 1;
       else
         hi = m;
     }
     int i = lo, j = dt - lo;
+    int ea = i < la ? s_elem[i] : 0, eb = j < lb ? s_elem[la + j] : 0;
+    load_shared<KMAX>(s_key, nkeys, i < la ? i : 0, ka);
+    load_shared<KMAX>(s_key, nkeys, j < lb ? la + j : 0, kb);
 #pragma unroll
     for (int k = 0; k < ITEMS; ++k) {
-      if (dt + k < n) {
-        const bool take_a =
-            j >= lb ||
-            (i < la && le_shared(s_elem, s_key, nkeys, n_valid, i, la + j));
-        s_from[dt + k] = take_a ? i++ : la + j++;
+      if (dt + k >= n) break;
+      const bool take_a =
+          j >= lb || (i < la && compare<KMAX>(ea, ka, eb, kb, n_valid) <= 0);
+      s_from[dt + k] = take_a ? i : la + j;
+      i += take_a;
+      j += !take_a;
+      // the next element of the side just taken replaces its head
+      const int next = take_a ? (i < la ? i : 0) : (j < lb ? la + j : 0);
+      int32_t kn[KMAX];
+      load_shared<KMAX>(s_key, nkeys, next, kn);
+      const int en = s_elem[next];
+#pragma unroll
+      for (int q = 0; q < KMAX; ++q) {
+        ka[q] = take_a ? kn[q] : ka[q];
+        kb[q] = take_a ? kb[q] : kn[q];
       }
+      ea = take_a ? en : ea;
+      eb = take_a ? eb : en;
     }
   }
   __syncthreads();
-  for (int x = tid; x < n; x += THREADS) {
-    const int from = s_from[x];
-    perm_out[out0 + x] = s_elem[from];
-    if (PINGPONG && keys_out)
-      for (int i = 0; i < nkeys; ++i)
-        keys_out[(size_t)i * cap + out0 + x] = s_key[i * TILE + from];
-  }
+  for (int x = tid; x < n; x += THREADS)
+    perm_out[out0 + x] = s_elem[s_from[x]];
 }
 
-template <bool PINGPONG>
-static int launch_level(const void* const* key_ptrs, int nkeys,
+template <int KMAX>
+static int launch_level(const KeyCols& keys, int nkeys,
                         const int32_t* offsets, int num_runs, int cap,
                         int n_valid, int level, const int32_t* perm_in,
-                        int32_t* perm_out, int32_t* keys_out, void* stream) {
-  if (nkeys < 0 || nkeys > MAX_KEYS || num_runs < 2 || num_runs > MAX_RUNS ||
-      level < 1 || level >= num_runs || cap <= 0)
-    return (int)cudaErrorInvalidValue;
-  KeyCols keys;
-  for (int i = 0; i < MAX_KEYS; ++i)
-    keys.col[i] = i < nkeys ? (const int32_t*)key_ptrs[i] : nullptr;
+                        int32_t* perm_out, cudaStream_t stream) {
   const int smem = (2 + nkeys) * TILE * (int)sizeof(int32_t);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kway_merge_level<PINGPONG>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kway_merge_level<KMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (err != cudaSuccess) return (int)err;
   }
   // at most one partial tile per pair beyond cap / TILE full ones
   const int blocks = (cap + TILE - 1) / TILE + num_runs / (2 * level);
-  kway_merge_level<PINGPONG><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      keys, nkeys, offsets, num_runs, cap, n_valid, level, perm_in, perm_out,
-      keys_out);
+  kway_merge_level<KMAX><<<blocks, THREADS, smem, stream>>>(
+      keys, nkeys, offsets, num_runs, n_valid, level, perm_in, perm_out);
   return (int)cudaGetLastError();
 }
 
@@ -289,17 +292,20 @@ extern "C" int horaedb_kway_merge_level(const void* const* key_ptrs, int nkeys,
                                         int cap, int n_valid, int level,
                                         const int32_t* perm_in,
                                         int32_t* perm_out, void* stream) {
-  return launch_level<false>(key_ptrs, nkeys, offsets, num_runs, cap, n_valid,
-                             level, perm_in, perm_out, nullptr, stream);
-}
-
-// key_ptrs: the key columns at the first level, then the previous level's
-// keys_out; keys_out (nkeys x cap, or null at the last level) receives
-// this level's merged keys in slot order.
-extern "C" int horaedb_kway_merge_level_pingpong(
-    const void* const* key_ptrs, int nkeys, const int32_t* offsets,
-    int num_runs, int cap, int n_valid, int level, const int32_t* perm_in,
-    int32_t* perm_out, int32_t* keys_out, void* stream) {
-  return launch_level<true>(key_ptrs, nkeys, offsets, num_runs, cap, n_valid,
-                            level, perm_in, perm_out, keys_out, stream);
+  if (nkeys < 0 || nkeys > MAX_KEYS || num_runs < 2 || num_runs > MAX_RUNS ||
+      level < 1 || level >= num_runs || cap <= 0)
+    return (int)cudaErrorInvalidValue;
+  KeyCols keys;
+  for (int i = 0; i < MAX_KEYS; ++i)
+    keys.col[i] = i < nkeys ? (const int32_t*)key_ptrs[i] : nullptr;
+  const cudaStream_t st = (cudaStream_t)stream;
+  // the key words a compare holds in registers: the fewest that fit
+  if (nkeys <= 4)
+    return launch_level<4>(keys, nkeys, offsets, num_runs, cap, n_valid,
+                           level, perm_in, perm_out, st);
+  if (nkeys <= 8)
+    return launch_level<8>(keys, nkeys, offsets, num_runs, cap, n_valid,
+                           level, perm_in, perm_out, st);
+  return launch_level<MAX_KEYS>(keys, nkeys, offsets, num_runs, cap, n_valid,
+                                level, perm_in, perm_out, st);
 }
