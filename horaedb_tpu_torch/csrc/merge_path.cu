@@ -183,8 +183,15 @@ kway_merge_level(KeyCols keys, int nkeys,
              before_global<KMAX>(keys, nkeys, n_valid, perm_in, mid - 1, mid);
   __syncthreads();
   if (s_copy) {
-    for (int x = tid; x < n; x += THREADS)
-      perm_out[out0 + x] = elem_at(perm_in, out0 + x);
+    int e[ITEMS];
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+      const int x = tid + k * THREADS;
+      e[k] = x < n ? elem_at(perm_in, out0 + x) : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k)
+      if (tid + k * THREADS < n) perm_out[out0 + tid + k * THREADS] = e[k];
     return;
   }
 
@@ -199,7 +206,9 @@ kway_merge_level(KeyCols keys, int nkeys,
   const int la = s_corank[1] - a0, lb = n - la;
   const int b0 = d0 - a0;
 
-  // stage: the elements with coalesced reads, then their keys
+  // stage: the elements with coalesced reads, then their keys; every
+  // load of a batch is predicated, not branched around, so a batch is
+  // one round trip to memory
   int e[ITEMS];
 #pragma unroll
   for (int k = 0; k < ITEMS; ++k) {
@@ -211,13 +220,23 @@ kway_merge_level(KeyCols keys, int nkeys,
 #pragma unroll
   for (int k = 0; k < ITEMS; ++k)
     if (tid + k * THREADS < n) s_elem[tid + k * THREADS] = e[k];
+  constexpr int KB = KMAX < 8 ? KMAX : 8;
 #pragma unroll
-  for (int i = 0; i < KMAX; ++i) {
-    if (i >= nkeys) break;
+  for (int i0 = 0; i0 < KMAX; i0 += KB) {
+    int32_t v[KB][ITEMS];
 #pragma unroll
-    for (int k = 0; k < ITEMS; ++k)
-      if (tid + k * THREADS < n)
-        s_key[i * TILE + tid + k * THREADS] = __ldg(keys.col[i] + e[k]);
+    for (int i = 0; i < KB; ++i)
+#pragma unroll
+      for (int k = 0; k < ITEMS; ++k)
+        v[i][k] = i0 + i < nkeys && tid + k * THREADS < n
+                      ? __ldg(keys.col[i0 + i] + e[k])
+                      : 0;
+#pragma unroll
+    for (int i = 0; i < KB; ++i)
+#pragma unroll
+      for (int k = 0; k < ITEMS; ++k)
+        if (i0 + i < nkeys && tid + k * THREADS < n)
+          s_key[(i0 + i) * TILE + tid + k * THREADS] = v[i][k];
   }
   __syncthreads();
 

@@ -23,7 +23,7 @@ import re
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
-VARIANTS = [(128, 8), (64, 4), (64, 8), (128, 4), (256, 4), (256, 8)]
+VARIANTS = [(128, 8), (128, 4), (128, 5), (128, 7), (64, 8), (256, 4)]
 
 
 def main() -> int:
