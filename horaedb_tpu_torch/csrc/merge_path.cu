@@ -56,12 +56,22 @@
 #define MAX_KEYS 16
 #define MAX_RUNS 128
 #define THREADS 128
-#define ITEMS 8
+#define ITEMS 4
 #define TILE (THREADS * ITEMS)
+
+// lanes of one co-rank search: half the block searches each tile end
+#define PROBES (THREADS / 2)
+// shared arrays pad one word after every 32, so threads reading at a
+// power-of-two stride hit distinct banks
+#define TILE_PAD (TILE + TILE / 32)
+
+static_assert(THREADS % 64 == 0, "each search needs whole warps");
 
 struct KeyCols {
   const int32_t* col[MAX_KEYS];
 };
+
+__device__ __forceinline__ int padded(int x) { return x + (x >> 5); }
 
 __device__ __forceinline__ int elem_at(const int32_t* perm_in, int slot) {
   return perm_in ? __ldg(perm_in + slot) : slot;
@@ -80,62 +90,41 @@ __device__ __forceinline__ int compare(int ea, const int32_t (&ka)[KMAX],
   return c;
 }
 
-// key words of element e from device memory, all loads issued at once
+// key words of element e from device memory when `on`, every load
+// predicated so that a caller's loads go out together
 template <int KMAX>
 __device__ __forceinline__ void load_global(const KeyCols& keys, int nkeys,
-                                            int e, int32_t (&k)[KMAX]) {
+                                            int e, bool on,
+                                            int32_t (&k)[KMAX]) {
 #pragma unroll
-  for (int i = 0; i < KMAX; ++i) k[i] = i < nkeys ? __ldg(keys.col[i] + e) : 0;
+  for (int i = 0; i < KMAX; ++i)
+    k[i] = on && i < nkeys ? __ldg(keys.col[i] + e) : 0;
 }
 
-// key words of the staged element at tile position x
+// key words of the staged element at padded tile position px
 template <int KMAX>
 __device__ __forceinline__ void load_shared(const int32_t* s_key, int nkeys,
-                                            int x, int32_t (&k)[KMAX]) {
+                                            int px, int32_t (&k)[KMAX]) {
 #pragma unroll
-  for (int i = 0; i < KMAX; ++i) k[i] = i < nkeys ? s_key[i * TILE + x] : 0;
+  for (int i = 0; i < KMAX; ++i)
+    k[i] = i < nkeys ? s_key[i * TILE_PAD + px] : 0;
 }
 
-// the element at slot sa goes before the element at slot sb
-template <int KMAX>
-__device__ __forceinline__ bool before_global(const KeyCols& keys, int nkeys,
-                                              int n_valid,
-                                              const int32_t* perm_in, int sa,
-                                              int sb) {
-  const int ea = elem_at(perm_in, sa), eb = elem_at(perm_in, sb);
-  int32_t ka[KMAX], kb[KMAX];
-  load_global<KMAX>(keys, nkeys, ea, ka);
-  load_global<KMAX>(keys, nkeys, eb, kb);
-  return compare<KMAX>(ea, ka, eb, kb, n_valid) <= 0;
-}
-
-// Co-rank of diagonal d in the merge of A = slots [a_lo, a_lo + na) and
-// B = [b_lo, b_lo + nb): the count of A elements among the first d
-// outputs, i.e. the least i in [max(0, d - nb), min(d, na)] for which
-// A[i] does not go before B[d - i - 1].  Run by one whole warp: each
-// step probes 32 points of [lo, hi) and keeps the part between the last
-// probe that goes before and the first that does not.
-template <int KMAX>
-__device__ int corank_warp(const KeyCols& keys, int nkeys, int n_valid,
-                           const int32_t* perm_in, int a_lo, int na,
-                           int b_lo, int nb, int d) {
-  const int lane = threadIdx.x & 31;
-  int lo = max(0, d - nb), hi = min(d, na);
-  while (lo < hi) {
-    const int n = hi - lo;
-    const int m =
-        n <= 32 ? lo + lane : lo + (int)(((long long)lane * n) >> 5);
-    const bool p = m < hi && before_global<KMAX>(keys, nkeys, n_valid,
-                                                 perm_in, a_lo + m,
-                                                 b_lo + d - m - 1);
-    const int c = __popc(__ballot_sync(0xffffffffu, p));
-    if (n <= 32) return lo + c;
-    if (c == 0) return lo;
-    const int next_lo = lo + (int)(((long long)(c - 1) * n) >> 5) + 1;
-    if (c < 32) hi = lo + (int)(((long long)c * n) >> 5);
-    lo = next_lo;
+// One round of a co-rank search over [lo, hi) (the answer lies in
+// [lo, hi]): c of its PROBES evenly spaced probes went before, and the
+// probes are monotone, so the answer lies between the last that did and
+// the first that did not.  lo == hi when it is found.
+__device__ __forceinline__ void advance(int& lo, int& hi, int c) {
+  const int n = hi - lo;
+  if (n <= 0) return;
+  if (n <= PROBES || c == 0) {
+    lo += n <= PROBES ? c : 0;
+    hi = lo;
+    return;
   }
-  return lo;
+  const int next_lo = lo + (int)((long long)(c - 1) * n / PROBES) + 1;
+  if (c < PROBES) hi = lo + (int)((long long)c * n / PROBES);
+  lo = next_lo;
 }
 
 template <int KMAX>
@@ -145,11 +134,11 @@ kway_merge_level(KeyCols keys, int nkeys,
                  int n_valid, int level, const int32_t* __restrict__ perm_in,
                  int32_t* __restrict__ perm_out) {
   extern __shared__ int32_t smem[];
-  int32_t* s_elem = smem;            // the tile's A elements, then B's
-  int32_t* s_from = smem + TILE;     // output x came from position s_from[x]
-  int32_t* s_key = smem + 2 * TILE;  // nkeys x TILE key words
+  int32_t* s_elem = smem;                // the tile's A elements, then B's
+  int32_t* s_from = smem + TILE_PAD;     // output x came from s_from[x]
+  int32_t* s_key = smem + 2 * TILE_PAD;  // nkeys rows of key words
   __shared__ int32_t offs[MAX_RUNS + 1];
-  __shared__ int s_corank[2];
+  __shared__ int s_count[2][THREADS / 32];
   __shared__ int s_copy;
 
   const int tid = threadIdx.x;
@@ -178,10 +167,49 @@ kway_merge_level(KeyCols keys, int nkeys,
   const int n = d1 - d0;
   const int out0 = start + d0;
 
-  if (tid == 0)
-    s_copy = na == 0 || nb == 0 ||
-             before_global<KMAX>(keys, nkeys, n_valid, perm_in, mid - 1, mid);
-  __syncthreads();
+  // The co-ranks of the tile's two ends, each searched by half the
+  // block, PROBES probes a round; thread 0's first round also compares
+  // A's last element with B's first, its loads beside its probe's.
+  const int side = tid / PROBES, lane = tid % PROBES;
+  int lo0 = max(0, d0 - nb), hi0 = min(d0, na);
+  int lo1 = max(0, d1 - nb), hi1 = min(d1, na);
+  for (int round = 0;; ++round) {
+    const int lo = side ? lo1 : lo0, hi = side ? hi1 : hi0;
+    const int span = hi - lo, d = side ? d1 : d0;
+    const int m = span <= PROBES ? lo + lane
+                                 : lo + (int)((long long)lane * span / PROBES);
+    const bool probe = m < hi;
+    const bool check = round == 0 && tid == 0 && na > 0 && nb > 0;
+    const int pa = probe ? elem_at(perm_in, start + m) : 0;
+    const int pb = probe ? elem_at(perm_in, mid + d - m - 1) : 0;
+    const int ca = check ? elem_at(perm_in, mid - 1) : 0;
+    const int cb = check ? elem_at(perm_in, mid) : 0;
+    int32_t kpa[KMAX], kpb[KMAX], kca[KMAX], kcb[KMAX];
+    load_global<KMAX>(keys, nkeys, pa, probe, kpa);
+    load_global<KMAX>(keys, nkeys, pb, probe, kpb);
+    load_global<KMAX>(keys, nkeys, ca, check, kca);
+    load_global<KMAX>(keys, nkeys, cb, check, kcb);
+    const bool before =
+        probe && compare<KMAX>(pa, kpa, pb, kpb, n_valid) <= 0;
+    if (round == 0 && tid == 0)
+      s_copy = na == 0 || nb == 0 ||
+               compare<KMAX>(ca, kca, cb, kcb, n_valid) <= 0;
+    const unsigned votes = __ballot_sync(0xffffffffu, before);
+    if ((tid & 31) == 0) s_count[round & 1][tid >> 5] = __popc(votes);
+    __syncthreads();
+    if (s_copy) break;
+    int c0 = 0, c1 = 0;
+#pragma unroll
+    for (int w = 0; w < THREADS / 32; ++w) {
+      if (w < PROBES / 32) c0 += s_count[round & 1][w];
+      else c1 += s_count[round & 1][w];
+    }
+    advance(lo0, hi0, c0);
+    advance(lo1, hi1, c1);
+    if (lo0 >= hi0 && lo1 >= hi1) break;
+  }
+
+  // a pair already in order (or with an empty side): copy perm_in
   if (s_copy) {
     int e[ITEMS];
 #pragma unroll
@@ -194,21 +222,12 @@ kway_merge_level(KeyCols keys, int nkeys,
       if (tid + k * THREADS < n) perm_out[out0 + tid + k * THREADS] = e[k];
     return;
   }
-
-  const int warp = tid >> 5;
-  if (warp < 2) {
-    const int a = corank_warp<KMAX>(keys, nkeys, n_valid, perm_in, start, na,
-                                    mid, nb, warp ? d1 : d0);
-    if ((tid & 31) == 0) s_corank[warp] = a;
-  }
-  __syncthreads();
-  const int a0 = s_corank[0];
-  const int la = s_corank[1] - a0, lb = n - la;
+  const int a0 = lo0;
+  const int la = lo1 - a0, lb = n - la;
   const int b0 = d0 - a0;
 
-  // stage: the elements with coalesced reads, then their keys; every
-  // load of a batch is predicated, not branched around, so a batch is
-  // one round trip to memory
+  // stage: the elements with coalesced reads, then their keys, each
+  // batch of loads predicated so that it is one round trip to memory
   int e[ITEMS];
 #pragma unroll
   for (int k = 0; k < ITEMS; ++k) {
@@ -219,7 +238,7 @@ kway_merge_level(KeyCols keys, int nkeys,
   }
 #pragma unroll
   for (int k = 0; k < ITEMS; ++k)
-    if (tid + k * THREADS < n) s_elem[tid + k * THREADS] = e[k];
+    if (tid + k * THREADS < n) s_elem[padded(tid + k * THREADS)] = e[k];
   constexpr int KB = KMAX < 8 ? KMAX : 8;
 #pragma unroll
   for (int i0 = 0; i0 < KMAX; i0 += KB) {
@@ -236,7 +255,7 @@ kway_merge_level(KeyCols keys, int nkeys,
 #pragma unroll
       for (int k = 0; k < ITEMS; ++k)
         if (i0 + i < nkeys && tid + k * THREADS < n)
-          s_key[(i0 + i) * TILE + tid + k * THREADS] = v[i][k];
+          s_key[(i0 + i) * TILE_PAD + padded(tid + k * THREADS)] = v[i][k];
   }
   __syncthreads();
 
@@ -248,28 +267,30 @@ kway_merge_level(KeyCols keys, int nkeys,
     int lo = max(0, dt - lb), hi = min(dt, la);
     while (lo < hi) {
       const int m = (lo + hi) >> 1;
-      const int y = la + dt - m - 1;
-      load_shared<KMAX>(s_key, nkeys, m, ka);
-      load_shared<KMAX>(s_key, nkeys, y, kb);
-      if (compare<KMAX>(s_elem[m], ka, s_elem[y], kb, n_valid) <= 0)
+      const int pm = padded(m), py = padded(la + dt - m - 1);
+      load_shared<KMAX>(s_key, nkeys, pm, ka);
+      load_shared<KMAX>(s_key, nkeys, py, kb);
+      if (compare<KMAX>(s_elem[pm], ka, s_elem[py], kb, n_valid) <= 0)
         lo = m + 1;
       else
         hi = m;
     }
     int i = lo, j = dt - lo;
-    int ea = i < la ? s_elem[i] : 0, eb = j < lb ? s_elem[la + j] : 0;
-    load_shared<KMAX>(s_key, nkeys, i < la ? i : 0, ka);
-    load_shared<KMAX>(s_key, nkeys, j < lb ? la + j : 0, kb);
+    const int pi = padded(i < la ? i : 0), pj = padded(j < lb ? la + j : 0);
+    int ea = s_elem[pi], eb = s_elem[pj];
+    load_shared<KMAX>(s_key, nkeys, pi, ka);
+    load_shared<KMAX>(s_key, nkeys, pj, kb);
 #pragma unroll
     for (int k = 0; k < ITEMS; ++k) {
       if (dt + k >= n) break;
       const bool take_a =
           j >= lb || (i < la && compare<KMAX>(ea, ka, eb, kb, n_valid) <= 0);
-      s_from[dt + k] = take_a ? i : la + j;
+      s_from[padded(dt + k)] = take_a ? i : la + j;
       i += take_a;
       j += !take_a;
       // the next element of the side just taken replaces its head
-      const int next = take_a ? (i < la ? i : 0) : (j < lb ? la + j : 0);
+      const int next =
+          padded(take_a ? (i < la ? i : 0) : (j < lb ? la + j : 0));
       int32_t kn[KMAX];
       load_shared<KMAX>(s_key, nkeys, next, kn);
       const int en = s_elem[next];
@@ -284,7 +305,7 @@ kway_merge_level(KeyCols keys, int nkeys,
   }
   __syncthreads();
   for (int x = tid; x < n; x += THREADS)
-    perm_out[out0 + x] = s_elem[s_from[x]];
+    perm_out[out0 + x] = s_elem[padded(s_from[padded(x)])];
 }
 
 template <int KMAX>
@@ -292,7 +313,7 @@ static int launch_level(const KeyCols& keys, int nkeys,
                         const int32_t* offsets, int num_runs, int cap,
                         int n_valid, int level, const int32_t* perm_in,
                         int32_t* perm_out, cudaStream_t stream) {
-  const int smem = (2 + nkeys) * TILE * (int)sizeof(int32_t);
+  const int smem = (2 + nkeys) * TILE_PAD * (int)sizeof(int32_t);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kway_merge_level<KMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -8,9 +8,10 @@ launched at a time.
     python3 merge_phase_clocks.py [--json PATH]
 
 Prints, for the blocks that merge and the blocks that copy, the median
-SM cycles of each phase: offsets staged, in-order check, the two
-co-rank searches, the staging of the tile, thread 0's own diagonal
-search, the serial merge (to the barrier), and the write.  Levels: the
+SM cycles of each phase: offsets staged, the two co-rank searches
+(the in-order check in their first round), the staging of the tile,
+thread 0's warp's own diagonal searches, the serial merge (to the
+barrier), and the write.  Levels: the
 main path's level 1, and levels 1 and 3 of 64 flushes.  Exits non-zero
 without a card.
 """
@@ -24,23 +25,23 @@ import os
 import statistics
 import sys
 
-PHASES = ["offsets", "check", "search", "stage", "own search", "merge",
-          "write"]
+PHASES = ["offsets", "search", "stage", "own search", "merge", "write"]
 MARKS = [
     ("  const int tid = threadIdx.x;\n", "CLK(0)\n", "after"),
     ("  __syncthreads();\n\n  // this block's pair", "  CLK(1)\n", "after_sync"),
-    ("  __syncthreads();\n  if (s_copy) {\n", "    FLAG(1)\n", "after"),
-    ("  __syncthreads();\n  if (s_copy) {", "  CLK(2)\n", "after_sync"),
-    ("  __syncthreads();\n  const int a0 = s_corank[0];",
-     "  CLK(3)\n  FLAG(2)\n", "after_sync"),
-    ("  __syncthreads();\n\n  // this thread's diagonal", "  CLK(4)\n",
+    ("  // a pair already in order (or with an empty side): copy perm_in\n",
+     "  CLK(2)\n", "before"),
+    ("  if (s_copy) {\n    int e[ITEMS];\n", "    FLAG(1)\n", "after"),
+    ("    return;\n  }\n  const int a0 = lo0;\n", "    CLK(6)\n", "before"),
+    ("  const int a0 = lo0;\n", "  FLAG(2)\n", "after"),
+    ("  __syncthreads();\n\n  // this thread's diagonal", "  CLK(3)\n",
      "after_sync"),
-    ("    int i = lo, j = dt - lo;\n", "    CLK(5)\n", "before"),
+    ("    int i = lo, j = dt - lo;\n", "    CLK(4)\n", "before"),
     ("  __syncthreads();\n  for (int x = tid; x < n; x += THREADS)\n"
-     "    perm_out[out0 + x] = s_elem[s_from[x]];\n", "  CLK(7)\n", "after"),
+     "    perm_out[out0 + x] = s_elem[padded(s_from[padded(x)])];\n",
+     "  CLK(6)\n", "after"),
     ("  __syncthreads();\n  for (int x = tid; x < n; x += THREADS)\n",
-     "  CLK(6)\n", "after_sync"),
-    ("    return;\n  }\n\n  const int warp", "    CLK(7)\n", "before"),
+     "  CLK(5)\n", "after_sync"),
 ]
 HEADER = """
 __device__ long long g_clk[1 << 14][9];
@@ -97,7 +98,7 @@ def main() -> int:
     dev = torch.device("cuda")
     cases = cs.merge_cases(mg.TILE)
     out = {"card": card, "runs": []}
-    for threads, items in ((128, 8), (128, 4)):
+    for threads, items in ((128, 4), (128, 8)):
         path = os.path.join(nvcc.BUILD_DIR,
                             f"merge_clocks_t{threads}_i{items}.cu")
         with open(path, "w") as f:
@@ -145,12 +146,12 @@ def main() -> int:
                         ph: statistics.median(r[i + 1] - r[i] for r in merge)
                         for i, ph in enumerate(PHASES)}
                     res["merge_total"] = statistics.median(
-                        r[7] - r[0] for r in merge)
+                        r[6] - r[0] for r in merge)
                 if copy:
                     res["copy_cycles"] = {
                         "offsets": statistics.median(r[1] - r[0] for r in copy),
                         "check": statistics.median(r[2] - r[1] for r in copy),
-                        "copy": statistics.median(r[7] - r[2] for r in copy)}
+                        "copy": statistics.median(r[6] - r[2] for r in copy)}
                 out["runs"].append(res)
                 if rep == 2:
                     cs.log(json.dumps(res))

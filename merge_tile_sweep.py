@@ -23,7 +23,7 @@ import re
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
-VARIANTS = [(128, 8), (128, 4), (128, 5), (128, 7), (64, 8), (256, 4)]
+VARIANTS = [(128, 4), (128, 2), (128, 6), (128, 8), (256, 4), (256, 8)]
 
 
 def main() -> int:
