@@ -22,13 +22,20 @@ non-zero and prints no result line:
    + per-window torch slice updates), the partials' one-pass float
    atomic sum, and a one-call `index_add_` yardstick.
 4. merge kernel: kway_merge_perm (csrc/merge_path.cu) byte for byte
-   against its plain version and np.lexsort on (row, keys..., pad) at 2,
-   4, 8, 64 and 128 runs, empty runs, equal keys across runs, int32
-   extremes, no pad zone and the main path's segment (two SST runs of
-   config 1, 72,000 rows of 131,072 slots); decode_rows_core on the card
-   against its CPU run (3 routes x 9 leaf programs); then the kernel
-   timed at the main path's segment beside its bound, its plain version
-   and the multi-pass stable torch.sort the sort route would pay.
+   against its plain version and np.lexsort on (row, keys..., pad) on
+   merge_cases: 2, 4, 8, 64 and 128 runs, empty runs, equal keys across
+   runs, int32 extremes, no pad zone, pairs already in order, in reverse
+   and equal at the junction, runs of TILE-1, TILE, TILE+1 and 2 TILE+3
+   rows, a tile of equal keys across two runs, 2 and 16 key columns, and
+   three segments of the engine's shape: the main path's (two SST runs
+   of config 1, 72,000 rows of 131,072 slots, 2 levels), the compaction
+   phase's (4 SSTs, 136,800 rows of 262,144, 3 levels) and one of 64
+   flushes (72,000 rows of 131,072, 7 levels); decode_rows_core on the
+   card against its CPU run (3 routes x 9 leaf programs); then the
+   kernel timed at those three segments, the whole call and each level
+   (torch.profiler), beside its bound, its plain version and the
+   multi-pass stable torch.sort the sort route would pay; with
+   --parent DIR, the kernel of that checkout too, in turns.
 5. determinism: bucket_window_partials launched twice on the same
    merge-ordered round (W=16, cap=131072, G=128) at 1 min, 1 h and 1 day
    buckets (6, 360 and 8,640 rows per cell) and on unsorted random rows
@@ -873,7 +880,7 @@ def merge_cases(T: int) -> dict:
         "a tile of equal keys across two runs": kway_case(
             rng, 2, lens=[T + 500, T + 700], layout="tie block"),
         "2 keys": kway_case(rng, 5, nkeys=2, ties=True),
-        "16 keys (72 KB of shared memory a tile)": kway_case(
+        "16 keys": kway_case(
             rng, 5, nkeys=16, ties=True),
         "main path": main_path_segment(),
         "compaction segment": compaction_segment(),

@@ -21,7 +21,10 @@
 // slots, 5 key columns, 4 runs), 0.00094 ms at 3.35 TB/s; a launch costs
 // a few microseconds, and the merge tree takes log2(num_runs) of them.
 //
-// Design:
+// Design, against the first design's three costs (one thread per slot,
+// each running a 17-step binary search whose every step waits on a load
+// of perm_in and then of the keys; no shortcut for a pair already in
+// order; keys read and perm_out written scattered after the first level):
 // - Tiles.  The merged output of each block pair is cut into tiles of
 //   TILE slots, one CUDA block per tile; no tile crosses a pair.  A block
 //   finds its pair and tile from the run offsets, staged in shared memory.
@@ -31,24 +34,31 @@
 //   with no search.  Every block of the pair makes the same choice.  The
 //   main path's segment, [run 0, run 1, pad zone, empty], merges one pair
 //   and copies the other at level 1, and copies all of level 2.
-// - One diagonal search per tile.  Two warps find the co-ranks of the
-//   tile's first and last diagonals in device memory: how many of the
-//   first d merged elements come from A.  Each step probes 32 points at
-//   once and narrows the range 32-fold, so about 4 dependent steps cover
-//   72,000 rows (the first design ran a 17-step search for every slot).
+// - One diagonal search per tile end.  One warp each finds the co-rank
+//   of the tile's first and last diagonal in device memory: how many of
+//   the first d merged elements come from A.  Each step probes 32 points
+//   at once and narrows the range 32-fold, so about 4 dependent steps
+//   cover 72,000 rows.  (A block-wide search of 64 probes a step, the
+//   in-order check folded into its first round, measured slower: each
+//   step's barrier waits on the slowest of 128 scattered loads.)
 // - Staged in shared memory.  The tile's A and B sub-ranges, TILE
 //   elements together, are loaded with coalesced reads of perm_in, then
-//   each element's key words are gathered through it.  Each thread then
-//   searches its own diagonal in shared memory (about 10 steps), merges
-//   its ITEMS outputs serially and records where each came from; the
-//   tile goes out through shared memory, so every perm_out write is
-//   coalesced and each slot is written exactly once: the same bytes on
+//   each element's key words are gathered through it, every load of a
+//   batch predicated so that the batch is one round trip.  Writing each
+//   level's merged keys beside perm_out, for the next level to read in
+//   slot order (a ping-pong buffer), measured 9-29% slower than this
+//   gather at 4, 8 and 128 runs.
+// - Merged per thread.  Each thread searches its own diagonal in shared
+//   memory (9 steps), then merges its ITEMS outputs with the head of each
+//   side in registers, one element loaded a step.  A level's time is this
+//   chain of dependent shared-memory steps more than the number of tiles,
+//   so ITEMS = 4 beat 8.  Each output records where it came from, and the
+//   tile goes out through shared memory: every perm_out write is
+//   coalesced and each slot is written exactly once, the same bytes on
 //   every launch.
-// - Keys.  PINGPONG=false gathers the keys through perm_in at every
-//   level; PINGPONG=true writes each level's merged keys beside perm_out
-//   so the next level reads them in slot order.
-// Shared memory is sized from nkeys at launch: (2 + nkeys) x TILE words,
-// 28 KB at 5 keys and 72 KB at 16, which needs the opt-in above 48 KB.
+// The compare holds KMAX key words in registers, the fewest of 4, 8 and
+// 16 that fit nkeys.  Shared memory is (2 + nkeys) x TILE words, at most
+// 36 KB.  PERF.md has the times of each choice.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,19 +69,12 @@
 #define ITEMS 4
 #define TILE (THREADS * ITEMS)
 
-// lanes of one co-rank search: half the block searches each tile end
-#define PROBES (THREADS / 2)
-// shared arrays pad one word after every 32, so threads reading at a
-// power-of-two stride hit distinct banks
-#define TILE_PAD (TILE + TILE / 32)
-
-static_assert(THREADS % 64 == 0, "each search needs whole warps");
+static_assert((2 + MAX_KEYS) * TILE * 4 <= 48 * 1024,
+              "a tile's shared memory fits without the opt-in");
 
 struct KeyCols {
   const int32_t* col[MAX_KEYS];
 };
-
-__device__ __forceinline__ int padded(int x) { return x + (x >> 5); }
 
 __device__ __forceinline__ int elem_at(const int32_t* perm_in, int slot) {
   return perm_in ? __ldg(perm_in + slot) : slot;
@@ -90,41 +93,62 @@ __device__ __forceinline__ int compare(int ea, const int32_t (&ka)[KMAX],
   return c;
 }
 
-// key words of element e from device memory when `on`, every load
-// predicated so that a caller's loads go out together
+// key words of element e from device memory, all loads issued at once
 template <int KMAX>
 __device__ __forceinline__ void load_global(const KeyCols& keys, int nkeys,
-                                            int e, bool on,
-                                            int32_t (&k)[KMAX]) {
+                                            int e, int32_t (&k)[KMAX]) {
 #pragma unroll
-  for (int i = 0; i < KMAX; ++i)
-    k[i] = on && i < nkeys ? __ldg(keys.col[i] + e) : 0;
+  for (int i = 0; i < KMAX; ++i) k[i] = i < nkeys ? __ldg(keys.col[i] + e) : 0;
 }
 
-// key words of the staged element at padded tile position px
+// key words of the staged element at tile position x
 template <int KMAX>
 __device__ __forceinline__ void load_shared(const int32_t* s_key, int nkeys,
-                                            int px, int32_t (&k)[KMAX]) {
+                                            int x, int32_t (&k)[KMAX]) {
 #pragma unroll
-  for (int i = 0; i < KMAX; ++i)
-    k[i] = i < nkeys ? s_key[i * TILE_PAD + px] : 0;
+  for (int i = 0; i < KMAX; ++i) k[i] = i < nkeys ? s_key[i * TILE + x] : 0;
 }
 
-// One round of a co-rank search over [lo, hi) (the answer lies in
-// [lo, hi]): c of its PROBES evenly spaced probes went before, and the
-// probes are monotone, so the answer lies between the last that did and
-// the first that did not.  lo == hi when it is found.
-__device__ __forceinline__ void advance(int& lo, int& hi, int c) {
-  const int n = hi - lo;
-  if (n <= 0) return;
-  if (n <= PROBES || c == 0) {
-    lo += n <= PROBES ? c : 0;
-    hi = lo;
-    return;
+// the element at slot sa goes before the element at slot sb
+template <int KMAX>
+__device__ __forceinline__ bool before_global(const KeyCols& keys, int nkeys,
+                                              int n_valid,
+                                              const int32_t* perm_in, int sa,
+                                              int sb) {
+  const int ea = elem_at(perm_in, sa), eb = elem_at(perm_in, sb);
+  int32_t ka[KMAX], kb[KMAX];
+  load_global<KMAX>(keys, nkeys, ea, ka);
+  load_global<KMAX>(keys, nkeys, eb, kb);
+  return compare<KMAX>(ea, ka, eb, kb, n_valid) <= 0;
+}
+
+// Co-rank of diagonal d in the merge of A = slots [a_lo, a_lo + na) and
+// B = [b_lo, b_lo + nb): the count of A elements among the first d
+// outputs, i.e. the least i in [max(0, d - nb), min(d, na)] for which
+// A[i] does not go before B[d - i - 1].  Run by one whole warp: each
+// step probes 32 points of [lo, hi) and keeps the part between the last
+// probe that goes before and the first that does not.
+template <int KMAX>
+__device__ int corank_warp(const KeyCols& keys, int nkeys, int n_valid,
+                           const int32_t* perm_in, int a_lo, int na,
+                           int b_lo, int nb, int d) {
+  const int lane = threadIdx.x & 31;
+  int lo = max(0, d - nb), hi = min(d, na);
+  while (lo < hi) {
+    const int n = hi - lo;
+    const int m =
+        n <= 32 ? lo + lane : lo + (int)(((long long)lane * n) >> 5);
+    const bool p = m < hi && before_global<KMAX>(keys, nkeys, n_valid,
+                                                 perm_in, a_lo + m,
+                                                 b_lo + d - m - 1);
+    const int c = __popc(__ballot_sync(0xffffffffu, p));
+    if (n <= 32) return lo + c;
+    if (c == 0) return lo;
+    const int next_lo = lo + (int)(((long long)(c - 1) * n) >> 5) + 1;
+    if (c < 32) hi = lo + (int)(((long long)c * n) >> 5);
+    lo = next_lo;
   }
-  const int next_lo = lo + (int)((long long)(c - 1) * n / PROBES) + 1;
-  if (c < PROBES) hi = lo + (int)((long long)c * n / PROBES);
-  lo = next_lo;
+  return lo;
 }
 
 template <int KMAX>
@@ -134,11 +158,11 @@ kway_merge_level(KeyCols keys, int nkeys,
                  int n_valid, int level, const int32_t* __restrict__ perm_in,
                  int32_t* __restrict__ perm_out) {
   extern __shared__ int32_t smem[];
-  int32_t* s_elem = smem;                // the tile's A elements, then B's
-  int32_t* s_from = smem + TILE_PAD;     // output x came from s_from[x]
-  int32_t* s_key = smem + 2 * TILE_PAD;  // nkeys rows of key words
+  int32_t* s_elem = smem;            // the tile's A elements, then B's
+  int32_t* s_from = smem + TILE;     // output x came from position s_from[x]
+  int32_t* s_key = smem + 2 * TILE;  // nkeys x TILE key words
   __shared__ int32_t offs[MAX_RUNS + 1];
-  __shared__ int s_count[2][THREADS / 32];
+  __shared__ int s_corank[2];
   __shared__ int s_copy;
 
   const int tid = threadIdx.x;
@@ -167,49 +191,10 @@ kway_merge_level(KeyCols keys, int nkeys,
   const int n = d1 - d0;
   const int out0 = start + d0;
 
-  // The co-ranks of the tile's two ends, each searched by half the
-  // block, PROBES probes a round; thread 0's first round also compares
-  // A's last element with B's first, its loads beside its probe's.
-  const int side = tid / PROBES, lane = tid % PROBES;
-  int lo0 = max(0, d0 - nb), hi0 = min(d0, na);
-  int lo1 = max(0, d1 - nb), hi1 = min(d1, na);
-  for (int round = 0;; ++round) {
-    const int lo = side ? lo1 : lo0, hi = side ? hi1 : hi0;
-    const int span = hi - lo, d = side ? d1 : d0;
-    const int m = span <= PROBES ? lo + lane
-                                 : lo + (int)((long long)lane * span / PROBES);
-    const bool probe = m < hi;
-    const bool check = round == 0 && tid == 0 && na > 0 && nb > 0;
-    const int pa = probe ? elem_at(perm_in, start + m) : 0;
-    const int pb = probe ? elem_at(perm_in, mid + d - m - 1) : 0;
-    const int ca = check ? elem_at(perm_in, mid - 1) : 0;
-    const int cb = check ? elem_at(perm_in, mid) : 0;
-    int32_t kpa[KMAX], kpb[KMAX], kca[KMAX], kcb[KMAX];
-    load_global<KMAX>(keys, nkeys, pa, probe, kpa);
-    load_global<KMAX>(keys, nkeys, pb, probe, kpb);
-    load_global<KMAX>(keys, nkeys, ca, check, kca);
-    load_global<KMAX>(keys, nkeys, cb, check, kcb);
-    const bool before =
-        probe && compare<KMAX>(pa, kpa, pb, kpb, n_valid) <= 0;
-    if (round == 0 && tid == 0)
-      s_copy = na == 0 || nb == 0 ||
-               compare<KMAX>(ca, kca, cb, kcb, n_valid) <= 0;
-    const unsigned votes = __ballot_sync(0xffffffffu, before);
-    if ((tid & 31) == 0) s_count[round & 1][tid >> 5] = __popc(votes);
-    __syncthreads();
-    if (s_copy) break;
-    int c0 = 0, c1 = 0;
-#pragma unroll
-    for (int w = 0; w < THREADS / 32; ++w) {
-      if (w < PROBES / 32) c0 += s_count[round & 1][w];
-      else c1 += s_count[round & 1][w];
-    }
-    advance(lo0, hi0, c0);
-    advance(lo1, hi1, c1);
-    if (lo0 >= hi0 && lo1 >= hi1) break;
-  }
-
-  // a pair already in order (or with an empty side): copy perm_in
+  if (tid == 0)
+    s_copy = na == 0 || nb == 0 ||
+             before_global<KMAX>(keys, nkeys, n_valid, perm_in, mid - 1, mid);
+  __syncthreads();
   if (s_copy) {
     int e[ITEMS];
 #pragma unroll
@@ -222,12 +207,21 @@ kway_merge_level(KeyCols keys, int nkeys,
       if (tid + k * THREADS < n) perm_out[out0 + tid + k * THREADS] = e[k];
     return;
   }
-  const int a0 = lo0;
-  const int la = lo1 - a0, lb = n - la;
+
+  const int warp = tid >> 5;
+  if (warp < 2) {
+    const int a = corank_warp<KMAX>(keys, nkeys, n_valid, perm_in, start, na,
+                                    mid, nb, warp ? d1 : d0);
+    if ((tid & 31) == 0) s_corank[warp] = a;
+  }
+  __syncthreads();
+  const int a0 = s_corank[0];
+  const int la = s_corank[1] - a0, lb = n - la;
   const int b0 = d0 - a0;
 
-  // stage: the elements with coalesced reads, then their keys, each
-  // batch of loads predicated so that it is one round trip to memory
+  // stage: the elements with coalesced reads, then their keys; every
+  // load of a batch is predicated, not branched around, so a batch is
+  // one round trip to memory
   int e[ITEMS];
 #pragma unroll
   for (int k = 0; k < ITEMS; ++k) {
@@ -238,7 +232,7 @@ kway_merge_level(KeyCols keys, int nkeys,
   }
 #pragma unroll
   for (int k = 0; k < ITEMS; ++k)
-    if (tid + k * THREADS < n) s_elem[padded(tid + k * THREADS)] = e[k];
+    if (tid + k * THREADS < n) s_elem[tid + k * THREADS] = e[k];
   constexpr int KB = KMAX < 8 ? KMAX : 8;
 #pragma unroll
   for (int i0 = 0; i0 < KMAX; i0 += KB) {
@@ -255,7 +249,7 @@ kway_merge_level(KeyCols keys, int nkeys,
 #pragma unroll
       for (int k = 0; k < ITEMS; ++k)
         if (i0 + i < nkeys && tid + k * THREADS < n)
-          s_key[(i0 + i) * TILE_PAD + padded(tid + k * THREADS)] = v[i][k];
+          s_key[(i0 + i) * TILE + tid + k * THREADS] = v[i][k];
   }
   __syncthreads();
 
@@ -267,30 +261,28 @@ kway_merge_level(KeyCols keys, int nkeys,
     int lo = max(0, dt - lb), hi = min(dt, la);
     while (lo < hi) {
       const int m = (lo + hi) >> 1;
-      const int pm = padded(m), py = padded(la + dt - m - 1);
-      load_shared<KMAX>(s_key, nkeys, pm, ka);
-      load_shared<KMAX>(s_key, nkeys, py, kb);
-      if (compare<KMAX>(s_elem[pm], ka, s_elem[py], kb, n_valid) <= 0)
+      const int y = la + dt - m - 1;
+      load_shared<KMAX>(s_key, nkeys, m, ka);
+      load_shared<KMAX>(s_key, nkeys, y, kb);
+      if (compare<KMAX>(s_elem[m], ka, s_elem[y], kb, n_valid) <= 0)
         lo = m + 1;
       else
         hi = m;
     }
     int i = lo, j = dt - lo;
-    const int pi = padded(i < la ? i : 0), pj = padded(j < lb ? la + j : 0);
-    int ea = s_elem[pi], eb = s_elem[pj];
-    load_shared<KMAX>(s_key, nkeys, pi, ka);
-    load_shared<KMAX>(s_key, nkeys, pj, kb);
+    int ea = i < la ? s_elem[i] : 0, eb = j < lb ? s_elem[la + j] : 0;
+    load_shared<KMAX>(s_key, nkeys, i < la ? i : 0, ka);
+    load_shared<KMAX>(s_key, nkeys, j < lb ? la + j : 0, kb);
 #pragma unroll
     for (int k = 0; k < ITEMS; ++k) {
       if (dt + k >= n) break;
       const bool take_a =
           j >= lb || (i < la && compare<KMAX>(ea, ka, eb, kb, n_valid) <= 0);
-      s_from[padded(dt + k)] = take_a ? i : la + j;
+      s_from[dt + k] = take_a ? i : la + j;
       i += take_a;
       j += !take_a;
       // the next element of the side just taken replaces its head
-      const int next =
-          padded(take_a ? (i < la ? i : 0) : (j < lb ? la + j : 0));
+      const int next = take_a ? (i < la ? i : 0) : (j < lb ? la + j : 0);
       int32_t kn[KMAX];
       load_shared<KMAX>(s_key, nkeys, next, kn);
       const int en = s_elem[next];
@@ -305,7 +297,7 @@ kway_merge_level(KeyCols keys, int nkeys,
   }
   __syncthreads();
   for (int x = tid; x < n; x += THREADS)
-    perm_out[out0 + x] = s_elem[padded(s_from[padded(x)])];
+    perm_out[out0 + x] = s_elem[s_from[x]];
 }
 
 template <int KMAX>
@@ -313,13 +305,7 @@ static int launch_level(const KeyCols& keys, int nkeys,
                         const int32_t* offsets, int num_runs, int cap,
                         int n_valid, int level, const int32_t* perm_in,
                         int32_t* perm_out, cudaStream_t stream) {
-  const int smem = (2 + nkeys) * TILE_PAD * (int)sizeof(int32_t);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kway_merge_level<KMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const int smem = (2 + nkeys) * TILE * (int)sizeof(int32_t);
   // at most one partial tile per pair beyond cap / TILE full ones
   const int blocks = (cap + TILE - 1) / TILE + num_runs / (2 * level);
   kway_merge_level<KMAX><<<blocks, THREADS, smem, stream>>>(

@@ -34,7 +34,7 @@ SOURCE = os.path.join(nvcc.CSRC, "merge_path.cu")
 MAX_KEYS = 16
 MAX_RUNS = 128
 THREADS = 128
-ITEMS = 8
+ITEMS = 4
 TILE = THREADS * ITEMS
 
 # launches of the kernel (one per merge level), counted by the wrapper
