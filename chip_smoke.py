@@ -765,31 +765,49 @@ def flush_segment(flushes=64, series=100, ticks=720):
                          for f in range(flushes)])
 
 
-def level_ms(run, copies, reps: int = 12) -> list:
-    """Device time of each merge level (one kernel launch each) of
-    `run`, cycling through `copies` of the keys: the median over `reps`
-    calls of the kernel's CUPTI record under torch.profiler."""
+def level_ms(run, copies, levels: int, reps: int = 12) -> list:
+    """Device time of each of the `levels` merge levels (one kernel
+    launch each) of `run`, cycling through `copies` of the keys: the
+    median over `reps` calls of the kernel's CUPTI record under
+    torch.profiler.  A window that lost a record is taken again, at most
+    twice."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     run(copies[0])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            run(copies[i % len(copies)])
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                run(copies[i % len(copies)])
+            torch.cuda.synchronize()
+        recs = sorted((e.time_range.start, e.time_range.elapsed_us())
+                      for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and "kway_merge_level" in e.name)
+        if len(recs) == reps * levels:
+            return [statistics.median(d for _, d in recs[lv::levels]) / 1e3
+                    for lv in range(levels)]
+    raise AssertionError(f"merge levels: {len(recs)} kernel records over "
+                         f"{reps} calls of {levels} levels")
+
+
+def host_ms(fn, reps: int = 50) -> float:
+    """Median host time of one call of `fn`: the wrapper's own cost, as
+    the card runs the launches after the call returns (synchronized
+    between calls, so no queue builds up)."""
+    import torch
+
+    times = []
+    for _ in range(reps):
         torch.cuda.synchronize()
-    recs = sorted((e.time_range.start, e.time_range.elapsed_us())
-                  for e in prof.events()
-                  if e.device_type == DeviceType.CUDA
-                  and "kway_merge_level" in e.name)
-    if not recs or len(recs) % reps:
-        raise AssertionError(f"merge levels: {len(recs)} kernel records "
-                             f"over {reps} calls")
-    per = len(recs) // reps
-    return [statistics.median(d for _, d in recs[lv::per]) / 1e3
-            for lv in range(per)]
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e3
 
 
 def time_merge_shape(mg, case, parent=None) -> dict:
@@ -805,6 +823,7 @@ def time_merge_shape(mg, case, parent=None) -> dict:
     dev = torch.device("cuda")
     keys, offs, num_runs, n = case
     cap = keys.shape[1]
+    levels = num_runs.bit_length() - 1
     copies = [tuple(torch.from_numpy(k).to(dev) for k in keys)
               for _ in range(max(4, math.ceil(60e6 / keys.nbytes)))]
     od = torch.from_numpy(offs).to(dev)
@@ -819,8 +838,9 @@ def time_merge_shape(mg, case, parent=None) -> dict:
             raise AssertionError(f"kway at cap {cap}, {num_runs} runs: "
                                  f"{mod.__name__} != plain")
         return {"ms": device_ms([lambda c=c: run(c) for c in copies]),
-                "level_ms": level_ms(run, copies),
-                "call_ms": cuda_ms(lambda: run(copies[0]), reps=30)}
+                "level_ms": level_ms(run, copies, levels),
+                "call_ms": cuda_ms(lambda: run(copies[0]), reps=30),
+                "host_ms": host_ms(lambda: run(copies[0]))}
 
     turns = {"this": [], "parent": []}
     for who in ["parent", "this", "this", "parent"] if parent else ["this"]:
@@ -830,14 +850,15 @@ def time_merge_shape(mg, case, parent=None) -> dict:
         return {"ms": statistics.median(t["ms"] for t in ts),
                 "level_ms": [statistics.median(lv) for lv in
                              zip(*(t["level_ms"] for t in ts))],
-                "call_ms": statistics.median(t["call_ms"] for t in ts)}
+                "call_ms": statistics.median(t["call_ms"] for t in ts),
+                "host_ms": statistics.median(t["host_ms"] for t in ts)}
 
     iota = torch.arange(cap, dtype=torch.int32, device=dev)
     pad = (iota >= n).to(torch.int32)
     # the function moves each key column in once and perm out once
     nbytes = cap * 4 * (len(keys) + 1) + offs.nbytes
     out = {"cap": cap, "n": n, "num_runs": num_runs, "keys": len(keys),
-           "levels": num_runs.bit_length() - 1, **summary(turns["this"]),
+           "levels": levels, **summary(turns["this"]),
            "plain_ms": device_ms([lambda c=c: mg.kway_merge_perm_plain(
                c, od, num_runs=num_runs, n_valid=n) for c in copies],
                reps=4),
@@ -993,17 +1014,18 @@ def merge_kernel_phase(mg, dd, parent=None) -> dict:
         t = out["shapes"][name] = time_merge_shape(mg, cases[name], parent)
         vs = (f"; parent {t['parent']['ms']!r} ms device, levels "
               f"{t['parent']['level_ms']!r} ms, {t['parent']['call_ms']!r} "
-              f"ms per call" if parent else "")
+              f"ms per call, host {t['parent']['host_ms']!r} ms"
+              if parent else "")
         log(f"kernel: kway_merge_perm at the {name} (cap {t['cap']}, "
             f"{t['n']} rows, {t['num_runs']} runs, {t['levels']} levels, "
             f"{t['keys']} keys): {t['ms']!r} ms device, levels "
             f"{t['level_ms']!r} ms, {t['call_ms']!r} ms per call with host "
-            f"overhead; plain {t['plain_ms']!r} ms, multi-pass stable "
-            f"torch.sort {t['library_ms']!r} ms, bound {t['bound_ms']!r} ms "
-            f"({t['bytes']} bytes){vs}")
+            f"overhead, host {t['host_ms']!r} ms; plain {t['plain_ms']!r} "
+            f"ms, multi-pass stable torch.sort {t['library_ms']!r} ms, bound "
+            f"{t['bound_ms']!r} ms ({t['bytes']} bytes){vs}")
     main = out["shapes"]["main path"]
-    for k in ("ms", "level_ms", "call_ms", "plain_ms", "library_ms",
-              "bound_ms", "levels"):
+    for k in ("ms", "level_ms", "call_ms", "host_ms", "plain_ms",
+              "library_ms", "bound_ms", "levels"):
         out[k] = main[k]
     return out
 
@@ -1887,7 +1909,8 @@ def main() -> int:
         "bound_ms": merge_k["bound_ms"], "bound_by": "bytes",
         "library_ms": merge_k["library_ms"],
         "library_call": "multi-pass stable torch.sort (ops/merge.lex_sort)",
-        "call_ms": merge_k["call_ms"], "levels": merge_k["levels"],
+        "call_ms": merge_k["call_ms"], "host_ms": merge_k["host_ms"],
+        "levels": merge_k["levels"],
         "level_ms": merge_k["level_ms"],
         "shapes": {name: {k: v for k, v in t.items() if k != "turns"}
                    for name, t in merge_k["shapes"].items()}})
