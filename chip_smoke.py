@@ -36,22 +36,33 @@ non-zero and prints no result line:
    (torch.profiler), beside its bound, its plain version and the
    multi-pass stable torch.sort the sort route would pay; with
    --parent DIR, the kernel of that checkout too, in turns.
-5. determinism: bucket_window_partials launched twice on the same
+5. determinism: bucket_window_partials launched twice and
+   bucket_round_accumulate 5 times (fresh accumulators) on the same
    merge-ordered round (W=16, cap=131072, G=128) at 1 min, 1 h and 1 day
    buckets (6, 360 and 8,640 rows per cell) and on unsorted random rows
    (sparse and 1,024 rows per cell): every field byte-equal between the
-   launches and within rtol of the plain version; the float atomic sum
-   counted over 5 launches beside it; the ordered entry timed at 1 h.
+   launches and within rtol of the plain version; each entry's float
+   atomic sum launched 5 times beside it and its distinct byte patterns
+   counted; both entries' ordered and atomic sums timed at 1 h.
 6. end to end, fused: the north-star workload (BASELINE config 1 of
    bench.py: 10M rows, 100 hosts, 10 s scrape, 1 m buckets, 2 h
    segments, an in-memory object store, 1M-row write chunks) through
-   MetricEngine.write_arrow and query_downsample(aggs=("avg",)) with the
-   scan cache at 4 x rows (bench.py's setting, so the fused path
-   serves), once cold and 5 times cached, checked against a numpy
-   bincount of the same rows; bucket_round_accumulate's launch count
-   over that run must equal the fused rounds it ran, and the device
-   decode must not engage.  Then one cached query under torch.profiler
-   (kernel launches and device time by kernel name).
+   MetricEngine.write_arrow and query_downsample(aggs=("avg",)) over
+   whole buckets with the scan cache at 4 x rows (bench.py's setting, so
+   the fused path serves), once cold and 5 times cached, checked against
+   a numpy bincount of the same rows.  Every cached query must be a
+   replay hit with 0 B host-to-device and the cold query's bytes in
+   every field; bucket_round_accumulate's launch count over the six
+   queries must equal the fused rounds they ran, and the device decode
+   must not engage.  Then one cached query under torch.profiler (kernel
+   launches and device time by kernel name, byte-equal grids); the
+   first half, an interior quarter and the last half of the range
+   (bucket-aligned: each under 1 MB host-to-device, checked against its
+   own bincount); the full range unaligned, [T0, T0 + span) (its time
+   leaf keys new memos: the first query uploads the columns again, 3
+   repeats must be replays with 0 B up and its bytes);
+   drop_hbm_state() and the full range again (the full path's upload,
+   the replay's bytes); the cell's peak device memory.
 7. op path: ops.downsample.time_bucket_aggregate over the same 10M rows
    as one batch (time-major rows: runs of one row per cell), checked
    against the bincount; bucket_window_partials' launch count over that
@@ -67,7 +78,9 @@ non-zero and prints no result line:
    all aggregates at 1 h against numpy; the repeat served from the
    PartsMemo (all 139 segments); a narrowed range whose memo-served
    bytes equal a cold recompute in sparse and dense combine; two cold
-   1 h queries byte-equal; and the two legs' grids byte-equal.  Then
+   1 h queries byte-equal; and the two legs' grids byte-equal; each
+   cold query's peak device memory, with the stack cache untouched (the
+   parts path builds its rounds uncached).  Then
    single segments decoded alone (host clock, host cProfile) and one
    cold device-decode query under torch.profiler.
 9. compaction: 4 overlapping SSTs in each of 12 segments (newer values
@@ -492,7 +505,14 @@ def kernel_phase(ba, fused) -> list:
                 *c, remap_d, shift_d, lo_d, m_total, BMS, num_groups=G,
                 width=width, which=which), lo, m_total, BMS, width)
 
+    def atomic_fn(c):
+        return lambda: ba._launch_round(
+            acc, *c, remap_d, shift_d, lo_d, m_total, BMS, num_groups=G,
+            width=width, which=which, n_valid=nv_d, lo_host=lo,
+            n_valid_host=nv, ordered=False)
+
     r_ms = device_ms([round_fn(c) for c in copies])
+    r_atomic_ms = device_ms([atomic_fn(c) for c in copies])
     r_all_ms = device_ms([round_fn(c, ALL_AGGS) for c in copies])
     r_call_ms = cuda_ms(round_fn(copies[0]), reps=30)
     r_plain_ms = device_ms([lambda c=c: ba.bucket_round_accumulate_plain(
@@ -523,7 +543,8 @@ def kernel_phase(ba, fused) -> list:
     r_bound = r_bytes / HBM_BYTES_PER_S * 1e3
     log(f"kernel: main-path round (W={W} cap={cap} valid={n_rows} G={G} "
         f"width={width} total={m_total} which={which}):")
-    log(f"kernel:   bucket_round_accumulate {r_ms!r} ms (all aggs "
+    log(f"kernel:   bucket_round_accumulate (ordered sum) {r_ms!r} ms "
+        f"(one-pass float atomic sum {r_atomic_ms!r} ms; all aggs "
         f"{r_all_ms!r} ms; one call with host overhead {r_call_ms!r} ms), "
         f"plain {r_plain_ms!r} ms, slice route (partials + slice updates) "
         f"{slice_ms!r} ms, index_add_ {r_lib_ms!r} ms, bound {r_bound!r} ms "
@@ -563,18 +584,42 @@ def kernel_phase(ba, fused) -> list:
              also_replaces="horaedb_tpu/storage/read.py:4501",
              max_abs_err=worst["bucket_round_accumulate"], ms=r_ms,
              plain_ms=r_plain_ms, bound_ms=r_bound, library_ms=r_lib_ms,
-             ms_all_aggs=r_all_ms, call_ms=r_call_ms,
+             ms_all_aggs=r_all_ms, ms_atomic_sum=r_atomic_ms,
+             call_ms=r_call_ms,
              slice_route_ms=slice_ms),
     ]
 
 
-def determinism_phase(ba) -> dict:
-    """bucket_window_partials launched twice on the same round: every
+def round_patterns(ba, fused, args, kw, nv, lo, ordered: bool,
+                   launches: int = 5) -> tuple:
+    """The round entry launched `launches` times on fresh accumulators:
+    the distinct byte patterns of each field, and the last result."""
+    import torch
+
+    seen: dict = {}
+    for _ in range(launches):
+        acc = fused.fused_acc_init(num_groups=kw["num_groups"],
+                                   num_buckets=args[6], which=kw["which"],
+                                   device=args[0].device)
+        ba._launch_round(acc, *args, n_valid_host=nv, lo_host=lo,
+                         ordered=ordered, **kw)
+        torch.cuda.synchronize()
+        for f, t in acc.items():
+            seen.setdefault(f, set()).add(t.cpu().numpy().tobytes())
+    return {f: len(v) for f, v in seen.items()}, acc
+
+
+def determinism_phase(ba, fused) -> dict:
+    """Both entries launched several times on the same round: every
     field must be byte-equal between the launches and within rtol of
     the plain version.  Merge-ordered rounds at 1 min, 1 h and 1 day
-    buckets, and unsorted random rows.  The one-pass float atomic sum is
-    launched 5 times on each round beside it, and its distinct byte
-    patterns counted (the fault the ordered sum removes)."""
+    buckets, and unsorted random rows (sparse and dense).
+    bucket_window_partials is launched twice; bucket_round_accumulate 5
+    times on fresh accumulators.  The one-pass float atomic sum of each
+    entry is launched 5 times on each round beside it, and its distinct
+    byte patterns counted (the fault the ordered sum removes); the
+    ordered round is timed at the 1 h round beside its float atomic
+    sum."""
     import numpy as np
     import torch
 
@@ -633,21 +678,66 @@ def determinism_phase(ba) -> dict:
             *args, num_groups=G, width=width, which=("avg",),
             n_valid=n_valid, ordered=False)["sum"].cpu().numpy().tobytes()
             for _ in range(5)}
+        # the round entry: 5 launches, each on a fresh accumulator, with
+        # the ordered sum (every field one pattern) and with the float
+        # atomic sum (its pattern count logged)
+        r_worst = 0.0
+        for which in (ALL_AGGS, ("avg",)):
+            kw = dict(num_groups=G, width=width, which=which, n_valid=d(nv))
+            pats, acc = round_patterns(ba, fused, args, kw, nv, lo, True)
+            if any(n != 1 for n in pats.values()):
+                raise AssertionError(
+                    f"determinism {name} {which}: the round entry gave "
+                    f"{pats} byte patterns in 5 launches")
+            plain = fused.fused_acc_init(num_groups=G, num_buckets=total,
+                                         which=which, device=dev)
+            ba.bucket_round_accumulate_plain(plain, *args, lo_host=lo, **kw)
+            r_worst = max(r_worst, compare(
+                acc, plain, f"determinism round {name} {which}"))
+        r_atomic, _acc = round_patterns(
+            ba, fused, args, dict(num_groups=G, width=width,
+                                    which=ALL_AGGS, n_valid=d(nv)),
+            nv, lo, False)
         out[name] = {"rows_per_cell": per_cell, "width": width,
                      "max_abs_err": worst,
-                     "atomic_sum_patterns_in_5": len(atomic)}
-        log(f"determinism: {name} ({per_cell} rows per cell): two "
-            f"launches byte-equal in every field, max_abs_err {worst!r} "
-            f"against plain; the float atomic sum gave {len(atomic)} "
-            f"distinct byte patterns in 5 launches")
+                     "atomic_sum_patterns_in_5": len(atomic),
+                     "round_max_abs_err": r_worst,
+                     "round_atomic_patterns_in_5": r_atomic}
+        log(f"determinism: {name} ({per_cell} rows per cell): partials "
+            f"two launches byte-equal in every field, max_abs_err "
+            f"{worst!r} against plain, the float atomic sum gave "
+            f"{len(atomic)} distinct byte patterns in 5 launches; round "
+            f"5 launches byte-equal in every field, max_abs_err "
+            f"{r_worst!r} against plain, its float atomic sum gave "
+            f"{r_atomic['sum']} patterns of the sum in 5 launches "
+            f"(every field: {r_atomic})")
     name, stack, total, width, bucket, _per_cell = cases[1]
     out["times_1h"] = partials_times(ba, stack, total, G, width, bucket)
     t = out["times_1h"]
-    log(f"determinism: 1 h round (width {width}): ordered {t['ms']!r} ms "
-        f"(all aggs {t['ms_all_aggs']!r}), float atomic sum "
+    log(f"determinism: 1 h round (width {width}): partials ordered "
+        f"{t['ms']!r} ms (all aggs {t['ms_all_aggs']!r}), float atomic sum "
         f"{t['ms_atomic_sum']!r} ms (all aggs "
         f"{t['ms_all_aggs_atomic_sum']!r}), plain {t['plain_ms']!r} ms, "
         f"index_add_ {t['library_ms']!r} ms, bound {t['bound_ms']!r} ms")
+    ts, gid, vals, remap, shift, lo, nv = stack
+    copies = [[d(ts), d(gid), d(vals)] for _ in range(4)]
+    small = [d(remap), d(shift), d(lo)]
+    acc = fused.fused_acc_init(num_groups=G, num_buckets=total,
+                               which=("avg",), device=dev)
+    nv_d = d(nv)
+
+    def round_fn(c, ordered):
+        return lambda: ba._launch_round(
+            acc, *c, *small, total, bucket, num_groups=G, width=width,
+            which=("avg",), n_valid=nv_d, lo_host=lo, n_valid_host=nv,
+            ordered=ordered)
+
+    out["round_times_1h"] = {
+        "ms": device_ms([round_fn(c, True) for c in copies]),
+        "ms_atomic_sum": device_ms([round_fn(c, False) for c in copies])}
+    t = out["round_times_1h"]
+    log(f"determinism: 1 h round, bucket_round_accumulate (avg): ordered "
+        f"{t['ms']!r} ms, float atomic sum {t['ms_atomic_sum']!r} ms")
     return out
 
 
@@ -1119,10 +1209,13 @@ async def end_to_end(rows: int, ba, mg) -> dict:
         ingest_s = time.perf_counter() - t0
         log(f"e2e: ingest {n:,} rows in {ingest_s!r} s")
 
-        rng_q = TimeRange.new(T0, T0 + span)
+        # whole buckets: the same grid and rows as [T0, T0 + span), and
+        # no time leaf, so other bucket-aligned ranges share the windows'
+        # memos (the grid cut is the range filter)
+        rng_q = TimeRange.new(T0, T0 + num_buckets * bucket_ms)
 
-        async def query():
-            out = await e.query_downsample("cpu", [], rng_q,
+        async def query(rng_t=rng_q):
+            out = await e.query_downsample("cpu", [], rng_t,
                                            bucket_ms=bucket_ms,
                                            aggs=("avg",))
             torch.cuda.synchronize()
@@ -1144,20 +1237,39 @@ async def end_to_end(rows: int, ba, mg) -> dict:
         ba.reset_launches()
         mg.reset_launches()
         decode0 = decode_counts()
-        snap, h2d0 = registry.snapshot(), h2d_bytes()
-        t0 = time.perf_counter()
-        out = await query()
-        cold_s = time.perf_counter() - t0
-        cold_stages = stages(snap)
-        cold_h2d = h2d_bytes() - h2d0
-        cached = []
-        for _ in range(5):
+
+        async def timed(rng_t, want_replay: bool, what: str):
+            # one query: its wall, stages, host-to-device bytes and
+            # replay deltas; the replay must serve it or not, as asked
             snap, h2d0 = registry.snapshot(), h2d_bytes()
+            hits0, misses0 = reader._replay_hits, reader._replay_misses
             t0 = time.perf_counter()
-            out = await query()
-            cached.append(time.perf_counter() - t0)
-        cached_stages = stages(snap)
-        cached_h2d = h2d_bytes() - h2d0
+            out = await query(rng_t)
+            wall = time.perf_counter() - t0
+            rec = {"ms": wall * 1e3, "stages": stages(snap),
+                   "h2d_bytes": h2d_bytes() - h2d0,
+                   "replay_hits": reader._replay_hits - hits0,
+                   "replay_misses": reader._replay_misses - misses0}
+            if (rec["replay_hits"], rec["replay_misses"]) != \
+                    ((1, 0) if want_replay else (0, 1)):
+                raise AssertionError(f"e2e {what}: replay hits/misses "
+                                     f"{rec['replay_hits']}/"
+                                     f"{rec['replay_misses']}")
+            return out, rec
+
+        out, cold = await timed(rng_q, False, "cold")
+        cached = []
+        for i in range(5):
+            got, rec = await timed(rng_q, True, f"cached {i}")
+            if rec["h2d_bytes"] != 0:
+                raise AssertionError(f"e2e cached {i}: {rec['h2d_bytes']} "
+                                     f"B host-to-device")
+            same_bytes(got, out, f"e2e cached {i} vs cold")
+            cached.append(rec)
+        log(f"e2e: 5 cached queries served by the replay (hits/misses "
+            f"{[(c['replay_hits'], c['replay_misses']) for c in cached]}), "
+            f"0 B host-to-device each, byte-equal to the cold query in "
+            f"every field")
         launches = ba.LAUNCHES["bucket_round_accumulate"]
         windows = sum(len(ws) for ws in reader.scan_cache.values())
         per_query = math.ceil(windows / cfg.scan.agg_batch_windows)
@@ -1174,47 +1286,122 @@ async def end_to_end(rows: int, ba, mg) -> dict:
         log(f"e2e: bucket_round_accumulate launches {launches} = 6 queries "
             f"x {per_query} rounds; the device decode did not engage")
 
-        # correctness: numpy bincount of the same rows
-        cell = host_id.astype(np.int64) * num_buckets + (ts - T0) // bucket_ms
-        counts = np.bincount(cell, minlength=hosts * num_buckets).reshape(
-            hosts, num_buckets)
-        sums = np.bincount(cell, weights=vals,
-                           minlength=hosts * num_buckets).reshape(
-            hosts, num_buckets)
         tsid_of_host = np.array([tsid_of("cpu", [Label("host", f"host_{i:03d}")])
                                  for i in range(hosts)], dtype=np.uint64)
         order = np.argsort(tsid_of_host)
-        if out["tsids"] != [int(t) for t in tsid_of_host[order]]:
-            raise AssertionError("e2e: tsids differ from the written series")
-        got_count = out["aggs"]["count"].cpu().numpy()
-        got_avg = out["aggs"]["avg"].cpu().numpy()
-        if got_count.shape != (hosts, num_buckets):
-            raise AssertionError(f"e2e: grid shape {got_count.shape}")
-        if not np.array_equal(got_count, counts[order].astype(np.float32)):
-            raise AssertionError("e2e: count grid differs from bincount")
-        occ = counts[order] > 0
-        with np.errstate(invalid="ignore"):
-            want_avg = sums[order] / counts[order]
-        if not np.isfinite(got_avg[occ]).all() \
-                or not np.isnan(got_avg[~occ]).all():
-            raise AssertionError("e2e: avg has non-finite occupied cells "
-                                 "or non-NaN empty cells")
-        np.testing.assert_allclose(got_avg[occ], want_avg[occ], rtol=1e-5)
+
+        def check(got, start_b: int, nb: int, what: str):
+            # numpy bincount of the rows in [T0 + start_b, + nb) buckets
+            off = ts - T0 - start_b * bucket_ms
+            sel = (off >= 0) & (off < nb * bucket_ms)
+            cell = host_id[sel].astype(np.int64) * nb + off[sel] // bucket_ms
+            counts = np.bincount(cell, minlength=hosts * nb).reshape(
+                hosts, nb)
+            sums = np.bincount(cell, weights=vals[sel],
+                               minlength=hosts * nb).reshape(hosts, nb)
+            if got["tsids"] != [int(t) for t in tsid_of_host[order]]:
+                raise AssertionError(f"e2e {what}: tsids differ from the "
+                                     f"written series")
+            got_count = got["aggs"]["count"].cpu().numpy()
+            got_avg = got["aggs"]["avg"].cpu().numpy()
+            if got_count.shape != (hosts, nb):
+                raise AssertionError(f"e2e {what}: grid shape "
+                                     f"{got_count.shape}")
+            if not np.array_equal(got_count,
+                                  counts[order].astype(np.float32)):
+                raise AssertionError(f"e2e {what}: count grid differs from "
+                                     f"bincount")
+            occ = counts[order] > 0
+            with np.errstate(invalid="ignore"):
+                want_avg = sums[order] / counts[order]
+            if not np.isfinite(got_avg[occ]).all() \
+                    or not np.isnan(got_avg[~occ]).all():
+                raise AssertionError(f"e2e {what}: avg has non-finite "
+                                     f"occupied cells or non-NaN empty cells")
+            np.testing.assert_allclose(got_avg[occ], want_avg[occ],
+                                       rtol=1e-5)
+            return counts, sums
+
+        counts, sums = check(out, 0, num_buckets, "full range")
         log("e2e: grids match the numpy bincount (count exact, avg rtol "
             "1e-5)")
         profile = await profile_cached(query, out, ba)
-        cached_p50 = statistics.median(cached)
-        res = {"rows": n, "ingest_s": ingest_s, "cold_ms": cold_s * 1e3,
-               "cached_p50_ms": cached_p50 * 1e3,
-               "cached_ms": [c * 1e3 for c in cached],
-               "cold_rows_per_s": n / cold_s,
-               "cached_rows_per_s": n / cached_p50,
+
+        # other ranges over the same cached windows, bucket-aligned (no
+        # time leaf): the column stacks of new round compositions come
+        # from the windows' device copies, so only KBs go up
+        half, quarter = num_buckets // 2, num_buckets // 4
+        varied = {}
+        for what, start_b, nb in (("first half", 0, half),
+                                  ("interior quarter", 3 * num_buckets // 8,
+                                   quarter),
+                                  ("last half", half, num_buckets - half)):
+            rng_v = TimeRange.new(T0 + start_b * bucket_ms,
+                                  T0 + (start_b + nb) * bucket_ms)
+            got, rec = await timed(rng_v, False, what)
+            check(got, start_b, nb, what)
+            if rec["h2d_bytes"] >= 1_000_000:
+                raise AssertionError(f"e2e {what}: {rec['h2d_bytes']} B "
+                                     f"host-to-device")
+            rec["buckets"] = [start_b, nb]
+            varied[what] = rec
+            log(f"e2e: {what} (buckets {start_b}..{start_b + nb}): "
+                f"{rec['ms']!r} ms, {rec['h2d_bytes']} B host-to-device, "
+                f"grids match the numpy bincount")
+        # the full range unaligned, [T0, T0 + span): the query shape of
+        # earlier runs (1 ms shorter where span is whole buckets: the
+        # same rows and grid).  Its time leaf keys new window memos and
+        # stacks, so the first query re-uploads the columns; the repeats
+        # must be replays with 0 B up and the first one's bytes
+        rng_u = TimeRange.new(T0, T0 + span - (span % bucket_ms == 0))
+        got_u, unaligned = await timed(rng_u, False, "unaligned cold")
+        check(got_u, 0, num_buckets, "unaligned full range")
+        unaligned_cached = []
+        for i in range(3):
+            got, rec = await timed(rng_u, True, f"unaligned cached {i}")
+            if rec["h2d_bytes"] != 0:
+                raise AssertionError(f"e2e unaligned cached {i}: "
+                                     f"{rec['h2d_bytes']} B host-to-device")
+            same_bytes(got, got_u, f"e2e unaligned cached {i} vs its cold")
+            unaligned_cached.append(rec)
+        unaligned["cached_ms"] = [c["ms"] for c in unaligned_cached]
+        unaligned["cached_p50_ms"] = statistics.median(
+            unaligned["cached_ms"])
+        log(f"e2e: unaligned full range [T0, T0 + span): first query "
+            f"{unaligned['ms']!r} ms, {unaligned['h2d_bytes']} B "
+            f"host-to-device, grids match the numpy bincount; 3 repeats "
+            f"served by the replay, 0 B up, byte-equal to it: "
+            f"{unaligned['cached_ms']!r} ms")
+        # the device state dropped: the full path re-uploads the windows'
+        # columns and gives the replay's bytes
+        reader.drop_hbm_state()
+        got, dropped = await timed(rng_q, False, "after drop_hbm_state")
+        same_bytes(got, out, "e2e after drop_hbm_state vs cold")
+        log(f"e2e: after drop_hbm_state the full path took "
+            f"{dropped['ms']!r} ms and {dropped['h2d_bytes']} B "
+            f"host-to-device; grids byte-equal to the replay's")
+        peak = torch.cuda.max_memory_allocated()
+        stack_stats = reader.cache_stats()["stack_cache"]
+        log(f"e2e: peak device memory of the fused cell {peak} B; stack "
+            f"cache {json.dumps(stack_stats)}")
+        cached_ms = [c["ms"] for c in cached]
+        cached_p50 = statistics.median(cached_ms)
+        res = {"rows": n, "ingest_s": ingest_s, "cold_ms": cold["ms"],
+               "cached_p50_ms": cached_p50, "cached_ms": cached_ms,
+               "cold_rows_per_s": n / cold["ms"] * 1e3,
+               "cached_rows_per_s": n / cached_p50 * 1e3,
                "windows": windows, "rounds_per_query": per_query,
-               "cold_stage_s": cold_stages, "cold_h2d_bytes": cold_h2d,
-               "last_cached_stage_s": cached_stages,
-               "last_cached_h2d_bytes": cached_h2d,
+               "cold_stage_s": cold["stages"],
+               "cold_h2d_bytes": cold["h2d_bytes"],
+               "last_cached_stage_s": cached[-1]["stages"],
+               "cached_h2d_bytes": [c["h2d_bytes"] for c in cached],
+               "cached_replay": [[c["replay_hits"], c["replay_misses"]]
+                                 for c in cached],
+               "varied": varied, "unaligned": unaligned,
+               "after_drop": dropped,
                "launches": launches, "profile": profile,
-               "max_memory_allocated": torch.cuda.max_memory_allocated()}
+               "stack_cache": stack_stats,
+               "max_memory_allocated": peak}
         log("e2e: " + json.dumps(res))
         res["op"] = op_path(ba, ts - T0, host_id, vals, hosts, num_buckets,
                             counts, sums)
@@ -1475,6 +1662,7 @@ async def parts_phase(ba, mg, store, T0: int, per_host: int, hosts: int,
             torch.cuda.reset_peak_memory_stats()
             cold, cold_ms, cold_d = await query(full, BMS, ("avg",))
             peak = torch.cuda.max_memory_allocated()
+            stack = reader.cache_stats()["stack_cache"]
             launches = dict(ba.LAUNCHES, **mg.LAUNCHES)
             dc = counts_delta(c0, decode_counts())
             rounds = int(cold_d["scan_parts_rounds_total"])
@@ -1502,11 +1690,15 @@ async def parts_phase(ba, mg, store, T0: int, per_host: int, hosts: int,
                       and dc["rows"] == 0 and not falls):
                 raise AssertionError(f"{tag}: launches {launches} for "
                                      f"{rounds} rounds, decode {dc}")
+            if stack["entries"] or stack["hits"] or stack["misses"]:
+                raise AssertionError(f"{tag}: the parts path went through "
+                                     f"the stack cache: {stack}")
             check(cold, BMS, ("count",), ("avg",))
             log(f"{tag}: cold avg at 1 min {cold_ms!r} ms; launches "
                 f"{launches}, {rounds} host rounds; decode counters {dc}; "
                 f"grids match numpy (count exact, avg rtol 1e-5); peak "
-                f"device memory {peak} B; stages {json.dumps(cold_d)}")
+                f"device memory {peak} B; stack cache untouched; "
+                f"stages {json.dumps(cold_d)}")
 
             memo0 = reader.parts_memo.stats()["hits"]
             repeat, repeat_ms, repeat_d = await query(full, BMS, ("avg",))
@@ -1552,6 +1744,7 @@ async def parts_phase(ba, mg, store, T0: int, per_host: int, hosts: int,
                 "narrowed_ms": nar_ms, "hour_cold_ms": [h[1] for h in hour],
                 "launches": launches, "host_rounds": rounds,
                 "decode_counts": dc, "peak_device_memory": peak,
+                "stack_cache": stack,
                 "cold_stages": cold_d, "memo_stages": repeat_d,
                 "narrowed_stages": nar_d, "hour_stages": hour[0][2]}}
 
@@ -1569,6 +1762,10 @@ async def parts_phase(ba, mg, store, T0: int, per_host: int, hosts: int,
                        f"aggregates, turn {turn + 1}")
         log("parts: device decode and host decode byte-equal (cold 1 min "
             "avg, cold 1 h all aggregates) in both turns")
+        log(f"parts: peak device memory of the cold query by turn: device "
+            f"leg {[t['numbers']['peak_device_memory'] for t in turns['device']]}"
+            f" B, host leg "
+            f"{[t['numbers']['peak_device_memory'] for t in turns['host']]} B")
         alone = await decode_alone(engines["device"], full, plan)
         e = engines["device"]
         e.tables["data"].reader.parts_memo.clear()
@@ -1757,18 +1954,11 @@ async def compaction_phase(ba, mg) -> dict:
 
 async def profile_cached(query, want: dict, ba) -> dict:
     """One cached query under torch.profiler; its grids must equal the
-    query's own."""
-    import numpy as np
-
+    query's own byte for byte in every field."""
     before = sum(ba.LAUNCHES.values())
     prof = await profile_query(query)
     prof["wrapper_launches"] = sum(ba.LAUNCHES.values()) - before
-    got = prof.pop("out")
-    if not np.array_equal(got["aggs"]["count"].cpu().numpy(),
-                          want["aggs"]["count"].cpu().numpy()):
-        raise AssertionError("profile: the count grid differs")
-    np.testing.assert_allclose(got["aggs"]["avg"].cpu().numpy(),
-                               want["aggs"]["avg"].cpu().numpy(), rtol=1e-5)
+    same_bytes(prof.pop("out"), want, "profile: the cached query")
     if prof["kernels"] == 0:
         log(f"profile: torch.profiler shows no device time; the wrapper "
             f"counted {prof['wrapper_launches']} kernel launches instead")
@@ -1896,7 +2086,7 @@ def main() -> int:
 
     kernels = phase("kernel", kernel_phase, ba, fused)
     merge_k = phase("merge kernel", merge_kernel_phase, mg, dd, parent)
-    determinism = phase("determinism", determinism_phase, ba)
+    determinism = phase("determinism", determinism_phase, ba, fused)
     e2e = phase("end to end (fused, op, parts)", asyncio.run,
                 end_to_end(args.rows, ba, mg))
     compaction = phase("compaction", asyncio.run, compaction_phase(ba, mg))

@@ -78,29 +78,40 @@
 //   round's columns gathers each winner and folds it into the
 //   accumulator with the reference's `>=`.
 //
-// Ordered sum (partials).  count, min, max and `last` above are
-// order-free: integral float adds below 2^24 and integer atomics.  A
-// float atomicAdd sum is not: a cell whose rows span several warps gets
-// one add per warp in launch order, so its bytes change from launch to
-// launch, and the parts path's PartsMemo promises that a memo-served
-// part equals a recompute byte for byte.  The partials entry therefore
-// sums in integers, whose addition is associative:
+// Ordered sum.  count, min, max and `last` above are order-free:
+// integral float adds below 2^24 and integer atomics.  A float
+// atomicAdd sum is not: a cell whose rows span several warps gets one
+// add per warp in launch order, so its bytes change from launch to
+// launch.  The parts path's PartsMemo promises that a memo-served part
+// equals a recompute byte for byte, and the fused replay that a replay
+// equals the full path, so both entries sum in integers, whose addition
+// is associative:
 //   pass 1 (the accumulate core, sum left out) also takes each cell's
 //     exponent bound E = max frexp exponent of its finite non-zero
 //     values (atomicMax), and ORs NaN / +inf / -inf flags;
 //   pass 2 reads the rows again and adds each finite value as the
 //     int64 q = rint(v * 2^(B - E)), |q| <= 2^B, run-length reduced
 //     like the other fields, with one 64-bit atomicAdd per run; B =
-//     62 - bits(rows per window), so no cell's sum can overflow;
-//   a finish pass writes sum = float(q_sum * 2^(E - B)), or NaN / +-inf
-//     where the flags say so (NaN, or +inf with -inf, gives NaN).
+//     62 - bits(the most rows one cell can take), so no cell's sum can
+//     overflow;
+//   a finish pass turns each cell's q_sum into float(q_sum * 2^(E - B)),
+//     or NaN / +-inf where the flags say so (NaN, or +inf with -inf,
+//     gives NaN).
 // Each value keeps at least B - 24 >= 6 bits below its own last bit
 // relative to the cell's largest value, so the sum is at least as close
 // to the exact one as a float32 sum in any order, and it is one fixed
-// function of the cell's multiset of values.  The cost is a second read
-// of the rows: `ordered = 0` keeps the one-pass float atomicAdd sum
-// (chip_smoke.py times both); the round entry keeps its float atomics
-// (its accumulator is float32 round over round).
+// function of the cell's multiset of values.
+//   partials: per-cell scratch of the W window grids; a cell takes at
+//     most n_valid rows; the finish pass writes the sum.
+//   round: per-cell scratch of the round's columns [col0, col0 + span)
+//     (G x span cells, like the `last` key); a cell takes at most
+//     W x max_rows rows of the round; the finish pass adds the round's
+//     sum to the accumulator's float32 with one add.  The rounds of a
+//     query run in order on one stream, so the accumulator's sum is one
+//     fixed function of each round's rows and the round order.
+// The cost is a second read of the rows.  `ordered = 0` keeps the
+// one-pass float atomicAdd sum in either entry; only chip_smoke.py asks
+// for it, to count its byte patterns and time it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -142,8 +153,8 @@ struct Args {
   float* mx;
   unsigned long long* key;
   int col0, span;  // round epilogue: the key scratch's columns
-  // ordered sum (partials): per-cell exponent images, special flags,
-  // int64 sums, and B
+  // ordered sum: per-cell exponent images, special flags, int64 sums,
+  // and B (cells of the window grids, or of the round's key columns)
   int* ex;
   int* sp;
   long long* isum;
@@ -252,9 +263,10 @@ __device__ __forceinline__ int row_cell(const Args& a, const int* remap_w,
 // An op provides T (one run's aggregate), make (one row's T), combine,
 // shfl_up and emit (a run's update straight into the destination).
 //
-// AggOp: count, sum, min, max, `last`; with kOrd (partials, ordered
-// sum) the float sum is left out and the exponent image and special
-// flags of the ordered sum are taken instead.
+// AggOp: count, sum, min, max, `last`; with kOrd (the ordered sum's
+// pass 1) the float sum is left out and the exponent image and special
+// flags are taken instead, into the scratch cell k (the window cell for
+// partials, the key cell for the round).
 template <bool kRound, bool kExtra, bool kOrd>
 struct AggOp {
   using T = Agg;
@@ -314,9 +326,9 @@ struct AggOp {
     }
     atomicAdd(a.count + cell, x.cnt);
     if (!kOrd && (a.fields & kFieldSum)) atomicAdd(a.sum + cell, x.sum);
-    if (kOrd) {
-      if (x.ex) atomicMax(a.ex + cell, x.ex);
-      if (x.sp) atomicOr(a.sp + cell, x.sp);
+    if (kOrd && k >= 0) {
+      if (x.ex) atomicMax(a.ex + k, x.ex);
+      if (x.sp) atomicOr(a.sp + k, x.sp);
     }
     if (!kExtra) return;
     if (a.fields & kFieldMin) atomic_min_bits(a.mn + cell, ordered(x.mn));
@@ -325,21 +337,33 @@ struct AggOp {
   }
 };
 
-// SumOp: pass 2 of the ordered sum (partials): each finite value as
-// the int64 q = rint(v * 2^(B - E)) of its cell's exponent bound E
-// (from pass 1), summed exactly.
+// SumOp: pass 2 of the ordered sum: each finite value as the int64
+// q = rint(v * 2^(B - E)) of its scratch cell's exponent bound E (from
+// pass 1), summed exactly.
+template <bool kRound>
 struct SumOp {
   using T = long long;
-  static constexpr bool kIsRound = false;
+  static constexpr bool kIsRound = kRound;
   const Args& a;
-  int w;
+  int w, lo_w;
 
+  // scratch cell of window cell lc (partials: the window grid's cell;
+  // round: the key cell of accumulator column lo_w + b, or -1 outside
+  // the scratch's columns, as in AggOp::emit)
+  __device__ __forceinline__ long long scratch_cell(int lc) const {
+    if (lc < 0) return -1;
+    if (!kRound) return (long long)w * a.num_groups * a.width + lc;
+    const int g = lc / a.width;
+    const int c = lo_w + (lc - g * a.width);
+    if (c < a.col0 || c >= a.col0 + a.span) return -1;
+    return (long long)g * a.span + (c - a.col0);
+  }
   __device__ __forceinline__ T make(float v, int /*t*/, long long /*row*/,
                                     int lc) const {
-    if (lc < 0 || !isfinite(v) || v == 0.0f) return 0;
-    const long long cell = (long long)w * a.num_groups * a.width + lc;
+    const long long sc = scratch_cell(lc);
+    if (sc < 0 || !isfinite(v) || v == 0.0f) return 0;
     // |v| < 2^E for every finite value of the cell, so |q| <= 2^B
-    const int e = __ldg(a.ex + cell) - kExpBias;
+    const int e = __ldg(a.ex + sc) - kExpBias;
     return __double2ll_rn(scalbn((double)v, a.sum_bits - e));
   }
   static __device__ __forceinline__ T combine(T x, T y) { return x + y; }
@@ -347,9 +371,9 @@ struct SumOp {
     return __shfl_up_sync(kFullMask, x, off);
   }
   __device__ __forceinline__ void emit(int lc, T x) const {
-    if (lc < 0 || x == 0) return;
-    const long long cell = (long long)w * a.num_groups * a.width + lc;
-    atomicAdd(reinterpret_cast<unsigned long long*>(a.isum) + cell,
+    const long long sc = scratch_cell(lc);
+    if (sc < 0 || x == 0) return;
+    atomicAdd(reinterpret_cast<unsigned long long*>(a.isum) + sc,
               (unsigned long long)x);
   }
 };
@@ -489,9 +513,21 @@ __global__ void __launch_bounds__(kThreads) accumulate_kernel(const Args a) {
     const AggOp<kRound, kExtra, kOrd> op{a, w, lo_w};
     accumulate_tile(a, w, nv, tile0, remap_w, sh, lo_w, op);
   } else {
-    const SumOp op{a, w};
+    const SumOp<kRound> op{a, w, lo_w};
     accumulate_tile(a, w, nv, tile0, remap_w, sh, lo_w, op);
   }
+}
+
+// a cell's ordered sum from its exponent image, special flags and int64
+// sum: NaN / +-inf where the flags say so, else q_sum * 2^(E - B)
+__device__ __forceinline__ float ordered_sum(int ex, int sp, long long q,
+                                             int sum_bits) {
+  if ((sp & kSpecNan) ||
+      (sp & (kSpecPosInf | kSpecNegInf)) == (kSpecPosInf | kSpecNegInf))
+    return __int_as_float(0x7FC00000);
+  if (sp & kSpecPosInf) return __int_as_float(0x7F800000);
+  if (sp & kSpecNegInf) return __int_as_float((int)0xFF800000u);
+  return ex ? (float)scalbn((double)q, ex - kExpBias - sum_bits) : 0.0f;
 }
 
 __global__ void partials_init_kernel(long long cells, int fields, int ord,
@@ -525,22 +561,7 @@ __global__ void partials_finish_kernel(long long cells, int fields, int ord,
                                        float* last, int* last_ts) {
   for (long long c = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        c < cells; c += (long long)gridDim.x * blockDim.x) {
-    if (ord) {
-      const int f = sp[c];
-      float r;
-      if ((f & kSpecNan) || (f & (kSpecPosInf | kSpecNegInf)) ==
-                                (kSpecPosInf | kSpecNegInf))
-        r = __int_as_float(0x7FC00000);
-      else if (f & kSpecPosInf)
-        r = __int_as_float(0x7F800000);
-      else if (f & kSpecNegInf)
-        r = __int_as_float((int)0xFF800000u);
-      else
-        r = ex[c] ? (float)scalbn((double)isum[c],
-                                  ex[c] - kExpBias - sum_bits)
-                  : 0.0f;
-      sum[c] = r;
-    }
+    if (ord) sum[c] = ordered_sum(ex[c], sp[c], isum[c], sum_bits);
     if (fields & kFieldLast) {
       const unsigned long long k = key[c];
       last[c] = k ? vals[(k & 0xFFFFFFFFull) - 1] : 0.0f;
@@ -549,19 +570,27 @@ __global__ void partials_finish_kernel(long long cells, int fields, int ord,
   }
 }
 
-// round: each of the round's cells that took a row -> fold its winner
-// into the accumulator where its ts >= the accumulator's
-__global__ void round_last_kernel(long long cells, int span, int col0,
-                                  int total,
-                                  const unsigned long long* __restrict__ key,
-                                  const float* __restrict__ vals,
-                                  float* acc_last, int* acc_last_ts) {
+// round: each of the round's key cells -> its ordered sum added to the
+// accumulator's (one float add, where the round gave the cell a value),
+// and its `last` winner folded in where its ts >= the accumulator's
+__global__ void round_finish_kernel(long long cells, int span, int col0,
+                                    int total, int ord, int sum_bits,
+                                    const int* __restrict__ ex,
+                                    const int* __restrict__ sp,
+                                    const long long* __restrict__ isum,
+                                    float* acc_sum,
+                                    const unsigned long long* __restrict__ key,
+                                    const float* __restrict__ vals,
+                                    float* acc_last, int* acc_last_ts) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        i < cells; i += (long long)gridDim.x * blockDim.x) {
-    const unsigned long long k = key[i];
-    if (!k) continue;
     const long long g = i / span;
     const long long cell = g * total + col0 + (i - g * span);
+    if (ord && (ex[i] | sp[i]))
+      acc_sum[cell] += ordered_sum(ex[i], sp[i], isum[i], sum_bits);
+    if (!key) continue;
+    const unsigned long long k = key[i];
+    if (!k) continue;
     const int ts = key_ts(k);
     if (ts >= acc_last_ts[cell]) {
       acc_last[cell] = vals[(k & 0xFFFFFFFFull) - 1];
@@ -580,39 +609,33 @@ int aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-// the accumulate core over rows [0, max_rows) of each window: the
-// round epilogue, or partials pass 1 (ord: the ordered sum's pass 1) or
-// pass 2 (the ordered sum's int64 adds)
-enum Launch { kLaunchRound, kLaunchPartials, kLaunchPartialsOrd,
-              kLaunchOrdSum };
+// the accumulate core over rows [0, max_rows) of each window, in one
+// epilogue (round or partials) and one pass: the float-sum pass, the
+// ordered sum's pass 1 (`ord`) or its pass 2 (int64 adds)
+enum Pass { kPassFloat, kPassOrd, kPassOrdSum };
 
-int launch_accumulate(const Args& a, Launch which, int num_windows,
+template <bool kRound>
+int launch_accumulate(const Args& a, Pass pass, int num_windows,
                       int max_rows, cudaStream_t s) {
   if (num_windows <= 0 || max_rows <= 0) return 0;
   if (num_windows > 65535) return (int)cudaErrorInvalidConfiguration;
   const bool extra = (a.fields & (kFieldMin | kFieldMax | kFieldLast)) != 0;
   const dim3 grid((max_rows + kTileRows - 1) / kTileRows, num_windows);
-  switch (which) {
-    case kLaunchRound:
+  switch (pass) {
+    case kPassFloat:
       if (extra)
-        accumulate_kernel<true, true, false, 0><<<grid, kThreads, 0, s>>>(a);
+        accumulate_kernel<kRound, true, false, 0><<<grid, kThreads, 0, s>>>(a);
       else
-        accumulate_kernel<true, false, false, 0><<<grid, kThreads, 0, s>>>(a);
+        accumulate_kernel<kRound, false, false, 0><<<grid, kThreads, 0, s>>>(a);
       break;
-    case kLaunchPartials:
+    case kPassOrd:
       if (extra)
-        accumulate_kernel<false, true, false, 0><<<grid, kThreads, 0, s>>>(a);
+        accumulate_kernel<kRound, true, true, 0><<<grid, kThreads, 0, s>>>(a);
       else
-        accumulate_kernel<false, false, false, 0><<<grid, kThreads, 0, s>>>(a);
+        accumulate_kernel<kRound, false, true, 0><<<grid, kThreads, 0, s>>>(a);
       break;
-    case kLaunchPartialsOrd:
-      if (extra)
-        accumulate_kernel<false, true, true, 0><<<grid, kThreads, 0, s>>>(a);
-      else
-        accumulate_kernel<false, false, true, 0><<<grid, kThreads, 0, s>>>(a);
-      break;
-    case kLaunchOrdSum:
-      accumulate_kernel<false, false, false, 1><<<grid, kThreads, 0, s>>>(a);
+    case kPassOrdSum:
+      accumulate_kernel<kRound, false, false, 1><<<grid, kThreads, 0, s>>>(a);
       break;
   }
   return (int)cudaGetLastError();
@@ -687,11 +710,11 @@ extern "C" int horaedb_bucket_window_partials(
       cells, fields, ord, count, sum, mn, mx, key_u, ex, sp, isum);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  err = launch_accumulate(a, ord ? kLaunchPartialsOrd : kLaunchPartials,
-                          num_windows, n_valid, s);
+  err = launch_accumulate<false>(a, ord ? kPassOrd : kPassFloat,
+                                 num_windows, n_valid, s);
   if (err) return err;
   if (ord) {
-    err = launch_accumulate(a, kLaunchOrdSum, num_windows, n_valid, s);
+    err = launch_accumulate<false>(a, kPassOrdSum, num_windows, n_valid, s);
     if (err) return err;
   }
   if (!ord && !(fields & kFieldLast)) return 0;
@@ -703,39 +726,61 @@ extern "C" int horaedb_bucket_window_partials(
 
 // One round folded into the query-global accumulator (G, total) in
 // place.  n_valid_w: per-window row counts (or null: max_rows rows in
-// every window); max_rows bounds the launch grid.  key: an int64
-// scratch of G x span cells for the round's columns [col0, col0 + span)
-// (only touched when `last` is requested; zeroed here).  Launches:
-// accumulate, and a `last` fold when requested.
+// every window); max_rows bounds the launch grid.  scratch: int64 cells
+// for the round's columns [col0, col0 + span), zeroed here: G x span of
+// `last` keys (when `last` is requested), then, with `ordered` and a
+// sum asked, G x span int64 sums and 2 x G x span int32 of exponent
+// images and special flags; sum_bits is the ordered sum's B.  Launches:
+// accumulate (twice for the ordered sum), and a finish pass for the
+// ordered sum and `last`.
 extern "C" int horaedb_bucket_round_accumulate(
     const int* ts, const int* gid, const float* vals, const int* remap,
     int remap_len, const int* shift, const int* lo, const int* n_valid_w,
     int num_windows, int cap, int max_rows, int num_groups, int width,
     int total_buckets, int bucket_ms, int fields, float* acc_count,
     float* acc_sum, float* acc_min, float* acc_max, float* acc_last,
-    int* acc_last_ts, long long* key, int col0, int span, void* stream) {
+    int* acc_last_ts, long long* scratch, int col0, int span, int ordered,
+    int sum_bits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  unsigned long long* key_u = reinterpret_cast<unsigned long long*>(key);
-  const long long key_cells = (long long)num_groups * span;
-  const bool want_last = (fields & kFieldLast) && key_cells > 0;
-  if (want_last) {
-    int err = (int)cudaMemsetAsync(key_u, 0, key_cells * sizeof(*key_u), s);
+  const long long cells = (long long)num_groups * span;
+  if (cells <= 0) return 0;
+  const bool want_last = (fields & kFieldLast) != 0;
+  const int ord = ordered && (fields & kFieldSum);
+  const long long nscratch = (want_last ? cells : 0) + (ord ? 2 * cells : 0);
+  unsigned long long* key =
+      want_last ? reinterpret_cast<unsigned long long*>(scratch) : nullptr;
+  long long* isum = ord ? scratch + (want_last ? cells : 0) : nullptr;
+  int* ex = ord ? reinterpret_cast<int*>(isum + cells) : nullptr;
+  int* sp = ord ? ex + cells : nullptr;
+  if (nscratch) {
+    int err = (int)cudaMemsetAsync(scratch, 0, nscratch * sizeof(long long),
+                                   s);
     if (err) return err;
   }
   Args a = make_args(ts, gid, vals, remap, remap_len, shift, lo, n_valid_w,
                      max_rows, cap, num_groups, width, total_buckets,
-                     bucket_ms, want_last ? fields : fields & ~kFieldLast);
+                     bucket_ms, fields);
   a.count = acc_count;
   a.sum = acc_sum;
   a.mn = acc_min;
   a.mx = acc_max;
-  a.key = key_u;
+  a.key = key;
   a.col0 = col0;
   a.span = span;
-  int err = launch_accumulate(a, kLaunchRound, num_windows, max_rows, s);
-  if (err || !want_last) return err;
-  round_last_kernel<<<grid_for(key_cells), kThreads, 0, s>>>(
-      key_cells, span, col0, total_buckets, key_u, vals, acc_last,
-      acc_last_ts);
+  a.ex = ex;
+  a.sp = sp;
+  a.isum = isum;
+  a.sum_bits = sum_bits;
+  int err = launch_accumulate<true>(a, ord ? kPassOrd : kPassFloat,
+                                    num_windows, max_rows, s);
+  if (err) return err;
+  if (ord) {
+    err = launch_accumulate<true>(a, kPassOrdSum, num_windows, max_rows, s);
+    if (err) return err;
+  }
+  if (!ord && !want_last) return 0;
+  round_finish_kernel<<<grid_for(cells), kThreads, 0, s>>>(
+      cells, span, col0, total_buckets, ord, sum_bits, ex, sp, isum,
+      acc_sum, key, vals, acc_last, acc_last_ts);
   return (int)cudaGetLastError();
 }

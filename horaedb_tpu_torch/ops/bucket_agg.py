@@ -13,7 +13,10 @@ lo rebase — fused with the segmented aggregate), two entries:
   depend on the order of the atomics (see csrc/bucket_agg.cu).
 - `bucket_round_accumulate`: the same rows folded straight into the
   query-global accumulator of storage.read.fused_acc_init, in place; no
-  partial grid is written.
+  partial grid is written.  Its sum is the same ordered integer sum over
+  the round's rows, added to the accumulator with one float add per
+  cell, so a query's grids are the same bytes on every run (the fused
+  replay's contract).
 
 Each entry dispatches on where its tensors lie: CUDA tensors launch the
 kernel (or raise), CPU tensors take the entry's plain version.  There is
@@ -98,7 +101,7 @@ def _load():
             fn.restype = I
             fn = lib.horaedb_bucket_round_accumulate
             fn.argtypes = [P, P, P, P, I, P, P, P, I, I, I, I, I, I, I, I,
-                           P, P, P, P, P, P, P, I, I, P]
+                           P, P, P, P, P, P, P, I, I, I, I, P]
             fn.restype = I
             _lib = lib
         return _lib
@@ -183,11 +186,12 @@ def bucket_window_partials(ts, gid_local, vals, remap, shift, lo,
                             ordered=True)
 
 
-def _sum_bits(n_valid: int) -> int:
+def _sum_bits(cell_rows: int) -> int:
     """B of the ordered sum: each value enters as an int64 of at most
-    2^B in magnitude, and a cell holds at most n_valid rows, so
-    n_valid * 2^B < 2^62."""
-    return 62 - max(1, int(n_valid)).bit_length()
+    2^B in magnitude, and a cell takes at most `cell_rows` rows (a
+    window's n_valid for partials, W x max_rows for a round), so
+    cell_rows * 2^B < 2^62."""
+    return 62 - max(1, int(cell_rows)).bit_length()
 
 
 def _launch_partials(ts, gid_local, vals, remap, shift, lo,
@@ -265,14 +269,14 @@ def bucket_round_accumulate(acc: dict, ts, gid_local, vals, remap, shift,
     `last` takes the round's value where its range-relative ts is >=
     the accumulator's (later windows, then later rounds, win ties) —
     the semantics of the JAX package's _fused_round_accumulate_jit.
+    On the card the round's sum is the ordered integer sum of its rows,
+    added with one float add per cell: the same bytes on every launch.
     n_valid: int32 (W,) rows per window, or None for all `cap` rows.
     lo_host / n_valid_host: host copies of lo / n_valid (numpy); they
-    bound the grid and the `last` pass to the round's rows and columns
+    bound the grid and the scratch to the round's rows and columns
     without a device read, so n_valid_host comes with n_valid or not at
     all.  CUDA tensors launch the kernel (one launch counted per round);
     CPU tensors run the plain version."""
-    import torch
-
     ensure(n_valid_host is None or n_valid is not None,
            "n_valid_host needs the n_valid it copies")
     if ts.device.type == "cpu":
@@ -280,6 +284,23 @@ def bucket_round_accumulate(acc: dict, ts, gid_local, vals, remap, shift,
             acc, ts, gid_local, vals, remap, shift, lo, total_buckets,
             bucket_ms, num_groups=num_groups, width=width, which=which,
             n_valid=n_valid, lo_host=lo_host)
+    return _launch_round(acc, ts, gid_local, vals, remap, shift, lo,
+                         total_buckets, bucket_ms, num_groups=num_groups,
+                         width=width, which=which, n_valid=n_valid,
+                         lo_host=lo_host, n_valid_host=n_valid_host,
+                         ordered=True)
+
+
+def _launch_round(acc: dict, ts, gid_local, vals, remap, shift, lo,
+                  total_buckets: int, bucket_ms: int, *, num_groups: int,
+                  width: int, which: tuple, n_valid, lo_host, n_valid_host,
+                  ordered: bool) -> dict:
+    """The round kernel on CUDA tensors.  `ordered` False keeps the
+    one-pass float atomicAdd sum, whose bytes vary from launch to
+    launch; only chip_smoke.py asks for it, to count its byte patterns
+    and time it beside the ordered sum."""
+    import torch
+
     W, cap, remap_len = _check_round(
         "bucket_round_accumulate", ts, gid_local, vals, remap, shift, lo,
         bucket_ms, num_groups, width)
@@ -303,8 +324,13 @@ def bucket_round_accumulate(acc: dict, ts, gid_local, vals, remap, shift,
         c0, c1 = _round_columns(lo_host, n_valid_host, width, total)
     else:
         c0, c1 = 0, total
-    key = (torch.empty((num_groups, c1 - c0), dtype=torch.int64, device=dev)
-           if "last" in fields and c1 > c0 else None)
+    ordered = ordered and "sum" in fields
+    # int64 scratch cells over the round's columns: the `last` keys, and
+    # the ordered sum's int64 sums + int32 exponent images and flags
+    per_cell = ("last" in fields) + 2 * ordered
+    scratch = (torch.empty(per_cell * num_groups * (c1 - c0),
+                           dtype=torch.int64, device=dev)
+               if per_cell and c1 > c0 else None)
     lib = _load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -314,7 +340,8 @@ def bucket_round_accumulate(acc: dict, ts, gid_local, vals, remap, shift,
             num_groups, width, total, int(bucket_ms), _field_mask(fields),
             _ptr(acc["count"]), _ptr(acc.get("sum")), _ptr(acc.get("min")),
             _ptr(acc.get("max")), _ptr(acc.get("last")),
-            _ptr(acc.get("last_ts")), _ptr(key), c0, c1 - c0, stream)
+            _ptr(acc.get("last_ts")), _ptr(scratch), c0, c1 - c0,
+            int(ordered), _sum_bits(W * max_rows), stream)
     if rc != 0:
         raise Error(f"bucket_round_accumulate launch failed: cudaError {rc}")
     LAUNCHES["bucket_round_accumulate"] += 1

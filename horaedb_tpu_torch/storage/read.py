@@ -8,17 +8,33 @@ Per time segment (ref: src/storage/src/read.rs:429-494):
                                cut into PK-range windows
   Filter (host mask)         — predicate tree -> row mask (gid -1)
   Aggregate (device), one of two paths (fused_aggregate_ok decides):
-    fused  — rounds of windows go host-to-device as one stack per
-             array; each round is ONE bucket_round_accumulate call that
-             folds its rows straight into a query-global accumulator;
-             only the final grids leave the device.  Two-phase: every
-             window is collected (pinned in host RAM) before the first
-             round runs.
+    fused  — rounds of windows are stacked on the device; each round is
+             ONE bucket_round_accumulate call that folds its rows
+             straight into a query-global accumulator; only the final
+             grids leave the device.  Two-phase: every window is
+             collected (pinned in host RAM) before the first round runs.
     parts  — segments stream through rounds of ONE
              bucket_window_partials call each; the round's partial
              grids come to the host once and fold in float64 in
              storage/combine.py (sparse or dense), behind a per-segment
              partial memo (PartsMemo) that serves narrowed ranges.
+
+The fused path's round stacks live in a byte-bounded device LRU (the
+stack cache, the scan cache's budget) in two entries per round: the
+range-independent columns (ts, gid, val, n_valid) keyed by the round's
+window objects, and the range-dependent remap/shift/lo (KBs).  Each
+entry holds weak references to its windows and is dropped when they
+are gone.  On a CUDA reader the columns are stacked from per-window
+device copies memoized on the window, so a query over another
+bucket-aligned range uploads only the small arrays (a range that cuts
+a segment takes a time leaf, which keys those memos anew).  The parts
+path builds its rounds uncached: its plans outgrow the byte bound.  A
+completed fused query records its rounds (the fused replay cache, weak
+references only): an identical repeat re-runs init -> rounds ->
+finalize from the cached stacks in one pool dispatch, with no read, no
+prep and no upload; any eviction, dead window or changed SST set takes
+the full path and is counted.  drop_hbm_state() empties every
+device-side tier and keeps the host windows.
 
 Device decode ([scan.decode], ops/device_decode.py): on the parts path,
 an eligible plan sends each sidecar segment's ENCODED columns to the
@@ -32,9 +48,11 @@ Row scans decode the merged windows back to Arrow on the host.  Post-
 merge host windows are cached per segment (storage/scan_cache.py), so a
 repeat query skips the read and the merge.
 
-Only OVERWRITE (last-value) tables are served; the JAX package's Append
-merge, mesh rounds (and their decode rounds), near-data router,
-pipelined pump and stack/replay caches are not ported yet.
+Only OVERWRITE (last-value) tables are served.  Not ported: the JAX
+package's Append merge, mesh rounds (and their decode rounds), near-data
+router, pipelined pump and tier-2 encoded cache; nor its device scalar
+cache (_scalar_cache), since the port passes the bucket count and width
+to the kernel as host ints, so a replay has no scalar to upload.
 """
 
 from __future__ import annotations
@@ -44,7 +62,8 @@ import logging
 import os
 import threading
 import time
-from collections import deque
+import weakref
+from collections import OrderedDict, deque
 from dataclasses import dataclass
 from dataclasses import replace as dc_replace
 from typing import AsyncIterator, Optional
@@ -91,6 +110,23 @@ _PARTS_ROUNDS = registry.counter(
 _PARTIALS_D2H_BYTES = registry.counter(
     "scan_partials_d2h_bytes_total",
     "bytes of partial grids copied device-to-host by the parts path")
+# the fused replay cache and the device stack cache: a repeat fused
+# query replays its recorded rounds, a varied range reuses the cached
+# column stacks (ops parity with scan_cache_*)
+_REPLAY_HITS = registry.counter(
+    "scan_replay_hits_total", "fused-replay plan cache hits")
+_REPLAY_ROWS = registry.counter(
+    "scan_replay_rows_total",
+    "rows served from fused-replay hits without re-scanning")
+_REPLAY_MISSES = registry.counter(
+    "scan_replay_misses_total", "fused-replay plan cache misses")
+_STACK_HITS = registry.counter(
+    "scan_stack_cache_hits_total",
+    "round-stack LRU hits (column and remap/shift/lo entries)")
+_STACK_MISSES = registry.counter(
+    "scan_stack_cache_misses_total", "round-stack LRU misses")
+# fused replay plans kept per reader (weakref-only entries)
+_REPLAY_SLOTS = 8
 # rows -> bytes conversion for the cache_max_rows knob: a typical engine
 # window is ~4 int32/f32 columns (16B) plus the memo allowance
 _CACHE_BYTES_PER_ROW = 32
@@ -225,6 +261,22 @@ class ParquetReader:
         # immutable, and a sidecar is written before its SST becomes
         # visible, so a miss is permanent)
         self._sidecar_missing: set = set()
+        # round stacks on the device: key -> (window weakrefs, arrays,
+        # bytes), LRU by bytes under the scan cache's budget (host
+        # windows live in host RAM, so the stacks are the device's
+        # working set).  Worker-pool threads build rounds: locked.
+        self._stack_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self._stack_cache_lock = threading.Lock()
+        self._stack_cache_bytes = 0
+        self._stack_cache_max = cache_bytes
+        self._stack_cache_hits = 0
+        self._stack_cache_misses = 0
+        # fused replay plans: a completed fused aggregate's round
+        # composition (stack keys and window weakrefs, no device memory
+        # pinned); event-loop owned
+        self._replay_cache: "OrderedDict[tuple, dict]" = OrderedDict()
+        self._replay_hits = 0
+        self._replay_misses = 0
 
     @property
     def on_cuda(self) -> bool:
@@ -233,9 +285,48 @@ class ParquetReader:
         return torch.device(self.device).type == "cuda"
 
     def close(self) -> None:
+        self.drop_hbm_state()
         self.scan_cache.clear()
         self.parts_memo.clear()
         self._sidecar_missing.clear()
+
+    def drop_hbm_state(self) -> None:
+        """Evict everything device-resident that derives from cached
+        windows (round stacks, fused-replay plans, per-window memos:
+        device column copies and group maps) while KEEPING the post-merge
+        windows themselves, which live in host RAM.  The next query
+        re-stacks and re-uploads from the host windows instead of
+        re-reading and re-merging.  (Tests and benchmarks; production
+        eviction is the LRUs' own.)"""
+        with self._stack_cache_lock:
+            self._stack_cache.clear()
+            self._stack_cache_bytes = 0
+        self._replay_cache.clear()
+        with _MEMO_LOCK:
+            for windows in self.scan_cache.values():
+                for w in windows:
+                    w.memo.clear()
+                    w.memo_bytes = 0
+
+    def cache_stats(self) -> dict:
+        """The scan cache's and the stack cache's residency and
+        effectiveness, one dict per tier."""
+        return {
+            "scan_cache": {
+                "entries": len(self.scan_cache),
+                "bytes": self.scan_cache.total_bytes,
+                "max_bytes": self.scan_cache.max_bytes,
+                "hits": self.scan_cache.hits,
+                "misses": self.scan_cache.misses,
+            },
+            "stack_cache": {
+                "entries": len(self._stack_cache),
+                "bytes": self._stack_cache_bytes,
+                "max_bytes": self._stack_cache_max,
+                "hits": self._stack_cache_hits,
+                "misses": self._stack_cache_misses,
+            },
+        }
 
     # ---- plan construction -------------------------------------------------
 
@@ -810,9 +901,10 @@ class ParquetReader:
                        for it in items)
         width = (self._window_grid_width(spec) if local_ok
                  else spec.num_buckets)
-        (ts_s, gid_s, val_s, remap_d, shift_d, lo_d, _nv_d, lo,
-         nv_h) = self._build_round_stacks(items, spec, batch_w, cap, g_pad,
-                                          round_values, local_ok)
+        (ts_s, gid_s, val_s, _nv_d, nv_h, remap_d, shift_d, lo_d,
+         lo) = self._build_round_stacks(items, spec, plan, batch_w, cap,
+                                        g_pad, width, round_values,
+                                        local_ok)
         t_dev = time.perf_counter()
         # rows past a window's own n_valid carry gid -1, so the round's
         # largest row count bounds every window
@@ -875,14 +967,47 @@ class ParquetReader:
 
         Two-phase: all windows are collected first so the union group
         space is known before any round runs (remap targets global rows
-        directly).
+        directly).  A completed query is recorded in the replay cache;
+        an identical repeat whose windows and stacks are all still
+        cached replays its rounds instead (_fused_replay).
 
         Returns (group_values, grids): grids are tensors on the reader's
         device, except `last_ts`, which comes back as host float64
         absolute ms (int64 range needed).  `counted`: segments whose rows
         an earlier attempt of the same query already counted (a restart
         after a compaction race counts them once)."""
+        replay_key = None
+        if plan.use_cache:
+            replay_key = self._replay_key(plan, spec)
+            entry = self._replay_cache.get(replay_key)
+            if entry is not None:
+                # segment validation reads the (event-loop owned) scan
+                # cache here; only the device rounds go to the pool
+                grids = None
+                if self._replay_segments_valid(entry):
+                    grids = await self._run_pool(self._fused_replay, entry,
+                                                 spec, pool=plan.pool)
+                if grids is not None:
+                    self._replay_cache.move_to_end(replay_key)
+                    self._replay_hits += 1
+                    _REPLAY_HITS.inc()
+                    # nothing was read: replayed rows have their own
+                    # counter, once per segment across race restarts
+                    fresh = [(s, r) for s, r in entry["seg_rows"]
+                             if counted is None or s not in counted]
+                    if fresh:
+                        _REPLAY_ROWS.inc(sum(r for _, r in fresh))
+                        if counted is not None:
+                            counted.update(s for s, _ in fresh)
+                    values, grids = _drop_empty_groups_dev(entry["values"],
+                                                           grids)
+                    return values, _fused_last_ts_to_abs(grids, spec)
+                self._replay_cache.pop(replay_key, None)
+            self._replay_misses += 1
+            _REPLAY_MISSES.inc()
         items: list = []
+        seg_records: list = []
+        seg_rows: list = []
         windows_iter = self._cached_windows(plan)
         try:
             async for seg, windows in windows_iter:
@@ -902,6 +1027,10 @@ class ParquetReader:
                     return out
 
                 items.extend(await self._run_pool(prep))
+                if replay_key is not None:
+                    seg_records.append((self._cache_key(seg, plan), tuple(
+                        weakref.ref(w) for w in windows)))
+                    seg_rows.append((s, sum(w.n_valid for w in windows)))
         finally:
             await windows_iter.aclose()
         if not items:
@@ -916,6 +1045,8 @@ class ParquetReader:
         width = (self._window_grid_width(spec) if local_ok
                  else spec.num_buckets)
         max_w = max(1, self.config.scan.agg_batch_windows)
+        space_fp = (g, hash(all_values.tobytes()))
+        recorded_rounds: list = []
 
         def build_rounds():
             # lazy: the next round's stacks are built while the device
@@ -925,27 +1056,94 @@ class ParquetReader:
                 chunk = items[i:i + max_w]
                 batch_w = min(max_w, 1 << (len(chunk) - 1).bit_length())
                 cap = max(it[1].capacity for it in chunk)
-                yield self._build_round_stacks(chunk, spec, batch_w, cap,
-                                               g_pad, all_values, local_ok)
+                # the chunk offset `i` keeps consecutive rounds of one
+                # segment that share (seg0, batch_w, cap) apart in the
+                # stack cache
+                stack_key = self._round_stack_key(
+                    chunk[0][0], spec, plan, batch_w, cap, g_pad, width,
+                    space_fp) + (i,)
+                arrays = self._build_round_stacks(
+                    chunk, spec, plan, batch_w, cap, g_pad, width,
+                    all_values, local_ok, stack_key=stack_key)
+                if replay_key is not None:
+                    windows = tuple(it[1] for it in chunk)
+                    recorded_rounds.append((
+                        stack_key,
+                        self._col_stack_key(windows, spec, plan, batch_w,
+                                            cap),
+                        tuple(weakref.ref(w) for w in windows)))
                 i += len(chunk)
+                yield arrays
 
         grids = await self._run_pool(
             self._fused_run_device_rounds, build_rounds(), spec,
             g, g_pad, width)
+        if replay_key is not None:
+            self._replay_cache[replay_key] = {
+                "segments": seg_records, "rounds": recorded_rounds,
+                "values": all_values, "g": g, "g_pad": g_pad,
+                "width": width, "seg_rows": seg_rows}
+            self._replay_cache.move_to_end(replay_key)
+            while len(self._replay_cache) > _REPLAY_SLOTS:
+                self._replay_cache.popitem(last=False)
         all_values, grids = _drop_empty_groups_dev(all_values, grids)
         return all_values, _fused_last_ts_to_abs(grids, spec)
 
+    def _replay_key(self, plan: ScanPlan, spec: AggregateSpec) -> tuple:
+        """Identity of a fused aggregate over a plan: the per-segment
+        scan-cache keys (SST ids + columns + pushdown), the aggregate
+        spec and the predicate.  A write or a compaction changes a
+        segment's SST set and so the key."""
+        seg_keys = tuple(self._cache_key(seg, plan) for seg in plan.segments)
+        return (seg_keys, spec.group_col, spec.ts_col, spec.value_col,
+                spec.range_start, spec.bucket_ms, spec.num_buckets,
+                spec.which,
+                filter_ops.canonical_predicate_key(plan.predicate))
+
+    def _replay_segments_valid(self, entry: dict) -> bool:
+        """Every segment's scan-cache entry must still hold the exact
+        window objects recorded (a re-read, an eviction or a compaction
+        breaks the identity).  Runs on the event loop, which owns the
+        scan cache."""
+        for key, refs in entry["segments"]:
+            ws = self.scan_cache.get(key)
+            if (ws is None or len(ws) != len(refs)
+                    or any(r() is not w for r, w in zip(refs, ws))):
+                return False
+        return True
+
+    def _fused_replay(self, entry: dict, spec: AggregateSpec):
+        """Re-run a recorded fused aggregate in ONE worker-pool dispatch:
+        every round's stacks must still be in the stack cache (checked
+        before any device work); then the rounds run from them.  Returns
+        the device grids, or None to take the full path."""
+        rounds = []
+        for stack_key, col_key, refs in entry["rounds"]:
+            ws = tuple(r() for r in refs)
+            if any(w is None for w in ws):
+                return None
+            cols = self._stack_cache_get(col_key, ws)
+            small = self._stack_cache_get(stack_key, ws)
+            if cols is None or small is None:
+                return None
+            rounds.append(cols + small)
+        return self._fused_run_device_rounds(
+            rounds, spec, entry["g"], entry["g_pad"], entry["width"])
+
     def _fused_run_device_rounds(self, rounds, spec: AggregateSpec, g: int,
                                  g_pad: int, width: int) -> dict:
-        """acc init -> one accumulate per round -> finalize -> slice to
-        g -> synchronize."""
+        """The fused aggregate's device sequence, shared by the full path
+        and the replay: acc init -> one accumulate per round -> finalize
+        -> slice to g -> synchronize.  `rounds` is any iterable of stack
+        tuples (a lazy generator on the full path, so stack building
+        overlaps the device's rounds)."""
         import torch
 
         t0 = time.perf_counter()
         acc = fused_acc_init(num_groups=g_pad, num_buckets=spec.num_buckets,
                              which=spec.which, device=self.device)
-        for (ts_s, gid_s, val_s, remap_d, shift_d, lo_d, nv_d, lo_h,
-             nv_h) in rounds:
+        for (ts_s, gid_s, val_s, nv_d, nv_h, remap_d, shift_d, lo_d,
+             lo_h) in rounds:
             fused_round_accumulate(acc, ts_s, gid_s, val_s, remap_d, shift_d,
                                    lo_d, lo_h, spec.num_buckets,
                                    spec.bucket_ms, num_groups=g_pad,
@@ -1023,36 +1221,183 @@ class ParquetReader:
         return int(min(spec.num_buckets,
                        max(8, 1 << (need - 1).bit_length())))
 
-    def _build_round_stacks(self, items: list, spec: AggregateSpec,
-                            batch_w: int, cap: int, g_pad: int,
-                            group_space: np.ndarray, local_ok: bool):
-        """Stack one round of host windows in numpy and copy each array
-        to the device once.  Windows past len(items) pad the round with
-        no-op rows (gid -1).  Returns (ts, gid, val, remap, shift, lo,
-        n_valid) on the device plus lo and n_valid on the host (they
-        bound the round's columns and rows without a device read)."""
-        t0 = time.perf_counter()
-        ts_m = np.zeros((batch_w, cap), dtype=np.int32)
-        gid_m = np.full((batch_w, cap), -1, dtype=np.int32)
-        val_m = np.zeros((batch_w, cap), dtype=np.float32)
-        remap = np.zeros((batch_w, g_pad), dtype=np.int32)
-        shift = np.zeros(batch_w, dtype=np.int32)
-        lo = np.zeros(batch_w, dtype=np.int32)
-        n_valid = np.zeros(batch_w, dtype=np.int32)
-        for d, (_seg_start, w, (values, gid, sh)) in enumerate(items):
-            ts_m[d, :w.capacity] = w.columns[spec.ts_col]
-            gid_m[d, :w.capacity] = gid
-            val_m[d, :w.capacity] = w.columns[spec.value_col]
-            remap[d, :len(values)] = np.searchsorted(group_space, values)
-            shift[d] = sh
-            n_valid[d] = w.n_valid
-            if local_ok:
-                lo[d] = max(0, sh // spec.bucket_ms)
+    def _stack_cache_get(self, key: tuple, windows_now: tuple):
+        """The stack cache's arrays under `key`, or None.  An entry whose
+        window weakrefs no longer name `windows_now` (a window evicted
+        and re-read, or a changed composition) is dropped: a miss."""
+        with self._stack_cache_lock:
+            entry = self._stack_cache.get(key)
+            if entry is not None:
+                refs, arrays, nbytes = entry
+                if len(refs) == len(windows_now) and all(
+                        r() is w for r, w in zip(refs, windows_now)):
+                    self._stack_cache.move_to_end(key)
+                    self._stack_cache_hits += 1
+                    _STACK_HITS.inc()
+                    return arrays
+                del self._stack_cache[key]
+                self._stack_cache_bytes -= nbytes
+            self._stack_cache_misses += 1
+            _STACK_MISSES.inc()
+            return None
+
+    def _stack_cache_put(self, key: tuple, windows_now: tuple,
+                         arrays: tuple) -> None:
+        """Store a round's arrays under `key` with weakrefs to its
+        windows (no window is pinned), evicting least recently used
+        entries past the byte bound; an entry larger than the bound is
+        not stored."""
+        nbytes = sum(int(a.nbytes) for a in arrays)
+        refs = tuple(weakref.ref(w) for w in windows_now)
+        with self._stack_cache_lock:
+            if nbytes > self._stack_cache_max:
+                return
+            old = self._stack_cache.pop(key, None)
+            if old is not None:
+                self._stack_cache_bytes -= old[2]
+            self._stack_cache[key] = (refs, arrays, nbytes)
+            self._stack_cache_bytes += nbytes
+            while (self._stack_cache_bytes > self._stack_cache_max
+                   and self._stack_cache):
+                _, (_, _, evicted) = self._stack_cache.popitem(last=False)
+                self._stack_cache_bytes -= evicted
+
+    def _devcol_stack_ok(self) -> bool:
+        """Whether the fused rounds stack from per-window device columns
+        (_window_device_cols) instead of a numpy stack and one bulk
+        upload per array: on a CUDA reader, where the copies let a
+        varied-range query (new round compositions: column-stack misses)
+        re-stack arrays already on the device and upload only the small
+        ones.  On the CPU the numpy stack is a memcpy."""
+        return self.on_cuda
+
+    def _window_device_cols(self, w: encode.DeviceBatch,
+                            spec: AggregateSpec, plan: ScanPlan,
+                            gid: np.ndarray) -> tuple:
+        """(ts, gid, value) device copies of one host window at its own
+        capacity: range-independent, memoized on the window."""
+        memo_key = ("dev_cols", spec.group_col, spec.ts_col,
+                    spec.value_col,
+                    filter_ops.canonical_predicate_key(plan.predicate))
+        miss = object()
+        got = w.memo.get(memo_key, miss)
+        if got is not miss:
+            return got
         put = lambda a: encode.to_device(a, self.device)
-        out = (put(ts_m), put(gid_m), put(val_m), put(remap), put(shift),
-               put(lo), put(n_valid), lo, n_valid)
-        _STAGE_SECONDS["stack_build"].observe(time.perf_counter() - t0)
+        out = (put(np.asarray(w.columns[spec.ts_col], dtype=np.int32)),
+               put(np.asarray(gid, dtype=np.int32)),
+               put(np.asarray(w.columns[spec.value_col], dtype=np.float32)))
+        _memo_store(w, memo_key, out, sum(int(a.nbytes) for a in out))
         return out
+
+    @staticmethod
+    def _round_stack_key(seg0: int, spec: AggregateSpec, plan: ScanPlan,
+                         batch_w: int, cap: int, g_pad: int, width: int,
+                         space_fp: tuple) -> tuple:
+        """Stack-cache identity of one round's RANGE-DEPENDENT small
+        arrays (remap, shift, lo); the fused replay records the same
+        key, so it is computed one way only."""
+        return (seg0, spec.group_col, spec.ts_col, spec.value_col,
+                spec.bucket_ms, spec.range_start, batch_w, cap, g_pad, width,
+                space_fp, filter_ops.canonical_predicate_key(plan.predicate))
+
+    @staticmethod
+    def _col_stack_key(windows_now: tuple, spec: AggregateSpec,
+                       plan: ScanPlan, batch_w: int, cap: int) -> tuple:
+        """Stack-cache identity of one round's RANGE-INDEPENDENT columns
+        (ts, gid, val, n_valid): the round's window object ids (the
+        entry's weakrefs guard against id reuse), never the range, so
+        every query with the same round composition shares them."""
+        return ("colstack", tuple(id(w) for w in windows_now),
+                spec.group_col, spec.ts_col, spec.value_col, batch_w, cap,
+                filter_ops.canonical_predicate_key(plan.predicate))
+
+    def _build_round_stacks(self, items: list, spec: AggregateSpec,
+                            plan: ScanPlan, batch_w: int, cap: int,
+                            g_pad: int, width: int,
+                            group_space: np.ndarray, local_ok: bool,
+                            stack_key: Optional[tuple] = None) -> tuple:
+        """One round of host windows on the device, in two parts: the
+        columns (ts, gid, val and n_valid, on the device and on the host)
+        and the small arrays (remap, shift, lo on the device, lo on the
+        host).  With a `stack_key` (the fused rounds) each part goes
+        through the stack cache, and a miss stacks the columns from the
+        windows' memoized device copies (_devcol_stack_ok) or from numpy;
+        without one (the parts path, whose plans outgrow the cache's
+        byte bound, so a byte LRU would evict each round before its
+        reuse) the round is built uncached from numpy, one upload per
+        array.  Windows past len(items) pad the round with no-op rows
+        (ts 0, gid -1, value 0, n_valid 0), the same bytes on either
+        route.  Returns (ts, gid, val, n_valid, n_valid_host, remap,
+        shift, lo, lo_host); the host copies bound the round's rows and
+        columns without a device read."""
+        cached = stack_key is not None
+        windows_now = tuple(it[1] for it in items)
+        cols = small = None
+        if cached:
+            col_key = self._col_stack_key(windows_now, spec, plan, batch_w,
+                                          cap)
+            cols = self._stack_cache_get(col_key, windows_now)
+            small = self._stack_cache_get(stack_key, windows_now)
+            if cols is not None and small is not None:
+                return cols + small
+        t0 = time.perf_counter()
+        put = lambda a: encode.to_device(a, self.device)
+        if cols is None:
+            n_valid = np.zeros(batch_w, dtype=np.int32)
+            for d, (_s, w, _prep) in enumerate(items):
+                n_valid[d] = w.n_valid
+            if cached and self._devcol_stack_ok():
+                cols = self._stack_device_cols(items, spec, plan, batch_w,
+                                               cap)
+            else:
+                ts_m = np.zeros((batch_w, cap), dtype=np.int32)
+                gid_m = np.full((batch_w, cap), -1, dtype=np.int32)
+                val_m = np.zeros((batch_w, cap), dtype=np.float32)
+                for d, (_s, w, (_values, gid, _sh)) in enumerate(items):
+                    ts_m[d, :w.capacity] = w.columns[spec.ts_col]
+                    gid_m[d, :w.capacity] = gid
+                    val_m[d, :w.capacity] = w.columns[spec.value_col]
+                cols = (put(ts_m), put(gid_m), put(val_m))
+            cols = cols + (put(n_valid), n_valid)
+            if cached:
+                self._stack_cache_put(col_key, windows_now, cols)
+        if small is None:
+            remap = np.zeros((batch_w, g_pad), dtype=np.int32)
+            shift = np.zeros(batch_w, dtype=np.int32)
+            lo = np.zeros(batch_w, dtype=np.int32)
+            for d, (_s, _w, (values, _gid, sh)) in enumerate(items):
+                remap[d, :len(values)] = np.searchsorted(group_space, values)
+                shift[d] = sh
+                if local_ok:
+                    lo[d] = max(0, sh // spec.bucket_ms)
+            small = (put(remap), put(shift), put(lo), lo)
+            if cached:
+                self._stack_cache_put(stack_key, windows_now, small)
+        _STAGE_SECONDS["stack_build"].observe(time.perf_counter() - t0)
+        return cols + small
+
+    def _stack_device_cols(self, items: list, spec: AggregateSpec,
+                           plan: ScanPlan, batch_w: int, cap: int) -> tuple:
+        """(ts, gid, val) stacks of a round from its windows' memoized
+        device columns, padded on the device (ts/val 0, gid -1) to `cap`
+        and with pad windows to `batch_w`."""
+        import torch
+        import torch.nn.functional as F
+
+        rows: tuple = ([], [], [])
+        for _s, w, (_values, gid, _sh) in items:
+            pad = cap - w.capacity
+            for out, col, fill in zip(
+                    rows, self._window_device_cols(w, spec, plan, gid),
+                    (0, -1, 0)):
+                out.append(F.pad(col, (0, pad), value=fill) if pad else col)
+        for out, dtype, fill in zip(rows, (torch.int32, torch.int32,
+                                           torch.float32), (0, -1, 0)):
+            out.extend([torch.full((cap,), fill, dtype=dtype,
+                                   device=self.device)]
+                       * (batch_w - len(items)))
+        return tuple(torch.stack(out) for out in rows)
 
 
 # ---------------------------------------------------------------------------
