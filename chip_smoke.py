@@ -92,8 +92,27 @@ non-zero and prints no result line:
    the fused sum/avg within rtol 1e-5, the caches missing
    structurally); then the scrubber deletes one injected orphan and
    keeps every referenced SST and sidecar.
-10. a JSON line of per-kernel numbers, the card line again, and the last
-   line {"ok": true, "device": {...}}.
+10. wal, three legs: (a) host work: acked writes/s and p99 ack latency
+   of one row a write under 32 concurrent writers on a LocalObjectStore
+   on the machine's disk, one SST per write (256 writes) against the
+   WAL at max_group_wait 0, 1 and 4 ms (2,000 writes each), every acked
+   row read back after a flush (the shape of the JAX package's bench
+   config 8); (b) the 10M rows ingested through a WAL-fronted engine
+   (fused path, scan cache at 4 x rows) and flushed, a cold query and 5
+   replays, a live tail of 360 writes of one tick x 100 hosts (its ack
+   p50/p99; the data memtable must hold its 36,000 rows and a raw query
+   must return one host's 360 rows before any flush), the query that
+   flushes it (a replay miss, its upload, then a replay with 0 B up),
+   100 rows of the first segment overwritten, a 60-tick tail left
+   unflushed, abort() of every table and a reopen that replays it, every
+   grid against numpy; (c) the same store with the default
+   StorageConfig (device decode: the flushed segments' two SSTs merge
+   with kway_merge_perm) against mode "host", byte-equal.  The three
+   kernel entries' launches on (b) and (c), counted from 0 around them,
+   must each be above 0.
+11. a JSON line of per-kernel numbers (with `wal_launches` beside
+   `launches`), the card line again, and the last line {"ok": true,
+   "device": {...}}.
 
 Needs one CUDA card; a missing card is a failure, never a CPU run.
 """
@@ -1161,20 +1180,14 @@ async def end_to_end(rows: int, ba, mg) -> dict:
     from horaedb_tpu_torch.storage.config import StorageConfig, from_dict
     from horaedb_tpu_torch.storage.types import TimeRange
 
-    hosts, interval, bucket_ms = 100, 10_000, 60_000
-    per_host = max(1, rows // hosts)
+    d = config1_rows(rows)
+    hosts, interval, segment_ms = d["hosts"], d["interval"], d["segment_ms"]
+    per_host, T0, n, names = d["per_host"], d["T0"], d["n"], d["names"]
+    ts, host_id, vals = d["ts"], d["host_id"], d["vals"]
+    bucket_ms = 60_000
     span = per_host * interval
     assert span < 2**31, "query window must fit int32 offsets"
     num_buckets = -(-span // bucket_ms)
-    segment_ms = 2 * 3600 * 1000
-    T0 = (1_700_000_000_000 // segment_ms) * segment_ms
-    rng = np.random.default_rng(0)
-    n = per_host * hosts
-    ts = T0 + np.repeat(np.arange(per_host, dtype=np.int64) * interval,
-                        hosts)
-    host_id = np.tile(np.arange(hosts, dtype=np.int32), per_host)
-    vals = (rng.random(n) * 100).astype(np.float64)
-    names = pa.array([f"host_{i:03d}" for i in range(hosts)])
     log(f"e2e: {n:,} rows, {hosts} hosts x {num_buckets} buckets, "
         f"{span // segment_ms + 1} segments")
 
@@ -1952,6 +1965,516 @@ async def compaction_phase(ba, mg) -> dict:
         await e.close()
 
 
+def scratch_dir(tag: str) -> str:
+    """A fresh directory on the machine's disk beside this script (the
+    WAL's fsyncs must reach a real file system); removed by the caller."""
+    import tempfile
+
+    return tempfile.mkdtemp(prefix=f".wal_smoke_{tag}_",
+                            dir=os.path.dirname(os.path.abspath(__file__)))
+
+
+async def wal_ingest_leg() -> dict:
+    """Leg (a), host work: acked writes/s and p99 ack latency at one row
+    per write under 32 concurrent writers on a LocalObjectStore, one SST
+    per write (256 writes) against the WAL at max_group_wait 0, 1 and 4
+    ms (2,000 writes each); every acked row read back after a flush.
+    The shape of the JAX package's bench config 8
+    (horaedb_tpu/bench/suite.py:976)."""
+    import shutil
+
+    import numpy as np
+    import pyarrow as pa
+
+    from horaedb_tpu_torch.common import ReadableDuration
+    from horaedb_tpu_torch.objstore.local import LocalObjectStore
+    from horaedb_tpu_torch.storage.config import StorageConfig, from_dict
+    from horaedb_tpu_torch.storage.read import ScanRequest
+    from horaedb_tpu_torch.storage.storage import (CloudObjectStorage,
+                                                   WriteRequest)
+    from horaedb_tpu_torch.storage.types import TimeRange
+    from horaedb_tpu_torch.wal import IngestStorage, WalConfig
+
+    seg_ms, writers = 3_600_000, 32
+    schema = pa.schema([("k", pa.string()), ("ts", pa.int64()),
+                        ("v", pa.float64())])
+
+    def storage_cfg():
+        c = from_dict(StorageConfig, {
+            "scheduler": {"schedule_interval": "1h"}})
+        c.manifest.merge_interval = ReadableDuration.parse("1h")
+        c.scrub.interval = ReadableDuration.parse("1h")
+        return c
+
+    async def drive(s, n):
+        lat = []
+
+        async def worker(w):
+            for i in range(w, n, writers):
+                ts = 10 + i
+                b = pa.record_batch(
+                    [pa.array([f"k{i % 97}"]), pa.array([ts], pa.int64()),
+                     pa.array([float(i)], pa.float64())], schema=schema)
+                t0 = time.perf_counter()
+                await s.write(WriteRequest(b, TimeRange.new(ts, ts + 1)))
+                lat.append(time.perf_counter() - t0)
+
+        t0 = time.perf_counter()
+        await asyncio.gather(*[worker(w) for w in range(writers)])
+        wall = time.perf_counter() - t0
+        return {"writes": n, "writes_per_s": n / wall,
+                "p99_ack_ms": float(np.percentile(lat, 99) * 1e3),
+                "p50_ack_ms": float(np.percentile(lat, 50) * 1e3)}
+
+    async def read_back(s, n):
+        got = {}
+        async for b in s.scan(ScanRequest(range=TimeRange.new(0, 10**9))):
+            for ts, v in zip(b.column(1).to_pylist(), b.column(2).to_pylist()):
+                got[ts] = v
+        if got != {10 + i: float(i) for i in range(n)}:
+            raise AssertionError(f"wal (a): {len(got)} rows read back of "
+                                 f"{n} acked")
+
+    out = {}
+    tmp = scratch_dir("a")
+    try:
+        s = await CloudObjectStorage.open("db", seg_ms,
+                                          LocalObjectStore(f"{tmp}/base"),
+                                          schema, 2, storage_cfg())
+        try:
+            out["baseline"] = await drive(s, 256)
+            await read_back(s, 256)
+        finally:
+            await s.close()
+        log(f"wal (a) [host work]: one SST per write: "
+            f"{out['baseline']['writes_per_s']!r} acked writes/s, p99 ack "
+            f"{out['baseline']['p99_ack_ms']!r} ms (256 writes, 32 writers)")
+        for wait_ms in (0, 1, 4):
+            inner = await CloudObjectStorage.open(
+                "db", seg_ms, LocalObjectStore(f"{tmp}/data{wait_ms}"),
+                schema, 2, storage_cfg())
+            wc = WalConfig(
+                enabled=True, dir=f"{tmp}/wal{wait_ms}",
+                max_group_wait=ReadableDuration.from_millis(wait_ms),
+                flush_rows=1 << 30, flush_bytes=1 << 40,
+                flush_age=ReadableDuration.parse("1h"),
+                flush_interval=ReadableDuration.parse("1h"))
+            s = await IngestStorage.open(inner, wc.dir, wc)
+            try:
+                commits = registry_value(
+                    f"wal_group_commits_total:wal{wait_ms}")
+                rec = await drive(s, 2000)
+                rec["group_commits"] = registry_value(
+                    f"wal_group_commits_total:wal{wait_ms}") - commits
+                await s.flush_all()
+                await read_back(s, 2000)
+            finally:
+                await s.close()
+            rec["vs_baseline"] = (rec["writes_per_s"]
+                                  / out["baseline"]["writes_per_s"])
+            out[f"wal_wait_{wait_ms}ms"] = rec
+            log(f"wal (a) [host work]: WAL, max_group_wait {wait_ms} ms: "
+                f"{rec['writes_per_s']!r} acked writes/s "
+                f"({rec['vs_baseline']!r} x the baseline), p99 ack "
+                f"{rec['p99_ack_ms']!r} ms, {rec['group_commits']} group "
+                f"commits for 2000 writes; flushed, every acked row read "
+                f"back")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def registry_value(name: str) -> float:
+    from horaedb_tpu_torch.utils import registry
+
+    return registry.snapshot().get(name, 0.0)
+
+
+def config1_rows(rows: int) -> dict:
+    """BASELINE config 1's rows (bench.py): 100 hosts, 10 s scrape,
+    values from seed 0, row i at tick i // 100 of host i % 100."""
+    import numpy as np
+    import pyarrow as pa
+
+    hosts, interval, segment_ms = 100, 10_000, 2 * 3600 * 1000
+    per_host = max(1, rows // hosts)
+    T0 = (1_700_000_000_000 // segment_ms) * segment_ms
+    rng = np.random.default_rng(0)
+    n = per_host * hosts
+    return {"hosts": hosts, "interval": interval, "segment_ms": segment_ms,
+            "per_host": per_host, "T0": T0, "n": n,
+            "ts": T0 + np.repeat(np.arange(per_host, dtype=np.int64)
+                                 * interval, hosts),
+            "host_id": np.tile(np.arange(hosts, dtype=np.int32), per_host),
+            "vals": (rng.random(n) * 100).astype(np.float64),
+            "names": pa.array([f"host_{i:03d}" for i in range(hosts)])}
+
+
+def host_batch(names, host_id, ts, vals):
+    import pyarrow as pa
+
+    return pa.record_batch({
+        "host": pa.DictionaryArray.from_arrays(pa.array(host_id), names),
+        "timestamp": pa.array(ts, type=pa.int64()),
+        "value": pa.array(vals, type=pa.float64())})
+
+
+def check_grid(got, ts, host_id, vals, T0, nb, bucket_ms, hosts, order,
+               tsids, what: str) -> None:
+    """count exact and avg within rtol 1e-5 of a numpy bincount of the
+    rows (ts, host_id, vals) over [T0, T0 + nb buckets)."""
+    import numpy as np
+
+    off = ts - T0
+    sel = (off >= 0) & (off < nb * bucket_ms)
+    cell = host_id[sel].astype(np.int64) * nb + off[sel] // bucket_ms
+    counts = np.bincount(cell, minlength=hosts * nb).reshape(hosts, nb)
+    sums = np.bincount(cell, weights=vals[sel],
+                       minlength=hosts * nb).reshape(hosts, nb)
+    if got["tsids"] != tsids:
+        raise AssertionError(f"{what}: tsids differ from the written series")
+    grid = {k: np.asarray(v if isinstance(v, np.ndarray) else v.cpu().numpy())
+            for k, v in got["aggs"].items()}
+    if grid["count"].shape != (hosts, nb) or not np.array_equal(
+            grid["count"], counts[order].astype(grid["count"].dtype)):
+        raise AssertionError(f"{what}: count grid differs from numpy")
+    occ = counts[order] > 0
+    with np.errstate(invalid="ignore"):
+        want = sums[order] / counts[order]
+    if not np.isfinite(grid["avg"][occ]).all() \
+            or not np.isnan(grid["avg"][~occ]).all():
+        raise AssertionError(f"{what}: avg has non-finite occupied or "
+                             f"non-NaN empty cells")
+    np.testing.assert_allclose(grid["avg"][occ], want[occ], rtol=1e-5,
+                               err_msg=what)
+
+
+async def wal_phase(rows: int, ba, mg, fused_ingest_s: float) -> dict:
+    """The wal cell: (a) durable ingest on the host; (b) BASELINE config
+    1 through a WAL-fronted engine on the fused path, with a live tail,
+    an overwrite and a crash; (c) the same store on the parts path with
+    device decode, against host decode."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from horaedb_tpu_torch.common import ReadableDuration
+    from horaedb_tpu_torch.common.error import Error
+    from horaedb_tpu_torch.metric_engine import MetricEngine
+    from horaedb_tpu_torch.metric_engine.types import Label, tsid_of
+    from horaedb_tpu_torch.objstore import MemoryObjectStore
+    from horaedb_tpu_torch.ops.encode import h2d_bytes
+    from horaedb_tpu_torch.storage.config import StorageConfig, from_dict
+    from horaedb_tpu_torch.storage.read import ScanRequest
+    from horaedb_tpu_torch.storage.types import TimeRange
+    from horaedb_tpu_torch.utils import registry
+    from horaedb_tpu_torch.wal import WalConfig
+
+    res = {"a": await wal_ingest_leg()}
+    d = config1_rows(rows)
+    hosts, interval, seg_ms = d["hosts"], d["interval"], d["segment_ms"]
+    per_host, T0, n, names = d["per_host"], d["T0"], d["n"], d["names"]
+    ts, host_id, vals = d["ts"], d["host_id"], d["vals"].copy()
+    bucket_ms, tail_ticks, crash_ticks = BMS, 360, 60
+    tsid_of_host = np.array([tsid_of("cpu", [Label("host", f"host_{i:03d}")])
+                             for i in range(hosts)], dtype=np.uint64)
+    order = np.argsort(tsid_of_host)
+    tsids = [int(t) for t in tsid_of_host[order]]
+    rng = np.random.default_rng(7)
+
+    def tail(first_tick: int, ticks: int):
+        t = T0 + np.repeat(np.arange(first_tick, first_tick + ticks,
+                                     dtype=np.int64) * interval, hosts)
+        h = np.tile(np.arange(hosts, dtype=np.int32), ticks)
+        return t, h, rng.random(len(t)) * 100
+
+    tmp = scratch_dir("b")
+    store = MemoryObjectStore()
+    wal_cfg = WalConfig(enabled=True, dir=f"{tmp}/wal",
+                        flush_interval=ReadableDuration.parse("1h"),
+                        flush_age=ReadableDuration.parse("1h"))
+    fused_cfg = from_dict(StorageConfig, {
+        "scheduler": {"schedule_interval": "1h"},
+        "scan": {"cache_max_rows": rows * 4}})
+    # whole buckets covering the data and both tails: one range for
+    # every query of (b), so a stale replay would serve it
+    nb = -(-(per_host + tail_ticks + crash_ticks) * interval // bucket_ms)
+    rng_q = TimeRange.new(T0, T0 + nb * bucket_ms)
+
+    async def flush_all(e):
+        for _attempt in range(5):
+            try:
+                return await e.flush()
+            except Error:
+                # manifest delta backpressure: fold, then flush again
+                await e.tables["data"].manifest.trigger_merge()
+        raise Error("wal: flush failed after 5 backpressure retries")
+
+    try:
+        # ---- (b) live tail over config 1, fused --------------------------
+        ba.reset_launches()
+        mg.reset_launches()
+        decode0 = decode_counts()
+        e = await MetricEngine.open("bench", store, segment_ms=seg_ms,
+                                    config=fused_cfg, wal_config=wal_cfg)
+        reader = e.tables["data"].reader
+        t0 = time.perf_counter()
+        chunk = max(1, 1_000_000 // hosts) * hosts
+        for lo in range(0, n, chunk):
+            hi = min(n, lo + chunk)
+            await e.write_arrow("cpu", ["host"], host_batch(
+                names, host_id[lo:hi], ts[lo:hi], vals[lo:hi]))
+        acked_s = time.perf_counter() - t0
+        # the flusher ran on this event loop beside the writes (memtables
+        # past flush_rows); flush() waits out any flush still in flight
+        await flush_all(e)
+        ingest_s = time.perf_counter() - t0
+        st = await e.stats()
+        log(f"wal (b): ingest {n:,} rows through the WAL: acked in "
+            f"{acked_s!r} s, flushed in {ingest_s!r} s (the fused cell's "
+            f"WAL-off ingest: {fused_ingest_s!r} s); data table "
+            f"{st['tables']['data']['ssts']} SSTs, memtable rows "
+            f"{st['memtable_rows']}, WAL backlog {st['wal_backlog_bytes']} B")
+        if st["tables"]["data"]["rows"] != n or st["memtable_rows"]:
+            raise AssertionError(f"wal (b): after flush() {st}")
+
+        async def timed(want_replay: bool, what: str):
+            # wall, upload, replay deltas, and the seconds of the flush
+            # and of each scan stage (summed over concurrent reads)
+            snap, snap_h2d = registry.snapshot(), h2d_bytes()
+            hits0, misses0 = reader._replay_hits, reader._replay_misses
+            t0 = time.perf_counter()
+            out = await e.query_downsample("cpu", [], rng_q,
+                                           bucket_ms=bucket_ms,
+                                           aggs=("avg",))
+            torch.cuda.synchronize()
+            now = registry.snapshot()
+            rec = {"ms": (time.perf_counter() - t0) * 1e3,
+                   "h2d_bytes": h2d_bytes() - snap_h2d,
+                   "replay": [reader._replay_hits - hits0,
+                              reader._replay_misses - misses0],
+                   "stages": {k.split(":", 1)[1]: now[k] - snap.get(k, 0.0)
+                              for k in now
+                              if (k.startswith("scan_stage_seconds:")
+                                  or k == "span_seconds:memtable_flush")
+                              and now[k] != snap.get(k, 0.0)}}
+            if rec["replay"] != ([1, 0] if want_replay else [0, 1]):
+                raise AssertionError(f"wal (b) {what}: replay hits/misses "
+                                     f"{rec['replay']}")
+            return out, rec
+
+        live = [(ts, host_id, vals)]
+
+        def rows_now():
+            return tuple(np.concatenate([p[i] for p in live])
+                         for i in range(3))
+
+        def check(out, what):
+            check_grid(out, *rows_now(), T0, nb, bucket_ms, hosts, order,
+                       tsids, what)
+
+        cold, cold_rec = await timed(False, "cold")
+        check(cold, "cold")
+        cached = []
+        for i in range(5):
+            got, rec = await timed(True, f"cached {i}")
+            if rec["h2d_bytes"]:
+                raise AssertionError(f"wal (b) cached {i}: "
+                                     f"{rec['h2d_bytes']} B up")
+            same_bytes(got, cold, f"wal (b) cached {i} vs cold")
+            cached.append(rec)
+        log(f"wal (b): cold {cold_rec['ms']!r} ms (stages "
+            f"{json.dumps(cold_rec['stages'])}), "
+            f"{cold_rec['h2d_bytes']} B up; 5 replays "
+            f"{[c['ms'] for c in cached]!r} ms, 0 B up, byte-equal; grids "
+            f"match numpy over {nb} buckets")
+
+        # the live tail: one tick x 100 hosts a write, 360 writes
+        t_ts, t_h, t_v = tail(per_host, tail_ticks)
+        acks = []
+        for j in range(tail_ticks):
+            sl = slice(j * hosts, (j + 1) * hosts)
+            t0 = time.perf_counter()
+            await e.write_arrow("cpu", ["host"],
+                                host_batch(names, t_h[sl], t_ts[sl], t_v[sl]))
+            acks.append((time.perf_counter() - t0) * 1e3)
+        live.append((t_ts, t_h, t_v))
+        st = await e.stats()
+        mem = {k: v["ingest"]["memtable_rows"]
+               for k, v in st["tables"].items()}
+        log(f"wal (b): tail of {tail_ticks} writes x {hosts} rows: ack "
+            f"p50 {float(np.percentile(acks, 50))!r} ms, p99 "
+            f"{float(np.percentile(acks, 99))!r} ms; memtable rows before "
+            f"any flush {mem}")
+        if mem["data"] != tail_ticks * hosts:
+            raise AssertionError(f"wal (b): data memtable rows {mem}")
+        # engine reads through the WAL front: the tail's new series are
+        # resolved from the registration tables' memtables
+        raw = await e.query("cpu", [("host", "host_042")], TimeRange.new(
+            int(t_ts[0]), int(t_ts[-1]) + 1))
+        sel = t_h == 42
+        if (raw.num_rows != tail_ticks
+                or raw.column("timestamp").to_pylist() != t_ts[sel].tolist()
+                or raw.column("value").to_pylist() != t_v[sel].tolist()):
+            raise AssertionError(f"wal (b): raw query of the unflushed tail "
+                                 f"gave {raw.num_rows} rows")
+        log(f"wal (b): raw query of host_042 over the tail: its "
+            f"{tail_ticks} unflushed rows through the hybrid scan")
+        # a stale replay after a flush: the flush adds an SST to segment
+        # 138 and makes 139, so the replay key changes; a hit would
+        # return the pre-flush grid
+        after, after_rec = await timed(False, "after the tail")
+        st = await e.stats()
+        if st["tables"]["data"]["ingest"]["memtable_rows"]:
+            raise AssertionError("wal (b): the aggregate left rows in the "
+                                 "data memtable")
+        check(after, "after the tail")
+        again, again_rec = await timed(True, "replay after the tail")
+        if again_rec["h2d_bytes"]:
+            raise AssertionError("wal (b): replay after the tail uploaded")
+        same_bytes(again, after, "wal (b) replay after the tail")
+        log(f"wal (b): the query after the tail flushed it (data memtable "
+            f"rows 0), missed the replay: {after_rec['ms']!r} ms "
+            f"(stages {json.dumps(after_rec['stages'])}), "
+            f"{after_rec['h2d_bytes']} B up, grids match numpy over "
+            f"{n + tail_ticks * hosts:,} rows; the next one a replay, "
+            f"{again_rec['ms']!r} ms, 0 B up, byte-equal")
+
+        # overwrite 100 rows of the first segment, flush, query: per-row
+        # seqs in a flushed SST, the newer write must win in the host
+        # merge here and in device decode's k-way route in (c)
+        o_idx = np.arange(0, 100 * 37, 37)  # first segment's rows
+        o_v = rng.random(len(o_idx)) * 100 + 1000
+        await e.write_arrow("cpu", ["host"], host_batch(
+            names, host_id[o_idx], ts[o_idx], o_v))
+        await flush_all(e)
+        vals[o_idx] = o_v  # live[0] holds vals: the numpy side overwritten
+        over, over_rec = await timed(False, "after the overwrite")
+        check(over, "after the overwrite")
+        log(f"wal (b): 100 rows of the first segment overwritten through "
+            f"the WAL and flushed: {over_rec['ms']!r} ms (stages "
+            f"{json.dumps(over_rec['stages'])}), "
+            f"{over_rec['h2d_bytes']} B up, grids match numpy with the new "
+            f"values")
+
+        # crash: a 60-tick tail left unflushed, every table aborted
+        c_ts, c_h, c_v = tail(per_host + tail_ticks, crash_ticks)
+        for j in range(crash_ticks):
+            sl = slice(j * hosts, (j + 1) * hosts)
+            await e.write_arrow("cpu", ["host"],
+                                host_batch(names, c_h[sl], c_ts[sl], c_v[sl]))
+        live.append((c_ts, c_h, c_v))
+        for t in e.tables.values():
+            await t.abort()
+        e._runtimes.close()
+        replayed0 = registry_value("wal_replayed_rows_total")
+        t0 = time.perf_counter()
+        e = await MetricEngine.open("bench", store, segment_ms=seg_ms,
+                                    config=fused_cfg, wal_config=wal_cfg)
+        recover_s = time.perf_counter() - t0
+        reader = e.tables["data"].reader
+        replayed = registry_value("wal_replayed_rows_total") - replayed0
+        st = await e.stats()
+        if st["tables"]["data"]["ingest"]["memtable_rows"] != \
+                crash_ticks * hosts:
+            raise AssertionError(f"wal (b): recovered data memtable rows "
+                                 f"{st['tables']['data']['ingest']}")
+        rec_out, rec_rec = await timed(False, "after recovery")
+        launches_b = dict(ba.LAUNCHES, **mg.LAUNCHES)
+        check(rec_out, "after recovery")
+        log(f"wal (b): crash with {crash_ticks * hosts} rows unflushed; "
+            f"reopened in {recover_s!r} s replaying {int(replayed)} rows "
+            f"(all tables); the first query {rec_rec['ms']!r} ms (stages "
+            f"{json.dumps(rec_rec['stages'])}), its grids "
+            f"include them and match numpy")
+        await flush_all(e)
+        await e.close()
+        dc = counts_delta(decode0, decode_counts())
+        if any(dc.values()) or launches_b["kway_merge_perm"] \
+                or launches_b["bucket_window_partials"] \
+                or not launches_b["bucket_round_accumulate"]:
+            raise AssertionError(f"wal (b): launches {launches_b}, device "
+                                 f"decode {dc}")
+        res["b"] = {"rows": n, "acked_s": acked_s, "ingest_s": ingest_s,
+                    "fused_ingest_s": fused_ingest_s,
+                    "cold": cold_rec, "cached": cached,
+                    "tail_ack_ms_p50": float(np.percentile(acks, 50)),
+                    "tail_ack_ms_p99": float(np.percentile(acks, 99)),
+                    "memtable_rows_before_flush": mem,
+                    "after_tail": after_rec, "replay_after_tail": again_rec,
+                    "after_overwrite": over_rec, "recover_s": recover_s,
+                    "replayed_rows": replayed, "after_recovery": rec_rec,
+                    "launches": launches_b}
+
+        # ---- (c) the parts path over the same store ----------------------
+        n_seg = -(-nb * bucket_ms // seg_ms)
+        full = TimeRange.new(T0, T0 + n_seg * seg_ms)
+        parts = {}
+        for name, cfg in (("device", StorageConfig()),
+                          ("host", from_dict(StorageConfig, {
+                              "scan": {"decode": {"mode": "host"}}}))):
+            e = await MetricEngine.open("bench", store, segment_ms=seg_ms,
+                                        config=cfg, wal_config=wal_cfg)
+            try:
+                data = e.tables["data"]
+                plan = await data.build_scan_plan(ScanRequest(range=full))
+                if data.reader.fused_aggregate_ok(plan):
+                    raise AssertionError("wal (c): the fused gate took the "
+                                         "plan at the default budget")
+                multi = [len(sg.ssts) for sg in plan.segments
+                         if len(sg.ssts) > 1]
+                ba.reset_launches()
+                mg.reset_launches()
+                c0 = decode_counts()
+                t0 = time.perf_counter()
+                out = await e.query_downsample("cpu", [], full,
+                                               bucket_ms=bucket_ms,
+                                               aggs=("avg",))
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                launches = dict(ba.LAUNCHES, **mg.LAUNCHES)
+                dc = counts_delta(c0, decode_counts())
+            finally:
+                await e.close()
+            check_grid(out, *rows_now(), T0, n_seg * seg_ms // bucket_ms,
+                       bucket_ms, hosts, order, tsids, f"wal (c) {name}")
+            falls = {k: v for k, v in dc.items()
+                     if k.startswith("fallback:") and v}
+            if name == "device":
+                levels = sum(k.bit_length() for k in multi)
+                if not (launches["kway_merge_perm"] == levels > 0
+                        and dc["kway"] == len(multi)
+                        and launches["bucket_window_partials"]
+                        == len(plan.segments)
+                        and dc["sorted"] == 0 and not falls):
+                    raise AssertionError(f"wal (c): launches {launches}, "
+                                         f"decode {dc}, multi-SST {multi}")
+            elif launches["kway_merge_perm"] or dc["rows"] or falls:
+                raise AssertionError(f"wal (c) host: launches {launches}, "
+                                     f"decode {dc}")
+            parts[name] = {"ms": ms, "launches": launches,
+                           "multi_sst_segments": multi,
+                           "decode": {k: v for k, v in dc.items() if v},
+                           "out": out}
+            log(f"wal (c) [{name} decode]: cold avg at 1 min {ms!r} ms over "
+                f"{len(plan.segments)} segments ({len(multi)} with more "
+                f"than one SST: {multi}); launches {launches}; grids match "
+                f"numpy")
+        same_bytes(parts["device"].pop("out"), parts["host"].pop("out"),
+                   "wal (c) device vs host decode")
+        log("wal (c): device-decode grids byte-equal to host decode")
+        res["c"] = parts
+        res["launches"] = {
+            "bucket_round_accumulate": launches_b["bucket_round_accumulate"],
+            "bucket_window_partials":
+                parts["device"]["launches"]["bucket_window_partials"],
+            "kway_merge_perm": parts["device"]["launches"]["kway_merge_perm"]}
+        return res
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 async def profile_cached(query, want: dict, ba) -> dict:
     """One cached query under torch.profiler; its grids must equal the
     query's own byte for byte in every field."""
@@ -2090,6 +2613,8 @@ def main() -> int:
     e2e = phase("end to end (fused, op, parts)", asyncio.run,
                 end_to_end(args.rows, ba, mg))
     compaction = phase("compaction", asyncio.run, compaction_phase(ba, mg))
+    wal = phase("wal", asyncio.run,
+                wal_phase(args.rows, ba, mg, e2e["ingest_s"]))
     kernels.append({
         "name": "kway_merge_perm", "route": "cuda",
         "source": "horaedb_tpu_torch/csrc/merge_path.cu",
@@ -2112,12 +2637,14 @@ def main() -> int:
         k["launches"] = {"bucket_window_partials": e2e["parts"]["launches"],
                          "kway_merge_perm": e2e["parts"]["kway_launches"],
                          "bucket_round_accumulate": e2e["launches"]}[k["name"]]
+        # and on the wal cell's engine path, counted from 0 around it
+        k["wal_launches"] = wal["launches"][k["name"]]
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
             json.dump({"card": card, "kernels": kernels, "e2e": e2e,
                        "merge_kernel": merge_k, "determinism": determinism,
-                       "compaction": compaction}, f, indent=1)
+                       "compaction": compaction, "wal": wal}, f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -19,16 +19,19 @@ to the readers: "cuda" by default, and open() raises when no card is
 present rather than carrying on on the CPU.  device="cpu" is for tests.
 
 Ported: open/close (each table's compaction scheduler and scrubber
-start and stop with it), the bulk Arrow ingest (row layout), metric and
-series resolution, raw row queries and the downsample query on the raw
-path, by the fused or the parts aggregate.  Not ported yet: the scalar write path, the chunked data layout,
-the WAL, rollups, self-monitoring, scan agents, top-k and multi-field
-queries (see ROADMAP.md).
+start and stop with it), the WAL front (`open(wal_config=...)` wraps
+every table in wal.IngestStorage), `stats()` and `flush()`, the bulk
+Arrow ingest (row layout), metric and series resolution, raw row
+queries and the downsample query on the raw path, by the fused or the
+parts aggregate.  Not ported yet: the scalar write path, the chunked
+data layout, rollups, self-monitoring, scan agents, top-k and
+multi-field queries (see ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import asyncio
+import os
 from typing import Optional
 
 import numpy as np
@@ -45,6 +48,7 @@ from horaedb_tpu_torch.storage.read import AggregateSpec, ScanRequest
 from horaedb_tpu_torch.storage.storage import CloudObjectStorage, WriteRequest
 from horaedb_tpu_torch.storage.types import TimeRange, Timestamp
 from horaedb_tpu_torch.utils import span
+from horaedb_tpu_torch.wal import IngestStorage
 from horaedb_tpu_torch.metric_engine.types import (
     Label,
     Sample,
@@ -318,20 +322,32 @@ class MetricEngine:
     async def open(cls, root_path: str, store: ObjectStore,
                    segment_ms: int = 2 * 3600 * 1000,
                    config: Optional[StorageConfig] = None,
-                   device="cuda") -> "MetricEngine":
+                   device="cuda", wal_config=None) -> "MetricEngine":
         """Open the five tables under `root_path` on `device` ("cuda" by
-        default; raises when the card is missing)."""
+        default; raises when the card is missing).  With an enabled
+        `wal_config` every table is fronted by a WAL under
+        `{wal_config.dir}/{table}` (wal/ingest.py): writes are acked at
+        the group fsync and raw reads see the unflushed rows."""
         dev = resolve_device(device)
         cfg = config or StorageConfig()
+        wal_on = wal_config is not None and wal_config.enabled
+        if wal_on:
+            ensure(wal_config.dir, "[wal] enabled requires wal.dir")
         # one set of worker pools shared by all five tables
         shared_runtimes = runtimes_mod.from_config(
             cfg.threads, sst_override=cfg.scan.decode_workers)
         tables = {}
         try:
             for name, (schema, num_pks) in _TABLE_SCHEMAS.items():
-                tables[name] = await CloudObjectStorage.open(
+                table = await CloudObjectStorage.open(
                     f"{root_path}/{name}", segment_ms, store, schema,
                     num_pks, cfg, runtimes=shared_runtimes, device=dev)
+                tables[name] = table
+                if wal_on:
+                    # every table of the row layout is Overwrite mode
+                    tables[name] = await IngestStorage.open(
+                        table, os.path.join(wal_config.dir, name),
+                        wal_config)
         except BaseException:
             for t in tables.values():
                 await t.close()
@@ -348,6 +364,59 @@ class MetricEngine:
             await t.close()
         if self._runtimes is not None:
             self._runtimes.close()
+
+    async def stats(self) -> dict:
+        """Data volume stored (rows, bytes and SSTs per table, from the
+        manifests), each reader's cache residency and, with the WAL on,
+        the buffered state: memtables and WAL backlog."""
+        tables = {}
+        rows = size = sst_count = 0
+        mem_rows = mem_bytes = wal_backlog = 0
+        last_flush_age = None
+        wal_enabled = False
+        for name, t in self.tables.items():
+            ssts = await t.manifest.all_ssts()
+            t_rows = sum(f.meta.num_rows for f in ssts)
+            t_size = sum(f.meta.size for f in ssts)
+            tables[name] = {"ssts": len(ssts), "rows": t_rows,
+                            "bytes": t_size}
+            rows += t_rows
+            size += t_size
+            sst_count += len(ssts)
+            ingest = getattr(t, "ingest_stats", None)
+            if ingest is not None:
+                wal_enabled = True
+                ing = ingest()
+                tables[name]["ingest"] = ing
+                mem_rows += ing["memtable_rows"]
+                mem_bytes += ing["memtable_bytes"]
+                wal_backlog += ing["wal_backlog_bytes"]
+                age = ing["last_flush_age_s"]
+                if age is not None and (last_flush_age is None
+                                        or age > last_flush_age):
+                    last_flush_age = age  # the most stale table
+            tables[name]["cache"] = t.reader.cache_stats()
+        out = {"rows": rows, "bytes": size, "ssts": sst_count,
+               "tables": tables,
+               "cache": {"scan_cache_bytes": sum(
+                   v["cache"]["scan_cache"]["bytes"]
+                   for v in tables.values())}}
+        if wal_enabled:
+            out["memtable_rows"] = mem_rows
+            out["memtable_bytes"] = mem_bytes
+            out["wal_backlog_bytes"] = wal_backlog
+            out["last_flush_age_s"] = last_flush_age
+        return out
+
+    async def flush(self) -> dict:
+        """Drain every WAL-fronted table's memtables to SSTs.  Returns
+        rows flushed per table."""
+        out = {}
+        for name, t in self.tables.items():
+            flush_all = getattr(t, "flush_all", None)
+            if flush_all is not None:
+                out[name] = {"flushed_rows": await flush_all()}
+        return out
 
     # ---- write ------------------------------------------------------------
 

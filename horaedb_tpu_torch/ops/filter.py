@@ -164,6 +164,29 @@ def predicate_columns(pred: Predicate) -> set[str]:
     return {pred.column}
 
 
+def leaf_mask_host(leaf: Predicate, col: np.ndarray) -> np.ndarray:
+    """numpy bool mask of one comparison leaf over a host column of raw
+    values (not codes): the hybrid WAL scan's post-dedup filter.  Time
+    ranges are [start, end)."""
+    if isinstance(leaf, Eq):
+        return col == leaf.value
+    if isinstance(leaf, Ne):
+        return col != leaf.value
+    if isinstance(leaf, Lt):
+        return col < leaf.value
+    if isinstance(leaf, Le):
+        return col <= leaf.value
+    if isinstance(leaf, Gt):
+        return col > leaf.value
+    if isinstance(leaf, Ge):
+        return col >= leaf.value
+    if isinstance(leaf, In):
+        return np.isin(col, list(leaf.values))
+    if isinstance(leaf, TimeRangePred):
+        return (col >= leaf.start) & (col < leaf.end)
+    raise Error(f"not a comparison leaf: {leaf!r}")
+
+
 def to_arrow_expression_with_key(pred: Predicate, allowed: set[str]):
     """Translate the safely-pushable part of a predicate tree into a
     pyarrow compute expression for Parquet row-group pruning + pre-merge

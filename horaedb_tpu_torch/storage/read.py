@@ -1676,9 +1676,31 @@ def _plan_pk_windows(pk1_codes: np.ndarray, window: int) -> list[np.ndarray]:
     return windows
 
 
+def _eval_predicate_host(pred, batch: pa.RecordBatch) -> np.ndarray:
+    """Host twin of ops.filter.eval_predicate over an Arrow batch of raw
+    values."""
+    F = filter_ops
+    if isinstance(pred, F.And):
+        out = np.ones(batch.num_rows, dtype=bool)
+        for c in pred.children:
+            out &= _eval_predicate_host(c, batch)
+        return out
+    if isinstance(pred, F.Or):
+        out = np.zeros(batch.num_rows, dtype=bool)
+        for c in pred.children:
+            out |= _eval_predicate_host(c, batch)
+        return out
+    if isinstance(pred, F.Not):
+        return ~_eval_predicate_host(pred.child, batch)
+    col = batch.column(batch.schema.names.index(pred.column))
+    return F.leaf_mask_host(pred, col.to_numpy(zero_copy_only=False))
+
+
 def plan_columns(schema: StorageSchema,
                  projections: Optional[list[int]]) -> list[str]:
-    """The column set a merge plan reads for a projection."""
+    """The column set a merge plan reads for a projection: shared by
+    build_plan and the memtable overlay (wal/ingest.py), so hybrid and
+    pure-SST scans cannot disagree on shape."""
     proj = schema.fill_required_projections(projections)
     if proj is None:
         columns = list(schema.arrow_schema.names)
@@ -1691,3 +1713,51 @@ def plan_columns(schema: StorageSchema,
         columns.append(SEQ_COLUMN_NAME)
     return columns
 
+
+def merge_memtable_overlay(schema: StorageSchema,
+                           sst_parts: list[pa.RecordBatch],
+                           mem_batches: list[pa.RecordBatch],
+                           predicate,
+                           columns: list[str],
+                           keep_builtin: bool) -> Optional[pa.RecordBatch]:
+    """Host merge of ONE segment's already-merged SST rows with its
+    memtable overlay: the hybrid scan's last stage (wal/ingest.py).
+
+    Both sources carry per-row `__seq__` (sst_parts from a keep_builtin
+    plan, mem_batches stamped with each entry's write seq), so
+    Overwrite's last-value rule is one sort by (PK, __seq__) keeping the
+    final row of every PK run.  The full predicate applies AFTER the
+    dedup, as on the pure-SST path: filtering first would resurrect
+    overwritten rows.  Seqs are preserved end to end, so a replayed
+    memtable row and its flushed SST twin tie on (PK, seq) with equal
+    values, and either winning is exactly-once."""
+    import pyarrow.compute as pc
+
+    from horaedb_tpu_torch.storage.operator import LastValueOperator
+
+    target = pa.schema([schema.arrow_schema.field(
+        schema.arrow_schema.names.index(c)) for c in columns])
+    parts = []
+    for b in list(sst_parts) + list(mem_batches):
+        if b.num_rows == 0:
+            continue
+        b = b.select(columns)
+        if not b.schema.equals(target):
+            b = b.cast(target)
+        parts.append(b)
+    if not parts:
+        return None
+    table = pa.Table.from_batches(parts, schema=target)
+    sort_keys = [(n, "ascending") for n in schema.primary_key_names]
+    sort_keys.append((SEQ_COLUMN_NAME, "ascending"))
+    table = table.take(pc.sort_indices(table, sort_keys=sort_keys))
+    batch = table.combine_chunks().to_batches()[0]
+    pk_indices = [columns.index(n) for n in schema.primary_key_names]
+    batch = LastValueOperator().merge_sorted_batch(batch, pk_indices)
+    if predicate is not None and batch.num_rows:
+        mask = _eval_predicate_host(predicate, batch)
+        batch = batch.take(np.flatnonzero(mask))
+    if not keep_builtin:
+        batch = batch.select([c for c in batch.schema.names
+                              if not StorageSchema.is_builtin_name(c)])
+    return batch

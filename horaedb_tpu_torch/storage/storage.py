@@ -167,9 +167,16 @@ class CloudObjectStorage:
         return result
 
     async def write_stamped(self, table: pa.Table,
-                            time_range: TimeRange) -> WriteResult:
-        """Write rows whose `__seq__` is already filled per row: the SST
-        is sorted by (PK, __seq__) and the seqs are preserved."""
+                            time_range: TimeRange,
+                            pre_commit=None) -> WriteResult:
+        """Write rows whose `__seq__` is already filled per row (the WAL
+        flush, wal/ingest.py): the SST is sorted by (PK, __seq__) and
+        the seqs are preserved, so a flush racing a newer write cannot
+        lift old rows above it.
+
+        `pre_commit` (an async callable) runs after the SST and sidecar
+        puts and just before the manifest add: a raise there leaves an
+        orphan SST object but no manifest entry, invisible to readers."""
         ensure(self.manifest is not None, "storage not opened")
         ensure(table.schema.names == self._schema.arrow_schema.names,
                "write_stamped expects the full stamped schema")
@@ -183,10 +190,12 @@ class CloudObjectStorage:
             return ordered.combine_chunks().to_batches()[0]
 
         stamped = await self.runtimes.run("sst", prep)
-        return await self._persist_stamped(file_id, stamped, time_range)
+        return await self._persist_stamped(file_id, stamped, time_range,
+                                           pre_commit=pre_commit)
 
     async def _persist_stamped(self, file_id: int, stamped: pa.RecordBatch,
-                               time_range: TimeRange) -> WriteResult:
+                               time_range: TimeRange,
+                               pre_commit=None) -> WriteResult:
         """SST put overlapped with the sidecar put, both complete BEFORE
         the manifest add — readers never see a manifest-listed SST whose
         sidecar is still in flight, so a sidecar miss is permanent per
@@ -197,6 +206,8 @@ class CloudObjectStorage:
                                  self.config.write, self._schema,
                                  runtimes=self.runtimes),
             self._write_sidecar(file_id, stamped))
+        if pre_commit is not None:
+            await pre_commit()
         meta = FileMeta(max_sequence=file_id, num_rows=stamped.num_rows,
                         size=size, time_range=time_range)
         await self.manifest.add_file(file_id, meta)
@@ -230,10 +241,11 @@ class CloudObjectStorage:
 
     async def scan(self, req: ScanRequest,
                    first_plan: Optional[ScanPlan] = None,
-                   keep_builtin: bool = False
-                   ) -> AsyncIterator[pa.RecordBatch]:
+                   keep_builtin: bool = False,
+                   segment_filter=None) -> AsyncIterator[pa.RecordBatch]:
         seg_iter = self.scan_segments(req, first_plan=first_plan,
-                                      keep_builtin=keep_builtin)
+                                      keep_builtin=keep_builtin,
+                                      segment_filter=segment_filter)
         try:
             async for _seg, batch in seg_iter:
                 if batch is not None:
@@ -243,11 +255,15 @@ class CloudObjectStorage:
 
     async def scan_segments(self, req: ScanRequest,
                             first_plan: Optional[ScanPlan] = None,
-                            keep_builtin: bool = False):
+                            keep_builtin: bool = False,
+                            segment_filter=None):
         """scan() with segment attribution: yields (segment_start,
         batch) parts plus a (segment_start, None) completion marker per
-        segment.  On a compaction race (NotFoundError) it replans and
-        skips the segments already completed."""
+        segment (the hybrid WAL scan overlays memtable rows per
+        segment).  On a compaction race (NotFoundError) it replans and
+        skips the segments already completed.  `segment_filter(
+        segment_start) -> bool` restricts every attempt to one stable
+        subset of segments."""
         done: set[int] = set()
         for attempt in range(self._SCAN_RETRIES + 1):
             # attempt 0 may reuse a caller-built plan (plan_query)
@@ -255,7 +271,9 @@ class CloudObjectStorage:
                     else await self.build_scan_plan(
                         req, keep_builtin=keep_builtin))
             plan.segments = [s for s in plan.segments
-                             if s.segment_start not in done]
+                             if s.segment_start not in done
+                             and (segment_filter is None
+                                  or segment_filter(s.segment_start))]
             exec_iter = self.reader.execute_segments(plan)
             try:
                 async for seg_start, batch in exec_iter:

@@ -1,5 +1,6 @@
-"""Minimal observability: a process-wide registry of counters and
-histograms, and a `span` context manager that times a named block.
+"""Minimal observability: a process-wide registry of counters, gauges
+and histograms, a `span` context manager that times a named block, and
+`trace_add`, which bumps a named counter.
 
 Enough for the ported call sites; the JAX package's full tracing,
 memory-ledger and device-profiler planes are not ported yet."""
@@ -21,6 +22,24 @@ class Counter:
     def inc(self, n: float = 1) -> None:
         with self._lock:
             self.value += n
+
+
+class Gauge:
+    """A value that moves both ways (buffered rows, backlog bytes)."""
+
+    def __init__(self, name: str, help_text: str = ""):
+        self.name = name
+        self.help = help_text
+        self.value = 0
+        self._lock = threading.Lock()
+
+    def inc(self, n: float = 1) -> None:
+        with self._lock:
+            self.value += n
+
+    def set(self, v: float) -> None:
+        with self._lock:
+            self.value = v
 
 
 class Histogram:
@@ -54,13 +73,16 @@ class MetricsRegistry:
     def counter(self, name: str, help_text: str = "") -> Counter:
         return self._get(Counter, name, help_text)
 
+    def gauge(self, name: str, help_text: str = "") -> Gauge:
+        return self._get(Gauge, name, help_text)
+
     def histogram(self, name: str, help_text: str = "") -> Histogram:
         return self._get(Histogram, name, help_text)
 
     def snapshot(self) -> dict:
         with self._lock:
             items = list(self._metrics.items())
-        return {name: (m.value if isinstance(m, Counter) else m.sum)
+        return {name: (m.sum if isinstance(m, Histogram) else m.value)
                 for name, m in items}
 
 
@@ -79,4 +101,11 @@ def span(name: str, **_attrs):
         hist.observe(time.perf_counter() - t0)
 
 
-__all__ = ["Counter", "Histogram", "MetricsRegistry", "registry", "span"]
+def trace_add(name: str, n: float) -> None:
+    """Add `n` to the counter `name` (the JAX package adds it to the
+    current trace; the port has no tracing plane yet)."""
+    registry.counter(name).inc(n)
+
+
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "registry",
+           "span", "trace_add"]

@@ -30,7 +30,8 @@ def _port_modules() -> list[str]:
 
 def test_the_scan_covers_every_port_module():
     """The walk below finds every module of the port, the parts path's,
-    compaction's, the scrubber's and the device decode's included."""
+    compaction's, the scrubber's, the device decode's and the WAL's
+    included."""
     mods = _port_modules()
     for m in ("horaedb_tpu_torch.common.loops",
               "horaedb_tpu_torch.storage.combine",
@@ -40,7 +41,12 @@ def test_the_scan_covers_every_port_module():
               "horaedb_tpu_torch.ops.bucket_agg",
               "horaedb_tpu_torch.ops.device_decode",
               "horaedb_tpu_torch.ops.merge",
-              "horaedb_tpu_torch.ops.nvcc"):
+              "horaedb_tpu_torch.ops.nvcc",
+              "horaedb_tpu_torch.storage.operator",
+              "horaedb_tpu_torch.wal.config",
+              "horaedb_tpu_torch.wal.log",
+              "horaedb_tpu_torch.wal.memtable",
+              "horaedb_tpu_torch.wal.ingest"):
         assert m in mods, m
 
 
