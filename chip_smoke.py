@@ -62,7 +62,16 @@ non-zero and prints no result line:
    leaf keys new memos: the first query uploads the columns again, 3
    repeats must be replays with 0 B up and its bytes);
    drop_hbm_state() and the full range again (the full path's upload,
-   the replay's bytes); the cell's peak device memory.
+   the replay's bytes); the cell's peak device memory.  "Cold" is true
+   cold: tier 2 (the encoded cache, filled by write-through at ingest,
+   whose stats are printed) is emptied with the window cache first.
+   Then the query served from tier 2 (windows and device state
+   dropped, tier 2 kept: 0 store GETs when every part is resident) and
+   the pipeline on and off in turns on true-cold queries (walls, stalls
+   per stage, in-flight high-water, the host's core count); every grid
+   byte-equal to the cold query's.  Each cold-read record carries the
+   store GETs and bytes (a counting MemoryObjectStore), segment_read
+   summed and the bytes uploaded.
 7. op path: ops.downsample.time_bucket_aggregate over the same 10M rows
    as one batch (time-major rows: runs of one row per cell), checked
    against the bincount; bucket_window_partials' launch count over that
@@ -80,7 +89,15 @@ non-zero and prints no result line:
    bytes equal a cold recompute in sparse and dense combine; two cold
    1 h queries byte-equal; and the two legs' grids byte-equal; each
    cold query's peak device memory, with the stack cache untouched (the
-   parts path builds its rounds uncached).  Then
+   parts path builds its rounds uncached).  Every cold query empties
+   tier 2 first.  Then, on the device-decode engine: a true-cold query
+   and the same query served from tier 2 (GETs, bytes, segment_read,
+   upload; byte-equal); the pipeline on and off in turns; a filtered
+   query (host = 'host_042') against numpy, its store bytes beside the
+   unfiltered query's; a streamed check leg (max_window_rows 16,384 and
+   stream_read_min_rows 32,768, two printed cuts: every segment read
+   window by window from the sidecars) byte-equal to the bulk read.
+   Then
    single segments decoded alone (host clock, host cProfile) and one
    cold device-decode query under torch.profiler.
 9. compaction: 4 overlapping SSTs in each of 12 segments (newer values
@@ -98,11 +115,12 @@ non-zero and prints no result line:
    WAL at max_group_wait 0, 1 and 4 ms (2,000 writes each), every acked
    row read back after a flush (the shape of the JAX package's bench
    config 8); (b) the 10M rows ingested through a WAL-fronted engine
-   (fused path, scan cache at 4 x rows) and flushed, a cold query and 5
-   replays, a live tail of 360 writes of one tick x 100 hosts (its ack
+   (fused path, scan cache at 4 x rows) and flushed, tier 2's stats, a
+   true-cold query and 5 replays, a live tail of 360 writes of one tick x 100 hosts (its ack
    p50/p99; the data memtable must hold its 36,000 rows and a raw query
    must return one host's 360 rows before any flush), the query that
-   flushes it (a replay miss, its upload, then a replay with 0 B up),
+   flushes it (a replay miss, 0 store GETs: the flush admitted the new
+   SSTs into tier 2; its upload, then a replay with 0 B up),
    100 rows of the first segment overwritten, a 60-tick tail left
    unflushed, abort() of every table and a reopen that replays it, every
    grid against numpy; (c) the same store with the default
@@ -1176,7 +1194,6 @@ async def end_to_end(rows: int, ba, mg) -> dict:
     from horaedb_tpu_torch.common.error import Error
     from horaedb_tpu_torch.metric_engine import MetricEngine
     from horaedb_tpu_torch.metric_engine.types import Label, tsid_of
-    from horaedb_tpu_torch.objstore import MemoryObjectStore
     from horaedb_tpu_torch.storage.config import StorageConfig, from_dict
     from horaedb_tpu_torch.storage.types import TimeRange
 
@@ -1195,7 +1212,7 @@ async def end_to_end(rows: int, ba, mg) -> dict:
         "scheduler": {"schedule_interval": "1h"},
         "scan": {"cache_max_rows": rows * 4}})
     torch.cuda.reset_peak_memory_stats()
-    store = MemoryObjectStore()
+    store = counting_store()
     e = await MetricEngine.open("bench", store, segment_ms=segment_ms,
                                 config=cfg)
     try:
@@ -1235,7 +1252,16 @@ async def end_to_end(rows: int, ba, mg) -> dict:
             return out
 
         reader = e.tables["data"].reader
+        # write-through admitted every SST's columns into tier 2; report
+        # it, then empty it with the window cache: the cold query reads
+        # the store (true cold)
+        tier2_ingest = reader.encoded_cache.stats()
+        log(f"e2e: tier 2 after ingest {json.dumps(tier2_ingest)}"
+            + ("" if not tier2_ingest["evictions"] else
+               f" ({tier2_ingest['evictions']} parts evicted: the tier's "
+               f"{tier2_ingest['max_bytes']} B do not hold every SST)"))
         reader.scan_cache.clear()
+        reader.encoded_cache.clear()
         from horaedb_tpu_torch.ops.encode import h2d_bytes
         from horaedb_tpu_torch.utils import registry
 
@@ -1256,13 +1282,15 @@ async def end_to_end(rows: int, ba, mg) -> dict:
             # replay deltas; the replay must serve it or not, as asked
             snap, h2d0 = registry.snapshot(), h2d_bytes()
             hits0, misses0 = reader._replay_hits, reader._replay_misses
+            got0, pipe0 = store.snap(), pipeline_snap(reader)
             t0 = time.perf_counter()
             out = await query(rng_t)
             wall = time.perf_counter() - t0
             rec = {"ms": wall * 1e3, "stages": stages(snap),
                    "h2d_bytes": h2d_bytes() - h2d0,
                    "replay_hits": reader._replay_hits - hits0,
-                   "replay_misses": reader._replay_misses - misses0}
+                   "replay_misses": reader._replay_misses - misses0,
+                   **store.since(got0), **pipeline_since(reader, pipe0)}
             if (rec["replay_hits"], rec["replay_misses"]) != \
                     ((1, 0) if want_replay else (0, 1)):
                 raise AssertionError(f"e2e {what}: replay hits/misses "
@@ -1397,6 +1425,40 @@ async def end_to_end(rows: int, ba, mg) -> dict:
         stack_stats = reader.cache_stats()["stack_cache"]
         log(f"e2e: peak device memory of the fused cell {peak} B; stack "
             f"cache {json.dumps(stack_stats)}")
+
+        # served from tier 2: the windows and the device state dropped,
+        # the encoded parts kept (the cold query put every complete part)
+        reader.drop_hbm_state()
+        reader.scan_cache.clear()
+        got, tier2 = await timed(rng_q, False, "tier-2-served")
+        same_bytes(got, out, "e2e tier-2-served vs true cold")
+        for what, rec in (("true cold", cold), ("tier-2-served", tier2)):
+            log(f"e2e fused {what}: {rec['ms']!r} ms, {rec['gets']} store "
+                f"GETs of {rec['get_bytes']} B, segment_read "
+                f"{rec['stages'].get('segment_read', 0.0)!r} s summed, "
+                f"{rec['h2d_bytes']} B host-to-device")
+        if tier2["gets"] and not tier2_ingest["evictions"]:
+            raise AssertionError(f"e2e tier-2-served: {tier2['gets']} "
+                                 f"store GETs with every part resident")
+        log("e2e: tier-2-served grids byte-equal to the true-cold query's")
+
+        # the pipeline on and off, in turns, on true-cold queries
+        pipe_turns = []
+        for enabled in (True, False, True, False):
+            reader.config.scan.pipeline.enabled = enabled
+            true_cold(reader)
+            got, rec = await timed(rng_q, False,
+                                   f"pipeline {'on' if enabled else 'off'}")
+            same_bytes(got, out, f"e2e pipeline {enabled} vs true cold")
+            rec["enabled"] = enabled
+            pipe_turns.append(rec)
+        reader.config.scan.pipeline.enabled = True
+        log(f"e2e fused: pipeline on/off/on/off on true-cold queries "
+            f"({os.cpu_count()} host cores): "
+            + "; ".join(f"{'on' if r['enabled'] else 'off'} {r['ms']!r} ms,"
+                        f" stalls {json.dumps(r['stalls'])}, high-water "
+                        f"{r['high_water_bytes']} B" for r in pipe_turns)
+            + "; grids byte-equal")
         cached_ms = [c["ms"] for c in cached]
         cached_p50 = statistics.median(cached_ms)
         res = {"rows": n, "ingest_s": ingest_s, "cold_ms": cold["ms"],
@@ -1414,7 +1476,10 @@ async def end_to_end(rows: int, ba, mg) -> dict:
                "after_drop": dropped,
                "launches": launches, "profile": profile,
                "stack_cache": stack_stats,
-               "max_memory_allocated": peak}
+               "max_memory_allocated": peak,
+               "tier2_after_ingest": tier2_ingest, "true_cold": cold,
+               "tier2_served": tier2,
+               "pipeline_turns": pipe_turns, "host_cores": os.cpu_count()}
         log("e2e: " + json.dumps(res))
         res["op"] = op_path(ba, ts - T0, host_id, vals, hosts, num_buckets,
                             counts, sums)
@@ -1668,6 +1733,7 @@ async def parts_phase(ba, mg, store, T0: int, per_host: int, hosts: int,
             tag = f"parts [{name} decode, turn {turn}]"
             reader.scan_cache.clear()
             reader.parts_memo.clear()
+            reader.encoded_cache.clear()
             # the main path's run: launch counts from 0, read right after
             ba.reset_launches()
             mg.reset_launches()
@@ -1735,6 +1801,7 @@ async def parts_phase(ba, mg, store, T0: int, per_host: int, hosts: int,
                 data.config.scan.combine.mode = mode
                 reader.scan_cache.clear()
                 reader.parts_memo.clear()
+                reader.encoded_cache.clear()
                 same_bytes(nar, (await query(narrow, BMS, ("avg",)))[0],
                            f"{tag}: narrowed vs {mode}")
             data.config.scan.combine.mode = "sparse"
@@ -1743,6 +1810,7 @@ async def parts_phase(ba, mg, store, T0: int, per_host: int, hosts: int,
             for _ in range(2):
                 reader.scan_cache.clear()
                 reader.parts_memo.clear()
+                reader.encoded_cache.clear()
                 hour.append(await query(full, 3_600_000, ALL_AGGS))
             check(hour[0][0], 3_600_000,
                   ("count", "min", "max", "last", "last_ts"), ("sum", "avg"))
@@ -1775,6 +1843,9 @@ async def parts_phase(ba, mg, store, T0: int, per_host: int, hosts: int,
                        f"aggregates, turn {turn + 1}")
         log("parts: device decode and host decode byte-equal (cold 1 min "
             "avg, cold 1 h all aggregates) in both turns")
+        reads = await parts_reads_legs(engines, store, turns, full, check,
+                                       T0, per_host, hosts, interval,
+                                       segment_ms, vals32, tsid_of_host)
         log(f"parts: peak device memory of the cold query by turn: device "
             f"leg {[t['numbers']['peak_device_memory'] for t in turns['device']]}"
             f" B, host leg "
@@ -1798,10 +1869,162 @@ async def parts_phase(ba, mg, store, T0: int, per_host: int, hosts: int,
                 "budget_bytes": data.reader.cache_budget_bytes,
                 "device": [t["numbers"] for t in turns["device"]],
                 "host": [t["numbers"] for t in turns["host"]],
-                "decode_alone": alone, "cold_profile": prof}
+                "decode_alone": alone, "cold_profile": prof,
+                "reads": reads}
     finally:
         for e in engines.values():
             await e.close()
+
+
+async def parts_reads_legs(engines, store, turns, full, check, T0: int,
+                           per_host: int, hosts: int, interval: int,
+                           segment_ms: int, vals32, tsid_of_host) -> dict:
+    """The cold-read legs of the parts path with device decode: a true
+    cold query (every tier empty) and the same query served from tier 2;
+    the pipeline on and off in turns; a filtered query (host_042); and
+    a streamed check leg.  Every grid is held against the device leg's
+    cold grids byte for byte, or against numpy."""
+    import numpy as np
+    import torch
+
+    from horaedb_tpu_torch.metric_engine import MetricEngine
+    from horaedb_tpu_torch.ops.encode import h2d_bytes
+    from horaedb_tpu_torch.storage import sidecar
+    from horaedb_tpu_torch.storage.config import StorageConfig, from_dict
+    from horaedb_tpu_torch.storage.read import ScanRequest
+    from horaedb_tpu_torch.storage.types import TimeRange
+    from horaedb_tpu_torch.utils import registry
+
+    e = engines["device"]
+    reader = e.tables["data"].reader
+    want = turns["device"][0]["cold"]
+
+    async def query(eng, filters=(), rng=full):
+        r = eng.tables["data"].reader
+        snap, h2d0 = registry.snapshot(), h2d_bytes()
+        got0, pipe0 = store.snap(), pipeline_snap(r)
+        t0 = time.perf_counter()
+        out = await eng.query_downsample("cpu", list(filters),
+                                         TimeRange.new(*rng), bucket_ms=BMS,
+                                         aggs=("avg",))
+        torch.cuda.synchronize()
+        now = registry.snapshot()
+        rec = {"ms": (time.perf_counter() - t0) * 1e3,
+               "h2d_bytes": h2d_bytes() - h2d0,
+               "segment_read_s": now.get("scan_stage_seconds:segment_read",
+                                         0.0)
+               - snap.get("scan_stage_seconds:segment_read", 0.0),
+               **store.since(got0), **pipeline_since(r, pipe0)}
+        return out, rec
+
+    res = {}
+    true_cold(reader)
+    got, res["true_cold"] = await query(e)
+    same_bytes(got, want, "parts: true cold vs the device leg's cold")
+    reader.scan_cache.clear()
+    reader.parts_memo.clear()
+    got, res["tier2_served"] = await query(e)
+    same_bytes(got, want, "parts: tier-2-served vs true cold")
+    if res["tier2_served"]["gets"] and \
+            not reader.encoded_cache.stats()["evictions"]:
+        raise AssertionError(f"parts: tier-2-served query made "
+                             f"{res['tier2_served']['gets']} store GETs")
+    for what in ("true_cold", "tier2_served"):
+        r = res[what]
+        log(f"parts [device decode] {what}: {r['ms']!r} ms, {r['gets']} "
+            f"store GETs of {r['get_bytes']} B, segment_read "
+            f"{r['segment_read_s']!r} s summed, {r['h2d_bytes']} B "
+            f"host-to-device")
+    log(f"parts: tier-2-served grids byte-equal to true cold; tier 2 "
+        f"{json.dumps(reader.encoded_cache.stats())}")
+
+    res["pipeline_turns"] = []
+    for enabled in (True, False, True, False):
+        reader.config.scan.pipeline.enabled = enabled
+        true_cold(reader)
+        got, rec = await query(e)
+        same_bytes(got, want, f"parts: pipeline {enabled} vs cold")
+        rec["enabled"] = enabled
+        res["pipeline_turns"].append(rec)
+    reader.config.scan.pipeline.enabled = True
+    log(f"parts [device decode]: pipeline on/off/on/off on true-cold "
+        f"queries ({os.cpu_count()} host cores): "
+        + "; ".join(f"{'on' if r['enabled'] else 'off'} {r['ms']!r} ms, "
+                    f"stalls {json.dumps(r['stalls'])}, high-water "
+                    f"{r['high_water_bytes']} B"
+                    for r in res["pipeline_turns"])
+        + "; grids byte-equal")
+
+    # one host: a label filter whose leaves reach the segment reads
+    true_cold(reader)
+    plan = await e.tables["data"].build_scan_plan(
+        ScanRequest(range=TimeRange.new(*full)))
+    n_ssts = sum(len(sg.ssts) for sg in plan.segments)
+    got, rec = await query(e, [("host", "host_042")])
+    nb = (full[1] - full[0]) // BMS
+    ref = host_major_reference(vals32, hosts, per_host, T0, interval, BMS,
+                               nb)
+    if got["tsids"] != [int(tsid_of_host[42])]:
+        raise AssertionError(f"parts filtered: tsids {got['tsids']}")
+    if not np.array_equal(np.asarray(got["aggs"]["count"])[0],
+                          ref["count"][42]):
+        raise AssertionError("parts filtered: count differs from numpy")
+    np.testing.assert_allclose(np.asarray(got["aggs"]["avg"])[0],
+                               ref["avg"][42], rtol=1e-5)
+    # a sidecar loads block-pruned only when at most half its rows may
+    # match (storage/sidecar.py, _PARTIAL_MAX_FRAC); past that it is read
+    # whole after a header probe, so the filter may add one probe a SST
+    probe = sidecar._HEAD_BYTES
+    if rec["get_bytes"] > res["true_cold"]["get_bytes"] + n_ssts * probe:
+        raise AssertionError(f"parts filtered: {rec['get_bytes']} B "
+                             f"fetched, unfiltered "
+                             f"{res['true_cold']['get_bytes']} B")
+    res["filtered"] = rec
+    log(f"parts [device decode] filtered host = 'host_042', true cold: "
+        f"{rec['ms']!r} ms, {rec['gets']} store GETs of {rec['get_bytes']} "
+        f"B (unfiltered: {res['true_cold']['gets']} GETs of "
+        f"{res['true_cold']['get_bytes']} B; {n_ssts} data SSTs of "
+        f"{per_host * hosts // n_ssts:,} rows on average, "
+        f"{sidecar.BLOCK_ROWS:,}-row sidecar blocks), {rec['h2d_bytes']} B "
+        f"host-to-device; grids match numpy")
+
+    # streamed check leg (not a cell): windows of 16,384 rows, segments
+    # over 32,768 rows read window by window
+    cut = {"max_window_rows": 16_384, "stream_read_min_rows": 32_768}
+    log(f"streamed: scale cuts max_window_rows {cut['max_window_rows']:,} "
+        f"(default {StorageConfig().scan.max_window_rows:,}) and "
+        f"stream_read_min_rows {cut['stream_read_min_rows']:,} (default "
+        f"{StorageConfig().scan.stream_read_min_rows:,})")
+    s_e = await MetricEngine.open("bench", store, segment_ms=segment_ms,
+                                  config=from_dict(StorageConfig,
+                                                   {"scan": cut}))
+    try:
+        s_r = s_e.tables["data"].reader
+        plan_segs = await s_e.tables["data"].build_scan_plan(
+            ScanRequest(range=TimeRange.new(*full)))
+        streamed = sum(1 for sg in plan_segs.segments
+                       if s_r._stream_segment(sg))
+        if streamed != len(plan_segs.segments):
+            raise AssertionError(f"streamed: {streamed} of "
+                                 f"{len(plan_segs.segments)} segments "
+                                 f"stream")
+        side0 = registry.snapshot().get(
+            "scan_stage_rows_total:sidecar_read", 0.0)
+        got, rec = await query(s_e)
+        side = registry.snapshot().get(
+            "scan_stage_rows_total:sidecar_read", 0.0) - side0
+        same_bytes(got, want, "streamed vs the bulk read")
+        check(got, BMS, ("count",), ("avg",))
+        rec["segments"] = streamed
+        rec["sidecar_rows"] = side
+        res["streamed"] = rec
+        log(f"streamed: {streamed} segments read window by window from "
+            f"the sidecars ({int(side):,} rows): {rec['ms']!r} ms, "
+            f"{rec['gets']} store GETs of {rec['get_bytes']} B; grids "
+            f"byte-equal to the bulk read and match numpy")
+    finally:
+        await s_e.close()
+    return res
 
 
 async def compaction_phase(ba, mg) -> dict:
@@ -1963,6 +2186,68 @@ async def compaction_phase(ba, mg) -> dict:
                 "scrub": report.as_dict()}
     finally:
         await e.close()
+
+
+def counting_store():
+    """A MemoryObjectStore that counts its data-plane reads: GETs and
+    ranged GETs of sidecars (.enc) and SSTs (.sst), and their bytes."""
+    from horaedb_tpu_torch.objstore import MemoryObjectStore
+
+    class CountingStore(MemoryObjectStore):
+        def __init__(self):
+            super().__init__()
+            self.gets = 0
+            self.get_bytes = 0
+
+        def _count(self, path: str, data: bytes) -> bytes:
+            if path.endswith((".enc", ".sst")):
+                self.gets += 1
+                self.get_bytes += len(data)
+            return data
+
+        async def get(self, path):
+            return self._count(path, await super().get(path))
+
+        async def get_range(self, path, start, end):
+            data = await MemoryObjectStore.get(self, path)
+            if not (start == 0 and end >= len(data)):
+                data = data[start:end]
+            return self._count(path, data)
+
+        def snap(self) -> tuple:
+            return self.gets, self.get_bytes
+
+        def since(self, snap: tuple) -> dict:
+            return {"gets": self.gets - snap[0],
+                    "get_bytes": self.get_bytes - snap[1]}
+
+    return CountingStore()
+
+
+def pipeline_snap(reader) -> dict:
+    """The pipeline's stall counts now; zeroes the reader's high-water,
+    so the next query records its own."""
+    from horaedb_tpu_torch.storage import pipeline
+
+    reader._pipeline_high_water = 0
+    return pipeline.stall_counts()
+
+
+def pipeline_since(reader, snap: dict) -> dict:
+    from horaedb_tpu_torch.storage import pipeline
+
+    now = pipeline.stall_counts()
+    return {"stalls": {k: now[k] - snap[k] for k in now},
+            "high_water_bytes": reader._pipeline_high_water}
+
+
+def true_cold(reader) -> None:
+    """Every tier of one table's reader emptied: the window cache, the
+    device state, tier 2 and the parts memo."""
+    reader.drop_hbm_state()
+    reader.scan_cache.clear()
+    reader.encoded_cache.clear()
+    reader.parts_memo.clear()
 
 
 def scratch_dir(tag: str) -> str:
@@ -2163,7 +2448,6 @@ async def wal_phase(rows: int, ba, mg, fused_ingest_s: float) -> dict:
     from horaedb_tpu_torch.common.error import Error
     from horaedb_tpu_torch.metric_engine import MetricEngine
     from horaedb_tpu_torch.metric_engine.types import Label, tsid_of
-    from horaedb_tpu_torch.objstore import MemoryObjectStore
     from horaedb_tpu_torch.ops.encode import h2d_bytes
     from horaedb_tpu_torch.storage.config import StorageConfig, from_dict
     from horaedb_tpu_torch.storage.read import ScanRequest
@@ -2190,7 +2474,7 @@ async def wal_phase(rows: int, ba, mg, fused_ingest_s: float) -> dict:
         return t, h, rng.random(len(t)) * 100
 
     tmp = scratch_dir("b")
-    store = MemoryObjectStore()
+    store = counting_store()
     wal_cfg = WalConfig(enabled=True, dir=f"{tmp}/wal",
                         flush_interval=ReadableDuration.parse("1h"),
                         flush_age=ReadableDuration.parse("1h"))
@@ -2244,6 +2528,7 @@ async def wal_phase(rows: int, ba, mg, fused_ingest_s: float) -> dict:
             # and of each scan stage (summed over concurrent reads)
             snap, snap_h2d = registry.snapshot(), h2d_bytes()
             hits0, misses0 = reader._replay_hits, reader._replay_misses
+            got0 = store.snap()
             t0 = time.perf_counter()
             out = await e.query_downsample("cpu", [], rng_q,
                                            bucket_ms=bucket_ms,
@@ -2252,6 +2537,7 @@ async def wal_phase(rows: int, ba, mg, fused_ingest_s: float) -> dict:
             now = registry.snapshot()
             rec = {"ms": (time.perf_counter() - t0) * 1e3,
                    "h2d_bytes": h2d_bytes() - snap_h2d,
+                   **store.since(got0),
                    "replay": [reader._replay_hits - hits0,
                               reader._replay_misses - misses0],
                    "stages": {k.split(":", 1)[1]: now[k] - snap.get(k, 0.0)
@@ -2265,6 +2551,12 @@ async def wal_phase(rows: int, ba, mg, fused_ingest_s: float) -> dict:
             return out, rec
 
         live = [(ts, host_id, vals)]
+        tier2_ingest = reader.encoded_cache.stats()
+        log(f"wal (b): tier 2 after ingest and flush "
+            f"{json.dumps(tier2_ingest)}")
+        # true cold, as the fused cell's: the cold query reads the store
+        reader.scan_cache.clear()
+        reader.encoded_cache.clear()
 
         def rows_now():
             return tuple(np.concatenate([p[i] for p in live])
@@ -2330,13 +2622,21 @@ async def wal_phase(rows: int, ba, mg, fused_ingest_s: float) -> dict:
             raise AssertionError("wal (b): the aggregate left rows in the "
                                  "data memtable")
         check(after, "after the tail")
+        # write-through: the flush admitted the tail's SSTs into tier 2,
+        # and the cold query put every other part, so nothing is read
+        if after_rec["gets"]:
+            raise AssertionError(f"wal (b): the query after the tail made "
+                                 f"{after_rec['gets']} store GETs "
+                                 f"({after_rec['get_bytes']} B)")
         again, again_rec = await timed(True, "replay after the tail")
         if again_rec["h2d_bytes"]:
             raise AssertionError("wal (b): replay after the tail uploaded")
         same_bytes(again, after, "wal (b) replay after the tail")
         log(f"wal (b): the query after the tail flushed it (data memtable "
             f"rows 0), missed the replay: {after_rec['ms']!r} ms "
-            f"(stages {json.dumps(after_rec['stages'])}), "
+            f"(stages {json.dumps(after_rec['stages'])}; segment_read "
+            f"{after_rec['stages'].get('segment_read', 0.0)!r} s summed), "
+            f"{after_rec['gets']} store GETs (write-through), "
             f"{after_rec['h2d_bytes']} B up, grids match numpy over "
             f"{n + tail_ticks * hosts:,} rows; the next one a replay, "
             f"{again_rec['ms']!r} ms, 0 B up, byte-equal")
@@ -2404,6 +2704,7 @@ async def wal_phase(rows: int, ba, mg, fused_ingest_s: float) -> dict:
                     "memtable_rows_before_flush": mem,
                     "after_tail": after_rec, "replay_after_tail": again_rec,
                     "after_overwrite": over_rec, "recover_s": recover_s,
+                    "tier2_after_ingest": tier2_ingest,
                     "replayed_rows": replayed, "after_recovery": rec_rec,
                     "launches": launches_b}
 

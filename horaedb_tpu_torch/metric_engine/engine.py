@@ -396,11 +396,15 @@ class MetricEngine:
                                         or age > last_flush_age):
                     last_flush_age = age  # the most stale table
             tables[name]["cache"] = t.reader.cache_stats()
+        caches = [v["cache"] for v in tables.values()]
         out = {"rows": rows, "bytes": size, "ssts": sst_count,
                "tables": tables,
-               "cache": {"scan_cache_bytes": sum(
-                   v["cache"]["scan_cache"]["bytes"]
-                   for v in tables.values())}}
+               "cache": {
+                   "scan_cache_bytes": sum(
+                       c["scan_cache"]["bytes"] for c in caches),
+                   **{f"encoded_cache_{k}": sum(
+                       c["encoded_cache"][k] for c in caches)
+                      for k in ("bytes", "entries", "hits", "misses")}}}
         if wal_enabled:
             out["memtable_rows"] = mem_rows
             out["memtable_bytes"] = mem_bytes

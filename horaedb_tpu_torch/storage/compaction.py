@@ -201,6 +201,9 @@ class Executor:
         """Best-effort parallel SST object deletes (the manifest is
         already updated, so errors are logged, never raised —
         ref: executor.rs:224-253).  Sidecars ride along silently."""
+        # tier-2 entries of the deleted ids go first: those SSTs are never
+        # read again, and every surviving SST's part stays resident
+        self.storage.reader.encoded_cache.invalidate(file_ids)
         store, root = self.storage.store, self.storage.root_path
         results = await asyncio.gather(
             *(store.delete(sst_path(root, fid)) for fid in file_ids),
@@ -284,6 +287,10 @@ class Executor:
                     "compact", sidecar.merge_parts, sc_parts)
                 if merged is not None:
                     cols, n_enc = merged
+                    # write-through admission: the compactor holds the
+                    # output's encoded columns, so the first query after
+                    # the compaction rebuilds from host RAM
+                    storage.reader.encoded_cache.admit(file_id, cols, n_enc)
                     data = await storage.runtimes.run(
                         "compact", sidecar.serialize, cols, n_enc)
                     if data is not None:

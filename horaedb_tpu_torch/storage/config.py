@@ -124,6 +124,40 @@ class ScrubConfig:
 
 
 @dataclass
+class ScanCacheConfig:
+    """Tier-2 scan cache ([scan.cache]; storage/encoded_cache.py):
+    host-RAM per-SST encoded sidecar parts under the post-merge window
+    cache.  A window-cache miss rebuilds from host memory, and a flush
+    or compaction invalidates only the SSTs it removed."""
+
+    # host-RAM byte budget for per-SST encoded parts (0 disables tier 2:
+    # every window-cache miss reads the object store)
+    tier2_max_bytes: int = 256 << 20
+    # write-through admission: writes, WAL flushes and compactions
+    # insert the columns they just encoded, so a query right after a
+    # flush reads nothing from the store
+    write_through: bool = True
+
+
+@dataclass
+class ScanPipelineConfig:
+    """Cold-scan pipelining ([scan.pipeline]; storage/pipeline.py): a
+    fetch stage keeps up to `depth` segments' store reads in flight
+    (tier-2-resident parts skip the store), a decode stage merges one
+    segment at a time on the worker pool, and the aggregate rounds
+    consume finished windows in plan order.  `enabled = false` runs the
+    sequential pump; results are bit-identical either way."""
+
+    enabled: bool = True
+    # segments in flight across the pipeline (fetch started -> consumed)
+    depth: int = 32
+    # host-RAM budget for in-flight state (fetched parts or tables plus
+    # decoded, unconsumed windows); one oversized segment is always
+    # admitted
+    inflight_bytes: int = 256 << 20
+
+
+@dataclass
 class ScanCombineConfig:
     """Aggregate combine/finalize knobs of the parts path ([scan.combine];
     see storage/combine.py).  `mode = "sparse"` (default) folds partial
@@ -181,14 +215,28 @@ class ScanConfig:
     # windows (across segments) batched into one aggregate round — the
     # window axis of one kernel launch (fused and parts paths)
     agg_batch_windows: int = 16
+    # segments whose manifest row count exceeds this are read window by
+    # window: PK value-range windows planned from sidecar block stats
+    # (or a first parquet pass over one PK column), each window's rows
+    # read alone, so host memory is bounded by the window budget.  0
+    # disables streaming
+    stream_read_min_rows: int = 8 << 20
+    # byte twin of the row knob (manifest SST sizes): a segment under
+    # the row threshold still streams when its stored bytes exceed this
+    # and it spans more than one window; 0 disables the byte trigger
+    stream_read_min_bytes: int = 512 << 20
     # read device-layout sidecars ({id}.enc) on bulk segment reads when
     # present (see storage/sidecar.py); disable to force parquet decode
     use_sidecar: bool = True
-    # segment reads in flight ahead of the merge position
+    # segment reads in flight ahead of the merge position on the
+    # sequential pump (the pipeline's depth supersedes it when on)
     prefetch_segments: int = 4
     # width of the "sst" decode pool; 0 = threads.sst_thread_num
     decode_workers: int = 0
+    cache: ScanCacheConfig = field(default_factory=ScanCacheConfig)
     combine: ScanCombineConfig = field(default_factory=ScanCombineConfig)
+    pipeline: ScanPipelineConfig = field(
+        default_factory=ScanPipelineConfig)
     decode: ScanDecodeConfig = field(default_factory=ScanDecodeConfig)
 
 
@@ -225,7 +273,9 @@ _NESTED = {
     "manifest": ManifestConfig,
     "scheduler": SchedulerConfig,
     "scan": ScanConfig,
+    "cache": ScanCacheConfig,
     "combine": ScanCombineConfig,
+    "pipeline": ScanPipelineConfig,
     "decode": ScanDecodeConfig,
     "threads": ThreadsConfig,
     "scrub": ScrubConfig,

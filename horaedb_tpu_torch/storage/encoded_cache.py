@@ -1,0 +1,304 @@
+"""Tier-2 scan cache: host-RAM per-SST encoded sidecar parts.
+
+The window cache (storage/scan_cache.py) keys whole segments by their
+SST set, so EVERY write or compaction misses the whole segment and
+forces a full object-store re-read + re-merge — even when all but one
+tiny SST is unchanged (the post-flush cliff).  This cache sits under it
+with per-SST granularity:
+
+    tier 1            post-merge windows, key = (segment, SST set, ...)
+    tier 2 (host RAM) per-SST EncodedSegment parts, key = immutable SST id
+    tier 3 (store)    {id}.enc sidecars / {id}.sst parquet
+
+A tier-1 miss rebuilds windows from tier-2 parts without touching the
+object store, and only the SSTs a flush/compaction actually removed
+leave tier 2 (`invalidate`) — everything else stays resident.  The WAL
+flusher and the compactor hold the freshly-encoded columns in hand at
+write time and insert them here (`admit`, write-through), so a query
+landing right after a flush reads nothing from the store at all.
+
+Correctness is structural, exactly like tier 1: SST ids are immutable
+and never reused, so an entry can never be stale.  Entries hold the
+columns of ONE complete SST — block-pruned partial loads are never
+admitted (they are row subsets tied to one predicate).
+
+The cache also owns the negative path: SST ids known to lack a usable
+sidecar (pre-feature files, failed best-effort writes) are memoized
+per id so cold scans skip doomed GETs.  Negative entries are strictly
+per-SST — a cross-SST assembly failure must NOT poison its siblings
+(see read._read_segment_encoded).
+
+Ownership: event-loop owned, like tier 1 — gets/puts happen on the
+reader's loop; the CPU-heavy deserialize runs on worker pools before
+insertion.  No lock.
+
+Not ported from the JAX package: the memory-ledger account of the
+tier's bytes (the port has no memory ledger yet).
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Optional
+
+from horaedb_tpu_torch.utils import registry, trace_add
+
+# tier-2 children of the scan-cache counter families (the window
+# cache's are the unlabelled names in storage/scan_cache.py); the port's
+# registry has no labels, so the tier rides the name after a colon
+_HITS = registry.counter("scan_cache_hits_total:tier2",
+                         "tier-2 scan cache hits")
+_MISSES = registry.counter("scan_cache_misses_total:tier2",
+                           "tier-2 scan cache misses")
+_EVICTIONS = registry.counter("scan_cache_evictions_total:tier2",
+                              "tier-2 scan cache evictions")
+_ADMISSIONS = registry.counter(
+    "scan_cache_admissions_total:tier2",
+    "write-through insertions from write, flush and compaction sidecar "
+    "builds")
+_INVALIDATED = registry.counter(
+    "scan_cache_invalidated_total:tier2",
+    "tier-2 entries dropped because their SST was deleted")
+_BYTES = registry.gauge("scan_cache_bytes:tier2",
+                        "resident tier-2 cache bytes (host RAM)")
+
+# negative-entry bound: clear-all on overflow (re-learning a miss costs
+# one GET; unbounded growth costs RAM forever)
+_MISSING_MAX = 65536
+
+
+def _base_size(arr) -> Optional[tuple[int, int]]:
+    """(id, byte size) of the buffer an array view PINS, or None for an
+    owning array.  np.frombuffer views keep the whole downloaded blob
+    alive, so the LRU must charge the blob — charging only the view's
+    nbytes would let resident RAM exceed the configured budget by the
+    blob-to-wanted-columns ratio."""
+    base = getattr(arr, "base", None)
+    while isinstance(base, type(arr)) and base.base is not None:
+        base = base.base  # view-of-view: walk to the owning object
+    if base is None:
+        return None
+    try:
+        return id(base), memoryview(base).nbytes
+    except TypeError:
+        return id(base), int(getattr(base, "nbytes", arr.nbytes))
+
+
+def _part_nbytes(cols: dict) -> int:
+    """Host bytes one {name: (arr, enc)} part keeps RESIDENT: each
+    distinct pinned base buffer counted once at its full size, owning
+    arrays at their own size, plus dictionary payloads (object
+    dictionaries count their string/bytes content, not just the
+    pointer array)."""
+    total = 0
+    bases: dict[int, int] = {}
+    for arr, enc in cols.values():
+        pinned = _base_size(arr)
+        if pinned is not None:
+            bases[pinned[0]] = pinned[1]
+        else:
+            total += int(arr.nbytes)
+        d = getattr(enc, "dictionary", None)
+        if d is not None:
+            if d.dtype == object:
+                total += int(d.nbytes) + sum(len(v) for v in d)
+            else:
+                pinned = _base_size(d)
+                if pinned is not None:
+                    bases[pinned[0]] = pinned[1]
+                else:
+                    total += int(d.nbytes)
+    return total + sum(bases.values())
+
+
+class EncodedSegmentCache:
+    """Byte-LRU of per-SST encoded parts + the per-SST negative memo.
+
+    An entry maps one immutable SST id to {column name: (unpadded np
+    array, ColumnEncoding)} plus the SST's row count.  `get` hits only
+    when every wanted column is resident; inserts for an id MERGE
+    column sets, so a projection-narrow read widens the entry instead
+    of replacing it."""
+
+    def __init__(self, max_bytes: int, write_through: bool = True):
+        self.max_bytes = max_bytes
+        self.write_through = write_through
+        # sst_id -> (cols dict, n_rows, charged bytes)
+        self._entries: "OrderedDict[int, tuple[dict, int, int]]" = \
+            OrderedDict()
+        self._total_bytes = 0
+        self._missing: set[int] = set()
+        self._failed_assemblies: set[frozenset] = set()
+        self.hits = 0
+        self.misses = 0
+        self.admissions = 0
+        self.evictions = 0
+        self.invalidated = 0
+
+    @property
+    def enabled(self) -> bool:
+        return self.max_bytes > 0
+
+    @property
+    def total_bytes(self) -> int:
+        return self._total_bytes
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    # ---- read path --------------------------------------------------------
+
+    def get(self, sst_id: int, want) -> Optional[tuple[dict, int]]:
+        """({name: (arr, enc)} restricted to `want`, n_rows) when every
+        wanted column is resident, else None.  Counts a miss even when
+        disabled so operators see the tier working (or not) on
+        /metrics."""
+        entry = self._entries.get(sst_id)
+        if entry is None or not set(want) <= entry[0].keys():
+            self.misses += 1
+            _MISSES.inc()
+            trace_add("cache_tier2_misses")
+            return None
+        self._entries.move_to_end(sst_id)
+        self.hits += 1
+        _HITS.inc()
+        cols, n, nbytes = entry
+        trace_add("cache_tier2_hits")
+        trace_add("cache_tier2_bytes", nbytes)
+        return {nm: cols[nm] for nm in want}, n
+
+    def peek(self, sst_id: int, want) -> bool:
+        """Stats-free residency probe: True iff get() would hit.  No
+        LRU bump, no hit/miss counters, no trace attribution — the
+        scan pipeline's is-it-worth-it probe runs this over every
+        to-read segment and must not distort cache telemetry (the real
+        read that follows does the counting)."""
+        entry = self._entries.get(sst_id)
+        return entry is not None and set(want) <= entry[0].keys()
+
+    def put(self, sst_id: int, cols: dict, n_rows: int) -> None:
+        """Read-path insert of a COMPLETE part (all rows of the SST for
+        these columns).  ZERO-COPY: the arrays are deserialize's views
+        into the downloaded blob, which they keep alive.  The charged
+        bytes are the wanted columns' + dictionaries' — a slight
+        undercount (the blob's header and block-stats sections ride
+        along unpinned-by-name), bounded small because sidecars only
+        store the columns scans read and `want` includes essentially
+        all of them.  A copy here would add one full-segment memcpy to
+        every cold query."""
+        if not self.enabled:
+            return
+        self._insert(sst_id, dict(cols), n_rows)
+
+    # ---- write path -------------------------------------------------------
+
+    def admit(self, sst_id: int, cols: dict, n_rows: int) -> bool:
+        """Write-through insert from the flush/compaction sidecar build
+        — the ONE admission door for writers (put and get belong to
+        the reader).  The arrays are freshly encoded (not blob views),
+        so no copy is taken.  Returns whether the entry was admitted."""
+        if not self.enabled or not self.write_through:
+            return False
+        self._insert(sst_id, dict(cols), n_rows)
+        if sst_id in self._entries:
+            self.admissions += 1
+            _ADMISSIONS.inc()
+            return True
+        return False
+
+    def _insert(self, sst_id: int, cols: dict, n_rows: int) -> None:
+        old = self._entries.pop(sst_id, None)
+        if old is not None:
+            self._account(-old[2])
+            merged = dict(old[0])
+            merged.update(cols)  # widen: keep columns the new part lacks
+            cols = merged
+        nbytes = _part_nbytes(cols)
+        if nbytes > self.max_bytes:
+            return
+        self._entries[sst_id] = (cols, n_rows, nbytes)
+        self._account(nbytes)
+        self._missing.discard(sst_id)
+        while self._total_bytes > self.max_bytes and self._entries:
+            _, (_, _, evicted) = self._entries.popitem(last=False)
+            self._account(-evicted)
+            self.evictions += 1
+            _EVICTIONS.inc()
+
+    # ---- lifecycle --------------------------------------------------------
+
+    def invalidate(self, sst_ids) -> int:
+        """Drop entries whose SSTs a compaction/GC just deleted.  Purely
+        memory hygiene — ids are immutable so stale entries are
+        impossible — but deleted SSTs will never be read again and must
+        not squat in the budget.  Their negative memos drop too (the
+        ids are gone for good; keeping tombstones wastes the bound)."""
+        n = 0
+        for sid in sst_ids:
+            entry = self._entries.pop(sid, None)
+            if entry is not None:
+                self._account(-entry[2])
+                n += 1
+            self._missing.discard(sid)
+        if n:
+            self.invalidated += n
+            _INVALIDATED.inc(n)
+        return n
+
+    def clear(self) -> None:
+        """Benchmark/test hook (true-cold legs); production invalidation
+        is per-SST via invalidate().  Composition-failure memos drop
+        too (derived state); per-SST `missing` memos survive — they
+        record broken OBJECTS, not cache state."""
+        self._account(-self._total_bytes)
+        self._entries.clear()
+        self._failed_assemblies.clear()
+
+    def _account(self, delta: int) -> None:
+        self._total_bytes += delta
+        _BYTES.inc(delta)  # delta-based: the gauge aggregates instances
+
+    # ---- negative path ----------------------------------------------------
+
+    def mark_missing(self, sst_id: int) -> None:
+        """Memoize one SST id as permanently sidecar-less.  STRICTLY per
+        id: callers must only mark ids whose OWN sidecar failed (absent
+        or unparseable) — never siblings of a cross-SST failure."""
+        if len(self._missing) > _MISSING_MAX:
+            self._missing.clear()
+        self._missing.add(sst_id)
+
+    def is_missing(self, sst_id: int) -> bool:
+        return sst_id in self._missing
+
+    def mark_assembly_failed(self, sst_ids) -> None:
+        """Memoize one COMPOSITION (frozenset of SST ids) whose
+        cross-SST assembly failed — e.g. a union dictionary at the pad
+        sentinel.  Objects are immutable so the failure is permanent
+        for this exact set, and later cold scans skip its sidecar GETs
+        — but the member ids stay individually valid: any OTHER
+        composition (post-compaction, other segments) tries afresh;
+        a per-member memo would disable every valid sibling forever."""
+        if len(self._failed_assemblies) > _MISSING_MAX:
+            self._failed_assemblies.clear()
+        self._failed_assemblies.add(frozenset(sst_ids))
+
+    def is_assembly_failed(self, sst_ids) -> bool:
+        return frozenset(sst_ids) in self._failed_assemblies
+
+    # ---- observability ----------------------------------------------------
+
+    def stats(self) -> dict:
+        return {
+            "entries": len(self._entries),
+            "bytes": self._total_bytes,
+            "max_bytes": self.max_bytes,
+            "write_through": self.write_through,
+            "hits": self.hits,
+            "misses": self.misses,
+            "admissions": self.admissions,
+            "evictions": self.evictions,
+            "invalidated": self.invalidated,
+            "negative_entries": len(self._missing),
+            "failed_assemblies": len(self._failed_assemblies),
+        }

@@ -2,7 +2,13 @@
 
 Per time segment (ref: src/storage/src/read.rs:429-494):
 
-  SegmentRead (host, async)  — sidecar columns first, parquet on a miss
+  SegmentRead (host, async)  — tier-2 encoded parts first
+                               (storage/encoded_cache.py), then the
+                               missing SSTs' sidecars (block-pruned under
+                               a selective label filter), parquet when a
+                               sidecar is missing or invalid (stats-pruned
+                               row groups); a segment over the stream
+                               threshold is read window by window
   Merge (host, numpy)        — k-way-merge permutation over the
                                pre-sorted SST runs + keep-last dedup,
                                cut into PK-range windows
@@ -44,13 +50,24 @@ the round stacks; the segment comes back as one finished part.  Mode
 "auto" engages on a CUDA reader for the plans the fused gate declines;
 "host" keeps host decode everywhere, the bit-identity control.
 
+Cold reads run through the bounded pipeline (storage/pipeline.py):
+store fetches, the per-segment decode and the device rounds overlap,
+with at most `[scan.pipeline] depth` segments and `inflight_bytes` of
+host memory in flight; a scan with no store I/O (every segment
+tier-2 resident) and `enabled = false` take the sequential pump, with
+bit-identical results.
+
 Row scans decode the merged windows back to Arrow on the host.  Post-
 merge host windows are cached per segment (storage/scan_cache.py), so a
-repeat query skips the read and the merge.
+repeat query skips the read and the merge; per-SST encoded parts are
+cached under them (tier 2), admitted at write time.
 
 Only OVERWRITE (last-value) tables are served.  Not ported: the JAX
-package's Append merge, mesh rounds (and their decode rounds), near-data
-router, pipelined pump and tier-2 encoded cache; nor its device scalar
+package's Append merge (and its streamed branch), mesh rounds (and their
+decode rounds and stall counters), near-data router, deadline
+checkpoints, memory-ledger accounts, the streamed segment's mid-segment
+re-resolution after a compaction race (the outer replan recovers an
+OVERWRITE scan, which buffers each segment), and its device scalar
 cache (_scalar_cache), since the port passes the bucket count and width
 to the kernel as host ints, so a replay has no scalar to upload.
 """
@@ -58,6 +75,7 @@ to the kernel as host ints, so a replay has no scalar to upload.
 from __future__ import annotations
 
 import asyncio
+import functools
 import logging
 import os
 import threading
@@ -71,7 +89,7 @@ from typing import AsyncIterator, Optional
 import numpy as np
 import pyarrow as pa
 
-from horaedb_tpu_torch.common.error import ensure
+from horaedb_tpu_torch.common.error import Error, ensure
 from horaedb_tpu_torch.objstore import NotFoundError, ObjectStore
 from horaedb_tpu_torch.ops import bucket_agg, device_decode, encode
 from horaedb_tpu_torch.ops import filter as filter_ops
@@ -79,6 +97,7 @@ from horaedb_tpu_torch.ops.downsample import ALL_AGGS, canonical_which
 from horaedb_tpu_torch.storage import combine as combine_mod
 from horaedb_tpu_torch.storage import parquet_io, sidecar
 from horaedb_tpu_torch.storage.config import StorageConfig, UpdateMode
+from horaedb_tpu_torch.storage.encoded_cache import EncodedSegmentCache
 from horaedb_tpu_torch.storage.scan_cache import (
     MEMO_SLOTS,
     ScanCache,
@@ -103,6 +122,22 @@ _STAGE_SECONDS = {
     for s in ("segment_read", "merge", "stack_build", "device_aggregate",
               "combine")
 }
+# rows and bytes of the segment reads by source: sidecar (tier 2 or the
+# store) or parquet; the read's seconds go to segment_read
+_STAGE_ROWS = {
+    s: registry.counter(f"scan_stage_rows_total:{s}",
+                        f"rows entering the {s} plan stage")
+    for s in ("sidecar_read", "parquet_read")
+}
+_STAGE_BYTES = {
+    s: registry.counter(f"scan_stage_bytes_total:{s}",
+                        f"bytes entering the {s} plan stage")
+    for s in ("sidecar_read", "parquet_read")
+}
+_INCR_REMERGE = registry.counter(
+    "scan_incremental_remerge_total",
+    "segments re-merged from tier-2-resident parts with only the "
+    "missing SSTs fetched (the post-flush path)")
 # the parts path's rounds (one bucket_window_partials launch each) and
 # its one device-to-host copy per round: the round's partial grids
 _PARTS_ROUNDS = registry.counter(
@@ -225,6 +260,10 @@ class ScanPlan:
     # set by aggregate_segments when the plan takes the device decode:
     # sidecar segments then come back as finished DeviceParts
     decode_spec: Optional["AggregateSpec"] = None
+    # set by _cached_windows: whether this scan runs through the
+    # pipeline, which the parts pump reads to run its rounds as a
+    # background device stage
+    pipeline_active: bool = False
 
 
 class ParquetReader:
@@ -257,10 +296,16 @@ class ParquetReader:
         self.scan_cache = ScanCache(cache_bytes)
         self.parts_memo = combine_mod.PartsMemo(
             config.scan.combine.memo_max_bytes)
-        # SST ids whose sidecar is known missing or invalid (ids are
-        # immutable, and a sidecar is written before its SST becomes
-        # visible, so a miss is permanent)
-        self._sidecar_missing: set = set()
+        # tier 2: host-RAM per-SST encoded parts under the window cache
+        # — a window-cache miss rebuilds from host memory, and a changed
+        # SST set re-merges with only the missing SSTs fetched.  Also
+        # owns the per-SST sidecar-missing negative memo
+        self.encoded_cache = EncodedSegmentCache(
+            config.scan.cache.tier2_max_bytes,
+            write_through=config.scan.cache.write_through)
+        # high-water of pipeline in-flight host bytes observed by this
+        # reader's scans (pipeline.PipelineBudget)
+        self._pipeline_high_water = 0
         # round stacks on the device: key -> (window weakrefs, arrays,
         # bytes), LRU by bytes under the scan cache's budget (host
         # windows live in host RAM, so the stacks are the device's
@@ -285,10 +330,12 @@ class ParquetReader:
         return torch.device(self.device).type == "cuda"
 
     def close(self) -> None:
+        """Release every reader-owned cache tier: a closed table holds
+        no cached bytes (scan_cache_bytes:tier2 reads 0 afterwards)."""
         self.drop_hbm_state()
         self.scan_cache.clear()
+        self.encoded_cache.clear()
         self.parts_memo.clear()
-        self._sidecar_missing.clear()
 
     def drop_hbm_state(self) -> None:
         """Evict everything device-resident that derives from cached
@@ -309,8 +356,8 @@ class ParquetReader:
                     w.memo_bytes = 0
 
     def cache_stats(self) -> dict:
-        """The scan cache's and the stack cache's residency and
-        effectiveness, one dict per tier."""
+        """Every reader-owned cache tier's residency and effectiveness,
+        one dict per tier, and the pipeline's settings and high-water."""
         return {
             "scan_cache": {
                 "entries": len(self.scan_cache),
@@ -318,6 +365,13 @@ class ParquetReader:
                 "max_bytes": self.scan_cache.max_bytes,
                 "hits": self.scan_cache.hits,
                 "misses": self.scan_cache.misses,
+            },
+            "encoded_cache": self.encoded_cache.stats(),
+            "pipeline": {
+                "enabled": self.pipeline_on(),
+                "depth": self.config.scan.pipeline.depth,
+                "inflight_bytes": self.config.scan.pipeline.inflight_bytes,
+                "high_water_bytes": self._pipeline_high_water,
             },
             "stack_cache": {
                 "entries": len(self._stack_cache),
@@ -426,44 +480,178 @@ class ParquetReader:
     async def _cached_windows(self, plan: ScanPlan):
         """Per segment, in plan order, yield (seg, post-merge windows) —
         from the scan cache when the segment's (SST set, columns,
-        pushdown) is unchanged, else by reading and merging (with up to
-        `prefetch_segments` segments in flight) and populating the
-        cache.  A plan with use_cache False neither reads nor fills the
-        cache."""
-        sem = asyncio.Semaphore(max(1, self.config.scan.prefetch_segments))
-        tasks: dict[int, asyncio.Task] = {}
+        pushdown) is unchanged, else by reading and merging it and
+        populating the cache.  The reads run through the pipeline
+        (storage/pipeline.py) when it is on and the scan has store I/O
+        to hide, else through the sequential pump; both give the same
+        windows.  A plan with use_cache False neither reads nor fills
+        the cache."""
         cached: dict[int, list] = {}
-        for seg in plan.segments if plan.use_cache else ():
-            windows = self.scan_cache.get(self._cache_key(seg, plan))
-            if windows is not None:
+        to_read: list[SegmentPlan] = []
+        for seg in plan.segments:
+            windows = (self.scan_cache.get(self._cache_key(seg, plan))
+                       if plan.use_cache else None)
+            if windows is None:
+                to_read.append(seg)
+            else:
                 cached[id(seg)] = windows
-
-        async def load(seg: SegmentPlan) -> list:
-            async with sem:
-                t0 = time.perf_counter()
-                table = await self._read_segment_any(seg, plan)
-                _STAGE_SECONDS["segment_read"].observe(
-                    time.perf_counter() - t0)
-                return await self._run_pool(self._merge_segment, table,
-                                            plan, pool=plan.pool)
-
+        plan.pipeline_active = (self.pipeline_on()
+                                and self._pipeline_has_io(plan, to_read))
+        if plan.pipeline_active:
+            inner = self._cached_windows_pipelined(plan, cached, to_read)
+        else:
+            inner = self._cached_windows_pump(plan, cached, to_read)
         try:
-            for seg in plan.segments:
-                if id(seg) not in cached:
-                    tasks[id(seg)] = asyncio.ensure_future(load(seg))
+            async for out in inner:
+                yield out
+        finally:
+            await inner.aclose()
+
+    async def _cached_windows_pump(self, plan: ScanPlan, cached: dict,
+                                   to_read: list):
+        """The sequential pump: segment reads prefetched up to
+        `prefetch_segments` ahead (_segment_feed), each segment merged
+        in plan order on the pool, one at a time."""
+        feed = self._segment_feed(plan, to_read)
+        try:
             for seg in plan.segments:
                 if id(seg) in cached:
                     yield seg, cached[id(seg)]
                     continue
-                windows = await tasks.pop(id(seg))
+                read_seg, is_streamed, table, _read_s = \
+                    await feed.__anext__()
+                ensure(read_seg is seg, "segment feed out of plan order")
+                if is_streamed:
+                    windows, _read_s = await self._read_streamed_windows(
+                        seg, plan)
+                elif table.num_rows:
+                    windows = await self._run_pool(
+                        self._merge_segment, table, plan, pool=plan.pool)
+                else:
+                    windows = []
+                del table
                 if plan.use_cache and _cacheable_windows(windows):
                     self.scan_cache.put(self._cache_key(seg, plan), windows)
                 yield seg, windows
         finally:
-            # deterministic teardown: no read may outlive the scan
-            for t in tasks.values():
-                t.cancel()
-            await asyncio.gather(*tasks.values(), return_exceptions=True)
+            await feed.aclose()
+
+    def pipeline_on(self) -> bool:
+        """Whether cold scans run through the bounded producer/consumer
+        pipeline (storage/pipeline.py); [scan.pipeline] enabled = false
+        keeps the sequential pump."""
+        return self.config.scan.pipeline.enabled
+
+    def _pipeline_has_io(self, plan: ScanPlan, to_read: list) -> bool:
+        """Whether pipelining this scan can pay for itself: the pipeline
+        hides object-store latency behind decode and device work, so a
+        scan whose every bulk segment is already tier-2 resident (zero
+        store I/O — the post-flush / warm-tier regime) runs the
+        sequential pump instead, where the stages' concurrency would
+        only contend for the same host cores.  Streamed segments read
+        the store incrementally and any non-resident bulk segment
+        fetches it, so either makes the pipeline worthwhile.  The probe
+        is the cache's stats-free peek: it bumps no LRU recency and no
+        hit/miss counter (the reads that follow do)."""
+        if not self._sidecar_plan_ok(plan):
+            return bool(to_read)  # every read is a store read
+        leaf_cols = {lf.column for lf in plan.prune_leaves or []}
+
+        def resident(seg: SegmentPlan) -> bool:
+            if self.encoded_cache.is_assembly_failed(
+                    frozenset(f.id for f in seg.ssts)):
+                return False
+            want = set(seg.columns) | leaf_cols
+            return all(self.encoded_cache.peek(f.id, want)
+                       for f in seg.ssts)
+
+        return any(self._stream_segment(seg) or not resident(seg)
+                   for seg in to_read)
+
+    async def _cached_windows_pipelined(self, plan: ScanPlan,
+                                        cached: dict, to_read: list):
+        """Pipelined twin of the pump: fetch and decode run as
+        background stages (storage/pipeline.py) while this consumer —
+        the device stage's doorstep — yields segments in plan order.
+        Same windows, same cache puts, same error positions; only the
+        schedule differs."""
+        from horaedb_tpu_torch.storage.pipeline import ScanPipeline
+
+        pipe = ScanPipeline(self, plan, to_read)
+        try:
+            for seg in plan.segments:
+                if id(seg) in cached:
+                    yield seg, cached[id(seg)]
+                    continue
+                got, windows, _read_s = await pipe.next_segment()
+                ensure(got is seg, "scan pipeline out of plan order")
+                if plan.use_cache and _cacheable_windows(windows):
+                    self.scan_cache.put(self._cache_key(seg, plan), windows)
+                yield seg, windows
+        finally:
+            # deterministic teardown: cancels the stage tasks and AWAITS
+            # them, draining any in-flight pool job before the caller
+            # proceeds to table/engine teardown
+            await pipe.aclose()
+
+    async def _segment_feed(self, plan: ScanPlan,
+                            segments: list[SegmentPlan]):
+        """The streamed/bulk split: yields (seg, is_streamed,
+        table_or_None, read_s) in segment order.  The bulk prefetch is
+        primed at once so store reads overlap any streamed segment
+        processed before them."""
+        streamed = {id(s) for s in segments if self._stream_segment(s)}
+        bulk = [s for s in segments if id(s) not in streamed]
+        read_iter = self._prefetch_tables(bulk, plan).__aiter__()
+        primed: Optional[asyncio.Task] = (
+            asyncio.ensure_future(read_iter.__anext__()) if bulk else None)
+        try:
+            for seg in segments:
+                if id(seg) in streamed:
+                    yield seg, True, None, 0.0
+                    continue
+                if primed is not None:
+                    step, primed = primed, None
+                    read_seg, table, read_s = await step
+                else:
+                    read_seg, table, read_s = await read_iter.__anext__()
+                ensure(read_seg is seg, "segment prefetch out of order")
+                yield seg, False, table, read_s
+        finally:
+            if primed is not None:
+                primed.cancel()
+                await asyncio.gather(primed, return_exceptions=True)
+            # deterministic teardown of the prefetch generator: its read
+            # tasks must be cancelled NOW, not at GC-time finalization
+            await read_iter.aclose()
+
+    async def _prefetch_tables(self, segments: list[SegmentPlan],
+                               plan: ScanPlan):
+        """Bounded segment prefetch: store reads overlap downstream work
+        while at most scan.prefetch_segments tables are in memory (the
+        permit is released only after the consumer is done with a
+        segment).  Yields (segment, table, read_seconds)."""
+        sem = asyncio.Semaphore(max(1, self.config.scan.prefetch_segments))
+
+        async def read(seg: SegmentPlan):
+            await sem.acquire()
+            return await self._read_segment_any(seg, plan)
+
+        tasks = [asyncio.create_task(read(seg)) for seg in segments]
+        try:
+            for seg, task in zip(segments, tasks):
+                table, read_s = await task
+                try:
+                    yield seg, table, read_s
+                finally:
+                    sem.release()
+        finally:
+            for task in tasks:
+                task.cancel()
+            # drain, don't just cancel: a read whose pool job is
+            # mid-flight only finishes after the job does, and failed
+            # reads' exceptions are retrieved here
+            await asyncio.gather(*tasks, return_exceptions=True)
 
     async def _run_pool(self, fn, *args, pool: str = "sst"):
         """CPU work (parquet codec, host merge, numpy prep, device
@@ -472,15 +660,30 @@ class ParquetReader:
         storage.rs:91-104)."""
         return await parquet_io._run(self.runtimes, pool, fn, *args)
 
-    async def _read_segment_any(self, seg: SegmentPlan, plan: ScanPlan):
-        """One segment's read: sidecars first, parquet when any SST's
+    async def _read_segment_any(self, seg: SegmentPlan, plan: ScanPlan,
+                                runner=None):
+        """One bulk segment's cold read — tier 2 and the sidecars serve
+        it, with only the missing SSTs fetched; parquet when any SST's
         sidecar is missing or invalid (a data-format choice, not a
-        device fallback).  Returns an EncodedSegment or a pa.Table."""
+        device fallback) — with its stage attribution.  Returns (table,
+        read_seconds); `table` is a pa.Table or an EncodedSegment.
+        Shared by the pump's prefetch and the pipeline's fetch stage,
+        which bounds the CPU-side deserialize concurrency via
+        `runner`."""
+        t0 = time.perf_counter()
+        table = None
+        stage = "sidecar_read"
         if self._sidecar_plan_ok(plan):
-            es = await self._read_segment_encoded(seg, plan)
-            if es is not None:
-                return es
-        return await self._read_segment_table(seg, plan)
+            table = await self._read_segment_encoded(seg, plan,
+                                                     runner=runner)
+        if table is None:
+            stage = "parquet_read"
+            table = await self._read_segment_table(seg, plan)
+        read_s = time.perf_counter() - t0
+        _STAGE_SECONDS["segment_read"].observe(read_s)
+        _STAGE_ROWS[stage].inc(table.num_rows)
+        _STAGE_BYTES[stage].inc(table.nbytes)
+        return table, read_s
 
     def _sidecar_plan_ok(self, plan: ScanPlan) -> bool:
         """Sidecars serve a plan whose pushdown (when present) has a leaf
@@ -489,24 +692,104 @@ class ParquetReader:
             return False
         return plan.pushdown is None or plan.prune_leaves is not None
 
-    async def _read_segment_encoded(self, seg: SegmentPlan, plan: ScanPlan
-                                    ) -> Optional[sidecar.EncodedSegment]:
-        if any(f.id in self._sidecar_missing for f in seg.ssts):
+    def _resident_segment_parts(self, seg: SegmentPlan,
+                                plan: ScanPlan) -> Optional[list]:
+        """Event-loop-side tier-2 residency probe: every SST's encoded
+        part for this plan's column set, straight from the cache — or
+        None when any part is missing (or a negative memo says the
+        sidecar path is doomed), in which case the full fetch path
+        decides between store reads and parquet.  The pipeline's fetch
+        stage uses it so all-resident segments read nothing."""
+        if not self._sidecar_plan_ok(plan):
             return None
+        if any(self.encoded_cache.is_missing(f.id) for f in seg.ssts):
+            return None
+        if self.encoded_cache.is_assembly_failed(
+                frozenset(f.id for f in seg.ssts)):
+            return None
+        want = set(seg.columns) | {lf.column
+                                   for lf in plan.prune_leaves or []}
+        parts = []
+        for f in seg.ssts:
+            part = self.encoded_cache.get(f.id, want)
+            if part is None:
+                return None
+            parts.append(part)
+        return parts
+
+    def _assemble_resident_segment(self, seg: SegmentPlan, parts: list,
+                                   plan: ScanPlan
+                                   ) -> Optional[sidecar.EncodedSegment]:
+        """Pool-side assemble of tier-2-resident parts with the stage
+        attribution the fetch path gives an assembled segment.  None =
+        assembly failed (the CALLER memoizes the composition on the
+        event loop and falls back to parquet — the cache's negative
+        memos are loop-owned)."""
+        t0 = time.perf_counter()
+        defer = plan.decode_spec is not None
+        try:
+            es = sidecar.assemble_parts(
+                parts, list(seg.columns),
+                None if defer else plan.prune_leaves)
+        except Exception as exc:  # noqa: BLE001 — cache read only
+            logger.warning("sidecar assembly raised for segment %s: %s",
+                           seg.segment_start, exc)
+            es = None
+        if es is None:
+            return None
+        if defer:
+            es.pending_leaves = list(plan.prune_leaves or [])
+        _STAGE_SECONDS["segment_read"].observe(time.perf_counter() - t0)
+        _STAGE_ROWS["sidecar_read"].inc(es.n)
+        _STAGE_BYTES["sidecar_read"].inc(es.nbytes)
+        return es
+
+    async def _read_segment_encoded(self, seg: SegmentPlan, plan: ScanPlan,
+                                    runner=None
+                                    ) -> Optional[sidecar.EncodedSegment]:
+        """Segment read that never touches parquet: serve each SST's
+        encoded part from tier 2 when resident, fetch only the missing
+        SSTs' sidecars (block-pruned under selective leaves), and
+        assemble filtered, concatenated encoded columns.  After a flush
+        (one new small SST in an otherwise unchanged segment) only that
+        SST crosses the wire — and with write-through admission not even
+        that.  None (-> parquet) when any SST lacks a valid sidecar.
+        `runner` overrides the pool dispatch of the CPU-bound
+        deserialize/assemble steps."""
+        if any(self.encoded_cache.is_missing(f.id) for f in seg.ssts):
+            return None  # known-missing sidecar: skip the GETs entirely
+        seg_ids = frozenset(f.id for f in seg.ssts)
+        if self.encoded_cache.is_assembly_failed(seg_ids):
+            return None  # this exact composition is known unassemblable
         leaves = plan.prune_leaves
         want = set(seg.columns) | {lf.column for lf in leaves or []}
 
-        def runner(fn, *args):
-            return self._run_pool(fn, *args)
+        if runner is None:
+            def runner(fn, *args):  # CPU-bound deserialize off the loop
+                return self._run_pool(fn, *args, pool=plan.pool)
 
+        parts: list = [None] * len(seg.ssts)
+        fetch: list[tuple[int, SstFile]] = []
+        for i, f in enumerate(seg.ssts):
+            part = self.encoded_cache.get(f.id, want)
+            if part is None:
+                fetch.append((i, f))
+            else:
+                parts[i] = part
+        if fetch and len(fetch) < len(seg.ssts):
+            _INCR_REMERGE.inc()
+        # per-SST GETs overlap WITHIN the segment (one gather), and the
+        # prefetch or the pipeline overlaps segments on top
         got = await asyncio.gather(*(
             sidecar.load_sst_encoded(
                 self.store, sidecar.sidecar_path(self.root_path, f.id),
-                want, runner=runner)
-            for f in seg.ssts), return_exceptions=True)
-        for f, res in zip(seg.ssts, got):
-            if isinstance(res, NotFoundError) or res is None:
-                self._sidecar_missing.add(f.id)
+                want, leaves, runner=runner)
+            for _i, f in fetch), return_exceptions=True)
+        for (i, f), res in zip(fetch, got):
+            if isinstance(res, NotFoundError):
+                # permanent for this id (ids are immutable and the
+                # sidecar is written before the SST becomes visible)
+                self.encoded_cache.mark_missing(f.id)
                 return None
             if isinstance(res, BaseException):
                 # transient store failure: the sidecar is a cache — the
@@ -514,20 +797,37 @@ class ParquetReader:
                 logger.warning("sidecar fetch failed for sst %s: %s",
                                f.id, res)
                 return None
+            if res is None:
+                self.encoded_cache.mark_missing(f.id)
+                logger.warning("invalid sidecar for sst %s; using "
+                               "parquet", f.id)
+                return None
+            parts[i] = res
+            # only COMPLETE parts are cacheable: a block-pruned load
+            # returned a row subset tied to this plan's leaves
+            if res[1] == f.meta.num_rows:
+                self.encoded_cache.put(f.id, res[0], res[1])
         # a device-decode plan DEFERS the exact leaf mask: the card
         # evaluates the conjunction in encoded space, so the host never
         # pays the mask and the per-column compaction (a per-segment
         # fallback resolves the pending leaves on the host)
         defer = plan.decode_spec is not None
         try:
-            es = await runner(sidecar.assemble_parts, list(got),
+            es = await runner(sidecar.assemble_parts, parts,
                               list(seg.columns), None if defer else leaves)
         except Exception as exc:  # noqa: BLE001 — cache read only
             logger.warning("sidecar assembly raised for segment %s: %s",
                            seg.segment_start, exc)
-            return None
+            es = None
         if es is not None and defer:
             es.pending_leaves = list(leaves or [])
+        if es is None:
+            # cross-SST assembly failed: memoize the COMPOSITION, never
+            # the member SSTs (each part deserialized fine, and the same
+            # ids may assemble in another composition)
+            self.encoded_cache.mark_assembly_failed(seg_ids)
+            logger.warning("sidecar assembly failed for segment %s; "
+                           "using parquet", seg.segment_start)
         return es
 
     async def _read_segment_table(self, seg: SegmentPlan,
@@ -535,9 +835,209 @@ class ParquetReader:
         tables = await asyncio.gather(*(
             parquet_io.read_sst(self.store, sst_path(self.root_path, f.id),
                                 columns=seg.columns, filters=plan.pushdown,
-                                runtimes=self.runtimes)
+                                runtimes=self.runtimes, pool=plan.pool,
+                                leaves=plan.prune_leaves,
+                                # the manifest's size: big SSTs on remote
+                                # stores stream into a file-backed mmap
+                                size_hint=f.meta.size)
             for f in seg.ssts))
         return pa.concat_tables(tables)
+
+    # ---- streamed segments -------------------------------------------------
+
+    def _stream_segment(self, seg: SegmentPlan) -> bool:
+        """True when this segment is read window by window instead of
+        whole: manifest row count over the row threshold, OR stored
+        byte size over the byte threshold — a wide-schema segment can
+        be host-RAM-huge long before it reaches the row knob."""
+        row_thresh = self.config.scan.stream_read_min_rows
+        if row_thresh <= 0:
+            return False  # 0 disables streaming entirely
+        rows = sum(f.meta.num_rows for f in seg.ssts)
+        if rows <= self.config.scan.max_window_rows:
+            # everything fits one window: streaming would pay the
+            # planning pass and still materialize the same window
+            return False
+        if rows > row_thresh:
+            return True
+        byte_thresh = self.config.scan.stream_read_min_bytes
+        return byte_thresh > 0 and sum(
+            f.meta.size for f in seg.ssts) > byte_thresh
+
+    async def _read_streamed_windows(self, seg: SegmentPlan,
+                                     plan: ScanPlan):
+        """One streamed segment's windows: the sidecar stream first, the
+        parquet two-pass streamer when a sidecar can't serve it.
+        Returns (windows, read_seconds) — shared by the sequential pump
+        and the pipeline's decode stage, so the two cannot drift."""
+        t0 = time.perf_counter()
+        es_iter = await self._open_sidecar_stream(seg, plan)
+        if es_iter is not None:
+            windows: list = []
+            try:
+                while True:
+                    try:
+                        es = await es_iter.__anext__()
+                    except StopAsyncIteration:
+                        return windows, time.perf_counter() - t0
+                    except Exception as exc:  # noqa: BLE001 — the stream's
+                        # reads only (a merge or kernel failure below is
+                        # never caught): nothing of this segment has been
+                        # yielded yet, so a whole-segment parquet read
+                        # is clean
+                        logger.warning(
+                            "sidecar stream failed for segment %s (%s); "
+                            "falling back to parquet", seg.segment_start,
+                            exc)
+                        break
+                    windows.extend(await self._run_pool(
+                        self._merge_segment, es, plan, pool=plan.pool))
+            finally:
+                await es_iter.aclose()
+        windows = []
+        async for batch in self._stream_window_batches(seg, plan):
+            windows.extend(await self._run_pool(
+                self._merge_batch, batch, pool=plan.pool))
+        return windows, time.perf_counter() - t0
+
+    async def _open_sidecar_stream(self, seg: SegmentPlan, plan: ScanPlan):
+        """Streamed-segment windows straight from sidecars: PK
+        value-range windows planned from per-block stats, each window
+        loaded through the pruned loader with synthetic range leaves
+        (sidecar.SstStreamSession / plan_stream_windows) — no parquet
+        two-pass, no Arrow.  Returns an async generator of
+        EncodedSegments, or None when any SST lacks a plannable sidecar
+        (the parquet streamer serves the segment instead)."""
+        if not self._sidecar_plan_ok(plan):
+            return None
+        if any(self.encoded_cache.is_missing(f.id) for f in seg.ssts):
+            return None
+        leaves = plan.prune_leaves or []
+        want = set(seg.columns) | {lf.column for lf in leaves}
+
+        def runner(fn, *args):
+            return self._run_pool(fn, *args, pool=plan.pool)
+
+        got = await asyncio.gather(*(
+            sidecar.SstStreamSession.open(
+                self.store, sidecar.sidecar_path(self.root_path, f.id),
+                want, runner=runner)
+            for f in seg.ssts), return_exceptions=True)
+        sessions = []
+        for f, res in zip(seg.ssts, got):
+            if isinstance(res, NotFoundError) or res is None:
+                # permanent per immutable id — the bulk path's memo
+                self.encoded_cache.mark_missing(f.id)
+                return None
+            if isinstance(res, BaseException):
+                logger.warning("sidecar stream open failed for sst "
+                               "%s: %s", f.id, res)
+                return None
+            sessions.append(res)
+        planned = await sidecar.plan_stream_windows(
+            sessions, self._pk_names_in(list(seg.columns)),
+            self.config.scan.max_window_rows)
+        if planned is None:
+            return None
+        part_col, ranges = planned
+
+        async def gen():
+            rows = nbytes = 0
+            for lo, hi in ranges:
+                wleaves = list(leaves)
+                if lo is not None:
+                    wleaves.append(filter_ops.Ge(part_col, lo))
+                if hi is not None:
+                    wleaves.append(filter_ops.Lt(part_col, hi))
+                parts = await asyncio.gather(*(
+                    s.load_window(wleaves) for s in sessions))
+                if any(p is None for p in parts):
+                    raise Error("sidecar stream window failed")
+                # a device-decode plan defers the exact window mask to
+                # the dispatch — the synthetic range leaves keep windows
+                # exactly disjoint there, as the host mask does
+                defer = plan.decode_spec is not None
+                es = await self._run_pool(
+                    sidecar.assemble_parts, list(parts), list(seg.columns),
+                    None if defer else wleaves, pool=plan.pool)
+                if es is None:
+                    raise Error("sidecar stream assembly failed")
+                if defer:
+                    es.pending_leaves = list(wleaves)
+                if es.n:
+                    rows += es.n
+                    nbytes += es.nbytes
+                    yield es
+            # counters commit only on a COMPLETE stream: a mid-stream
+            # failure re-serves the segment via parquet, which would
+            # otherwise count the yielded windows twice
+            _STAGE_ROWS["sidecar_read"].inc(rows)
+            _STAGE_BYTES["sidecar_read"].inc(nbytes)
+
+        return gen()
+
+    async def _stream_window_batches(self, seg: SegmentPlan,
+                                     plan: ScanPlan):
+        """The parquet streamer (the reference's pull-based batch
+        streaming, read.rs:346-385, re-shaped for windows): pass 1 scans
+        ONE PK column's values to plan value-range windows of <=
+        max_window_rows; pass 2 reads each window's rows via parquet
+        predicate pushdown.  Host materialization is bounded by the
+        window budget, not the segment size.  Yields one Arrow batch
+        per window, PK-range ascending, each encoded WINDOW-LOCALLY
+        downstream.  A compaction that deletes an input mid-segment
+        raises NotFoundError, and the caller's replan re-reads the
+        segment (nothing of it was yielded downstream yet)."""
+        import pyarrow.compute as pc
+
+        # one source per SST: local stores mmap, remote stores download
+        # the object ONCE and serve both passes and every window from it
+        sources = await asyncio.gather(*(
+            parquet_io.open_sst_source(self.store,
+                                       sst_path(self.root_path, f.id))
+            for f in seg.ssts))
+
+        pk_names = self._pk_names_in(seg.columns)
+        values = counts = None
+        part_col = pk_names[-1]
+        for nm in pk_names:
+            per_sst = await asyncio.gather(*(
+                self._run_pool(src.value_counts, nm, pool=plan.pool)
+                for src in sources))
+            values, counts = parquet_io.merge_value_counts(per_sst)
+            if len(values) == 0:
+                return  # segment is empty
+            if len(values) > 1:
+                part_col = nm
+                break
+            # constant column: windowing on it cannot bound anything
+        window = self.config.scan.max_window_rows
+        ranges: list[tuple] = []
+        start = acc = 0
+        for i, c in enumerate(counts):
+            if acc and acc + int(c) > window:
+                ranges.append((values[start], values[i - 1]))
+                start, acc = i, 0
+            acc += int(c)
+        if acc:
+            ranges.append((values[start], values[-1]))
+
+        def pyval(x):
+            return x.item() if hasattr(x, "item") else x
+
+        for lo, hi in ranges:
+            expr = (pc.field(part_col) >= pyval(lo)) \
+                & (pc.field(part_col) <= pyval(hi))
+            if plan.pushdown is not None:
+                expr = expr & plan.pushdown
+            tables = await asyncio.gather(*(
+                self._run_pool(functools.partial(
+                    src.read, columns=seg.columns, filters=expr),
+                    pool=plan.pool)
+                for src in sources))
+            tbl = pa.concat_tables(tables)
+            if tbl.num_rows:
+                yield tbl.combine_chunks().to_batches()[0]
 
     def _pk_names_in(self, columns: list[str]) -> list[str]:
         """PK names present, in SCHEMA order — the merge must sort by the
@@ -565,14 +1065,22 @@ class ParquetReader:
             table = sidecar.apply_leaves_host(table)
         elif decode:
             device_decode.note_fallback("parquet")
-        t0 = time.perf_counter()
-        try:
-            if isinstance(table, sidecar.EncodedSegment):
-                return self._merge_windows(_encoded_to_device_batch(table),
-                                           list(table.names))
+        if not isinstance(table, sidecar.EncodedSegment):
             if table.num_rows == 0:
                 return []
-            batch = table.combine_chunks().to_batches()[0]
+            return self._merge_batch(table.combine_chunks().to_batches()[0])
+        t0 = time.perf_counter()
+        try:
+            return self._merge_windows(_encoded_to_device_batch(table),
+                                       list(table.names))
+        finally:
+            _STAGE_SECONDS["merge"].observe(time.perf_counter() - t0)
+
+    def _merge_batch(self, batch: pa.RecordBatch) -> list:
+        """Encode + host merge of one Arrow batch (a parquet segment, or
+        one window of the parquet streamer)."""
+        t0 = time.perf_counter()
+        try:
             return self._merge_windows(encode.encode_batch(batch),
                                        list(batch.schema.names))
         finally:
@@ -795,27 +1303,63 @@ class ParquetReader:
     async def _aggregate_segments_pump(self, plan: ScanPlan,
                                        spec: AggregateSpec, memo_store):
         """The local aggregate pipeline (read -> merge -> device rounds)
-        over `plan.segments`, flushing rounds sequentially.
+        over `plan.segments`.
 
         Windows from different segments batch into rounds of
         `scan.agg_batch_windows`, one kernel launch per round.  Segments
         partition time and windows partition PKs, so no two windows
         share a (group, bucket, timestamp) cell and the host combine has
-        no tie-break subtleties."""
+        no tie-break subtleties.
+
+        When the scan runs through the pipeline (plan.pipeline_active,
+        decided by _cached_windows once it has probed for store I/O),
+        ONE round runs as a background task — the device stage — while
+        this loop pulls and preps the next windows; rounds still apply
+        in dispatch order, so every segment's parts are the sequential
+        path's."""
+        from horaedb_tpu_torch.storage import pipeline as pipeline_mod
+
         batch_w = max(1, self.config.scan.agg_batch_windows)
         queue: list = []
         parts: dict[int, list] = {}
         pending: dict[int, int] = {}
         arrived: deque = deque()
+        flush_task: Optional[asyncio.Task] = None
 
-        async def flush(k: int) -> None:
-            chunk = queue[:k]
-            del queue[:k]
-            for seg_start, part in await self._run_pool(
-                    self._flush_host_round, chunk, spec, plan,
-                    pool=plan.pool):
+        def apply(flushed) -> None:
+            for seg_start, part in flushed:
                 parts[seg_start].append(part)
                 pending[seg_start] -= 1
+
+        async def settle_flush() -> None:
+            nonlocal flush_task
+            if flush_task is None:
+                return
+            t, flush_task = flush_task, None
+            apply(await t)
+
+        async def flush_round(chunk: list) -> list:
+            # the stage's seconds are observed around the round itself
+            # (pool-queue wait included), not dispatch-to-settle, which
+            # would absorb the consumer's waits on fetch and decode
+            t0 = time.perf_counter()
+            out = await self._run_pool(self._flush_host_round, chunk, spec,
+                                       plan, pool=plan.pool)
+            pipeline_mod.observe_stage(
+                "device", time.perf_counter() - t0,
+                rows=sum(w.n_valid for _s, w, _p in chunk))
+            return out
+
+        async def flush(k: int) -> None:
+            nonlocal flush_task
+            chunk = queue[:k]
+            del queue[:k]
+            if not plan.pipeline_active:
+                apply(await self._run_pool(self._flush_host_round, chunk,
+                                           spec, plan, pool=plan.pool))
+                return
+            await settle_flush()
+            flush_task = asyncio.create_task(flush_round(chunk))
 
         def finished():
             while arrived and pending[arrived[0]] == 0:
@@ -824,46 +1368,65 @@ class ParquetReader:
                 memo_store(s0, seg_parts)
                 yield s0, seg_parts
 
-        windows_iter = self._cached_windows(plan)
         try:
-            async for seg, windows in windows_iter:
-                s = seg.segment_start
-                arrived.append(s)
-                parts[s] = []
-                pending[s] = 0
+            windows_iter = self._cached_windows(plan)
+            try:
+                async for seg, windows in windows_iter:
+                    s = seg.segment_start
+                    arrived.append(s)
+                    parts[s] = []
+                    pending[s] = 0
 
-                def prep_windows(ws=windows):
-                    out = []
-                    for w in ws:
-                        # same semantics as the row path: post-dedup rows
-                        _ROWS_SCANNED.inc(w.n_valid)
-                        if isinstance(w, device_decode.DevicePart):
-                            # a finished partial rides the queue with
-                            # prep None, so a segment's parts keep their
-                            # order; a provably empty one never enqueues
-                            # (no flush would repay its pending count)
-                            if w.part is not None:
-                                out.append((w, None))
-                            continue
-                        prep = self._window_groups(w, spec, plan)
-                        if prep is not None:
-                            out.append((w, prep))
-                    return out
+                    def prep_windows(ws=windows):
+                        out = []
+                        for w in ws:
+                            # same semantics as the row path: post-dedup
+                            # rows
+                            _ROWS_SCANNED.inc(w.n_valid)
+                            if isinstance(w, device_decode.DevicePart):
+                                # a finished partial rides the queue
+                                # with prep None, so a segment's parts
+                                # keep their order; a provably empty one
+                                # never enqueues (no flush would repay
+                                # its pending count)
+                                if w.part is not None:
+                                    out.append((w, None))
+                                continue
+                            prep = self._window_groups(w, spec, plan)
+                            if prep is not None:
+                                out.append((w, prep))
+                        return out
 
-                for w, prep in await self._run_pool(prep_windows,
-                                                    pool=plan.pool):
-                    queue.append((s, w, prep))
-                    pending[s] += 1
-                while len(queue) >= batch_w:
-                    await flush(batch_w)
+                    for w, prep in await self._run_pool(prep_windows,
+                                                        pool=plan.pool):
+                        queue.append((s, w, prep))
+                        pending[s] += 1
+                    while len(queue) >= batch_w:
+                        await flush(batch_w)
+                    for out in finished():
+                        yield out
+            except NotFoundError:
+                # a compaction race: the round in flight still lands and
+                # the segments it finishes are yielded, so the caller's
+                # replan re-reads only the segments left
+                await settle_flush()
                 for out in finished():
                     yield out
+                raise
+            finally:
+                await windows_iter.aclose()
+            if queue:
+                await flush(len(queue))
+            await settle_flush()
+            for out in finished():
+                yield out
         finally:
-            await windows_iter.aclose()
-        if queue:
-            await flush(len(queue))
-        for out in finished():
-            yield out
+            if flush_task is not None:
+                # a cancelled or failed scan drains its in-flight round
+                # (the pool job runs to completion regardless), so it
+                # never races table teardown
+                flush_task.cancel()
+                await asyncio.gather(flush_task, return_exceptions=True)
 
     def _flush_host_round(self, items: list, spec: AggregateSpec,
                           plan: ScanPlan) -> list:

@@ -33,6 +33,7 @@ int64.
 
 from __future__ import annotations
 
+import asyncio
 import json
 import struct
 from dataclasses import dataclass
@@ -42,6 +43,7 @@ import numpy as np
 import pyarrow as pa
 
 from horaedb_tpu_torch.common.error import Error
+from horaedb_tpu_torch.objstore import NotFoundError
 from horaedb_tpu_torch.ops import encode
 from horaedb_tpu_torch.storage.types import RESERVED_COLUMN_NAME
 
@@ -221,6 +223,15 @@ def _parse_header(buf) -> Optional[tuple[dict, int]]:
         return header, data_start
     except (KeyError, ValueError, struct.error, UnicodeDecodeError):
         return None
+
+
+def header_span(buf_head: bytes) -> Optional[int]:
+    """Total header bytes (magic + length + JSON) from the blob's first
+    bytes, or None when they aren't a sidecar prefix."""
+    if len(buf_head) < 12 or buf_head[:8] != _MAGIC:
+        return None
+    (header_len,) = struct.unpack_from("<I", buf_head, 8)
+    return 12 + header_len
 
 
 def deserialize(buf: bytes,
@@ -565,15 +576,507 @@ def _decode_blob_dict(offs: np.ndarray, blob: bytes,
     return arr.to_numpy(zero_copy_only=False)
 
 
+# ---------------------------------------------------------------------------
+# selective fetch (block pruning) — the sidecar's analogue of parquet
+# row-group pruning for point queries on remote stores
+# ---------------------------------------------------------------------------
 
-async def load_sst_encoded(store, path: str, want: set, runner=None):
-    """Fetch one SST's sidecar columns as ({name: (arr, enc)}, n_rows)
-    with one whole-object GET.  `runner` (async callable(fn, *args),
-    e.g. a worker-pool dispatch) carries the CPU-bound deserialize off
-    the event loop.  None = invalid sidecar (caller falls back to
-    parquet); NotFoundError propagates.  The JAX package's block-pruned
-    ranged fetch for point queries is not ported yet."""
-    buf = await store.get(path)
-    if runner is None:
-        return deserialize(buf, want)
-    return await runner(deserialize, buf, want)
+# below this object size a whole-object GET beats extra round trips
+_PARTIAL_MIN_BYTES = 1 << 20
+# the header probe: big enough for any realistic header JSON, small
+# enough that the probe's byte copy is noise.  Objects smaller than
+# this arrive complete in the probe (short read, one request);
+# unprunable larger objects pay probe + ONE plain GET — cheaper than
+# a probe-sized head reused via range-read + concat, which copies the
+# whole object twice on host-backed stores
+_HEAD_BYTES = 64 << 10
+# above this surviving-row fraction the partial fetch saves too little
+# (range reads cost extra round trips; at half the bytes they still
+# win — a point-query run straddling a block boundary keeps 2 blocks,
+# which must stay under this at the common 4-8 block SST sizes)
+_PARTIAL_MAX_FRAC = 0.5
+
+
+def _block_mask_for_leaf(leaf, enc, mins: np.ndarray,
+                         maxs: np.ndarray) -> Optional[np.ndarray]:
+    """Conservative per-block MAY-match mask for one leaf over encoded
+    -space block stats; None = this leaf cannot prune.  The inequality
+    forms mirror ops.filter.eval_predicate exactly (dict codes have no
+    '<=' constant, hence the side-specific thresholds)."""
+    from horaedb_tpu_torch.ops import filter as F
+    from horaedb_tpu_torch.ops.filter import (
+        _const_code_exact,
+        _const_code_lower,
+        _const_code_upper,
+    )
+
+    if isinstance(leaf, F.Eq):
+        c = _const_code_exact(enc, leaf.value)
+        if c is None:
+            return np.zeros(len(mins), dtype=bool)
+        return (mins <= c) & (c <= maxs)
+    if isinstance(leaf, F.In):
+        codes = sorted(c for c in (_const_code_exact(enc, v)
+                                   for v in leaf.values) if c is not None)
+        if not codes:
+            return np.zeros(len(mins), dtype=bool)
+        arr = np.asarray(codes)
+        idx = np.searchsorted(arr, mins)
+        ok = idx < len(arr)
+        out = np.zeros(len(mins), dtype=bool)
+        out[ok] = arr[np.minimum(idx[ok], len(arr) - 1)] <= maxs[ok]
+        return out
+    if isinstance(leaf, F.Lt):
+        return mins < _const_code_lower(enc, leaf.value)
+    if isinstance(leaf, F.Le):
+        t = _const_code_upper(enc, leaf.value)
+        return mins < t if enc.kind == "dict" else mins <= t
+    if isinstance(leaf, F.Gt):
+        if enc.kind == "dict":
+            return maxs >= _const_code_upper(enc, leaf.value)
+        return maxs > _const_code_lower(enc, leaf.value)
+    if isinstance(leaf, F.Ge):
+        return maxs >= _const_code_lower(enc, leaf.value)
+    if isinstance(leaf, F.TimeRangePred):
+        lo = _const_code_lower(enc, leaf.start)
+        hi = _const_code_lower(enc, leaf.end)
+        return (maxs >= lo) & (mins < hi)
+    return None
+
+
+class _Sections:
+    """Byte-range reader over one sidecar object with a tiny per-query
+    cache, so a dictionary needed by both the pruning loop and the
+    column load downloads once."""
+
+    def __init__(self, store, path: str, data_start: int):
+        self.store = store
+        self.path = path
+        self.data_start = data_start
+        self._cache: dict = {}
+        # decoded ColumnEncoding per column name — a leaf column that is
+        # also a wanted column builds its (possibly large) dictionary
+        # exactly once per SST load
+        self.enc_cache: dict = {}
+
+    async def fetch(self, offset: int, nbytes: int,
+                    cache: bool = True) -> bytes:
+        key = (offset, nbytes)
+        got = self._cache.get(key)
+        if got is None:
+            lo = self.data_start + offset
+            got = await self.store.get_range(self.path, lo, lo + nbytes)
+            # data-column chunks pass cache=False: a streamed session
+            # reads each window's disjoint ranges exactly once, and
+            # pinning them would re-materialize the whole segment —
+            # the residency streaming exists to avoid
+            if cache and nbytes <= (4 << 20):
+                self._cache[key] = got
+        return got
+
+
+async def _dict_for(meta: dict, header: dict, secs: _Sections,
+                    runner=None) -> Optional[np.ndarray]:
+    offsets = header["sections"]
+    dlen = int(meta.get("dict_len", -1))
+    sec = meta.get("dict_section")
+    if sec is None or dlen < 0:
+        return None
+    if meta.get("dict_kind") == "i64":
+        raw = await secs.fetch(offsets[sec], dlen * 8)
+        return np.frombuffer(raw, dtype=np.int64, count=dlen)
+    if meta.get("dict_kind") == "blob":
+        raw = await secs.fetch(offsets[sec], (dlen + 1) * 4)
+        offs = np.frombuffer(raw, dtype=np.int32, count=dlen + 1)
+        if len(offs) == 0 or int(offs[0]) != 0 \
+                or bool(np.any(offs[1:] < offs[:-1])):
+            return None  # wrapped/corrupt offsets: invalid, not garbage
+        blob = await secs.fetch(offsets[sec + 1], int(offs[-1]))
+        if len(blob) < int(offs[-1]):
+            return None  # truncated object
+        is_binary = meta["arrow"] == "binary"
+        if runner is not None:
+            # per-entry Python decode loop: CPU-bound, off the loop
+            return await runner(_decode_blob_dict, offs, blob, is_binary)
+        return _decode_blob_dict(offs, blob, is_binary)
+    return None
+
+
+async def _encoding_for(meta: dict, header: dict, secs: _Sections,
+                        runner=None):
+    cached = secs.enc_cache.get(meta["name"])
+    if cached is not None:
+        return cached
+    arrow_t = _ARROW_TYPES.get(meta["arrow"])
+    if arrow_t is None:
+        return None
+    if meta["kind"] == "offset":
+        enc = encode.ColumnEncoding("offset", arrow_t,
+                                    epoch=int(meta["epoch"]))
+    elif meta["kind"] == "numeric":
+        enc = encode.ColumnEncoding("numeric", arrow_t)
+    else:
+        dictionary = await _dict_for(meta, header, secs, runner)
+        if dictionary is None:
+            return None
+        enc = encode.ColumnEncoding("dict", arrow_t,
+                                    dictionary=dictionary)
+    secs.enc_cache[meta["name"]] = enc
+    return enc
+
+
+async def load_sst_encoded(store, path: str, want: set,
+                           leaves: Optional[list], runner=None):
+    """Fetch one SST's sidecar columns as ({name: (arr, enc)}, n_rows).
+
+    When the leaf conjunction is selective, per-block stats narrow the
+    fetch to candidate ROW ranges via store.get_range — whole columns
+    are never downloaded for a point query over a big SST.  Pruning is
+    conservative (block granularity); assemble_parts' exact leaf mask
+    still applies after.  Falls back to a whole-object read (reusing
+    the probed head bytes) when pruning cannot help.  `runner`
+    (async callable(fn, *args), e.g. a worker-pool dispatch) carries
+    the CPU-bound deserialize so callers keep it off the event loop.
+    None = invalid sidecar (caller falls back to parquet);
+    NotFoundError propagates."""
+    async def _des(buf):
+        if runner is None:
+            return deserialize(buf, want)
+        return await runner(deserialize, buf, want)
+
+    leaves = leaves or []
+    if not leaves:
+        # nothing to prune with: one whole-object GET, no header probe
+        return await _des(await store.get(path))
+    head = await store.get_range(path, 0, _HEAD_BYTES)
+    if len(head) < _HEAD_BYTES:
+        # short read = the WHOLE object is already in hand; larger
+        # objects that turn out unprunable pay probe + one plain GET
+        # (the deliberate trade documented at _HEAD_BYTES — a plain
+        # GET is zero-copy on host-backed stores)
+        return await _des(head)
+    try:
+        span = header_span(head)
+        if span is not None and span > len(head):
+            head = bytes(head) + bytes(
+                await store.get_range(path, len(head), span))
+        parsed = _parse_header(head)
+        if parsed is None:
+            # not a (readable) header: a full read preserves the
+            # corrupt-blob fallback semantics
+            return await _des(await store.get(path))
+        header, data_start = parsed
+        n_rows = int(header["n_rows"])
+        by_name = {m["name"]: m for m in header["columns"]}
+        if any(nm not in by_name for nm in want):
+            return None
+        offsets = header["sections"]
+        approx_bytes = data_start + (max(offsets) if offsets else 0)
+        nblocks = -(-n_rows // BLOCK_ROWS) if n_rows else 0
+        # leaf columns are always in `want` (callers build it that
+        # way), so their presence was vetted by the want check above
+        prunable = (leaves and nblocks > 1
+                    and approx_bytes >= _PARTIAL_MIN_BYTES)
+        if not prunable:
+            return await _des(await store.get(path))
+        return await _load_pruned(store, path, want, leaves, runner,
+                                  header, data_start, n_rows, nblocks,
+                                  _des)
+    except (KeyError, IndexError, ValueError, TypeError, struct.error):
+        # a magic-valid but malformed header (bad indices, truncated
+        # sections) must read as INVALID — the caller memoizes the miss
+        # permanently, same as an unparseable blob.  Store/IO errors
+        # propagate instead: the caller treats those as TRANSIENT (no
+        # memo), so one network hiccup can't blacklist a valid sidecar
+        return None
+
+
+async def _gather_or_cancel(*coros):
+    """gather() that never strands a sibling: when one awaitable
+    raises, the rest are cancelled AND awaited before the error
+    propagates — an orphaned store read must not outlive its scan into
+    table/engine teardown (the deterministic-teardown discipline the
+    scan pipeline enforces at every stage boundary)."""
+    tasks = [asyncio.ensure_future(c) for c in coros]
+    try:
+        return await asyncio.gather(*tasks)
+    except BaseException:
+        for t in tasks:
+            t.cancel()
+        await asyncio.gather(*tasks, return_exceptions=True)
+        raise
+
+
+async def _leaf_block_mask(leaves, by_name, header, secs, nblocks,
+                           runner):
+    """(mask, pruned_any) over blocks for a leaf conjunction, or None
+    when an encoding can't be built (caller falls back).
+
+    Each stats-bearing column's (encoding, block stats) loads ONCE and
+    the columns load CONCURRENTLY: a leaf-serial chain would pay ~2
+    store round trips per leaf."""
+    offsets = header["sections"]
+    metas, seen = [], set()
+    for leaf in leaves:
+        meta = by_name[leaf.column]
+        if "bstats_section" not in meta or leaf.column in seen:
+            continue
+        seen.add(leaf.column)
+        metas.append(meta)
+
+    async def load(meta):
+        enc, raw = await _gather_or_cancel(
+            _encoding_for(meta, header, secs, runner),
+            secs.fetch(offsets[meta["bstats_section"]], nblocks * 8))
+        return meta["name"], enc, raw
+
+    by_col = {}
+    for name, enc, raw in await _gather_or_cancel(
+            *(load(m) for m in metas)):
+        if enc is None:
+            return None
+        by_col[name] = (enc, np.frombuffer(raw, dtype=np.int32,
+                                           count=2 * nblocks))
+    mask = np.ones(nblocks, dtype=bool)
+    pruned_any = False
+    for leaf in leaves:
+        got = by_col.get(leaf.column)
+        if got is None:
+            continue  # no block stats for this column: can't prune
+        enc, stats = got
+        lm = _block_mask_for_leaf(leaf, enc, stats[:nblocks],
+                                  stats[nblocks:])
+        if lm is not None:
+            mask &= lm
+            pruned_any = True
+    return mask, pruned_any
+
+
+def _mask_to_ranges(mask: np.ndarray, n_rows: int) -> list[tuple[int, int]]:
+    """Contiguous surviving-block runs -> row ranges."""
+    ranges: list[tuple[int, int]] = []
+    b = 0
+    nblocks = len(mask)
+    while b < nblocks:
+        if not mask[b]:
+            b += 1
+            continue
+        b0 = b
+        while b < nblocks and mask[b]:
+            b += 1
+        ranges.append((b0 * BLOCK_ROWS, min(b * BLOCK_ROWS, n_rows)))
+    return ranges
+
+
+async def _load_columns(by_name, header, secs, want, ranges, runner):
+    """Fetch each wanted column's bytes for the row ranges; ({name:
+    (arr, enc)}, total_rows) or None on an unsupported column."""
+    offsets = header["sections"]
+    total = sum(hi - lo for lo, hi in ranges)
+
+    async def load_col(name: str):
+        meta = by_name[name]
+        dtype = _NP_DTYPES.get(meta["dtype"])
+        enc = await _encoding_for(meta, header, secs, runner)
+        if dtype is None or enc is None:
+            return name, None
+        base = offsets[meta["section"]]
+        isz = np.dtype(dtype).itemsize
+        chunks = await asyncio.gather(*(
+            secs.fetch(base + isz * lo, isz * (hi - lo), cache=False)
+            for lo, hi in ranges))
+        arrs = [np.frombuffer(c, dtype=dtype) for c in chunks]
+        if not arrs:
+            # every block pruned (key absent from this SST): a valid
+            # EMPTY part, not an error — concat/assemble handle it
+            return name, (np.empty(0, dtype=dtype), enc)
+        return name, (np.concatenate(arrs) if len(arrs) > 1 else arrs[0],
+                      enc)
+
+    loaded = await asyncio.gather(*(load_col(nm) for nm in want))
+    cols = {}
+    for name, got in loaded:
+        if got is None:
+            return None
+        cols[name] = got
+    return cols, total
+
+
+async def _load_pruned(store, path, want, leaves, runner, header,
+                       data_start, n_rows, nblocks, _des):
+    by_name = {m["name"]: m for m in header["columns"]}
+    secs = _Sections(store, path, data_start)
+    got = await _leaf_block_mask(leaves, by_name, header, secs, nblocks,
+                                 runner)
+    if got is None:
+        return await _des(await store.get(path))
+    mask, pruned_any = got
+    kept = int(mask.sum())
+    if (not pruned_any or kept == nblocks
+            or kept * BLOCK_ROWS > _PARTIAL_MAX_FRAC * n_rows):
+        return await _des(await store.get(path))
+    ranges = _mask_to_ranges(mask, n_rows)
+    return await _load_columns(by_name, header, secs, want, ranges,
+                               runner)
+
+
+# ---------------------------------------------------------------------------
+# streamed-segment serving: PK-value-range windows from block stats
+# ---------------------------------------------------------------------------
+
+
+class SstStreamSession:
+    """Prepared per-SST sidecar session for STREAMED segments: the
+    header (and, lazily, dictionaries) probe once; each window then
+    loads only the blocks intersecting its PK value range.  Small
+    objects that fit the probe parse once and serve every window from
+    memory."""
+
+    @classmethod
+    async def open(cls, store, path: str, want: set, runner=None):
+        """None = no usable sidecar (caller falls back to the parquet
+        streamer); NotFoundError propagates."""
+        head = await store.get_range(path, 0, _HEAD_BYTES)
+        self = cls()
+        self.store, self.path, self.runner = store, path, runner
+        self.want = set(want)
+        self._full = None
+        try:
+            if len(head) < _HEAD_BYTES:
+                full = deserialize(head, self.want)
+                if full is None:
+                    return None
+                self._full = full
+                return self
+            span = header_span(head)
+            if span is not None and span > len(head):
+                head = bytes(head) + bytes(
+                    await store.get_range(path, len(head), span))
+            parsed = _parse_header(head)
+            if parsed is None:
+                return None
+            self.header, self.data_start = parsed
+            self.n_rows = int(self.header["n_rows"])
+            self.by_name = {m["name"]: m for m in self.header["columns"]}
+            if any(nm not in self.by_name for nm in self.want):
+                return None
+            self.nblocks = -(-self.n_rows // BLOCK_ROWS) \
+                if self.n_rows else 0
+            self.secs = _Sections(store, path, self.data_start)
+            return self
+        except NotFoundError:
+            raise
+        except Exception:
+            return None
+
+    async def _dict_values(self, meta, codes: np.ndarray):
+        """Dictionary entries for `codes` WITHOUT downloading the whole
+        dictionary: ONE ranged read spanning [min(code), max(code)] for
+        i64 dicts (tsid's case — ~8 B/entry over the needed span); blob
+        dicts load whole via the enc cache (tag dictionaries are
+        small).  Returns an array aligned with `codes`, or None."""
+        if meta.get("dict_kind") == "i64":
+            lo_c, hi_c = int(codes.min()), int(codes.max())
+            off = self.header["sections"][meta["dict_section"]]
+            raw = await self.secs.fetch(off + 8 * lo_c,
+                                        8 * (hi_c - lo_c + 1))
+            span = np.frombuffer(raw, dtype=np.int64,
+                                 count=hi_c - lo_c + 1)
+            return span[codes.astype(np.int64) - lo_c]
+        enc = await _encoding_for(meta, self.header, self.secs,
+                                  self.runner)
+        if enc is None or enc.dictionary is None:
+            return None
+        return enc.dictionary[codes.astype(np.int64)]
+
+    async def block_value_ranges(self, column: str):
+        """Per-block (min_value, max_value, rows) of `column`, or None
+        when stats/encodings can't support window planning."""
+        if self._full is not None:
+            cols = self._full[0]
+            if column not in cols:
+                return None
+            arr, enc = cols[column]
+            n = self._full[1]
+            if n == 0:
+                return []
+            vals = encode.decode_column(arr, enc, n).to_numpy(
+                zero_copy_only=False)
+            return [(vals.min(), vals.max(), n)]
+        meta = self.by_name.get(column)
+        if meta is None or "bstats_section" not in meta:
+            return None
+        raw = await self.secs.fetch(
+            self.header["sections"][meta["bstats_section"]],
+            self.nblocks * 8)
+        stats = np.frombuffer(raw, dtype=np.int32, count=2 * self.nblocks)
+        mins_c, maxs_c = stats[:self.nblocks], stats[self.nblocks:]
+        if meta["kind"] == "offset":
+            mins_v = mins_c.astype(np.int64) + int(meta["epoch"])
+            maxs_v = maxs_c.astype(np.int64) + int(meta["epoch"])
+        elif meta["kind"] == "numeric":
+            mins_v, maxs_v = mins_c, maxs_c
+        elif meta["kind"] == "dict":
+            mins_v = await self._dict_values(meta, mins_c)
+            maxs_v = await self._dict_values(meta, maxs_c)
+            if mins_v is None or maxs_v is None:
+                return None
+        else:
+            return None
+        out = []
+        for b in range(self.nblocks):
+            rows = min(BLOCK_ROWS, self.n_rows - b * BLOCK_ROWS)
+            out.append((mins_v[b], maxs_v[b], rows))
+        return out
+
+    async def load_window(self, leaves: list):
+        """(cols, n) of the blocks intersecting the leaf conjunction
+        (window range leaves + the plan's own pushed leaves); the exact
+        mask applies later in assemble_parts.  None on malformed."""
+        if self._full is not None:
+            return self._full
+        got = await _leaf_block_mask(leaves, self.by_name, self.header,
+                                     self.secs, self.nblocks, self.runner)
+        if got is None:
+            return None
+        mask, _pruned = got
+        ranges = _mask_to_ranges(mask, self.n_rows)
+        return await _load_columns(self.by_name, self.header, self.secs,
+                                   self.want, ranges, self.runner)
+
+
+async def plan_stream_windows(sessions: list, pk_names: list,
+                              max_window_rows: int):
+    """(partition_column, [(lo, hi), ...]) value-range windows over the
+    first PK column whose values vary, sized so the blocks intersecting
+    each range hold ~max_window_rows rows (soft bound: straddling
+    blocks count toward both sides).  Ranges are [lo, hi) with None as
+    -inf/+inf; equal-PK rows always land in exactly one window, which
+    is what cross-SST dedup requires.  None = planning impossible
+    (missing stats): fall back to the parquet streamer."""
+    for col in pk_names:
+        infos = await asyncio.gather(*(
+            s.block_value_ranges(col) for s in sessions))
+        if any(info is None for info in infos):
+            return None
+        blocks = [blk for info in infos for blk in info]
+        if not blocks:
+            return col, [(None, None)]
+        lo = min(b[0] for b in blocks)
+        hi = max(b[1] for b in blocks)
+        if lo == hi:
+            continue  # constant column cannot bound anything
+        blocks.sort(key=lambda b: (b[0], b[1]))
+        bounds: list = []
+        acc = 0
+        for bmin, _bmax, rows in blocks:
+            if acc >= max_window_rows and (not bounds
+                                           or bmin > bounds[-1]):
+                # cut BETWEEN blocks at this block's min value: works
+                # for ints and strings alike, no +1 arithmetic
+                bounds.append(bmin)
+                acc = 0
+            acc += rows
+        edges = [None] + bounds + [None]
+        return col, list(zip(edges[:-1], edges[1:]))
+    return None  # every PK constant: nothing to window on

@@ -218,15 +218,30 @@ class CloudObjectStorage:
                              stamped: pa.RecordBatch) -> None:
         """Best-effort device-layout sidecar next to the SST (see
         storage/sidecar.py): a pure cache — any failure is logged and
-        swallowed, reads then decode the parquet."""
+        swallowed, reads then decode the parquet.  The freshly encoded
+        columns are admitted into the reader's tier-2 cache
+        (storage/encoded_cache.py, write-through): the direct write path
+        and the WAL flusher both land here (_persist_stamped), so a
+        query right after a write or a flush reads nothing from the
+        store."""
         if (self._schema.update_mode is not UpdateMode.OVERWRITE
                 or not self.config.write.enable_sidecar
                 or stamped.num_rows > self.config.write.sidecar_max_rows):
             return
         try:
-            data = await self.runtimes.run("sst", sidecar.build, stamped)
+            def build():
+                cols = sidecar.encode_columns(stamped)
+                if cols is None:
+                    return None, None
+                return cols, sidecar.serialize(cols, stamped.num_rows)
+
+            cols, data = await self.runtimes.run("sst", build)
             if data is None:
                 return
+            # admit BEFORE the put: the entry is valid the instant the
+            # columns exist (ids are immutable), and the SST becomes
+            # visible to readers only after the manifest add
+            self.reader.encoded_cache.admit(file_id, cols, stamped.num_rows)
             await self.store.put(
                 sidecar.sidecar_path(self.root_path, file_id), data)
         except Exception as exc:  # noqa: BLE001 — cache write only

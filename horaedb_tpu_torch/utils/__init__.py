@@ -101,7 +101,7 @@ def span(name: str, **_attrs):
         hist.observe(time.perf_counter() - t0)
 
 
-def trace_add(name: str, n: float) -> None:
+def trace_add(name: str, n: float = 1) -> None:
     """Add `n` to the counter `name` (the JAX package adds it to the
     current trace; the port has no tracing plane yet)."""
     registry.counter(name).inc(n)

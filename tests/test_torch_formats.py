@@ -207,7 +207,9 @@ def test_port_reads_a_store_written_by_the_reference(tmp_path, monkeypatch,
             vals, grids = await st.scan_aggregate(
                 PReq(range=PortRange.new(*rng_all), predicate=pred_p),
                 PSpec(**spec_kw))
-            used_sidecar = not st.reader._sidecar_missing
+            # the tier-2 cache memoizes every SST whose sidecar is missing
+            used_sidecar = \
+                st.reader.encoded_cache.stats()["negative_entries"] == 0
             return rows, vals, {k: (v if isinstance(v, np.ndarray)
                                     else v.numpy()) for k, v in grids.items()
                                 }, used_sidecar

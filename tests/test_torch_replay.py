@@ -27,6 +27,8 @@ from horaedb_tpu.metric_engine import MetricEngine as RefEngine
 from horaedb_tpu.objstore import MemoryObjectStore as RefStore
 from horaedb_tpu.storage.config import StorageConfig as RefConfig
 from horaedb_tpu.storage.config import from_dict as ref_from_dict
+from horaedb_tpu.storage.encoded_cache import \
+    EncodedSegmentCache as RefEncodedSegmentCache
 from horaedb_tpu.storage.types import TimeRange as RefRange
 from horaedb_tpu_torch.metric_engine import MetricEngine as PortEngine
 from horaedb_tpu_torch.objstore import MemoryObjectStore as PortStore
@@ -499,7 +501,12 @@ def test_cache_stats_has_the_reference_sections():
             await e.close()
 
     stats = asyncio.run(run())
-    assert set(stats) == {"scan_cache", "stack_cache"}
+    assert set(stats) == {"scan_cache", "encoded_cache", "pipeline",
+                          "stack_cache"}
+    assert set(stats["encoded_cache"]) == set(
+        RefEncodedSegmentCache(1).stats())
+    assert set(stats["pipeline"]) == {"enabled", "depth", "inflight_bytes",
+                                      "high_water_bytes"}
     assert set(stats["stack_cache"]) == {"entries", "bytes", "max_bytes",
                                          "hits", "misses"}
     assert set(stats["scan_cache"]) == {"entries", "bytes", "max_bytes",
