@@ -2,15 +2,15 @@
 """Chip smoke test of the PyTorch/CUDA port (horaedb_tpu_torch) on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py [--rows N] [--json PATH]
+    python3 chip_smoke.py [--rows N] [--config4-rows N] [--json PATH]
 
 Phases, each printed as it runs with its seconds; any failure exits
 non-zero and prints no result line:
 
 1. device: find the card, print `nvidia-smi` name and power limit.
 2. build: compile every kernel of the main path with nvcc (sm_90a), one
-   compiler per source (csrc/bucket_agg.cu, csrc/merge_path.cu), started
-   together.
+   compiler per source (csrc/bucket_agg.cu, csrc/merge_path.cu), and the
+   host library (csrc/host_native.cpp) with g++, started together.
 3. kernel: both entries of csrc/bucket_agg.cu (bucket_window_partials,
    bucket_round_accumulate) against their plain PyTorch versions on the
    card — random rows, edge cases, int32 wrap of the shifted and rebased
@@ -71,7 +71,12 @@ non-zero and prints no result line:
    per stage, in-flight high-water, the host's core count); every grid
    byte-equal to the cold query's.  Each cold-read record carries the
    store GETs and bytes (a counting MemoryObjectStore), segment_read
-   summed and the bytes uploaded.
+   summed and the bytes uploaded.  Then the top-k legs on this engine:
+   query_topk(k=10) by max, by avg smallest first and by last over the
+   same range, each run twice (the second must be a replay with 0 B
+   host-to-device), byte-equal to query_downsample + plan.apply_top_k
+   on the same engine, the winners' rows and the ranking checked against
+   numpy.
 7. op path: ops.downsample.time_bucket_aggregate over the same 10M rows
    as one batch (time-major rows: runs of one row per cell), checked
    against the bincount; bucket_window_partials' launch count over that
@@ -97,7 +102,9 @@ non-zero and prints no result line:
    unfiltered query's; a streamed check leg (max_window_rows 16,384 and
    stream_read_min_rows 32,768, two printed cuts: every segment read
    window by window from the sidecars) byte-equal to the bulk read.
-   Then
+   Then the top-k legs of phase 6 on the device-decode engine, where
+   the pushdown must materialize k x 16,667 buckets x grids cells and
+   equal the dense control byte for byte.  Then
    single segments decoded alone (host clock, host cProfile) and one
    cold device-decode query under torch.profiler.
 9. compaction: 4 overlapping SSTs in each of 12 segments (newer values
@@ -128,9 +135,32 @@ non-zero and prints no result line:
    with kway_merge_perm) against mode "host", byte-equal.  The three
    kernel entries' launches on (b) and (c), counted from 0 around them,
    must each be above 0.
-11. a JSON line of per-kernel numbers (with `wal_launches` beside
-   `launches`), the card line again, and the last line {"ok": true,
-   "device": {...}}.
+11. topk ops: ops/topk.py on the card against its CPU run on the same
+   inputs: top_k_groups (ties, signed zeros, NaN, +-inf, k above the
+   group count, largest and smallest, 100 and 100,000 groups; values'
+   bytes and indices equal) and two_sum, pair_add and
+   pair_max_normalized on 10^6 seeded normal-range f32 triples
+   (byte-equal).
+12. config4: BASELINE config 4, the JAX package's run_config4 shape (64
+   overlapping SSTs of --config4-rows / 64 rows, 64M by default and the
+   cut from 1B printed; 100 hosts as a string PK, one 1 h segment,
+   seed 0) through plan_query / execute_plan with a TopK stage (top 10
+   by max, one 50-minute bucket).  The route is read from the gates and
+   must be the reference's: the fused gate declines, device decode in
+   "auto", the segment streamed in PK-range windows (below 8,388,608
+   rows it is not, and the phase fails).  Legs: true cold, tier-2-
+   served, 5 repeats (memo-served), the query without the TopK stage
+   (per-host counts against numpy) and the dense control (byte-equal
+   to the pushdown), then one cold query under torch.profiler; per leg
+   its ms, store GETs and bytes, launches counted from 0, decode
+   fallbacks (must be 0), streamed windows, the combine's materialized
+   and grid cells (k x buckets x grids and 100), tier 2's hits, misses
+   and evictions, and peak device memory.  The top 10, each winner's
+   count and max (f32, byte-equal) against numpy's keep-last dedup of
+   the same rows.
+13. a JSON line of per-kernel numbers (with `wal_launches` and
+   `config4_launches` beside `launches`), the card line again, and the
+   last line {"ok": true, "device": {...}}.
 
 Needs one CUDA card; a missing card is a failure, never a CPU run.
 """
@@ -1459,6 +1489,13 @@ async def end_to_end(rows: int, ba, mg) -> dict:
                         f" stalls {json.dumps(r['stalls'])}, high-water "
                         f"{r['high_water_bytes']} B" for r in pipe_turns)
             + "; grids byte-equal")
+        # the top-k legs on this (fused) engine, over the same range
+        want = host_major_reference(vals.astype(np.float32), hosts,
+                                    per_host, T0, interval, bucket_ms,
+                                    num_buckets)
+        topk = await topk_legs(e, "fused", rng_q, num_buckets,
+                               {k: v[order] for k, v in want.items()},
+                               [int(t) for t in tsid_of_host[order]])
         cached_ms = [c["ms"] for c in cached]
         cached_p50 = statistics.median(cached_ms)
         res = {"rows": n, "ingest_s": ingest_s, "cold_ms": cold["ms"],
@@ -1479,7 +1516,8 @@ async def end_to_end(rows: int, ba, mg) -> dict:
                "max_memory_allocated": peak,
                "tier2_after_ingest": tier2_ingest, "true_cold": cold,
                "tier2_served": tier2,
-               "pipeline_turns": pipe_turns, "host_cores": os.cpu_count()}
+               "pipeline_turns": pipe_turns, "host_cores": os.cpu_count(),
+               "topk": topk}
         log("e2e: " + json.dumps(res))
         res["op"] = op_path(ba, ts - T0, host_id, vals, hosts, num_buckets,
                             counts, sums)
@@ -1846,6 +1884,15 @@ async def parts_phase(ba, mg, store, T0: int, per_host: int, hosts: int,
         reads = await parts_reads_legs(engines, store, turns, full, check,
                                        T0, per_host, hosts, interval,
                                        segment_ms, vals32, tsid_of_host)
+        # the top-k legs on the device-decode engine, over the fused
+        # cell's range (whole 1 min buckets)
+        nb = -(-per_host * interval // BMS)
+        want = host_major_reference(vals32, hosts, per_host, T0, interval,
+                                    BMS, nb)
+        topk = await topk_legs(engines["device"], "parts",
+                               TimeRange.new(T0, T0 + nb * BMS), nb,
+                               {k: v[order] for k, v in want.items()},
+                               [int(t) for t in tsid_of_host[order]])
         log(f"parts: peak device memory of the cold query by turn: device "
             f"leg {[t['numbers']['peak_device_memory'] for t in turns['device']]}"
             f" B, host leg "
@@ -1870,7 +1917,7 @@ async def parts_phase(ba, mg, store, T0: int, per_host: int, hosts: int,
                 "device": [t["numbers"] for t in turns["device"]],
                 "host": [t["numbers"] for t in turns["host"]],
                 "decode_alone": alone, "cold_profile": prof,
-                "reads": reads}
+                "reads": reads, "topk": topk}
     finally:
         for e in engines.values():
             await e.close()
@@ -2840,6 +2887,506 @@ def op_path(ba, ts_off, host_id, vals, hosts: int, num_buckets: int,
     return res
 
 
+TOPK_QUERIES = (("max", True), ("avg", False), ("last", True))
+
+
+async def topk_legs(e, path: str, rng_t, nb: int, want: dict,
+                    tsids: list) -> dict:
+    """Config 1's top-k legs on one engine (`path` "fused" or "parts"):
+    query_topk(k=10) by max, by avg smallest first and by last, each run
+    twice and held byte for byte against query_downsample + apply_top_k
+    on the same engine and (parts) against the dense control, and
+    against numpy (`want`: full grids in tsid order).  On the fused
+    engine the second run must be a replay with 0 B host-to-device; on
+    the parts engine the pushdown must materialize k x buckets cells a
+    grid."""
+    import numpy as np
+    import torch
+
+    from horaedb_tpu_torch.ops.downsample import ALL_AGGS
+    from horaedb_tpu_torch.ops.encode import h2d_bytes
+    from horaedb_tpu_torch.storage import combine as combine_mod
+    from horaedb_tpu_torch.storage.plan import TopKSpec, apply_top_k
+
+    data = e.tables["data"]
+    reader = data.reader
+    k = 10
+
+    async def timed(fn):
+        m0, g0 = combine_mod._MATERIALIZED.value, combine_mod._GRID.value
+        h0 = h2d_bytes()
+        r0 = (reader._replay_hits, reader._replay_misses)
+        t0 = time.perf_counter()
+        out = await fn()
+        torch.cuda.synchronize()
+        return out, {"ms": (time.perf_counter() - t0) * 1e3,
+                     "h2d_bytes": h2d_bytes() - h0,
+                     "materialized": combine_mod._MATERIALIZED.value - m0,
+                     "grid_cells": combine_mod._GRID.value - g0,
+                     "replay": [reader._replay_hits - r0[0],
+                                reader._replay_misses - r0[1]]}
+
+    res = {}
+    for by, largest in TOPK_QUERIES:
+        tag = f"topk [{path}] by={by} largest={largest}"
+        which = tuple(sorted(set(ALL_AGGS) | {by}))
+
+        def topk():
+            return e.query_topk("cpu", [], rng_t, BMS, k=k, by=by,
+                                largest=largest)
+
+        got, first = await timed(topk)
+        again, second = await timed(topk)
+        same_bytes(again, got, f"{tag}: repeat")
+        cells = k * nb * len(got["aggs"])
+        if path == "fused" and (second["replay"] != [1, 0]
+                                or second["h2d_bytes"]):
+            raise AssertionError(f"{tag}: repeat replay {second['replay']}"
+                                 f", {second['h2d_bytes']} B up")
+        if path == "parts" and not (first["materialized"] ==
+                                    second["materialized"] == cells):
+            raise AssertionError(f"{tag}: materialized "
+                                 f"{first['materialized']} / "
+                                 f"{second['materialized']} cells, want "
+                                 f"{k} x {nb} x {len(got['aggs'])}")
+        full, down = await timed(lambda: e.query_downsample(
+            "cpu", [], rng_t, BMS, aggs=which))
+        values, grids = apply_top_k(np.asarray(full["tsids"],
+                                               dtype=np.uint64),
+                                    full["aggs"], TopKSpec(k, by, largest))
+        same_bytes(got, {"tsids": [int(t) for t in values], "aggs": grids},
+                   f"{tag}: vs query_downsample + apply_top_k")
+        rec = {"first": first, "repeat": second, "downsample": down}
+        if path == "parts":
+            data.config.scan.combine.mode = "dense"
+            try:
+                dense, rec["dense"] = await timed(topk)
+            finally:
+                data.config.scan.combine.mode = "sparse"
+            same_bytes(dense, got, f"{tag}: vs the dense control")
+            if rec["dense"]["materialized"] <= cells:
+                raise AssertionError(f"{tag}: the dense control "
+                                     f"materialized only "
+                                     f"{rec['dense']['materialized']}")
+        # numpy: each winner's row, and the ranking (exact for max and
+        # last; avg within rtol 1e-5 of numpy's f64 scores)
+        rows = [tsids.index(t) for t in got["tsids"]]
+        for name, g in got["aggs"].items():
+            g = np.asarray(g)
+            w = want[name][rows]
+            if name in ("sum", "avg"):
+                np.testing.assert_allclose(g, w, rtol=1e-5, err_msg=tag)
+            elif not np.array_equal(g, w, equal_nan=True):
+                raise AssertionError(f"{tag}: grid {name} differs from "
+                                     f"numpy")
+        has = want["count"] > 0
+        if largest:
+            score = np.where(has, want[by], -np.inf).max(axis=1)
+            best = np.argsort(-score, kind="stable")[:k]
+        else:
+            score = np.where(has, want[by], np.inf).min(axis=1)
+            best = np.argsort(score, kind="stable")[:k]
+        if by == "avg":
+            np.testing.assert_allclose(score[rows], score[best], rtol=1e-5,
+                                       err_msg=tag)
+        elif rows != best.tolist():
+            raise AssertionError(f"{tag}: winners {rows} != numpy "
+                                 f"{best.tolist()}")
+        log(f"{tag}: {first['ms']!r} ms, repeat {second['ms']!r} ms "
+            f"(replay {second['replay']}, {second['h2d_bytes']} B up); "
+            f"query_downsample of the same range {down['ms']!r} ms; "
+            f"materialized {first['materialized']} cells of a "
+            f"{first['grid_cells']}-cell grid"
+            + (f"; dense control {rec['dense']['ms']!r} ms, "
+               f"{rec['dense']['materialized']} cells"
+               if path == "parts" else "")
+            + "; byte-equal to query_downsample + apply_top_k"
+            + (" and the dense control" if path == "parts" else "")
+            + ", rows and ranking match numpy")
+        res[f"{by}_{'largest' if largest else 'smallest'}"] = rec
+    return res
+
+
+def topk_ops_phase() -> dict:
+    """ops/topk.py on the card against its CPU run on the same inputs:
+    top_k_groups (ties, NaN, +-inf, k > groups, largest and smallest, 100
+    and 100,000 groups: values' bytes and indices equal) and the pair
+    arithmetic on 10^6 seeded normal-range f32 triples (hi, lo, exact
+    and the pair max byte-equal)."""
+    import numpy as np
+    import torch
+
+    from horaedb_tpu_torch.ops import topk
+
+    rng = np.random.default_rng(9)
+    dev = torch.device("cuda")
+
+    def same(a, b, what):
+        a, b = a.cpu(), b.cpu()
+        if a.dtype != b.dtype or a.numpy().tobytes() != b.numpy().tobytes():
+            raise AssertionError(f"topk ops: {what} differs between the "
+                                 f"card and the CPU")
+
+    cases = {"ties": np.array([1, 3, 3, 2, 3], np.float32),
+             "signed zeros": np.array([0.0, -0.0, 0.0, -0.0], np.float32),
+             "nan and inf": np.array([np.nan, np.inf, 2.0, -np.inf, np.nan,
+                                      2.0, np.inf], np.float32),
+             "all nan": np.full(6, np.nan, np.float32)}
+    for g in (100, 100_000):
+        x = rng.integers(-50, 50, g).astype(np.float32)
+        x[rng.random(g) < 0.05] = np.nan
+        x[rng.random(g) < 0.01] = np.inf
+        x[rng.random(g) < 0.01] = -np.inf
+        cases[f"{g} groups"] = x
+    checked = 0
+    for name, x in cases.items():
+        for k in (1, 3, 10, 2 * len(x) + 1):
+            for largest in (True, False):
+                cpu = topk.top_k_groups(torch.from_numpy(x), k, largest)
+                gpu = topk.top_k_groups(torch.from_numpy(x).to(dev), k,
+                                        largest)
+                same(gpu[0], cpu[0], f"{name} k={k} values")
+                same(gpu[1], cpu[1], f"{name} k={k} indices")
+                checked += 1
+    n = 1_000_000
+    scale = np.float32(2.0) ** rng.integers(-20, 20, (3, n)).astype(
+        np.float32)
+    hi, lo, x = (rng.standard_normal((3, n)).astype(np.float32) * scale)
+    lo = lo * np.float32(2.0 ** -30)
+    cpu_in = [torch.from_numpy(a) for a in (hi, lo, x)]
+    gpu_in = [a.to(dev) for a in cpu_in]
+    for what, fn in (("two_sum", lambda h, l, v: topk.two_sum(h, v)),
+                     ("pair_add", topk.pair_add)):
+        for i, (c, gg) in enumerate(zip(fn(*cpu_in), fn(*gpu_in))):
+            same(gg, c, f"{what} output {i}")
+    mask = torch.from_numpy(rng.random((1000, 1000)) < 0.7)
+    for largest in (True, False):
+        c = topk.pair_max_normalized(cpu_in[0].view(1000, 1000),
+                                     cpu_in[1].view(1000, 1000), mask, 1,
+                                     largest)
+        gg = topk.pair_max_normalized(gpu_in[0].view(1000, 1000),
+                                      gpu_in[1].view(1000, 1000),
+                                      mask.to(dev), 1, largest)
+        for i in range(2):
+            same(gg[i], c[i], f"pair_max_normalized largest={largest} {i}")
+    exact = int(topk.pair_add(*gpu_in)[2].sum())
+    big = torch.from_numpy(cases["100000 groups"]).to(dev)
+    ms = cuda_ms(lambda: topk.top_k_groups(big, 10), reps=20)
+    log(f"topk ops: top_k_groups equal on the card and the CPU in "
+        f"{checked} cases (values' bytes and indices); two_sum, pair_add "
+        f"(exact {exact:,} of {n:,}) and pair_max_normalized byte-equal "
+        f"on {n:,} normal-range triples; top_k_groups at 100,000 groups, "
+        f"k=10: {ms!r} ms on the card")
+    return {"cases": checked, "triples": n, "exact": exact,
+            "top_k_groups_100k_ms": ms}
+
+
+async def config4_phase(rows: int, ba, mg) -> dict:
+    """BASELINE config 4 (top-10 hosts by max(cpu) over 64 overlapping
+    SSTs) through plan_query / execute_plan, as the JAX package's
+    run_config4 drives it: 64 writes of rows / 64 (100 hosts drawn
+    uniformly, ts = T0 + U[0, 3,000,000) in one 1 h segment, cpu =
+    U[0, 1) x 100, seed 0), then legs true cold, tier-2-served, repeats
+    (p50 of 5), the count check without the TopK stage, and the dense
+    control; every leg with its launches counted from 0 and checked
+    against numpy on the same rows."""
+    import numpy as np
+    import pyarrow as pa
+    import torch
+
+    from horaedb_tpu_torch.common.error import Error
+    from horaedb_tpu_torch.ops.encode import h2d_bytes
+    from horaedb_tpu_torch.storage import combine as combine_mod
+    from horaedb_tpu_torch.storage.config import StorageConfig, from_dict
+    from horaedb_tpu_torch.storage.plan import TopKSpec
+    from horaedb_tpu_torch.storage.read import (AggregateSpec,
+                                                ParquetReader, ScanRequest)
+    from horaedb_tpu_torch.storage.storage import (CloudObjectStorage,
+                                                   WriteRequest)
+    from horaedb_tpu_torch.storage.types import TimeRange
+
+    hosts, num_ssts, span, k = 100, 64, 3_000_000, 10
+    per_sst = max(1, rows // num_ssts)
+    n = per_sst * num_ssts
+    log(f"config 4 cut: {n:,} rows instead of 1,000,000,000 (host ingest "
+        f"time and host RAM of the check)")
+    T0 = (1_700_000_000_000 // 3_600_000) * 3_600_000
+    schema = pa.schema([("host", pa.string()), ("ts", pa.int64()),
+                        ("cpu", pa.float64())])
+    names = pa.array([f"host_{i}" for i in range(hosts)])
+    rng = np.random.default_rng(0)
+    all_h = np.empty(n, dtype=np.int8)
+    all_off = np.empty(n, dtype=np.int32)
+    all_v = np.empty(n, dtype=np.float32)
+    cfg = from_dict(StorageConfig, {"scheduler": {"schedule_interval": "1h"}})
+    store = counting_store()
+    torch.cuda.reset_peak_memory_stats()
+    s = await CloudObjectStorage.open("bench", 3_600_000, store, schema, 2,
+                                      cfg)
+    try:
+        t0 = time.perf_counter()
+        for i in range(num_ssts):
+            h = rng.integers(0, hosts, per_sst)
+            off = rng.integers(0, span, per_sst)
+            v = rng.random(per_sst) * 100
+            sl = slice(i * per_sst, (i + 1) * per_sst)
+            all_h[sl], all_off[sl], all_v[sl] = h, off, v
+            batch = pa.record_batch(
+                [pa.DictionaryArray.from_arrays(
+                    pa.array(h.astype(np.int32)), names).cast(pa.string()),
+                 pa.array(T0 + off, type=pa.int64()),
+                 pa.array(v, type=pa.float64())], schema=schema)
+            for _attempt in range(5):
+                try:
+                    await s.write(WriteRequest(batch, TimeRange.new(
+                        T0, T0 + span)))
+                    break
+                except Error:
+                    await s.manifest.trigger_merge()
+            else:
+                raise Error("config 4: ingest failed after 5 retries")
+        ingest_s = time.perf_counter() - t0
+        reader = s.reader
+        tier2_ingest = reader.encoded_cache.stats()
+        log(f"config 4: ingest {n:,} rows in {num_ssts} writes in "
+            f"{ingest_s!r} s; tier 2 after ingest "
+            f"{json.dumps(tier2_ingest)}")
+
+        # numpy on the same rows: keep the last write of each (host, ts),
+        # then per host the count and the max (f32, as the device path)
+        t0 = time.perf_counter()
+        key = all_h.astype(np.int64) << 32 | all_off.astype(np.int64)
+        order = np.argsort(key, kind="stable")
+        sk = key[order]
+        last = np.ones(n, dtype=bool)
+        last[:-1] = sk[:-1] != sk[1:]
+        kept_h = all_h[order][last]
+        kept_v = all_v[order][last]
+        want_count = np.bincount(kept_h, minlength=hosts)
+        starts = np.flatnonzero(np.r_[True, kept_h[1:] != kept_h[:-1]])
+        want_max = np.full(hosts, -np.inf, dtype=np.float32)
+        want_max[kept_h[starts]] = np.maximum.reduceat(kept_v, starts)
+        host_names = np.array(sorted(f"host_{i}" for i in range(hosts)))
+        by_name = {nm: int(nm[5:]) for nm in host_names}
+        best = np.argsort(-want_max[[by_name[h] for h in host_names]],
+                          kind="stable")[:k]
+        want_top = host_names[best].tolist()
+        del key, order, sk, last, kept_h, kept_v
+        log(f"config 4: numpy check built in {time.perf_counter() - t0!r} "
+            f"s: {int(want_count.sum()):,} rows after dedup; top {k}: "
+            f"{want_top}")
+
+        spec = AggregateSpec(group_col="host", ts_col="ts", value_col="cpu",
+                             range_start=T0, bucket_ms=span, num_buckets=1,
+                             which=("max",))
+        req = ScanRequest(range=TimeRange.new(T0, T0 + span))
+        tk = TopKSpec(k=k, by="max")
+
+        # the route, read from the gates before the first query
+        plan = await s.build_scan_plan(req)
+        est = sum(f.meta.num_rows for sg in plan.segments for f in sg.ssts)
+        route = {"segments": len(plan.segments),
+                 "ssts": [len(sg.ssts) for sg in plan.segments],
+                 "est_rows": est,
+                 "fused": reader.fused_aggregate_ok(plan),
+                 "device_decode": reader._device_decode_plan_ok(
+                     plan, count=False),
+                 "decode_mode": reader.config.scan.decode.mode,
+                 "streamed": [reader._stream_segment(sg)
+                              for sg in plan.segments],
+                 "stream_read_min_rows":
+                     reader.config.scan.stream_read_min_rows,
+                 "max_window_rows": reader.config.scan.max_window_rows}
+        log(f"config 4 route: {json.dumps(route)} (budget "
+            f"{reader.cache_budget_bytes:,} B)")
+        if not all(route["streamed"]):
+            log(f"config 4: the route changed: {est:,} rows do not reach "
+                f"stream_read_min_rows {route['stream_read_min_rows']:,}, "
+                f"so the segment is read whole")
+        if (route["fused"] or not route["device_decode"]
+                or route["decode_mode"] != "auto" or route["ssts"] !=
+                [num_ssts] or not all(route["streamed"])):
+            raise AssertionError(f"config 4: not the reference's route: "
+                                 f"{route}")
+
+        # streamed windows, counted where the reader returns them
+        windows = [0]
+        orig = ParquetReader._read_streamed_windows
+
+        async def counted(self, seg, plan):
+            got, secs = await orig(self, seg, plan)
+            windows[0] += len(got)
+            return got, secs
+
+        reader._read_streamed_windows = counted.__get__(reader)
+
+        async def leg(name: str, top_k=tk, prep=None, profile=False,
+                      cold=True):
+            # `cold`: the memo was emptied, so the segment is read and
+            # aggregated again (its kernels checked); a repeat is served
+            # by the PartsMemo
+            if prep is not None:
+                prep()
+            memo0 = reader.parts_memo.stats()["hits"]
+            ba.reset_launches()
+            mg.reset_launches()
+            c0 = decode_counts()
+            t2 = dict(reader.encoded_cache.stats())
+            m0, g0 = combine_mod._MATERIALIZED.value, combine_mod._GRID.value
+            got0, h0, w0 = store.snap(), h2d_bytes(), windows[0]
+            torch.cuda.reset_peak_memory_stats()
+
+            async def run():
+                qp = await s.plan_query(req, spec=spec, top_k=top_k)
+                out = await s.execute_plan(qp)
+                torch.cuda.synchronize()
+                return out
+
+            t0 = time.perf_counter()
+            if profile:
+                prof = await profile_query(run)
+                out = prof.pop("out")
+            else:
+                out = await run()
+            ms = (time.perf_counter() - t0) * 1e3
+            dc = counts_delta(c0, decode_counts())
+            t2_now = reader.encoded_cache.stats()
+            rec = {"ms": ms, **store.since(got0),
+                   "h2d_bytes": h2d_bytes() - h0,
+                   "kway_merge_perm": mg.LAUNCHES["kway_merge_perm"],
+                   "bucket_window_partials":
+                       ba.LAUNCHES["bucket_window_partials"],
+                   "bucket_round_accumulate":
+                       ba.LAUNCHES["bucket_round_accumulate"],
+                   "fallbacks": {kk: v for kk, v in dc.items()
+                                 if kk.startswith("fallback:") and v},
+                   "decode": {kk: v for kk, v in dc.items()
+                              if not kk.startswith("fallback:")},
+                   "windows": windows[0] - w0,
+                   "materialized": combine_mod._MATERIALIZED.value - m0,
+                   "grid_cells": combine_mod._GRID.value - g0,
+                   "tier2": {kk: t2_now[kk] - t2[kk] for kk in
+                             ("hits", "misses", "evictions", "admissions")},
+                   "memo_hits": reader.parts_memo.stats()["hits"] - memo0,
+                   "peak_device_memory": torch.cuda.max_memory_allocated()}
+            if profile:
+                rec["profile"] = prof
+            values, grids = out
+            if rec["fallbacks"]:
+                raise AssertionError(f"config 4 {name}: decode fallbacks "
+                                     f"{rec['fallbacks']}")
+            if cold and not (rec["windows"] > 0 and rec["memo_hits"] == 0
+                             and rec["bucket_window_partials"]
+                             == rec["windows"] and rec["kway_merge_perm"]
+                             >= rec["windows"]):
+                raise AssertionError(
+                    f"config 4 {name}: {rec['windows']} streamed windows, "
+                    f"{rec['memo_hits']} memo hits, launches partials "
+                    f"{rec['bucket_window_partials']}, kway_merge_perm "
+                    f"{rec['kway_merge_perm']}")
+            if top_k is not None:
+                want_cells = k * spec.num_buckets * len(grids)
+                if (reader.config.scan.combine.mode != "dense" and
+                        rec["materialized"] != want_cells) \
+                        or rec["grid_cells"] != hosts * spec.num_buckets:
+                    raise AssertionError(
+                        f"config 4 {name}: materialized "
+                        f"{rec['materialized']} cells (want {want_cells}),"
+                        f" grid {rec['grid_cells']} (want {hosts})")
+                got_top = [str(v) for v in values]
+                if got_top != want_top:
+                    raise AssertionError(f"config 4 {name}: top {k} "
+                                         f"{got_top} != numpy {want_top}")
+                idx = [by_name[h] for h in got_top]
+                if not (np.array_equal(np.asarray(grids["count"])[:, 0],
+                                       want_count[idx])
+                        and np.asarray(grids["max"], dtype=np.float32)[
+                            :, 0].tobytes() == want_max[idx].tobytes()):
+                    raise AssertionError(f"config 4 {name}: count or max "
+                                         f"of the winners differs from "
+                                         f"numpy")
+            log(f"config 4 {name}: {ms!r} ms, {rec['gets']} store GETs of "
+                f"{rec['get_bytes']} B, {rec['h2d_bytes']} B up; "
+                f"{rec['windows']} streamed windows, {rec['memo_hits']} "
+                f"memo hits; launches "
+                f"kway_merge_perm {rec['kway_merge_perm']}, "
+                f"bucket_window_partials {rec['bucket_window_partials']}; "
+                f"decode fallbacks 0 ({json.dumps(rec['decode'])}); "
+                f"materialized {rec['materialized']} of "
+                f"{rec['grid_cells']} grid cells; tier 2 "
+                f"{json.dumps(rec['tier2'])}; peak device memory "
+                f"{rec['peak_device_memory']} B")
+            return out, rec
+
+        res = {"rows": n, "ssts": num_ssts, "ingest_s": ingest_s,
+               "tier2_after_ingest": tier2_ingest, "route": route,
+               "want_top": want_top,
+               "dedup_rows": int(want_count.sum())}
+        cold, res["true_cold"] = await leg("true cold",
+                                           prep=lambda: true_cold(reader))
+        _, res["tier2_served"] = await leg(
+            "tier-2-served", prep=lambda: (reader.drop_hbm_state(),
+                                           reader.scan_cache.clear(),
+                                           reader.parts_memo.clear()))
+        repeats = []
+        for i in range(5):
+            got, rec = await leg(f"repeat {i}", cold=False)
+            same_bytes({"tsids": list(got[0]), "aggs": got[1]},
+                       {"tsids": list(cold[0]), "aggs": cold[1]},
+                       f"config 4 repeat {i}")
+            repeats.append(rec)
+        res["repeats"] = repeats
+        res["repeat_p50_ms"] = statistics.median(r["ms"] for r in repeats)
+        (values, grids), res["counts"] = await leg(
+            "without the TopK stage", top_k=None,
+            prep=lambda: true_cold(reader))
+        got_counts = np.asarray(grids["count"])[:, 0]
+        idx = [by_name[str(h)] for h in values]
+        if not (len(values) == hosts and np.array_equal(
+                got_counts, want_count[idx]) and int(got_counts.sum())
+                == int(want_count.sum())):
+            raise AssertionError("config 4: per-host counts differ from "
+                                 "numpy")
+
+        def dense():
+            true_cold(reader)
+            reader.config.scan.combine.mode = "dense"
+
+        try:
+            control, res["dense"] = await leg("dense control", prep=dense)
+        finally:
+            reader.config.scan.combine.mode = "sparse"
+        same_bytes({"tsids": list(control[0]), "aggs": control[1]},
+                   {"tsids": list(cold[0]), "aggs": cold[1]},
+                   "config 4 dense control vs the pushdown")
+        _, res["profiled"] = await leg("cold under torch.profiler",
+                                       prep=lambda: true_cold(reader),
+                                       profile=True)
+        prof = res["profiled"]["profile"]
+        merge_us = sum(v for name, v in prof["busy_us_by_name"].items()
+                       if "kway_merge" in name)
+        res["merge_share"] = merge_us / (res["profiled"]["ms"] * 1e3)
+        log(f"config 4: one cold query under torch.profiler: "
+            f"{prof['kernels']} kernels, device busy "
+            f"{prof['device_busy_us']!r} us of {res['profiled']['ms']!r} "
+            f"ms; kway_merge_perm {merge_us!r} us "
+            f"({res['merge_share']!r} of the wall); by name: "
+            + json.dumps(prof["busy_us_by_name"]))
+        log(f"config 4: top {k} {want_top}, per-host counts and the "
+            f"winners' max equal numpy; {int(got_counts.sum()):,} rows "
+            f"after dedup; the dense control byte-equal to the pushdown; "
+            f"repeats p50 {res['repeat_p50_ms']!r} ms")
+        res["launches"] = {
+            "kway_merge_perm": res["true_cold"]["kway_merge_perm"],
+            "bucket_window_partials":
+                res["true_cold"]["bucket_window_partials"],
+            "bucket_round_accumulate":
+                res["true_cold"]["bucket_round_accumulate"]}
+        return res
+    finally:
+        await s.close()
+
+
 def load_merge_module(root: str):
     """ops/merge.py of another checkout at `root`, loaded under its own
     name and pointed at that checkout's csrc/merge_path.cu (it builds
@@ -2862,6 +3409,11 @@ def main() -> int:
                     help="rows of the end-to-end phase (a cut is printed)")
     ap.add_argument("--json", default=None,
                     help="also write every number of the run to this file")
+    ap.add_argument("--config4-rows", type=int, default=64_000_000,
+                    help="rows of the config 4 phase (64 SSTs; the cut "
+                         "from 1B is printed; below 8,388,608 rows the "
+                         "segment no longer streams and the phase fails "
+                         "its route check)")
     ap.add_argument("--parent", default=None,
                     help="root of another checkout of this repo (e.g. a git "
                          "archive of the parent commit): its merge kernel is "
@@ -2880,25 +3432,28 @@ def main() -> int:
         log(f"scale cut: --rows {args.rows} instead of 10,000,000")
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from horaedb_tpu_torch import native
     from horaedb_tpu_torch.ops import bucket_agg as ba
     from horaedb_tpu_torch.ops import device_decode as dd
     from horaedb_tpu_torch.ops import merge as mg
     from horaedb_tpu_torch.storage import read as fused
 
-    # one nvcc per source, all started together
+    # one compiler per source (nvcc for the kernels, g++ for the host
+    # library, which ingest would otherwise build at its first write),
+    # all started together
     def timed_build(mod):
         t0 = time.perf_counter()
         mod.build()
         return time.perf_counter() - t0
 
     parent = load_merge_module(args.parent) if args.parent else None
-    mods = (ba, mg) + ((parent,) if parent else ())
+    mods = (ba, mg, native) + ((parent,) if parent else ())
     with ThreadPoolExecutor(max_workers=len(mods)) as pool:
         built = {mod: pool.submit(timed_build, mod) for mod in mods}
         built = {mod: f.result() for mod, f in built.items()}
     for mod, secs in built.items():
         log(f"build: {os.path.relpath(mod.SOURCE)} in {secs!r} s")
-        for line in mod.build_log().splitlines():
+        for line in ("" if mod is native else mod.build_log()).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"build: {line.strip()}")
 
@@ -2916,6 +3471,9 @@ def main() -> int:
     compaction = phase("compaction", asyncio.run, compaction_phase(ba, mg))
     wal = phase("wal", asyncio.run,
                 wal_phase(args.rows, ba, mg, e2e["ingest_s"]))
+    topk_ops = phase("topk ops", topk_ops_phase)
+    config4 = phase("config4", asyncio.run,
+                    config4_phase(args.config4_rows, ba, mg))
     kernels.append({
         "name": "kway_merge_perm", "route": "cuda",
         "source": "horaedb_tpu_torch/csrc/merge_path.cu",
@@ -2940,12 +3498,17 @@ def main() -> int:
                          "bucket_round_accumulate": e2e["launches"]}[k["name"]]
         # and on the wal cell's engine path, counted from 0 around it
         k["wal_launches"] = wal["launches"][k["name"]]
+        # and on config 4's true-cold query (the round entry is not on
+        # its path: 0)
+        k["config4_launches"] = config4["launches"][k["name"]]
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
             json.dump({"card": card, "kernels": kernels, "e2e": e2e,
                        "merge_kernel": merge_k, "determinism": determinism,
-                       "compaction": compaction, "wal": wal}, f, indent=1)
+                       "compaction": compaction, "wal": wal,
+                       "topk_ops": topk_ops, "config4": config4}, f,
+                      indent=1)
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -28,8 +28,19 @@ def _diffuse(x: int) -> int:
 
 
 def hash64(buf: bytes) -> int:
-    """Pure-Python SeaHash of `buf` with the default seed (the spec; see
-    module docstring)."""
+    """SeaHash of `buf` with the default seed: through the host library
+    when it is ALREADY loaded (a request-path hash never waits for a
+    compile; bulk ingest's tsids_of_keys pays the one build), else the
+    pure-Python spec below, byte for byte the same."""
+    from horaedb_tpu_torch import native
+
+    if native.is_loaded():
+        return native.seahash64(buf)
+    return hash64_plain(buf)
+
+
+def hash64_plain(buf: bytes) -> int:
+    """Pure-Python SeaHash (the spec; see module docstring)."""
     a, b, c, d = _SEED_A, _SEED_B, _SEED_C, _SEED_D
     n = len(buf)
     i = 0

@@ -597,6 +597,33 @@ class MetricEngine:
         aligned = span_ms % bucket_ms == 0 and span_ms >= self.segment_ms
         return num_buckets, aligned
 
+    async def _scan_downsample(self, metric: str,
+                               filters: list[tuple[str, str]],
+                               time_range: TimeRange, bucket_ms: int,
+                               field: str, aggs: tuple,
+                               top_k=None) -> dict:
+        """Resolve, scan and shape a downsample: the downsample and
+        top-k queries route through one QueryPlan."""
+        num_buckets, aligned = self._downsample_grid(time_range, bucket_ms)
+        with span("resolve"):
+            pred = await self._data_predicate(metric, filters, time_range,
+                                              field, ts_leaf=not aligned)
+        with span("downsample"):
+            if pred is None:
+                return {"tsids": [], "num_buckets": num_buckets, "aggs": {}}
+            spec = AggregateSpec(group_col="tsid", ts_col="timestamp",
+                                 value_col="value",
+                                 range_start=int(time_range.start),
+                                 bucket_ms=bucket_ms,
+                                 num_buckets=num_buckets, which=tuple(aggs))
+            qp = await self.tables["data"].plan_query(
+                ScanRequest(range=time_range, predicate=pred), spec=spec,
+                top_k=top_k)
+            group_values, grids = await self.tables["data"].execute_plan(qp)
+        return {"tsids": [int(t) for t in group_values],
+                "num_buckets": num_buckets,
+                "aggs": grids if len(group_values) else {}}
+
     async def query_downsample(self, metric: str,
                                filters: list[tuple[str, str]],
                                time_range: TimeRange, bucket_ms: int,
@@ -615,21 +642,29 @@ class MetricEngine:
         fused_aggregate_ok) are the combine's host float64 arrays.
         `use_rollup` is accepted for API parity; the port has no
         rollups, so every query takes the raw path."""
-        num_buckets, aligned = self._downsample_grid(time_range, bucket_ms)
-        with span("resolve"):
-            pred = await self._data_predicate(metric, filters, time_range,
-                                              field, ts_leaf=not aligned)
-        with span("downsample"):
-            if pred is None:
-                return {"tsids": [], "num_buckets": num_buckets, "aggs": {}}
-            spec = AggregateSpec(group_col="tsid", ts_col="timestamp",
-                                 value_col="value",
-                                 range_start=int(time_range.start),
-                                 bucket_ms=bucket_ms,
-                                 num_buckets=num_buckets, which=tuple(aggs))
-            qp = await self.tables["data"].plan_query(
-                ScanRequest(range=time_range, predicate=pred), spec=spec)
-            group_values, grids = await self.tables["data"].execute_plan(qp)
-        return {"tsids": [int(t) for t in group_values],
-                "num_buckets": num_buckets,
-                "aggs": grids if len(group_values) else {}}
+        return await self._scan_downsample(metric, filters, time_range,
+                                           bucket_ms, field, aggs)
+
+    async def query_topk(self, metric: str,
+                         filters: list[tuple[str, str]],
+                         time_range: TimeRange, bucket_ms: int, k: int,
+                         by: str = "max", largest: bool = True,
+                         field: str = "value",
+                         aggs: tuple = ALL_AGGS,
+                         use_rollup: bool = True) -> dict:
+        """Top-k series ranked by one aggregate over the window (BASELINE
+        config 4's 'top-k hosts by max(cpu)' shape): the downsample
+        QueryPlan with a TopK stage on top.  Rows come back best first,
+        as host arrays: the parts path ranks in the combine and
+        materializes only the k winners; the fused path slices its
+        device grids (plan.apply_top_k).  `use_rollup` is accepted for
+        API parity; the port has neither rollups nor the chunked layout,
+        so every query takes the row layout's raw path."""
+        from horaedb_tpu_torch.storage.plan import TopKSpec
+
+        ensure(by in ALL_AGGS,
+               f"unknown top-k aggregate {by!r}; supported: {ALL_AGGS}")
+        return await self._scan_downsample(
+            metric, filters, time_range, bucket_ms, field,
+            tuple(sorted(set(aggs) | {by})),
+            top_k=TopKSpec(k=k, by=by, largest=largest))

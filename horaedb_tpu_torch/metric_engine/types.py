@@ -67,10 +67,12 @@ def tsid_of(name: str, labels: list[Label]) -> SeriesId:
 
 
 def tsids_of_keys(keys: list[bytes]):
-    """TSIDs for many canonical series keys at once, as a uint64 numpy
+    """TSIDs for many canonical series keys at once: one call of the
+    host library's batch SeaHash for the whole batch (high-cardinality
+    ingest hashes a key per unique series).  Returns a uint64 numpy
     array aligned with `keys`."""
     import numpy as np
 
-    h = np.fromiter((hash64(k) for k in keys), dtype=np.uint64,
-                    count=len(keys))
-    return h & np.uint64(_ID_MASK)
+    from horaedb_tpu_torch import native
+
+    return native.seahash64_batch(keys) & np.uint64(_ID_MASK)

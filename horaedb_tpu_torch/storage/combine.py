@@ -19,6 +19,10 @@ user-facing (groups, num_buckets) grids:
                    aggregate fingerprint, serves narrowed/refined
                    ranges from prior partials and recomputes only the
                    delta segments.
+  top-k pushdown   a TopKSpec folds each group's runs into a SPAN-sized
+                   transient, scores it, and materializes only the k
+                   winners (combine_top_k): peak materialized output is
+                   O(k x buckets) whatever the series cardinality.
 
 Bit-identity contract: for the same parts, sparse and dense give
 byte-equal grids — f64 folds run in the same part order with the same
@@ -26,8 +30,7 @@ casts, and empty cells read count 0, sum 0, min +inf, max -inf,
 avg/last/last_ts NaN.  The fold order and casts are the JAX package's,
 so the port's folds equal the reference's for the same parts.
 
-Not here yet: the top-k pushdown (combine_top_k, rank_top_k) and the
-cluster tier's merge_downsample_results.
+Not here yet: the cluster tier's merge_downsample_results.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ import numpy as np
 from horaedb_tpu_torch.common.error import ensure
 from horaedb_tpu_torch.ops.downsample import ALL_AGGS
 from horaedb_tpu_torch.storage.scan_cache import ByteLRU
-from horaedb_tpu_torch.utils import registry
+from horaedb_tpu_torch.utils import registry, trace_add
 
 COMBINE_MODES = ("sparse", "dense")
 
@@ -56,7 +59,8 @@ _GRID = registry.counter(
     "dense output-grid cells (groups x buckets) per combine call")
 _MATERIALIZED = registry.counter(
     "scan_combine_materialized_cells_total",
-    "output cells allocated by combine/finalize")
+    "output cells allocated by combine/finalize (the top-k pushdown "
+    "bounds this at k x buckets x aggs)")
 _MEMO_HITS = registry.counter(
     "scan_combine_memo_hits_total",
     "delta-summation memo hits (a segment's partials served without "
@@ -297,6 +301,223 @@ def combine_parts(parts: list, num_buckets: int, which: tuple = ALL_AGGS,
     if mode == "dense":
         return combine_aggregate_parts(parts, num_buckets, which=which)
     return sparse_combine_parts(parts, num_buckets, which=which)
+
+
+# ---- top-k pushdown --------------------------------------------------------
+
+
+def _group_membership(parts: list, all_values: np.ndarray
+                      ) -> tuple[list[int], list[list]]:
+    """Part membership split by shape: full-group parts (every union
+    group belongs, local row == union row — the headline scan's common
+    shape) as ONE index list, per-group entry lists only for subset
+    parts.  Bookkeeping is O(parts + subset cells); expanding full
+    parts per group would make it O(groups x parts) — scaling with the
+    very cardinality the pushdown exists to bound."""
+    g = len(all_values)
+    full: list[int] = []
+    subset: list[list] = [[] for _ in range(g)]
+    for pi, (values, _lo, _p) in enumerate(parts):
+        if len(values) == g:
+            full.append(pi)
+        else:
+            for r_local, r in enumerate(
+                    np.searchsorted(all_values, values)):
+                subset[r].append((pi, int(r_local)))
+    return full, subset
+
+
+def _merged_entries(full: list[int], sub: list, r: int):
+    """(part_idx, local_row) pairs for group r in ascending part index
+    order — the fold/tie-break order — merged from the full-part
+    indices and the group's subset entries."""
+    i = j = 0
+    while i < len(full) or j < len(sub):
+        if j >= len(sub) or (i < len(full) and full[i] < sub[j][0]):
+            yield full[i], r
+            i += 1
+        else:
+            yield sub[j]
+            j += 1
+
+
+def _fold_group_span(parts: list, entries,
+                     span_lo: int, span_w: int, bufs: dict) -> None:
+    """Fold ONE group's runs into span-sized f64 buffers (identity
+    -refilled views of reusable full-width scratch), same arithmetic
+    and part order as the grid folds (`entries` iterates (part_idx,
+    local_row) in ascending part order).  Which aggregates fold is
+    encoded by which buffers exist in `bufs`."""
+    for name, buf in bufs.items():
+        if name == "count" or name == "sum":
+            buf[:span_w] = 0.0
+        elif name == "min":
+            buf[:span_w] = np.inf
+        elif name == "max":
+            buf[:span_w] = -np.inf
+        elif name == "last":
+            buf[:span_w] = 0.0
+        elif name == "last_ts":
+            buf[:span_w] = _I64_MIN
+    for pi, r in entries:
+        _values, lo, p = parts[pi]
+        width = p["count"].shape[1]
+        sl = slice(lo - span_lo, lo - span_lo + width)
+        bufs["count"][sl] += p["count"][r]
+        if "sum" in bufs:
+            bufs["sum"][sl] += p["sum"][r]
+        if "min" in bufs:
+            mv = bufs["min"][sl]
+            np.minimum(mv, p["min"][r], out=mv)
+        if "max" in bufs:
+            xv = bufs["max"][sl]
+            np.maximum(xv, p["max"][r], out=xv)
+        if "last" in bufs:
+            lt_view = bufs["last_ts"][sl]
+            newer = p["last_ts"][r].astype(np.int64) >= lt_view
+            take = newer & (p["count"][r] > 0)
+            np.copyto(bufs["last"][sl], p["last"][r], where=take,
+                      casting="same_kind")
+            np.copyto(lt_view, p["last_ts"][r].astype(np.int64),
+                      where=take)
+
+
+def _score_deps(by: str) -> set:
+    """Buffers a ranking agg needs beyond count."""
+    if by == "avg":
+        return {"sum"}
+    if by == "last":
+        return {"last"}  # carries last_ts
+    if by == "count":
+        return set()
+    return {by}
+
+
+def _full_span(parts: list, full: list[int]) -> Optional[tuple[int, int]]:
+    """[lo, hi) bucket span of the full-group parts, computed once —
+    every group shares it."""
+    if not full:
+        return None
+    lo = min(parts[pi][1] for pi in full)
+    hi = max(parts[pi][1] + parts[pi][2]["count"].shape[1]
+             for pi in full)
+    return lo, hi
+
+
+def _group_span(parts: list, fspan: Optional[tuple[int, int]],
+                sub: list) -> tuple[int, int]:
+    los = [parts[pi][1] for pi, _r in sub]
+    his = [parts[pi][1] + parts[pi][2]["count"].shape[1]
+           for pi, _r in sub]
+    if fspan is not None:
+        los.append(fspan[0])
+        his.append(fspan[1])
+    lo = min(los)
+    return lo, max(his) - lo
+
+
+def rank_top_k(kept_rows: list, scores, tk) -> list:
+    """THE top-k ranking: stable argsort over the kept groups' scores
+    in ascending group-row order (post-drop sorted order — the dense
+    path's tie-break), best first, sliced to k.  Every top-k route
+    ranks through it, so their selections cannot drift."""
+    score_arr = np.asarray(scores, dtype=np.float64)
+    if tk.largest:
+        order = np.argsort(-score_arr, kind="stable")
+    else:
+        order = np.argsort(score_arr, kind="stable")
+    return [kept_rows[i] for i in order[:tk.k]]
+
+
+def _score_buf(bufs: dict, by: str, span_w: int,
+               count: np.ndarray) -> np.ndarray:
+    """Per-cell ranking values over a group's span, matching the dense
+    path's finalized grid cell for cell (only count>0 cells are ever
+    read by the score, so avg can divide plainly)."""
+    if by == "count":
+        return count
+    if by == "avg":
+        with np.errstate(invalid="ignore", divide="ignore"):
+            return bufs["sum"][:span_w] / np.maximum(count, 1)
+    return bufs[by][:span_w]
+
+
+def combine_top_k(parts: list, num_buckets: int, which: tuple,
+                  tk) -> tuple[np.ndarray, dict]:
+    """Top-k pushdown combine: scores fold per group into a SPAN-sized
+    transient, and only the k winners' rows are ever materialized —
+    peak output is O(k x buckets x aggs) independent of group
+    cardinality.  Bit-identical to dense combine + empty-group drop +
+    plan.apply_top_k: same f64 fold order, same score formula
+    (best count>0 cell of the ranking grid), same stable tie-break on
+    the post-drop sorted group order, rows returned best first."""
+    requested = set(which) | {"count"}
+    want = expand_which(requested)
+    ensure(tk.by in requested or tk.by == "count",
+           f"top-k by {tk.by!r} needs that aggregate in the spec's "
+           f"`which`; have {sorted(requested)}")
+    if not parts:
+        return _empty_result(num_buckets, which)
+    all_values = _union_values(parts)
+    g = len(all_values)
+    _GRID.inc(g * num_buckets)
+    full, subset = _group_membership(parts, all_values)
+    fspan = _full_span(parts, full)
+    touched = sum(len(v) * p["count"].shape[1] for v, _lo, p in parts)
+    _TOUCHED.inc(touched)
+    trace_add("scan_combine_touched_cells", touched)
+    trace_add("scan_combine_grid_cells", g * num_buckets)
+
+    # score pass: one reusable full-width scratch per needed buffer
+    deps = _score_deps(tk.by)
+    score_names = {"count"} | deps | ({"last_ts"} if "last" in deps
+                                     else set())
+    scratch = {name: np.empty(num_buckets,
+                              dtype=np.int64 if name == "last_ts"
+                              else np.float64)
+               for name in score_names}
+    kept_rows: list[int] = []
+    scores: list[float] = []
+    for r in range(g):
+        if not full and not subset[r]:
+            continue
+        span_lo, span_w = _group_span(parts, fspan, subset[r])
+        _fold_group_span(parts, _merged_entries(full, subset[r], r),
+                         span_lo, span_w, scratch)
+        count = scratch["count"][:span_w]
+        has = count > 0
+        if not has.any():
+            continue  # all-empty group: dropped before ranking,
+            # exactly like finalize_aggregate's empty-group cut
+        by_vals = _score_buf(scratch, tk.by, span_w, count)
+        if tk.largest:
+            s = float(np.max(np.where(has, by_vals, -np.inf)))
+        else:
+            s = float(np.min(np.where(has, by_vals, np.inf)))
+        kept_rows.append(r)
+        scores.append(s)
+    winners = rank_top_k(kept_rows, scores, tk)
+
+    # materialize ONLY the winners, best first.  An all-empty-group
+    # result still goes through the identity/finalize pair so dtypes
+    # match the dense path's dropped-to-zero-rows grids exactly.
+    k_out = len(winners)
+    acc = _identity_grids(k_out, num_buckets, want)
+    for out_row, r in enumerate(winners):
+        for pi, r_local in _merged_entries(full, subset[r], r):
+            _values, lo, p = parts[pi]
+            row_part = {name: grid[r_local:r_local + 1]
+                        for name, grid in p.items()}
+            row_acc = {name: grid[out_row:out_row + 1]
+                       for name, grid in acc.items()}
+            _fold_part(row_acc, None,
+                       slice(lo, lo + row_part["count"].shape[1]),
+                       row_part)
+    out = _finalize_in_place(acc, requested, want)
+    _MATERIALIZED.inc(k_out * num_buckets * len(out))
+    trace_add("scan_combine_materialized_cells",
+              k_out * num_buckets * len(out))
+    return all_values[winners], out
 
 
 class PartsMemo:

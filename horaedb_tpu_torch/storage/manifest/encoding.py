@@ -18,6 +18,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from horaedb_tpu_torch import native
 from horaedb_tpu_torch.common import protowire as pw
 from horaedb_tpu_torch.common.error import ensure
 from horaedb_tpu_torch.storage.sst import FileId, FileMeta, SstFile
@@ -152,46 +153,13 @@ def decode_manifest_update(buf: bytes) -> ManifestUpdate:
 _HEADER_STRUCT = struct.Struct("<IBBQ")
 _RECORD_STRUCT = struct.Struct("<QqqII")
 
-SNAPSHOT_MAGIC = 0xCAFE_1234
-SNAPSHOT_VERSION = 1
-# one snapshot record; the dtype's memory layout IS the wire layout
-RECORD_DTYPE = np.dtype(
-    [("id", "<u8"), ("start", "<i8"), ("end", "<i8"),
-     ("size", "<u4"), ("num_rows", "<u4")], align=False)
+# the wire constants and the array codec are the host library's
+SNAPSHOT_MAGIC = native.SNAPSHOT_MAGIC
+SNAPSHOT_VERSION = native.SNAPSHOT_VERSION
+RECORD_DTYPE = native.RECORD_DTYPE
 HEADER_LENGTH = _HEADER_STRUCT.size  # 14
 RECORD_LENGTH = _RECORD_STRUCT.size  # 32
 assert RECORD_LENGTH == RECORD_DTYPE.itemsize
-
-
-def snapshot_encode(records: np.ndarray) -> bytes:
-    """records: RECORD_DTYPE structured array -> snapshot bytes.  An
-    empty snapshot is zero bytes: the reference decodes empty bytes as
-    the default snapshot but rejects header-only buffers."""
-    records = np.ascontiguousarray(records, dtype=RECORD_DTYPE)
-    if len(records) == 0:
-        return b""
-    header = _HEADER_STRUCT.pack(SNAPSHOT_MAGIC, SNAPSHOT_VERSION, 0,
-                                 len(records) * RECORD_LENGTH)
-    return header + records.tobytes()
-
-
-def snapshot_decode(buf: bytes) -> np.ndarray:
-    """snapshot bytes -> RECORD_DTYPE structured array (validates the
-    header)."""
-    if not buf:
-        return np.empty(0, dtype=RECORD_DTYPE)
-    ensure(len(buf) >= HEADER_LENGTH, "snapshot header truncated")
-    magic, ver, _flag, length = _HEADER_STRUCT.unpack_from(buf)
-    ensure(magic == SNAPSHOT_MAGIC, "invalid bytes to convert to header")
-    ensure(ver <= SNAPSHOT_VERSION,
-           f"snapshot version {ver} is newer than supported "
-           f"{SNAPSHOT_VERSION}")
-    body = buf[HEADER_LENGTH:]
-    ensure(length > 0, "snapshot body is empty (header-only buffer); "
-           "an empty snapshot is encoded as zero bytes")
-    ensure(length == len(body) and length % RECORD_LENGTH == 0,
-           f"snapshot length mismatch: header={length}, body={len(body)}")
-    return np.frombuffer(body, dtype=RECORD_DTYPE).copy()
 
 
 @dataclass
@@ -199,7 +167,8 @@ class SnapshotHeader:
     """14-byte snapshot header (ref: encoding.rs:90-153).
 
     SnapshotHeader/SnapshotRecord state the wire format record by
-    record; Snapshot encodes and decodes whole arrays at once."""
+    record; Snapshot encodes and decodes whole arrays at once through
+    the host library (horaedb_tpu_torch.native)."""
 
     magic: int = SNAPSHOT_MAGIC
     version: int = SNAPSHOT_VERSION
@@ -244,7 +213,8 @@ class Snapshot:
 
     Array-backed: records live in a numpy structured array whose memory
     layout IS the wire layout, so encode/decode are a header plus one
-    memcpy instead of per-record Python packing.
+    memcpy (the host library's codec) instead of per-record Python
+    packing.
     """
 
     def __init__(self, records: "np.ndarray | None" = None):
@@ -253,10 +223,10 @@ class Snapshot:
 
     @classmethod
     def from_bytes(cls, buf: bytes) -> "Snapshot":
-        return cls(snapshot_decode(buf))
+        return cls(native.snapshot_decode(buf))
 
     def into_bytes(self) -> bytes:
-        return snapshot_encode(self.records)
+        return native.snapshot_encode(self.records)
 
     def __len__(self) -> int:
         return len(self.records)

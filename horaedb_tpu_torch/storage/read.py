@@ -1248,7 +1248,8 @@ class ParquetReader:
 
     # ---- the parts path ----------------------------------------------------
 
-    async def aggregate_segments(self, plan: ScanPlan, spec: AggregateSpec):
+    async def aggregate_segments(self, plan: ScanPlan, spec: AggregateSpec,
+                                 top_k=None):
         """Per segment, yield (segment_start, partial parts) — the
         retryable unit of scan_aggregate (segments already yielded are
         skipped on a replan; a segment is yielded only once ALL its
@@ -1257,7 +1258,9 @@ class ParquetReader:
         Memo-served segments come first and are dropped from the scan
         plan, so a narrowed/refined range re-scans only the delta
         segments; callers fold parts in sorted segment order, so yield
-        order is free."""
+        order is free.  `top_k` is accepted for the multi-device
+        device-scored route, which the port does not have yet: on one
+        device every part goes to finalize_aggregate, which ranks."""
         ensure(plan.mode is UpdateMode.OVERWRITE,
                "aggregate pushdown requires Overwrite mode")
         # device decode: an eligible plan threads the spec to the segment
@@ -1495,23 +1498,43 @@ class ParquetReader:
             parts.append((items[d][0], (round_values, lo_w, grids)))
         return parts
 
-    def finalize_aggregate(self, parts: list, spec: AggregateSpec):
+    def finalize_aggregate(self, parts: list, spec: AggregateSpec,
+                           top_k=None):
         """Combine per-window parts into the user-facing grids
         (storage/combine.py, [scan.combine] mode), drop groups with no
-        row in any bucket, and expose last_ts as absolute ms."""
+        row in any bucket, and expose last_ts as absolute ms.
+
+        A `top_k` spec (plan.TopKSpec) pushes the ranking into the
+        combine (combine_top_k): only the k winners' rows are ever
+        materialized, never the groups x buckets grid.  In `dense` mode
+        the pushdown is off too: the control materializes the full grid
+        and ranks with plan.apply_top_k, so the mode flag A/Bs the whole
+        path."""
+        mode = self.config.scan.combine.mode
         t0 = time.perf_counter()
         try:
-            group_values, grids = combine_mod.combine_parts(
-                parts, spec.num_buckets, which=spec.which,
-                mode=self.config.scan.combine.mode)
-            # the aligned fast path omits the ts leaf (query_downsample),
-            # so boundary-segment rows outside [start, end) can register
-            # a group whose every cell is empty
-            if len(group_values):
-                nonzero = grids["count"].sum(axis=1) > 0
-                if not nonzero.all():
-                    group_values = group_values[nonzero]
-                    grids = {k: v[nonzero] for k, v in grids.items()}
+            if top_k is not None and mode != "dense":
+                # the pushdown drops all-empty groups before ranking,
+                # the same groups as the drop below
+                group_values, grids = combine_mod.combine_top_k(
+                    parts, spec.num_buckets, spec.which, top_k)
+            else:
+                group_values, grids = combine_mod.combine_parts(
+                    parts, spec.num_buckets, which=spec.which, mode=mode)
+                # the aligned fast path omits the ts leaf
+                # (query_downsample), so boundary-segment rows outside
+                # [start, end) can register a group whose every cell is
+                # empty
+                if len(group_values):
+                    nonzero = grids["count"].sum(axis=1) > 0
+                    if not nonzero.all():
+                        group_values = group_values[nonzero]
+                        grids = {k: v[nonzero] for k, v in grids.items()}
+                if top_k is not None:
+                    from horaedb_tpu_torch.storage.plan import apply_top_k
+
+                    group_values, grids = apply_top_k(group_values, grids,
+                                                      top_k)
         finally:
             _STAGE_SECONDS["combine"].observe(time.perf_counter() - t0)
         if len(group_values) and "last_ts" in grids:
@@ -2324,3 +2347,21 @@ def merge_memtable_overlay(schema: StorageSchema,
         batch = batch.select([c for c in batch.schema.names
                               if not StorageSchema.is_builtin_name(c)])
     return batch
+
+
+def describe_plan(plan: ScanPlan) -> str:
+    """Indented plan text for golden tests (the analogue of the
+    reference's DisplayableExecutionPlan assertion)."""
+    lines = [f"MergeScan: mode={plan.mode.value}, "
+             f"keep_builtin={plan.keep_builtin}"]
+    for seg in plan.segments:
+        kind = ("DeviceMergeDedup" if plan.mode is UpdateMode.OVERWRITE
+                else "HostBytesMerge")
+        lines.append(f"  Segment[start={seg.segment_start}]: {kind}")
+        if plan.predicate is not None:
+            lines.append(f"    Filter: {plan.predicate!r}")
+        files = ", ".join(f"{f.id}.sst" for f in seg.ssts)
+        pushed = ", pushdown=yes" if plan.pushdown is not None else ""
+        lines.append(f"    ParquetScan: files=[{files}], "
+                     f"columns={seg.columns}{pushed}")
+    return "\n".join(lines)

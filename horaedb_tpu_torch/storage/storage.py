@@ -306,21 +306,34 @@ class CloudObjectStorage:
                 await exec_iter.aclose()
 
     async def scan_aggregate(self, req: ScanRequest, spec,
-                             first_plan: Optional[ScanPlan] = None):
+                             first_plan: Optional[ScanPlan] = None,
+                             top_k=None):
         """Downsample pushdown: merge + GROUP BY group_col, time(bucket);
         returns (group_values, grids).  See read.AggregateSpec and
         read.ParquetReader.execute_aggregate for the two paths.  On a
         compaction race the fused path restarts whole; the parts path
-        skips the segments it finished before the race."""
+        skips the segments it finished before the race.
+
+        `top_k` (a plan.TopKSpec) pushes the ranking into the combine on
+        the parts path: it folds per-group spans into a bounded score
+        pass and materializes only the k winners (combine_top_k).  The
+        fused path's grids already live on the device, so it slices them
+        with plan.apply_top_k."""
         if first_plan is None:
             first_plan = await self.build_scan_plan(req)
         if self.reader.fused_aggregate_ok(first_plan):
+            from horaedb_tpu_torch.storage.plan import apply_top_k
+
             counted: set = set()  # rows scanned count once per query
             plan = first_plan
             for attempt in range(self._SCAN_RETRIES + 1):
                 try:
-                    return await self.reader.execute_aggregate_fused(
-                        plan, spec, counted=counted)
+                    values, grids = \
+                        await self.reader.execute_aggregate_fused(
+                            plan, spec, counted=counted)
+                    if top_k is not None:
+                        values, grids = apply_top_k(values, grids, top_k)
+                    return values, grids
                 except NotFoundError:
                     if attempt == self._SCAN_RETRIES:
                         raise
@@ -336,7 +349,8 @@ class CloudObjectStorage:
                              if s.segment_start not in done]
             try:
                 async for seg_start, parts in \
-                        self.reader.aggregate_segments(plan, spec):
+                        self.reader.aggregate_segments(plan, spec,
+                                                       top_k=top_k):
                     done[seg_start] = parts
                 break
             except NotFoundError:
@@ -345,7 +359,7 @@ class CloudObjectStorage:
                 logger.info("aggregate scan raced a compaction; "
                             "replanning")
         all_parts = [p for seg in sorted(done) for p in done[seg]]
-        return self.reader.finalize_aggregate(all_parts, spec)
+        return self.reader.finalize_aggregate(all_parts, spec, top_k=top_k)
 
     async def build_scan_plan(self, req: ScanRequest,
                               keep_builtin: bool = False) -> ScanPlan:
@@ -353,18 +367,24 @@ class CloudObjectStorage:
         ssts = await self.manifest.find_ssts(req.range)
         return self.reader.build_plan(ssts, req, keep_builtin=keep_builtin)
 
-    async def plan_query(self, req: ScanRequest, spec=None):
+    async def plan_query(self, req: ScanRequest, spec=None, top_k=None):
         """Build the QueryPlan every query shape routes through (see
-        storage/plan.py): scan -> aggregate?."""
+        storage/plan.py): scan -> aggregate? -> top_k?."""
         from horaedb_tpu_torch.storage.plan import QueryPlan
 
+        ensure(spec is not None or top_k is None,
+               "top-k requires an aggregate stage")
         scan = await self.build_scan_plan(req)
-        return QueryPlan(scan=scan, request=req, aggregate=spec)
+        return QueryPlan(scan=scan, request=req, aggregate=spec,
+                         top_k=top_k)
 
     def execute_plan(self, qp):
         """Row-scan plans return the async batch iterator; aggregate
-        plans an awaitable of (group_values, grids)."""
+        plans an awaitable of (group_values, grids).  A top-k stage is
+        pushed down into the combine (scan_aggregate top_k=)."""
         if qp.aggregate is None:
             return self.scan(qp.request, first_plan=qp.scan)
+        return self.scan_aggregate(qp.request, qp.aggregate,
+                                   first_plan=qp.scan, top_k=qp.top_k)
         return self.scan_aggregate(qp.request, qp.aggregate,
                                    first_plan=qp.scan)

@@ -445,9 +445,13 @@ class IngestStorage:
                 yield out
 
     async def scan_aggregate(self, req: ScanRequest, spec,
-                             first_plan: Optional[ScanPlan] = None):
+                             first_plan: Optional[ScanPlan] = None,
+                             top_k=None):
         await self.flush_overlapping(req.range)
-        return await self.inner.scan_aggregate(req, spec)
+        return await self.inner.scan_aggregate(req, spec, top_k=top_k)
+
+    async def plan_query(self, req: ScanRequest, spec=None, top_k=None):
+        return await self.inner.plan_query(req, spec=spec, top_k=top_k)
 
     def execute_plan(self, qp):
         if qp.aggregate is None:
@@ -460,7 +464,8 @@ class IngestStorage:
             # may predate this flush or a background one racing the
             # query (aggregate grids read pure SST state)
             await self.flush_overlapping(qp.request.range)
-            qp2 = await self.inner.plan_query(qp.request, qp.aggregate)
+            qp2 = await self.inner.plan_query(qp.request, qp.aggregate,
+                                              qp.top_k)
             return await self.inner.execute_plan(qp2)
 
         return agg()

@@ -531,9 +531,9 @@ def test_aggregate_with_stale_plan_after_real_compaction(monkeypatch, fused):
             plans = []
             real = s.reader.aggregate_segments
 
-            async def spy(plan, spec):
+            async def spy(plan, spec, top_k=None):
                 plans.append([sg.segment_start for sg in plan.segments])
-                async for out in real(plan, spec):
+                async for out in real(plan, spec, top_k=top_k):
                     yield out
 
             monkeypatch.setattr(s.reader, "aggregate_segments", spy)
@@ -570,9 +570,9 @@ def test_parts_race_skips_finished_segments(monkeypatch):
             real = s.reader.aggregate_segments
             plans = []
 
-            async def flaky(plan, spec):
+            async def flaky(plan, spec, top_k=None):
                 plans.append([sg.segment_start for sg in plan.segments])
-                async for out in real(plan, spec):
+                async for out in real(plan, spec, top_k=top_k):
                     yield out
                     if len(plans) == 1:
                         raise NotFoundError("sst vanished (simulated race)")

@@ -46,8 +46,87 @@ def test_the_scan_covers_every_port_module():
               "horaedb_tpu_torch.wal.config",
               "horaedb_tpu_torch.wal.log",
               "horaedb_tpu_torch.wal.memtable",
-              "horaedb_tpu_torch.wal.ingest"):
+              "horaedb_tpu_torch.wal.ingest",
+              "horaedb_tpu_torch.native",
+              "horaedb_tpu_torch.ops.topk",
+              "horaedb_tpu_torch.storage.plan"):
         assert m in mods, m
+
+
+def _port_sources() -> list[str]:
+    """The port's C++ and CUDA sources."""
+    return sorted(os.path.join(root, name)
+                  for root, _dirs, files in os.walk(PKG) for name in files
+                  if name.endswith((".cpp", ".cu", ".h", ".cuh")))
+
+
+def test_native_sources_include_only_system_headers():
+    """Every C++/CUDA source of the port, the host library's included,
+    stands alone: it includes system headers only, nothing of the JAX
+    package's native/ directory."""
+    srcs = _port_sources()
+    assert os.path.join(PKG, "csrc", "host_native.cpp") in srcs
+    for path in srcs:
+        with open(path, encoding="utf-8") as f:
+            for n, line in enumerate(f, 1):
+                if line.lstrip().startswith("#include"):
+                    assert "<" in line and '"' not in line, f"{path}:{n}"
+
+
+def test_port_never_opens_the_reference_host_library():
+    """The port builds and loads its own library: no source names the
+    JAX package's, and after every entry ran the process has mapped
+    libhost_native and not libhoraedb_native."""
+    for root, _dirs, files in os.walk(PKG):
+        for name in files:
+            if name.endswith((".py", ".cpp", ".cu")):
+                with open(os.path.join(root, name), encoding="utf-8") as f:
+                    assert "libhoraedb_native" not in f.read(), name
+    code = (
+        "import numpy as np\n"
+        "from horaedb_tpu_torch import native\n"
+        "recs = np.zeros(2, dtype=native.RECORD_DTYPE)\n"
+        "native.snapshot_decode(native.snapshot_encode(recs))\n"
+        "native.run_last_indices(native.run_starts_i64(\n"
+        "    [np.arange(4, dtype=np.int64)]))\n"
+        "native.seahash64(b'k'); native.seahash64_batch([b'a'])\n"
+        "native.chunk_decode_batch([b''])\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "print('PORT', 'libhost_native' in maps)\n"
+        "print('REF', 'libhoraedb_native' in maps)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "PORT True" in out.stdout and "REF False" in out.stdout
+
+
+def test_host_library_build_failure_raises_without_fallback(tmp_path,
+                                                             monkeypatch):
+    """A source that does not compile: every entry, and ingest's batch
+    hash, raise with the compiler's output; none returns a numpy
+    result."""
+    import numpy as np
+
+    from horaedb_tpu_torch import native
+    from horaedb_tpu_torch.common.error import Error
+    from horaedb_tpu_torch.metric_engine.types import tsids_of_keys
+
+    bad = tmp_path / "host_native.cpp"
+    bad.write_text('extern "C" int broken( { return 0; }\n')
+    monkeypatch.setattr(native, "SOURCE", str(bad))
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(native, "_lib", None)
+    for call in (lambda: tsids_of_keys([b"cpu{host=a}"]),
+                 lambda: native.seahash64_batch([b"a"]),
+                 lambda: native.run_starts_i64([np.arange(3)]),
+                 lambda: native.snapshot_encode(
+                     np.zeros(1, dtype=native.RECORD_DTYPE)),
+                 native.available):
+        with pytest.raises(Error, match="host library build failed") as err:
+            call()
+        assert "error" in str(err.value)
+    assert not native.is_loaded()
+    assert not os.listdir(tmp_path / "build")
 
 
 def test_import_pulls_in_no_jax_and_no_reference_module():
