@@ -158,8 +158,39 @@ non-zero and prints no result line:
    and evictions, and peak device memory.  The top 10, each winner's
    count and max (f32, byte-equal) against numpy's keep-last dedup of
    the same rows.
-13. a JSON line of per-kernel numbers (with `wal_launches` and
-   `config4_launches` beside `launches`), the card line again, and the
+13. rollup: the JAX package's bench config 11 (suite.py run_config11)
+   at 10M rows (100 hosts, 10 s scrape, 139 2 h segments, seed 11) on
+   an engine with rollup tiers 1m and 1h: ingest, the (cpu, value)
+   standing query registered and the roll_now() backfill (139
+   segments, each tier recomputed
+   on the parts route: device decode and one bucket_window_partials a
+   segment), stats() (lag 0, coverage 1.0, tier sizes), a cross-check
+   per dashboard shape (the served grid byte for byte a parts-route
+   recompute, within tolerance of the default fused route, and against
+   numpy), the rollup-served mix (12 rotating 6 h @ 1 m zooms and the
+   full-span @ 1 h overview, 277 buckets, aggs avg, 12 repetitions, the
+   tier tables' window caches dropped before each query: 0 data-plane
+   GETs), the raw cold mix (3 repetitions, the data table true cold),
+   p50/p99 per shape and the mix speedup, a served top-k equal to
+   apply_top_k of the served grid, and a late write served as cells
+   plus a one-segment raw tail that roll_now() then re-rolls alone.
+   The in-memory store has no latency (the reference's 25 ms store is
+   not ported).
+14. chunked: tools/chunked_vs_row.py's deployment at 10M rows (one-
+   decimal gauges from seed 0, 30-minute chunk windows) in a chunked
+   and a row-layout engine: both ingests and stored bytes; the cold avg
+   at 1 min over the whole span, p50 of 3 in turns with the row
+   layout's cold query, against numpy and the row layout; one
+   bucket_window_partials launch per cold chunked query (W = 1, 10M
+   valid rows of 16,777,216 slots), held against its plain version on
+   the card, 5 launches byte-equal, timed beside its bound, its plain
+   version and index_add_; a repeat from the decode cache with 0 B up;
+   two writes of one (series, ts) keep the later value; an Append
+   compaction of one segment changes no result.
+15. a JSON line of per-kernel numbers (with `wal_launches`,
+   `config4_launches`, the rollup cell's and the chunked cell's
+   launches beside `launches`, and the partials entry's time at the
+   chunked shape), the total seconds, the card line again, and the
    last line {"ok": true, "device": {...}}.
 
 Needs one CUDA card; a missing card is a failure, never a CPU run.
@@ -1602,8 +1633,8 @@ async def decode_alone(e, full: tuple, plan) -> dict:
 
     data = e.tables["data"]
     reader = data.reader
-    pred = await e._data_predicate("cpu", [], TimeRange.new(*full), "value",
-                                   ts_leaf=False)
+    pred = await e._resolve_data_predicate(
+        "cpu", [], TimeRange.new(*full), "value", ts_leaf=False)
     spec = AggregateSpec(group_col="tsid", ts_col="timestamp",
                          value_col="value", range_start=full[0],
                          bucket_ms=BMS,
@@ -2414,6 +2445,12 @@ async def wal_ingest_leg() -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
+
+
+def registry_snapshot() -> dict:
+    from horaedb_tpu_torch.utils import registry
+
+    return registry.snapshot()
 
 
 def registry_value(name: str) -> float:
@@ -3387,6 +3424,626 @@ async def config4_phase(rows: int, ba, mg) -> dict:
         await s.close()
 
 
+async def ingest_rows(e, host_id, ts, vals, names, hosts: int) -> float:
+    """write_arrow in 1M-row chunks (bench.py's), folding the manifest
+    on backpressure; returns the seconds."""
+    import pyarrow as pa
+
+    from horaedb_tpu_torch.common.error import Error
+
+    n = len(ts)
+    t0 = time.perf_counter()
+    chunk = max(1, 1_000_000 // hosts) * hosts
+    for lo in range(0, n, chunk):
+        hi = min(n, lo + chunk)
+        batch = pa.record_batch({
+            "host": pa.DictionaryArray.from_arrays(
+                pa.array(host_id[lo:hi]), names),
+            "timestamp": pa.array(ts[lo:hi], type=pa.int64()),
+            "value": pa.array(vals[lo:hi], type=pa.float64())})
+        for _attempt in range(5):
+            try:
+                await e.write_arrow("cpu", ["host"], batch)
+                break
+            except Error:
+                await e.tables["data"].manifest.trigger_merge()
+        else:
+            raise Error("ingest failed after 5 backpressure retries")
+    return time.perf_counter() - t0
+
+
+def host_grids(out: dict) -> dict:
+    import numpy as np
+
+    return {k: (v.cpu().numpy() if hasattr(v, "cpu") else np.asarray(v))
+            for k, v in out["aggs"].items()}
+
+
+def same_result_bytes(a: dict, b: dict, what: str) -> None:
+    """tsids, grid keys, dtypes and bytes equal."""
+    if a["tsids"] != b["tsids"]:
+        raise AssertionError(f"{what}: tsids differ")
+    ga, gb = host_grids(a), host_grids(b)
+    if sorted(ga) != sorted(gb):
+        raise AssertionError(f"{what}: grids {sorted(ga)} != {sorted(gb)}")
+    for k in gb:
+        if ga[k].dtype != gb[k].dtype or ga[k].tobytes() != gb[k].tobytes():
+            raise AssertionError(f"{what}: grid {k} differs in bytes")
+
+
+def tolerance_match(a: dict, b: dict, what: str) -> None:
+    """count/min/max/last/last_ts exact after a cast to f64, sum/avg
+    within rtol 1e-5 (NaN where the other is NaN)."""
+    import numpy as np
+
+    if a["tsids"] != b["tsids"]:
+        raise AssertionError(f"{what}: tsids differ")
+    ga, gb = host_grids(a), host_grids(b)
+    if sorted(ga) != sorted(gb):
+        raise AssertionError(f"{what}: grids {sorted(ga)} != {sorted(gb)}")
+    for k in gb:
+        x, y = ga[k].astype(np.float64), gb[k].astype(np.float64)
+        if k in ("sum", "avg"):
+            np.testing.assert_allclose(x, y, rtol=1e-5, err_msg=f"{what} {k}")
+        elif not np.array_equal(x, y, equal_nan=True):
+            raise AssertionError(f"{what}: grid {k} differs")
+
+
+def launches(ba, mg) -> dict:
+    return {**ba.LAUNCHES, **mg.LAUNCHES}
+
+
+def reset_all(ba, mg) -> None:
+    ba.reset_launches()
+    mg.reset_launches()
+
+
+def pctl(xs, q) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(xs) * 1e3, q))
+
+
+async def rollup_phase(ba, mg, per_host: int = 100_000) -> dict:
+    """The JAX package's bench config 11 (horaedb_tpu/bench/suite.py
+    run_config11) at 10,000,000 rows: 100 hosts, 10 s scrape, 100,000
+    samples a host (139 2 h segments), values U[0, 1) x 100 from seed
+    11, a standing (cpu, value) rollup at tiers 1m and 1h.  Ingest, the
+    roll_now() backfill, stats(), a cross-check per dashboard shape,
+    the rollup-served mix (12 rotating 6 h @ 1 m zooms and the
+    full-span @ 1 h overview, aggs avg, 12 repetitions, the tier
+    tables' window caches dropped before each query) with its store
+    GETs, the raw cold mix (3 repetitions, the data table's window
+    cache and tier 2 emptied before each query), a rollup-served top-k
+    and a late write that re-rolls one segment; launches counted from 0
+    around the backfill and around each mix."""
+    import numpy as np
+    import pyarrow as pa
+    import torch
+
+    from horaedb_tpu_torch.common import ReadableDuration
+    from horaedb_tpu_torch.metric_engine import Label, MetricEngine, Sample
+    from horaedb_tpu_torch.metric_engine.types import tsid_of
+    from horaedb_tpu_torch.rollup import RollupConfig
+    from horaedb_tpu_torch.storage.config import StorageConfig, from_dict
+    from horaedb_tpu_torch.storage.plan import TopKSpec, apply_top_k
+    from horaedb_tpu_torch.storage.types import TimeRange
+
+    hosts, interval, segment_ms, hour = 100, 10_000, 2 * 3600 * 1000, 3_600_000
+    span = per_host * interval
+    segments = (span - interval) // segment_ms + 1
+    T0 = (1_700_000_000_000 // segment_ms) * segment_ms
+    n = per_host * hosts
+    rng = np.random.default_rng(11)
+    ts = T0 + np.repeat(np.arange(per_host, dtype=np.int64) * interval,
+                        hosts)
+    host_id = np.tile(np.arange(hosts, dtype=np.int32), per_host)
+    vals = (rng.random(n) * 100).astype(np.float64)
+    names = pa.array([f"host_{i:03d}" for i in range(hosts)])
+    tsid_of_host = np.array([tsid_of("cpu", [Label("host", f"host_{i:03d}")])
+                             for i in range(hosts)], dtype=np.uint64)
+    order = np.argsort(tsid_of_host)
+    tsids = [int(t) for t in tsid_of_host[order]]
+    zoom_ms = 6 * hour
+    over_span = (span // hour) * hour
+    zoom_starts = [T0 + k * ((span - zoom_ms) // 11 // hour * hour)
+                   for k in range(12)]
+    log("rollup: the JAX package's config 11 shape (suite.py:1477-1694) "
+        f"at {n:,} rows; store: in-memory with data-plane GET counts (the "
+        "reference's 25 ms seeded latency store, objstore/middleware, is "
+        "not ported: ROADMAP Queue A 10)")
+
+    cfg = from_dict(StorageConfig, {
+        "scheduler": {"schedule_interval": "1h"},
+        "scan": {"cache_max_rows": n * 4,
+                 "cache": {"tier2_max_bytes": 2 << 30}}})
+    # the standing query is registered after the ingest: a registered
+    # spec's writes wake the maintenance loop, which would roll
+    # segments while the ingest runs and leave the backfill a remainder
+    rollup_cfg = RollupConfig(enabled=True, tiers=["1m", "1h"], specs=[],
+                              roll_interval=ReadableDuration.parse("1h"))
+    store = counting_store()
+    res: dict = {"rows": n}
+    e = await MetricEngine.open("cfg11", store, segment_ms=segment_ms,
+                                config=cfg, rollup_config=rollup_cfg)
+    try:
+        res["ingest_s"] = await ingest_rows(e, host_id, ts, vals, names,
+                                            hosts)
+        log(f"rollup: ingest {n:,} rows in {res['ingest_s']!r} s")
+
+        reset_all(ba, mg)
+        t0 = time.perf_counter()
+        await e.rollups.register("cpu")
+        rolled = await e.rollups.roll_now()
+        res["backfill_s"] = time.perf_counter() - t0
+        res["backfill_launches"] = launches(ba, mg)
+        res["backfill_segments"] = rolled["cpu:value"]
+        log(f"rollup: backfill rolled {rolled['cpu:value']} segments in "
+            f"{res['backfill_s']!r} s; launches "
+            f"{json.dumps(res['backfill_launches'])}")
+        if rolled["cpu:value"] != segments:
+            raise AssertionError(f"rollup: backfill rolled "
+                                 f"{rolled['cpu:value']} segments, not "
+                                 f"{segments}")
+        if res["backfill_launches"]["bucket_window_partials"] < segments:
+            raise AssertionError("rollup: the backfill did not run the "
+                                 "partials kernel on every segment")
+        if not res["backfill_launches"]["kway_merge_perm"]:
+            raise AssertionError("rollup: the backfill's multi-SST "
+                                 "segments did not run kway_merge_perm")
+        st = await e.stats()
+        spec_st = st["rollups"]["specs"]["cpu:value"]
+        res["tiers"] = st["rollups"]["tiers"]
+        res["lag_seqs"] = spec_st["lag_seqs"]
+        res["coverage"] = spec_st["coverage"]
+        log(f"rollup: lag {spec_st['lag_seqs']}, coverage "
+            f"{spec_st['coverage']}; tiers {json.dumps(res['tiers'])}")
+        if spec_st["lag_seqs"] != 0 or spec_st["coverage"] != 1.0:
+            raise AssertionError("rollup: lag or coverage after backfill")
+
+        def zoom(k, use_rollup=True):
+            s = zoom_starts[k % len(zoom_starts)]
+            return e.query_downsample(
+                "cpu", [], TimeRange.new(s, s + zoom_ms), bucket_ms=60_000,
+                aggs=("avg",), use_rollup=use_rollup)
+
+        def over(_k, use_rollup=True):
+            return e.query_downsample(
+                "cpu", [], TimeRange.new(T0, T0 + over_span),
+                bucket_ms=hour, aggs=("avg",), use_rollup=use_rollup)
+
+        shapes = {"zoom": zoom, "overview": over}
+
+        def numpy_check(out, shape, k, what):
+            s = zoom_starts[k % 12] if shape == "zoom" else T0
+            bms = 60_000 if shape == "zoom" else hour
+            nb = (zoom_ms if shape == "zoom" else over_span) // bms
+            check_grid(out, ts, host_id, vals, s, nb, bms, hosts, order,
+                       tsids, what)
+
+        # the cross-check, one query per shape: byte for byte a
+        # parts-route recompute; within tolerance of the default route
+        # (fused at this budget)
+        spec = e.rollups.specs[("cpu", "value")]
+        for shape, q in shapes.items():
+            served = await q(3)
+            os.environ["HORAEDB_FUSED_AGG"] = "0"
+            try:
+                parts = await q(3, use_rollup=False)
+            finally:
+                del os.environ["HORAEDB_FUSED_AGG"]
+            fused = await q(3, use_rollup=False)
+            torch.cuda.synchronize()
+            if not hasattr(fused["aggs"]["count"], "cpu"):
+                raise AssertionError(f"rollup: the default route of the "
+                                     f"{shape} did not take the fused path")
+            same_result_bytes(served, parts, f"rollup {shape} vs parts")
+            tolerance_match(served, fused, f"rollup {shape} vs fused")
+            numpy_check(served, shape, 3, f"rollup {shape}")
+            log(f"rollup: cross-check {shape}: served == parts recompute "
+                f"byte for byte ({host_grids(served)['avg'].dtype}), "
+                f"fused within tolerance, numpy checked")
+        served0 = spec.served_queries
+
+        def drop_tier_windows():
+            for t in e.rollups.tiers.values():
+                t.reader.drop_hbm_state()
+                t.reader.scan_cache.clear()
+
+        data_reader = e.tables["data"].reader
+
+        async def timed_mix(use_rollup, reps, reset):
+            times = {"zoom": [], "overview": []}
+            for i in range(reps):
+                for shape, q in shapes.items():
+                    reset()
+                    t0 = time.perf_counter()
+                    out = await q(i, use_rollup)
+                    torch.cuda.synchronize()
+                    times[shape].append(time.perf_counter() - t0)
+                    if i == 0 or shape == "zoom" and i < 12:
+                        numpy_check(out, shape, i,
+                                    f"rollup mix {shape} {i}")
+            return times
+
+        reset_all(ba, mg)
+        snap = store.snap()
+        roll_t = await timed_mix(True, 12, drop_tier_windows)
+        res["rollup_leg_gets"] = store.since(snap)
+        res["rollup_leg_launches"] = launches(ba, mg)
+        if spec.served_queries - served0 != 24:
+            raise AssertionError("rollup: not every mix query was "
+                                 "rollup-served")
+        if res["rollup_leg_gets"]["gets"] != 0:
+            raise AssertionError(f"rollup: the rollup leg made "
+                                 f"{res['rollup_leg_gets']} data-plane GETs")
+        reset_all(ba, mg)
+        snap = store.snap()
+        raw_t = await timed_mix(False, 3, lambda: true_cold(data_reader))
+        res["raw_cold_leg_gets"] = store.since(snap)
+        res["raw_cold_leg_launches"] = launches(ba, mg)
+        if not res["raw_cold_leg_launches"]["bucket_round_accumulate"]:
+            raise AssertionError("rollup: the raw cold mix did not run "
+                                 "the fused rounds")
+        for shape in ("zoom", "overview"):
+            res[f"rollup_{shape}_p50_ms"] = pctl(roll_t[shape], 50)
+            res[f"rollup_{shape}_p99_ms"] = pctl(roll_t[shape], 99)
+            res[f"raw_cold_{shape}_p50_ms"] = pctl(raw_t[shape], 50)
+            res[f"raw_cold_{shape}_p99_ms"] = pctl(raw_t[shape], 99)
+        mix_r = roll_t["zoom"] + roll_t["overview"]
+        mix_c = raw_t["zoom"] + raw_t["overview"]
+        res["rollup_mix_p50_ms"] = pctl(mix_r, 50)
+        res["rollup_mix_p99_ms"] = pctl(mix_r, 99)
+        res["raw_cold_mix_p50_ms"] = pctl(mix_c, 50)
+        res["raw_cold_mix_p99_ms"] = pctl(mix_c, 99)
+        res["mix_speedup_p50"] = (res["raw_cold_mix_p50_ms"]
+                                  / res["rollup_mix_p50_ms"])
+        log(f"rollup: rollup-served mix (24 queries) p50 "
+            f"{res['rollup_mix_p50_ms']!r} ms p99 "
+            f"{res['rollup_mix_p99_ms']!r} ms (zoom p50 "
+            f"{res['rollup_zoom_p50_ms']!r} p99 {res['rollup_zoom_p99_ms']!r}"
+            f", overview p50 {res['rollup_overview_p50_ms']!r} p99 "
+            f"{res['rollup_overview_p99_ms']!r}); data-plane GETs "
+            f"{json.dumps(res['rollup_leg_gets'])}; launches "
+            f"{json.dumps(res['rollup_leg_launches'])}")
+        log(f"rollup: raw cold mix (6 queries) p50 "
+            f"{res['raw_cold_mix_p50_ms']!r} ms p99 "
+            f"{res['raw_cold_mix_p99_ms']!r} ms (zoom p50 "
+            f"{res['raw_cold_zoom_p50_ms']!r}, overview p50 "
+            f"{res['raw_cold_overview_p50_ms']!r}); GETs "
+            f"{json.dumps(res['raw_cold_leg_gets'])}; launches "
+            f"{json.dumps(res['raw_cold_leg_launches'])}; mix p50 speedup "
+            f"{res['mix_speedup_p50']!r}x")
+
+        # where a served overview's time goes: the tier table's scan of
+        # the cells (stage seconds from the registry) against the whole
+        # query
+        drop_tier_windows()
+        before = {k: v for k, v in registry_snapshot().items()
+                  if k.startswith(("scan_stage_seconds:", "span_seconds:"))}
+        t0 = time.perf_counter()
+        await over(0)
+        total_s = time.perf_counter() - t0
+        after = registry_snapshot()
+        res["overview_breakdown_s"] = {
+            k: after[k] - v for k, v in before.items() if after[k] != v}
+        res["overview_breakdown_s"]["query"] = total_s
+        log(f"rollup: one served overview, seconds by span and stage "
+            f"(summed over concurrent reads): "
+            f"{json.dumps(res['overview_breakdown_s'])}")
+
+        # a rollup-served top-k equals apply_top_k of the served grid
+        rng_o = TimeRange.new(T0, T0 + over_span)
+        t0 = time.perf_counter()
+        tk = await e.query_topk("cpu", [], rng_o, hour, k=10, by="max")
+        res["topk_ms"] = (time.perf_counter() - t0) * 1e3
+        full = await e.query_downsample("cpu", [], rng_o, hour)
+        values, grids = apply_top_k(np.asarray(full["tsids"], np.uint64),
+                                    full["aggs"], TopKSpec(k=10, by="max"))
+        if tk["tsids"] != [int(t) for t in values] or sorted(
+                tk["aggs"]) != sorted(grids) or any(
+                tk["aggs"][k].tobytes() != grids[k].tobytes()
+                for k in grids):
+            raise AssertionError("rollup: served top-k != apply_top_k of "
+                                 "the served downsample")
+        log(f"rollup: served top-10 by max over the overview in "
+            f"{res['topk_ms']!r} ms, equal to apply_top_k of the served "
+            f"grid")
+
+        # a late write into one rolled segment: the next query serves
+        # cells plus a one-segment raw tail, then one segment re-rolls.
+        # write() wakes the maintenance loop; the manager's roll lock is
+        # held over the write and the query so the loop's pass cannot
+        # re-roll the segment before the query sees it dirty
+        late_ts = zoom_starts[5] + 30 * 60_000 + 7
+        ts2 = np.append(ts, late_ts)
+        hid2 = np.append(host_id, np.int32(7))
+        vals2 = np.append(vals, 123.25)
+        rng_z = TimeRange.new(zoom_starts[5], zoom_starts[5] + zoom_ms)
+        tails0 = registry_value("rollup_tail_segments")
+        rolled0 = registry_value("rollup_segments_rolled_total")
+        async with e.rollups._roll_lock:
+            await e.write([Sample("cpu", [Label("host", "host_007")],
+                                  late_ts, 123.25)])
+            reset_all(ba, mg)
+            served = await e.query_downsample("cpu", [], rng_z, 60_000,
+                                              aggs=("avg",))
+            res["late_tail_launches"] = launches(ba, mg)
+        res["late_tail_segments"] = (registry_value("rollup_tail_segments")
+                                     - tails0)
+        if res["late_tail_segments"] != 1:
+            raise AssertionError(f"rollup: the query after the late write "
+                                 f"recomputed {res['late_tail_segments']} "
+                                 f"tail segments, not 1")
+        os.environ["HORAEDB_FUSED_AGG"] = "0"
+        try:
+            parts = await e.query_downsample("cpu", [], rng_z, 60_000,
+                                             aggs=("avg",), use_rollup=False)
+        finally:
+            del os.environ["HORAEDB_FUSED_AGG"]
+        fused = await e.query_downsample("cpu", [], rng_z, 60_000,
+                                         aggs=("avg",), use_rollup=False)
+        same_result_bytes(served, parts, "rollup late tail vs parts")
+        tolerance_match(served, fused, "rollup late tail vs fused")
+        check_grid(served, ts2, hid2, vals2, zoom_starts[5],
+                   zoom_ms // 60_000, 60_000, hosts, order, tsids,
+                   "rollup late tail")
+        # the loop's pass (woken by the write) or this one re-rolls the
+        # dirty segment, and nothing else
+        await e.rollups.roll_now()
+        res["late_write_rerolled"] = (
+            registry_value("rollup_segments_rolled_total") - rolled0)
+        if res["late_write_rerolled"] != 1:
+            raise AssertionError(f"rollup: the late write re-rolled "
+                                 f"{res['late_write_rerolled']} segments, "
+                                 f"not 1")
+        tails1 = registry_value("rollup_tail_segments")
+        again = await e.query_downsample("cpu", [], rng_z, 60_000,
+                                         aggs=("avg",))
+        if registry_value("rollup_tail_segments") != tails1:
+            raise AssertionError("rollup: a tail after the re-roll")
+        same_result_bytes(again, served, "rollup after the re-roll")
+        log(f"rollup: late write served as cells + a 1-segment raw tail "
+            f"(launches {json.dumps(res['late_tail_launches'])}), "
+            f"byte-equal to the parts recompute; roll_now re-rolled 1 "
+            f"segment")
+    finally:
+        await e.close()
+    return res
+
+
+async def chunked_phase(ba, mg, per_host: int = 100_000) -> dict:
+    """tools/chunked_vs_row.py's deployment at 10,000,000 rows: 100
+    hosts, 10 s scrape, one-decimal gauges from seed 0, 30-minute chunk
+    windows, scan cache at 4 x rows, ingested into a chunked engine and
+    into a row-layout engine.  Cold avg at 1 min over the whole span
+    (p50 of 3, in turns with the row layout's cold query), checked
+    against numpy and the row layout; one bucket_window_partials launch
+    per cold chunked query, held against its plain version on the card
+    at the same shape, 5 launches byte-equal, timed beside its bound; a
+    repeat served from the decode cache with nothing uploaded; two
+    writes of one (series, ts); one Append compaction of a segment."""
+    import numpy as np
+    import pyarrow as pa
+    import torch
+
+    from horaedb_tpu_torch.metric_engine import Label, MetricEngine, Sample
+    from horaedb_tpu_torch.metric_engine.types import tsid_of
+    from horaedb_tpu_torch.ops.encode import h2d_bytes
+    from horaedb_tpu_torch.storage.compaction import Task
+    from horaedb_tpu_torch.storage.config import StorageConfig, from_dict
+    from horaedb_tpu_torch.storage.sst import segment_of
+    from horaedb_tpu_torch.storage.types import TimeRange
+
+    hosts, interval, segment_ms = 100, 10_000, 2 * 3600 * 1000
+    span = per_host * interval
+    T0 = (1_700_000_000_000 // segment_ms) * segment_ms
+    n = per_host * hosts
+    rng = np.random.default_rng(0)
+    ts = T0 + np.repeat(np.arange(per_host, dtype=np.int64) * interval,
+                        hosts)
+    host_id = np.tile(np.arange(hosts, dtype=np.int32), per_host)
+    vals = np.round(rng.random(n) * 100, 1)
+    names = pa.array([f"host_{i:03d}" for i in range(hosts)])
+    tsid_of_host = np.array([tsid_of("cpu", [Label("host", f"host_{i:03d}")])
+                             for i in range(hosts)], dtype=np.uint64)
+    order = np.argsort(tsid_of_host)
+    tsids = [int(t) for t in tsid_of_host[order]]
+    nb = -(-span // BMS)
+    rng_q = TimeRange.new(T0, T0 + span)
+    cfg = from_dict(StorageConfig, {
+        "scheduler": {"schedule_interval": "1h"},
+        "scan": {"cache_max_rows": n * 4}})
+    res: dict = {"rows": n, "buckets": nb}
+    chunk_e = await MetricEngine.open("cvr_chunked", counting_store(),
+                                      segment_ms=segment_ms, config=cfg,
+                                      chunked_data=True)
+    row_e = await MetricEngine.open("cvr_row", counting_store(),
+                                    segment_ms=segment_ms, config=cfg)
+    try:
+        res["chunked_ingest_s"] = await ingest_rows(
+            chunk_e, host_id, ts, vals, names, hosts)
+        res["row_ingest_s"] = await ingest_rows(row_e, host_id, ts, vals,
+                                                names, hosts)
+        st_c, st_r = await chunk_e.stats(), await row_e.stats()
+        res["chunked_data_bytes"] = st_c["tables"]["data"]["bytes"]
+        res["row_data_bytes"] = st_r["tables"]["data"]["bytes"]
+        res["chunked_data_rows"] = st_c["tables"]["data"]["rows"]
+        log(f"chunked: ingest chunked {res['chunked_ingest_s']!r} s, row "
+            f"{res['row_ingest_s']!r} s; data table chunked "
+            f"{res['chunked_data_bytes']:,} B in "
+            f"{res['chunked_data_rows']:,} rows, row layout "
+            f"{res['row_data_bytes']:,} B")
+
+        async def cold_chunked():
+            chunk_e._chunk_cache.clear()
+            reset_all(ba, mg)
+            t0 = time.perf_counter()
+            out = await chunk_e.query_downsample("cpu", [], rng_q, BMS,
+                                                 aggs=("avg",))
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0, launches(ba, mg)
+
+        async def cold_row():
+            true_cold(row_e.tables["data"].reader)
+            t0 = time.perf_counter()
+            out = await row_e.query_downsample("cpu", [], rng_q, BMS,
+                                               aggs=("avg",))
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        c_times, r_times, outs = [], [], []
+        for _turn in range(3):
+            out, secs, lc = await cold_chunked()
+            c_times.append(secs)
+            outs.append(out)
+            if lc["bucket_window_partials"] != 1 or \
+                    lc["bucket_round_accumulate"] or lc["kway_merge_perm"]:
+                raise AssertionError(f"chunked: a cold query launched "
+                                     f"{json.dumps(lc)}, not one partials")
+            r_out, secs = await cold_row()
+            r_times.append(secs)
+        res["chunked_launches"] = lc
+        res["chunked_cold_ms"] = [t * 1e3 for t in c_times]
+        res["row_cold_ms"] = [t * 1e3 for t in r_times]
+        res["chunked_cold_p50_ms"] = pctl(c_times, 50)
+        res["row_cold_p50_ms"] = pctl(r_times, 50)
+        res["chunked_vs_row"] = (res["chunked_cold_p50_ms"]
+                                 / res["row_cold_p50_ms"])
+        log(f"chunked: cold p50 {res['chunked_cold_p50_ms']!r} ms "
+            f"({res['chunked_cold_ms']!r}) beside the row layout's "
+            f"{res['row_cold_p50_ms']!r} ms ({res['row_cold_ms']!r}), in "
+            f"turns: {res['chunked_vs_row']!r}x; one cold chunked query "
+            f"launched {json.dumps(lc)}")
+        got = outs[-1]
+        check_grid(got, ts, host_id, vals, T0, nb, BMS, hosts, order, tsids,
+                   "chunked cold")
+        tolerance_match(got, r_out, "chunked vs row layout")
+        for o in outs[:-1]:
+            same_result_bytes(o, got, "chunked cold turns")
+
+        # where a cold chunked query's time goes: the engine's steps
+        # (_downsample_chunked) one by one — the Append scan with its
+        # host merge, the payload decode, then the aggregate call
+        # (padding, upload, one launch, the grids' download)
+        from horaedb_tpu_torch.storage.read import ScanRequest
+
+        pred = await chunk_e._resolve_data_predicate("cpu", [], rng_q,
+                                                     "value")
+        t0 = time.perf_counter()
+        batches = [b async for b in chunk_e.tables["data"].scan(
+            ScanRequest(range=rng_q, predicate=pred))]
+        t1 = time.perf_counter()
+        decoded = chunk_e._decode_chunk_arrays(batches, rng_q)
+        t2 = time.perf_counter()
+        split = chunk_e._downsample_arrays(*decoded, rng_q, BMS, nb,
+                                           which=("avg",))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        same_result_bytes(split, got, "chunked steps")
+        res["cold_breakdown_s"] = {"scan_merge": t1 - t0,
+                                   "decode": t2 - t1,
+                                   "aggregate": t3 - t2}
+        log(f"chunked: one cold query step by step (s): "
+            f"{json.dumps(res['cold_breakdown_s'])}")
+        del batches, decoded, split
+
+        # a repeat: the decode cache serves it and nothing is uploaded
+        hits, up = chunk_e._chunk_cache.hits, h2d_bytes()
+        t0 = time.perf_counter()
+        rep = await chunk_e.query_downsample("cpu", [], rng_q, BMS,
+                                             aggs=("avg",))
+        torch.cuda.synchronize()
+        res["chunked_repeat_ms"] = (time.perf_counter() - t0) * 1e3
+        res["chunked_repeat_h2d_bytes"] = h2d_bytes() - up
+        if chunk_e._chunk_cache.hits != hits + 1 or \
+                res["chunked_repeat_h2d_bytes"]:
+            raise AssertionError("chunked: the repeat missed the decode "
+                                 "cache or uploaded bytes")
+        same_result_bytes(rep, got, "chunked repeat")
+        log(f"chunked: repeat {res['chunked_repeat_ms']!r} ms from the "
+            f"decode cache, 0 B up")
+
+        # the cold query's one launch at its own shape: against the
+        # plain version on the card, 5 launches byte-equal, timed
+        entry = next(iter(chunk_e._chunk_cache._entries.values()))[0]
+        dev = entry["memo"]["dev"]
+        G = len(dev["uniq"])
+        args = (dev["ts"][None, :], dev["gid"][None, :],
+                dev["val"][None, :], None, None, None, nb, BMS)
+        kw = dict(num_groups=G, width=nb, which=("avg",), n_valid=n)
+        ref = ba.bucket_window_partials_plain(*args, **kw)
+        runs = [ba.bucket_window_partials(*args, **kw) for _ in range(5)]
+        torch.cuda.synchronize()
+        res["kernel_max_abs_err"] = compare(runs[0], ref,
+                                            "chunked partials vs plain")
+        patterns = {f: len({r[f].cpu().numpy().tobytes() for r in runs})
+                    for f in runs[0]}
+        if any(v != 1 for v in patterns.values()):
+            raise AssertionError(f"chunked: 5 launches gave byte patterns "
+                                 f"{patterns}")
+        res["kernel_patterns"] = patterns
+        res["kernel_ms"] = device_ms(lambda: ba.bucket_window_partials(
+            *args, **kw), reps=20)
+        res["plain_ms"] = cuda_ms(lambda: ba.bucket_window_partials_plain(
+            *args, **kw), reps=3, warmup=1)
+        cell = (dev["gid"][:n].long() * nb
+                + dev["ts"][:n].long() // BMS)
+        acc = torch.zeros(G * nb, dtype=torch.float32, device=cell.device)
+        res["library_ms"] = cuda_ms(
+            lambda: acc.index_add_(0, cell, dev["val"][:n]), reps=10)
+        # bytes: each input row read once (ts, gid, val: 12 B), each
+        # output cell written once (count and sum, 4 B each)
+        res["bound_bytes"] = 12 * n + 2 * 4 * G * nb
+        res["bound_ms"] = res["bound_bytes"] / HBM_BYTES_PER_S * 1e3
+        log(f"chunked: bucket_window_partials at W=1, cap "
+            f"{int(dev['ts'].numel()):,}, n_valid {n:,}, grid {G} x {nb}: "
+            f"{res['kernel_ms']!r} ms against a {res['bound_ms']!r} ms bound "
+            f"({res['bound_bytes']:,} B / 3.35 TB/s); plain version "
+            f"{res['plain_ms']!r} ms; index_add_ (sum alone) "
+            f"{res['library_ms']!r} ms; max abs err vs plain "
+            f"{res['kernel_max_abs_err']!r}; byte patterns in 5 launches "
+            f"{json.dumps(patterns)}")
+
+        # two writes of one (series, ts): the later value is kept
+        dup_ts = T0 + span - interval
+        for v in (1.5, 2.5):
+            await chunk_e.write([Sample("cpu", [Label("host", "host_042")],
+                                        dup_ts, v)])
+        tbl = await chunk_e.query("cpu", [("host", "host_042")],
+                                  TimeRange.new(dup_ts, dup_ts + 1))
+        if tbl.column("value").to_pylist() != [2.5]:
+            raise AssertionError(f"chunked: duplicate write kept "
+                                 f"{tbl.column('value').to_pylist()}")
+        # one Append compaction of that segment changes no result
+        data = chunk_e.tables["data"]
+        seg = int(dup_ts // segment_ms * segment_ms)
+        before = await chunk_e.query_downsample("cpu", [], rng_q, BMS,
+                                                aggs=("avg", "last"))
+        inputs = [f for f in await data.manifest.all_ssts()
+                  if segment_of(f, segment_ms) == seg]
+        for f in inputs:
+            f.mark_compaction()
+        t0 = time.perf_counter()
+        await data.compact_scheduler.executor.execute(Task(inputs=inputs))
+        res["compaction_s"] = time.perf_counter() - t0
+        left = [f for f in await data.manifest.all_ssts()
+                if segment_of(f, segment_ms) == seg]
+        after = await chunk_e.query_downsample("cpu", [], rng_q, BMS,
+                                               aggs=("avg", "last"))
+        same_result_bytes(after, before, "chunked compaction")
+        if len(left) != 1:
+            raise AssertionError("chunked: compaction left "
+                                 f"{len(left)} SSTs in the segment")
+        log(f"chunked: duplicate (series, ts) keeps the later value; "
+            f"compaction of segment {seg} ({len(inputs)} SSTs -> 1) in "
+            f"{res['compaction_s']!r} s changed no result")
+    finally:
+        await chunk_e.close()
+        await row_e.close()
+    return res
+
+
 def load_merge_module(root: str):
     """ops/merge.py of another checkout at `root`, loaded under its own
     name and pointed at that checkout's csrc/merge_path.cu (it builds
@@ -3419,6 +4076,7 @@ def main() -> int:
                          "archive of the parent commit): its merge kernel is "
                          "timed beside this one, in turns")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
 
@@ -3474,6 +4132,8 @@ def main() -> int:
     topk_ops = phase("topk ops", topk_ops_phase)
     config4 = phase("config4", asyncio.run,
                     config4_phase(args.config4_rows, ba, mg))
+    rollup = phase("rollup", asyncio.run, rollup_phase(ba, mg))
+    chunked = phase("chunked", asyncio.run, chunked_phase(ba, mg))
     kernels.append({
         "name": "kway_merge_perm", "route": "cuda",
         "source": "horaedb_tpu_torch/csrc/merge_path.cu",
@@ -3501,14 +4161,32 @@ def main() -> int:
         # and on config 4's true-cold query (the round entry is not on
         # its path: 0)
         k["config4_launches"] = config4["launches"][k["name"]]
+        # and on the rollup cell: the backfill (139 segments x 2 tiers
+        # on the parts route), the rollup-served mix (no raw tail: 0)
+        # and the raw cold mix; and on one cold chunked query
+        k["rollup_backfill_launches"] = \
+            rollup["backfill_launches"][k["name"]]
+        k["rollup_mix_launches"] = rollup["rollup_leg_launches"][k["name"]]
+        k["rollup_raw_cold_launches"] = \
+            rollup["raw_cold_leg_launches"][k["name"]]
+        k["chunked_launches"] = chunked["chunked_launches"][k["name"]]
+        if k["name"] == "bucket_window_partials":
+            # the chunked path's shape: W = 1, 10M valid rows
+            k["chunked_shape"] = {
+                "ms": chunked["kernel_ms"], "bound_ms": chunked["bound_ms"],
+                "plain_ms": chunked["plain_ms"],
+                "library_ms": chunked["library_ms"],
+                "max_abs_err": chunked["kernel_max_abs_err"]}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
             json.dump({"card": card, "kernels": kernels, "e2e": e2e,
                        "merge_kernel": merge_k, "determinism": determinism,
                        "compaction": compaction, "wal": wal,
-                       "topk_ops": topk_ops, "config4": config4}, f,
+                       "topk_ops": topk_ops, "config4": config4,
+                       "rollup": rollup, "chunked": chunked}, f,
                       indent=1)
+    log(f"total: {time.perf_counter() - t_start!r} s")
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,7 @@
 Write path (ref: metric_engine README pipeline; bodies built from RFC):
   samples -> MetricManager.populate_metric_ids
           -> IndexManager.populate_series_ids (+ index/series/tags rows)
-          -> data table rows
+          -> SampleManager.persist (data table rows)
 
 Tables (RFC:106-137), each a CloudObjectStorage with the same segment
 duration:
@@ -18,19 +18,32 @@ The engine runs on one torch device, chosen at open() and carried down
 to the readers: "cuda" by default, and open() raises when no card is
 present rather than carrying on on the CPU.  device="cpu" is for tests.
 
+The chunked data layout (`open(chunked_data=True)`, RFC:218-231): the
+data table holds one row per (series, field, chunk window) whose
+payload is a batch-encoded run of (ts, value) pairs
+(metric_engine/chunks.py), in Append mode, so the BytesMerge operator
+concatenates same-key payloads across files.  A chunked downsample
+decodes the payloads in one host-library call and aggregates the whole
+range in ONE ops.downsample.time_bucket_aggregate call on the engine's
+device, behind a byte-budgeted decode cache.
+
+Standing rollups (`open(rollup_config=...)`, rollup/manager.py): a
+covered downsample or top-k query is served from pre-aggregated tier
+cells plus a raw tail of the not-yet-rolled segments.
+
 Ported: open/close (each table's compaction scheduler and scrubber
 start and stop with it), the WAL front (`open(wal_config=...)` wraps
-every table in wal.IngestStorage), `stats()` and `flush()`, the bulk
-Arrow ingest (row layout), metric and series resolution, raw row
-queries and the downsample query on the raw path, by the fused or the
-parts aggregate.  Not ported yet: the scalar write path, the chunked
-data layout, rollups, self-monitoring, scan agents, top-k and
-multi-field queries (see ROADMAP.md).
+every Overwrite table in wal.IngestStorage), `stats()` and `flush()`,
+the scalar `write()` and the bulk Arrow ingest (both layouts), metric
+and series resolution, raw row queries, the downsample, multi-field
+and top-k queries, rollups, and the label/list APIs.  Not ported yet:
+self-monitoring (meta-ingest) and scan agents (see ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import asyncio
+import logging
 import os
 from typing import Optional
 
@@ -47,7 +60,7 @@ from horaedb_tpu_torch.storage.config import StorageConfig
 from horaedb_tpu_torch.storage.read import AggregateSpec, ScanRequest
 from horaedb_tpu_torch.storage.storage import CloudObjectStorage, WriteRequest
 from horaedb_tpu_torch.storage.types import TimeRange, Timestamp
-from horaedb_tpu_torch.utils import span
+from horaedb_tpu_torch.utils import registry, span
 from horaedb_tpu_torch.wal import IngestStorage
 from horaedb_tpu_torch.metric_engine.types import (
     Label,
@@ -84,6 +97,17 @@ _TABLE_SCHEMAS = {
         ("value", pa.float64()),
     ]), 4),
 }
+
+logger = logging.getLogger(__name__)
+
+# chunked data table (RFC:218-231): (ts, value) pairs batch-encoded into
+# opaque payloads, one row per (series, field, chunk window); Append mode
+# so the BytesMerge path concatenates same-key payloads across files
+_CHUNKED_DATA_SCHEMA = (pa.schema([
+    ("metric_id", pa.uint64()), ("tsid", pa.uint64()),
+    ("field_id", pa.uint64()), ("chunk_ts", pa.int64()),
+    ("payload", pa.binary()),
+]), 4)
 
 FIELD_TYPE_FLOAT = 0
 # keep per-segment registration dedup state for this many most-recently-
@@ -224,6 +248,26 @@ class MetricManager:
                 return mid
         return None
 
+    async def list_metrics(self, time_range: TimeRange) -> list[str]:
+        """Distinct metric names active in the window."""
+        names: set[str] = set()
+        for b in await _collect(self.table.scan(ScanRequest(
+                range=time_range))):
+            col = b.column(b.schema.names.index("metric_name"))
+            names.update(col.to_pylist())
+        return sorted(names)
+
+    async def list_fields(self, metric_name: str,
+                          time_range: TimeRange) -> list[str]:
+        """Distinct field names registered for a metric in the window."""
+        fields: set[str] = set()
+        for b in await _collect(self.table.scan(ScanRequest(
+                range=time_range,
+                predicate=Eq("metric_name", metric_name)))):
+            col = b.column(b.schema.names.index("field_name"))
+            fields.update(col.to_pylist())
+        return sorted(fields)
+
 
 class IndexManager:
     """TSID resolution + series/tags/index registration per segment
@@ -304,71 +348,277 @@ class IndexManager:
                 return set()
         return result
 
+    async def label_values(self, metric_id: int, tag_key: str,
+                           time_range: TimeRange) -> list[str]:
+        """Distinct values of one tag key (the tags table serves
+        LabelValues, RFC:106-137)."""
+        vals: set[str] = set()
+        for b in await _collect(self.tags.scan(ScanRequest(
+                range=time_range,
+                predicate=And([Eq("metric_id", metric_id),
+                               Eq("tag_key", tag_key)])))):
+            col = b.column(b.schema.names.index("tag_value"))
+            vals.update(col.to_pylist())
+        return sorted(vals)
+
+    async def label_names(self, metric_id: int,
+                          time_range: TimeRange) -> list[str]:
+        """Distinct tag keys of a metric in the window."""
+        keys: set[str] = set()
+        for b in await _collect(self.tags.scan(ScanRequest(
+                range=time_range, predicate=Eq("metric_id", metric_id)))):
+            col = b.column(b.schema.names.index("tag_key"))
+            keys.update(col.to_pylist())
+        return sorted(keys)
+
+    async def resolve_series_keys(self, metric_id: int, tsids: list[int],
+                                  time_range: TimeRange) -> dict[int, bytes]:
+        pred = (And([Eq("metric_id", metric_id), In("tsid", tsids)])
+                if tsids else Eq("metric_id", metric_id))
+        out: dict[int, bytes] = {}
+        for b in await _collect(self.series.scan(ScanRequest(
+                range=time_range, predicate=pred))):
+            t = b.column(b.schema.names.index("tsid")).to_pylist()
+            k = b.column(b.schema.names.index("series_key")).to_pylist()
+            out.update(zip(t, k))
+        return out
+
+
+class SampleManager:
+    """Data-table persistence (ref: data/mod.rs:25-44, body from RFC)."""
+
+    def __init__(self, table: CloudObjectStorage, segment_ms: int):
+        self.table = table
+        self.segment_ms = segment_ms
+
+    async def persist_chunked(self, samples: list[Sample],
+                              chunk_window_ms: int) -> None:
+        """Opaque-chunk layout: one row per (series, field, chunk window)
+        holding the encoded (ts, value) payload (RFC:218-231)."""
+        from horaedb_tpu_torch.metric_engine import chunks
+
+        groups: dict[tuple, list[Sample]] = {}
+        for s in samples:
+            ensure(s.series_id is not None,
+                   "populate_series_ids must run first")
+            # truncation toward zero breaks the window-containment
+            # invariant for pre-epoch times: rejected explicitly
+            ensure(s.timestamp >= 0,
+                   "chunked data mode requires non-negative timestamps")
+            chunk_ts = int(Timestamp(s.timestamp).truncate_by(
+                chunk_window_ms))
+            groups.setdefault(
+                (s.name_id, s.series_id, field_id_of(s.field_name),
+                 chunk_ts), []).append(s)
+
+        by_seg: dict[int, list[tuple]] = {}
+        for key, grp in groups.items():
+            seg = int(Timestamp(key[3]).truncate_by(self.segment_ms))
+            payload = chunks.encode_chunk(
+                np.asarray([s.timestamp for s in grp], dtype=np.int64),
+                np.asarray([s.value for s in grp], dtype=np.float64))
+            by_seg.setdefault(seg, []).append((*key, payload))
+        for seg, rows in sorted(by_seg.items()):
+            # the file covers its chunk WINDOWS in full, so any query
+            # range overlapping a window finds the file
+            lo = min(r[3] for r in rows)
+            hi = max(r[3] for r in rows) + chunk_window_ms
+            batch = pa.record_batch(
+                [pa.array([r[0] for r in rows], type=pa.uint64()),
+                 pa.array([r[1] for r in rows], type=pa.uint64()),
+                 pa.array([r[2] for r in rows], type=pa.uint64()),
+                 pa.array([r[3] for r in rows], type=pa.int64()),
+                 pa.array([r[4] for r in rows], type=pa.binary())],
+                schema=self.table.schema().user_schema)
+            await self.table.write(WriteRequest(
+                batch, TimeRange.new(lo, hi)))
+
+    async def persist(self, samples: list[Sample]) -> None:
+        by_seg: dict[int, list[Sample]] = {}
+        for s in samples:
+            ensure(s.series_id is not None,
+                   "populate_series_ids must run first")
+            seg = int(Timestamp(s.timestamp).truncate_by(self.segment_ms))
+            by_seg.setdefault(seg, []).append(s)
+        for seg, seg_samples in sorted(by_seg.items()):
+            lo = min(s.timestamp for s in seg_samples)
+            hi = max(s.timestamp for s in seg_samples)
+            batch = pa.record_batch(
+                [pa.array([s.name_id for s in seg_samples],
+                          type=pa.uint64()),
+                 pa.array([s.series_id for s in seg_samples],
+                          type=pa.uint64()),
+                 pa.array([field_id_of(s.field_name) for s in seg_samples],
+                          type=pa.uint64()),
+                 pa.array([s.timestamp for s in seg_samples],
+                          type=pa.int64()),
+                 pa.array([s.value for s in seg_samples],
+                          type=pa.float64())],
+                schema=self.table.schema().user_schema)
+            await self.table.write(WriteRequest(
+                batch, TimeRange.new(lo, hi + 1)))
+
+
+_CHUNK_CACHE_HITS = registry.counter(
+    "chunk_decode_cache_hits_total",
+    "chunked-layout decode cache hits (the chunked scan cache)")
+_CHUNK_CACHE_MISSES = registry.counter(
+    "chunk_decode_cache_misses_total",
+    "chunked-layout decode cache misses")
+_CHUNK_CACHE_EVICTIONS = registry.counter(
+    "chunk_decode_cache_evictions_total",
+    "chunked-layout decode cache evictions")
+
 
 class MetricEngine:
-    """The user-facing metric API over five storage instances."""
+    """The user-facing metric API over five storage instances.
+
+    chunked_data=True switches the data table to the RFC's opaque-chunk
+    layout: (ts, value) pairs batch-encoded per (series, field, chunk
+    window) with Append/BytesMerge semantics (RFC:218-231)."""
 
     def __init__(self, tables: dict[str, CloudObjectStorage], segment_ms: int,
-                 device):
+                 device, chunked_data: bool = False,
+                 chunk_window_ms: int = 30 * 60 * 1000):
         self.tables = tables
         self.segment_ms = segment_ms
         self.device = device
+        self.chunked_data = chunked_data
+        self.chunk_window_ms = chunk_window_ms
         self.metric_manager = MetricManager(tables["metrics"], segment_ms)
         self.index_manager = IndexManager(tables["series"], tables["tags"],
                                           tables["index"], segment_ms)
+        self.sample_manager = SampleManager(tables["data"], segment_ms)
+        # standing rollup tiers (rollup/manager.py); populated by open()
+        # when a [rollup] config enables them
+        self.rollups = None
         self._runtimes = None
+        # chunked layout: the Append-mode data table bypasses the
+        # reader's scan cache (host merge, uncached), so decoded sample
+        # arrays get their own byte-budgeted LRU — keyed by (predicate,
+        # exact range, SST-id set), so any write or compaction misses
+        # it structurally.  Budget: the data table's scan-cache bytes,
+        # which chunked mode otherwise leaves unused.
+        if chunked_data:
+            from horaedb_tpu_torch.storage.scan_cache import ByteLRU
+
+            self._chunk_cache = ByteLRU(
+                tables["data"].reader.cache_budget_bytes,
+                hits=_CHUNK_CACHE_HITS, misses=_CHUNK_CACHE_MISSES,
+                evictions=_CHUNK_CACHE_EVICTIONS)
+        else:
+            self._chunk_cache = None
 
     @classmethod
     async def open(cls, root_path: str, store: ObjectStore,
                    segment_ms: int = 2 * 3600 * 1000,
                    config: Optional[StorageConfig] = None,
-                   device="cuda", wal_config=None) -> "MetricEngine":
+                   device="cuda", wal_config=None,
+                   chunked_data: bool = False,
+                   chunk_window_ms: int = 30 * 60 * 1000,
+                   rollup_config=None) -> "MetricEngine":
         """Open the five tables under `root_path` on `device` ("cuda" by
         default; raises when the card is missing).  With an enabled
-        `wal_config` every table is fronted by a WAL under
+        `wal_config` every Overwrite table is fronted by a WAL under
         `{wal_config.dir}/{table}` (wal/ingest.py): writes are acked at
-        the group fsync and raw reads see the unflushed rows."""
+        the group fsync and raw reads see the unflushed rows.
+        `chunked_data` selects the chunked data layout (Append data
+        table, no WAL in front of it); an enabled `rollup_config` opens
+        the rollup tiers (row layout only)."""
+        import dataclasses
+
+        if chunked_data:
+            ensure(chunk_window_ms <= segment_ms
+                   and segment_ms % chunk_window_ms == 0,
+                   "chunk window must evenly divide the segment duration")
+        # argument-only check, before any table or pool opens: the
+        # rollup maintenance and serve contract mirrors the row layout's
+        # downsample pushdown; the chunked (Append) layout has none
+        if rollup_config is not None and rollup_config.enabled:
+            ensure(not chunked_data,
+                   "[rollup] requires the row data layout "
+                   "(chunked_data = false)")
         dev = resolve_device(device)
         cfg = config or StorageConfig()
         wal_on = wal_config is not None and wal_config.enabled
         if wal_on:
             ensure(wal_config.dir, "[wal] enabled requires wal.dir")
+        schemas = dict(_TABLE_SCHEMAS)
+        if chunked_data:
+            schemas["data"] = _CHUNKED_DATA_SCHEMA
         # one set of worker pools shared by all five tables
         shared_runtimes = runtimes_mod.from_config(
             cfg.threads, sst_override=cfg.scan.decode_workers)
         tables = {}
         try:
-            for name, (schema, num_pks) in _TABLE_SCHEMAS.items():
+            for name, (schema, num_pks) in schemas.items():
+                tcfg = cfg
+                if chunked_data and name == "data":
+                    from horaedb_tpu_torch.storage.config import UpdateMode
+
+                    tcfg = dataclasses.replace(
+                        cfg, update_mode=UpdateMode.APPEND)
                 table = await CloudObjectStorage.open(
                     f"{root_path}/{name}", segment_ms, store, schema,
-                    num_pks, cfg, runtimes=shared_runtimes, device=dev)
+                    num_pks, tcfg, runtimes=shared_runtimes, device=dev)
                 tables[name] = table
                 if wal_on:
-                    # every table of the row layout is Overwrite mode
-                    tables[name] = await IngestStorage.open(
-                        table, os.path.join(wal_config.dir, name),
-                        wal_config)
+                    if chunked_data and name == "data":
+                        # an Append table has no __seq__ dedup, so a
+                        # replay could duplicate rows: it keeps the
+                        # direct write path
+                        logger.info("wal: table %r is Append-mode; "
+                                    "ingest WAL skipped", name)
+                    else:
+                        tables[name] = await IngestStorage.open(
+                            table, os.path.join(wal_config.dir, name),
+                            wal_config)
         except BaseException:
             for t in tables.values():
                 await t.close()
             shared_runtimes.close()
             raise
-        self = cls(tables, segment_ms, dev)
+        self = cls(tables, segment_ms, dev, chunked_data=chunked_data,
+                   chunk_window_ms=chunk_window_ms)
         self._runtimes = shared_runtimes
+        if rollup_config is not None and rollup_config.enabled:
+            from horaedb_tpu_torch.rollup import RollupManager
+
+            try:
+                self.rollups = await RollupManager.open(
+                    root_path, store, segment_ms, rollup_config, config,
+                    shared_runtimes, tables["data"], device=dev)
+            except BaseException:
+                await self.close()
+                raise
+            self.rollups.attach(self)
+            # flush completions make segments rollable (wal/ingest.py)
+            data = tables["data"]
+            if hasattr(data, "memtable_segments"):
+                data.on_flush = self.rollups.note_flush
         return self
 
     async def close(self) -> None:
-        """Close the five tables: their compaction schedulers and scrub
-        loops stop first, then their manifests and readers."""
+        """Close the rollup tiers, then the five tables (their
+        compaction schedulers and scrub loops stop first), then the
+        worker pools."""
+        if self.rollups is not None:
+            await self.rollups.close()
+            self.rollups = None
         for t in self.tables.values():
             await t.close()
+        if self._chunk_cache is not None:
+            # a closed engine's decoded chunks can never be read again
+            self._chunk_cache.clear()
         if self._runtimes is not None:
             self._runtimes.close()
+            self._runtimes = None
 
     async def stats(self) -> dict:
         """Data volume stored (rows, bytes and SSTs per table, from the
-        manifests), each reader's cache residency and, with the WAL on,
-        the buffered state: memtables and WAL backlog."""
+        manifests), each reader's cache residency, with the WAL on the
+        buffered state (memtables and WAL backlog), and with rollups on
+        their lag and coverage."""
         tables = {}
         rows = size = sst_count = 0
         mem_rows = mem_bytes = wal_backlog = 0
@@ -410,6 +660,8 @@ class MetricEngine:
             out["memtable_bytes"] = mem_bytes
             out["wal_backlog_bytes"] = wal_backlog
             out["last_flush_age_s"] = last_flush_age
+        if self.rollups is not None:
+            out["rollups"] = await self.rollups.stats()
         return out
 
     async def flush(self) -> dict:
@@ -423,6 +675,33 @@ class MetricEngine:
         return out
 
     # ---- write ------------------------------------------------------------
+
+    async def write(self, samples: list[Sample]) -> None:
+        """The three-stage pipeline (ref: metric_engine README diagram):
+        metric ids, series ids and index rows, then the data rows."""
+        if not samples:
+            return
+        try:
+            with span("engine.write"):
+                await self.metric_manager.populate_metric_ids(samples)
+                await self.index_manager.populate_series_ids(samples)
+                if self.chunked_data:
+                    await self.sample_manager.persist_chunked(
+                        samples, self.chunk_window_ms)
+                else:
+                    await self.sample_manager.persist(samples)
+        finally:
+            # the rollup delta feed, noted AFTER the writes (a pass
+            # cannot consume the note while the rows are uncommitted)
+            # and in the finally (a partly failed multi-segment write
+            # still dirties whatever may have committed)
+            if self.rollups is not None:
+                by_metric: dict[str, set] = {}
+                for s in samples:
+                    by_metric.setdefault(s.name, set()).add(
+                        int(Timestamp(s.timestamp).truncate_by(
+                            self.segment_ms)))
+                self.rollups.note_write(by_metric)
 
     async def write_arrow(self, metric: str, tag_columns: list[str],
                           batch: pa.RecordBatch,
@@ -508,9 +787,13 @@ class MetricEngine:
         await self.index_manager.populate_series_ids(reg_samples)
 
         val_np = val_col.to_numpy()
-        tsids = tsid_of_code[codes]
         data = self.tables["data"]
         fid = field_id_of(field)
+        if self.chunked_data:
+            await self._write_arrow_chunked(mid, fid, codes, tsid_of_code,
+                                            ts_np, val_np)
+            return
+        tsids = tsid_of_code[codes]
         # per-segment SST writes overlap with bounded concurrency; a
         # TaskGroup settles every sibling before a failure propagates
         sem = asyncio.Semaphore(4)
@@ -539,39 +822,103 @@ class MetricEngine:
             if hasattr(eg, "exceptions"):
                 raise eg.exceptions[0]
             raise
+        finally:
+            # noted AFTER the writes, in the finally: see write()
+            if self.rollups is not None:
+                self.rollups.note_write(
+                    {metric: {int(s) for s in np.unique(seg_ids)}})
+
+    async def _write_arrow_chunked(self, mid, fid, codes, tsid_of_code,
+                                   ts_np, val_np) -> None:
+        """Bulk path of the chunked layout: rows grouped by (series,
+        chunk window) in numpy, one payload encoded per group."""
+        from horaedb_tpu_torch.metric_engine import chunks
+
+        ensure(int(ts_np.min()) >= 0,
+               "chunked data mode requires non-negative timestamps")
+        window = self.chunk_window_ms
+        chunk_idx = ts_np // window
+        u_codes, u_cidx, _, inv = _unique_pairs(codes, chunk_idx)
+        uniq_pairs = np.stack([u_codes, u_cidx * window], axis=1)
+        order = np.argsort(inv, kind="stable")
+        boundaries = np.concatenate(
+            [[0], np.cumsum(np.bincount(inv, minlength=len(uniq_pairs)))])
+
+        by_seg: dict[int, list[tuple]] = {}
+        for g in range(len(uniq_pairs)):
+            rows = order[boundaries[g]:boundaries[g + 1]]
+            code_idx, c_ts = int(uniq_pairs[g, 0]), int(uniq_pairs[g, 1])
+            payload = chunks.encode_chunk(ts_np[rows], val_np[rows])
+            seg = int(Timestamp(c_ts).truncate_by(self.segment_ms))
+            by_seg.setdefault(seg, []).append(
+                (int(tsid_of_code[code_idx]), c_ts, payload))
+        data = self.tables["data"]
+        for seg, rows in sorted(by_seg.items()):
+            lo = min(r[1] for r in rows)
+            hi = max(r[1] for r in rows) + window
+            batch = pa.record_batch(
+                [pa.array(np.full(len(rows), mid, dtype=np.uint64)),
+                 pa.array([r[0] for r in rows], type=pa.uint64()),
+                 pa.array(np.full(len(rows), fid, dtype=np.uint64)),
+                 pa.array([r[1] for r in rows], type=pa.int64()),
+                 pa.array([r[2] for r in rows], type=pa.binary())],
+                schema=data.schema().user_schema)
+            await data.write(WriteRequest(batch, TimeRange.new(lo, hi)))
 
     # ---- read -------------------------------------------------------------
 
-    async def _data_predicate(self, metric: str,
-                              filters: list[tuple[str, str]],
-                              time_range: TimeRange, field: str,
-                              ts_leaf: bool = True):
+    async def _resolve_data_predicate(self, metric: str,
+                                      filters: list[tuple[str, str]],
+                                      time_range: TimeRange, field: str,
+                                      ts_leaf: bool = True):
         """Data-table predicate for a query; None means provably empty.
         `ts_leaf=False` omits the time-range leaf: bucket-ALIGNED
         downsample queries enforce [start, end) exactly through the grid
         cut, and a predicate without the range keeps the cached windows
         and their memos range-independent."""
+        parts = await self._data_pred_parts(metric, filters, time_range,
+                                            ts_leaf)
+        if parts is None:
+            return None
+        return And([parts[0], Eq("field_id", field_id_of(field))]
+                   + parts[1:])
+
+    async def _data_pred_parts(self, metric: str,
+                               filters: list[tuple[str, str]],
+                               time_range: TimeRange,
+                               ts_leaf: bool = True):
+        """The field-independent predicate leaves (metric id, time leaf,
+        tsid In) shared by single- and multi-field queries; None means
+        provably empty."""
         mid = await self.metric_manager.resolve(metric, time_range)
         if mid is None:
             return None
         tsids = await self.index_manager.find_tsids(mid, filters, time_range)
         if tsids is not None and not tsids:
             return None
-        preds = [Eq("metric_id", mid), Eq("field_id", field_id_of(field))]
-        if ts_leaf:
+        preds = [Eq("metric_id", mid)]
+        if self.chunked_data:
+            # a chunk's row key is its window start; a window overlapping
+            # the query starts at or after truncate(start, window)
+            # (chunked mode stores only non-negative timestamps, so the
+            # truncation is a true floor)
+            lo = int(Timestamp(max(0, int(time_range.start))).truncate_by(
+                self.chunk_window_ms))
+            preds.append(TimeRangePred("chunk_ts", lo, int(time_range.end)))
+        elif ts_leaf:
             preds.append(TimeRangePred("timestamp", int(time_range.start),
                                        int(time_range.end)))
         if tsids is not None:
             preds.append(In("tsid", sorted(tsids)))
-        return And(preds)
+        return preds
 
     async def query(self, metric: str, filters: list[tuple[str, str]],
                     time_range: TimeRange, field: str = "value") -> pa.Table:
         """Raw samples of one field of a metric matching all label
         filters, as an Arrow table (tsid, timestamp, value)."""
         with span("resolve"):
-            pred = await self._data_predicate(metric, filters, time_range,
-                                              field)
+            pred = await self._resolve_data_predicate(metric, filters,
+                                                      time_range, field)
         if pred is None:
             return _empty_result()
         with span("scan"):
@@ -580,8 +927,68 @@ class MetricEngine:
             batches = await _collect(self.tables["data"].execute_plan(qp))
         if not batches:
             return _empty_result()
+        if self.chunked_data:
+            with span("chunk_decode"):
+                return self._decode_chunk_batches(batches, time_range)
         return pa.Table.from_batches(batches).select(
             ["tsid", "timestamp", "value"])
+
+    @staticmethod
+    def _decode_chunk_arrays(batches: list[pa.RecordBatch],
+                             time_range: TimeRange):
+        """THE chunk-decode semantics (payloads -> (tsid, ts, value)
+        numpy arrays, [start, end) masked), shared by the row-table and
+        the device-downsample paths.  Each batch's payloads decode in
+        one host-library call (native.chunk_decode_batch).  Returns None
+        when no samples survive the mask."""
+        from horaedb_tpu_torch import native
+
+        out_tsid: list[np.ndarray] = []
+        out_ts: list[np.ndarray] = []
+        out_val: list[np.ndarray] = []
+        lo, hi = int(time_range.start), int(time_range.end)
+        for b in batches:
+            payload_arr = b.column(b.schema.names.index("payload"))
+            got = native.chunk_decode_batch(payload_arr)
+            if got is None:
+                # a malformed payload: the plain decoder names the fault
+                for p in payload_arr.to_pylist():
+                    native.decode_chunks_plain(p)
+                raise Error("chunk payloads could not be decoded")
+            ts, vals, counts = got
+            tsids = np.repeat(
+                b.column(b.schema.names.index("tsid")).to_numpy(
+                    zero_copy_only=False), counts)
+            m = (ts >= lo) & (ts < hi)
+            if m.any():
+                out_ts.append(ts[m])
+                out_val.append(vals[m])
+                out_tsid.append(tsids[m])
+        if not out_ts:
+            return None
+        return (np.concatenate(out_tsid), np.concatenate(out_ts),
+                np.concatenate(out_val))
+
+    def _decode_chunk_batches(self, batches: list[pa.RecordBatch],
+                              time_range: TimeRange) -> pa.Table:
+        decoded = self._decode_chunk_arrays(batches, time_range)
+        if decoded is None:
+            return _empty_result()
+        tsid_np, ts_np, val_np = decoded
+        return pa.table({
+            "tsid": pa.array(tsid_np, type=pa.uint64()),
+            "timestamp": pa.array(ts_np, type=pa.int64()),
+            "value": pa.array(val_np, type=pa.float64()),
+        })
+
+    async def resolve_series(self, metric: str, tsids: list[int],
+                             time_range: TimeRange) -> dict[int, bytes]:
+        """tsid -> human-readable series key, via the series table."""
+        mid = await self.metric_manager.resolve(metric, time_range)
+        if mid is None:
+            return {}
+        return await self.index_manager.resolve_series_keys(
+            mid, tsids, time_range)
 
     def _downsample_grid(self, time_range: TimeRange,
                          bucket_ms: int) -> tuple[int, bool]:
@@ -596,33 +1003,6 @@ class MetricEngine:
         num_buckets = -(-span_ms // bucket_ms)
         aligned = span_ms % bucket_ms == 0 and span_ms >= self.segment_ms
         return num_buckets, aligned
-
-    async def _scan_downsample(self, metric: str,
-                               filters: list[tuple[str, str]],
-                               time_range: TimeRange, bucket_ms: int,
-                               field: str, aggs: tuple,
-                               top_k=None) -> dict:
-        """Resolve, scan and shape a downsample: the downsample and
-        top-k queries route through one QueryPlan."""
-        num_buckets, aligned = self._downsample_grid(time_range, bucket_ms)
-        with span("resolve"):
-            pred = await self._data_predicate(metric, filters, time_range,
-                                              field, ts_leaf=not aligned)
-        with span("downsample"):
-            if pred is None:
-                return {"tsids": [], "num_buckets": num_buckets, "aggs": {}}
-            spec = AggregateSpec(group_col="tsid", ts_col="timestamp",
-                                 value_col="value",
-                                 range_start=int(time_range.start),
-                                 bucket_ms=bucket_ms,
-                                 num_buckets=num_buckets, which=tuple(aggs))
-            qp = await self.tables["data"].plan_query(
-                ScanRequest(range=time_range, predicate=pred), spec=spec,
-                top_k=top_k)
-            group_values, grids = await self.tables["data"].execute_plan(qp)
-        return {"tsids": [int(t) for t in group_values],
-                "num_buckets": num_buckets,
-                "aggs": grids if len(group_values) else {}}
 
     async def query_downsample(self, metric: str,
                                filters: list[tuple[str, str]],
@@ -639,11 +1019,106 @@ class MetricEngine:
         engine's device (except `last_ts`, a host float64 array of
         absolute ms); the parts path's (taken when the plan's rows
         exceed the scan-cache budget, storage/read.py
-        fused_aggregate_ok) are the combine's host float64 arrays.
-        `use_rollup` is accepted for API parity; the port has no
-        rollups, so every query takes the raw path."""
-        return await self._scan_downsample(metric, filters, time_range,
+        fused_aggregate_ok) and a rollup-served query's are host float64
+        arrays; the chunked layout's are host float32 arrays.
+
+        When a standing rollup covers (metric, field, bucket), the grid
+        is assembled from tier cells plus a raw tail for the
+        not-yet-rolled segments (rollup/manager.py states its contract);
+        `use_rollup=False` forces the raw path."""
+        num_buckets, aligned = self._downsample_grid(time_range, bucket_ms)
+        if self.chunked_data:
+            with span("downsample_chunked"):
+                return await self._downsample_chunked(
+                    metric, filters, time_range, bucket_ms, num_buckets,
+                    field=field, which=tuple(aggs))
+        resolved = None
+        if use_rollup:
+            out, resolved = await self._try_rollup_serve(
+                metric, filters, time_range, bucket_ms, num_buckets,
+                field, tuple(aggs))
+            if out is not None:
+                return out
+        with span("resolve"):
+            pred = await self._resolved_or_build_predicate(
+                metric, filters, time_range, field, not aligned, resolved)
+        with span("downsample"):
+            return await self._scan_downsample(pred, time_range,
+                                               bucket_ms, num_buckets,
+                                               aggs)
+
+    def _pred_from_resolved(self, resolved, field: str,
+                            time_range: TimeRange, ts_leaf: bool):
+        """The _data_pred_parts leaf shape, rebuilt from an
+        already-resolved (mid, tsids) pair — the same leaves in the same
+        order, so scan-cache keys cannot drift between the paths."""
+        mid, tsids = resolved
+        preds = [Eq("metric_id", mid), Eq("field_id", field_id_of(field))]
+        if ts_leaf:
+            preds.append(TimeRangePred("timestamp", int(time_range.start),
+                                       int(time_range.end)))
+        if tsids is not None:
+            preds.append(In("tsid", sorted(tsids)))
+        return And(preds)
+
+    async def _resolved_or_build_predicate(self, metric, filters,
+                                           time_range, field: str,
+                                           ts_leaf: bool, resolved):
+        """Raw-path predicate, reusing the rollup probe's resolve and
+        index lookup when one ran."""
+        if resolved is not None:
+            return self._pred_from_resolved(resolved, field, time_range,
+                                            ts_leaf)
+        return await self._resolve_data_predicate(metric, filters,
+                                                  time_range, field,
+                                                  ts_leaf=ts_leaf)
+
+    async def _try_rollup_serve(self, metric, filters, time_range,
+                                bucket_ms: int, num_buckets: int,
+                                field: str, aggs: tuple):
+        """Rollup coverage check + serve.  Returns (result, resolved):
+        result None means take the raw path; resolved carries the
+        probe's (mid, tsids) for the raw path to reuse.  All rollup-tier
+        reads route through here."""
+        if self.rollups is None or not self.rollups.covers(
+                metric, field, bucket_ms, time_range):
+            return None, None
+        with span("rollup_plan"):
+            mid = await self.metric_manager.resolve(metric, time_range)
+            if mid is None:
+                return {"tsids": [], "num_buckets": num_buckets,
+                        "aggs": {}}, None
+            tsids = await self.index_manager.find_tsids(mid, filters,
+                                                        time_range)
+            if tsids is not None and not tsids:
+                return {"tsids": [], "num_buckets": num_buckets,
+                        "aggs": {}}, None
+        out = await self.rollups.try_serve(metric, mid, tsids, time_range,
                                            bucket_ms, field, aggs)
+        return out, (mid, tsids)
+
+    async def _scan_downsample(self, pred, time_range: TimeRange,
+                               bucket_ms: int, num_buckets: int,
+                               aggs: tuple, top_k=None,
+                               parts_route: bool = False) -> dict:
+        """Shared scan + result shaping of the row-layout downsample
+        paths (single-field, multi-field, top-k and the rollup
+        manager's recomputes, which pass `parts_route`): all route
+        through one QueryPlan."""
+        if pred is None:
+            return {"tsids": [], "num_buckets": num_buckets, "aggs": {}}
+        spec = AggregateSpec(group_col="tsid", ts_col="timestamp",
+                             value_col="value",
+                             range_start=int(time_range.start),
+                             bucket_ms=bucket_ms, num_buckets=num_buckets,
+                             which=tuple(aggs))
+        qp = await self.tables["data"].plan_query(
+            ScanRequest(range=time_range, predicate=pred), spec=spec,
+            top_k=top_k, parts_route=parts_route)
+        group_values, grids = await self.tables["data"].execute_plan(qp)
+        return {"tsids": [int(t) for t in group_values],
+                "num_buckets": num_buckets,
+                "aggs": grids if len(group_values) else {}}
 
     async def query_topk(self, metric: str,
                          filters: list[tuple[str, str]],
@@ -657,14 +1132,251 @@ class MetricEngine:
         QueryPlan with a TopK stage on top.  Rows come back best first,
         as host arrays: the parts path ranks in the combine and
         materializes only the k winners; the fused path slices its
-        device grids (plan.apply_top_k).  `use_rollup` is accepted for
-        API parity; the port has neither rollups nor the chunked layout,
-        so every query takes the row layout's raw path."""
-        from horaedb_tpu_torch.storage.plan import TopKSpec
+        device grids; a rollup-served or chunked query ranks its
+        downsample grid on the host (plan.apply_top_k)."""
+        from horaedb_tpu_torch.storage.plan import TopKSpec, apply_top_k
 
         ensure(by in ALL_AGGS,
                f"unknown top-k aggregate {by!r}; supported: {ALL_AGGS}")
+        which = tuple(sorted(set(aggs) | {by}))
+        tk = TopKSpec(k=k, by=by, largest=largest)
+
+        def ranked(out: dict) -> dict:
+            if out["tsids"]:
+                values, grids = apply_top_k(
+                    np.asarray(out["tsids"], dtype=np.uint64), out["aggs"],
+                    tk)
+                out["tsids"] = [int(t) for t in values]
+                out["aggs"] = grids
+            return out
+
+        if self.chunked_data:
+            return ranked(await self.query_downsample(
+                metric, filters, time_range, bucket_ms, field=field,
+                aggs=which))
+        num_buckets, aligned = self._downsample_grid(time_range, bucket_ms)
+        resolved = None
+        if use_rollup:
+            # a rollup-covered top-k is the covered downsample grid with
+            # the TopK stage applied on the host (the chunked path's
+            # shape): the same grids in, the same slice out
+            out, resolved = await self._try_rollup_serve(
+                metric, filters, time_range, bucket_ms, num_buckets,
+                field, which)
+            if out is not None:
+                return ranked(out)
+        pred = await self._resolved_or_build_predicate(
+            metric, filters, time_range, field, not aligned, resolved)
         return await self._scan_downsample(
-            metric, filters, time_range, bucket_ms, field,
-            tuple(sorted(set(aggs) | {by})),
-            top_k=TopKSpec(k=k, by=by, largest=largest))
+            pred, time_range, bucket_ms, num_buckets, which, top_k=tk)
+
+    async def query_downsample_multi(self, metric: str,
+                                     filters: list[tuple[str, str]],
+                                     time_range: TimeRange, bucket_ms: int,
+                                     fields: list[str],
+                                     aggs: tuple = ALL_AGGS,
+                                     use_rollup: bool = True) -> dict:
+        """GROUP BY series, time(bucket) over SEVERAL fields of one
+        metric with ONE metric/index resolve shared by every field's
+        scan.  Returns {field: result}, each result shaped exactly like
+        query_downsample's.  Fields partition the data table's rows, so
+        each field's pushdown scan decodes only its own rows; the scans
+        run one after another (each pipelines its own IO)."""
+        ensure(len(fields) > 0, "fields must be non-empty")
+        if self.chunked_data:
+            return {f: await self.query_downsample(
+                metric, filters, time_range, bucket_ms, field=f, aggs=aggs)
+                for f in fields}
+        num_buckets, aligned = self._downsample_grid(time_range, bucket_ms)
+        out = {}
+        remaining = list(fields)
+        resolved = None
+        covered = ([] if not use_rollup or self.rollups is None else
+                   [f for f in remaining if self.rollups.covers(
+                       metric, f, bucket_ms, time_range)])
+        if covered:
+            # per-field routing with ONE shared resolve: covered fields
+            # read their rollup tier, the rest reuse (mid, tsids) below
+            with span("rollup_plan"):
+                mid = await self.metric_manager.resolve(metric,
+                                                        time_range)
+                tsids = (None if mid is None else
+                         await self.index_manager.find_tsids(
+                             mid, filters, time_range))
+            if mid is None or (tsids is not None and not tsids):
+                return {f: {"tsids": [], "num_buckets": num_buckets,
+                            "aggs": {}} for f in fields}
+            resolved = (mid, tsids)
+            for f in covered:
+                served = await self.rollups.try_serve(
+                    metric, mid, tsids, time_range, bucket_ms, f,
+                    tuple(aggs))
+                if served is not None:
+                    out[f] = served
+                    remaining.remove(f)
+            if not remaining:
+                return out
+        parts = None
+        if resolved is None:
+            parts = await self._data_pred_parts(metric, filters,
+                                                time_range,
+                                                ts_leaf=not aligned)
+        for f in remaining:
+            if resolved is not None:
+                pred = self._pred_from_resolved(resolved, f, time_range,
+                                                not aligned)
+            else:
+                pred = (None if parts is None else
+                        And([parts[0], Eq("field_id", field_id_of(f))]
+                            + parts[1:]))
+            out[f] = await self._scan_downsample(pred, time_range,
+                                                 bucket_ms, num_buckets,
+                                                 aggs)
+        return out
+
+    async def _downsample_chunked(self, metric: str, filters, time_range,
+                                  bucket_ms: int, num_buckets: int,
+                                  field: str = "value",
+                                  which: tuple = ALL_AGGS) -> dict:
+        """Chunked-layout downsample that never builds an Arrow row
+        table: chunk payloads batch-decode straight into the
+        fixed-width arrays the device aggregate consumes.  Same grids as
+        the row layout within the aggregate's tolerance contract.
+
+        Repeat queries skip the (uncached Append-mode) scan AND the
+        decode via the engine's decode LRU: the key is (canonical
+        predicate, exact range, the data table's overlapping SST ids),
+        so any write or compaction misses it, exactly like the row
+        layout's scan cache.  The entry also keeps the padded device
+        arrays, so a repeat uploads nothing and only re-runs the
+        aggregate."""
+        from horaedb_tpu_torch.ops.filter import canonical_predicate_key
+
+        pred = await self._resolve_data_predicate(metric, filters,
+                                                  time_range, field)
+        if pred is None:
+            return {"tsids": [], "num_buckets": num_buckets, "aggs": {}}
+        ssts = await self.tables["data"].manifest.find_ssts(time_range)
+        key = (canonical_predicate_key(pred),
+               int(time_range.start), int(time_range.end),
+               tuple(sorted(f.id for f in ssts)))
+        entry = self._chunk_cache.get(key)
+        fresh = entry is None
+        if fresh:
+            batches = await _collect(self.tables["data"].scan(ScanRequest(
+                range=time_range, predicate=pred)))
+            decoded = self._decode_chunk_arrays(batches, time_range)
+            if decoded is None:
+                return {"tsids": [], "num_buckets": num_buckets,
+                        "aggs": {}}
+            entry = {"decoded": decoded, "memo": {}}
+        tsid_np, ts_np, val_np = entry["decoded"]
+        out = self._downsample_arrays(tsid_np, ts_np, val_np, time_range,
+                                      bucket_ms, num_buckets, which=which,
+                                      memo=entry["memo"])
+        if fresh:
+            # charged after the memo is built, so the padded device
+            # arrays count at their real size
+            dev = entry["memo"].get("dev", {})
+            nbytes = 24 * len(ts_np) + 1024 + sum(
+                int(a.nbytes) for a in dev.values()
+                if hasattr(a, "nbytes"))
+            self._chunk_cache.put(key, entry, nbytes)
+        return out
+
+    def _downsample_arrays(self, tsid_np, ts_np, val_np,
+                           time_range: TimeRange, bucket_ms: int,
+                           num_buckets: int,
+                           which: tuple = ALL_AGGS,
+                           memo: Optional[dict] = None) -> dict:
+        """ONE ops.downsample.time_bucket_aggregate call over decoded
+        arrays on the engine's device (the bucket_window_partials kernel
+        on the card, its plain version on the CPU).  `memo` (a chunk
+        decode cache entry's) keeps the padded DEVICE arrays after the
+        first aggregate, so repeats upload nothing; valid because the
+        cache key pins the exact time range (ts offsets are
+        range_start-relative).  Returns host arrays."""
+        from horaedb_tpu_torch.ops.downsample import time_bucket_aggregate
+        from horaedb_tpu_torch.ops.encode import pad_capacity, to_device
+
+        n = len(ts_np)
+        dev = memo.get("dev") if memo is not None else None
+        if dev is None:
+            # dense group ids without a full-length np.unique: chunk
+            # decode emits long runs of equal tsids, so dense-ify the run
+            # VALUES (about one per chunk row) and repeat the codes over
+            # the run lengths — the output of np.unique(tsid_np,
+            # return_inverse=True) at a fraction of the cost
+            if n:
+                new_run = np.empty(n, dtype=bool)
+                new_run[0] = True
+                np.not_equal(tsid_np[1:], tsid_np[:-1], out=new_run[1:])
+                run_idx = np.flatnonzero(new_run)
+                uniq, inv = np.unique(tsid_np[run_idx],
+                                      return_inverse=True)
+                run_lens = np.diff(np.append(run_idx, n))
+                gid = np.repeat(inv.astype(np.int32), run_lens)
+            else:
+                uniq = np.empty(0, dtype=np.uint64)
+                gid = np.empty(0, dtype=np.int32)
+            ts_rel = ts_np - int(time_range.start)
+            cap = pad_capacity(n)
+
+            def pad(a, dtype):
+                return to_device(np.pad(a.astype(dtype), (0, cap - n)),
+                                 self.device)
+
+            dev = {"uniq": uniq, "gid_host": gid, "ts_rel": ts_rel,
+                   "ts": pad(ts_rel, np.int32), "gid": pad(gid, np.int32),
+                   "val": pad(val_np, np.float32)}
+            if memo is not None:
+                memo["dev"] = dev
+        uniq = dev["uniq"]
+        aggs = time_bucket_aggregate(
+            dev["ts"], dev["gid"], dev["val"], n, bucket_ms,
+            num_groups=len(uniq), num_buckets=num_buckets, which=which)
+        host = {k: v.cpu().numpy() for k, v in aggs.items()}
+        if "last" in which:
+            # the pushdown path's grid keys (it emits last_ts only
+            # alongside last): per-cell max sample time (absolute ms as
+            # float, NaN for empty cells)
+            gid_h, ts_rel = dev["gid_host"], dev["ts_rel"]
+            cell = gid_h.astype(np.int64) * num_buckets + ts_rel // bucket_ms
+            last_ts = np.full(len(uniq) * num_buckets, -np.inf)
+            np.maximum.at(last_ts, cell, ts_rel.astype(np.float64))
+            last_ts = last_ts.reshape(len(uniq), num_buckets)
+            host["last_ts"] = np.where(np.isinf(last_ts), np.nan,
+                                       last_ts + int(time_range.start))
+        return {"tsids": [int(t) for t in uniq],
+                "num_buckets": num_buckets, "aggs": host}
+
+    # ---- labels and lists -------------------------------------------------
+
+    async def label_values(self, metric: str, tag_key: str,
+                           time_range: TimeRange) -> list[str]:
+        """Distinct values of one tag of a metric in the window
+        (Prometheus /api/v1/label/<name>/values analogue)."""
+        mid = await self.metric_manager.resolve(metric, time_range)
+        if mid is None:
+            return []
+        return await self.index_manager.label_values(mid, tag_key,
+                                                     time_range)
+
+    async def label_names(self, metric: str,
+                          time_range: TimeRange) -> list[str]:
+        """Distinct tag keys of a metric in the window (Prometheus
+        /api/v1/labels analogue)."""
+        mid = await self.metric_manager.resolve(metric, time_range)
+        if mid is None:
+            return []
+        return await self.index_manager.label_names(mid, time_range)
+
+    async def list_metrics(self, time_range: TimeRange) -> list[str]:
+        """Distinct metric names active in the window (Prometheus
+        /api/v1/label/__name__/values analogue)."""
+        return await self.metric_manager.list_metrics(time_range)
+
+    async def list_fields(self, metric: str,
+                          time_range: TimeRange) -> list[str]:
+        """Distinct field names of a metric in the window."""
+        return await self.metric_manager.list_fields(metric, time_range)

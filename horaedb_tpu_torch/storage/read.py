@@ -62,14 +62,16 @@ merge host windows are cached per segment (storage/scan_cache.py), so a
 repeat query skips the read and the merge; per-SST encoded parts are
 cached under them (tier 2), admitted at write time.
 
-Only OVERWRITE (last-value) tables are served.  Not ported: the JAX
-package's Append merge (and its streamed branch), mesh rounds (and their
-decode rounds and stall counters), near-data router, deadline
-checkpoints, memory-ledger accounts, the streamed segment's mid-segment
-re-resolution after a compaction race (the outer replan recovers an
-OVERWRITE scan, which buffers each segment), and its device scalar
-cache (_scalar_cache), since the port passes the bucket count and width
-to the kernel as host ints, so a replay has no scalar to upload.
+Append tables (the chunked data layout) take a host path instead: each
+segment's rows read from parquet (never sidecars: BytesMerge needs the
+exact Arrow bytes), sorted by (PK, __seq__) and merged by the
+BytesMerge operator, uncached; a streamed Append segment merges window
+by window and re-resolves its SSTs after a compaction race mid-segment.
+Not ported: mesh rounds (and their decode rounds and stall counters),
+the near-data router, deadline checkpoints, memory-ledger accounts, and
+the device scalar cache (_scalar_cache), since the port passes the
+bucket count and width to the kernel as host ints, so a replay has no
+scalar to upload.
 """
 
 from __future__ import annotations
@@ -260,6 +262,11 @@ class ScanPlan:
     # set by aggregate_segments when the plan takes the device decode:
     # sidecar segments then come back as finished DeviceParts
     decode_spec: Optional["AggregateSpec"] = None
+    # set for the rollup manager's recomputes (maintenance and the raw
+    # tail, rollup/manager.py): the fused gate declines the plan, so it
+    # takes the parts route whatever its size, HORAEDB_FUSED_AGG
+    # included — the route whose float64 grids the rollup cells store
+    parts_route: bool = False
     # set by _cached_windows: whether this scan runs through the
     # pipeline, which the parts pump reads to run its rounds as a
     # background device stage
@@ -280,8 +287,11 @@ class ParquetReader:
         self.segment_duration_ms = segment_duration_ms
         self.runtimes = runtimes
         self.device = device
-        ensure(schema.update_mode is UpdateMode.OVERWRITE,
-               "the port serves OVERWRITE tables only")
+        # optional async callback (segment_start, scan_range) -> current
+        # SstFiles: set by CloudObjectStorage so a streamed Append
+        # segment survives a compaction race mid-segment
+        # (_stream_window_batches)
+        self.resolve_segment_ssts = None
         ensure(config.scan.combine.mode in combine_mod.COMBINE_MODES,
                f"unknown [scan.combine] mode "
                f"{config.scan.combine.mode!r}; expected one of "
@@ -432,7 +442,20 @@ class ParquetReader:
         """Row scan with segment attribution: (segment_start, batch) per
         non-empty merge window, then (segment_start, None) once the
         segment is complete — the unit a compaction-race replan skips
-        (storage.CloudObjectStorage.scan_segments)."""
+        (storage.CloudObjectStorage.scan_segments).  An Append table
+        merges each segment on the host through the BytesMerge operator,
+        uncached (_append_segment)."""
+        if plan.mode is not UpdateMode.OVERWRITE:
+            feed = self._segment_feed(plan, plan.segments)
+            try:
+                async for seg, is_streamed, table, _read_s in feed:
+                    async for out in self._append_segment(
+                            seg, is_streamed, table, plan):
+                        yield out
+            finally:
+                # an abandoned consumer tears the prefetch down now
+                await feed.aclose()
+            return
         windows_iter = self._cached_windows(plan)
         try:
             async for seg, windows in windows_iter:
@@ -447,6 +470,82 @@ class ParquetReader:
                 yield seg.segment_start, None
         finally:
             await windows_iter.aclose()
+
+    async def _append_segment(self, seg: SegmentPlan, is_streamed: bool,
+                              table, plan: ScanPlan):
+        """One Append-mode segment's host merge, streamed or bulk.
+        Yields (segment_start, batch) parts, then the completion
+        marker.  A streamed segment merges window by window, so the
+        host bound holds for Append tables too."""
+        if is_streamed:
+            async for batch in self._stream_window_batches(
+                    seg, plan, strict_no_replay=True):
+                part = await self._run_pool(
+                    self._merge_segment_table,
+                    pa.Table.from_batches([batch]), plan, pool=plan.pool)
+                if part is not None and part.num_rows:
+                    _ROWS_SCANNED.inc(part.num_rows)
+                    yield seg.segment_start, part
+            yield seg.segment_start, None
+            return
+        batch = await self._run_pool(self._merge_segment_table, table,
+                                     plan, pool=plan.pool)
+        if batch is not None and batch.num_rows:
+            _ROWS_SCANNED.inc(batch.num_rows)
+            yield seg.segment_start, batch
+        yield seg.segment_start, None
+
+    def _merge_segment_table(self, table: pa.Table,
+                             plan: ScanPlan) -> Optional[pa.RecordBatch]:
+        """Host (Append/BytesMerge) merge of one segment's table, cut
+        into the same PK-range windows as the Overwrite path when the
+        segment exceeds the window budget (the sort stays bounded)."""
+        if table.num_rows == 0:
+            return None
+        batch = table.combine_chunks().to_batches()[0]
+        window = self.config.scan.max_window_rows
+        if batch.num_rows <= window:
+            return self._strip_builtin(self._merge_on_host(batch, plan),
+                                       plan)
+        pk1 = batch.column(batch.schema.names.index(
+            self._pk_names_in(batch.schema.names)[0]))
+        # dense value-order ranks straight from Arrow (the comparator the
+        # merge sort uses); cross-window order then follows value order
+        ranks = np.asarray(pa.compute.rank(pk1, sort_keys="ascending",
+                                           tiebreaker="dense"))
+        parts = []
+        for sel in _plan_pk_windows(ranks, window):
+            part = self._merge_on_host(batch.take(pa.array(sel)), plan)
+            if part is not None and part.num_rows:
+                parts.append(part)
+        if not parts:
+            return None
+        merged = (parts[0] if len(parts) == 1 else pa.Table.from_batches(
+            parts).combine_chunks().to_batches()[0])
+        return self._strip_builtin(merged, plan)
+
+    def _merge_on_host(self, batch: pa.RecordBatch,
+                       plan: ScanPlan) -> pa.RecordBatch:
+        """Sort by (PK, __seq__) and apply the table's merge operator;
+        the full predicate applies after the merge unless the read
+        already applied all of it."""
+        from horaedb_tpu_torch.storage.operator import build_operator
+
+        pk_names = self._pk_names_in(batch.schema.names)
+        sort_keys = [(n, "ascending") for n in pk_names + [SEQ_COLUMN_NAME]]
+        batch = batch.take(pa.compute.sort_indices(batch,
+                                                   sort_keys=sort_keys))
+        names = batch.schema.names
+        value_idxes = [names.index(n) for n in names
+                       if n not in pk_names and n != SEQ_COLUMN_NAME]
+        op = build_operator(plan.mode, value_idxes)
+        # explicit indices: a projection may have reordered columns
+        merged = op.merge_sorted_batch(
+            batch, pk_indices=[names.index(n) for n in pk_names])
+        if plan.predicate is not None and not plan.pushed_complete:
+            mask = _eval_predicate_host(plan.predicate, merged)
+            merged = merged.filter(pa.array(mask))
+        return merged
 
     def _window_to_arrow(self, w: encode.DeviceBatch, names: list[str],
                          plan: ScanPlan) -> Optional[pa.RecordBatch]:
@@ -686,10 +785,13 @@ class ParquetReader:
         return table, read_s
 
     def _sidecar_plan_ok(self, plan: ScanPlan) -> bool:
-        """Sidecars serve a plan whose pushdown (when present) has a leaf
-        conjunction the host can evaluate in encoded space."""
+        """Sidecars serve an OVERWRITE plan whose pushdown (when
+        present) has a leaf conjunction the host can evaluate in encoded
+        space."""
         if not self.config.scan.use_sidecar:
             return False
+        if plan.mode is not UpdateMode.OVERWRITE:
+            return False  # Append's BytesMerge needs exact Arrow bytes
         return plan.pushdown is None or plan.prune_leaves is not None
 
     def _resident_segment_parts(self, seg: SegmentPlan,
@@ -977,7 +1079,8 @@ class ParquetReader:
         return gen()
 
     async def _stream_window_batches(self, seg: SegmentPlan,
-                                     plan: ScanPlan):
+                                     plan: ScanPlan,
+                                     strict_no_replay: bool = False):
         """The parquet streamer (the reference's pull-based batch
         streaming, read.rs:346-385, re-shaped for windows): pass 1 scans
         ONE PK column's values to plan value-range windows of <=
@@ -985,9 +1088,17 @@ class ParquetReader:
         predicate pushdown.  Host materialization is bounded by the
         window budget, not the segment size.  Yields one Arrow batch
         per window, PK-range ascending, each encoded WINDOW-LOCALLY
-        downstream.  A compaction that deletes an input mid-segment
-        raises NotFoundError, and the caller's replan re-reads the
-        segment (nothing of it was yielded downstream yet)."""
+        downstream.
+
+        A compaction that deletes an input mid-segment: the segment's
+        current SSTs are resolved again (resolve_segment_ssts; the
+        compacted output holds the same rows) and the remaining value
+        ranges, which partition rows independently of file boundaries,
+        read from them.  After three failed attempts the NotFoundError
+        goes to the caller's replan — unless `strict_no_replay` and a
+        window was already yielded: an Append consumer has emitted it
+        downstream, so a replan would duplicate rows, and the read
+        fails with a non-retryable Error instead."""
         import pyarrow.compute as pc
 
         # one source per SST: local stores mmap, remote stores download
@@ -1025,18 +1136,47 @@ class ParquetReader:
         def pyval(x):
             return x.item() if hasattr(x, "item") else x
 
+        yielded_any = False
         for lo, hi in ranges:
             expr = (pc.field(part_col) >= pyval(lo)) \
                 & (pc.field(part_col) <= pyval(hi))
             if plan.pushdown is not None:
                 expr = expr & plan.pushdown
-            tables = await asyncio.gather(*(
-                self._run_pool(functools.partial(
-                    src.read, columns=seg.columns, filters=expr),
-                    pool=plan.pool)
-                for src in sources))
+            refresh = False
+            for attempt in range(3):
+                try:
+                    if refresh:
+                        # re-resolution and re-open can race a second
+                        # deletion: inside the try, they consume an
+                        # attempt too
+                        fresh = await self.resolve_segment_ssts(
+                            seg.segment_start, plan.range)
+                        sources = await asyncio.gather(*(
+                            parquet_io.open_sst_source(
+                                self.store, sst_path(self.root_path, f.id))
+                            for f in fresh))
+                        refresh = False
+                    if not sources:
+                        return  # the whole segment vanished (TTL GC)
+                    tables = await asyncio.gather(*(
+                        self._run_pool(functools.partial(
+                            src.read, columns=seg.columns, filters=expr),
+                            pool=plan.pool)
+                        for src in sources))
+                    break
+                except NotFoundError:
+                    if self.resolve_segment_ssts is None or attempt == 2:
+                        if strict_no_replay and yielded_any:
+                            raise Error(
+                                f"streamed segment {seg.segment_start} "
+                                "lost its SSTs mid-stream after retries; "
+                                "failing rather than duplicating "
+                                "already-emitted rows")
+                        raise
+                    refresh = True
             tbl = pa.concat_tables(tables)
             if tbl.num_rows:
+                yielded_any = True
                 yield tbl.combine_chunks().to_batches()[0]
 
     def _pk_names_in(self, columns: list[str]) -> list[str]:
@@ -1187,6 +1327,8 @@ class ParquetReader:
         downloads are free and scatters slow.  That clause encodes
         XLA-CPU economics; the port's device="cpu" is a test mode, so
         it has no such clause and its CPU tests keep the fused path."""
+        if plan is not None and plan.parts_route:
+            return False
         forced = os.environ.get("HORAEDB_FUSED_AGG", "")
         if forced == "1":
             return True

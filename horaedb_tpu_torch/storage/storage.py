@@ -100,6 +100,7 @@ class CloudObjectStorage:
                                             runtimes=self.runtimes)
         self.scrubber = Scrubber(self.root_path, self.store, self.manifest,
                                  self.config.scrub.grace_period.seconds)
+        self.reader.resolve_segment_ssts = self._segment_ssts_now
         from horaedb_tpu_torch.storage.compaction import Scheduler
 
         self.compact_scheduler = Scheduler(self)
@@ -111,6 +112,21 @@ class CloudObjectStorage:
         """One orphan-reconcile pass (see storage/gc.py)."""
         ensure(self.scrubber is not None, "storage not opened")
         return await self.scrubber.scrub(grace_override_s=grace_override_s)
+
+    async def _segment_ssts_now(self, segment_start: int,
+                                scan_range: Optional[TimeRange]):
+        """CURRENT SSTs of one segment that overlap the scan's range: a
+        streamed segment uses this to survive a compaction race
+        mid-segment (read.py).  The range filter mirrors
+        build_scan_plan's manifest.find_ssts, so recovery cannot leak
+        rows from SSTs the original plan excluded."""
+        from horaedb_tpu_torch.storage.sst import segment_of
+
+        ssts = await self.manifest.all_ssts()
+        return [f for f in ssts
+                if segment_of(f, self.segment_duration_ms) == segment_start
+                and (scan_range is None
+                     or f.meta.time_range.overlaps(scan_range))]
 
     async def compact(self) -> None:
         """Wake the compaction picker now (it also runs every
@@ -318,9 +334,14 @@ class CloudObjectStorage:
         the parts path: it folds per-group spans into a bounded score
         pass and materializes only the k winners (combine_top_k).  The
         fused path's grids already live on the device, so it slices them
-        with plan.apply_top_k."""
+        with plan.apply_top_k.
+
+        A first plan with `parts_route` set keeps the scan on the parts
+        path, replans included (the rollup manager's recomputes;
+        read.ScanPlan.parts_route)."""
         if first_plan is None:
             first_plan = await self.build_scan_plan(req)
+        parts_route = first_plan.parts_route
         if self.reader.fused_aggregate_ok(first_plan):
             from horaedb_tpu_torch.storage.plan import apply_top_k
 
@@ -344,7 +365,8 @@ class CloudObjectStorage:
         for attempt in range(self._SCAN_RETRIES + 1):
             # attempt 0 reuses the plan built for the fused gate
             plan = first_plan if attempt == 0 \
-                else await self.build_scan_plan(req)
+                else await self.build_scan_plan(req,
+                                                parts_route=parts_route)
             plan.segments = [s for s in plan.segments
                              if s.segment_start not in done]
             try:
@@ -362,19 +384,24 @@ class CloudObjectStorage:
         return self.reader.finalize_aggregate(all_parts, spec, top_k=top_k)
 
     async def build_scan_plan(self, req: ScanRequest,
-                              keep_builtin: bool = False) -> ScanPlan:
+                              keep_builtin: bool = False,
+                              parts_route: bool = False) -> ScanPlan:
         ensure(self.manifest is not None, "storage not opened")
         ssts = await self.manifest.find_ssts(req.range)
-        return self.reader.build_plan(ssts, req, keep_builtin=keep_builtin)
+        plan = self.reader.build_plan(ssts, req, keep_builtin=keep_builtin)
+        plan.parts_route = parts_route
+        return plan
 
-    async def plan_query(self, req: ScanRequest, spec=None, top_k=None):
+    async def plan_query(self, req: ScanRequest, spec=None, top_k=None,
+                         parts_route: bool = False):
         """Build the QueryPlan every query shape routes through (see
-        storage/plan.py): scan -> aggregate? -> top_k?."""
+        storage/plan.py): scan -> aggregate? -> top_k?.  `parts_route`
+        keeps the aggregate on the parts path (ScanPlan.parts_route)."""
         from horaedb_tpu_torch.storage.plan import QueryPlan
 
         ensure(spec is not None or top_k is None,
                "top-k requires an aggregate stage")
-        scan = await self.build_scan_plan(req)
+        scan = await self.build_scan_plan(req, parts_route=parts_route)
         return QueryPlan(scan=scan, request=req, aggregate=spec,
                          top_k=top_k)
 
@@ -386,5 +413,3 @@ class CloudObjectStorage:
             return self.scan(qp.request, first_plan=qp.scan)
         return self.scan_aggregate(qp.request, qp.aggregate,
                                    first_plan=qp.scan, top_k=qp.top_k)
-        return self.scan_aggregate(qp.request, qp.aggregate,
-                                   first_plan=qp.scan)

@@ -28,12 +28,15 @@ device grids then read pure SST state, so a flush turns a segment the
 replay or the scan cache holds into a new SST set, and the next query
 goes back through the kernels for it.
 
+The rollup hooks: `last_seq` (the newest acked seq), `on_flush`
+(called with the segment start after a flush commits),
+`memtable_segments()` and `oldest_unflushed_seq()` (rollup/manager.py
+keeps buffered segments raw-served and floors its lag watermark).
+
 Not ported yet (ROADMAP.md): the tenant quota gate ahead of the group
 commit and the memory-ledger accounts of the memtables and the WAL
-backlog (Queue A 10); the rollup hooks `on_flush`,
-`memtable_segments` and `oldest_unflushed_seq` (Queue A 8); the
-loop watchdog's arguments and its stall test hook (Queue A 10); the
-top-k arguments of the aggregate entry points (Queue A 7).
+backlog, the loop watchdog's arguments and its stall test hook (Queue
+A 10).
 """
 
 from __future__ import annotations
@@ -99,6 +102,11 @@ class IngestStorage:
         self._flush_wake: Optional[asyncio.Event] = None
         self._stopping = False
         self._last_flush_at: Optional[float] = None
+        # newest seq acked by this ingest front end (rollup lag signal)
+        self.last_seq = 0
+        # flush-commit hook: called with the segment start after an SST
+        # + manifest commit lands (the rollup manager's delta feed)
+        self.on_flush = None
         # ownership fence: when set, every flush revalidates it before
         # the SST upload and again just before the manifest commit
         # (write_stamped's pre_commit), so a holder that lost it never
@@ -198,6 +206,7 @@ class IngestStorage:
         # the fsync ack point: the rows are durable from here on
         with span("memtable_insert"):
             seg = self._insert(seq, req.batch, req.time_range)
+        self.last_seq = max(self.last_seq, seq)
         self._maybe_wake_flusher(self._memtables.get(seg))
         _ACK_LATENCY.observe(time.perf_counter() - t0)
         return WriteResult(id=seq, seq=seq, size=size)
@@ -350,6 +359,8 @@ class IngestStorage:
         self._last_flush_at = self._clock()
         _FLUSHES.inc()
         _FLUSH_ROWS.inc(mt.rows)
+        if self.on_flush is not None:
+            self.on_flush(seg)
         return mt.rows
 
     # ---- read -------------------------------------------------------------
@@ -450,8 +461,10 @@ class IngestStorage:
         await self.flush_overlapping(req.range)
         return await self.inner.scan_aggregate(req, spec, top_k=top_k)
 
-    async def plan_query(self, req: ScanRequest, spec=None, top_k=None):
-        return await self.inner.plan_query(req, spec=spec, top_k=top_k)
+    async def plan_query(self, req: ScanRequest, spec=None, top_k=None,
+                         parts_route: bool = False):
+        return await self.inner.plan_query(req, spec=spec, top_k=top_k,
+                                           parts_route=parts_route)
 
     def execute_plan(self, qp):
         if qp.aggregate is None:
@@ -464,11 +477,28 @@ class IngestStorage:
             # may predate this flush or a background one racing the
             # query (aggregate grids read pure SST state)
             await self.flush_overlapping(qp.request.range)
-            qp2 = await self.inner.plan_query(qp.request, qp.aggregate,
-                                              qp.top_k)
+            qp2 = await self.inner.plan_query(
+                qp.request, qp.aggregate, qp.top_k,
+                parts_route=qp.scan.parts_route)
             return await self.inner.execute_plan(qp2)
 
         return agg()
+
+    def memtable_segments(self) -> set[int]:
+        """Segments with acked-but-unflushed rows (live + in-flight
+        flushes): the rollup manager excludes them from coverage, so
+        buffered rows are always served through the raw tail."""
+        return ({seg for seg, mt in self._memtables.items() if mt.entries}
+                | {seg for seg, mts in self._flushing.items() if mts})
+
+    def oldest_unflushed_seq(self) -> Optional[int]:
+        """Min seq across acked-but-unflushed rows; None when fully
+        flushed.  The rollup lag watermark never advances past an
+        unflushed (hence unrolled) row's seq."""
+        live = list(self._memtables.values()) + [
+            mt for mts in self._flushing.values() for mt in mts]
+        return min((e.seq for mt in live for e in mt.entries),
+                   default=None)
 
     def ingest_stats(self) -> dict:
         """Buffered state + WAL backlog.  Counts include in-flight

@@ -30,8 +30,8 @@ def _port_modules() -> list[str]:
 
 def test_the_scan_covers_every_port_module():
     """The walk below finds every module of the port, the parts path's,
-    compaction's, the scrubber's, the device decode's and the WAL's
-    included."""
+    compaction's, the scrubber's, the device decode's, the WAL's, the
+    rollups' and the chunked layout's included."""
     mods = _port_modules()
     for m in ("horaedb_tpu_torch.common.loops",
               "horaedb_tpu_torch.storage.combine",
@@ -49,7 +49,12 @@ def test_the_scan_covers_every_port_module():
               "horaedb_tpu_torch.wal.ingest",
               "horaedb_tpu_torch.native",
               "horaedb_tpu_torch.ops.topk",
-              "horaedb_tpu_torch.storage.plan"):
+              "horaedb_tpu_torch.storage.plan",
+              "horaedb_tpu_torch.rollup",
+              "horaedb_tpu_torch.rollup.config",
+              "horaedb_tpu_torch.rollup.manager",
+              "horaedb_tpu_torch.metric_engine.chunks",
+              "horaedb_tpu_torch.metric_engine.functions"):
         assert m in mods, m
 
 
@@ -179,6 +184,24 @@ def test_engine_open_without_device_refuses_cpu_fallback(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(Error, match="CUDA"):
         asyncio.run(MetricEngine.open("t", MemoryObjectStore()))
+
+
+@pytest.mark.parametrize("layout", ["chunked", "rollup"])
+def test_chunked_and_rollup_engines_refuse_cpu_fallback(monkeypatch, layout):
+    """The chunked layout and the rollup tiers open on the card too: no
+    card, no engine — nothing of either opens on the CPU unasked."""
+    import torch
+
+    from horaedb_tpu_torch.common.error import Error
+    from horaedb_tpu_torch.metric_engine import MetricEngine
+    from horaedb_tpu_torch.objstore import MemoryObjectStore
+    from horaedb_tpu_torch.rollup import RollupConfig
+
+    kw = ({"chunked_data": True} if layout == "chunked" else
+          {"rollup_config": RollupConfig(enabled=True, specs=["cpu"])})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(Error, match="CUDA"):
+        asyncio.run(MetricEngine.open("t", MemoryObjectStore(), **kw))
 
 
 def test_kernel_wrapper_takes_plain_only_for_cpu_tensors():
