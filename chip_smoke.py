@@ -174,8 +174,12 @@ non-zero and prints no result line:
    p50/p99 per shape and the mix speedup, a served top-k equal to
    apply_top_k of the served grid, and a late write served as cells
    plus a one-segment raw tail that roll_now() then re-rolls alone.
-   The in-memory store has no latency (the reference's 25 ms store is
-   not ported).
+   Then the same objects behind the reference's seeded 25 ms store
+   (FaultInjectingStore(seed=11, latency_range=(0.025, 0.025))): a
+   second engine whose recovered spec covers the data, and the
+   in-memory engine beside it, 3 turns of a served and a raw cold
+   zoom + overview on each; grids equal across stores; both mix
+   speedups against the reference's 5x bar.
 14. chunked: tools/chunked_vs_row.py's deployment at 10M rows (one-
    decimal gauges from seed 0, 30-minute chunk windows) in a chunked
    and a row-layout engine: both ingests and stored bytes; the cold avg
@@ -187,8 +191,27 @@ non-zero and prints no result line:
    version and index_add_; a repeat from the decode cache with 0 B up;
    two writes of one (series, ts) keep the later value; an Append
    compaction of one segment changes no result.
-15. a JSON line of per-kernel numbers (with `wal_launches`,
-   `config4_launches`, the rollup cell's and the chunked cell's
+15. scanagent: the JAX package's bench config 17 (suite.py
+   run_config17) at config 1's shape (10M rows, 100 hosts, 10 s, 139
+   2 h segments, seed 17, scan cache 4 x rows) over a seeded 25 ms
+   store (FaultInjectingStore(seed=17)) under a data-byte counter: the
+   cold dashboard mix (a full-span 1 h avg overview and two rotating
+   6 h zooms at 1 m, avg and max), 2 true-cold reps a leg.  Legs: off
+   (the default route, fused), off on the parts route, agent (an
+   AgentService on this card colocated with the raw inner store: device
+   decode, kway_merge_perm and bucket_window_partials at the agent, 0
+   decode fallbacks, 0 coordinator GETs), agent_killed (fallback direct
+   reads) and disk (a LocalObjectStore: 0 coordinator segment reads,
+   then a dead-agent fallback that streams its SSTs).  Per leg: p50,
+   store data bytes and GETs, partial bytes, coordinator bytes; the
+   agent leg's grids byte-equal to the parts-route off leg, the fused
+   off leg within rtol 1e-5, every grid against numpy; the
+   coordinator-bytes ratio against the reference's 5x bar; one
+   stitched trace of an agent-served query; the memory ledger (also
+   printed after config 1): attributed bytes per account kind against
+   RSS, CUDA live bytes against max_memory_allocated.
+16. a JSON line of per-kernel numbers (with `wal_launches`,
+   `config4_launches`, the rollup, chunked and scanagent cells'
    launches beside `launches`, and the partials entry's time at the
    chunked shape), the total seconds, the card line again, and the
    last line {"ok": true, "device": {...}}.
@@ -1330,8 +1353,8 @@ async def end_to_end(rows: int, ba, mg) -> dict:
             # per-stage wall seconds (and host-to-device bytes) of a
             # query, from the registry's cumulative histograms
             now = registry.snapshot()
-            return {k.split(":", 1)[1]: now[k] - before.get(k, 0.0)
-                    for k in now if k.startswith("scan_stage_seconds:")}
+            return {series_label(k): now[k] - before.get(k, 0.0)
+                    for k in now if k.startswith("scan_stage_seconds{")}
 
         # the main path's run: launch counts from 0, read right after
         ba.reset_launches()
@@ -1552,6 +1575,7 @@ async def end_to_end(rows: int, ba, mg) -> dict:
         log("e2e: " + json.dumps(res))
         res["op"] = op_path(ba, ts - T0, host_id, vals, hosts, num_buckets,
                             counts, sums)
+        res["ledger"] = ledger_report("config 1 (fused engine open)")
     finally:
         await e.close()
     t0 = time.perf_counter()
@@ -1762,7 +1786,7 @@ async def parts_phase(ba, mg, store, T0: int, per_host: int, hosts: int,
         def delta(before: dict) -> dict:
             now = registry.snapshot()
             d = {k: now[k] - before.get(k, 0.0) for k in now
-                 if k.startswith(("scan_stage_seconds:", "scan_parts_",
+                 if k.startswith(("scan_stage_seconds{", "scan_parts_",
                                   "scan_partials_", "scan_combine_memo",
                                   "scan_decode_", "scan_stage_rows",
                                   "scan_stage_bytes"))}
@@ -1989,9 +2013,9 @@ async def parts_reads_legs(engines, store, turns, full, check, T0: int,
         now = registry.snapshot()
         rec = {"ms": (time.perf_counter() - t0) * 1e3,
                "h2d_bytes": h2d_bytes() - h2d0,
-               "segment_read_s": now.get("scan_stage_seconds:segment_read",
+               "segment_read_s": now.get(STAGE_SECONDS % "segment_read",
                                          0.0)
-               - snap.get("scan_stage_seconds:segment_read", 0.0),
+               - snap.get(STAGE_SECONDS % "segment_read", 0.0),
                **store.since(got0), **pipeline_since(r, pipe0)}
         return out, rec
 
@@ -2087,10 +2111,10 @@ async def parts_reads_legs(engines, store, turns, full, check, T0: int,
                                  f"{len(plan_segs.segments)} segments "
                                  f"stream")
         side0 = registry.snapshot().get(
-            "scan_stage_rows_total:sidecar_read", 0.0)
+            'scan_stage_rows_total{stage="sidecar_read"}', 0.0)
         got, rec = await query(s_e)
         side = registry.snapshot().get(
-            "scan_stage_rows_total:sidecar_read", 0.0) - side0
+            'scan_stage_rows_total{stage="sidecar_read"}', 0.0) - side0
         same_bytes(got, want, "streamed vs the bulk read")
         check(got, BMS, ("count",), ("avg",))
         rec["segments"] = streamed
@@ -2425,10 +2449,11 @@ async def wal_ingest_leg() -> dict:
             s = await IngestStorage.open(inner, wc.dir, wc)
             try:
                 commits = registry_value(
-                    f"wal_group_commits_total:wal{wait_ms}")
+                    f'wal_group_commits_total{{log="wal{wait_ms}"}}')
                 rec = await drive(s, 2000)
                 rec["group_commits"] = registry_value(
-                    f"wal_group_commits_total:wal{wait_ms}") - commits
+                    f'wal_group_commits_total{{log="wal{wait_ms}"}}') \
+                    - commits
                 await s.flush_all()
                 await read_back(s, 2000)
             finally:
@@ -2451,6 +2476,29 @@ def registry_snapshot() -> dict:
     from horaedb_tpu_torch.utils import registry
 
     return registry.snapshot()
+
+
+STAGE_SECONDS = 'scan_stage_seconds{stage="%s"}'
+
+
+def series_label(key: str) -> str:
+    """The label value of a one-label series key (`name{k="v"}`), or the
+    bare name of an unlabelled one."""
+    return key.split('"')[1] if "{" in key else key
+
+
+async def traced(coro):
+    """Run `coro` under a request trace; (its result, the trace's
+    counters)."""
+    from horaedb_tpu_torch.utils import tracing
+
+    trace = tracing.recorder.start("chip_smoke", forced=True)
+    try:
+        with tracing.trace_scope(trace):
+            out = await coro
+    finally:
+        done = tracing.recorder.finish(trace)
+    return out, done["counters"]
 
 
 def registry_value(name: str) -> float:
@@ -2624,10 +2672,10 @@ async def wal_phase(rows: int, ba, mg, fused_ingest_s: float) -> dict:
                    **store.since(got0),
                    "replay": [reader._replay_hits - hits0,
                               reader._replay_misses - misses0],
-                   "stages": {k.split(":", 1)[1]: now[k] - snap.get(k, 0.0)
+                   "stages": {series_label(k): now[k] - snap.get(k, 0.0)
                               for k in now
-                              if (k.startswith("scan_stage_seconds:")
-                                  or k == "span_seconds:memtable_flush")
+                              if (k.startswith("scan_stage_seconds{")
+                                  or k == "span_memtable_flush_seconds")
                               and now[k] != snap.get(k, 0.0)}}
             if rec["replay"] != ([1, 0] if want_replay else [0, 1]):
                 raise AssertionError(f"wal (b) {what}: replay hits/misses "
@@ -3549,9 +3597,9 @@ async def rollup_phase(ba, mg, per_host: int = 100_000) -> dict:
     zoom_starts = [T0 + k * ((span - zoom_ms) // 11 // hour * hour)
                    for k in range(12)]
     log("rollup: the JAX package's config 11 shape (suite.py:1477-1694) "
-        f"at {n:,} rows; store: in-memory with data-plane GET counts (the "
-        "reference's 25 ms seeded latency store, objstore/middleware, is "
-        "not ported: ROADMAP Queue A 10)")
+        f"at {n:,} rows; store: in-memory with data-plane GET counts, then "
+        "the same objects behind the reference's seeded 25 ms latency "
+        "store (objstore/middleware.FaultInjectingStore), in turns")
 
     cfg = from_dict(StorageConfig, {
         "scheduler": {"schedule_interval": "1h"},
@@ -3601,25 +3649,24 @@ async def rollup_phase(ba, mg, per_host: int = 100_000) -> dict:
         if spec_st["lag_seqs"] != 0 or spec_st["coverage"] != 1.0:
             raise AssertionError("rollup: lag or coverage after backfill")
 
-        def zoom(k, use_rollup=True):
+        def zoom(k, use_rollup=True, eng=e):
             s = zoom_starts[k % len(zoom_starts)]
-            return e.query_downsample(
+            return eng.query_downsample(
                 "cpu", [], TimeRange.new(s, s + zoom_ms), bucket_ms=60_000,
                 aggs=("avg",), use_rollup=use_rollup)
 
-        def over(_k, use_rollup=True):
-            return e.query_downsample(
+        def over(_k, use_rollup=True, eng=e):
+            return eng.query_downsample(
                 "cpu", [], TimeRange.new(T0, T0 + over_span),
                 bucket_ms=hour, aggs=("avg",), use_rollup=use_rollup)
 
         shapes = {"zoom": zoom, "overview": over}
 
-        def numpy_check(out, shape, k, what):
+        def numpy_check(out, shape, k, what, rows=(ts, host_id, vals)):
             s = zoom_starts[k % 12] if shape == "zoom" else T0
             bms = 60_000 if shape == "zoom" else hour
             nb = (zoom_ms if shape == "zoom" else over_span) // bms
-            check_grid(out, ts, host_id, vals, s, nb, bms, hosts, order,
-                       tsids, what)
+            check_grid(out, *rows, s, nb, bms, hosts, order, tsids, what)
 
         # the cross-check, one query per shape: byte for byte a
         # parts-route recompute; within tolerance of the default route
@@ -3720,7 +3767,8 @@ async def rollup_phase(ba, mg, per_host: int = 100_000) -> dict:
         # query
         drop_tier_windows()
         before = {k: v for k, v in registry_snapshot().items()
-                  if k.startswith(("scan_stage_seconds:", "span_seconds:"))}
+                  if k.startswith("scan_stage_seconds{")
+                  or (k.startswith("span_") and k.endswith("_seconds"))}
         t0 = time.perf_counter()
         await over(0)
         total_s = time.perf_counter() - t0
@@ -3760,17 +3808,15 @@ async def rollup_phase(ba, mg, per_host: int = 100_000) -> dict:
         hid2 = np.append(host_id, np.int32(7))
         vals2 = np.append(vals, 123.25)
         rng_z = TimeRange.new(zoom_starts[5], zoom_starts[5] + zoom_ms)
-        tails0 = registry_value("rollup_tail_segments")
         rolled0 = registry_value("rollup_segments_rolled_total")
         async with e.rollups._roll_lock:
             await e.write([Sample("cpu", [Label("host", "host_007")],
                                   late_ts, 123.25)])
             reset_all(ba, mg)
-            served = await e.query_downsample("cpu", [], rng_z, 60_000,
-                                              aggs=("avg",))
+            served, counters = await traced(e.query_downsample(
+                "cpu", [], rng_z, 60_000, aggs=("avg",)))
             res["late_tail_launches"] = launches(ba, mg)
-        res["late_tail_segments"] = (registry_value("rollup_tail_segments")
-                                     - tails0)
+        res["late_tail_segments"] = counters.get("rollup_tail_segments", 0)
         if res["late_tail_segments"] != 1:
             raise AssertionError(f"rollup: the query after the late write "
                                  f"recomputed {res['late_tail_segments']} "
@@ -3797,19 +3843,91 @@ async def rollup_phase(ba, mg, per_host: int = 100_000) -> dict:
             raise AssertionError(f"rollup: the late write re-rolled "
                                  f"{res['late_write_rerolled']} segments, "
                                  f"not 1")
-        tails1 = registry_value("rollup_tail_segments")
-        again = await e.query_downsample("cpu", [], rng_z, 60_000,
-                                         aggs=("avg",))
-        if registry_value("rollup_tail_segments") != tails1:
+        again, counters = await traced(e.query_downsample(
+            "cpu", [], rng_z, 60_000, aggs=("avg",)))
+        if counters.get("rollup_tail_segments", 0) != 0:
             raise AssertionError("rollup: a tail after the re-roll")
         same_result_bytes(again, served, "rollup after the re-roll")
         log(f"rollup: late write served as cells + a 1-segment raw tail "
             f"(launches {json.dumps(res['late_tail_launches'])}), "
             f"byte-equal to the parts recompute; roll_now re-rolled 1 "
             f"segment")
+        # the rows now hold the late write
+        res["latency_store"] = await rollup_latency_turns(
+            e, store, cfg, rollup_cfg, segment_ms, shapes,
+            lambda out, shape, k, what: numpy_check(
+                out, shape, k, what, rows=(ts2, hid2, vals2)))
     finally:
         await e.close()
     return res
+
+
+async def rollup_latency_turns(e, store, cfg, rollup_cfg, segment_ms: int,
+                               shapes: dict, numpy_check,
+                               turns: int = 3) -> dict:
+    """Config 11 over the reference's seeded 25 ms store
+    (FaultInjectingStore(seed=11, latency_range=(0.025, 0.025)),
+    suite.py:1521,1592): a second engine on the same objects behind the
+    latency wrapper, its recovered rollup spec fully covering, and the
+    in-memory engine beside it, in turns — each turn a rollup-served
+    zoom and overview and a raw cold zoom and overview on each store.
+    Both stores' grids byte-equal; the mix p50 speedup of each."""
+    import torch
+
+    from horaedb_tpu_torch.metric_engine import MetricEngine
+    from horaedb_tpu_torch.objstore import FaultInjectingStore
+
+    lat_s = 0.025
+    slow = FaultInjectingStore(store, seed=11, latency_range=(lat_s, lat_s))
+    t0 = time.perf_counter()
+    e_lat = await MetricEngine.open("cfg11", slow, segment_ms=segment_ms,
+                                    config=cfg, rollup_config=rollup_cfg)
+    out = {"store_latency_ms": lat_s * 1e3, "turns": turns,
+           "open_s": time.perf_counter() - t0}
+    try:
+        st = (await e_lat.stats())["rollups"]["specs"]["cpu:value"]
+        if st["coverage"] != 1.0:
+            raise AssertionError("rollup 25 ms: the recovered spec does not "
+                                 "cover the data")
+        engines = {"memory": e, "latency": e_lat}
+        times = {(k, m): [] for k in engines for m in ("rollup", "raw")}
+        for i in range(turns):
+            for mode in ("rollup", "raw"):
+                got = {}
+                for k, eng in engines.items():
+                    for shape, q in shapes.items():
+                        if mode == "rollup":
+                            for t in eng.rollups.tiers.values():
+                                t.reader.drop_hbm_state()
+                                t.reader.scan_cache.clear()
+                        else:
+                            true_cold(eng.tables["data"].reader)
+                        t0 = time.perf_counter()
+                        got[k, shape] = await q(i, mode == "rollup", eng)
+                        torch.cuda.synchronize()
+                        times[k, mode].append(time.perf_counter() - t0)
+                for shape in shapes:
+                    cmp = (same_result_bytes if mode == "rollup"
+                           else tolerance_match)
+                    cmp(got["latency", shape], got["memory", shape],
+                        f"rollup 25 ms {mode} {shape} turn {i}")
+                    if i == 0:
+                        numpy_check(got["latency", shape], shape, i,
+                                    f"rollup 25 ms {mode} {shape}")
+        for k in engines:
+            r = pctl(times[k, "rollup"], 50)
+            c = pctl(times[k, "raw"], 50)
+            out[k] = {"rollup_mix_p50_ms": r, "raw_cold_mix_p50_ms": c,
+                      "mix_speedup_p50": c / r,
+                      "rollup_ms": [t * 1e3 for t in times[k, "rollup"]],
+                      "raw_cold_ms": [t * 1e3 for t in times[k, "raw"]]}
+            log(f"rollup {k} store, in turns: served mix p50 {r!r} ms, raw "
+                f"cold mix p50 {c!r} ms, speedup {c / r!r}x against the "
+                f"reference's 5x bar: {'met' if c / r >= 5 else 'not met'} "
+                f"({card_line()})")
+    finally:
+        await e_lat.close()
+    return out
 
 
 async def chunked_phase(ba, mg, per_host: int = 100_000) -> dict:
@@ -4044,6 +4162,464 @@ async def chunked_phase(ba, mg, per_host: int = 100_000) -> dict:
     return res
 
 
+def ledger_report(what: str) -> dict:
+    """The memory ledger on the card: attributed bytes per account kind
+    against the process RSS, and the CUDA allocator's live bytes (per
+    device) against torch.cuda.max_memory_allocated()."""
+    import torch
+
+    from horaedb_tpu_torch.common import memledger
+
+    memledger.ledger.sample_once()  # now, not the sampler's last round
+    summary = memledger.ledger.summary()
+    devices = memledger.device_memory()
+    peak = torch.cuda.max_memory_allocated()
+    out = {"rss_bytes": summary["rss_bytes"],
+           "attributed_bytes": summary["attributed_bytes"],
+           "unattributed_bytes": summary["unattributed_bytes"],
+           "accounts": summary["accounts"], "devices": devices,
+           "max_memory_allocated": peak}
+    log(f"ledger after {what}: rss {summary['rss_bytes']:,} B, attributed "
+        f"{summary['attributed_bytes']:,} B, unattributed "
+        f"{summary['unattributed_bytes']:,} B; per kind "
+        f"{json.dumps(summary['accounts'])}; device "
+        f"{json.dumps(devices)} against max_memory_allocated {peak:,} B "
+        f"({card_line()})")
+    if not devices or not all(
+            0 < d["bytes_in_use"] <= d["peak_bytes_in_use"] for d in devices):
+        raise AssertionError(f"ledger: no live CUDA device bytes reported "
+                             f"({devices})")
+    return out
+
+
+def span_lines(node: dict, depth: int = 0, limit: int = 40) -> list:
+    """A stitched trace's span tree as indented lines (name, ms)."""
+    lines = [f"{'  ' * depth}{node.get('name')} "
+             f"{node.get('duration_ms')!r} ms"]
+    for child in node.get("children", []):
+        if len(lines) >= limit:
+            lines.append(f"{'  ' * (depth + 1)}...")
+            break
+        lines.extend(span_lines(child, depth + 1, limit - len(lines)))
+    return lines
+
+
+async def scanagent_phase(ba, mg, dd, per_host: int = 100_000) -> dict:
+    """The JAX package's bench config 17 (suite.py run_config17): the
+    cold dashboard mix over a seeded 25 ms-latency store at config 1's
+    shape (100 hosts, 10 s scrape, 139 2 h segments, seed 17), the
+    coordinator's data table read through a data-byte counter.  Legs:
+    off (the default route: fused at a 4 x rows budget), off on the
+    parts route (HORAEDB_FUSED_AGG=0), agent (an AgentService on this
+    card, colocated with the raw inner store), agent_killed (the agent
+    closed: the per-segment fallback reads direct), and disk (a
+    LocalObjectStore: 0 coordinator segment reads on the agent route; a
+    dead-agent fallback that streams its SSTs).  Every rep is true cold
+    at the coordinator and at the agent."""
+    import shutil
+
+    import numpy as np
+    import pyarrow as pa
+    import torch
+
+    from horaedb_tpu_torch.metric_engine import Label, MetricEngine
+    from horaedb_tpu_torch.metric_engine.types import tsid_of
+    from horaedb_tpu_torch.objstore import (FaultInjectingStore,
+                                            LocalObjectStore,
+                                            MemoryObjectStore,
+                                            WrappedObjectStore)
+    from horaedb_tpu_torch.scanagent import (AgentService, AgentSpec,
+                                             ScanAgentConfig)
+    from horaedb_tpu_torch.scanagent import client as sa_client
+    from horaedb_tpu_torch.storage import parquet_io
+    from horaedb_tpu_torch.storage.config import StorageConfig, from_dict
+    from horaedb_tpu_torch.storage.types import TimeRange
+
+    class DataByteCounter(WrappedObjectStore):
+        """The coordinator's data-plane bytes: GETs and bytes of the
+        data table's .sst/.enc reads, buffered and streamed (the
+        reference's counter; it hides local_path, so the disk rung's
+        fallback reads go through the countable surface)."""
+
+        def __init__(self, inner, prefix: str):
+            super().__init__(inner)
+            self.prefix = prefix
+            self.data_bytes = 0
+            self.data_gets = 0
+            self.stream_ops = 0
+
+        def _is_data(self, path) -> bool:
+            p = str(path)
+            return p.startswith(self.prefix) and p.endswith((".sst", ".enc"))
+
+        async def _call(self, op: str, *args):
+            out = await super()._call(op, *args)
+            if op in ("get", "get_range") and self._is_data(args[0]):
+                self.data_gets += 1
+                self.data_bytes += len(out)
+            return out
+
+        async def _stream(self, op: str, path: str, chunk_size: int):
+            counted = self._is_data(path)
+            if counted:
+                self.data_gets += 1
+                self.stream_ops += 1
+            async for chunk in self.inner.get_stream(path, chunk_size):
+                if counted:
+                    self.data_bytes += len(chunk)
+                yield chunk
+
+    lat_s = 0.025
+    hosts, interval, segment_ms, hour = 100, 10_000, 2 * 3600 * 1000, 3_600_000
+    span = per_host * interval
+    T0 = (1_700_000_000_000 // segment_ms) * segment_ms
+    n = per_host * hosts
+    rng = np.random.default_rng(17)
+    ts = T0 + np.repeat(np.arange(per_host, dtype=np.int64) * interval,
+                        hosts)
+    host_id = np.tile(np.arange(hosts, dtype=np.int32), per_host)
+    vals = (rng.random(n) * 100).astype(np.float64)
+    names = pa.array([f"host_{i:03d}" for i in range(hosts)])
+    tsid_of_host = np.array([tsid_of("cpu", [Label("host", f"host_{i:03d}")])
+                             for i in range(hosts)], dtype=np.uint64)
+    order = np.argsort(tsid_of_host)
+    tsids = [int(t) for t in tsid_of_host[order]]
+    vals32 = vals.astype(np.float32)
+    zoom_ms = min(span, 6 * hour)
+    reps = 2
+    cfg = from_dict(StorageConfig, {
+        "scheduler": {"schedule_interval": "1h"},
+        "scan": {"cache_max_rows": n * 4}})
+    res: dict = {"rows": n, "store_latency_ms": lat_s * 1e3,
+                 "reps_per_leg": reps}
+    log(f"scanagent: the JAX package's config 17 (suite.py:2995-3300) at "
+        f"{n:,} rows, {span // segment_ms + 1} segments, store latency "
+        f"{lat_s * 1e3} ms (FaultInjectingStore, seed 17), {reps} true-cold "
+        f"reps a leg")
+
+    def queries(rep: int) -> list:
+        out = [(T0, span // hour, hour, ("avg",))]
+        for z in range(2):
+            lo = T0 + ((rep * 2 + z) * zoom_ms) % max(1, span - zoom_ms + 1)
+            out.append((lo, zoom_ms // 60_000, 60_000, ("avg", "max")))
+        return out
+
+    def numpy_check(got, lo, nb, bms, aggs, what):
+        check_grid(got, ts, host_id, vals, lo, nb, bms, hosts, order,
+                   tsids, what)
+        if "max" in aggs:
+            off = ts - lo
+            sel = (off >= 0) & (off < nb * bms)
+            cell = host_id[sel].astype(np.int64) * nb + off[sel] // bms
+            want = np.full(hosts * nb, -np.inf, dtype=np.float32)
+            np.maximum.at(want, cell, vals32[sel])
+            want = want.reshape(hosts, nb)[order].astype(np.float64)
+            got_max = host_grids(got)["max"].astype(np.float64)
+            occ = np.isfinite(want)
+            if not np.array_equal(got_max[occ], want[occ]):
+                raise AssertionError(f"{what}: max grid differs from numpy")
+
+    async def mix(e, rep: int, check: bool = False) -> list:
+        out = []
+        for lo, nb, bms, aggs in queries(rep):
+            got = await e.query_downsample(
+                "cpu", [], TimeRange.new(lo, lo + nb * bms), bucket_ms=bms,
+                aggs=aggs)
+            if check:
+                numpy_check(got, lo, nb, bms, aggs,
+                            f"scanagent rep {rep} {bms} ms")
+            out.append(got)
+        torch.cuda.synchronize()
+        return out
+
+    def snap_counters(prefix: str) -> dict:
+        return {k: v for k, v in registry_snapshot().items()
+                if k.startswith(prefix)}
+
+    async def timed_mix(e, counter, reset, label: str) -> dict:
+        times, results = [], []
+        partials0 = sa_client._PARTIAL_BYTES.value
+        bytes0, gets0 = counter.data_bytes, counter.data_gets
+        for rep in range(reps):
+            reset()
+            t0 = time.perf_counter()
+            results.append(await mix(e, rep))
+            times.append(time.perf_counter() - t0)
+        leg = {"p50_ms": pctl(times, 50), "ms": [t * 1e3 for t in times],
+               "store_data_bytes": counter.data_bytes - bytes0,
+               "store_data_gets": counter.data_gets - gets0,
+               "partial_bytes": int(sa_client._PARTIAL_BYTES.value
+                                    - partials0)}
+        leg["coordinator_bytes"] = (leg["store_data_bytes"]
+                                    + leg["partial_bytes"])
+        # every rep against numpy (outside the timed loop)
+        for rep, got in enumerate(results):
+            for (lo, nb, bms, aggs), out in zip(queries(rep), got):
+                numpy_check(out, lo, nb, bms, aggs,
+                            f"scanagent {label} rep {rep} {bms} ms")
+        log(f"scanagent {label}: p50 {leg['p50_ms']!r} ms, store data "
+            f"{leg['store_data_bytes']:,} B in {leg['store_data_gets']} GETs "
+            f"+ partials {leg['partial_bytes']:,} B = coordinator "
+            f"{leg['coordinator_bytes']:,} B ({card_line()})")
+        return {"leg": leg, "results": results}
+
+    def same_mix(a: list, b: list, what: str, exact: bool) -> None:
+        for rep, (xa, xb) in enumerate(zip(a, b)):
+            for q, (ra, rb) in enumerate(zip(xa, xb)):
+                (same_result_bytes if exact else tolerance_match)(
+                    ra, rb, f"{what} rep {rep} query {q}")
+
+    def mix_bytes(results: list) -> bytes:
+        # the reference's in-bench comparison: tsids, then every grid's
+        # bytes in key order
+        buf = bytearray()
+        for got in results:
+            for r in got:
+                buf += np.asarray(r["tsids"], dtype=np.uint64).tobytes()
+                g = host_grids(r)
+                for k in sorted(g):
+                    buf += g[k].tobytes()
+        return bytes(buf)
+
+    def cold_agent(agent):
+        for t in agent._tables.values():
+            true_cold(t.reader)
+
+    # the rows go straight into the inner store (ingest is not what this
+    # cell measures); every leg reads through the latency wrapper
+    inner = MemoryObjectStore()
+    e = await MetricEngine.open("cfg17", inner, segment_ms=segment_ms,
+                                config=cfg)
+    try:
+        res["ingest_s"] = await ingest_rows(e, host_id, ts, vals, names,
+                                            hosts)
+    finally:
+        await e.close()
+    log(f"scanagent: ingest {n:,} rows into the inner store in "
+        f"{res['ingest_s']!r} s ({card_line()})")
+    coord = DataByteCounter(FaultInjectingStore(
+        inner, seed=17, latency_range=(lat_s, lat_s)), prefix="cfg17/data/")
+    e = await MetricEngine.open("cfg17", coord, segment_ms=segment_ms,
+                                config=cfg)
+    try:
+        data = e.tables["data"]
+        reset_all(ba, mg)
+        off = await timed_mix(e, coord, lambda: true_cold(data.reader),
+                              "off")
+        res["off"] = off["leg"]
+        res["off"]["launches"] = launches(ba, mg)
+        res["off"]["route"] = ("fused" if res["off"]["launches"][
+            "bucket_round_accumulate"] else "parts")
+        os.environ["HORAEDB_FUSED_AGG"] = "0"
+        try:
+            reset_all(ba, mg)
+            off_parts = await timed_mix(
+                e, coord, lambda: true_cold(data.reader), "off_parts")
+            res["off_parts"] = off_parts["leg"]
+            res["off_parts"]["launches"] = launches(ba, mg)
+        finally:
+            del os.environ["HORAEDB_FUSED_AGG"]
+        if res["off_parts"]["launches"]["bucket_round_accumulate"]:
+            raise AssertionError("scanagent: the parts-route control ran "
+                                 "fused rounds")
+    finally:
+        await e.close()
+
+    # the agent serves aggregate partials only, so its reader decodes on
+    # the card ([scan.decode] mode = "device"): under "auto" a
+    # one-segment plan fits the fused budget and keeps host decode,
+    # though the agent never runs the fused route
+    agent_cfg = from_dict(StorageConfig, {"scan": {"decode": {
+        "mode": "device"}}})
+    agent = AgentService(inner, storage_config=agent_cfg)  # on this card
+    url = await agent.start()
+    sa_cfg = ScanAgentConfig(mode="on", num_slots=1,
+                             agents=(AgentSpec("shard0", url, (0,)),))
+    e = await MetricEngine.open("cfg17", coord, segment_ms=segment_ms,
+                                config=cfg, scanagent_config=sa_cfg)
+    try:
+        data = e.tables["data"]
+
+        def cold_both():
+            true_cold(data.reader)
+            cold_agent(agent)
+
+        req0 = snap_counters("scanagent_requests_total{")
+        fb0 = snap_counters("scanagent_fallback_total")
+        dec0 = sum(dd.fallback_counts().values())
+        reset_all(ba, mg)
+        served = await timed_mix(e, coord, cold_both, "agent")
+        res["agent"] = served["leg"]
+        res["agent"]["launches"] = launches(ba, mg)
+        res["agent"]["decode_fallbacks"] = (
+            sum(dd.fallback_counts().values()) - dec0)
+        res["agent"]["requests"] = {
+            k: v - req0.get(k, 0.0)
+            for k, v in snap_counters("scanagent_requests_total{").items()
+            if v != req0.get(k, 0.0)}
+        res["agent"]["fallbacks"] = {
+            k: v - fb0.get(k, 0.0)
+            for k, v in snap_counters("scanagent_fallback_total").items()
+            if v != fb0.get(k, 0.0)}
+        log(f"scanagent agent: launches {json.dumps(res['agent']['launches'])}"
+            f", decode fallbacks {res['agent']['decode_fallbacks']}, "
+            f"requests {json.dumps(res['agent']['requests'])}, fallbacks "
+            f"{json.dumps(res['agent']['fallbacks'])} ({card_line()})")
+        la = res["agent"]["launches"]
+        if not la["bucket_window_partials"] or not la["kway_merge_perm"]:
+            raise AssertionError("scanagent: the agent did not run "
+                                 "bucket_window_partials and kway_merge_perm")
+        if la["bucket_round_accumulate"]:
+            raise AssertionError("scanagent: the agent route ran fused "
+                                 "rounds")
+        if res["agent"]["decode_fallbacks"]:
+            raise AssertionError("scanagent: device decode fell back at the "
+                                 "agent")
+        if res["agent"]["fallbacks"] or res["agent"]["store_data_gets"]:
+            raise AssertionError("scanagent: the agent leg fell back to "
+                                 "direct reads")
+        same_mix(served["results"], off_parts["results"],
+                 "scanagent agent vs off_parts", exact=True)
+        same_mix(off["results"], served["results"],
+                 "scanagent off vs agent", exact=False)
+        same_mix(off["results"], off_parts["results"],
+                 "scanagent off vs off_parts", exact=False)
+        res["agent_byte_identical_to_off_parts"] = True
+        # the reference asserts agent == off byte for byte; here off
+        # takes the fused route, whose float32 sums are its own contract
+        res["agent_bytes_equal_fused_off"] = (
+            mix_bytes(served["results"]) == mix_bytes(off["results"]))
+        log(f"scanagent: agent grids byte-equal to the parts-route off leg; "
+            f"the reference's in-bench check against the fused off leg "
+            f"(byte equality) would "
+            f"{'hold' if res['agent_bytes_equal_fused_off'] else 'fail'}: "
+            f"the fused leg is within rtol 1e-5")
+        ratio = (res["off"]["coordinator_bytes"]
+                 / max(1, res["agent"]["coordinator_bytes"]))
+        res["bytes_reduction_x"] = ratio
+        res["bytes_reduction_x_parts"] = (
+            res["off_parts"]["coordinator_bytes"]
+            / max(1, res["agent"]["coordinator_bytes"]))
+        res["bar_bytes_reduction_met"] = bool(ratio >= 5.0)
+        log(f"scanagent: coordinator bytes off/agent {ratio!r}x (parts-route "
+            f"off/agent {res['bytes_reduction_x_parts']!r}x) against the "
+            f"reference's 5x bar: "
+            f"{'met' if ratio >= 5.0 else 'not met'}; p50 off "
+            f"{res['off']['p50_ms']!r} ms ({res['off']['route']}), off_parts "
+            f"{res['off_parts']['p50_ms']!r} ms, agent "
+            f"{res['agent']['p50_ms']!r} ms ({card_line()})")
+
+        # one stitched trace of an agent-served query: the routing span
+        # with the agent's spans under it
+        from horaedb_tpu_torch.utils import tracing
+
+        cold_both()
+        lo, nb, bms, aggs = queries(0)[0]
+        trace = tracing.recorder.start("/query", forced=True)
+        with tracing.trace_scope(trace):
+            await e.query_downsample("cpu", [],
+                                     TimeRange.new(lo, lo + nb * bms),
+                                     bucket_ms=bms, aggs=aggs)
+        done = tracing.recorder.finish(trace)
+        rpc = {s["span_id"] for s in done["spans"]
+               if s["name"] == "scanagent_rpc"}
+        under = [s for s in done["spans"] if s["name"] == "scanagent/scan"
+                 and s["parent_id"] in rpc]
+        res["trace"] = {"spans": len(done["spans"]), "rpc_spans": len(rpc),
+                        "agent_roots_under_rpc": len(under),
+                        "counters": done["counters"]}
+        if not rpc or len(under) != len(rpc):
+            raise AssertionError("scanagent: the agent's spans are not "
+                                 "stitched under the routing spans")
+        tree = tracing.span_tree(done)["tree"]
+        shown = {k: v for k, v in done["counters"].items()
+                 if k.startswith(("scanagent", "stage_device", "stage_fetch"))}
+        log("scanagent: stitched trace of one agent-served overview "
+            f"({len(done['spans'])} spans, {len(rpc)} routing spans, each "
+            f"with the agent's scanagent/scan under it); counters "
+            f"{json.dumps(shown)} ({card_line()})")
+        for line in span_lines(tree, limit=24):
+            log(f"scanagent trace: {line}")
+        res["ledger"] = ledger_report("the agent leg (config 17)")
+
+        fb0 = sa_client._FALLBACKS.total
+        await agent.close()
+        killed = await timed_mix(e, coord, lambda: true_cold(data.reader),
+                                 "agent_killed")
+        res["agent_killed"] = killed["leg"]
+        res["agent_killed"]["fallback_segments"] = int(
+            sa_client._FALLBACKS.total - fb0)
+        if not res["agent_killed"]["fallback_segments"]:
+            raise AssertionError("scanagent: no fallback with the agent dead")
+        same_mix(killed["results"], off_parts["results"],
+                 "scanagent agent_killed vs off_parts", exact=True)
+    finally:
+        await e.close()
+        await agent.close()
+
+    tmp = scratch_dir("cfg17")
+    disk_agent = None
+    try:
+        local = LocalObjectStore(tmp)
+        disk = DataByteCounter(local, prefix="cfg17d/data/")
+        e = await MetricEngine.open("cfg17d", disk, segment_ms=segment_ms,
+                                    config=cfg)
+        try:
+            res["disk_ingest_s"] = await ingest_rows(
+                e, host_id, ts, vals, names, hosts)
+        finally:
+            await e.close()
+        disk_agent = AgentService(local, storage_config=agent_cfg)
+        url = await disk_agent.start()
+        e = await MetricEngine.open(
+            "cfg17d", disk, segment_ms=segment_ms, config=cfg,
+            scanagent_config=ScanAgentConfig(
+                mode="on", num_slots=1,
+                agents=(AgentSpec("shard0", url, (0,)),)))
+        try:
+            data = e.tables["data"]
+
+            def cold_disk():
+                true_cold(data.reader)
+                cold_agent(disk_agent)
+
+            got = await timed_mix(e, disk, cold_disk, "disk")
+            res["disk"] = got["leg"]
+            same_mix(got["results"], off_parts["results"],
+                     "scanagent disk vs off_parts", exact=True)
+            if res["disk"]["store_data_gets"] != 0:
+                raise AssertionError("scanagent: the coordinator read "
+                                     "segments on the disk agent route")
+            await disk_agent.close()
+            old_min = parquet_io.STREAM_FETCH_MIN_BYTES
+            parquet_io.STREAM_FETCH_MIN_BYTES = 1
+            data.config.scan.use_sidecar = False
+            try:
+                true_cold(data.reader)
+                t0 = time.perf_counter()
+                fb = await mix(e, 0, check=True)
+                fb_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                parquet_io.STREAM_FETCH_MIN_BYTES = old_min
+                data.config.scan.use_sidecar = True
+            same_mix([fb], off_parts["results"][:1],
+                     "scanagent disk fallback vs off_parts", exact=True)
+            res["disk_fallback"] = {"ms": fb_ms,
+                                    "streamed_sst_reads": disk.stream_ops}
+            log(f"scanagent disk: dead-agent fallback {fb_ms!r} ms, "
+                f"{disk.stream_ops} streamed SST reads ({card_line()})")
+            if not disk.stream_ops:
+                raise AssertionError("scanagent: the dead-agent disk "
+                                     "fallback did not stream SSTs")
+        finally:
+            await e.close()
+    finally:
+        if disk_agent is not None:
+            await disk_agent.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
 def load_merge_module(root: str):
     """ops/merge.py of another checkout at `root`, loaded under its own
     name and pointed at that checkout's csrc/merge_path.cu (it builds
@@ -4134,6 +4710,7 @@ def main() -> int:
                     config4_phase(args.config4_rows, ba, mg))
     rollup = phase("rollup", asyncio.run, rollup_phase(ba, mg))
     chunked = phase("chunked", asyncio.run, chunked_phase(ba, mg))
+    scanagent = phase("scanagent", asyncio.run, scanagent_phase(ba, mg, dd))
     kernels.append({
         "name": "kway_merge_perm", "route": "cuda",
         "source": "horaedb_tpu_torch/csrc/merge_path.cu",
@@ -4170,6 +4747,8 @@ def main() -> int:
         k["rollup_raw_cold_launches"] = \
             rollup["raw_cold_leg_launches"][k["name"]]
         k["chunked_launches"] = chunked["chunked_launches"][k["name"]]
+        # and on config 17's agent leg (at the agent, on this card)
+        k["scanagent_launches"] = scanagent["agent"]["launches"][k["name"]]
         if k["name"] == "bucket_window_partials":
             # the chunked path's shape: W = 1, 10M valid rows
             k["chunked_shape"] = {
@@ -4184,7 +4763,8 @@ def main() -> int:
                        "merge_kernel": merge_k, "determinism": determinism,
                        "compaction": compaction, "wal": wal,
                        "topk_ops": topk_ops, "config4": config4,
-                       "rollup": rollup, "chunked": chunked}, f,
+                       "rollup": rollup, "chunked": chunked,
+                       "scanagent": scanagent}, f,
                       indent=1)
     log(f"total: {time.perf_counter() - t_start!r} s")
     log(json.dumps({"kernels": kernels}))

@@ -1,93 +1,421 @@
-"""Named background loops: the port's minimal copy of the JAX package's
-loop registry (common/loops.py there), without its watchdog.
+"""Background-loop registry + watchdog: the maintenance plane's
+liveness surface (docs/observability.md, background plane).
 
-A background loop (compaction picker and executor, orphan scrubber) is
-started through `loops.spawn(fn, name=...)`, which hands `fn` a
-`LoopHandle` and keeps it registered while the task runs.  The loop
-beats the handle once per iteration and reports each iteration's
-outcome, so `loops.handles()` says which loops are alive, idle, or
-failing.
+Every long-running background loop in the process — compaction picker/
+executor, orphan scrubber, manifest merger, WAL group committer,
+memtable flusher, rollup maintenance, the cluster health monitor, the
+meta-ingest scraper — is spawned through `loops.spawn(...)` instead of
+a bare `asyncio.create_task`, which registers a `LoopHandle` the loop
+heartbeats once per iteration.  The registry then answers three questions nothing else
+can:
+
+  is it alive?      the task exists and has not finished
+  is it moving?     heartbeat age vs. the loop's stall threshold
+  is it healthy?    last success, consecutive errors, last error text
+
+A watchdog loop (auto-started on the first spawn; `[watchdog]` config)
+sweeps the registry: a non-idle loop whose heartbeat age exceeds its
+stall threshold is flagged — `loop_stalled_total{loop=}` fires once per
+stall episode, a `[watchdog]` line hits the slow log — and the flag
+clears when beats resume.  `GET /debug/tasks` serves the full snapshot
+(plus per-loop backlog hints: WAL backlog bytes, dirty rollup segments,
+pending compaction tasks) and `/stats` carries the compact summary, so
+degraded maintenance is visible before it becomes a query-latency
+incident.
 
 Heartbeat discipline for loop authors:
 
-  hb.beat()   at the top of every iteration
-  hb.idle()   before parking on an unbounded wait (queue.get)
-  hb.ok() / hb.error(exc)   the iteration's outcome
+  hb.beat()   at the top of every iteration ("I woke up and I'm
+              responsive"); loops that park on a TIMED wait (wait_for
+              with their period as timeout) beat at least once per
+              period by construction
+  hb.idle()   before parking on an UNBOUNDED wait (queue.get, an
+              un-timed Event) — absence of beats while idle is healthy,
+              so idle loops are exempt from stall checks until the next
+              beat
+  hb.ok() / hb.error(exc)   the iteration's outcome; errors feed
+              `loop_errors_total{loop=}` and the /debug/tasks error
+              surface instead of vanishing into an `except: pass`
+
+Loops doing legitimately long single iterations (a compaction rewrite, a
+whole-table rollup backfill) pass an explicit `stall_threshold_s`
+sized to their worst case — the watchdog flags *wedged*, not *busy*.
+
+The registry is process-global (like utils.metrics.registry and
+utils.tracing.recorder).  Handles deregister automatically when their
+task finishes — `cancel_and_wait` on a stalled loop leaves no phantom
+"stalled" entry behind — and handles whose event loop died without the
+task completing (a test's asyncio.run that never closed cleanly) are
+pruned by the watchdog sweep.
 """
 
 from __future__ import annotations
 
 import asyncio
+import logging
+import threading
 import time
 from typing import Callable, Optional
 
-from horaedb_tpu_torch.utils import registry
+from horaedb_tpu_torch.utils.metrics import registry
 
+logger = logging.getLogger(__name__)
+# stall flags land next to slow queries: both are "the system is not
+# keeping up" events an operator greps one stream for
+slow_logger = logging.getLogger("horaedb_tpu_torch.trace.slow")
+
+# the `loop` label is the handle's KIND (the stable prefix before ":"),
+# not the full instance name — per-table instance names embed temp
+# paths and would be unbounded label values across a process's life
+_STALLS = registry.counter(
+    "loop_stalled_total",
+    "background-loop stall episodes flagged by the watchdog, by loop "
+    "kind")
 _ERRORS = registry.counter(
-    "loop_errors_total", "background-loop iteration errors")
+    "loop_errors_total",
+    "background-loop iteration errors, by loop kind")
+_REGISTERED = registry.gauge(
+    "loops_registered", "background loops currently registered")
+_STALLED_NOW = registry.gauge(
+    "loops_stalled", "background loops currently flagged as stalled")
+_HB_AGE = registry.gauge(
+    "loop_heartbeat_age_seconds",
+    "oldest heartbeat age among live non-idle loops of a kind "
+    "(updated each watchdog round)")
 
 
 class LoopHandle:
-    """One background loop's liveness record."""
+    """One background loop's liveness record.  Mutated from the loop's
+    own event loop; read from server handlers and the watchdog — every
+    field is a scalar write, guarded by the registry lock only where a
+    check-and-set matters (stall transitions)."""
 
-    __slots__ = ("name", "task", "last_beat", "idle_flag", "last_success",
-                 "iterations", "consecutive_errors", "last_error")
+    __slots__ = ("name", "kind", "owner", "period_s", "stall_threshold_s",
+                 "backlog", "task", "created_at", "last_beat", "idle_flag",
+                 "last_success", "iterations", "consecutive_errors",
+                 "last_error", "last_error_at", "stalled", "_clock")
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, kind: str, owner: str,
+                 period_s: Optional[float],
+                 stall_threshold_s: Optional[float],
+                 backlog: Optional[Callable[[], dict]],
+                 clock=time.monotonic):
         self.name = name
+        self.kind = kind
+        self.owner = owner
+        self.period_s = period_s
+        self.stall_threshold_s = stall_threshold_s
+        self.backlog = backlog
         self.task: Optional[asyncio.Task] = None
-        self.last_beat = time.monotonic()
+        self._clock = clock
+        self.created_at = clock()
+        # until the first beat, the spawn time IS the heartbeat — a
+        # loop that never reaches its first iteration must still stall
+        self.last_beat = self.created_at
         self.idle_flag = False
         self.last_success: Optional[float] = None
         self.iterations = 0
         self.consecutive_errors = 0
         self.last_error: Optional[str] = None
+        self.last_error_at: Optional[float] = None
+        self.stalled = False
+
+    # ---- the loop-author surface ------------------------------------------
 
     def beat(self) -> None:
         """Heartbeat: call at the top of every iteration."""
-        self.last_beat = time.monotonic()
+        self.last_beat = self._clock()
         self.idle_flag = False
         self.iterations += 1
 
     def idle(self) -> None:
-        """About to park on an unbounded wait."""
-        self.last_beat = time.monotonic()
+        """About to park on an unbounded wait — exempt from stall
+        checks until the next beat."""
+        self.last_beat = self._clock()
         self.idle_flag = True
 
     def ok(self) -> None:
-        self.last_success = time.monotonic()
+        self.last_success = self._clock()
         self.consecutive_errors = 0
 
     def error(self, exc: BaseException) -> None:
         self.consecutive_errors += 1
         self.last_error = f"{type(exc).__name__}: {exc}"
-        _ERRORS.inc()
+        self.last_error_at = self._clock()
+        _ERRORS.labels(loop=self.kind).inc()
+
+    # ---- introspection ----------------------------------------------------
+
+    def alive(self) -> bool:
+        return self.task is not None and not self.task.done()
+
+    def dead(self) -> bool:
+        """Finished, or stranded on a closed event loop (a test's
+        asyncio.run that ended without this task completing)."""
+        if self.task is None:
+            return False
+        if self.task.done():
+            return True
+        try:
+            return self.task.get_loop().is_closed()
+        except RuntimeError:
+            return True
 
 
 class LoopRegistry:
-    """The process's running background loops, by name."""
+    """Process-global registry + watchdog ([watchdog] config)."""
 
-    def __init__(self) -> None:
+    def __init__(self, clock=time.monotonic) -> None:
+        self._clock = clock
         self._handles: dict[str, LoopHandle] = {}
+        self._lock = threading.Lock()
+        self._watchdog_task: Optional[asyncio.Task] = None
+        # kinds whose heartbeat-age gauge was written by a past sweep:
+        # a kind that goes idle or deregisters must be zeroed, not left
+        # serving its last (possibly huge) age forever
+        self._hb_kinds: set[str] = set()
+        self.enabled = True
+        self.interval_s = 1.0
+        self.stall_factor = 4.0
+        self.min_stall_s = 5.0
 
-    def spawn(self, fn: Callable[[LoopHandle], object], *,
-              name: str) -> asyncio.Task:
-        """Start `fn(handle)` as a task on the running loop, registered
-        under `name` until it finishes."""
-        hb = LoopHandle(name)
-        task = asyncio.ensure_future(fn(hb))
-        hb.task = task
-        self._handles[name] = hb
+    def configure(self, enabled: Optional[bool] = None,
+                  interval_s: Optional[float] = None,
+                  stall_factor: Optional[float] = None,
+                  min_stall_s: Optional[float] = None) -> None:
+        if enabled is not None:
+            self.enabled = enabled
+        if interval_s is not None:
+            self.interval_s = max(0.01, interval_s)
+        if stall_factor is not None:
+            self.stall_factor = max(1.0, stall_factor)
+        if min_stall_s is not None:
+            self.min_stall_s = max(0.0, min_stall_s)
 
-        def _done(_t: asyncio.Task) -> None:
-            if self._handles.get(name) is hb:
-                del self._handles[name]
+    # ---- registration -----------------------------------------------------
 
-        task.add_done_callback(_done)
+    def register(self, name: str, kind: Optional[str] = None,
+                 period_s: Optional[float] = None, owner: str = "",
+                 stall_threshold_s: Optional[float] = None,
+                 backlog: Optional[Callable[[], dict]] = None
+                 ) -> LoopHandle:
+        """Register a loop by UNIQUE name (a live duplicate gets a #n
+        suffix — two engines over the same root must not share one
+        heartbeat).  `kind` is the stable metric label; it defaults to
+        the name's prefix before ":"."""
+        if kind is None:
+            kind = name.split(":", 1)[0].split("#", 1)[0]
+        with self._lock:
+            base, n = name, 2
+            while name in self._handles and not self._handles[name].dead():
+                name = f"{base}#{n}"
+                n += 1
+            handle = LoopHandle(name, kind, owner, period_s,
+                                stall_threshold_s, backlog,
+                                clock=self._clock)
+            self._handles[name] = handle
+            _REGISTERED.set(len(self._handles))
+        return handle
+
+    def deregister(self, handle: LoopHandle) -> None:
+        with self._lock:
+            if self._handles.get(handle.name) is handle:
+                del self._handles[handle.name]
+            _REGISTERED.set(len(self._handles))
+            if handle.stalled:
+                handle.stalled = False
+            _STALLED_NOW.set(sum(1 for h in self._handles.values()
+                                 if h.stalled))
+
+    def get(self, name: str) -> Optional[LoopHandle]:
+        with self._lock:
+            return self._handles.get(name)
+
+    def handles(self, kind: Optional[str] = None) -> list[LoopHandle]:
+        with self._lock:
+            hs = list(self._handles.values())
+        return hs if kind is None else [h for h in hs if h.kind == kind]
+
+    # ---- spawn ------------------------------------------------------------
+
+    def spawn(self, factory: Callable[[LoopHandle], "object"], *,
+              name: str, kind: Optional[str] = None,
+              period_s: Optional[float] = None, owner: str = "",
+              stall_threshold_s: Optional[float] = None,
+              backlog: Optional[Callable[[], dict]] = None,
+              _watch: bool = True) -> asyncio.Task:
+        """THE way to start a background loop: registers a handle,
+        creates the task, and deregisters when the task finishes —
+        however it finishes, including a `cancel_and_wait` that had to
+        re-deliver its cancel."""
+        handle = self.register(name, kind=kind, period_s=period_s,
+                               owner=owner,
+                               stall_threshold_s=stall_threshold_s,
+                               backlog=backlog)
+        task = asyncio.create_task(factory(handle), name=handle.name)
+        handle.task = task
+        task.add_done_callback(
+            lambda _t, h=handle: self.deregister(h))
+        if _watch:
+            self.ensure_watchdog()
         return task
 
-    def handles(self) -> list[LoopHandle]:
-        return list(self._handles.values())
+    # ---- watchdog ---------------------------------------------------------
+
+    def ensure_watchdog(self) -> None:
+        """Lazy-start the watchdog on the CURRENT event loop.  A task
+        left over from a previous (closed) loop is abandoned — its
+        handle prunes on the next sweep — and replaced."""
+        try:
+            running = asyncio.get_running_loop()
+        except RuntimeError:
+            return
+        t = self._watchdog_task
+        if t is not None and not t.done():
+            try:
+                if t.get_loop() is running:
+                    return
+                if not t.get_loop().is_closed():
+                    # a live watchdog on another loop still sweeps the
+                    # shared registry; don't double up
+                    return
+            except RuntimeError:
+                pass
+        self._watchdog_task = self.spawn(
+            self._watchdog_loop, name="watchdog",
+            period_s=self.interval_s, owner="loops", _watch=False)
+
+    async def _watchdog_loop(self, hb: LoopHandle) -> None:
+        while True:
+            hb.beat()
+            try:
+                if self.enabled:
+                    self.check_once()
+                hb.ok()
+            except Exception as exc:  # noqa: BLE001 — watch next round
+                hb.error(exc)
+                logger.exception("watchdog round failed")
+            await asyncio.sleep(self.interval_s)
+
+    def resolved_threshold(self, h: LoopHandle) -> float:
+        """Effective stall threshold.  A declared threshold is a FLOOR
+        (sized to the loop's worst-case iteration), not an absolute:
+        it still scales with the loop's configured period, so an
+        operator who legally sets a 10-minute flush_interval doesn't
+        turn the flusher's quiet waits into stall flags."""
+        scaled = self.stall_factor * (h.period_s or 0.0)
+        if h.stall_threshold_s is not None:
+            return max(h.stall_threshold_s, scaled)
+        return max(self.min_stall_s, scaled)
+
+    def check_once(self, now: Optional[float] = None) -> list[str]:
+        """One watchdog sweep (callable directly from tests/ops): prune
+        dead handles, flag stalls, clear recoveries.  Returns the names
+        flagged THIS sweep."""
+        now = self._clock() if now is None else now
+        fired: list[str] = []
+        ages: dict[str, float] = {}
+        with self._lock:
+            handles = list(self._handles.values())
+        for h in handles:
+            if h.dead():
+                self.deregister(h)
+                continue
+            age = now - h.last_beat
+            if not h.idle_flag:
+                ages[h.kind] = max(ages.get(h.kind, 0.0), age)
+            thr = self.resolved_threshold(h)
+            with self._lock:
+                if h.idle_flag or age < thr:
+                    if h.stalled:
+                        h.stalled = False
+                        logger.info(
+                            "[watchdog] loop %s recovered (heartbeat "
+                            "age %.1fs < %.1fs)", h.name, age, thr)
+                    continue
+                if h.stalled:
+                    continue  # one episode, one flag
+                h.stalled = True
+            fired.append(h.name)
+            _STALLS.labels(loop=h.kind).inc()
+            slow_logger.warning(
+                "[watchdog] loop stalled: %s (kind=%s owner=%s) "
+                "heartbeat age %.1fs > threshold %.1fs, "
+                "consecutive_errors=%d last_error=%s",
+                h.name, h.kind, h.owner, age, thr,
+                h.consecutive_errors, h.last_error)
+        for kind, age in ages.items():
+            _HB_AGE.labels(loop=kind).set(round(age, 3))
+        for kind in self._hb_kinds - set(ages):
+            # no live non-idle loop of this kind this sweep: serve 0,
+            # not the stale last observation
+            _HB_AGE.labels(loop=kind).set(0.0)
+        self._hb_kinds = set(ages)
+        with self._lock:
+            _STALLED_NOW.set(sum(1 for h in self._handles.values()
+                                 if h.stalled))
+            _REGISTERED.set(len(self._handles))
+        return fired
+
+    # ---- the /debug/tasks + /stats surface --------------------------------
+
+    def snapshot(self) -> list[dict]:
+        """Full per-loop state, newest-registered last (GET
+        /debug/tasks).  Backlog hints call the loop's own provider
+        (WAL backlog bytes, dirty rollup segments, pending compaction
+        tasks) — a provider failure is reported, never raised."""
+        now = self._clock()
+        out = []
+        for h in self.handles():
+            if h.dead():
+                self.deregister(h)
+                continue
+            d = {
+                "name": h.name,
+                "kind": h.kind,
+                "owner": h.owner,
+                "period_s": h.period_s,
+                "stall_threshold_s": round(self.resolved_threshold(h), 3),
+                "alive": h.alive(),
+                "idle": h.idle_flag,
+                "stalled": h.stalled,
+                "heartbeat_age_s": round(now - h.last_beat, 3),
+                "iterations": h.iterations,
+                "last_success_age_s": (
+                    None if h.last_success is None
+                    else round(now - h.last_success, 3)),
+                "consecutive_errors": h.consecutive_errors,
+                "last_error": h.last_error,
+                "last_error_age_s": (
+                    None if h.last_error_at is None
+                    else round(now - h.last_error_at, 3)),
+            }
+            if h.backlog is not None:
+                try:
+                    d["backlog"] = h.backlog()
+                except Exception as exc:  # noqa: BLE001 — hint only
+                    d["backlog"] = {"error": str(exc)}
+            out.append(d)
+        return out
+
+    def summary(self) -> dict:
+        """Compact health rollup for /stats: registered/stalled counts,
+        the stalled + erroring names, and the oldest non-idle
+        heartbeat."""
+        now = self._clock()
+        stalled, erroring = [], []
+        oldest = 0.0
+        hs = [h for h in self.handles() if not h.dead()]
+        for h in hs:
+            if h.stalled:
+                stalled.append(h.name)
+            if h.consecutive_errors:
+                erroring.append(h.name)
+            if not h.idle_flag:
+                oldest = max(oldest, now - h.last_beat)
+        return {"registered": len(hs), "stalled": sorted(stalled),
+                "erroring": sorted(erroring),
+                "oldest_heartbeat_age_s": round(oldest, 3)}
 
 
 loops = LoopRegistry()

@@ -1,0 +1,618 @@
+"""Process-global memory ledger: where is my RAM, and how close am I
+to the cliff? (docs/observability.md, memory plane)
+
+The process has rich *time* observability (traces, the loop registry)
+but its byte-holding structures — the HBM windows cache, the tier-2
+encoded cache, the parts memo, pipeline in-flight buffers, memtables,
+the WAL backlog, streamed-SST mmaps, scan-agent wire buffers, the
+in-memory object store — each count their own bytes privately.  The
+ledger is the single place they all report to, so ONE number answers
+what nothing else can:
+
+    unattributed = RSS − Σ accounts
+
+A big positive unattributed is a leak or a structure nobody registered;
+a negative one is double counting.  Either way it is visible, which is
+the whole point: the 1B-row ladder (ROADMAP item 3) breaks first on
+resident memory, and "projected from hand math" is not an alert.
+
+Two account shapes, mirroring how components actually hold bytes:
+
+  pull accounts   budget-owning structures that already track their
+                  residency (ByteLRU.total_bytes, memtable bytes, WAL
+                  backlog).  `register(name, fn, anchor=owner_obj)`
+                  stores a plain function called as fn(owner) against a
+                  WEAK reference to the owner — the ledger never keeps
+                  a dead cache's contents alive, and an owner that was
+                  dropped without an explicit deregister (tests,
+                  abandoned stores) prunes on the next sweep exactly
+                  like a dead loop handle.
+  flow accounts   transient byte flows with no single resident owner
+                  (streamed-SST mmaps in flight, scanagent partials on
+                  the wire).  `flow(name)` returns an account the call
+                  sites charge()/credit(); balanced teardown MUST
+                  return it to zero (tested).
+
+Account *names* are unique instances (per table root); the metric
+label is the KIND (prefix before ":"), exactly the loop registry's
+label discipline — per-table names embed temp paths and would be
+unbounded label values.  `memory_account_bytes{account=<kind>}`,
+`memory_rss_bytes`, and `memory_unattributed_bytes` land in the
+registry, so the meta-ingest loop makes memory history queryable and
+rollup-served for free.
+
+An RSS sampler loop (spawned through loops.spawn:
+heartbeats, watchdog, /debug/tasks) reads /proc/self/status VmRSS
+(plus smaps_rollup where the kernel has it) every `[memory] interval`,
+republishes every account gauge, and evaluates soft/hard pressure
+watermarks: `memory_pressure` is 0/1/2 and
+`memory_pressure_transitions_total{level=}` fires ONCE per episode
+(watchdog-style), with a hysteresis band so a process breathing at the
+watermark doesn't flap.  `GET /debug/memory` serves the full account
+tree with budgets/utilization/high-water.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import sys
+import threading
+import time
+import weakref
+from typing import Callable, Optional
+
+from horaedb_tpu_torch.utils.metrics import registry
+
+logger = logging.getLogger(__name__)
+slow_logger = logging.getLogger("horaedb_tpu_torch.trace.slow")
+
+_ACCOUNT_BYTES = registry.gauge(
+    "memory_account_bytes",
+    "resident host bytes attributed to a ledger account kind "
+    "(updated each sampler round)")
+_RSS = registry.gauge(
+    "memory_rss_bytes", "process resident set size (/proc/self/status)")
+_UNATTRIBUTED = registry.gauge(
+    "memory_unattributed_bytes",
+    "RSS minus the sum of all ledger accounts: leaks and unregistered "
+    "structures show up positive, double counting negative")
+_ATTRIBUTED = registry.gauge(
+    "memory_attributed_bytes", "sum of all ledger accounts")
+_PRESSURE = registry.gauge(
+    "memory_pressure",
+    "memory pressure level: 0 below soft, 1 at/over soft, 2 at/over "
+    "hard watermark")
+_TRANSITIONS = registry.counter(
+    "memory_pressure_transitions_total",
+    "pressure episodes entered, once per episode, by level "
+    "(soft|hard)")
+_DEVICE_BYTES = registry.gauge(
+    "memory_device_bytes",
+    "accelerator bytes in use per CUDA device (torch.cuda.memory_stats; "
+    "absent without a card)")
+_DEVICE_HIGH_WATER = registry.gauge(
+    "memory_device_high_water_bytes",
+    "peak accelerator bytes in use per device since engine open "
+    "(sampled high-water; reset to 0 on engine close)")
+
+
+def read_rss_bytes() -> Optional[int]:
+    """VmRSS from /proc/self/status, or None off-Linux."""
+    try:
+        with open("/proc/self/status", "rb") as f:
+            for line in f:
+                if line.startswith(b"VmRSS:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        return None
+    return None
+
+
+def read_smaps_rollup() -> dict:
+    """Selected fields of /proc/self/smaps_rollup (kernel 4.14+) in
+    bytes — the private/shared/anon split that tells mmap'd SST streams
+    apart from heap.  Empty dict where the kernel lacks the file."""
+    want = (b"Rss:", b"Pss:", b"Shared_Clean:", b"Shared_Dirty:",
+            b"Private_Clean:", b"Private_Dirty:", b"Anonymous:")
+    out = {}
+    try:
+        with open("/proc/self/smaps_rollup", "rb") as f:
+            for line in f:
+                for key in want:
+                    if line.startswith(key):
+                        out[key[:-1].decode().lower()] = (
+                            int(line.split()[1]) * 1024)
+    except OSError:
+        return {}
+    return out
+
+
+def read_meminfo_total() -> Optional[int]:
+    """MemTotal in bytes (watermark auto-derivation), or None."""
+    try:
+        with open("/proc/meminfo", "rb") as f:
+            for line in f:
+                if line.startswith(b"MemTotal:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        return None
+    return None
+
+
+def device_memory() -> list[dict]:
+    """Per-CUDA-device live bytes from torch's caching allocator,
+    guarded three ways: torch not yet imported (probing would pull it
+    in), no CUDA runtime, and a device whose allocator was never
+    initialized (no bytes to report, and a probe would create a
+    context on it)."""
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return []
+    try:
+        if not torch.cuda.is_available() or not torch.cuda.is_initialized():
+            return []
+        count = torch.cuda.device_count()
+    except Exception:  # noqa: BLE001 — no CUDA runtime is a valid state
+        return []
+    out = []
+    for i in range(count):
+        try:
+            stats = torch.cuda.memory_stats(i)
+        except Exception:  # noqa: BLE001 — backend quirk, not an error
+            stats = None
+        if not stats or "allocated_bytes.all.current" not in stats:
+            continue
+        try:
+            limit = int(torch.cuda.get_device_properties(i).total_memory)
+        except Exception:  # noqa: BLE001
+            limit = 0
+        out.append({
+            "device": f"cuda:{i}",
+            "bytes_in_use": int(stats["allocated_bytes.all.current"]),
+            "bytes_limit": limit or None,
+            "peak_bytes_in_use": int(torch.cuda.max_memory_allocated(i)),
+        })
+    return out
+
+
+class MemAccount:
+    """One byte-holding component's ledger entry.
+
+    Pull accounts hold (weak anchor, fn); `bytes()` derefs the anchor
+    and returns None once the owner died — the sweep prunes it.  Flow
+    accounts have no anchor; charge()/credit() move the balance (int
+    adds under a lock: charged from pool threads and the event loop
+    alike)."""
+
+    __slots__ = ("name", "kind", "owner", "budget", "high_water",
+                 "host", "_anchor", "_fn", "_balance", "_lock",
+                 "__weakref__")
+
+    def __init__(self, name: str, kind: str, owner: str,
+                 budget: Optional[int],
+                 fn: Optional[Callable] = None,
+                 anchor: Optional[object] = None,
+                 host: bool = True):
+        self.name = name
+        self.kind = kind
+        self.owner = owner
+        self.budget = budget
+        self.high_water = 0
+        # host=False: the bytes live on an ACCELERATOR (HBM stacks on
+        # a CUDA device) — tracked and reported per kind, but excluded
+        # from the attributed total that is subtracted from host RSS
+        # (they are not host RSS; memory_device_bytes covers the
+        # device side, and double-subtracting would push unattributed
+        # negative by exactly their size)
+        self.host = host
+        self._fn = fn
+        self._anchor = weakref.ref(anchor) if anchor is not None else None
+        self._balance = 0
+        self._lock = threading.Lock()
+
+    @property
+    def is_flow(self) -> bool:
+        return self._fn is None
+
+    def charge(self, nbytes: int) -> None:
+        """Flow accounts only: bytes taken (a stream fetch started, a
+        wire partial buffered)."""
+        if nbytes <= 0:
+            return
+        with self._lock:
+            self._balance += nbytes
+            if self._balance > self.high_water:
+                self.high_water = self._balance
+
+    def credit(self, nbytes: int) -> None:
+        """Flow accounts only: bytes returned."""
+        if nbytes <= 0:
+            return
+        with self._lock:
+            self._balance -= nbytes
+
+    def bytes(self) -> Optional[int]:
+        """Current resident bytes, or None when the pull account's
+        owner is gone (prune me)."""
+        if self._fn is None:
+            return self._balance
+        if self._anchor is not None:
+            obj = self._anchor()
+            if obj is None:
+                return None
+            try:
+                return int(self._fn(obj))
+            except Exception:  # noqa: BLE001 — a mid-close race reads 0
+                return 0
+        try:
+            return int(self._fn())
+        except Exception:  # noqa: BLE001
+            return 0
+
+    def dead(self) -> bool:
+        return self._anchor is not None and self._anchor() is None
+
+
+class MemoryLedger:
+    """Process-global account registry + RSS sampler + pressure
+    watermarks ([memory] config).  Like the loop registry: one per
+    process, components register at open and deregister at close, a
+    lazily-started loop sweeps."""
+
+    def __init__(self, clock=time.monotonic,
+                 rss_reader: Callable[[], Optional[int]] = read_rss_bytes
+                 ) -> None:
+        self._clock = clock
+        self._rss_reader = rss_reader
+        self._accounts: dict[str, MemAccount] = {}
+        self._lock = threading.Lock()
+        self._sampler_task: Optional[asyncio.Task] = None
+        # kinds whose account gauge a past sweep wrote: a kind whose
+        # accounts all deregistered must be zeroed, not left serving
+        # its last bytes forever (the loop registry's _hb_kinds
+        # discipline) — same for per-device gauges
+        self._gauge_kinds: set[str] = set()
+        self._device_labels: set[str] = set()
+        # sampled per-device peaks; survive label absence (a device that
+        # freed everything keeps its peak) until reset on engine close
+        self._device_high_water: dict[str, int] = {}
+        self.enabled = True
+        self.interval_s = 5.0
+        # 0 = derive from MemTotal at configure time (soft 70%, hard
+        # 85%); None = no watermark (pressure pinned at 0)
+        self.soft_bytes: Optional[int] = None
+        self.hard_bytes: Optional[int] = None
+        self.hysteresis = 0.05
+        self.pressure_level = 0
+        self.pressure_episodes = {"soft": 0, "hard": 0}
+        self._last_sample: Optional[dict] = None
+        self._last_sample_at: Optional[float] = None
+
+    # ---- configuration ----------------------------------------------------
+
+    def configure(self, enabled: Optional[bool] = None,
+                  interval_s: Optional[float] = None,
+                  soft_bytes: Optional[int] = None,
+                  hard_bytes: Optional[int] = None,
+                  hysteresis: Optional[float] = None) -> None:
+        """[memory] config.  soft/hard semantics: None leaves the
+        current value, 0 auto-derives from MemTotal (soft 70%, hard
+        85%), a negative value disables that watermark."""
+        if enabled is not None:
+            self.enabled = enabled
+        if interval_s is not None:
+            self.interval_s = max(0.01, interval_s)
+        if hysteresis is not None:
+            self.hysteresis = min(0.5, max(0.0, hysteresis))
+        total = None
+        if soft_bytes == 0 or hard_bytes == 0:
+            total = read_meminfo_total()
+
+        def resolve(value: int, frac: float) -> Optional[int]:
+            if value < 0:
+                return None  # watermark explicitly disabled
+            if value == 0:  # auto: fraction of the box's MemTotal
+                return int(total * frac) if total else None
+            return value
+
+        if soft_bytes is not None:
+            self.soft_bytes = resolve(soft_bytes, 0.70)
+        if hard_bytes is not None:
+            self.hard_bytes = resolve(hard_bytes, 0.85)
+
+    # ---- registration -----------------------------------------------------
+
+    def _insert(self, acct: MemAccount) -> MemAccount:
+        with self._lock:
+            base, n = acct.name, 2
+            while (acct.name in self._accounts
+                   and not self._accounts[acct.name].dead()):
+                # two engines over the same root must not share one
+                # account (the loop registry's #n discipline)
+                acct.name = f"{base}#{n}"
+                n += 1
+            self._accounts[acct.name] = acct
+        self.ensure_sampler()
+        return acct
+
+    def register(self, name: str, fn: Callable, *,
+                 anchor: Optional[object] = None,
+                 kind: Optional[str] = None,
+                 budget: Optional[int] = None,
+                 owner: str = "", host: bool = True) -> MemAccount:
+        """Pull account for a budget-owning structure.  `fn` is called
+        as fn(anchor) when an anchor is given (the ledger holds the
+        anchor WEAKLY — pass the owning object, close over nothing) and
+        as fn() otherwise (module-global sources only).  host=False
+        for structures resident on an accelerator, not in host RSS."""
+        if kind is None:
+            kind = name.split(":", 1)[0].split("#", 1)[0]
+        return self._insert(MemAccount(name, kind, owner, budget,
+                                       fn=fn, anchor=anchor, host=host))
+
+    def flow(self, name: str, *, kind: Optional[str] = None,
+             budget: Optional[int] = None, owner: str = "") -> MemAccount:
+        """Flow account for transient byte flows: call sites
+        charge()/credit(); teardown must balance back to zero."""
+        if kind is None:
+            kind = name.split(":", 1)[0].split("#", 1)[0]
+        return self._insert(MemAccount(name, kind, owner, budget))
+
+    def deregister(self, acct: Optional[MemAccount]) -> None:
+        if acct is None:
+            return
+        with self._lock:
+            if self._accounts.get(acct.name) is acct:
+                del self._accounts[acct.name]
+
+    def accounts(self) -> list[MemAccount]:
+        with self._lock:
+            return list(self._accounts.values())
+
+    def get(self, name: str) -> Optional[MemAccount]:
+        with self._lock:
+            return self._accounts.get(name)
+
+    def kinds(self) -> set[str]:
+        """Live account kinds (the enumerate-and-assert test's
+        surface)."""
+        return {a.kind for a in self.accounts() if not a.dead()}
+
+    # ---- sampling ---------------------------------------------------------
+
+    def attributed(self) -> tuple[int, dict[str, int], list]:
+        """(Σ host accounts, per-kind sums, [(account, bytes)]) in ONE
+        walk; prunes dead pull accounts.  Non-host (accelerator)
+        accounts report per kind but stay out of the total — they are
+        not host RSS and would push unattributed negative."""
+        per_kind: dict[str, int] = {}
+        detail: list = []
+        total = 0
+        for acct in self.accounts():
+            b = acct.bytes()
+            if b is None:
+                self.deregister(acct)
+                continue
+            if b > acct.high_water:
+                acct.high_water = b
+            per_kind[acct.kind] = per_kind.get(acct.kind, 0) + b
+            detail.append((acct, b))
+            if acct.host:
+                total += b
+        return total, per_kind, detail
+
+    def sample_once(self, rss: Optional[int] = None) -> dict:
+        """One sampler round (callable directly from tests/handlers):
+        republish account gauges, read RSS, compute unattributed,
+        evaluate pressure.  `rss` overrides the /proc read (tests)."""
+        total, per_kind, detail = self.attributed()
+        for kind, b in per_kind.items():
+            _ACCOUNT_BYTES.labels(account=kind).set(b)
+        for kind in self._gauge_kinds - set(per_kind):
+            _ACCOUNT_BYTES.labels(account=kind).set(0)
+        self._gauge_kinds = set(per_kind)
+        _ATTRIBUTED.set(total)
+
+        if rss is None:
+            rss = self._rss_reader()
+        out = {"attributed_bytes": total, "accounts": per_kind,
+               "account_detail": detail, "rss_bytes": rss,
+               "unattributed_bytes": None}
+        if rss is not None:
+            _RSS.set(rss)
+            out["unattributed_bytes"] = rss - total
+            _UNATTRIBUTED.set(rss - total)
+            self._eval_pressure(rss)
+        out["pressure"] = self.pressure_level
+
+        devices = device_memory()
+        labels = set()
+        for d in devices:
+            dev = d["device"]
+            b = d["bytes_in_use"]
+            hw = max(self._device_high_water.get(dev, 0), b)
+            self._device_high_water[dev] = hw
+            d["high_water_bytes"] = hw
+            _DEVICE_BYTES.labels(device=dev).set(b)
+            _DEVICE_HIGH_WATER.labels(device=dev).set(hw)
+            labels.add(dev)
+        for label in self._device_labels - labels:
+            _DEVICE_BYTES.labels(device=label).set(0)
+        self._device_labels = labels
+        out["devices"] = devices
+
+        self._last_sample = out
+        self._last_sample_at = self._clock()
+        return out
+
+    def _eval_pressure(self, rss: int) -> None:
+        """Watermark check with hysteresis: escalate the moment RSS
+        crosses a watermark (counting ONE episode per level entered),
+        de-escalate only once RSS drops below the current level's
+        watermark by the hysteresis margin — a process breathing at
+        the line is one episode, not a counter flood."""
+        soft, hard = self.soft_bytes, self.hard_bytes
+        raw = (2 if hard is not None and rss >= hard else
+               1 if soft is not None and rss >= soft else 0)
+        lvl = self.pressure_level
+        if raw > lvl:
+            if raw == 2 and lvl < 2:
+                self.pressure_episodes["hard"] += 1
+                _TRANSITIONS.labels(level="hard").inc()
+                slow_logger.warning(
+                    "[memory] HARD pressure: rss=%d >= hard=%d "
+                    "(unattributed and per-account bytes on "
+                    "/debug/memory)", rss, hard)
+            if raw >= 1 and lvl < 1:
+                self.pressure_episodes["soft"] += 1
+                _TRANSITIONS.labels(level="soft").inc()
+                if raw == 1:
+                    slow_logger.warning(
+                        "[memory] soft pressure: rss=%d >= soft=%d",
+                        rss, soft)
+            lvl = raw
+        elif raw < lvl:
+            wm = hard if lvl == 2 else soft
+            if wm is None or rss < wm * (1.0 - self.hysteresis):
+                lvl = raw
+        self.pressure_level = lvl
+        _PRESSURE.set(lvl)
+
+    # ---- the sampler loop -------------------------------------------------
+
+    def ensure_sampler(self) -> None:
+        """Lazy-start the RSS sampler on the CURRENT event loop (the
+        watchdog's ensure pattern: a task stranded on a closed loop is
+        abandoned — its loop handle prunes — and replaced; no running
+        loop is a no-op, the next register from async context
+        starts it)."""
+        try:
+            running = asyncio.get_running_loop()
+        except RuntimeError:
+            return
+        t = self._sampler_task
+        if t is not None and not t.done():
+            try:
+                if t.get_loop() is running:
+                    return
+                if not t.get_loop().is_closed():
+                    return  # a live sampler elsewhere still sweeps
+            except RuntimeError:
+                pass
+        from horaedb_tpu_torch.common.loops import loops
+
+        self._sampler_task = loops.spawn(
+            self._sampler_loop, name="mem-sampler",
+            period_s=self.interval_s, owner="memledger")
+
+    async def _sampler_loop(self, hb) -> None:
+        while True:
+            hb.beat()
+            try:
+                if self.enabled:
+                    self.sample_once()
+                hb.ok()
+            except Exception as exc:  # noqa: BLE001 — sample next round
+                hb.error(exc)
+                logger.exception("memory sampler round failed")
+            await asyncio.sleep(self.interval_s)
+
+    # ---- the /debug/memory + /stats surface -------------------------------
+
+    def snapshot(self) -> dict:
+        """The full account tree (GET /debug/memory): per-kind rollups
+        with budgets/utilization/high-water, instance detail, RSS,
+        unattributed, pressure state, device memory, smaps extras.
+        Samples explicitly — a /debug request wants CURRENT numbers
+        even with the background sampler disabled — and the tree is
+        built from the SAME walk as the totals beside it, so they
+        cannot disagree."""
+        sample = self.sample_once()
+        groups: dict[str, dict] = {}
+        for acct, b in sample["account_detail"]:
+            g = groups.setdefault(acct.kind, {
+                "bytes": 0, "budget": 0, "high_water": 0,
+                "host": acct.host, "instances": []})
+            g["bytes"] += b
+            g["high_water"] += acct.high_water
+            if acct.budget is not None:
+                g["budget"] += acct.budget
+            g["instances"].append({
+                "name": acct.name, "owner": acct.owner, "bytes": b,
+                "budget": acct.budget, "high_water": acct.high_water,
+                "flow": acct.is_flow})
+        for g in groups.values():
+            if g["budget"]:
+                g["utilization"] = round(g["bytes"] / g["budget"], 4)
+            else:
+                g["budget"] = None
+            g["instances"].sort(key=lambda i: -i["bytes"])
+        rss = sample["rss_bytes"]
+        return {
+            "rss_bytes": rss,
+            "attributed_bytes": sample["attributed_bytes"],
+            "unattributed_bytes": sample["unattributed_bytes"],
+            "unattributed_fraction": (
+                round(sample["unattributed_bytes"] / rss, 4)
+                if rss else None),
+            "pressure": {
+                "level": self.pressure_level,
+                "soft_bytes": self.soft_bytes,
+                "hard_bytes": self.hard_bytes,
+                "hysteresis": self.hysteresis,
+                "episodes": dict(self.pressure_episodes),
+            },
+            "accounts": dict(sorted(groups.items())),
+            "devices": sample["devices"],
+            "smaps_rollup": read_smaps_rollup() or None,
+            "sampler": {
+                "enabled": self.enabled,
+                "interval_s": self.interval_s,
+            },
+        }
+
+    def summary(self) -> dict:
+        """Compact rollup for /stats: totals + per-kind bytes, no
+        instance detail.  Serves the sampler's last round when fresh
+        (a /stats poll must not duplicate sampler work), resamples
+        when stale.  DISABLED ([memory] enabled = false) means no
+        sampling work on the /stats path at all — the last sample (if
+        any) is served as-is, marked disabled; an operator who turned
+        the plane off must not pay per-poll ledger walks instead."""
+        if not self.enabled:
+            sample = self._last_sample or {}
+            return {
+                "enabled": False,
+                "rss_bytes": sample.get("rss_bytes"),
+                "attributed_bytes": sample.get("attributed_bytes"),
+                "unattributed_bytes": sample.get("unattributed_bytes"),
+                "pressure": self.pressure_level,
+                "accounts": dict(sorted(
+                    sample.get("accounts", {}).items())),
+            }
+        fresh = (self._last_sample is not None
+                 and self._last_sample_at is not None
+                 and self._clock() - self._last_sample_at
+                 < 2 * self.interval_s)
+        sample = self._last_sample if fresh else self.sample_once()
+        return {
+            "rss_bytes": sample["rss_bytes"],
+            "attributed_bytes": sample["attributed_bytes"],
+            "unattributed_bytes": sample["unattributed_bytes"],
+            "pressure": self.pressure_level,
+            "accounts": dict(sorted(sample["accounts"].items())),
+            "device_high_water": dict(sorted(
+                self._device_high_water.items())),
+        }
+
+    def reset_device_high_water(self) -> None:
+        """Engine close resets the per-device peaks (clear-on-close
+        discipline): the next engine's high-water marks are its own,
+        not inherited from a table that no longer exists."""
+        for dev in self._device_high_water:
+            _DEVICE_HIGH_WATER.labels(device=dev).set(0)
+        self._device_high_water = {}
+
+
+ledger = MemoryLedger()

@@ -36,8 +36,10 @@ start and stop with it), the WAL front (`open(wal_config=...)` wraps
 every Overwrite table in wal.IngestStorage), `stats()` and `flush()`,
 the scalar `write()` and the bulk Arrow ingest (both layouts), metric
 and series resolution, raw row queries, the downsample, multi-field
-and top-k queries, rollups, and the label/list APIs.  Not ported yet:
-self-monitoring (meta-ingest) and scan agents (see ROADMAP.md).
+and top-k queries, rollups, the label/list APIs, and near-data scan
+routing (`open(scanagent_config=...)`: the data table's aggregate scans
+send covered segments to their scan agents, scanagent/client.py).  Not
+ported yet: self-monitoring (meta-ingest; see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ import pyarrow.compute as pc
 
 from horaedb_tpu_torch.common import runtimes as runtimes_mod
 from horaedb_tpu_torch.common.error import Error, ensure
+from horaedb_tpu_torch.common.memledger import ledger as memledger
 from horaedb_tpu_torch.objstore import ObjectStore
 from horaedb_tpu_torch.ops.downsample import ALL_AGGS
 from horaedb_tpu_torch.ops.filter import And, Eq, In, TimeRangePred
@@ -505,9 +508,19 @@ class MetricEngine:
             self._chunk_cache = ByteLRU(
                 tables["data"].reader.cache_budget_bytes,
                 hits=_CHUNK_CACHE_HITS, misses=_CHUNK_CACHE_MISSES,
-                evictions=_CHUNK_CACHE_EVICTIONS)
+                evictions=_CHUNK_CACHE_EVICTIONS, trace_tier="chunk")
+            # memory plane: the chunked engine's decoded-sample LRU is
+            # a byte budget like any reader cache
+            self._chunk_mem_account = memledger.register(
+                "chunk_cache:engine",
+                lambda e: e._chunk_cache.total_bytes, anchor=self,
+                kind="chunk_cache",
+                budget=tables["data"].reader.cache_budget_bytes,
+                owner="metric_engine")
         else:
             self._chunk_cache = None
+            self._chunk_mem_account = None
+        self._scanagent_client = None
 
     @classmethod
     async def open(cls, root_path: str, store: ObjectStore,
@@ -516,7 +529,8 @@ class MetricEngine:
                    device="cuda", wal_config=None,
                    chunked_data: bool = False,
                    chunk_window_ms: int = 30 * 60 * 1000,
-                   rollup_config=None) -> "MetricEngine":
+                   rollup_config=None,
+                   scanagent_config=None) -> "MetricEngine":
         """Open the five tables under `root_path` on `device` ("cuda" by
         default; raises when the card is missing).  With an enabled
         `wal_config` every Overwrite table is fronted by a WAL under
@@ -524,7 +538,9 @@ class MetricEngine:
         the group fsync and raw reads see the unflushed rows.
         `chunked_data` selects the chunked data layout (Append data
         table, no WAL in front of it); an enabled `rollup_config` opens
-        the rollup tiers (row layout only)."""
+        the rollup tiers (row layout only); an active `scanagent_config`
+        routes the data table's aggregate scans through its scan agents
+        (row layout only)."""
         import dataclasses
 
         if chunked_data:
@@ -596,20 +612,47 @@ class MetricEngine:
             data = tables["data"]
             if hasattr(data, "memtable_segments"):
                 data.on_flush = self.rollups.note_flush
+        if (scanagent_config is not None and scanagent_config.active
+                and not chunked_data):
+            # near-data scan routing ([scanagent]): the DATA table's
+            # aggregate scans consult the shard map and route covered
+            # segments to their store-shard agents.  The index/series/
+            # tags tables stay direct: their scans are row-shaped, tiny
+            from horaedb_tpu_torch.scanagent import (ScanAgentClient,
+                                                     ScanRouter)
+
+            try:
+                self._scanagent_client = ScanAgentClient(scanagent_config)
+                data = tables["data"]
+                base = getattr(data, "inner", data)  # unwrap WAL front
+                base.reader.scan_router = ScanRouter(
+                    scanagent_config, self._scanagent_client,
+                    base.root_path, base.schema().user_schema,
+                    base.schema().num_primary_keys,
+                    base.segment_duration_ms)
+            except BaseException:
+                await self.close()
+                raise
         return self
 
     async def close(self) -> None:
         """Close the rollup tiers, then the five tables (their
         compaction schedulers and scrub loops stop first), then the
         worker pools."""
+        if self._scanagent_client is not None:
+            await self._scanagent_client.close()
+            self._scanagent_client = None
         if self.rollups is not None:
             await self.rollups.close()
             self.rollups = None
         for t in self.tables.values():
             await t.close()
         if self._chunk_cache is not None:
-            # a closed engine's decoded chunks can never be read again
+            # a closed engine's decoded chunks can never be read again,
+            # and the ledger account goes with it
             self._chunk_cache.clear()
+            memledger.deregister(self._chunk_mem_account)
+            self._chunk_mem_account = None
         if self._runtimes is not None:
             self._runtimes.close()
             self._runtimes = None

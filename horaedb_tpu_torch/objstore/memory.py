@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import asyncio
 
+from horaedb_tpu_torch.common.memledger import ledger as memledger
 from horaedb_tpu_torch.objstore.api import NotFoundError, ObjectMeta, ObjectStore
 
 
@@ -12,7 +13,13 @@ class MemoryObjectStore(ObjectStore):
     def __init__(self) -> None:
         self._objects: dict[str, bytes] = {}
         self._lock = asyncio.Lock()
+        # memory plane: the resident parquet+sidecar copy is a ledger
+        # account (O(1) running total), anchored weakly — an abandoned
+        # store prunes on the next sweep (there is no close API)
         self._resident_bytes = 0
+        self._mem_account = memledger.register(
+            "objstore_memory", lambda s: s._resident_bytes,
+            anchor=self, kind="objstore_memory", owner="objstore")
 
     async def put(self, path: str, data: bytes) -> None:
         async with self._lock:

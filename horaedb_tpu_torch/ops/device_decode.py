@@ -50,7 +50,7 @@ from horaedb_tpu_torch.ops.filter import (
     _const_code_lower,
     _const_code_upper,
 )
-from horaedb_tpu_torch.utils import registry
+from horaedb_tpu_torch.utils import registry, trace_add
 
 # every way a plan or segment can decline the device decode, so an
 # operator can tell a misconfigured query from unsupported data
@@ -68,21 +68,21 @@ FALLBACK_REASONS = (
                        # runs): it still decodes on the card, by the sort
 )
 
-_FALLBACKS = {
-    r: registry.counter(
-        f"scan_decode_fallback_total:{r}",
-        "aggregate segments/plans that fell back to host decode (or, for "
-        "kway_runs, to the device sort) for this reason")
-    for r in FALLBACK_REASONS
-}
+_FALLBACKS = registry.counter(
+    "scan_decode_fallback_total",
+    "aggregate segments/plans that fell back to host decode (or, for "
+    "kway_runs, to the device sort), by reason")
+_FALLBACK_CHILDREN = {r: _FALLBACKS.labels(reason=r)
+                      for r in FALLBACK_REASONS}
 
 # per-segment routing of the device merge: compacted = one run, sorted
 # by construction; checked = the host check proved the runs' concat
 # sorted; kway = the runs merged by kway_merge_perm
 _SORT_SKIPPED = {
     route: registry.counter(
-        f"scan_decode_sort_skipped_total:{route}",
-        "device decode dispatches that skipped the full device sort")
+        "scan_decode_sort_skipped_total",
+        "device decode dispatches that skipped the full device sort"
+    ).labels(route=route)
     for route in ("compacted", "checked", "kway")
 }
 _SORT_RAN = registry.counter(
@@ -90,29 +90,30 @@ _SORT_RAN = registry.counter(
     "device decode dispatches that paid the full device sort")
 
 _STAGE_SECONDS = registry.histogram(
-    "scan_stage_seconds:device_decode",
-    "wall seconds in the device_decode plan stage")
+    "scan_stage_seconds", "wall seconds per merge-scan plan stage"
+).labels(stage="device_decode")
 _STAGE_ROWS = registry.counter(
-    "scan_stage_rows_total:device_decode",
-    "source rows entering the device_decode plan stage")
+    "scan_stage_rows_total", "rows entering each plan stage"
+).labels(stage="device_decode")
 _STAGE_BYTES = registry.counter(
-    "scan_stage_bytes_total:device_decode",
-    "bytes uploaded by the device_decode plan stage")
+    "scan_stage_bytes_total", "bytes entering each plan stage"
+).labels(stage="device_decode")
 _D2H_BYTES = registry.counter(
     "scan_decode_d2h_bytes_total",
     "bytes of partial grids copied device-to-host by the device decode")
 
 
 def note_fallback(reason: str) -> None:
-    child = _FALLBACKS.get(reason)
+    child = _FALLBACK_CHILDREN.get(reason)
     if child is None:  # an unknown reason still counts, labeled verbatim
-        child = _FALLBACKS[reason] = registry.counter(
-            f"scan_decode_fallback_total:{reason}")
+        child = _FALLBACK_CHILDREN[reason] = _FALLBACKS.labels(
+            reason=reason)
     child.inc()
+    trace_add(f"decode_fallback_{reason}", 1)
 
 
 def fallback_counts() -> dict:
-    return {r: c.value for r, c in _FALLBACKS.items()}
+    return {r: c.value for r, c in _FALLBACK_CHILDREN.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -477,10 +478,13 @@ class DecodeDispatch:
 
 def observe_decode_stage(seconds: float, rows: int, nbytes: int) -> None:
     _STAGE_SECONDS.observe(seconds)
+    trace_add("stage_device_decode_ms", seconds * 1e3)
     if rows:
         _STAGE_ROWS.inc(rows)
+        trace_add("stage_device_decode_rows", rows)
     if nbytes:
         _STAGE_BYTES.inc(nbytes)
+        trace_add("stage_device_decode_bytes", nbytes)
 
 
 @dataclass

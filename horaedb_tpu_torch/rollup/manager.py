@@ -57,13 +57,15 @@ import pyarrow as pa
 
 from horaedb_tpu_torch.common.error import ensure
 from horaedb_tpu_torch.common.loops import loops
+from horaedb_tpu_torch.common.memledger import ledger as memledger
 from horaedb_tpu_torch.objstore import NotFoundError, ObjectStore
 from horaedb_tpu_torch.ops.downsample import ALL_AGGS
 from horaedb_tpu_torch.ops.filter import And, Eq, In, TimeRangePred
 from horaedb_tpu_torch.rollup.config import RollupConfig
 from horaedb_tpu_torch.storage.read import ScanRequest
 from horaedb_tpu_torch.storage.types import TimeRange, Timestamp
-from horaedb_tpu_torch.utils import registry, span, trace_add
+from horaedb_tpu_torch.utils import (WIDE_BUCKETS, op_trace, registry, span,
+                                     trace_add)
 
 logger = logging.getLogger(__name__)
 
@@ -118,6 +120,10 @@ def _host(grid) -> np.ndarray:
     return np.asarray(grid)
 
 
+_SERVED = registry.counter(
+    "rollup_served_queries_total",
+    "downsample queries answered from a rollup tier "
+    "(labels: table=metric, tier)")
 _FALLBACK = registry.counter(
     "rollup_fallback_queries_total",
     "rollup-shaped queries that fell back to the raw scan "
@@ -133,21 +139,11 @@ _CELLS_WRITTEN = registry.counter(
 _ROLL_SECONDS = registry.histogram(
     "rollup_roll_seconds",
     "per-segment roll latency (aggregate from raw + cell writes, all "
-    "tiers)")
-
-
-def _served_counter(metric: str, tier: str):
-    return registry.counter(
-        f"rollup_served_queries_total:{metric}:{tier}",
-        "downsample queries answered from a rollup tier "
-        "(keyed by metric and tier)")
-
-
-def _lag_gauge(metric: str, fld: str):
-    return registry.gauge(
-        f"rollup_lag_seqs:{metric}:{fld}",
-        "newest raw write seq minus the newest seq incorporated into the "
-        "rollup (keyed by metric and field)")
+    "tiers)", buckets=WIDE_BUCKETS)
+_LAG = registry.gauge(
+    "rollup_lag_seqs",
+    "newest raw write seq minus the newest seq incorporated into the "
+    "rollup (labels: table=metric, field)")
 
 
 async def _collect(stream) -> list[pa.RecordBatch]:
@@ -258,7 +254,20 @@ class RollupManager:
                 await t.close()
             raise
         self._wake = asyncio.Event()
-        self._task = loops.spawn(self._loop, name=f"rollup:{root_path}")
+        # threshold sized to a whole-table registration backfill, the
+        # longest legitimate pass
+        self._task = loops.spawn(
+            self._loop, name=f"rollup:{root_path}", kind="rollup",
+            owner="rollup", period_s=config.roll_interval.seconds,
+            stall_threshold_s=600.0, backlog=self._backlog)
+        # memory plane: the maintenance state — per-segment SST-id
+        # fingerprints + dirty/rolling/unrollable sets — grows with
+        # segment count (the tier tables' caches register via their own
+        # readers)
+        self._mem_account = memledger.register(
+            f"rollup_state:{root_path}",
+            lambda m: m.state_bytes(), anchor=self,
+            kind="rollup_state", owner=root_path)
         if self.specs:
             # recovered/config-registered specs may have pending work
             # (their register()-time wake predates the event existing)
@@ -281,6 +290,33 @@ class RollupManager:
             self._task = None
         for t in self.tiers.values():
             await t.close()
+        memledger.deregister(getattr(self, "_mem_account", None))
+        self._mem_account = None
+
+    def state_bytes(self) -> int:
+        """Estimated host bytes of the in-memory maintenance state
+        (the ledger's pull gauge): 28 B per small int + 56 B per list
+        header for the fingerprints, 64 B per set member."""
+        total = 0
+        for spec in self.specs.values():
+            total += 64 * (len(spec.dirty) + len(spec.rolling)
+                           + len(spec.unrollable))
+            total += sum(56 + 28 * len(ids)
+                         for ids in spec.rolled.values())
+        return total
+
+    def _backlog(self) -> dict:
+        """The watchdog's backlog hint: segments awaiting (or refused)
+        a roll."""
+        return {
+            "dirty_segments": sum(len(s.dirty)
+                                  for s in self.specs.values()),
+            "rolling_segments": sum(len(s.rolling)
+                                    for s in self.specs.values()),
+            "unrollable_segments": sum(len(s.unrollable)
+                                       for s in self.specs.values()),
+            "specs": len(self.specs),
+        }
 
     async def _recover(self) -> None:
         """Load persisted specs; any rolled segment whose CURRENT SST
@@ -421,7 +457,10 @@ class RollupManager:
         out = {}
         async with self._roll_lock:
             _PASSES.inc()
-            with span("rollup_pass"):
+            # one op trace per maintenance pass (a traced caller keeps
+            # the scope)
+            with op_trace("rollup_pass", slow_s=600.0,
+                          specs=len(self.specs)):
                 for spec in list(self.specs.values()):
                     rolled = await self._roll_spec(spec)
                     out[f"{spec.metric}:{spec.field}"] = rolled
@@ -448,7 +487,8 @@ class RollupManager:
             to_roll = [seg for seg in to_roll if seg not in mem_segs]
             for seg in to_roll:
                 t0 = time.perf_counter()
-                with span("rollup_roll"):
+                with span("rollup_roll", metric=spec.metric,
+                          segment=seg):
                     ok = await self._roll_segment(spec, seg)
                 spec.rolling.discard(seg)
                 if not ok:
@@ -554,7 +594,8 @@ class RollupManager:
 
     async def _refresh_lag(self, spec: RollupSpec) -> None:
         newest = await self._newest_raw_seq()
-        _lag_gauge(spec.metric, spec.field).set(self._lag(spec, newest))
+        _LAG.labels(table=spec.metric,
+                    field=spec.field).set(self._lag(spec, newest))
 
     async def _newest_raw_seq(self) -> int:
         ssts = await self._data.manifest.all_ssts()
@@ -626,12 +667,14 @@ class RollupManager:
             spec.fallback_queries += 1
             _FALLBACK.inc()
             return None
-        with span("rollup_serve"):
+        with span("rollup_serve", metric=metric, tier=bucket_ms,
+                  covered=len(covered), tail=len(tail)):
             out = await self._assemble(spec, mid, tsids, start, end,
                                        bucket_ms, nb, set(covered), tail,
                                        tuple(aggs))
         spec.served_queries += 1
-        _served_counter(metric, self.tier_names[bucket_ms]).inc()
+        _SERVED.labels(table=metric,
+                       tier=self.tier_names[bucket_ms]).inc()
         trace_add("rollup_served", 1)
         trace_add("rollup_tail_segments", len(tail))
         return out
@@ -690,7 +733,7 @@ class RollupManager:
         tail_which = tuple(set(aggs)
                            | ({"sum"} if "avg" in aggs else set()))
         for seg in tail:
-            with span("rollup_tail"):
+            with span("rollup_tail", segment=seg):
                 seg_nb = self.segment_ms // bucket_ms
                 out = await self._engine._scan_downsample(
                     And(preds), TimeRange.new(seg, seg + self.segment_ms),
@@ -802,7 +845,7 @@ class RollupManager:
         specs = {}
         for spec in self.specs.values():
             lag = self._lag(spec, newest)
-            _lag_gauge(spec.metric, spec.field).set(lag)
+            _LAG.labels(table=spec.metric, field=spec.field).set(lag)
             clean = [seg for seg in spec.rolled
                      if seg not in spec.dirty and seg not in spec.rolling
                      and seg not in mem_segs

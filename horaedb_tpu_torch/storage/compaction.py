@@ -352,17 +352,36 @@ class Scheduler:
     async def start(self) -> None:
         self._stopping = False
         root = self.storage.root_path
+        # every loop registers with the watchdog (common/loops.py): the
+        # picker's stall threshold scales with its period, the
+        # executor's is sized to a worst-case rewrite
         self._loops = [
             loops.spawn(self._generate_task_loop,
-                        name=f"compact-picker:{root}"),
+                        name=f"compact-picker:{root}",
+                        kind="compact-picker", owner="compaction",
+                        period_s=self.interval_s,
+                        backlog=self._backlog),
             loops.spawn(self._recv_task_loop,
-                        name=f"compact-executor:{root}"),
+                        name=f"compact-executor:{root}",
+                        kind="compact-executor", owner="compaction",
+                        stall_threshold_s=900.0,
+                        backlog=self._backlog),
         ]
         scrub_cfg = self.storage.config.scrub
         if scrub_cfg.enabled:
             self._loops.append(loops.spawn(
                 lambda hb: self._scrub_loop(hb, scrub_cfg.interval.seconds),
-                name=f"orphan-scrubber:{root}"))
+                name=f"orphan-scrubber:{root}", kind="orphan-scrubber",
+                owner="compaction",
+                period_s=scrub_cfg.interval.seconds,
+                stall_threshold_s=300.0))
+
+    def _backlog(self) -> dict:
+        """The watchdog's backlog hint: pending compaction work (queued
+        tasks and reserved rewrite memory)."""
+        return {"pending_tasks": self._tasks.qsize(),
+                "pending_triggers": self._trigger.qsize(),
+                "inused_memory": self.executor.inused_memory}
 
     async def stop(self) -> None:
         # flag + cancel_and_wait: trigger tokens race stop() by design

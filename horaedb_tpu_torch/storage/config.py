@@ -109,6 +109,26 @@ class ManifestConfig:
 
 
 @dataclass
+class RetryConfig:
+    """Object-store retry middleware for the manifest plane
+    (objstore/middleware.py).  This is the ONE engine-level retry
+    layer: the data plane (SST puts/reads) stays single-shot so
+    write-path failures surface to the caller's rollback discipline."""
+
+    enabled: bool = True
+    max_retries: int = 2
+    base_backoff: ReadableDuration = field(
+        default_factory=lambda: ReadableDuration.from_millis(50))
+    max_backoff: ReadableDuration = field(
+        default_factory=lambda: ReadableDuration.from_secs(2))
+    # total per-op wall clock including retries; None = unbounded
+    op_deadline: Optional[ReadableDuration] = None
+    # shared retry token bucket: capacity + refill rate (tokens/second)
+    budget: int = 32
+    budget_refill_per_s: float = 4.0
+
+
+@dataclass
 class ScrubConfig:
     """Orphan scrubber (storage/gc.py): reconciles data/ objects against
     the manifest and deletes unreferenced objects that stay orphaned for
@@ -259,12 +279,14 @@ class StorageConfig:
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
     scan: ScanConfig = field(default_factory=ScanConfig)
     threads: ThreadsConfig = field(default_factory=ThreadsConfig)
+    retry: RetryConfig = field(default_factory=RetryConfig)
     scrub: ScrubConfig = field(default_factory=ScrubConfig)
     update_mode: UpdateMode = UpdateMode.OVERWRITE
 
 
 _DURATION_FIELDS = {"schedule_interval", "merge_interval", "ttl",
-                    "soft_merge_max_wait", "interval", "grace_period"}
+                    "soft_merge_max_wait", "base_backoff", "max_backoff",
+                    "op_deadline", "interval", "grace_period"}
 _SIZE_FIELDS = {"memory_limit", "new_sst_max_size"}
 # Nested sections, keyed by field name.  This dict is THE mechanism for
 # nested coercion: add new nested config dataclasses here.
@@ -278,6 +300,7 @@ _NESTED = {
     "pipeline": ScanPipelineConfig,
     "decode": ScanDecodeConfig,
     "threads": ThreadsConfig,
+    "retry": RetryConfig,
     "scrub": ScrubConfig,
 }
 

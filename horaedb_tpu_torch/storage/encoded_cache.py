@@ -30,10 +30,8 @@ per-SST — a cross-SST assembly failure must NOT poison its siblings
 
 Ownership: event-loop owned, like tier 1 — gets/puts happen on the
 reader's loop; the CPU-heavy deserialize runs on worker pools before
-insertion.  No lock.
-
-Not ported from the JAX package: the memory-ledger account of the
-tier's bytes (the port has no memory ledger yet).
+insertion.  No lock.  The owning reader registers the tier's bytes as
+a memory-ledger account (storage/read.py).
 """
 
 from __future__ import annotations
@@ -43,24 +41,28 @@ from typing import Optional
 
 from horaedb_tpu_torch.utils import registry, trace_add
 
-# tier-2 children of the scan-cache counter families (the window
-# cache's are the unlabelled names in storage/scan_cache.py); the port's
-# registry has no labels, so the tier rides the name after a colon
-_HITS = registry.counter("scan_cache_hits_total:tier2",
-                         "tier-2 scan cache hits")
-_MISSES = registry.counter("scan_cache_misses_total:tier2",
-                           "tier-2 scan cache misses")
-_EVICTIONS = registry.counter("scan_cache_evictions_total:tier2",
-                              "tier-2 scan cache evictions")
+# tier-labeled children of the shared scan-cache families (the hbm
+# tier lives in storage/scan_cache.py)
+_HITS = registry.counter(
+    "scan_cache_hits_total",
+    "scan cache hits by tier").labels(tier="tier2")
+_MISSES = registry.counter(
+    "scan_cache_misses_total",
+    "scan cache misses by tier").labels(tier="tier2")
+_EVICTIONS = registry.counter(
+    "scan_cache_evictions_total",
+    "scan cache evictions by tier").labels(tier="tier2")
 _ADMISSIONS = registry.counter(
-    "scan_cache_admissions_total:tier2",
-    "write-through insertions from write, flush and compaction sidecar "
-    "builds")
+    "scan_cache_admissions_total",
+    "write-through insertions from flush/compaction sidecar builds"
+    ).labels(tier="tier2")
 _INVALIDATED = registry.counter(
-    "scan_cache_invalidated_total:tier2",
-    "tier-2 entries dropped because their SST was deleted")
-_BYTES = registry.gauge("scan_cache_bytes:tier2",
-                        "resident tier-2 cache bytes (host RAM)")
+    "scan_cache_invalidated_total",
+    "cache entries dropped because their SST was deleted"
+    ).labels(tier="tier2")
+_BYTES = registry.gauge(
+    "scan_cache_bytes",
+    "resident cache bytes by tier (host RAM)").labels(tier="tier2")
 
 # negative-entry bound: clear-all on overflow (re-learning a miss costs
 # one GET; unbounded growth costs RAM forever)

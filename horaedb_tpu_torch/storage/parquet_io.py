@@ -592,6 +592,16 @@ def _read_pruned_source(source, columns, leaves, memory_map) -> pa.Table:
 # bytes buffer stays cheaper (no filesystem round trip).
 STREAM_FETCH_MIN_BYTES = 64 << 20
 
+# memory plane: live streamed-SST mappings.  Page-cache-backed, but
+# they count against RSS while hot and must be attributable (a
+# dead-agent fallback streaming large SSTs shows up here, not as a
+# leak).  Charged at map time, credited by a weakref finalizer when the
+# last buffer reference drops (the mapping's lifetime is the buffer's)
+from horaedb_tpu_torch.common.memledger import ledger as _memledger  # noqa: E402
+
+_STREAM_MMAP_ACCOUNT = _memledger.flow(
+    "streamed_mmap", kind="streamed_mmap", owner="storage/parquet_io")
+
 
 async def _fetch_mapped(store: ObjectStore, path: str, runtimes,
                         pool: str) -> pa.Buffer:
@@ -600,6 +610,7 @@ async def _fetch_mapped(store: ObjectStore, path: str, runtimes,
     store.get would have returned, without the resident copy."""
     import mmap
     import tempfile
+    import weakref
 
     f = tempfile.TemporaryFile(prefix="sst-stream-")
     try:
@@ -618,6 +629,8 @@ async def _fetch_mapped(store: ObjectStore, path: str, runtimes,
         # the mapping (and the unlinked file behind it) lives exactly
         # as long as the returned buffer
         mapped = mmap.mmap(f.fileno(), size, access=mmap.ACCESS_READ)
+        _STREAM_MMAP_ACCOUNT.charge(size)
+        weakref.finalize(mapped, _STREAM_MMAP_ACCOUNT.credit, size)
         return pa.py_buffer(mapped)
     finally:
         f.close()

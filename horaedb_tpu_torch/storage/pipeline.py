@@ -33,10 +33,10 @@ does a scan with no store I/O to overlap — every bulk segment tier-2
 resident (read._pipeline_has_io): with nothing to hide, stage
 concurrency only contends for the same host cores.
 
-Not ported from the JAX package: the deadline checkpoints at the stage
-boundaries (the port has no deadline plane yet), the mesh stall
-counters (the port has no scan mesh) and the memory-ledger account of
-the in-flight bytes (no memory ledger yet).
+An expired request deadline stops the fetch and decode stages at their
+next segment boundary (common/deadline.py); the in-flight bytes are a
+memory-ledger account.  Not ported: the mesh stall counters (the port
+has no scan mesh).
 """
 
 from __future__ import annotations
@@ -46,6 +46,7 @@ import os
 import time
 from typing import Optional
 
+from horaedb_tpu_torch.common.deadline import checkpoint as deadline_checkpoint
 from horaedb_tpu_torch.utils import registry, trace_add
 
 # per-stage occupancy of the pipeline beside the plan stages of
@@ -54,32 +55,43 @@ from horaedb_tpu_torch.utils import registry, trace_add
 # path's aggregate rounds including pool-queue wait
 PIPELINE_STAGES = ("fetch", "decode", "device")
 STAGE_SECONDS = {
-    s: registry.histogram(f"scan_stage_seconds:{s}",
-                          f"wall seconds in the pipeline's {s} stage")
+    s: registry.histogram("scan_stage_seconds",
+                          "wall seconds per merge-scan plan stage"
+                          ).labels(stage=s)
     for s in PIPELINE_STAGES
 }
 STAGE_ROWS = {
-    s: registry.counter(f"scan_stage_rows_total:{s}",
-                        f"rows entering the pipeline's {s} stage")
+    s: registry.counter("scan_stage_rows_total",
+                        "rows entering each plan stage").labels(stage=s)
     for s in PIPELINE_STAGES
 }
 STAGE_BYTES = {
-    s: registry.counter(f"scan_stage_bytes_total:{s}",
-                        f"bytes entering the pipeline's {s} stage")
+    s: registry.counter("scan_stage_bytes_total",
+                        "bytes entering each plan stage").labels(stage=s)
     for s in PIPELINE_STAGES
 }
-# stage= names the stage that STARVED: fetch waits on the in-flight
-# budget, decode on a store read, device on decode
 _STALLS = {
-    s: registry.counter(f"scan_pipeline_stalls_total:{s}",
-                        f"times the pipeline's {s} stage waited on its "
-                        f"neighbour")
+    s: registry.counter(
+        "scan_pipeline_stalls_total",
+        "times a pipeline stage waited on its neighbour (stage= is "
+        "the stage that STARVED: fetch waits on the in-flight budget, "
+        "decode on a store read, device on decode)").labels(stage=s)
     for s in PIPELINE_STAGES
 }
 _INFLIGHT_BYTES = registry.gauge(
     "scan_pipeline_inflight_bytes",
     "host bytes held in flight by scan pipelines (fetched parts + "
     "decoded windows not yet consumed)")
+
+# memory plane: pipeline in-flight bytes are transient (per-scan
+# budgets, exact through teardown) with no single resident owner, so
+# the process-level account reads the gauge the budgets already keep
+# exact — one source of truth, no double entry
+from horaedb_tpu_torch.common.memledger import ledger as _memledger  # noqa: E402
+
+_MEM_ACCOUNT = _memledger.register(
+    "pipeline_inflight", lambda: int(_INFLIGHT_BYTES.value),
+    kind="pipeline_inflight", owner="storage/pipeline")
 
 
 def stall_counts() -> dict:
@@ -299,6 +311,9 @@ class ScanPipeline:
                   for f in seg.ssts) * self._EST_BYTES_PER_ROW
         await self.budget.admit(ticket, est)
         try:
+            # inside the try: the admission-time estimate must release
+            # on this exit too
+            deadline_checkpoint()
             t0 = time.perf_counter()
             resident = self.reader._resident_segment_parts(seg, self.plan)
             if resident is not None:
@@ -342,6 +357,10 @@ class ScanPipeline:
     async def _produce(self) -> None:
         try:
             for seg in self.segments:
+                # cooperative cancellation point between segments: an
+                # expired deadline stops decoding a doomed scan (the
+                # error flows to the consumer in order)
+                deadline_checkpoint()
                 if id(seg) in self._streamed:
                     item = await self._decode_streamed(seg)
                 else:

@@ -67,9 +67,14 @@ segment's rows read from parquet (never sidecars: BytesMerge needs the
 exact Arrow bytes), sorted by (PK, __seq__) and merged by the
 BytesMerge operator, uncached; a streamed Append segment merges window
 by window and re-resolves its SSTs after a compaction race mid-segment.
-Not ported: mesh rounds (and their decode rounds and stall counters),
-the near-data router, deadline checkpoints, memory-ledger accounts, and
-the device scalar cache (_scalar_cache), since the port passes the
+Aggregate plans consult the near-data router (scanagent/client.py)
+first: covered segments' partials come from their agents while the
+local pump scans the rest, and a failed agent segment falls back to the
+local pump.  Deadline checkpoints sit between segments and windows, the
+tenant scan-byte quota is charged where stage bytes are attributed, and
+the reader's caches are memory-ledger accounts.  Not ported: mesh
+rounds (and their decode rounds and stall counters), and the device
+scalar cache (_scalar_cache), since the port passes the
 bucket count and width to the kernel as host ints, so a replay has no
 scalar to upload.
 """
@@ -91,7 +96,10 @@ from typing import AsyncIterator, Optional
 import numpy as np
 import pyarrow as pa
 
+from horaedb_tpu_torch.common.deadline import checkpoint as deadline_checkpoint
 from horaedb_tpu_torch.common.error import Error, ensure
+from horaedb_tpu_torch.common.memledger import ledger as memledger
+from horaedb_tpu_torch.common.tenant import charge_scan_bytes
 from horaedb_tpu_torch.objstore import NotFoundError, ObjectStore
 from horaedb_tpu_torch.ops import bucket_agg, device_decode, encode
 from horaedb_tpu_torch.ops import filter as filter_ops
@@ -112,30 +120,42 @@ from horaedb_tpu_torch.storage.types import (
     StorageSchema,
     TimeRange,
 )
-from horaedb_tpu_torch.utils import registry
+from horaedb_tpu_torch.utils import registry, trace_add
 
 logger = logging.getLogger(__name__)
 
 _ROWS_SCANNED = registry.counter(
     "storage_rows_scanned_total", "rows produced by merge-scan")
+# one labeled family per unit (stage= label); per-query attribution
+# additionally lands on the ambient trace through _observe_stage
 _STAGE_SECONDS = {
-    s: registry.histogram(f"scan_stage_seconds:{s}",
-                          f"wall seconds in the {s} plan stage")
+    s: registry.histogram("scan_stage_seconds",
+                          "wall seconds per merge-scan plan stage"
+                          ).labels(stage=s)
     for s in ("segment_read", "merge", "stack_build", "device_aggregate",
               "combine")
 }
 # rows and bytes of the segment reads by source: sidecar (tier 2 or the
 # store) or parquet; the read's seconds go to segment_read
 _STAGE_ROWS = {
-    s: registry.counter(f"scan_stage_rows_total:{s}",
-                        f"rows entering the {s} plan stage")
+    s: registry.counter("scan_stage_rows_total",
+                        "rows entering each plan stage").labels(stage=s)
     for s in ("sidecar_read", "parquet_read")
 }
 _STAGE_BYTES = {
-    s: registry.counter(f"scan_stage_bytes_total:{s}",
-                        f"bytes entering the {s} plan stage")
+    s: registry.counter("scan_stage_bytes_total",
+                        "bytes entering each plan stage").labels(stage=s)
     for s in ("sidecar_read", "parquet_read")
 }
+
+
+def _observe_stage(stage: str, seconds: float) -> None:
+    """Attribute wall time to a plan stage: the cumulative registry
+    histogram and, when a request trace is ambient, its profile."""
+    _STAGE_SECONDS[stage].observe(seconds)
+    trace_add(f"stage_{stage}_ms", seconds * 1e3)
+
+
 _INCR_REMERGE = registry.counter(
     "scan_incremental_remerge_total",
     "segments re-merged from tier-2-resident parts with only the "
@@ -332,6 +352,44 @@ class ParquetReader:
         self._replay_cache: "OrderedDict[tuple, dict]" = OrderedDict()
         self._replay_hits = 0
         self._replay_misses = 0
+        # near-data routing ([scanagent]): a ScanRouter attached here
+        # sends covered segments' aggregate scans to their store-shard
+        # agents and folds the returned partials through the normal
+        # combine (scanagent/client.py); None = the direct-scan control
+        self.scan_router = None
+        # memory plane: every reader-owned byte budget registers a
+        # ledger account tagged with its configured budget; close()
+        # deregisters.  Anchored weakly on the reader.  The pipeline
+        # module's process account must exist the moment a reader does
+        from horaedb_tpu_torch.storage import pipeline as _pipeline  # noqa: F401
+        self._mem_accounts = [
+            # RESIDENT bytes, not the LRU's charged bytes (which
+            # include a worst-case per-window memo allowance)
+            memledger.register(
+                f"scan_cache:{root_path}",
+                lambda r: r._scan_cache_resident_bytes(), anchor=self,
+                kind="scan_cache", budget=cache_bytes, owner=root_path),
+            # round stacks live on the reader's device: host RAM on a
+            # CPU reader, card memory on a CUDA one — there they are
+            # not host RSS (memory_device_bytes covers them)
+            memledger.register(
+                f"stack_cache:{root_path}",
+                lambda r: r._stack_cache_bytes, anchor=self,
+                kind="stack_cache", budget=self._stack_cache_max,
+                owner=root_path, host=not self.on_cuda),
+            memledger.register(
+                f"encoded_cache:{root_path}",
+                lambda r: r.encoded_cache.total_bytes, anchor=self,
+                kind="encoded_cache",
+                budget=config.scan.cache.tier2_max_bytes,
+                owner=root_path),
+            memledger.register(
+                f"parts_memo:{root_path}",
+                lambda r: r.parts_memo.lru.total_bytes, anchor=self,
+                kind="parts_memo",
+                budget=config.scan.combine.memo_max_bytes,
+                owner=root_path),
+        ]
 
     @property
     def on_cuda(self) -> bool:
@@ -340,12 +398,30 @@ class ParquetReader:
         return torch.device(self.device).type == "cuda"
 
     def close(self) -> None:
-        """Release every reader-owned cache tier: a closed table holds
-        no cached bytes (scan_cache_bytes:tier2 reads 0 afterwards)."""
+        """Release every reader-owned cache tier and deregister ledger
+        accounts: a closed table holds no attributable bytes
+        (scan_cache_bytes{tier="tier2"} reads 0 afterwards)."""
         self.drop_hbm_state()
         self.scan_cache.clear()
         self.encoded_cache.clear()
         self.parts_memo.clear()
+        for acct in self._mem_accounts:
+            memledger.deregister(acct)
+        self._mem_accounts = []
+        memledger.reset_device_high_water()
+
+    def _scan_cache_resident_bytes(self) -> int:
+        """Actual bytes the window cache holds: column buffers at their
+        padded widths plus MATERIALIZED memo bytes — the ledger's pull
+        gauge (scan_cache.total_bytes charges the worst-case memo
+        allowance up front instead)."""
+        total = 0
+        for windows in self.scan_cache.values():
+            for w in windows:
+                total += sum(int(c.dtype.itemsize) * w.capacity
+                             for c in w.columns.values())
+                total += int(w.memo_bytes)
+        return total
 
     def drop_hbm_state(self) -> None:
         """Evict everything device-resident that derives from cached
@@ -449,6 +525,9 @@ class ParquetReader:
             feed = self._segment_feed(plan, plan.segments)
             try:
                 async for seg, is_streamed, table, _read_s in feed:
+                    # cooperative deadline checkpoint: an expired query
+                    # aborts between segments, not after a full scan
+                    deadline_checkpoint()
                     async for out in self._append_segment(
                             seg, is_streamed, table, plan):
                         yield out
@@ -460,6 +539,9 @@ class ParquetReader:
         try:
             async for seg, windows in windows_iter:
                 for w in windows:
+                    # per-window deadline checkpoint (the merge loop's
+                    # cooperative cancellation point)
+                    deadline_checkpoint()
                     part = await self._run_pool(
                         self._window_to_arrow, w,
                         list(seg.columns), plan, pool=plan.pool)
@@ -480,6 +562,7 @@ class ParquetReader:
         if is_streamed:
             async for batch in self._stream_window_batches(
                     seg, plan, strict_no_replay=True):
+                deadline_checkpoint()
                 part = await self._run_pool(
                     self._merge_segment_table,
                     pa.Table.from_batches([batch]), plan, pool=plan.pool)
@@ -614,6 +697,10 @@ class ParquetReader:
         feed = self._segment_feed(plan, to_read)
         try:
             for seg in plan.segments:
+                # cooperative deadline checkpoint between segments: a
+                # query that ran out of budget stops reading/merging
+                # instead of finishing a doomed scan
+                deadline_checkpoint()
                 if id(seg) in cached:
                     yield seg, cached[id(seg)]
                     continue
@@ -679,6 +766,9 @@ class ParquetReader:
         pipe = ScanPipeline(self, plan, to_read)
         try:
             for seg in plan.segments:
+                # cooperative deadline checkpoint between segments, same
+                # position as the pump's
+                deadline_checkpoint()
                 if id(seg) in cached:
                     yield seg, cached[id(seg)]
                     continue
@@ -779,9 +869,14 @@ class ParquetReader:
             stage = "parquet_read"
             table = await self._read_segment_table(seg, plan)
         read_s = time.perf_counter() - t0
-        _STAGE_SECONDS["segment_read"].observe(read_s)
+        _observe_stage("segment_read", read_s)
         _STAGE_ROWS[stage].inc(table.num_rows)
         _STAGE_BYTES[stage].inc(table.nbytes)
+        trace_add(f"stage_{stage}_rows", table.num_rows)
+        trace_add(f"stage_{stage}_bytes", table.nbytes)
+        # tenant scan-byte budget: charged where the stage bytes are
+        # attributed, observed at the deadline checkpoints
+        charge_scan_bytes(table.nbytes)
         return table, read_s
 
     def _sidecar_plan_ok(self, plan: ScanPlan) -> bool:
@@ -841,9 +936,12 @@ class ParquetReader:
             return None
         if defer:
             es.pending_leaves = list(plan.prune_leaves or [])
-        _STAGE_SECONDS["segment_read"].observe(time.perf_counter() - t0)
+        _observe_stage("segment_read", time.perf_counter() - t0)
         _STAGE_ROWS["sidecar_read"].inc(es.n)
         _STAGE_BYTES["sidecar_read"].inc(es.nbytes)
+        trace_add("stage_sidecar_read_rows", es.n)
+        trace_add("stage_sidecar_read_bytes", es.nbytes)
+        charge_scan_bytes(es.nbytes)
         return es
 
     async def _read_segment_encoded(self, seg: SegmentPlan, plan: ScanPlan,
@@ -1075,6 +1173,9 @@ class ParquetReader:
             # otherwise count the yielded windows twice
             _STAGE_ROWS["sidecar_read"].inc(rows)
             _STAGE_BYTES["sidecar_read"].inc(nbytes)
+            trace_add("stage_sidecar_read_rows", rows)
+            trace_add("stage_sidecar_read_bytes", nbytes)
+            charge_scan_bytes(nbytes)
 
         return gen()
 
@@ -1138,6 +1239,9 @@ class ParquetReader:
 
         yielded_any = False
         for lo, hi in ranges:
+            # streamed segments can span many windows: check the
+            # deadline before paying for each window's pushdown read
+            deadline_checkpoint()
             expr = (pc.field(part_col) >= pyval(lo)) \
                 & (pc.field(part_col) <= pyval(hi))
             if plan.pushdown is not None:
@@ -1214,7 +1318,7 @@ class ParquetReader:
             return self._merge_windows(_encoded_to_device_batch(table),
                                        list(table.names))
         finally:
-            _STAGE_SECONDS["merge"].observe(time.perf_counter() - t0)
+            _observe_stage("merge", time.perf_counter() - t0)
 
     def _merge_batch(self, batch: pa.RecordBatch) -> list:
         """Encode + host merge of one Arrow batch (a parquet segment, or
@@ -1224,7 +1328,7 @@ class ParquetReader:
             return self._merge_windows(encode.encode_batch(batch),
                                        list(batch.schema.names))
         finally:
-            _STAGE_SECONDS["merge"].observe(time.perf_counter() - t0)
+            _observe_stage("merge", time.perf_counter() - t0)
 
     def _dispatch_device_decode(self, es: sidecar.EncodedSegment,
                                 plan: ScanPlan
@@ -1299,6 +1403,16 @@ class ParquetReader:
             done[seg_start] = seg_parts
         parts = [p for s in sorted(done) for p in done[s]]
         return self.finalize_aggregate(parts, spec)
+
+    def router_covers(self, plan: ScanPlan) -> bool:
+        """Whether the attached near-data router would serve any of
+        this plan's segments.  scan_aggregate consults it ahead of the
+        fused gate: the fused accumulator needs every segment's windows
+        host-resident — exactly the shipped-segment cost the agents
+        exist to avoid — so covered plans take the parts path."""
+        return (self.scan_router is not None
+                and plan.range is not None
+                and self.scan_router.covers_any(plan.segments))
 
     def fused_aggregate_ok(self, plan: Optional[ScanPlan] = None) -> bool:
         """Whether the fused device-accumulated aggregate serves this
@@ -1438,12 +1552,61 @@ class ParquetReader:
                 memo.store(seg_keys[seg_start], spec, memo_pred_key,
                            parts)
 
-        pump = self._aggregate_segments_pump(plan, spec, memo_store)
+        router = self.scan_router
+        covered: list = []
+        uncovered = plan.segments
+        if (router is not None and router.active
+                and plan.range is not None):
+            covered, uncovered = router.split(plan.segments)
+        # every pump iteration below carries an explicit aclose on
+        # abandonment: the pump's in-flight fetch/decode/device tasks
+        # must not outlive a closed consumer into table teardown
+        if not covered:
+            pump = self._aggregate_segments_pump(plan, spec, memo_store)
+            try:
+                async for out in pump:
+                    yield out
+            finally:
+                await pump.aclose()
+            return
+        # near-data routing: agent RPCs run as one background gather
+        # while the local pump scans the uncovered segments, so the
+        # coordinator's store reads and the agents' shard scans overlap
+        agent_task = asyncio.create_task(
+            router.gather(plan, spec, covered))
         try:
-            async for out in pump:
-                yield out
+            if uncovered:
+                pump = self._aggregate_segments_pump(
+                    dc_replace(plan, segments=list(uncovered)), spec,
+                    memo_store)
+                try:
+                    async for out in pump:
+                        yield out
+                finally:
+                    await pump.aclose()
+            served, failed = await agent_task
+            agent_task = None
         finally:
-            await pump.aclose()
+            if agent_task is not None:
+                # local-pump failure/cancellation: the gather must not
+                # outlive the scan into table teardown
+                agent_task.cancel()
+                await asyncio.gather(agent_task, return_exceptions=True)
+        for seg_start, parts in served:
+            memo_store(seg_start, parts)
+            yield seg_start, parts
+        if failed:
+            # THE declared fallback seam: failed covered segments go
+            # through the exact local pump the unrouted scan uses —
+            # direct store reads happen here and nowhere else on the
+            # routed path
+            pump = self._aggregate_segments_pump(
+                dc_replace(plan, segments=list(failed)), spec, memo_store)
+            try:
+                async for out in pump:
+                    yield out
+            finally:
+                await pump.aclose()
 
     async def _aggregate_segments_pump(self, plan: ScanPlan,
                                        spec: AggregateSpec, memo_store):
@@ -1503,6 +1666,9 @@ class ParquetReader:
                 apply(await self._run_pool(self._flush_host_round, chunk,
                                            spec, plan, pool=plan.pool))
                 return
+            # stage-boundary checkpoint: no new device round for an
+            # expired query (the in-flight one drains via settle)
+            deadline_checkpoint()
             await settle_flush()
             flush_task = asyncio.create_task(flush_round(chunk))
 
@@ -1624,8 +1790,7 @@ class ParquetReader:
         host = {k: v[:len(items), :g].cpu().numpy()
                 for k, v in stacked.items()}
         _PARTIALS_D2H_BYTES.inc(sum(int(v.nbytes) for v in host.values()))
-        _STAGE_SECONDS["device_aggregate"].observe(
-            time.perf_counter() - t_dev)
+        _observe_stage("device_aggregate", time.perf_counter() - t_dev)
         parts = []
         for d in range(len(items)):
             lo_w = int(lo[d])
@@ -1678,7 +1843,7 @@ class ParquetReader:
                     group_values, grids = apply_top_k(group_values, grids,
                                                       top_k)
         finally:
-            _STAGE_SECONDS["combine"].observe(time.perf_counter() - t0)
+            _observe_stage("combine", time.perf_counter() - t0)
         if len(group_values) and "last_ts" in grids:
             grids["last_ts"] = grids["last_ts"] + spec.range_start
         return group_values, grids
@@ -1881,7 +2046,7 @@ class ParquetReader:
         out = {k: v[:g] for k, v in final.items()}
         if self.on_cuda:
             torch.cuda.synchronize(self.device)
-        _STAGE_SECONDS["device_aggregate"].observe(time.perf_counter() - t0)
+        _observe_stage("device_aggregate", time.perf_counter() - t0)
         return out
 
     def _window_groups(self, w: encode.DeviceBatch, spec: AggregateSpec,
@@ -2102,7 +2267,7 @@ class ParquetReader:
             small = (put(remap), put(shift), put(lo), lo)
             if cached:
                 self._stack_cache_put(stack_key, windows_now, small)
-        _STAGE_SECONDS["stack_build"].observe(time.perf_counter() - t0)
+        _observe_stage("stack_build", time.perf_counter() - t0)
         return cols + small
 
     def _stack_device_cols(self, items: list, spec: AggregateSpec,

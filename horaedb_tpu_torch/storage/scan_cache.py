@@ -20,12 +20,17 @@ from __future__ import annotations
 
 from collections import OrderedDict
 
-from horaedb_tpu_torch.utils import registry
+from horaedb_tpu_torch.utils import registry, trace_add
 
-_HITS = registry.counter("scan_cache_hits_total", "scan cache hits")
-_MISSES = registry.counter("scan_cache_misses_total", "scan cache misses")
+# shared labeled families across the cache tiers (tier="hbm" here,
+# tier="tier2" in storage/encoded_cache.py)
+_HITS = registry.counter("scan_cache_hits_total",
+                         "scan cache hits by tier").labels(tier="hbm")
+_MISSES = registry.counter("scan_cache_misses_total",
+                           "scan cache misses by tier").labels(tier="hbm")
 _EVICTIONS = registry.counter("scan_cache_evictions_total",
-                              "scan cache evictions")
+                              "scan cache evictions by tier"
+                              ).labels(tier="hbm")
 
 CacheKey = tuple
 
@@ -52,10 +57,11 @@ def windows_nbytes(windows: list) -> int:
 
 class ByteLRU:
     """Byte-budgeted LRU core (event-loop owned — no lock).  Counters
-    are the caller's registry counters."""
+    are the caller's registry counters; `trace_tier` names the
+    "cache_<tier>_*" counters it adds to the ambient trace ("" = none)."""
 
     def __init__(self, max_bytes: int, hits=None, misses=None,
-                 evictions=None):
+                 evictions=None, trace_tier: str = ""):
         self.max_bytes = max_bytes
         self._entries: "OrderedDict[CacheKey, tuple[object, int]]" = \
             OrderedDict()
@@ -63,6 +69,7 @@ class ByteLRU:
         self._hits = hits
         self._misses = misses
         self._evictions = evictions
+        self.trace_tier = trace_tier
         self.hits = 0
         self.misses = 0
 
@@ -72,7 +79,7 @@ class ByteLRU:
             self.record_miss()
             return None
         self._entries.move_to_end(key)
-        self._count_hit()
+        self._count_hit(entry)
         return entry[0]
 
     def peek_entry(self, key: CacheKey):
@@ -87,17 +94,23 @@ class ByteLRU:
         self.misses += 1
         if self._misses is not None:
             self._misses.inc()
+        if self.trace_tier:
+            trace_add(f"cache_{self.trace_tier}_misses")
 
     def record_hit(self, key: CacheKey) -> None:
-        if key not in self._entries:
+        entry = self._entries.get(key)
+        if entry is None:
             return
         self._entries.move_to_end(key)
-        self._count_hit()
+        self._count_hit(entry)
 
-    def _count_hit(self) -> None:
+    def _count_hit(self, entry) -> None:
         self.hits += 1
         if self._hits is not None:
             self._hits.inc()
+        if self.trace_tier:
+            trace_add(f"cache_{self.trace_tier}_hits")
+            trace_add(f"cache_{self.trace_tier}_bytes", entry[1])
 
     def put(self, key: CacheKey, value, nbytes: int) -> None:
         if self.max_bytes <= 0 or nbytes > self.max_bytes:
@@ -136,7 +149,7 @@ class ScanCache(ByteLRU):
 
     def __init__(self, max_bytes: int):
         super().__init__(max_bytes, hits=_HITS, misses=_MISSES,
-                         evictions=_EVICTIONS)
+                         evictions=_EVICTIONS, trace_tier="hbm")
 
     def put(self, key: CacheKey, windows: list) -> None:  # type: ignore[override]
         super().put(key, windows, windows_nbytes(windows))

@@ -16,7 +16,8 @@ close() stops them.  On-disk layout matches the reference
     {root_path}/data/{id}.sst
     {root_path}/data/{id}.enc
 
-The manifest retry layer of the JAX package is not ported yet.
+The manifest plane reads and writes through `RetryingObjectStore`
+([retry]); the data plane stays single-shot.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ import pyarrow.compute as pc
 
 from horaedb_tpu_torch.common import runtimes as runtimes_mod
 from horaedb_tpu_torch.common.error import ensure
-from horaedb_tpu_torch.objstore import NotFoundError, ObjectStore
+from horaedb_tpu_torch.objstore import (NotFoundError, ObjectStore,
+                                       RetryingObjectStore, RetryPolicy)
 from horaedb_tpu_torch.storage import parquet_io, sidecar
 from horaedb_tpu_torch.storage.config import StorageConfig, UpdateMode
 from horaedb_tpu_torch.storage.gc import Scrubber, ScrubReport
@@ -95,9 +97,26 @@ class CloudObjectStorage:
     @classmethod
     async def open(cls, *args, **kwargs) -> "CloudObjectStorage":
         self = cls(*args, **kwargs)
-        self.manifest = await Manifest.open(self.root_path, self.store,
+        # the manifest plane gets the engine's ONE retry layer: a single
+        # transient store error must not fail an otherwise-healthy
+        # acknowledged write.  The data plane stays single-shot — SST
+        # put failures surface to the write path's rollback discipline
+        manifest_store: ObjectStore = self.store
+        rc = self.config.retry
+        if rc.enabled:
+            manifest_store = RetryingObjectStore(self.store, RetryPolicy(
+                max_retries=rc.max_retries,
+                base_backoff_s=rc.base_backoff.seconds,
+                max_backoff_s=rc.max_backoff.seconds,
+                op_deadline_s=(rc.op_deadline.seconds
+                               if rc.op_deadline else None),
+                budget=float(rc.budget),
+                budget_refill_per_s=rc.budget_refill_per_s))
+        self.manifest = await Manifest.open(self.root_path, manifest_store,
                                             self.config.manifest,
                                             runtimes=self.runtimes)
+        # the scrubber reconciles against the RAW store: its deletes are
+        # already a retry loop (next pass)
         self.scrubber = Scrubber(self.root_path, self.store, self.manifest,
                                  self.config.scrub.grace_period.seconds)
         self.reader.resolve_segment_ssts = self._segment_ssts_now
@@ -342,7 +361,10 @@ class CloudObjectStorage:
         if first_plan is None:
             first_plan = await self.build_scan_plan(req)
         parts_route = first_plan.parts_route
-        if self.reader.fused_aggregate_ok(first_plan):
+        # a plan the near-data router covers takes the parts path: the
+        # fused accumulator needs every segment's windows host-resident
+        if (self.reader.fused_aggregate_ok(first_plan)
+                and not self.reader.router_covers(first_plan)):
             from horaedb_tpu_torch.storage.plan import apply_top_k
 
             counted: set = set()  # rows scanned count once per query

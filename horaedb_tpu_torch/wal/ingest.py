@@ -33,10 +33,10 @@ The rollup hooks: `last_seq` (the newest acked seq), `on_flush`
 `memtable_segments()` and `oldest_unflushed_seq()` (rollup/manager.py
 keeps buffered segments raw-served and floors its lag watermark).
 
-Not ported yet (ROADMAP.md): the tenant quota gate ahead of the group
-commit and the memory-ledger accounts of the memtables and the WAL
-backlog, the loop watchdog's arguments and its stall test hook (Queue
-A 10).
+The planes: a tenant's ingest-rate gate (`admit_wal`) runs ahead of
+the group commit; the memtables and the WAL backlog are memory-ledger
+accounts; the flusher loop carries the watchdog's stall threshold and
+backlog hint.
 """
 
 from __future__ import annotations
@@ -50,6 +50,8 @@ import pyarrow as pa
 
 from horaedb_tpu_torch.common.error import ensure
 from horaedb_tpu_torch.common.loops import loops
+from horaedb_tpu_torch.common.memledger import ledger as memledger
+from horaedb_tpu_torch.common.tenant import current_tenant
 from horaedb_tpu_torch.storage.config import UpdateMode
 from horaedb_tpu_torch.storage.read import (
     ScanPlan,
@@ -59,7 +61,8 @@ from horaedb_tpu_torch.storage.read import (
 )
 from horaedb_tpu_torch.storage.sst import SstFile
 from horaedb_tpu_torch.storage.storage import WriteRequest, WriteResult
-from horaedb_tpu_torch.utils import registry, span, trace_add
+from horaedb_tpu_torch.utils import (WIDE_BUCKETS, op_trace, registry, span,
+                                     trace_add)
 from horaedb_tpu_torch.wal.config import WalConfig
 from horaedb_tpu_torch.wal.log import Wal
 from horaedb_tpu_torch.wal.memtable import MemEntry, Memtable
@@ -112,6 +115,7 @@ class IngestStorage:
         # (write_stamped's pre_commit), so a holder that lost it never
         # commits; its rows stay readable and in the WAL
         self.fence = None
+        self._mem_accounts: list = []
 
     def __getattr__(self, name):
         inner = self.__dict__.get("inner")
@@ -153,9 +157,44 @@ class IngestStorage:
                         wal_dir, replayed, len(self._memtables))
         wal.start()
         self._flush_wake = asyncio.Event()
-        self._flusher_task = loops.spawn(self._flush_loop,
-                                         name=f"wal-flusher:{wal_dir}")
+        # stall threshold sized to a worst-case flush (a big memtable's
+        # SST write runs minutes), not the poll period
+        self._flusher_task = loops.spawn(
+            self._flush_loop, name=f"wal-flusher:{wal_dir}",
+            kind="wal-flusher", owner="wal",
+            period_s=config.flush_interval.seconds,
+            stall_threshold_s=300.0,
+            backlog=self._flusher_backlog)
+        # memory plane: acked-but-unflushed rows live twice — arrow
+        # batches in memtables AND framed bytes in un-truncated WAL
+        # segments.  The memtable budget is the flush threshold; the
+        # WAL backlog is unbudgeted (it truncates after flush)
+        self._mem_accounts = [
+            memledger.register(
+                f"memtable:{wal_dir}", lambda s: s.memtable_bytes_now(),
+                anchor=self, kind="memtable",
+                budget=config.flush_bytes, owner=wal_dir),
+            memledger.register(
+                f"wal_backlog:{wal_dir}",
+                lambda s: s.wal.backlog_bytes, anchor=self,
+                kind="wal_backlog", owner=wal_dir),
+        ]
         return self
+
+    def memtable_bytes_now(self) -> int:
+        """Arrow bytes across live AND flush-in-flight memtables (the
+        ledger's pull gauge)."""
+        total = sum(mt.bytes for mt in self._memtables.values())
+        for mts in self._flushing.values():
+            total += sum(mt.bytes for mt in mts)
+        return total
+
+    def _flusher_backlog(self) -> dict:
+        """The watchdog's backlog hint: what the flusher is behind on."""
+        s = self.ingest_stats()
+        return {"memtable_rows": s["memtable_rows"],
+                "memtable_bytes": s["memtable_bytes"],
+                "wal_backlog_bytes": s["wal_backlog_bytes"]}
 
     async def close(self, flush: bool = True) -> None:
         self._stopping = True
@@ -176,6 +215,9 @@ class IngestStorage:
         for mt in self._memtables.values():
             mt.account_drop()
         self._memtables = {}
+        for acct in self._mem_accounts:
+            memledger.deregister(acct)
+        self._mem_accounts = []
         await self.inner.close()
 
     async def abort(self) -> None:
@@ -196,11 +238,17 @@ class IngestStorage:
 
     async def write(self, req: WriteRequest) -> WriteResult:
         self.inner.validate_write(req)
+        # per-tenant ingest-rate gate, AHEAD of the group commit: a
+        # flooding tenant is rejected (QuotaExceeded -> 429) before its
+        # batch costs a WAL frame, an fsync share, or a seq
+        tenant = current_tenant()
+        if tenant is not None:
+            tenant.admit_wal(req.batch.nbytes)
         t0 = time.perf_counter()
         seq = SstFile.allocate_id()
         # the span covers frame + enqueue + the group-commit fsync wait
         # (the ack point)
-        with span("wal_append_fsync"):
+        with span("wal_append_fsync", rows=req.batch.num_rows):
             size = await self.wal.append(seq, req.time_range, req.batch)
         trace_add("wal_append_bytes", size)
         # the fsync ack point: the rows are durable from here on
@@ -310,7 +358,11 @@ class IngestStorage:
                 if mt is not None:
                     mt.account_drop()
                 return 0
-            with span("flush"):
+            # each flush is a background operation with its own op
+            # trace — unless a query's aggregate pre-flush triggered
+            # it, in which case it records as that query's span
+            with op_trace("flush", slow_s=60.0, segment=seg,
+                          rows=mt.rows):
                 return await self._flush_taken(seg, mt)
 
     async def _flush_taken(self, seg: int, mt: Memtable) -> int:
@@ -330,7 +382,8 @@ class IngestStorage:
                     await fence.check()
                 if self._on_op is not None:
                     self._on_op("flush")
-                with span("memtable_flush"):
+                with span("memtable_flush", buckets=WIDE_BUCKETS,
+                          segment=seg, rows=mt.rows):
                     if fence is not None:
                         await self.inner.write_stamped(
                             table, rng, pre_commit=fence.check)
@@ -435,7 +488,7 @@ class IngestStorage:
                 if batch is not None:
                     buffered.setdefault(seg, []).append(batch)
                     continue
-                with span("memtable_overlay"):
+                with span("memtable_overlay", segment=seg):
                     out = merge_memtable_overlay(
                         schema, buffered.pop(seg, []),
                         overlay.pop(seg, []),
@@ -447,7 +500,7 @@ class IngestStorage:
             await seg_iter.aclose()
         # segments living only in memtables (no SSTs yet)
         for seg in sorted(overlay):
-            with span("memtable_overlay"):
+            with span("memtable_overlay", segment=seg):
                 out = merge_memtable_overlay(
                     schema, [], overlay[seg], req.predicate, columns,
                     keep_builtin)

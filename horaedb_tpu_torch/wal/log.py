@@ -25,9 +25,8 @@ here: replay order relies only on the persisted seqs.
 
 Not ported yet: the replication hub's hooks (`verify_frames`,
 `mirror_watermarks`, `segments()`, `read_tail`, `high_watermark`,
-`flushed_seq` and the `retention` hook; ROADMAP Queue A 9), so
-`truncate` deletes every sealed, fully-flushed segment; and the loop
-watchdog's arguments to `loops.spawn` (Queue A 10).
+`flushed_seq` and the `retention` hook; ROADMAP Queue A 9b), so
+`truncate` deletes every sealed, fully-flushed segment.
 """
 
 from __future__ import annotations
@@ -46,7 +45,7 @@ import pyarrow as pa
 from horaedb_tpu_torch.common.error import Error, ensure
 from horaedb_tpu_torch.common.loops import loops
 from horaedb_tpu_torch.storage.types import TimeRange
-from horaedb_tpu_torch.utils import registry, span
+from horaedb_tpu_torch.utils import op_trace, registry
 from horaedb_tpu_torch.wal.config import WalConfig
 
 logger = logging.getLogger(__name__)
@@ -54,9 +53,25 @@ logger = logging.getLogger(__name__)
 _HEADER = struct.Struct("<II")   # payload_len, crc32
 _META = struct.Struct("<Qqq")    # seq, range_start, range_end
 
+_APPENDS = registry.counter(
+    "wal_appends_total", "records appended to the WAL, by log")
+_GROUP_COMMITS = registry.counter(
+    "wal_group_commits_total", "group commits (one fsync each), by log")
+_BYTES_WRITTEN = registry.counter(
+    "wal_bytes_written_total", "bytes appended to WAL segments, by log")
+_REPLAYED_RECORDS = registry.counter(
+    "wal_replayed_records_total", "records recovered by replay, by log")
 _REPLAY_CORRUPT = registry.counter(
     "wal_replay_corrupt_records_total",
     "torn/corrupt records skipped during replay")
+_TRUNCATED_SEGMENTS = registry.counter(
+    "wal_truncated_segments_total",
+    "fully-flushed WAL segments deleted, by log")
+_BACKLOG = registry.gauge(
+    "wal_backlog_bytes",
+    "bytes in WAL segments of open logs not yet truncated, by log")
+_SEGMENTS = registry.gauge(
+    "wal_segments", "live WAL segment files of open logs, by log")
 
 
 class WalError(Error):
@@ -142,25 +157,15 @@ class Wal:
                  on_op: Optional[Callable[[str], None]] = None):
         self.dir = wal_dir
         self.config = config
-        log = os.path.basename(os.path.normpath(wal_dir)) or "wal"
-        self._m_appends = registry.counter(
-            f"wal_appends_total:{log}", "records appended to the WAL")
-        self._m_group_commits = registry.counter(
-            f"wal_group_commits_total:{log}",
-            "group commits (one fsync each)")
-        self._m_bytes_written = registry.counter(
-            f"wal_bytes_written_total:{log}", "bytes appended to WAL segments")
-        self._m_replayed = registry.counter(
-            f"wal_replayed_records_total:{log}",
-            "records recovered by replay")
-        self._m_truncated = registry.counter(
-            f"wal_truncated_segments_total:{log}",
-            "fully-flushed WAL segments deleted")
-        self._m_backlog = registry.gauge(
-            f"wal_backlog_bytes:{log}",
-            "bytes in WAL segments of open logs not yet truncated")
-        self._m_segments = registry.gauge(
-            f"wal_segments:{log}", "live WAL segment files of open logs")
+        lab = {"log": os.path.basename(os.path.normpath(wal_dir)) or "wal"}
+        self._log_label = lab["log"]
+        self._m_appends = _APPENDS.labels(**lab)
+        self._m_group_commits = _GROUP_COMMITS.labels(**lab)
+        self._m_bytes_written = _BYTES_WRITTEN.labels(**lab)
+        self._m_replayed = _REPLAYED_RECORDS.labels(**lab)
+        self._m_truncated = _TRUNCATED_SEGMENTS.labels(**lab)
+        self._m_backlog = _BACKLOG.labels(**lab)
+        self._m_segments = _SEGMENTS.labels(**lab)
         self._on_op = on_op
         self._active: Optional[_Segment] = None
         self._active_file = None
@@ -212,8 +217,14 @@ class Wal:
     def start(self) -> None:
         ensure(self._commit_task is None, "wal already started")
         self._wake = asyncio.Event()
-        self._commit_task = loops.spawn(self._commit_loop,
-                                        name=f"wal-commit:{self.dir}")
+        # fsync rounds are seconds at worst even on sick disks; a
+        # committer that stops beating for 30 s is wedged, not busy
+        self._commit_task = loops.spawn(
+            self._commit_loop, name=f"wal-commit:{self.dir}",
+            kind="wal-commit", owner="wal", stall_threshold_s=30.0,
+            backlog=lambda: {"queued_records": len(self._queue),
+                             "queued_bytes": self._queue_bytes,
+                             "backlog_bytes": self.backlog_bytes})
 
     async def close(self) -> None:
         self._stopping = True
@@ -284,7 +295,10 @@ class Wal:
                     size += len(item[0])
                 self._queue_bytes -= size
                 try:
-                    with span("wal_commit"):
+                    # one op trace per group-commit fsync round
+                    with op_trace("wal_commit", slow_s=5.0,
+                                  log=self._log_label,
+                                  records=len(group), bytes=size):
                         await self._commit_group(group, size)
                     hb.ok()
                 except asyncio.CancelledError:

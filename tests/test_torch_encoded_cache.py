@@ -256,10 +256,10 @@ def _invalidate_scenario(P, c, off, ro):
 
 
 def test_bytes_gauge_follows_every_instance():
-    """The port's scan_cache_bytes:tier2 gauge moves by deltas, so it
-    sums every live cache and reads its start value once they are
+    """The port's scan_cache_bytes{tier="tier2"} gauge moves by deltas,
+    so it sums every live cache and reads its start value once they are
     cleared."""
-    gauge = registry.gauge("scan_cache_bytes:tier2")
+    gauge = registry.gauge("scan_cache_bytes").labels(tier="tier2")
     start = gauge.value
     with cache_of(PORT, 1 << 20) as a, cache_of(PORT, 1 << 20) as b:
         a.put(1, int_part(PORT, {"a": np.arange(100)}), 100)

@@ -31,7 +31,8 @@ def _port_modules() -> list[str]:
 def test_the_scan_covers_every_port_module():
     """The walk below finds every module of the port, the parts path's,
     compaction's, the scrubber's, the device decode's, the WAL's, the
-    rollups' and the chunked layout's included."""
+    rollups', the chunked layout's, the planes' and the scan agents'
+    included."""
     mods = _port_modules()
     for m in ("horaedb_tpu_torch.common.loops",
               "horaedb_tpu_torch.storage.combine",
@@ -54,7 +55,22 @@ def test_the_scan_covers_every_port_module():
               "horaedb_tpu_torch.rollup.config",
               "horaedb_tpu_torch.rollup.manager",
               "horaedb_tpu_torch.metric_engine.chunks",
-              "horaedb_tpu_torch.metric_engine.functions"):
+              "horaedb_tpu_torch.metric_engine.functions",
+              "horaedb_tpu_torch.utils.metrics",
+              "horaedb_tpu_torch.utils.tracing",
+              "horaedb_tpu_torch.common.deadline",
+              "horaedb_tpu_torch.common.memledger",
+              "horaedb_tpu_torch.common.tenant",
+              "horaedb_tpu_torch.common.ipc",
+              "horaedb_tpu_torch.objstore.middleware",
+              "horaedb_tpu_torch.cluster",
+              "horaedb_tpu_torch.cluster.breaker",
+              "horaedb_tpu_torch.scanagent",
+              "horaedb_tpu_torch.scanagent.config",
+              "horaedb_tpu_torch.scanagent.wire",
+              "horaedb_tpu_torch.scanagent.agent",
+              "horaedb_tpu_torch.scanagent.client",
+              "horaedb_tpu_torch.scanagent.__main__"):
         assert m in mods, m
 
 
@@ -202,6 +218,38 @@ def test_chunked_and_rollup_engines_refuse_cpu_fallback(monkeypatch, layout):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(Error, match="CUDA"):
         asyncio.run(MetricEngine.open("t", MemoryObjectStore(), **kw))
+
+
+def test_agent_service_refuses_cpu_fallback(monkeypatch):
+    """A scan agent's reader opens on the card: no card, no agent,
+    unless the caller asks for the CPU."""
+    import torch
+
+    from horaedb_tpu_torch.common.error import Error
+    from horaedb_tpu_torch.objstore import MemoryObjectStore
+    from horaedb_tpu_torch.scanagent import AgentService
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(Error, match="CUDA"):
+        AgentService(MemoryObjectStore())
+    service = AgentService(MemoryObjectStore(), device="cpu")
+    assert service.device.type == "cpu"
+    service.runtimes.close()
+
+
+def test_scanagent_cli_refuses_to_start_without_a_card(tmp_path):
+    """`python -m horaedb_tpu_torch.scanagent` defaults to --device
+    cuda: on a machine without a card it exits with the error before
+    it binds a port."""
+    code = (
+        "import sys, torch\n"
+        "torch.cuda.is_available = lambda: False\n"
+        "from horaedb_tpu_torch.scanagent.__main__ import main\n"
+        f"main(['--data-dir', {str(tmp_path)!r}, '--port', '0'])\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "needs a CUDA device" in out.stderr
 
 
 def test_kernel_wrapper_takes_plain_only_for_cpu_tensors():

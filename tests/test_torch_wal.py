@@ -288,14 +288,13 @@ def test_group_commit_coalesces(tmp_path):
                                for seq in range(1, 33)])
         await wal.close()
 
-    before = registry.counter(
-        f"wal_group_commits_total:{tmp_path.name}").value
+    commits = registry.counter("wal_group_commits_total").labels(
+        log=tmp_path.name)
+    before = commits.value
     run(go())
     # 32 concurrent writers share fsyncs: one per group
     assert 1 <= len(fsyncs) < 32
-    assert registry.counter(
-        f"wal_group_commits_total:{tmp_path.name}").value - before == \
-        len(fsyncs)
+    assert commits.value - before == len(fsyncs)
 
 
 # ---- the overlay merge ----------------------------------------------------
