@@ -210,11 +210,51 @@ non-zero and prints no result line:
    stitched trace of an agent-served query; the memory ledger (also
    printed after config 1): attributed bytes per account kind against
    RSS, CUDA live bytes against max_memory_allocated.
-16. a JSON line of per-kernel numbers (with `wal_launches`,
-   `config4_launches`, the rollup, chunked and scanagent cells'
-   launches beside `launches`, and the partials entry's time at the
-   chunked shape), the total seconds, the card line again, and the
-   last line {"ok": true, "device": {...}}.
+16. server: BASELINE config 1, unchanged, over HTTP: the port's server
+   in process (ServerState + build_app on an AppRunner at 127.0.0.1:0)
+   from docs/example.toml loaded by the port's load_config, its data_dir
+   and WAL dir moved into a scratch directory beside this script (a
+   LocalObjectStore, removed after).  Ingest through POST /write_arrow
+   in 1M-row Arrow IPC bodies; then two nodes over the same store: the
+   example's own scan budget (parts route: device decode,
+   kway_merge_perm, bucket_window_partials) and the scan cache at 4 x
+   rows (fused route, the replay).  Per node: POST /query at 1 min over
+   the whole range true cold and 5 repeats (each repeat's body byte-equal
+   to the cold one), beside the direct query_downsample in turns; the
+   cold body byte for byte the direct call's after the JSON round trip
+   and against numpy (count, min, max, last exact; sum, avg rtol 1e-5);
+   each kernel entry on the node's route launched; /query_topk (top 10
+   by max at 1 h), /query_multi and /query_arrow against their direct
+   calls; /label_values, /stats (no deviceprof key), /metrics and
+   /admin/flush.  Then the CLI: `python -m horaedb_tpu_torch.server`
+   from a copy of the config in a subprocess, GET / until it answers,
+   one /write, a /query that returns it, SIGTERM: it must exit 0, its
+   engine on the card.
+17. cluster: config 1's shape at full rows over Cluster.open(
+   num_regions=4) on one card, region 3's engine behind a second server
+   in process reached through RemoteRegion: each region's share (by
+   routing_key of each host) through its own engine (write_arrow, or
+   /write_arrow for the remote one), a 10,000-sample tail through
+   Cluster.write, query_downsample_gather at 1 min over the whole range
+   against numpy with no partial answer, a repeat, then split_region
+   and the same query, byte-equal.
+18. failover: the JAX package's bench config 20 and config 21 drills
+   (suite.py run_config20, run_config21) at their own parameters on the
+   card: 200,000 fixture rows over 50 hosts, Poisson dashboards (/query,
+   1 h at 5 min, 5/s) and single-sample /writes (10/s) over a 12 s leg,
+   the primary killed at 6 s (listener gone, tables aborted with no
+   final flush), a 2 s lease TTL, FaultInjectingStore(seed 20 or 21) at
+   20 ms.  Config 20 promotes through promote() under the harness;
+   config 21 lets a StandbyMonitor elect itself.  Per drill failover_ms,
+   p99 and status codes per phase, and for 21 the election attempts,
+   outcome and its failover bound; acked_write_loss must be 0 in both,
+   21 must meet its bound, and the card's live bytes must be back
+   within 16 MiB after each drill.
+19. a JSON line of per-kernel numbers (with `wal_launches`,
+   `config4_launches`, the rollup, chunked, scanagent, server, cluster
+   and failover cells' launches beside `launches`, and the partials
+   entry's time at the chunked shape), the total seconds, the card line
+   again, and the last line {"ok": true, "device": {...}}.
 
 Needs one CUDA card; a missing card is a failure, never a CPU run.
 """
@@ -4620,6 +4660,860 @@ async def scanagent_phase(ba, mg, dd, per_host: int = 100_000) -> dict:
     return res
 
 
+# ---- the server, the cluster and the failover drills -----------------------
+
+
+def free_port() -> int:
+    """A port on 127.0.0.1 that nothing listens on right now."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+async def start_site(state):
+    """The port's server in process: build_app on an AppRunner at
+    127.0.0.1:0.  Returns (runner, base url)."""
+    from aiohttp import web
+
+    from horaedb_tpu_torch.server.main import build_app
+
+    runner = web.AppRunner(build_app(state))
+    await runner.setup()
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    return runner, f"http://127.0.0.1:{runner.addresses[0][1]}"
+
+
+def json_grids(body: dict) -> dict:
+    """A downsample body's grids as float64 arrays (null -> NaN)."""
+    import numpy as np
+
+    return {k: np.array(v, dtype=np.float64).reshape(
+        len(body["tsids"]), body["num_buckets"])
+        for k, v in body["aggs"].items()}
+
+
+def wire_equals_direct(body: dict, direct: dict, what: str) -> None:
+    """A grid that came back over HTTP equals the same engine's direct
+    call byte for byte after the JSON round trip: tsids as strings,
+    NaN as null, every other cell's float64 bytes equal."""
+    import numpy as np
+
+    if body["tsids"] != [str(t) for t in direct["tsids"]]:
+        raise AssertionError(f"{what}: tsids differ from the direct call")
+    if body["num_buckets"] != direct["num_buckets"]:
+        raise AssertionError(f"{what}: num_buckets differs")
+    got, want = json_grids(body), host_grids(direct)
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: grids {sorted(got)} != "
+                             f"{sorted(want)}")
+    for k, w in want.items():
+        w = w.astype(np.float64)
+        nan = np.isnan(w)
+        if not np.array_equal(np.isnan(got[k]), nan) or \
+                got[k][~nan].tobytes() != w[~nan].tobytes():
+            raise AssertionError(f"{what}: grid {k} differs in its bytes "
+                                 f"after the JSON round trip")
+
+
+def check_config1(grids: dict, want: dict, order, what: str) -> None:
+    """count, min, max and last equal numpy; sum and avg within rtol
+    1e-5 (rows in tsid order)."""
+    import numpy as np
+
+    for k in ("count", "min", "max", "last"):
+        if not np.array_equal(np.asarray(grids[k], dtype=np.float64),
+                              want[k][order], equal_nan=True):
+            raise AssertionError(f"{what}: {k} differs from numpy")
+    for k in ("sum", "avg"):
+        np.testing.assert_allclose(np.asarray(grids[k], dtype=np.float64),
+                                   want[k][order], rtol=1e-5,
+                                   err_msg=f"{what}: {k}")
+
+
+async def server_phase(ba, mg, rows: int) -> dict:
+    """BASELINE config 1, unchanged, over HTTP: the port's server in
+    process (ServerState + build_app on an AppRunner) from
+    docs/example.toml loaded by the port's load_config, its data_dir and
+    WAL dir moved into a scratch directory beside this script.  Ingest
+    through POST /write_arrow in 1M-row batches; then two nodes over the
+    same store, in turns: the example's own scan budget (parts route:
+    device decode, kway_merge_perm, bucket_window_partials) and the scan
+    cache at 4 x rows (fused route and the replay).  Per node: POST
+    /query at 1 min over the whole range true cold and 5 repeats, each
+    beside the direct query_downsample in turns; /query_topk,
+    /query_multi, /query_arrow, /label_values, /stats, /metrics and
+    /admin/flush.  Then the CLI: `python -m horaedb_tpu_torch.server`
+    from a copy of the config, one /write, a /query that returns it, and
+    SIGTERM, after which it must exit 0."""
+    import copy
+    import shutil
+    import signal
+
+    import aiohttp
+    import numpy as np
+    import pyarrow as pa
+    import torch
+
+    from horaedb_tpu_torch.common.ipc import (downsample_from_arrow,
+                                              serialize_stream)
+    from horaedb_tpu_torch.metric_engine import Label, MetricEngine
+    from horaedb_tpu_torch.metric_engine.types import tsid_of
+    from horaedb_tpu_torch.server.config import load_config
+    from horaedb_tpu_torch.server.main import ServerState, _build_store
+    from horaedb_tpu_torch.storage.types import TimeRange
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    d = config1_rows(rows)
+    hosts, interval, segment_ms = d["hosts"], d["interval"], d["segment_ms"]
+    per_host, T0, n, names = d["per_host"], d["T0"], d["n"], d["names"]
+    ts, host_id, vals = d["ts"], d["host_id"], d["vals"]
+    nb = -(-per_host * interval // BMS)
+    full = (T0, T0 + nb * BMS)
+    root = scratch_dir("server")
+    out: dict = {"rows": n, "buckets": nb}
+    runners = []
+    engines = []
+    session = aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600))
+    try:
+        cfg = load_config(os.path.join(here, "docs", "example.toml"))
+        cfg.metric_engine.object_store.data_dir = os.path.join(root, "data")
+        cfg.wal.dir = os.path.join(root, "wal")
+        store = _build_store(cfg)
+
+        async def node(scan_overrides: dict):
+            ncfg = copy.deepcopy(cfg)
+            for k, v in scan_overrides.items():
+                setattr(ncfg.metric_engine.time_merge_storage.scan, k, v)
+            e = await MetricEngine.open(
+                "metrics", store,
+                segment_ms=ncfg.metric_engine.segment_duration.millis,
+                config=ncfg.metric_engine.time_merge_storage,
+                wal_config=ncfg.wal, rollup_config=ncfg.rollup,
+                meta_config=ncfg.meta, scanagent_config=ncfg.scanagent)
+            engines.append(e)
+            state = ServerState(e, ncfg)
+            runner, base = await start_site(state)
+            runners.append(runner)
+            return e, base
+
+        async def post(base, path, **kw):
+            async with session.post(base + path, **kw) as r:
+                body = await r.read()
+                if r.status != 200:
+                    raise AssertionError(f"{path}: {r.status} "
+                                         f"{body[:300]!r}")
+                return body
+
+        async def get(base, path, **kw):
+            async with session.get(base + path, **kw) as r:
+                body = await r.read()
+                if r.status != 200:
+                    raise AssertionError(f"{path}: {r.status} "
+                                         f"{body[:300]!r}")
+                return body
+
+        e_parts, base_parts = await node({})
+        # ingest over HTTP: Arrow IPC bodies of 1M rows
+        t0 = time.perf_counter()
+        chunk = max(1, 1_000_000 // hosts) * hosts
+        posted = 0
+        for lo in range(0, n, chunk):
+            hi = min(n, lo + chunk)
+            body = serialize_stream(host_batch(names, host_id[lo:hi],
+                                               ts[lo:hi], vals[lo:hi]))
+            got = json.loads(await post(
+                base_parts, "/write_arrow", params={"metric": "cpu",
+                                                    "tags": "host"},
+                data=body))
+            posted += got["written"]
+        out["ingest_s"] = time.perf_counter() - t0
+        if posted != n:
+            raise AssertionError(f"server: /write_arrow wrote {posted} "
+                                 f"of {n} rows")
+        for t in e_parts.tables.values():
+            await t.manifest.trigger_merge()
+        log(f"server: ingest of {n:,} rows through POST /write_arrow in "
+            f"{out['ingest_s']!r} s")
+        e_fused, base_fused = await node({"cache_max_rows": 4 * n})
+
+        tsid_of_host = np.array([tsid_of("cpu", [Label("host",
+                                                       f"host_{i:03d}")])
+                                 for i in range(hosts)], dtype=np.uint64)
+        order = np.argsort(tsid_of_host)
+        want = host_major_reference(vals.astype(np.float32), hosts,
+                                    per_host, T0, interval, BMS, nb)
+        q = {"metric": "cpu", "filters": {}, "start": full[0],
+             "end": full[1], "bucket_ms": BMS}
+        rng = TimeRange.new(*full)
+        legs = {"parts": (e_parts, base_parts,
+                          ("bucket_window_partials", "kway_merge_perm")),
+                "fused": (e_fused, base_fused,
+                          ("bucket_round_accumulate",))}
+        out["legs"] = {}
+        for name, (e, base, route) in legs.items():
+            reader = e.tables["data"].reader
+            rec: dict = {"http_ms": [], "direct_ms": [],
+                         "http_launches": [], "direct_launches": []}
+            cold_body = None
+            for rep in range(6):
+                # each call's launches are counted from 0 around it
+                # alone, so the HTTP route's count owes nothing to the
+                # direct control that follows it
+                if rep == 0:
+                    true_cold(reader)
+                reset_all(ba, mg)
+                t0 = time.perf_counter()
+                raw = await post(base, "/query", json=q)
+                rec["http_ms"].append((time.perf_counter() - t0) * 1e3)
+                rec["http_launches"].append(launches(ba, mg))
+                if rep == 0:
+                    cold_body = raw
+                elif raw != cold_body:
+                    raise AssertionError(f"server {name}: repeat {rep}'s "
+                                         f"body differs from the cold one")
+                if rep == 0:
+                    true_cold(reader)
+                reset_all(ba, mg)
+                t0 = time.perf_counter()
+                direct = await e.query_downsample("cpu", [], rng, BMS)
+                torch.cuda.synchronize()
+                rec["direct_ms"].append((time.perf_counter() - t0) * 1e3)
+                rec["direct_launches"].append(launches(ba, mg))
+                if rep == 0:
+                    body = json.loads(cold_body)
+                    wire_equals_direct(body, direct, f"server {name} /query")
+                    check_config1(json_grids(body), want, order,
+                                  f"server {name} /query")
+                    rec["body_bytes"] = len(cold_body)
+            # the gate reads the true-cold HTTP /query alone
+            rec["launches"] = rec["http_launches"][0]
+            for k in route:
+                if rec["launches"][k] < 1:
+                    raise AssertionError(f"server {name}: {k} never "
+                                         f"launched by the cold HTTP "
+                                         f"/query on the leg's route")
+            # the other query routes, each against its direct call
+            topk_q = {**q, "bucket_ms": 3_600_000, "k": 10, "by": "max"}
+            body = json.loads(await post(base, "/query_topk", json=topk_q))
+            wire_equals_direct(body, await e.query_topk(
+                "cpu", [], rng, 3_600_000, k=10, by="max"),
+                f"server {name} /query_topk")
+            if len(body["tsids"]) != 10:
+                raise AssertionError("server: /query_topk k=10")
+            body = json.loads(await post(base, "/query_multi", json={
+                **q, "bucket_ms": 3_600_000, "fields": ["value"]}))
+            multi = await e.query_downsample_multi(
+                "cpu", [], rng, 3_600_000, fields=["value"])
+            wire_equals_direct(body["value"], multi["value"],
+                               f"server {name} /query_multi")
+            raw = await post(base, "/query_arrow",
+                             json={**q, "compression": "zstd"})
+            arrow = downsample_from_arrow(pa.ipc.open_stream(raw).read_all())
+            same_result_bytes(
+                arrow, {**direct, "aggs": {k: v.astype(np.float64) for k, v
+                                           in host_grids(direct).items()}},
+                f"server {name} /query_arrow")
+            vals_body = json.loads(await get(base, "/label_values", params={
+                "metric": "cpu", "key": "host", "start": str(full[0]),
+                "end": str(full[1])}))
+            if vals_body["values"] != [f"host_{i:03d}" for i in range(hosts)]:
+                raise AssertionError("server: /label_values")
+            stats = json.loads(await get(base, "/stats"))
+            if stats["tables"]["data"]["rows"] < n or "deviceprof" in stats:
+                raise AssertionError("server: /stats")
+            metrics = (await get(base, "/metrics")).decode()
+            if "scan_stage_seconds" not in metrics:
+                raise AssertionError("server: /metrics")
+            flushed = json.loads(await post(base, "/admin/flush"))
+            rec["admin_flush"] = flushed
+            for k in ("http_ms", "direct_ms"):
+                rec[k.replace("_ms", "_cold_ms")] = rec[k][0]
+                rec[k.replace("_ms", "_cached_p50_ms")] = \
+                    statistics.median(rec[k][1:])
+            out["legs"][name] = rec
+            log(f"server [{name}]: /query cold {rec['http_cold_ms']!r} ms, "
+                f"cached p50 {rec['http_cached_p50_ms']!r} ms (body "
+                f"{rec['body_bytes']:,} B); direct cold "
+                f"{rec['direct_cold_ms']!r} ms, cached p50 "
+                f"{rec['direct_cached_p50_ms']!r} ms; cold HTTP /query "
+                f"launches {rec['launches']}, cold direct call "
+                f"{rec['direct_launches'][0]}; HTTP grids byte-equal to "
+                f"the direct call and to numpy")
+        for r in runners:
+            await r.cleanup()
+        runners.clear()
+        for e in engines:
+            await e.close()
+        engines.clear()
+
+        # the CLI: a subprocess from a copy of the config
+        port = free_port()
+        toml = os.path.join(root, "server.toml")
+        with open(os.path.join(here, "docs", "example.toml")) as f:
+            text = f.read()
+        text = text.replace("port = 5000", f"port = {port}", 1)
+        text = text.replace('data_dir = "/tmp/horaedb-tpu-data"',
+                            f'data_dir = "{os.path.join(root, "cli")}"', 1)
+        with open(toml, "w") as f:
+            f.write(text)
+        t0 = time.perf_counter()
+        cli_log = open(os.path.join(root, "cli.log"), "w+")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "horaedb_tpu_torch.server", "--config",
+             toml], cwd=here, stdout=cli_log, stderr=subprocess.STDOUT)
+        base = f"http://127.0.0.1:{port}"
+        try:
+            for _ in range(600):
+                if proc.poll() is not None:
+                    cli_log.seek(0)
+                    raise AssertionError(
+                        f"server CLI exited {proc.returncode}: "
+                        f"{cli_log.read()[-2000:]}")
+                try:
+                    await get(base, "/")
+                    break
+                except (aiohttp.ClientError, AssertionError):
+                    await asyncio.sleep(0.2)
+            else:
+                raise AssertionError("server CLI never answered GET /")
+            out["cli_start_s"] = time.perf_counter() - t0
+            await post(base, "/write", json={"samples": [
+                {"name": "cli", "labels": {"host": "a"},
+                 "timestamp": T0, "value": 42.5}]})
+            body = json.loads(await post(base, "/query", json={
+                "metric": "cli", "filters": {"host": "a"}, "start": T0,
+                "end": T0 + 1000}))
+            if body["values"] != [42.5]:
+                raise AssertionError(f"server CLI: /query returned {body}")
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                rc = proc.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                raise AssertionError("server CLI ignored SIGTERM")
+        cli_log.seek(0)
+        log_tail = cli_log.read()
+        cli_log.close()
+        if rc != 0:
+            raise AssertionError(f"server CLI exited {rc}: {log_tail[-2000:]}")
+        if "device cuda" not in log_tail:
+            raise AssertionError("server CLI: the engine did not open on "
+                                 "the card")
+        out["cli_rc"] = rc
+        log(f"server: CLI started in {out['cli_start_s']!r} s, wrote and "
+            f"read back one sample, exited {rc} on SIGTERM")
+        return out
+    finally:
+        await session.close()
+        for r in runners:
+            await r.cleanup()
+        for e in engines:
+            await e.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+async def cluster_phase(ba, mg, rows: int) -> dict:
+    """Config 1's shape at full rows over a 4-region Cluster on one
+    card: regions 0-2 local, region 3's engine behind a second port
+    server in process, reached through RemoteRegion.  Each region's
+    share (routing_key of each host) is ingested through its own engine
+    (write_arrow, or /write_arrow for the remote one), then a 10,000-
+    sample tail through Cluster.write; query_downsample_gather at 1 min
+    over the whole range against numpy; then split_region and the same
+    query again, byte-equal."""
+    import numpy as np
+    import torch
+
+    from horaedb_tpu_torch.cluster import Cluster, RemoteRegion, routing_key
+    from horaedb_tpu_torch.common.time_ext import now_ms
+    from horaedb_tpu_torch.metric_engine import (Label, MetricEngine,
+                                                 Sample)
+    from horaedb_tpu_torch.metric_engine.types import tsid_of
+    from horaedb_tpu_torch.objstore import MemoryObjectStore
+    from horaedb_tpu_torch.server.config import ServerConfig
+    from horaedb_tpu_torch.server.main import ServerState
+    from horaedb_tpu_torch.storage.types import TimeRange
+
+    d = config1_rows(rows)
+    hosts, interval, segment_ms = d["hosts"], d["interval"], d["segment_ms"]
+    per_host, T0, n, names = d["per_host"], d["T0"], d["n"], d["names"]
+    ts, host_id, vals = d["ts"], d["host_id"], d["vals"]
+    tail_ticks = 10_000 // hosts
+    tail_vals = np.random.default_rng(1).random(tail_ticks * hosts) * 100
+    all_ticks = per_host + tail_ticks
+    nb = -(-all_ticks * interval // BMS)
+    rng = TimeRange.new(T0, T0 + nb * BMS)
+    store = MemoryObjectStore()
+    out: dict = {"rows": n + tail_ticks * hosts, "regions": 4}
+    c = await Cluster.open("cluster", store, num_regions=4,
+                           segment_ms=segment_ms, serve={0, 1, 2})
+    remote_engine = await MetricEngine.open("cluster/region_3", store,
+                                            segment_ms=segment_ms)
+    runner = None
+    try:
+        runner, base = await start_site(ServerState(remote_engine,
+                                                    ServerConfig()))
+        c.add_remote_region(3, RemoteRegion(base, timeout_s=600.0))
+        now = now_ms()
+        host_region = np.array([c.routing.route_write(
+            routing_key("cpu", [Label("host", f"host_{i:03d}")]), now)
+            for i in range(hosts)])
+        out["hosts_per_region"] = {int(r): int((host_region == r).sum())
+                                   for r in range(4)}
+        t0 = time.perf_counter()
+        for rid in range(4):
+            sel = host_region[host_id] == rid
+            idx = np.flatnonzero(sel)
+            chunk = 1_000_000
+            for lo in range(0, len(idx), chunk):
+                part = idx[lo:lo + chunk]
+                await c.regions[rid].write_arrow(
+                    "cpu", ["host"], host_batch(names, host_id[part],
+                                                ts[part], vals[part]))
+        tail = [Sample("cpu", [Label("host", f"host_{h:03d}")],
+                       int(T0 + (per_host + j) * interval),
+                       float(tail_vals[j * hosts + h]))
+                for j in range(tail_ticks) for h in range(hosts)]
+        await c.write(tail)
+        out["ingest_s"] = time.perf_counter() - t0
+        remote_rows = (await remote_engine.stats())["tables"]["data"]["rows"]
+        log(f"cluster: {out['rows']:,} rows over regions "
+            f"{out['hosts_per_region']} (hosts each), region 3 remote "
+            f"({remote_rows:,} rows through /write_arrow and /write), in "
+            f"{out['ingest_s']!r} s")
+        if remote_rows <= 0:
+            raise AssertionError("cluster: the remote region took no rows")
+
+        tsid_of_host = np.array([tsid_of("cpu", [Label("host",
+                                                       f"host_{i:03d}")])
+                                 for i in range(hosts)], dtype=np.uint64)
+        order = np.argsort(tsid_of_host)
+        all_vals = np.concatenate([vals, tail_vals]).astype(np.float32)
+        want = host_major_reference(all_vals, hosts, all_ticks, T0,
+                                    interval, BMS, nb)
+
+        async def gather(what):
+            reset_all(ba, mg)
+            t0 = time.perf_counter()
+            res, meta = await c.query_downsample_gather("cpu", [], rng, BMS)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if meta.partial or meta.missing_regions:
+                raise AssertionError(f"cluster {what}: partial answer "
+                                     f"{meta.errors}")
+            if res["tsids"] != [int(t) for t in tsid_of_host[order]]:
+                raise AssertionError(f"cluster {what}: tsids differ")
+            check_config1(res["aggs"], want, order, f"cluster {what}")
+            return res, ms, launches(ba, mg)
+
+        first, out["gather_cold_ms"], out["launches"] = await gather("cold")
+        _again, out["gather_repeat_ms"], _ = await gather("repeat")
+        if sum(out["launches"].values()) < 1:
+            raise AssertionError("cluster: no kernel launched")
+        pivot = c.split_pivot(0)
+        await c.split_region(0, pivot, 4, table_ttl_ms=30 * 24 * 3600_000)
+        after, out["split_gather_ms"], out["split_launches"] = \
+            await gather("after split")
+        same_result_bytes(after, first, "cluster split")
+        out["regions_after_split"] = sorted(c.regions)
+        log(f"cluster: gather cold {out['gather_cold_ms']!r} ms, repeat "
+            f"{out['gather_repeat_ms']!r} ms, launches {out['launches']}; "
+            f"split region 0 at {pivot} into 4: gather "
+            f"{out['split_gather_ms']!r} ms, byte-equal; no partial answer")
+        return out
+    finally:
+        await c.close()
+        if runner is not None:
+            await runner.cleanup()
+        await remote_engine.close()
+
+
+async def failover_drill(config: int, ba, mg) -> dict:
+    """The JAX package's bench config 20 (suite.py run_config20) or 21
+    (run_config21) at their own parameters on the card: 200,000 fixture
+    rows over 50 hosts, an open-loop Poisson schedule of dashboards
+    (/query, 1 h at 5 min buckets, 5/s) and single-sample /writes
+    (10/s) over a 12 s leg, the primary killed (listener gone, tables
+    aborted with no final flush) at 6 s, a 2 s lease TTL and the store
+    at FaultInjectingStore(seed) with 20 ms per op.  Config 20 promotes
+    through promote() under the harness (the control leg); config 21
+    lets a StandbyMonitor elect itself.  Every acked write must be read
+    back from the promoted node."""
+    import random as random_mod
+    import shutil
+
+    import aiohttp
+    import numpy as np
+    import pyarrow as pa
+
+    from horaedb_tpu_torch.cluster.replication import (
+        FailoverConfig, HttpWalSource, LeaseManager, LocalWalSource,
+        ReplicationConfig, ReplicationError, StandbyMonitor, WalFollower,
+        install_fence, promote)
+    from horaedb_tpu_torch.common import ReadableDuration
+    from horaedb_tpu_torch.metric_engine import MetricEngine
+    from horaedb_tpu_torch.objstore import (FaultInjectingStore,
+                                            MemoryObjectStore)
+    from horaedb_tpu_torch.server.config import ServerConfig
+    from horaedb_tpu_torch.server.main import ServerState
+    from horaedb_tpu_torch.storage.types import TimeRange
+    from horaedb_tpu_torch.wal.config import WalConfig
+
+    lat_s = 0.020
+    seed = config
+    segment_ms = 2 * 3600 * 1000
+    T0 = (1_700_000_000_000 // segment_ms) * segment_ms
+    leg_seconds = 12.0
+    kill_at = leg_seconds / 2.0
+    lease_ttl_ms = 2_000
+    grace_ms, jitter = 500, 0.5
+    n_fix, hosts, span = 200_000, 50, 3_600_000
+    TW0 = T0 + 3 * segment_ms
+    dash_q = {"metric": "app", "filters": {}, "start": T0,
+              "end": T0 + span, "bucket_ms": 300_000}
+
+    def write_req(i: int) -> dict:
+        return {"samples": [
+            {"name": "ingest", "labels": {"host": f"w{i % 8:02d}"},
+             "timestamp": TW0 + i * 1000, "value": float(i)}]}
+
+    def schedule(rng):
+        events = []
+
+        def poisson(rate, make):
+            t = 0.0
+            for i in range(int(leg_seconds * rate)):
+                t += rng.expovariate(rate)
+                events.append((t,) + make(i))
+
+        poisson(5.0, lambda i: ("/query", dash_q, -1))
+        poisson(10.0, lambda i: ("/write", write_req(i), i))
+        events.sort(key=lambda e: e[0])
+        return events
+
+    store = FaultInjectingStore(MemoryObjectStore(), seed=seed,
+                                latency_range=(lat_s, lat_s))
+    root = scratch_dir(f"failover{config}")
+    wal_dir = os.path.join(root, "wal")
+    mirror_dir = os.path.join(root, "mirror")
+    rng_np = np.random.default_rng(seed)
+    engine = await MetricEngine.open("metrics/region_0", store,
+                                     segment_ms=segment_ms)
+    per_host = n_fix // hosts
+    ts = T0 + np.repeat(np.arange(per_host, dtype=np.int64)
+                        * max(1, span // max(per_host, 1)), hosts)
+    ids = np.tile(np.arange(hosts, dtype=np.int32), per_host)
+    names = pa.array([f"host_{i:03d}" for i in range(hosts)])
+    await engine.write_arrow("cpu", ["host"], pa.record_batch({
+        "host": pa.DictionaryArray.from_arrays(pa.array(ids), names),
+        "timestamp": pa.array(ts, type=pa.int64()),
+        "value": pa.array(rng_np.random(len(ts)), type=pa.float64())}))
+    m = 20 * 360
+    await engine.write_arrow("app", ["host"], pa.record_batch({
+        "host": pa.array([f"app_{i % 20:02d}" for i in range(m)]),
+        "timestamp": pa.array(T0 + np.arange(m, dtype=np.int64) * 10_000
+                              % span, type=pa.int64()),
+        "value": pa.array(rng_np.random(m), type=pa.float64())}))
+    await engine.close()
+
+    wal_template = WalConfig(enabled=True, dir=wal_dir)
+    engine = await MetricEngine.open("metrics/region_0", store,
+                                     segment_ms=segment_ms,
+                                     wal_config=wal_template)
+    cfg = ServerConfig()
+    cfg.replication.enabled = True
+    cfg.replication.region = 0
+    cfg.replication.holder = "bench-primary"
+    cfg.replication.lease_ttl = ReadableDuration.from_millis(lease_ttl_ms)
+    cfg.replication.renew_interval = ReadableDuration.from_millis(500)
+    state = ServerState(engine, cfg)
+    await state.start_replication(store)
+    runner, base = await start_site(state)
+    poll = ReplicationConfig(poll_interval=ReadableDuration.from_millis(50))
+    if config == 20:
+        follower = WalFollower(HttpWalSource(base, "bench-follower",
+                                             timeout_s=5.0),
+                               mirror_dir, poll, region=0)
+        follower.start()
+    else:
+        # the standby tails the primary's durable log plane in process
+        follower = WalFollower(LocalWalSource(state.repl, "bench-standby"),
+                               mirror_dir, poll, region=0)
+    target = {"base": base}
+    lat: dict = {}
+    fail: dict = {}
+    acked: set = set()
+    new = {"engine": None, "lease": None, "runner": None}
+    # what the kill has already taken down (the finally closes the rest)
+    down = {"runner": False, "primary": False}
+    session = aiohttp.ClientSession(
+        connector=aiohttp.TCPConnector(limit=0),
+        timeout=aiohttp.ClientTimeout(total=10))
+    monitor = ship_task = None
+    stop_ship = asyncio.Event()
+
+    async def serve_promoted(engine_p, lease_p):
+        new["engine"], new["lease"] = engine_p, lease_p
+        lease_p.start_renewal(2.0, 10_000)
+        new["runner"], base2 = await start_site(
+            ServerState(engine_p, ServerConfig()))
+        target["base"] = base2
+        fail["failover_ms"] = (time.perf_counter() - fail["_t_kill"]) * 1e3
+        fail["epoch"] = lease_p.epoch
+
+    async def abort_primary():
+        down["primary"] = True
+        await state.stop_replication()
+        for t in engine.tables.values():
+            abort = getattr(t, "abort", None)
+            if abort is not None:
+                await abort()
+        engine._runtimes.close()
+
+    async def kill20():
+        await asyncio.sleep(kill_at)
+        fail["_t_kill"] = time.perf_counter()
+        down["runner"] = True
+        await runner.cleanup()
+        await follower.close()
+        # the durable log plane outlives the process: drain the
+        # committed tail into the mirror before replay
+        drain = WalFollower(LocalWalSource(state.repl, "bench-follower"),
+                            mirror_dir, region=0)
+        for _ in range(100):
+            await drain.poll_once()
+            if drain.lag() == 0:
+                break
+        else:
+            raise AssertionError(f"failover 20: mirror failed to drain: "
+                                 f"lag {drain.lag()}")
+        await drain.close()
+        fail["drain_ms"] = (time.perf_counter() - fail["_t_kill"]) * 1e3
+        await abort_primary()
+        mgr = LeaseManager(store, "metrics")
+        attempts = 0
+        while True:
+            attempts += 1
+            try:
+                engine_p, lease_p = await promote(
+                    "metrics", store, 0, mgr, "bench-follower", mirror_dir,
+                    wal_template, segment_ms=segment_ms,
+                    lease_ttl_ms=10_000, reason="primary_dead")
+                break
+            except ReplicationError:
+                # the dead primary's lease has not expired yet
+                await asyncio.sleep(0.05)
+        fail["lease_acquire_attempts"] = attempts
+        await serve_promoted(engine_p, lease_p)
+
+    async def kill21():
+        await asyncio.sleep(kill_at)
+        fail["_t_kill"] = time.perf_counter()
+        down["runner"] = True
+        await runner.cleanup()
+        await state.lease.stop_renewal()
+        stop_ship.set()
+        await ship_task
+        for _ in range(100):
+            await follower.poll_once()
+            if follower.lag() == 0:
+                break
+        else:
+            raise AssertionError(f"failover 21: mirror failed to drain: "
+                                 f"lag {follower.lag()}")
+        fail["drain_ms"] = (time.perf_counter() - fail["_t_kill"]) * 1e3
+        await abort_primary()
+
+    async def fire(at, path, payload, widx):
+        t0 = time.perf_counter()
+        try:
+            async with session.post(target["base"] + path,
+                                    json=payload) as r:
+                status = r.status
+                await r.read()
+        except asyncio.TimeoutError:
+            status = -1
+        except aiohttp.ClientError:
+            status = -2
+        dt = time.perf_counter() - t0
+        if status == 200 and widx >= 0:
+            acked.add(widx)
+        lat.setdefault("query" if path == "/query" else "write",
+                       []).append((at, dt, status))
+
+    try:
+        if config == 21:
+            monitor = StandbyMonitor(
+                follower, LeaseManager(store, "metrics"), 0,
+                "bench-standby",
+                FailoverConfig(
+                    enabled=True,
+                    grace=ReadableDuration.from_millis(grace_ms),
+                    jitter=jitter,
+                    check_interval=ReadableDuration.from_millis(100),
+                    fitness_wait=ReadableDuration.from_millis(100),
+                    cooldown=ReadableDuration.from_millis(1000)),
+                wal_template, segment_ms=segment_ms, lease_ttl_ms=10_000,
+                on_promoted=serve_promoted)
+            monitor.start()
+
+            async def shipper():
+                while not stop_ship.is_set():
+                    try:
+                        await follower.poll_once()
+                    except ReplicationError:
+                        return
+                    await asyncio.sleep(0.05)
+
+            ship_task = asyncio.create_task(shipper())
+        # unmeasured preamble: warm both request shapes
+        for path, payload in (("/query", dash_q),
+                              ("/write", write_req(10**9))):
+            async with session.post(base + path, json=payload) as r:
+                await r.read()
+        lat.clear()
+        acked.clear()
+        reset_all(ba, mg)
+        t_start = time.perf_counter()
+        ko = asyncio.create_task(kill20() if config == 20 else kill21())
+        tasks = []
+        for at, path, payload, widx in schedule(random_mod.Random(seed)):
+            delay = t_start + at - time.perf_counter()
+            if delay > 0:
+                await asyncio.sleep(delay)
+            tasks.append(asyncio.create_task(fire(at, path, payload,
+                                                  widx)))
+        await asyncio.gather(*tasks)
+        await ko
+        for _ in range(600):
+            if "failover_ms" in fail:
+                break
+            await asyncio.sleep(0.05)
+        if "failover_ms" not in fail:
+            raise AssertionError(f"failover {config}: nobody promoted: "
+                                 f"{monitor.election_state() if monitor else ''}")
+        # the leg's launches, read before the audit's own queries
+        leg_launches = launches(ba, mg)
+        # the acked-write audit against the promoted engine
+        got = {}
+        for h in range(8):
+            t = await new["engine"].query(
+                "ingest", [("host", f"w{h:02d}")],
+                TimeRange.new(TW0 - 1, TW0 + 10_000_000))
+            for ts_v, v in zip(t.column("timestamp").to_pylist(),
+                               t.column("value").to_pylist()):
+                got[(h, ts_v)] = v
+        lost = sum(1 for i in sorted(acked)
+                   if got.get((i % 8, TW0 + i * 1000)) != float(i))
+        fail.pop("_t_kill", None)
+        out = {"config": config, "rows": n_fix, "leg_seconds": leg_seconds,
+               "store_latency_ms": lat_s * 1e3,
+               "lease_ttl_ms": lease_ttl_ms, **fail,
+               "acked_writes": len(acked), "acked_write_loss": lost,
+               "launches": leg_launches}
+        if config == 21:
+            out.update({"grace_ms": grace_ms, "jitter": jitter,
+                        "harness_promote_calls": 0,
+                        "election_attempts": monitor.attempts,
+                        "election_outcome": (monitor.last_outcome or {}
+                                             ).get("outcome")})
+        for kind, ls in sorted(lat.items()):
+            for ph, sel in (("pre_kill", [x for x in ls if x[0] < kill_at]),
+                            ("post_kill", [x for x in ls
+                                           if x[0] >= kill_at])):
+                oks = [dt for _, dt, s in sel if s == 200]
+                codes: dict = {}
+                for _, _, s in sel:
+                    codes[str(s)] = codes.get(str(s), 0) + 1
+                out[f"{kind}_{ph}"] = {
+                    "n": len(sel), "ok": len(oks),
+                    "p99_ms": (float(np.percentile(np.asarray(oks) * 1e3,
+                                                   99)) if oks else None),
+                    "codes": codes}
+        return out
+    finally:
+        stop_ship.set()
+        if ship_task is not None and not ship_task.done():
+            ship_task.cancel()
+        await session.close()
+        if monitor is not None:
+            await monitor.close()
+        await follower.close()   # idempotent
+        if not down["runner"]:
+            await runner.cleanup()
+        if new["runner"] is not None:
+            await new["runner"].cleanup()
+        if new["lease"] is not None:
+            await new["lease"].stop_renewal()
+        if new["engine"] is not None:
+            install_fence(new["engine"], None)
+            await new["engine"].close()
+        if not down["primary"]:
+            # the drill failed before the kill: close the primary
+            await state.stop_replication()
+            await engine.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+async def failover_phase(ba, mg) -> dict:
+    """Config 20, then config 21; after each drill every engine is
+    closed or aborted and the card's live bytes are back where they
+    were."""
+    import gc
+
+    import torch
+
+    out = {}
+    for config in (20, 21):
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        r = await failover_drill(config, ba, mg)
+        gc.collect()
+        torch.cuda.synchronize()
+        r["cuda_allocated_before"] = before
+        r["cuda_allocated_after"] = torch.cuda.memory_allocated()
+        if r["acked_write_loss"] != 0:
+            raise AssertionError(f"failover {config}: "
+                                 f"{r['acked_write_loss']} acked writes lost")
+        if r["cuda_allocated_after"] > before + (16 << 20):
+            raise AssertionError(
+                f"failover {config}: {r['cuda_allocated_after'] - before:,} "
+                f"B of CUDA memory outlive the drill")
+        if config == 21:
+            # detection + election + replay within the lease TTL, the
+            # worst-case jittered grace and a fixed 3 s slack (suite.py)
+            r["failover_bound_ms"] = (r["lease_ttl_ms"] + r["grace_ms"]
+                                      * (1.0 + r["jitter"]) + 3_000.0)
+            r["bar_failover_bound"] = r["failover_ms"] <= \
+                r["failover_bound_ms"]
+            if not r["bar_failover_bound"]:
+                raise AssertionError(
+                    f"failover 21: {r['failover_ms']!r} ms over the bound "
+                    f"{r['failover_bound_ms']!r} ms")
+        p99 = {k: r[k]["p99_ms"] for k in ("query_pre_kill",
+                                           "query_post_kill",
+                                           "write_pre_kill",
+                                           "write_post_kill") if k in r}
+        extra = (f"; election attempts {r['election_attempts']}, outcome "
+                 f"{r['election_outcome']}, bound "
+                 f"{r['failover_bound_ms']!r} ms" if config == 21 else
+                 f"; lease attempts {r['lease_acquire_attempts']}")
+        log(f"failover {config}: failover_ms {r['failover_ms']!r} (drain "
+            f"{r['drain_ms']!r} ms){extra}; acked {r['acked_writes']}, "
+            f"lost {r['acked_write_loss']}; p99 ms {p99}; codes "
+            f"{ {k: r[k]['codes'] for k in p99} }; CUDA live bytes "
+            f"{before:,} -> {r['cuda_allocated_after']:,}; launches "
+            f"{r['launches']}")
+        out[config] = r
+    return out
+
+
 def load_merge_module(root: str):
     """ops/merge.py of another checkout at `root`, loaded under its own
     name and pointed at that checkout's csrc/merge_path.cu (it builds
@@ -4711,6 +5605,9 @@ def main() -> int:
     rollup = phase("rollup", asyncio.run, rollup_phase(ba, mg))
     chunked = phase("chunked", asyncio.run, chunked_phase(ba, mg))
     scanagent = phase("scanagent", asyncio.run, scanagent_phase(ba, mg, dd))
+    server = phase("server", asyncio.run, server_phase(ba, mg, args.rows))
+    cluster = phase("cluster", asyncio.run, cluster_phase(ba, mg, args.rows))
+    failover = phase("failover", asyncio.run, failover_phase(ba, mg))
     kernels.append({
         "name": "kway_merge_perm", "route": "cuda",
         "source": "horaedb_tpu_torch/csrc/merge_path.cu",
@@ -4749,6 +5646,17 @@ def main() -> int:
         k["chunked_launches"] = chunked["chunked_launches"][k["name"]]
         # and on config 17's agent leg (at the agent, on this card)
         k["scanagent_launches"] = scanagent["agent"]["launches"][k["name"]]
+        # and on the server's two nodes (the true-cold HTTP /query
+        # alone; the direct control's cold call beside it), the
+        # cluster's first gather and both failover drills' traffic
+        k["server_launches"] = {leg: r["launches"][k["name"]]
+                                for leg, r in server["legs"].items()}
+        k["server_direct_launches"] = {
+            leg: r["direct_launches"][0][k["name"]]
+            for leg, r in server["legs"].items()}
+        k["cluster_launches"] = cluster["launches"][k["name"]]
+        k["failover_launches"] = {f"config{c}": r["launches"][k["name"]]
+                                  for c, r in failover.items()}
         if k["name"] == "bucket_window_partials":
             # the chunked path's shape: W = 1, 10M valid rows
             k["chunked_shape"] = {
@@ -4764,7 +5672,10 @@ def main() -> int:
                        "compaction": compaction, "wal": wal,
                        "topk_ops": topk_ops, "config4": config4,
                        "rollup": rollup, "chunked": chunked,
-                       "scanagent": scanagent}, f,
+                       "scanagent": scanagent, "server": server,
+                       "cluster": cluster,
+                       "failover": {str(k): v for k, v in failover.items()}},
+                      f,
                       indent=1)
     log(f"total: {time.perf_counter() - t_start!r} s")
     log(json.dumps({"kernels": kernels}))

@@ -38,6 +38,19 @@ def serialize_stream(data: Union[pa.Table, pa.RecordBatch],
     return sink.getvalue()
 
 
+def host_downsample(out: dict) -> dict:
+    """A downsample result with every grid a host numpy array.  The
+    fused route hands its grids back as tensors on the engine's device;
+    nothing past the engine (the JSON and Arrow wire, the range
+    functions, the cluster's merge) may touch the card, so the server
+    and the cluster call this at their seam.  Dtypes are kept."""
+    aggs = out.get("aggs") or {}
+    if not any(hasattr(v, "cpu") for v in aggs.values()):
+        return out
+    return {**out, "aggs": {k: (v.cpu().numpy() if hasattr(v, "cpu")
+                                else v) for k, v in aggs.items()}}
+
+
 def downsample_to_arrow(out: dict) -> pa.Table:
     """Encode a query_downsample result ({tsids, num_buckets, aggs:
     {name: (n, num_buckets) float grid}}) as an Arrow table.  NaN cells

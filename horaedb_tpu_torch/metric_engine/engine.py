@@ -38,8 +38,10 @@ the scalar `write()` and the bulk Arrow ingest (both layouts), metric
 and series resolution, raw row queries, the downsample, multi-field
 and top-k queries, rollups, the label/list APIs, and near-data scan
 routing (`open(scanagent_config=...)`: the data table's aggregate scans
-send covered segments to their scan agents, scanagent/client.py).  Not
-ported yet: self-monitoring (meta-ingest; see ROADMAP.md).
+send covered segments to their scan agents, scanagent/client.py), and
+self-monitoring (`open(meta_config=...)`: metric_engine/meta.py scrapes
+the process's metrics registry into a `__meta` metric through this
+engine's own write path).
 """
 
 from __future__ import annotations
@@ -495,6 +497,9 @@ class MetricEngine:
         # standing rollup tiers (rollup/manager.py); populated by open()
         # when a [rollup] config enables them
         self.rollups = None
+        # self-monitoring meta-ingest (metric_engine/meta.py); populated
+        # by open() when a [meta] config enables it
+        self.meta = None
         self._runtimes = None
         # chunked layout: the Append-mode data table bypasses the
         # reader's scan cache (host merge, uncached), so decoded sample
@@ -530,7 +535,8 @@ class MetricEngine:
                    chunked_data: bool = False,
                    chunk_window_ms: int = 30 * 60 * 1000,
                    rollup_config=None,
-                   scanagent_config=None) -> "MetricEngine":
+                   scanagent_config=None,
+                   meta_config=None) -> "MetricEngine":
         """Open the five tables under `root_path` on `device` ("cuda" by
         default; raises when the card is missing).  With an enabled
         `wal_config` every Overwrite table is fronted by a WAL under
@@ -540,7 +546,8 @@ class MetricEngine:
         table, no WAL in front of it); an enabled `rollup_config` opens
         the rollup tiers (row layout only); an active `scanagent_config`
         routes the data table's aggregate scans through its scan agents
-        (row layout only)."""
+        (row layout only); an enabled `meta_config` starts the
+        meta-ingest scrape loop."""
         import dataclasses
 
         if chunked_data:
@@ -612,6 +619,18 @@ class MetricEngine:
             data = tables["data"]
             if hasattr(data, "memtable_segments"):
                 data.on_flush = self.rollups.note_flush
+        if meta_config is not None and meta_config.enabled:
+            # self-monitoring: scrape the process's own MetricsRegistry
+            # into a __meta metrics table through this engine's normal
+            # write path
+            from horaedb_tpu_torch.metric_engine.meta import MetaIngest
+
+            try:
+                self.meta = MetaIngest(self, meta_config)
+                await self.meta.start()
+            except BaseException:
+                await self.close()
+                raise
         if (scanagent_config is not None and scanagent_config.active
                 and not chunked_data):
             # near-data scan routing ([scanagent]): the DATA table's
@@ -642,6 +661,11 @@ class MetricEngine:
         if self._scanagent_client is not None:
             await self._scanagent_client.close()
             self._scanagent_client = None
+        if self.meta is not None:
+            # the meta scraper writes through this engine: stop it
+            # before anything under it goes away
+            await self.meta.stop()
+            self.meta = None
         if self.rollups is not None:
             await self.rollups.close()
             self.rollups = None

@@ -30,7 +30,8 @@ casts, and empty cells read count 0, sum 0, min +inf, max -inf,
 avg/last/last_ts NaN.  The fold order and casts are the JAX package's,
 so the port's folds equal the reference's for the same parts.
 
-Not here yet: the cluster tier's merge_downsample_results.
+  cluster merge    merge_downsample_results folds per-region downsample
+                   results by tsid for the cluster's gather paths.
 """
 
 from __future__ import annotations
@@ -636,3 +637,89 @@ class PartsMemo:
         return {"entries": len(self.lru), "bytes": self.lru.total_bytes,
                 "max_bytes": self.lru.max_bytes, "hits": self.lru.hits,
                 "misses": self.lru.misses}
+
+
+# ---- cross-region downsample merge (cluster tier) --------------------------
+
+
+def merge_downsample_results(results: list[dict], num_buckets: int,
+                             which: Optional[tuple] = None) -> dict:
+    """Merge per-region downsample grids by tsid (the cluster's strict
+    and degraded gather paths).  Regions are series-disjoint in steady
+    state; during a split's TTL window an overlapping tsid combines
+    additively (sum/count/min/max; avg recomputed; `last` takes the
+    later sample time).  Allocates only the requested aggs and their
+    dependencies — a subset query no longer pays six full grids.
+
+    `which=None` infers the aggregate set from the grids the regions
+    actually returned, so the merge follows whatever the fan-out
+    requested without a second plumbing path.  When avg must be
+    recombined across an overlapping tsid but a region omitted `sum`,
+    its sum contribution is reconstructed as avg*count (exact division
+    inverse up to one f64 rounding; regions only overlap during a
+    split's TTL window)."""
+    results = [r for r in results if r["tsids"]]
+    if not results:
+        return {"tsids": [], "num_buckets": num_buckets, "aggs": {}}
+    if which is None:
+        which = tuple(sorted({k for r in results for k in r["aggs"]
+                              if k in ALL_AGGS}))
+    requested = set(which) | {"count"}
+    want = expand_which(requested)
+
+    all_tsids = sorted({t for r in results for t in r["tsids"]})
+    idx = {t: i for i, t in enumerate(all_tsids)}
+    g = len(all_tsids)
+    agg: dict = {"count": np.zeros((g, num_buckets))}
+    if "sum" in want:
+        agg["sum"] = np.zeros((g, num_buckets))
+    if "min" in want:
+        agg["min"] = np.full((g, num_buckets), np.inf)
+    if "max" in want:
+        agg["max"] = np.full((g, num_buckets), -np.inf)
+    if "last" in want:
+        agg["last"] = np.full((g, num_buckets), np.nan)
+        agg["last_ts"] = np.full((g, num_buckets), -np.inf)
+    for r in results:
+        rows = np.asarray([idx[t] for t in r["tsids"]])
+        a = r["aggs"]
+        counts = np.nan_to_num(np.asarray(a["count"]))
+        agg["count"][rows] += counts
+        if "sum" in agg:
+            if "sum" in a:
+                part_sum = np.nan_to_num(np.asarray(a["sum"]))
+            else:  # avg-only region: invert the division
+                part_sum = np.nan_to_num(np.asarray(a["avg"])) * counts
+            agg["sum"][rows] += part_sum
+        if "min" in agg and "min" in a:
+            agg["min"][rows] = np.fmin(agg["min"][rows],
+                                       np.asarray(a["min"]))
+        if "max" in agg and "max" in a:
+            agg["max"][rows] = np.fmax(agg["max"][rows],
+                                       np.asarray(a["max"]))
+        if "last" in agg and "last" in a:
+            has = counts > 0
+            # winner by actual sample time (regions expose last_ts);
+            # ties break toward the later region in route order
+            cand_ts = np.nan_to_num(
+                np.asarray(a["last_ts"], dtype=np.float64), nan=-np.inf)
+            take = has & (cand_ts >= agg["last_ts"][rows])
+            last_rows = agg["last"][rows]
+            last_rows[take] = np.asarray(a["last"])[take]
+            agg["last"][rows] = last_rows
+            lt_rows = agg["last_ts"][rows]
+            lt_rows[take] = cand_ts[take]
+            agg["last_ts"][rows] = lt_rows
+    empty = agg["count"] == 0
+    if "avg" in requested and "sum" in agg:
+        with np.errstate(invalid="ignore"):
+            agg["avg"] = np.where(empty, np.nan,
+                                  agg["sum"] / np.maximum(agg["count"],
+                                                          1))
+    if "min" in agg:
+        agg["min"] = np.where(empty, np.inf, agg["min"])
+    if "max" in agg:
+        agg["max"] = np.where(empty, -np.inf, agg["max"])
+    if "sum" in agg and "sum" not in requested:
+        del agg["sum"]  # avg's dependency only — not requested
+    return {"tsids": all_tsids, "num_buckets": num_buckets, "aggs": agg}

@@ -218,6 +218,23 @@ class ScanDecodeConfig:
 
 
 @dataclass
+class ScanMeshConfig:
+    """In-region 2-D device mesh for the aggregate scan ([scan.mesh]):
+    plan segments shard along the `time` axis and group blocks along the
+    `series` axis.  Parsed and validated as the JAX package parses it so
+    the same TOML loads in both; the port runs one device, so a reader
+    opened with `enabled = true` raises (multi-device is ROADMAP Queue
+    A 11)."""
+
+    enabled: bool = False
+    # axis sizes; 0 = auto.  `series` must be a power of two
+    time: int = 0
+    series: int = 0
+    # per-device admission gate for one round's transient partial grid
+    max_grid_bytes: int = 256 << 20
+
+
+@dataclass
 class ScanConfig:
     """Device scan execution knobs (no reference analogue)."""
 
@@ -232,6 +249,10 @@ class ScanConfig:
     # explicit budget in bytes for the scan cache (0 = derive from
     # cache_max_rows)
     cache_max_bytes: int = 0
+    # devices for the multi-device aggregate path (0 = single device);
+    # the port runs one device, so a reader refuses any other value
+    # (ROADMAP Queue A 11)
+    mesh_devices: int = 0
     # windows (across segments) batched into one aggregate round — the
     # window axis of one kernel launch (fused and parts paths)
     agg_batch_windows: int = 16
@@ -258,6 +279,9 @@ class ScanConfig:
     pipeline: ScanPipelineConfig = field(
         default_factory=ScanPipelineConfig)
     decode: ScanDecodeConfig = field(default_factory=ScanDecodeConfig)
+    # 2-D (time x series) mesh scan knobs ([scan.mesh]); mutually
+    # exclusive with mesh_devices above
+    mesh: ScanMeshConfig = field(default_factory=ScanMeshConfig)
 
 
 @dataclass
@@ -299,6 +323,7 @@ _NESTED = {
     "combine": ScanCombineConfig,
     "pipeline": ScanPipelineConfig,
     "decode": ScanDecodeConfig,
+    "mesh": ScanMeshConfig,
     "threads": ThreadsConfig,
     "retry": RetryConfig,
     "scrub": ScrubConfig,

@@ -320,6 +320,20 @@ class ParquetReader:
         ensure(config.scan.decode.mode in DECODE_MODES,
                f"unknown [scan.decode] mode {config.scan.decode.mode!r}; "
                f"expected one of {DECODE_MODES}")
+        # the JAX package's device-decode check (mesh_devices = 1 still
+        # reaches it), then the port's own refusal: it runs one device,
+        # and a mesh config must not quietly run on it (multi-device is
+        # ROADMAP Queue A 11)
+        ensure(not (config.scan.decode.mode == "device"
+                    and config.scan.mesh_devices > 0),
+               '[scan.decode] mode="device" cannot run on the legacy '
+               "1-D segment mesh ([scan] mesh_devices > 0)")
+        ensure(config.scan.mesh_devices <= 1
+               and not config.scan.mesh.enabled,
+               "multi-device scans ([scan] mesh_devices > 1 or "
+               "[scan.mesh] enabled = true) are not ported to the "
+               "PyTorch engine yet (ROADMAP Queue A 11); it runs on "
+               "one device")
         cache_bytes = (config.scan.cache_max_bytes
                        or config.scan.cache_max_rows * _CACHE_BYTES_PER_ROW)
         self.cache_budget_bytes = cache_bytes

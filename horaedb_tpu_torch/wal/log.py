@@ -23,10 +23,12 @@ Every durable transition goes through `_op()`, so a test can inject a
 crash at an exact op index.  Time never comes from the wall clock
 here: replay order relies only on the persisted seqs.
 
-Not ported yet: the replication hub's hooks (`verify_frames`,
-`mirror_watermarks`, `segments()`, `read_tail`, `high_watermark`,
-`flushed_seq` and the `retention` hook; ROADMAP Queue A 9b), so
-`truncate` deletes every sealed, fully-flushed segment.
+The replication plane's hooks (cluster/replication.py): `segments()`,
+`read_tail` and `high_watermark` serve a follower's tail reads,
+`flushed_seq` is the SST-covered floor it need not ship, and the
+`retention` callback keeps `truncate` off a segment no follower has
+acked yet.  `verify_frames` and `mirror_watermarks` walk frames without
+parsing them, for the follower's mirror.
 """
 
 from __future__ import annotations
@@ -93,6 +95,9 @@ class _Segment:
     # seqs recorded in this segment that no SST covers yet; the segment
     # is deletable once sealed AND this drains empty
     pending: set = dc_field(default_factory=set)
+    # highest seq ever committed to this segment (stable across
+    # mark_flushed: the replication ack watermark compares against it)
+    max_seq: int = 0
 
 
 def encode_record(seq: int, time_range: TimeRange,
@@ -144,6 +149,68 @@ def decode_records(blob: bytes, path: str = "<wal>") -> Iterator[WalRecord]:
         off = end
 
 
+def verify_frames(blob: bytes) -> tuple[int, int, int]:
+    """Cheap frame walk (header + crc only, no arrow parse) for the
+    replication shipping path: returns (aligned_len, max_seq, count)
+    where aligned_len is the byte length of the longest prefix of
+    complete, crc-clean frames.  A follower appends only that prefix to
+    its mirror, so mirrored segments are always frame-aligned and a
+    re-ship resumes exactly at aligned_len."""
+    off = 0
+    n = len(blob)
+    max_seq = 0
+    count = 0
+    while off + _HEADER.size <= n:
+        length, crc = _HEADER.unpack_from(blob, off)
+        start = off + _HEADER.size
+        end = start + length
+        if length < _META.size or end > n:
+            break
+        payload = blob[start:end]
+        if zlib.crc32(payload) != crc:
+            break
+        seq, _, _ = _META.unpack_from(payload, 0)
+        max_seq = max(max_seq, seq)
+        count += 1
+        off = end
+    return off, max_seq, count
+
+
+def mirror_watermarks(wal_dir: str) -> dict:
+    """Per-log highest frame seq under a WAL-layout directory
+    (`{wal_dir}/{log}/{id:020d}.wal`), by walking every segment's
+    frames (crc-checked; a torn tail just stops the walk).  The standby
+    election's cold-start fitness: a follower that restarted straight
+    into an outage has no in-memory progress, but its mirror's bytes
+    still prove how fresh it is."""
+    out: dict = {}
+    try:
+        logs = os.listdir(wal_dir)
+    except OSError:
+        return out
+    for log in logs:
+        d = os.path.join(wal_dir, log)
+        if not os.path.isdir(d):
+            continue
+        max_seq = 0
+        try:
+            names = os.listdir(d)
+        except OSError:
+            continue
+        for name in names:
+            if not name.endswith(".wal"):
+                continue
+            try:
+                with open(os.path.join(d, name), "rb") as f:
+                    blob = f.read()
+            except OSError:
+                continue
+            _aligned, seq, _count = verify_frames(blob)
+            max_seq = max(max_seq, seq)
+        out[log] = max_seq
+    return out
+
+
 class Wal:
     """One table's segmented log + group-commit loop.
 
@@ -181,6 +248,18 @@ class Wal:
         # segment (both run on the event loop, but each awaits blocking
         # file work mid-flight)
         self._commit_lock = asyncio.Lock()
+        # replication hook: truncate() deletes a sealed, fully-flushed
+        # segment only if retention(segment_id, max_seq) allows it.
+        # None = always allow (single-copy behaviour).  The replication
+        # hub points this at its follower-ack watermark, so an unshipped
+        # segment is never deleted
+        self.retention: Optional[Callable[[int, int], bool]] = None
+        # highest seq ever group-committed (or replayed) to this log:
+        # the shipping high-watermark followers measure lag against
+        self._max_seq = 0
+        # highest seq known covered by a committed SST: these seqs are
+        # durable in the shared store, so followers need not ship them
+        self._flushed_seq = 0
 
     # ---- open / replay ----------------------------------------------------
 
@@ -206,8 +285,10 @@ class Wal:
             seg = _Segment(id=seg_id, path=path, size=len(blob))
             for rec in decode_records(blob, path):
                 seg.pending.add(rec.seq)
+                seg.max_seq = max(seg.max_seq, rec.seq)
                 out.append(rec)
             self._sealed[seg_id] = seg
+            self._max_seq = max(self._max_seq, seg.max_seq)
             self._m_backlog.inc(seg.size)
             self._m_segments.inc()
         self._next_id = max(ids, default=0) + 1
@@ -339,6 +420,8 @@ class Wal:
         seg.size += size
         for blob, seq, _ in group:
             seg.pending.add(seq)
+            seg.max_seq = max(seg.max_seq, seq)
+        self._max_seq = max(self._max_seq, seg.max_seq)
         self._m_appends.inc(len(group))
         self._m_group_commits.inc()
         self._m_bytes_written.inc(size)
@@ -429,6 +512,24 @@ class Wal:
                 seg.pending -= remaining
         if self._active is not None and self._active.pending:
             self._active.pending -= remaining
+        self._recompute_flushed()
+
+    def _recompute_flushed(self) -> None:
+        """Advance `_flushed_seq` to the contiguous SST-covered PREFIX:
+        the highest seq with every committed seq at or below it covered
+        by a committed SST.  Memtables are per time segment and flush
+        out of order while sharing this log, so a max over one flushed
+        batch would overshoot, reporting seqs flushed while older ones
+        are still only in the WAL; a follower would read that as caught
+        up over rows a failover would lose.  Derived from the pending
+        sets: anything below every still-pending seq has flushed."""
+        floor = self._max_seq
+        for seg in self._sealed.values():
+            if seg.pending:
+                floor = min(floor, min(seg.pending) - 1)
+        if self._active is not None and self._active.pending:
+            floor = min(floor, min(self._active.pending) - 1)
+        self._flushed_seq = max(self._flushed_seq, floor)
 
     async def truncate(self) -> int:
         """Delete sealed, fully-flushed segments.  The SST + manifest
@@ -451,7 +552,10 @@ class Wal:
                         self._active_file = None
                         self._sealed[seg.id] = seg
                         await asyncio.to_thread(f.close)
-            dead = [seg for seg in self._sealed.values() if not seg.pending]
+            dead = [seg for seg in self._sealed.values()
+                    if not seg.pending
+                    and (self.retention is None
+                         or self.retention(seg.id, seg.max_seq))]
             for seg in dead:
                 await asyncio.to_thread(self._unlink_blocking, seg.path)
                 self._sealed.pop(seg.id, None)
@@ -484,3 +588,70 @@ class Wal:
     @property
     def segment_count(self) -> int:
         return len(self._sealed) + (1 if self._active is not None else 0)
+
+    @property
+    def high_watermark(self) -> int:
+        """Highest seq durably committed to this log (0 = none): the
+        shipping plane's per-log progress marker.  A follower that has
+        mirrored through this seq is fully caught up."""
+        return self._max_seq
+
+    @property
+    def flushed_seq(self) -> int:
+        """The contiguous SST-covered prefix (0 = none): EVERY committed
+        seq at or below this is covered by a committed SST, so a
+        follower counts them all as caught up without shipping (their
+        segments may already be truncated).  Out-of-order segment
+        flushes do not advance it past a seq still only in the WAL."""
+        return self._flushed_seq
+
+    def segments(self) -> list[dict]:
+        """Durable segment listing for the shipping plane, id-ordered:
+        {id, size, sealed, max_seq}.  Sizes count only fully committed
+        group bytes (seg.size advances after the group fsync), so a tail
+        read bounded by `size` never sees a torn frame."""
+        out = []
+        for seg in self._sealed.values():
+            out.append({"id": seg.id, "size": seg.size, "sealed": True,
+                        "max_seq": seg.max_seq})
+        if self._active is not None:
+            seg = self._active
+            out.append({"id": seg.id, "size": seg.size, "sealed": False,
+                        "max_seq": seg.max_seq})
+        out.sort(key=lambda s: s["id"])
+        return out
+
+    async def read_tail(self, segment_id: int, offset: int,
+                        max_bytes: int) -> Optional[tuple[bytes, bool]]:
+        """Frame-level tail read: up to `max_bytes` of segment
+        `segment_id` from `offset`, capped at the committed size (never
+        into a possibly-torn uncommitted tail).  Returns (blob, sealed),
+        blob b"" when already caught up, or None when the segment no
+        longer exists (truncated; the follower drops its mirror copy
+        too).  Offsets must sit on frame boundaries (0, or a previous
+        read's offset + verify_frames(...)[0]) for the result to stay
+        frame-aligned."""
+        ensure(offset >= 0 and max_bytes > 0,
+               "read_tail: offset must be >= 0 and max_bytes > 0")
+        seg = self._sealed.get(segment_id)
+        sealed = seg is not None
+        if seg is None and self._active is not None \
+                and self._active.id == segment_id:
+            seg = self._active
+        if seg is None:
+            return None
+        # snapshot the committed size ON the event loop before handing
+        # off to a thread: seg.size only moves forward, and bytes below
+        # it are fsynced whole frames
+        end = min(seg.size, offset + max_bytes)
+        if end <= offset:
+            return b"", sealed
+        blob = await asyncio.to_thread(
+            self._read_range_blocking, seg.path, offset, end - offset)
+        return blob, sealed
+
+    def _read_range_blocking(self, path: str, offset: int,
+                             length: int) -> bytes:
+        with open(path, "rb") as f:
+            f.seek(offset)
+            return f.read(length)

@@ -31,8 +31,8 @@ def _port_modules() -> list[str]:
 def test_the_scan_covers_every_port_module():
     """The walk below finds every module of the port, the parts path's,
     compaction's, the scrubber's, the device decode's, the WAL's, the
-    rollups', the chunked layout's, the planes' and the scan agents'
-    included."""
+    rollups', the chunked layout's, the planes', the scan agents', the
+    cluster's, replication's and the server's included."""
     mods = _port_modules()
     for m in ("horaedb_tpu_torch.common.loops",
               "horaedb_tpu_torch.storage.combine",
@@ -70,7 +70,17 @@ def test_the_scan_covers_every_port_module():
               "horaedb_tpu_torch.scanagent.wire",
               "horaedb_tpu_torch.scanagent.agent",
               "horaedb_tpu_torch.scanagent.client",
-              "horaedb_tpu_torch.scanagent.__main__"):
+              "horaedb_tpu_torch.scanagent.__main__",
+              "horaedb_tpu_torch.cluster.router",
+              "horaedb_tpu_torch.cluster.cluster",
+              "horaedb_tpu_torch.cluster.replication",
+              "horaedb_tpu_torch.cluster.placement",
+              "horaedb_tpu_torch.cluster.remote",
+              "horaedb_tpu_torch.metric_engine.meta",
+              "horaedb_tpu_torch.server",
+              "horaedb_tpu_torch.server.config",
+              "horaedb_tpu_torch.server.main",
+              "horaedb_tpu_torch.server.__main__"):
         assert m in mods, m
 
 
@@ -250,6 +260,49 @@ def test_scanagent_cli_refuses_to_start_without_a_card(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert "needs a CUDA device" in out.stderr
+
+
+def test_cluster_promote_and_server_refuse_cpu_fallback(monkeypatch,
+                                                      tmp_path):
+    """Every engine the cluster tier opens (a region, a split's new
+    region, a promoted standby, the server's) is on the card by
+    default: no card, no engine."""
+    import torch
+
+    from horaedb_tpu_torch.cluster import Cluster, LeaseManager, promote
+    from horaedb_tpu_torch.common.error import Error
+    from horaedb_tpu_torch.objstore import MemoryObjectStore
+    from horaedb_tpu_torch.server.config import ServerConfig
+    from horaedb_tpu_torch.server.main import run_server
+    from horaedb_tpu_torch.wal import WalConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(Error, match="CUDA"):
+        asyncio.run(Cluster.open("c", MemoryObjectStore(), num_regions=2))
+
+    async def split_on_cpu_cluster():
+        c = await Cluster.open("c", MemoryObjectStore(), num_regions=1,
+                               device="cpu")
+        try:
+            c.device = "cuda"
+            with pytest.raises(Error, match="CUDA"):
+                await c.add_region(5)
+        finally:
+            await c.close()
+
+    asyncio.run(split_on_cpu_cluster())
+
+    async def promote_default():
+        store = MemoryObjectStore()
+        await promote("r", store, 0, LeaseManager(store, "r"), "n",
+                      str(tmp_path / "m"), WalConfig())
+
+    with pytest.raises(Error, match="CUDA"):
+        asyncio.run(promote_default())
+    cfg = ServerConfig()
+    cfg.metric_engine.object_store.data_dir = str(tmp_path / "d")
+    with pytest.raises(Error, match="CUDA"):
+        asyncio.run(run_server(cfg))
 
 
 def test_kernel_wrapper_takes_plain_only_for_cpu_tensors():
