@@ -225,8 +225,12 @@ non-zero and prints no result line:
    and against numpy (count, min, max, last exact; sum, avg rtol 1e-5);
    each kernel entry on the node's route launched; /query_topk (top 10
    by max at 1 h), /query_multi and /query_arrow against their direct
-   calls; /label_values, /stats (no deviceprof key), /metrics and
-   /admin/flush.  Then the CLI: `python -m horaedb_tpu_torch.server`
+   calls; /label_values, /stats (its deviceprof summary), /metrics and
+   /admin/flush; GET /debug/device around each node's 12 calls, whose
+   per-seam launches must equal the kernels' own counters.  Then
+   deviceprof: the fused node's cached query (a replay) with the device
+   profiler on and off in 10 turns each, alternating: both p50s, and the
+   explicit syncs per query, which must not differ.  Then the CLI: `python -m horaedb_tpu_torch.server`
    from a copy of the config in a subprocess, GET / until it answers,
    one /write, a /query that returns it, SIGTERM: it must exit 0, its
    engine on the card.
@@ -250,13 +254,35 @@ non-zero and prints no result line:
    outcome and its failover bound; acked_write_loss must be 0 in both,
    21 must meet its bound, and the card's live bytes must be back
    within 16 MiB after each drill.
-19. a JSON line of per-kernel numbers (with `wal_launches`,
-   `config4_launches`, the rollup, chunked, scanagent, server, cluster
-   and failover cells' launches beside `launches`, and the partials
+19. meshes (mesh_phases), BASELINE config 1 at 10M rows again on one
+   store, HORAEDB_FUSED_AGG=0 (the control takes the parts route the
+   meshes replace): mesh — [scan.mesh] at 1 x 1 and at 4 x 2 (eight
+   logical slots on cuda:0), host decode, per bucket (1 min, 1 h) a
+   true-cold query and 5 cached ones (the PartsMemo emptied before each,
+   so the rounds run), in turns with the single-device control: grids
+   byte-equal to it and to numpy (sum, avg rtol 1e-5), per query the
+   rounds, slot fill, padding rows, fallbacks (mesh_error 0), launches
+   (bucket_window_partials above 0), d2h bytes and walls; mesh_topk —
+   top 10 by max and by sum on the 4 x 2 mesh, served device-scored,
+   equal to the single-device query_topk; mesh_decode — the mesh legs
+   with [scan.decode] mode = "device" against the single-device device
+   decode (kway_merge_perm launches above 0, no decode fallback);
+   segment_mesh — [scan] mesh_devices = 4 over four entries of cuda:0
+   under the device_sort merge layout (sharded_merge_dedup, then
+   sharded_remap_partials rounds), byte-equal to the control;
+   multihost — a one-process NCCL group's global downsample over the
+   first segment, byte-equal to the single-device answer.
+20. a JSON line of per-kernel numbers (with `wal_launches`,
+   `config4_launches`, the rollup, chunked, scanagent, server, cluster,
+   failover and mesh cells' launches beside `launches`, and the partials
    entry's time at the chunked shape), the total seconds, the card line
    again, and the last line {"ok": true, "device": {...}}.
 
 Needs one CUDA card; a missing card is a failure, never a CPU run.
+`--cards N` (N cards) runs only the build and the mesh phases, their
+slots cycling over the N cards (cross-card copies in the combine and
+the score state), and the multi-process tier as N NCCL processes of
+tests/torch_multihost_worker.py, one card each.
 """
 
 from __future__ import annotations
@@ -287,14 +313,17 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
+def card_line(every: bool = False) -> str:
+    """`nvidia-smi`'s name and power limit of the first card (of every
+    card, one per line, with `every`)."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
+    lines = out.stdout.strip().splitlines()
+    return "\n".join(lines) if every else lines[0]
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -4718,6 +4747,71 @@ def wire_equals_direct(body: dict, direct: dict, what: str) -> None:
                                  f"after the JSON round trip")
 
 
+def seam_launches(body: dict) -> dict:
+    """{seam: launches} of a GET /debug/device body."""
+    return {f["fn"]: f["launches"] for f in body["fns"]}
+
+
+async def profiler_turns(e, rng, turns: int = 10) -> dict:
+    """The cached fused query (a replay) with the device profiler on
+    and off, in turns: the p50 of each, the explicit device syncs each
+    made (torch.cuda.synchronize and Event/Stream synchronize, counted
+    by wrappers; the profiler must add none), and the profiler's own
+    device time of the seams it wrapped."""
+    import torch
+
+    from horaedb_tpu_torch.common import deviceprof as dp
+
+    syncs = {"n": 0}
+    originals = (torch.cuda.synchronize, torch.cuda.Event.synchronize,
+                 torch.cuda.Stream.synchronize)
+
+    def counting(fn):
+        def wrapper(*a, **kw):
+            syncs["n"] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    was = dp.profiler.enabled
+    ms = {True: [], False: []}
+    sync_n = {True: [], False: []}
+    await e.query_downsample("cpu", [], rng, BMS)  # warm: a replay next
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.synchronize = counting(originals[0])
+        torch.cuda.Event.synchronize = counting(originals[1])
+        torch.cuda.Stream.synchronize = counting(originals[2])
+        for i in range(2 * turns):
+            on = i % 2 == 0
+            dp.profiler.configure(enabled=on)
+            syncs["n"] = 0
+            t0 = time.perf_counter()
+            await e.query_downsample("cpu", [], rng, BMS)
+            ms[on].append((time.perf_counter() - t0) * 1e3)
+            sync_n[on].append(syncs["n"])
+    finally:
+        (torch.cuda.synchronize, torch.cuda.Event.synchronize,
+         torch.cuda.Stream.synchronize) = originals
+        dp.profiler.configure(enabled=was)
+    if sorted(set(sync_n[True])) != sorted(set(sync_n[False])):
+        raise AssertionError(f"deviceprof: the profiler changed the "
+                             f"cached query's syncs: on {sync_n[True]}, "
+                             f"off {sync_n[False]}")
+    snap = dp.profiler.snapshot()
+    exec_ms = {f["fn"]: f["exec_ms"] for f in snap["fns"] if f["exec_ms"]}
+    out = {"on_p50_ms": statistics.median(ms[True]),
+           "off_p50_ms": statistics.median(ms[False]),
+           "on_ms": ms[True], "off_ms": ms[False],
+           "syncs_per_query": sync_n[True][0], "exec_ms": exec_ms,
+           "events": snap["events"]}
+    log(f"deviceprof: cached fused query p50 {out['on_p50_ms']!r} ms with "
+        f"the profiler on, {out['off_p50_ms']!r} ms off ({turns} turns "
+        f"each, alternating); explicit syncs per query "
+        f"{out['syncs_per_query']} both ways; seam device ms so far "
+        f"{exec_ms}; events {snap['events']}")
+    return out
+
+
 def check_config1(grids: dict, want: dict, order, what: str) -> None:
     """count, min, max and last equal numpy; sum and avg within rtol
     1e-5 (rows in tsid order)."""
@@ -4858,6 +4952,10 @@ async def server_phase(ba, mg, rows: int) -> dict:
             rec: dict = {"http_ms": [], "direct_ms": [],
                          "http_launches": [], "direct_launches": []}
             cold_body = None
+            # the device profiler's per-seam launches around the leg's
+            # queries, from GET /debug/device
+            dev0 = seam_launches(json.loads(await get(base,
+                                                      "/debug/device")))
             for rep in range(6):
                 # each call's launches are counted from 0 around it
                 # alone, so the HTTP route's count owes nothing to the
@@ -4888,6 +4986,17 @@ async def server_phase(ba, mg, rows: int) -> dict:
                     check_config1(json_grids(body), want, order,
                                   f"server {name} /query")
                     rec["body_bytes"] = len(cold_body)
+            dev1 = seam_launches(json.loads(await get(base,
+                                                      "/debug/device")))
+            counted = {k: sum(c[k] for c in rec["http_launches"]
+                              + rec["direct_launches"])
+                       for k in rec["http_launches"][0]}
+            seen = {k: dev1.get(k, 0) - dev0.get(k, 0) for k in counted}
+            if seen != counted:
+                raise AssertionError(f"server {name}: /debug/device "
+                                     f"launches {seen} differ from the "
+                                     f"kernels' counters {counted}")
+            rec["debug_device_launches"] = seen
             # the gate reads the true-cold HTTP /query alone
             rec["launches"] = rec["http_launches"][0]
             for k in route:
@@ -4922,7 +5031,8 @@ async def server_phase(ba, mg, rows: int) -> dict:
             if vals_body["values"] != [f"host_{i:03d}" for i in range(hosts)]:
                 raise AssertionError("server: /label_values")
             stats = json.loads(await get(base, "/stats"))
-            if stats["tables"]["data"]["rows"] < n or "deviceprof" in stats:
+            if stats["tables"]["data"]["rows"] < n \
+                    or stats["deviceprof"]["launches"] < 1:
                 raise AssertionError("server: /stats")
             metrics = (await get(base, "/metrics")).decode()
             if "scan_stage_seconds" not in metrics:
@@ -4941,7 +5051,12 @@ async def server_phase(ba, mg, rows: int) -> dict:
                 f"{rec['direct_cached_p50_ms']!r} ms; cold HTTP /query "
                 f"launches {rec['launches']}, cold direct call "
                 f"{rec['direct_launches'][0]}; HTTP grids byte-equal to "
-                f"the direct call and to numpy")
+                f"the direct call and to numpy; GET /debug/device launches "
+                f"over the 12 calls {rec['debug_device_launches']}, equal "
+                f"to the kernels' counters")
+        t0 = time.perf_counter()
+        out["deviceprof"] = await profiler_turns(e_fused, rng)
+        log(f"phase deviceprof: {time.perf_counter() - t0!r} s")
         for r in runners:
             await r.cleanup()
         runners.clear()
@@ -5514,6 +5629,455 @@ async def failover_phase(ba, mg) -> dict:
     return out
 
 
+def chip_device():
+    """The card every mesh slot of the mesh phases names."""
+    import torch
+
+    return torch.device("cuda", 0)
+
+
+def mesh_query_stats(ba, mg, dp, read_mod, before: dict) -> dict:
+    """What one mesh query did, from the counters snapshotted in
+    `before` (mesh_query_snap): rounds and their slot fill and padding
+    waste (the profiler's round timeline), fallbacks by reason, kernel
+    launches, device-to-host bytes."""
+    rounds = dp.profiler.rounds()[before["rounds"]:]
+    fb = read_mod.mesh_fallback_counts()
+    return {
+        "rounds": len(rounds),
+        "fill": (statistics.fmean(r["fill_ratio"] for r in rounds)
+                 if rounds else None),
+        "padding_rows": sum(r["padding_rows"] for r in rounds),
+        "fallbacks": {r: v - before["fallbacks"].get(r, 0)
+                      for r, v in fb.items()
+                      if v - before["fallbacks"].get(r, 0)},
+        "launches": launches(ba, mg),
+        "d2h_bytes": dp.profiler.transfer["d2h"]["bytes"] - before["d2h"],
+    }
+
+
+def mesh_query_snap(ba, mg, dp, read_mod) -> dict:
+    reset_all(ba, mg)
+    return {"rounds": len(dp.profiler.rounds()),
+            "fallbacks": read_mod.mesh_fallback_counts(),
+            "d2h": dp.profiler.transfer["d2h"]["bytes"]}
+
+
+async def mesh_phases(ba, mg, rows: int, cards=None) -> dict:
+    """BASELINE config 1 (10M rows, 100 hosts, 139 2 h segments, not
+    cut) on the port's meshes, one card:
+
+    - mesh: [scan.mesh] at 1 x 1 (cuda:0) and at 4 x 2 (eight logical
+      slots, all cuda:0), host decode: per bucket (1 min, 1 h) a
+      true-cold query and 5 cached ones (windows cached, the PartsMemo
+      emptied before each so the rounds run), each in turns with the
+      single-device control (parts route, host decode): grids
+      byte-equal to the control's and checked against numpy (sum, avg
+      rtol 1e-5, the rest exact); per query the rounds, slot fill and
+      padding waste from the profiler's round timeline, the fallbacks by
+      reason (mesh_error must be 0), the launches
+      (bucket_window_partials must be above 0), the device-to-host
+      bytes (run tails only) and the walls;
+    - mesh_decode: the same with [scan.decode] mode = "device" (mesh
+      decode rounds; the control the single-device device decode):
+      kway_merge_perm launches above 0, no decode fallback;
+    - mesh_topk: top 10 by max and by sum at 1 min on the 4 x 2 mesh,
+      device-scored, equal to the single-device query_topk;
+    - segment_mesh: [scan] mesh_devices = 4 over four entries of
+      cuda:0 under the device_sort merge layout (sharded_merge_dedup
+      rounds, then sharded_remap_partials rounds), byte-equal to the
+      control;
+    - multihost: a one-process NCCL group: the global downsample over
+      config 1's first segment, equal to the single-device answer.
+
+    `cards` (default: the one card) lists the cards the mesh slots
+    cycle over: with four, the 4 x 2 mesh's slots name cuda:0-3 twice
+    and the segment mesh's four slots one card each, so the combine and
+    the score state copy between cards.  The control stays on the
+    first.  Each sub-phase prints its own `phase <name>: <s> s` line."""
+    import numpy as np
+    import torch
+
+    from horaedb_tpu_torch.common import deviceprof as dp
+    from horaedb_tpu_torch.metric_engine import MetricEngine
+    from horaedb_tpu_torch.metric_engine.types import Label, tsid_of
+    from horaedb_tpu_torch.objstore import MemoryObjectStore
+    from horaedb_tpu_torch.ops import device_decode as dd
+    from horaedb_tpu_torch.parallel import mesh as mesh_mod
+    from horaedb_tpu_torch.storage import read as read_mod
+    from horaedb_tpu_torch.storage.config import StorageConfig, from_dict
+    from horaedb_tpu_torch.storage.types import TimeRange
+
+    d = config1_rows(rows)
+    hosts, interval, segment_ms = d["hosts"], d["interval"], d["segment_ms"]
+    per_host, T0, n, names = d["per_host"], d["T0"], d["n"], d["names"]
+    ts, host_id, vals = d["ts"], d["host_id"], d["vals"]
+    vals32 = vals.astype(np.float32)
+    cards = list(cards or [chip_device()])
+    card = cards[0]
+    slots8 = (cards * 8)[:8]
+    out: dict = {"rows": n, "cards": [str(c) for c in cards]}
+    store = MemoryObjectStore()
+    engines: list = []
+    saved_env = os.environ.get("HORAEDB_FUSED_AGG")
+    # the control takes the parts route the meshes replace (the JAX
+    # package's mesh tests force the same: its fused accumulator off)
+    os.environ["HORAEDB_FUSED_AGG"] = "0"
+    saved_rounds = dp.profiler.rounds_kept
+    dp.profiler.configure(rounds_kept=8192)
+
+    async def open_leg(devices, **scan):
+        cfg = from_dict(StorageConfig, {
+            "scheduler": {"schedule_interval": "1h"},
+            "scan": {"cache_max_rows": 4 * rows, **scan}})
+        with mesh_mod.local_devices_scope(devices):
+            e = await MetricEngine.open("mesh", store,
+                                        segment_ms=segment_ms, config=cfg)
+        engines.append(e)
+        return e
+
+    def sub(name: str, t0: float) -> None:
+        log(f"phase {name}: {time.perf_counter() - t0!r} s")
+
+    tsids = np.array([tsid_of("cpu", [Label("host", f"host_{i:03d}")])
+                      for i in range(hosts)], dtype=np.uint64)
+    order = np.argsort(tsids)
+
+    async def timed_query(e, rng_t, bucket_ms):
+        t0 = time.perf_counter()
+        got = await e.query_downsample("cpu", [], rng_t, bucket_ms)
+        torch.cuda.synchronize()
+        return got, (time.perf_counter() - t0) * 1e3
+
+    async def turns(legs: dict, control, tag: str, route_kernels: tuple,
+                    decode: bool) -> dict:
+        """Per bucket: a true-cold query and 5 cached ones on every leg,
+        in turns with the control; all the gates."""
+        rec: dict = {}
+        for bucket_ms in (60_000, 3_600_000):
+            nb = -(-per_host * interval // bucket_ms)
+            rng_t = TimeRange.new(T0, T0 + nb * bucket_ms)
+            want = host_major_reference(vals32, hosts, per_host, T0,
+                                        interval, bucket_ms, nb)
+            per = {name: {"ms": [], "queries": []} for name in legs}
+            per["control"] = {"ms": []}
+            for rep in range(6):
+                for e in [control] + list(legs.values()):
+                    r = e.tables["data"].reader
+                    if rep == 0:
+                        true_cold(r)
+                    else:
+                        r.parts_memo.clear()
+                ctl, ctl_ms = await timed_query(control, rng_t, bucket_ms)
+                per["control"]["ms"].append(ctl_ms)
+                for name, e in legs.items():
+                    dec0 = dd.fallback_counts()
+                    snap = mesh_query_snap(ba, mg, dp, read_mod)
+                    got, ms = await timed_query(e, rng_t, bucket_ms)
+                    st = mesh_query_stats(ba, mg, dp, read_mod, snap)
+                    st["ms"] = ms
+                    st["decode_fallbacks"] = {
+                        k: v - dec0[k] for k, v in dd.fallback_counts().items()
+                        if v - dec0[k]}
+                    what = f"{tag} {name} {bucket_ms} ms rep {rep}"
+                    same_bytes(got, ctl, f"{what} vs the control")
+                    if rep in (0, 5):
+                        check_config1(host_grids(got), want, order, what)
+                    if st["fallbacks"].get("mesh_error"):
+                        raise AssertionError(f"{what}: mesh_error fallbacks "
+                                             f"{st['fallbacks']}")
+                    if not st["rounds"]:
+                        raise AssertionError(f"{what}: no mesh round ran")
+                    for k in route_kernels:
+                        if st["launches"][k] < 1:
+                            raise AssertionError(f"{what}: {k} never "
+                                                 "launched")
+                    if decode and st["decode_fallbacks"]:
+                        raise AssertionError(f"{what}: decode fallbacks "
+                                             f"{st['decode_fallbacks']}")
+                    per[name]["ms"].append(ms)
+                    per[name]["queries"].append(st)
+                    log(f"{tag} [{name}, {bucket_ms // 1000} s buckets, "
+                        f"{'cold' if rep == 0 else f'cached {rep}'}]: "
+                        f"{ms!r} ms (control {ctl_ms!r} ms); "
+                        f"{st['rounds']} rounds, fill {st['fill']!r}, "
+                        f"padding {st['padding_rows']:,} rows; fallbacks "
+                        f"{st['fallbacks']}; launches {st['launches']}; "
+                        f"d2h {st['d2h_bytes']:,} B; byte-equal to the "
+                        f"control" + ("; numpy ok" if rep in (0, 5) else ""))
+            for name, r in per.items():
+                r["cold_ms"] = r["ms"][0]
+                r["cached_p50_ms"] = statistics.median(r["ms"][1:])
+            rec[str(bucket_ms)] = per
+        return rec
+
+    try:
+        t0 = time.perf_counter()
+        e_in = await open_leg([card])
+        out["ingest_s"] = await ingest_rows(e_in, host_id, ts, vals, names,
+                                            hosts)
+        for t in e_in.tables.values():
+            await t.manifest.trigger_merge()
+        await e_in.close()
+        engines.remove(e_in)
+        log(f"mesh: ingest of {n:,} rows in {out['ingest_s']!r} s")
+
+        # ---- mesh: [scan.mesh] on host-decoded windows
+        control = await open_leg([card], decode={"mode": "host"})
+        m11 = await open_leg([card], decode={"mode": "host"},
+                             mesh={"enabled": True, "time": 1, "series": 1})
+        m42 = await open_leg(slots8, decode={"mode": "host"},
+                             mesh={"enabled": True, "time": 4, "series": 2})
+        if m42.tables["data"].reader.scan_mesh.shape != {"time": 4,
+                                                         "series": 2}:
+            raise AssertionError("mesh: the 4 x 2 mesh was not built")
+        out["mesh"] = await turns({"1x1": m11, "4x2": m42}, control, "mesh",
+                                  ("bucket_window_partials",), False)
+        sub("mesh", t0)
+
+        # ---- mesh_topk: device-scored top-k on the 4 x 2 mesh
+        t0 = time.perf_counter()
+        nb = -(-per_host * interval // 60_000)
+        rng_t = TimeRange.new(T0, T0 + nb * 60_000)
+        out["mesh_topk"] = {}
+        for by in ("max", "sum"):
+            served0 = read_mod._MESH_TOPK.value
+            snap = mesh_query_snap(ba, mg, dp, read_mod)
+            t1 = time.perf_counter()
+            got = await m42.query_topk("cpu", [], rng_t, 60_000, k=10, by=by)
+            ms = (time.perf_counter() - t1) * 1e3
+            st = mesh_query_stats(ba, mg, dp, read_mod, snap)
+            t1 = time.perf_counter()
+            ctl = await control.query_topk("cpu", [], rng_t, 60_000, k=10,
+                                           by=by)
+            ctl_ms = (time.perf_counter() - t1) * 1e3
+            if read_mod._MESH_TOPK.value != served0 + 1:
+                raise AssertionError(f"mesh_topk by {by}: not served by the "
+                                     f"device-scored route ({st})")
+            if len(got["tsids"]) != 10:
+                raise AssertionError(f"mesh_topk by {by}: k=10")
+            same_result_bytes(got, ctl, f"mesh_topk by {by}")
+            st.update(ms=ms, control_ms=ctl_ms)
+            out["mesh_topk"][by] = st
+            log(f"mesh_topk [by {by}]: {ms!r} ms (control {ctl_ms!r} ms); "
+                f"{st['rounds']} rounds; launches {st['launches']}; d2h "
+                f"{st['d2h_bytes']:,} B; answer and rows equal the "
+                "single-device query_topk")
+        sub("mesh_topk", t0)
+        for e in (m11, m42):
+            await e.close()
+            engines.remove(e)
+
+        # ---- mesh_decode: [scan.decode] mode = "device" on the mesh
+        t0 = time.perf_counter()
+        dcontrol = await open_leg([card], decode={"mode": "device"})
+        d11 = await open_leg([card], decode={"mode": "device"},
+                             mesh={"enabled": True, "time": 1, "series": 1})
+        d42 = await open_leg(slots8, decode={"mode": "device"},
+                             mesh={"enabled": True, "time": 4, "series": 2})
+        out["mesh_decode"] = await turns(
+            {"1x1": d11, "4x2": d42}, dcontrol, "mesh_decode",
+            ("bucket_window_partials", "kway_merge_perm"), True)
+        sub("mesh_decode", t0)
+        for e in (dcontrol, d11, d42):
+            await e.close()
+            engines.remove(e)
+
+        # ---- segment_mesh: [scan] mesh_devices = 4, device_sort merges
+        t0 = time.perf_counter()
+        seg = await open_leg((cards * 4)[:4], decode={"mode": "host"},
+                             mesh_devices=4)
+        rec = {}
+        for rep in range(3):
+            for e in (control, seg):
+                r = e.tables["data"].reader
+                if rep == 0:
+                    true_cold(r)
+                else:
+                    r.parts_memo.clear()
+            ctl, ctl_ms = await timed_query(control, rng_t, 60_000)
+            merges0 = dp.profiler._record(
+                "sharded_merge[merge_dedup_last]").dispatches
+            remaps0 = dp.profiler._record("sharded_remap_partials").dispatches
+            snap = mesh_query_snap(ba, mg, dp, read_mod)
+            mg.set_merge_impl("device_sort")
+            try:
+                got, ms = await timed_query(seg, rng_t, 60_000)
+            finally:
+                mg.set_merge_impl("host_perm")
+            st = mesh_query_stats(ba, mg, dp, read_mod, snap)
+            st["merge_rounds"] = dp.profiler._record(
+                "sharded_merge[merge_dedup_last]").dispatches - merges0
+            st["remap_rounds"] = dp.profiler._record(
+                "sharded_remap_partials").dispatches - remaps0
+            st.update(ms=ms, control_ms=ctl_ms)
+            same_bytes(got, ctl, f"segment_mesh rep {rep} vs the control")
+            if rep == 0 and (st["merge_rounds"] < 1
+                             or st["launches"]["bucket_window_partials"] < 1):
+                raise AssertionError(f"segment_mesh: rounds did not run "
+                                     f"({st})")
+            if st["remap_rounds"] < 1:
+                raise AssertionError(f"segment_mesh: no remap round ({st})")
+            rec[f"rep{rep}"] = st
+            log(f"segment_mesh [{'cold' if rep == 0 else f'cached {rep}'}]"
+                f": {ms!r} ms (control {ctl_ms!r} ms); "
+                f"{st['merge_rounds']} sharded_merge_dedup rounds, "
+                f"{st['remap_rounds']} sharded_remap_partials rounds; "
+                f"launches {st['launches']}; byte-equal to the control")
+        out["segment_mesh"] = rec
+        sub("segment_mesh", t0)
+
+        # ---- multihost: a one-process NCCL group
+        t0 = time.perf_counter()
+        out["multihost"] = multihost_leg(ba, mg, d)
+        sub("multihost", t0)
+        return out
+    finally:
+        for e in engines:
+            await e.close()
+        dp.profiler.configure(rounds_kept=saved_rounds)
+        if saved_env is None:
+            os.environ.pop("HORAEDB_FUSED_AGG", None)
+        else:
+            os.environ["HORAEDB_FUSED_AGG"] = saved_env
+
+
+def multihost_procs_leg(nprocs: int) -> dict:
+    """parallel/multihost.py across processes on the cards: the test
+    suite's worker (tests/torch_multihost_worker.py) as `nprocs` NCCL
+    processes, one card each with 4 slots, each contributing its own 4
+    windows; every process must observe the same replicated grids, equal
+    to numpy over all windows (count, min, max, last exact; sum rtol
+    1e-5) and to the top 3 by max."""
+    import numpy as np
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    worker = os.path.join(here, "tests", "torch_multihost_worker.py")
+    root = scratch_dir("multihost")
+    coordinator = f"127.0.0.1:{free_port()}"
+    outs = [os.path.join(root, f"out{r}.npz") for r in range(nprocs)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, worker, coordinator,
+                               str(nprocs), str(r), outs[r], "cuda"],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT)
+             for r in range(nprocs)]
+    try:
+        logs = [p.communicate(timeout=300)[0].decode(errors="replace")
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError("multihost workers failed:\n"
+                             + "\n---\n".join(logs))
+    got = [np.load(o) for o in outs]
+    for g in got[1:]:
+        for k in got[0].files:
+            if g[k].tobytes() != got[0][k].tobytes():
+                raise AssertionError(f"multihost: processes disagree on {k}")
+    # the worker's dataset, over all nprocs x 4 windows
+    G, B, CAP, BMS_ = 8, 4, 128, 60_000
+    rng = np.random.default_rng(99)
+    n_global = 4 * nprocs
+    ts = rng.integers(0, B * BMS_, (n_global, CAP)).astype(np.int32)
+    gid = rng.integers(0, G, (n_global, CAP)).astype(np.int32)
+    vals = (rng.random((n_global, CAP)) * 100).astype(np.float32)
+    nv = CAP - 8
+    t = np.concatenate([ts[i, :nv] for i in range(n_global)])
+    g_ = np.concatenate([gid[i, :nv] for i in range(n_global)])
+    v = np.concatenate([vals[i, :nv] for i in range(n_global)])
+    cell = g_.astype(np.int64) * B + t // BMS_
+    count = np.bincount(cell, minlength=G * B).reshape(G, B)
+    total = np.bincount(cell, weights=v.astype(np.float64),
+                        minlength=G * B).reshape(G, B)
+    mx = np.full((G, B), -np.inf)
+    np.maximum.at(mx, (g_, t // BMS_), v.astype(np.float64))
+    a = got[0]
+    occ = count > 0
+    if not np.array_equal(a["count"], count) or not np.array_equal(
+            a["max"][occ], mx[occ].astype(np.float32)):
+        raise AssertionError("multihost: count or max differs from numpy")
+    np.testing.assert_allclose(a["sum"], total, rtol=1e-5)
+    scores = np.where(occ, a["max"], -np.inf).max(axis=1)
+    if not np.array_equal(a["top_idx"],
+                          np.argsort(-scores, kind="stable")[:3]):
+        raise AssertionError("multihost: top 3 differs from numpy")
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"multihost: {nprocs} NCCL processes (one card each, 4 slots) in "
+        f"{wall!r} s including their start; the replicated grids equal "
+        "on every process and to numpy over all windows")
+    return {"procs": nprocs, "wall_s": wall}
+
+
+def multihost_leg(ba, mg, d: dict) -> dict:
+    """parallel/multihost.py on one card: an NCCL group of one process
+    (tcp rendezvous on a free local port), the global downsample over
+    config 1's first 2 h segment (100 hosts, 72,000 rows in one slot),
+    against the single-device time_bucket_aggregate on the same rows."""
+    import numpy as np
+    import torch
+
+    from horaedb_tpu_torch.ops import downsample
+    from horaedb_tpu_torch.ops.encode import pad_capacity
+    from horaedb_tpu_torch.parallel import mesh as mesh_mod
+    from horaedb_tpu_torch.parallel import multihost
+
+    seg = d["ts"] < d["T0"] + d["segment_ms"]
+    n = int(seg.sum())
+    cap = pad_capacity(n)
+    nb = d["segment_ms"] // BMS
+    ts = np.zeros((1, cap), dtype=np.int32)
+    gid = np.zeros((1, cap), dtype=np.int32)
+    vals = np.zeros((1, cap), dtype=np.float32)
+    ts[0, :n] = d["ts"][seg] - d["T0"]
+    gid[0, :n] = d["host_id"][seg]
+    vals[0, :n] = d["vals"][seg].astype(np.float32)
+    card = chip_device()
+    reset_all(ba, mg)
+    t0 = time.perf_counter()
+    multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0,
+                         device=card.type)
+    try:
+        init_s = time.perf_counter() - t0
+        mesh = multihost.global_segment_mesh()
+        fn = multihost.downsample_query_global(
+            mesh, num_groups=d["hosts"], num_buckets=nb, k=10)
+        t1 = time.perf_counter()
+        final, top_vals, top_idx = fn(
+            multihost.host_local_rows_to_global(mesh, ts),
+            multihost.host_local_rows_to_global(mesh, gid),
+            multihost.host_local_rows_to_global(mesh, vals),
+            np.array([n], dtype=np.int32), BMS)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        got_launches = launches(ba, mg)
+    finally:
+        multihost.shutdown()
+        mesh_mod.set_local_devices(None)
+    ref = downsample.time_bucket_aggregate(
+        torch.from_numpy(ts[0]).to(card), torch.from_numpy(gid[0]).to(card),
+        torch.from_numpy(vals[0]).to(card), n, BMS, d["hosts"], nb)
+    for k, v in ref.items():
+        a, b = final[k].cpu().numpy(), v.cpu().numpy()
+        if a.tobytes() != b.tobytes():
+            raise AssertionError(f"multihost: {k} differs from the "
+                                 "single-device answer")
+    if got_launches["bucket_window_partials"] < 1:
+        raise AssertionError("multihost: bucket_window_partials never "
+                             "launched")
+    log(f"multihost: NCCL group of 1 up in {init_s!r} s; global downsample "
+        f"of {n:,} rows in {ms!r} ms, launches {got_launches}; every grid "
+        "byte-equal to the single-device answer; top 10 "
+        f"{top_idx.cpu().tolist()}")
+    return {"rows": n, "init_s": init_s, "ms": ms, "launches": got_launches}
+
+
 def load_merge_module(root: str):
     """ops/merge.py of another checkout at `root`, loaded under its own
     name and pointed at that checkout's csrc/merge_path.cu (it builds
@@ -5541,6 +6105,10 @@ def main() -> int:
                          "from 1B is printed; below 8,388,608 rows the "
                          "segment no longer streams and the phase fails "
                          "its route check)")
+    ap.add_argument("--cards", type=int, default=1,
+                    help="with N > 1, run only the mesh phases with the "
+                         "mesh slots cycling over N cards, and the "
+                         "multi-process tier as N NCCL processes")
     ap.add_argument("--parent", default=None,
                     help="root of another checkout of this repo (e.g. a git "
                          "archive of the parent commit): its merge kernel is "
@@ -5591,6 +6159,30 @@ def main() -> int:
         log(f"phase {name}: {time.perf_counter() - t0!r} s")
         return out
 
+    if args.cards > 1:
+        if torch.cuda.device_count() < args.cards:
+            print(f"chip_smoke: --cards {args.cards} needs {args.cards} "
+                  "cards", file=sys.stderr)
+            return 2
+        cards = [torch.device("cuda", i) for i in range(args.cards)]
+        log(f"cards:\n{card_line(every=True)}")
+        mesh = phase("meshes over the cards", asyncio.run,
+                     mesh_phases(ba, mg, args.rows, cards))
+        procs = phase("multihost processes", multihost_procs_leg,
+                      args.cards)
+        if args.json:
+            os.makedirs(os.path.dirname(os.path.abspath(args.json)),
+                        exist_ok=True)
+            with open(args.json, "w") as f:
+                json.dump({"card": card, "mesh": mesh, "procs": procs}, f,
+                          indent=1)
+        log(f"total: {time.perf_counter() - t_start!r} s")
+        log(card_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
     kernels = phase("kernel", kernel_phase, ba, fused)
     merge_k = phase("merge kernel", merge_kernel_phase, mg, dd, parent)
     determinism = phase("determinism", determinism_phase, ba, fused)
@@ -5608,6 +6200,8 @@ def main() -> int:
     server = phase("server", asyncio.run, server_phase(ba, mg, args.rows))
     cluster = phase("cluster", asyncio.run, cluster_phase(ba, mg, args.rows))
     failover = phase("failover", asyncio.run, failover_phase(ba, mg))
+    mesh = phase("meshes (mesh, mesh_topk, mesh_decode, segment_mesh, "
+                 "multihost)", asyncio.run, mesh_phases(ba, mg, args.rows))
     kernels.append({
         "name": "kway_merge_perm", "route": "cuda",
         "source": "horaedb_tpu_torch/csrc/merge_path.cu",
@@ -5655,6 +6249,19 @@ def main() -> int:
             leg: r["direct_launches"][0][k["name"]]
             for leg, r in server["legs"].items()}
         k["cluster_launches"] = cluster["launches"][k["name"]]
+        # and on the mesh phases' true-cold 1 min queries (each counted
+        # from 0 around it alone), the segment mesh's cold query and the
+        # multi-process global downsample
+        k["mesh_launches"] = {
+            f"{tag}_{leg}":
+                mesh[tag]["60000"][leg]["queries"][0]["launches"][k["name"]]
+            for tag in ("mesh", "mesh_decode") for leg in ("1x1", "4x2")}
+        k["mesh_topk_launches"] = {
+            by: r["launches"][k["name"]]
+            for by, r in mesh["mesh_topk"].items()}
+        k["segment_mesh_launches"] = \
+            mesh["segment_mesh"]["rep0"]["launches"][k["name"]]
+        k["multihost_launches"] = mesh["multihost"]["launches"][k["name"]]
         k["failover_launches"] = {f"config{c}": r["launches"][k["name"]]
                                   for c, r in failover.items()}
         if k["name"] == "bucket_window_partials":
@@ -5673,7 +6280,7 @@ def main() -> int:
                        "topk_ops": topk_ops, "config4": config4,
                        "rollup": rollup, "chunked": chunked,
                        "scanagent": scanagent, "server": server,
-                       "cluster": cluster,
+                       "cluster": cluster, "mesh": mesh,
                        "failover": {str(k): v for k, v in failover.items()}},
                       f,
                       indent=1)

@@ -47,8 +47,11 @@ def host_downsample(out: dict) -> dict:
     aggs = out.get("aggs") or {}
     if not any(hasattr(v, "cpu") for v in aggs.values()):
         return out
-    return {**out, "aggs": {k: (v.cpu().numpy() if hasattr(v, "cpu")
-                                else v) for k, v in aggs.items()}}
+    from horaedb_tpu_torch.common import deviceprof
+
+    return {**out, "aggs": {k: (deviceprof.download(v)
+                                if hasattr(v, "cpu") else v)
+                            for k, v in aggs.items()}}
 
 
 def downsample_to_arrow(out: dict) -> pa.Table:

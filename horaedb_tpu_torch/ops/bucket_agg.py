@@ -33,6 +33,7 @@ from typing import Optional
 
 import numpy as np
 
+from horaedb_tpu_torch.common import deviceprof
 from horaedb_tpu_torch.common.error import Error, ensure
 from horaedb_tpu_torch.ops import nvcc
 
@@ -160,6 +161,8 @@ def _ptr(t) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+@deviceprof.seam(name="bucket_window_partials",
+                 static=("num_groups", "width", "which"))
 def bucket_window_partials(ts, gid_local, vals, remap, shift, lo,
                            total_buckets: int, bucket_ms: int, *,
                            num_groups: int, width: int, which: tuple,
@@ -238,6 +241,7 @@ def _launch_partials(ts, gid_local, vals, remap, shift, lo,
     if rc != 0:
         raise Error(f"bucket_window_partials launch failed: cudaError {rc}")
     LAUNCHES["bucket_window_partials"] += 1
+    deviceprof.note_launch("bucket_window_partials")
     return out
 
 
@@ -255,6 +259,8 @@ def _round_columns(lo_host, n_valid_host, width: int,
     return c0, max(c0, c1)
 
 
+@deviceprof.seam(name="bucket_round_accumulate",
+                 static=("num_groups", "width", "which"))
 def bucket_round_accumulate(acc: dict, ts, gid_local, vals, remap, shift,
                             lo, total_buckets: int, bucket_ms: int, *,
                             num_groups: int, width: int, which: tuple,
@@ -345,6 +351,7 @@ def _launch_round(acc: dict, ts, gid_local, vals, remap, shift, lo,
     if rc != 0:
         raise Error(f"bucket_round_accumulate launch failed: cudaError {rc}")
     LAUNCHES["bucket_round_accumulate"] += 1
+    deviceprof.note_launch("bucket_round_accumulate")
     return acc
 
 

@@ -42,6 +42,7 @@ from typing import Optional
 
 import numpy as np
 
+from horaedb_tpu_torch.common import deviceprof
 from horaedb_tpu_torch.ops import bucket_agg, encode
 from horaedb_tpu_torch.ops import filter as filter_ops
 from horaedb_tpu_torch.ops import merge as merge_ops
@@ -66,6 +67,7 @@ FALLBACK_REASONS = (
     "kway_runs",       # a multi-run segment declined the k-way merge (run
                        # boundaries unknown, runs not sorted, too many
                        # runs): it still decodes on the card, by the sort
+    "mesh",            # the 1-D segment mesh keeps its own round scheduler
 )
 
 _FALLBACKS = registry.counter(
@@ -455,10 +457,10 @@ class DecodeDispatch:
         # (every field as its 32-bit pattern) into ONE device-to-host
         # copy; window-local last_ts re-based to range_start-relative
         names = list(self.outs)
-        host = torch.cat(
+        host = deviceprof.download(torch.cat(
             [self.outs[f][:g, :w].reshape(-1).view(torch.int32)
              for f in names]
-            + [self.n_rows.to(torch.int32).reshape(1)]).cpu().numpy()
+            + [self.n_rows.to(torch.int32).reshape(1)]))
         _D2H_BYTES.inc(int(host.nbytes))
         grids = {}
         for i, f in enumerate(names):
@@ -496,8 +498,10 @@ class DecodePlan:
     cap: int
     shift: int
     lo: int
+    local_ok: bool
     use_width: int
     w_eff: int
+    g: int
     g_pad: int
     values: object            # the group dictionary (host array)
     upload_names: list
@@ -514,6 +518,22 @@ class DecodePlan:
     which: tuple
     bucket_ms: int
     num_buckets: int
+
+    @property
+    def n_valid(self) -> int:
+        # windows-list accounting (DeviceBatch and DevicePart ride the
+        # same lists): source rows, before filter and dedup
+        return self.es.n
+
+    def static_key(self) -> tuple:
+        """Everything that must match for two plans to share one mesh
+        decode round: the decode geometry and the leaf-constant shapes
+        (their stacks span the round's slots)."""
+        return (self.key_slots, self.num_pks, self.group_pos,
+                self.ts_pos, self.val_slot, self.leaf_prog,
+                tuple(len(c) for c in self.consts), self.route,
+                self.num_runs, self.local_ok, len(self.upload_names),
+                self.which)
 
 
 def plan_dispatch(es, spec, pk_names: list, seq_name: str,
@@ -608,10 +628,11 @@ def plan_dispatch(es, spec, pk_names: list, seq_name: str,
     use_width = width if local_ok else spec.num_buckets
     g = len(g_enc.dictionary)
     g_pad = max(8, 1 << (g - 1).bit_length())
-    w_eff = min(use_width, spec.num_buckets - lo)
+    # a segment starting past the grid keeps no column
+    w_eff = max(0, min(use_width, spec.num_buckets - lo))
     return DecodePlan(
-        es=es, cap=cap, shift=shift, lo=lo, use_width=use_width,
-        w_eff=w_eff, g_pad=g_pad,
+        es=es, cap=cap, shift=shift, lo=lo, local_ok=local_ok,
+        use_width=use_width, w_eff=w_eff, g=g, g_pad=g_pad,
         values=g_enc.dictionary, upload_names=upload_names,
         key_slots=tuple(slot_of[nm] for nm in key_names),
         num_pks=len(pk_names), group_pos=key_names.index(spec.group_col),

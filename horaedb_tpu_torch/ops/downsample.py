@@ -65,6 +65,33 @@ def window_local_partials(ts, gid_local, vals, remap, shift: int, lo: int,
     return {k: v[0] for k, v in out.items()}
 
 
+def combine_partial_pair(cur: dict, prev: dict) -> dict:
+    """Pairwise combine of two partial-grid dicts over the SAME local
+    bucket span — the associative op of the mesh scan's segmented
+    time-axis reduction (parallel/scan.py mesh_run_partials).  `prev` is
+    the EARLIER prefix; ties on last_ts keep `cur` (the later window
+    wins, the host fold's `>=` take in storage/combine.py).  Exact for
+    count while a cell's count stays < 2^24, for min/max/last (selection
+    ops), and for sum only where one window contributes a cell — the
+    dispatcher's gates keep anything else off the mesh.  Returns new
+    tensors: neither input is written."""
+    import torch
+
+    out = {"count": cur["count"] + prev["count"]}
+    if "sum" in cur:
+        out["sum"] = cur["sum"] + prev["sum"]
+    if "min" in cur:
+        out["min"] = torch.minimum(cur["min"], prev["min"])
+    if "max" in cur:
+        out["max"] = torch.maximum(cur["max"], prev["max"])
+    if "last" in cur:
+        take_cur = cur["last_ts"] >= prev["last_ts"]
+        out["last"] = torch.where(take_cur, cur["last"], prev["last"])
+        out["last_ts"] = torch.where(take_cur, cur["last_ts"],
+                                     prev["last_ts"])
+    return out
+
+
 def finalize_aggregate(partial: dict, which: tuple = ALL_AGGS) -> dict:
     """Combined partial grids -> user-facing aggregates.  Empty cells:
     count 0, sum 0, min +inf, max -inf, avg/last NaN."""
@@ -126,5 +153,8 @@ def partials_from_numpy(grids: dict, device="cpu") -> dict:
 
 
 def partials_to_numpy(grids: dict) -> dict:
-    """Inverse of partials_from_numpy: tensors -> host numpy arrays."""
-    return {k: v.detach().cpu().numpy() for k, v in grids.items()}
+    """Inverse of partials_from_numpy: tensors -> host numpy arrays,
+    through the device profiler's download seam."""
+    from horaedb_tpu_torch.common import deviceprof
+
+    return {k: deviceprof.download(v) for k, v in grids.items()}

@@ -19,6 +19,7 @@ copy goes through `to_device`, which counts the bytes it moves.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -26,6 +27,7 @@ import numpy as np
 import pyarrow as pa
 import pyarrow.compute as pc
 
+from horaedb_tpu_torch.common import deviceprof
 from horaedb_tpu_torch.common.error import Error, ensure
 from horaedb_tpu_torch.utils import registry
 
@@ -49,13 +51,18 @@ MIN_CAPACITY = 128
 
 def to_device(arr: np.ndarray, device):
     """THE host-to-device copy: a numpy array -> torch tensor on
-    `device`, with the bytes counted in horaedb_h2d_bytes_total (also
-    counted for a CPU device, where the copy is a memcpy)."""
+    `device`, with the bytes counted in horaedb_h2d_bytes_total and
+    charged to the device profiler's h2d transfers (also for a CPU
+    device, where the copy is a memcpy)."""
     import torch
 
+    t0 = time.perf_counter()
     t = torch.from_numpy(np.ascontiguousarray(arr))
     _H2D_BYTES.inc(int(t.nbytes))
-    return t.to(device)
+    out = t.to(device)
+    deviceprof.charge_transfer("h2d", int(t.nbytes),
+                               seconds=time.perf_counter() - t0)
+    return out
 
 
 def h2d_bytes() -> int:

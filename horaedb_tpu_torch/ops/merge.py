@@ -24,6 +24,7 @@ import threading
 
 import numpy as np
 
+from horaedb_tpu_torch.common import deviceprof
 from horaedb_tpu_torch.common.error import Error, ensure
 from horaedb_tpu_torch.ops import nvcc
 
@@ -105,6 +106,7 @@ def _check_merge(keys: tuple, run_offsets, num_runs: int):
     return dev, cap
 
 
+@deviceprof.seam(name="kway_merge_perm", static=("num_runs",))
 def kway_merge_perm(keys: tuple, run_offsets, *, num_runs: int,
                     n_valid: int):
     """Permutation that stably merges `num_runs` presorted runs.
@@ -155,6 +157,7 @@ def kway_merge_perm(keys: tuple, run_offsets, *, num_runs: int,
             if rc != 0:
                 raise Error(f"kway_merge_perm launch failed: cudaError {rc}")
             LAUNCHES["kway_merge_perm"] += 1
+            deviceprof.note_launch("kway_merge_perm")
             src = dst
             level *= 2
     return src
@@ -219,3 +222,141 @@ def runs_lex_sorted_np(key_cols: list, offsets) -> bool:
                 return False
             later = later | (cur < nxt)
     return True
+
+
+# ---------------------------------------------------------------------------
+# device merge-dedup (horaedb_tpu/ops/merge.py _merge_dedup_impl and
+# _dedup_presorted_impl): the device_sort layout and the 1-D segment
+# mesh's shard-local merge rounds (parallel/scan.sharded_merge_dedup)
+# ---------------------------------------------------------------------------
+
+_PAD_SENTINEL = 2**31 - 1
+
+
+def sorted_run_starts(pk_cols: tuple, valid):
+    """Boolean mask of primary-key run starts over sorted columns: rows
+    i and i-1 are in one run iff every PK column is equal.  Padding
+    rows never start a run."""
+    import torch
+
+    neq = torch.zeros(valid.shape, dtype=torch.bool, device=valid.device)
+    for col in pk_cols:
+        neq = neq | (col != torch.roll(col, 1))
+    first = torch.zeros_like(neq)
+    first[0] = True
+    return (first | neq) & valid
+
+
+def _last_of_runs(run_starts, valid, cap: int):
+    """(gather_idx, num_runs): the position of each run's LAST row in
+    run order (the JAX package's segment_max over masked row indices),
+    0 past the last run as there.  Written with one scatter through
+    unique indices (the discard slot aside), so it is deterministic."""
+    import torch
+
+    dev = valid.device
+    iota = torch.arange(cap, dtype=torch.int64, device=dev)
+    run_ids = torch.cumsum(run_starts.to(torch.int64), 0) - 1
+    num_runs = run_starts.to(torch.int32).sum()
+    nxt_start = torch.ones(cap, dtype=torch.bool, device=dev)
+    nxt_start[:-1] = run_starts[1:] | ~valid[1:]
+    is_last = valid & nxt_start
+    buf = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
+    buf.scatter_(0, torch.where(is_last, run_ids,
+                                torch.full_like(run_ids, cap)), iota)
+    return buf[:cap], num_runs
+
+
+def _n_valid_mask(n_valid, cap: int, dev):
+    import torch
+
+    iota = torch.arange(cap, dtype=torch.int64, device=dev)
+    if isinstance(n_valid, torch.Tensor):
+        return iota < n_valid.to(dev, torch.int64).reshape(())
+    return iota < int(n_valid)
+
+
+def merge_dedup_last(pk_cols: tuple, seq, value_cols: tuple, n_valid,
+                     seq_in_row_order: bool = False):
+    """Sort + dedup, keeping the last-by-sequence row per primary key.
+
+    pk_cols: int32 (capacity,) tensors in schema order; seq: int32;
+    value_cols: carried columns of any dtype; n_valid: real rows (an int
+    or a 0-/1-element tensor).  `seq_in_row_order` only when seq is
+    non-decreasing with the row index: the stable PK sort then already
+    puts the highest-seq row last in each run.  Returns (out_pk_cols,
+    out_seq, out_value_cols, out_valid_mask, num_runs): sorted by PK,
+    padded to capacity, the first num_runs rows valid."""
+    import torch
+
+    cols = tuple(pk_cols) + (seq,) + tuple(value_cols)
+    num_pks = len(pk_cols)
+    num_keys = num_pks + (0 if seq_in_row_order else 1)
+    cap = cols[0].shape[0]
+    dev = cols[0].device
+    iota = torch.arange(cap, dtype=torch.int32, device=dev)
+    valid = _n_valid_mask(n_valid, cap, dev)
+    # sort only the keys plus a row index; padding sorts last through
+    # the int32 max sentinel, and the row index keeps the sort stable
+    sentinel = torch.full((cap,), _PAD_SENTINEL, dtype=torch.int32,
+                          device=dev)
+    keys = tuple(torch.where(valid, c, sentinel) for c in cols[:num_keys])
+    sorted_all = lex_sort(keys + (iota,), num_keys=num_keys)
+    sorted_keys, perm = sorted_all[:-1], sorted_all[-1].long()
+    sorted_valid = _n_valid_mask(n_valid, cap, dev)[perm]
+    run_starts = sorted_run_starts(sorted_keys[:num_pks], sorted_valid)
+    gather_idx, num_runs = _last_of_runs(run_starts, sorted_valid, cap)
+    src_rows = perm[gather_idx]
+    out_cols = tuple(c[src_rows] for c in cols)
+    out_valid = iota < num_runs
+    return (out_cols[:num_pks], out_cols[num_pks], out_cols[num_pks + 1:],
+            out_valid, num_runs)
+
+
+def dedup_sorted_last(pk_cols: tuple, seq, value_cols: tuple, n_valid,
+                      perm=None):
+    """Dedup WITHOUT a device sort: rows are already (or, after `perm`,
+    become) sorted by PK with the preferred row of each run last.  One
+    gather, the run mask and the segmented last-select.  Returns what
+    merge_dedup_last returns."""
+    import torch
+
+    cols = tuple(pk_cols) + (seq,) + tuple(value_cols)
+    num_pks = len(pk_cols)
+    cap = cols[0].shape[0]
+    dev = cols[0].device
+    if perm is not None:
+        p = perm.long()
+        cols = tuple(c[p] for c in cols)
+    valid = _n_valid_mask(n_valid, cap, dev)
+    run_starts = sorted_run_starts(cols[:num_pks], valid)
+    gather_idx, num_runs = _last_of_runs(run_starts, valid, cap)
+    out_cols = tuple(c[gather_idx] for c in cols)
+    out_valid = torch.arange(cap, dtype=torch.int32, device=dev) < num_runs
+    return (out_cols[:num_pks], out_cols[num_pks], out_cols[num_pks + 1:],
+            out_valid, num_runs)
+
+
+# Which merge strategy a scan's windows take (storage/read.py):
+#   host_perm   — the host plans the k-way merge permutation and keeps
+#                 the last row per PK run in numpy; the default;
+#   device_sort — windows merge on the device with merge_dedup_last (on
+#                 the 1-D segment mesh: shard-local merge rounds); kept
+#                 for A/B runs, as in the JAX package.
+_MERGE_IMPLS = ("host_perm", "device_sort")
+_merge_impl = "host_perm"
+
+
+def set_merge_impl(name: str) -> None:
+    global _merge_impl
+    if name not in _MERGE_IMPLS:
+        raise ValueError(f"unknown merge impl {name!r}; "
+                         f"expected one of {_MERGE_IMPLS}")
+    _merge_impl = name
+
+
+def merge_impl() -> str:
+    return _merge_impl
+
+
+set_merge_impl(os.environ.get("HORAEDB_MERGE_IMPL", "host_perm"))

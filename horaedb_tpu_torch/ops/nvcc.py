@@ -10,6 +10,7 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 
 from horaedb_tpu_torch.common.error import Error
 
@@ -47,12 +48,17 @@ def build(source: str) -> str:
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    t0 = time.perf_counter()
     proc = subprocess.run(nvcc_command(source, tmp), capture_output=True,
                           text=True)
     if proc.returncode != 0:
         raise Error(f"nvcc failed for {source}:\n{proc.stderr}")
     os.replace(tmp, path)
     _BUILD_LOGS[source] = proc.stderr
+    # the port's counterpart of a compile: once per source hash
+    from horaedb_tpu_torch.common import deviceprof
+
+    deviceprof.note_build(source, time.perf_counter() - t0)
     return path
 
 

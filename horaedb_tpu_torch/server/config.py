@@ -3,11 +3,10 @@
 Same layered-TOML shape: port, test write-load generator knobs, and the
 metric-engine section holding the object-store choice plus the
 storage config.  Every section and every validation error is the JAX
-package's, so one TOML file loads alike in both.  Two sections are
-parsed and validated but not served yet: `kind = "S3Like"` (the S3
-backend, objstore/s3.py, is still to be ported; the server refuses to
-start on it) and [deviceprof] (the device profiler is still to be
-ported; GET /debug/device answers 501).
+package's, so one TOML file loads alike in both.  One section is parsed
+and validated but not served yet: `kind = "S3Like"` (the S3 backend,
+objstore/s3.py, is still to be ported; the server refuses to start on
+it).
 """
 
 from __future__ import annotations
@@ -144,11 +143,9 @@ class MemoryConfig:
 
 @dataclass
 class DeviceprofConfig:
-    """[deviceprof]: the device plane's knobs: a recompile-storm
-    watchdog and a round-timeline ring.  Parsed and validated as the
-    JAX package does; the port's device profiler (a profiler of torch
-    and CUDA launches) is still to be ported, so nothing reads these
-    yet and GET /debug/device answers 501."""
+    """[deviceprof]: the device plane's knobs (common/deviceprof.py,
+    applied by the server at start): the profiler on or off, a
+    new-call-key storm watchdog and a round-timeline ring."""
 
     enabled: bool = True
     # recompile-storm watchdog: `storm_threshold` compiles of one fn

@@ -22,9 +22,11 @@ plus /query_topk, /query_multi, the /admin/* routes, /debug/{traces,
 tasks,memory} and the replication plane's /repl/* routes.  The engine
 runs on the card ("cuda") unless `--device cpu` is given; the request
 handlers only ever see numpy grids and Arrow tables, never a device
-tensor.  Not served yet: GET /debug/device answers 501 (the device
-profiler is ROADMAP Queue A 10b) and `kind = "S3Like"` refuses to start
-(objstore/s3.py is ROADMAP Queue A 10c).
+tensor.  GET /debug/device serves the device profiler
+(common/deviceprof.py: per-seam calls, kernel launches, dispatch and
+device seconds, transfers, the mesh round timeline) and /stats its
+summary; [deviceprof] configures it.  Not served yet: `kind = "S3Like"`
+refuses to start (objstore/s3.py is ROADMAP Queue A 10c).
 
 Run: python -m horaedb_tpu_torch.server --config docs/example.toml
      [--device cuda]
@@ -46,6 +48,7 @@ from typing import Optional
 from aiohttp import web
 
 from horaedb_tpu_torch.common import Error, ensure, now_ms
+from horaedb_tpu_torch.common.deviceprof import profiler as deviceprof
 from horaedb_tpu_torch.common.ipc import host_downsample
 from horaedb_tpu_torch.common.deadline import (
     Deadline,
@@ -93,12 +96,6 @@ _UNGOVERNED_ENDPOINTS = frozenset({
     # so replication never sheds under query admission pressure
     "/repl/wal/segments", "/repl/wal/read", "/repl/wal/ack",
     "/repl/status"})
-
-# the 501 body of GET /debug/device until the device profiler lands
-_DEVICEPROF_MISSING = (
-    "the device profiler (a profiler of torch and CUDA launches behind "
-    "/debug/device and [deviceprof]) is not ported yet: ROADMAP Queue "
-    "A 10b")
 
 _SHED = registry.counter(
     "server_queries_shed_total",
@@ -460,8 +457,13 @@ class ServerState:
             hard_bytes=(config.memory.hard_limit.bytes
                         if config.memory.pressure else -1),
             hysteresis=config.memory.hysteresis)
-        # [deviceprof] is parsed but not applied: the device profiler
-        # is not ported yet (GET /debug/device answers 501)
+        # [deviceprof] applies to the process-wide device profiler:
+        # enable flag, storm watchdog knobs, round-timeline ring size
+        deviceprof.configure(
+            enabled=config.deviceprof.enabled,
+            storm_window_s=config.deviceprof.storm_window.seconds,
+            storm_threshold=config.deviceprof.storm_threshold,
+            rounds_kept=config.deviceprof.rounds)
         # a cluster-backed server applies its [breaker] section to the
         # engine's scatter-gather policy (the setter re-points breakers
         # of already-attached remote regions too)
@@ -1113,11 +1115,15 @@ def build_app(state: ServerState) -> web.Application:
 
     @routes.get("/debug/device")
     async def debug_device(_req: web.Request) -> web.Response:
-        """The device plane: a profiler of torch and CUDA launches is
-        still to be ported, so this answers 501 rather than an empty
-        table.  Per-device memory is on /debug/memory."""
-        return web.json_response({"error": _DEVICEPROF_MISSING},
-                                 status=501)
+        """The device plane (common/deviceprof.py): the seam table
+        (per-seam calls, kernel launches, dispatch and device seconds,
+        distinct call keys, storm state, the nvcc builds), h2d/d2h
+        transfer totals, the mesh round timeline (slot fill, padding
+        waste, per-shard row imbalance), and per-device memory."""
+        out = deviceprof.snapshot()
+        sample = memledger.sample_once()
+        out["devices"] = sample.get("devices", [])
+        return web.json_response(out)
 
     @routes.get("/debug/traces/{trace_id}")
     async def debug_trace(req: web.Request) -> web.Response:
@@ -1145,6 +1151,8 @@ def build_app(state: ServerState) -> web.Application:
         out["loops"] = loops.summary()
         # the memory plane's compact rollup (full tree on /debug/memory)
         out["memory"] = memledger.summary()
+        # the device plane's compact rollup (full table on /debug/device)
+        out["deviceprof"] = deviceprof.summary()
         if state.tenants is not None:
             out["tenants"] = _tenant_stats(state)
         return web.json_response(out)

@@ -221,10 +221,9 @@ class ScanDecodeConfig:
 class ScanMeshConfig:
     """In-region 2-D device mesh for the aggregate scan ([scan.mesh]):
     plan segments shard along the `time` axis and group blocks along the
-    `series` axis.  Parsed and validated as the JAX package parses it so
-    the same TOML loads in both; the port runs one device, so a reader
-    opened with `enabled = true` raises (multi-device is ROADMAP Queue
-    A 11)."""
+    `series` axis (parallel/mesh.py), over the local devices of the
+    reader's device type.  Parsed and validated as the JAX package
+    parses it, so the same TOML loads in both."""
 
     enabled: bool = False
     # axis sizes; 0 = auto.  `series` must be a power of two
@@ -249,9 +248,8 @@ class ScanConfig:
     # explicit budget in bytes for the scan cache (0 = derive from
     # cache_max_rows)
     cache_max_bytes: int = 0
-    # devices for the multi-device aggregate path (0 = single device);
-    # the port runs one device, so a reader refuses any other value
-    # (ROADMAP Queue A 11)
+    # slots of the 1-D segment mesh (parallel/mesh.py segment_mesh) the
+    # aggregate rounds shard over (0 = single device)
     mesh_devices: int = 0
     # windows (across segments) batched into one aggregate round — the
     # window axis of one kernel launch (fused and parts paths)

@@ -35,8 +35,8 @@ concurrency only contends for the same host cores.
 
 An expired request deadline stops the fetch and decode stages at their
 next segment boundary (common/deadline.py); the in-flight bytes are a
-memory-ledger account.  Not ported: the mesh stall counters (the port
-has no scan mesh).
+memory-ledger account.  The mesh stall counters live here too: the
+[scan.mesh] round dispatcher is the device stage when the mesh is on.
 """
 
 from __future__ import annotations
@@ -94,14 +94,40 @@ _MEM_ACCOUNT = _memledger.register(
     kind="pipeline_inflight", owner="storage/pipeline")
 
 
+# mesh-axis stalls live with the pipeline's stall telemetry: the mesh
+# dispatcher IS the pipeline's device stage when [scan.mesh] is on —
+# its rounds are fed by the same fetch/decode stages, with plan-order
+# slot admission per mesh column (read._aggregate_segments_mesh)
+MESH_AXES = ("time", "series")
+_MESH_STALLS = {
+    a: registry.counter(
+        "scan_mesh_stalls_total",
+        "mesh rounds dispatched with idle shards, per axis: time = "
+        "the window feed filled fewer slots than the time axis (tail "
+        "rounds or fetch/decode backpressure), series = the round's "
+        "group space left whole series blocks empty").labels(axis=a)
+    for a in MESH_AXES
+}
+
+
 def stall_counts() -> dict:
     """Cumulative per-stage stall counts."""
     return {s: int(c.value) for s, c in _STALLS.items()}
 
 
+def mesh_stall_counts() -> dict:
+    """Cumulative per-axis mesh stall counts (/stats mesh section)."""
+    return {a: int(c.value) for a, c in _MESH_STALLS.items()}
+
+
 def note_stall(stage: str) -> None:
     _STALLS[stage].inc()
     trace_add(f"pipeline_stall_{stage}", 1)
+
+
+def note_mesh_stall(axis: str) -> None:
+    _MESH_STALLS[axis].inc()
+    trace_add(f"mesh_stall_{axis}", 1)
 
 
 def observe_stage(stage: str, seconds: float, rows: int = 0,

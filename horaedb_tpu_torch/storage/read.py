@@ -72,11 +72,21 @@ first: covered segments' partials come from their agents while the
 local pump scans the rest, and a failed agent segment falls back to the
 local pump.  Deadline checkpoints sit between segments and windows, the
 tenant scan-byte quota is charged where stage bytes are attributed, and
-the reader's caches are memory-ledger accounts.  Not ported: mesh
-rounds (and their decode rounds and stall counters), and the device
-scalar cache (_scalar_cache), since the port passes the
-bucket count and width to the kernel as host ints, so a replay has no
-scalar to upload.
+the reader's caches are memory-ledger accounts.
+
+Meshes (parallel/): `[scan] mesh_devices = N` runs the 1-D segment
+mesh — window rounds of N slots through sharded_remap_partials, and
+under HORAEDB_MERGE_IMPL=device_sort the windows' merge as
+sharded_merge_dedup rounds; `[scan.mesh]` runs the 2-D (time, series)
+scan mesh — rounds of time-axis width through mesh_run_partials with the
+segmented combine on the mesh, eligible decode plans deferred into
+mesh_decode_partials rounds, and top-k queries through the
+device-scored, winner-sliced two-pass route.  A round the mesh cannot
+serve exactly falls back to the single-device kernel for a counted
+reason (scan_mesh_fallback_total{reason}).  Not ported: the device
+scalar cache (_scalar_cache), since the port passes the bucket count
+and width to the kernel as host ints, so a replay has no scalar to
+upload.
 """
 
 from __future__ import annotations
@@ -96,6 +106,7 @@ from typing import AsyncIterator, Optional
 import numpy as np
 import pyarrow as pa
 
+from horaedb_tpu_torch.common import deviceprof
 from horaedb_tpu_torch.common.deadline import checkpoint as deadline_checkpoint
 from horaedb_tpu_torch.common.error import Error, ensure
 from horaedb_tpu_torch.common.memledger import ledger as memledger
@@ -103,6 +114,7 @@ from horaedb_tpu_torch.common.tenant import charge_scan_bytes
 from horaedb_tpu_torch.objstore import NotFoundError, ObjectStore
 from horaedb_tpu_torch.ops import bucket_agg, device_decode, encode
 from horaedb_tpu_torch.ops import filter as filter_ops
+from horaedb_tpu_torch.ops import merge as merge_ops
 from horaedb_tpu_torch.ops.downsample import ALL_AGGS, canonical_which
 from horaedb_tpu_torch.storage import combine as combine_mod
 from horaedb_tpu_torch.storage import parquet_io, sidecar
@@ -133,7 +145,7 @@ _STAGE_SECONDS = {
                           "wall seconds per merge-scan plan stage"
                           ).labels(stage=s)
     for s in ("segment_read", "merge", "stack_build", "device_aggregate",
-              "combine")
+              "mesh_aggregate", "combine")
 }
 # rows and bytes of the segment reads by source: sidecar (tier 2 or the
 # store) or parquet; the read's seconds go to segment_read
@@ -182,6 +194,86 @@ _STACK_HITS = registry.counter(
     "round-stack LRU hits (column and remap/shift/lo entries)")
 _STACK_MISSES = registry.counter(
     "scan_stack_cache_misses_total", "round-stack LRU misses")
+
+# ---- mesh telemetry ([scan] mesh_devices, [scan.mesh]) ---------------------
+_MESH_ROUNDS = registry.counter(
+    "scan_mesh_rounds_total",
+    "window rounds dispatched onto the 2-D scan mesh")
+_MESH_PARTS = registry.counter(
+    "scan_mesh_parts_total",
+    "per-segment run parts produced by the on-mesh segmented combine")
+_MESH_PART_CELLS = registry.counter(
+    "scan_mesh_part_cells_total",
+    "aggregate grid cells downloaded from the mesh (run parts + top-k "
+    "winner slices) — the per-slot combine egress the top-k pushdown "
+    "bounds at O(k x buckets x aggs) per run")
+_MESH_SCORE_CELLS = registry.counter(
+    "scan_mesh_score_cells_total",
+    "per-group score/has cells downloaded by the top-k mesh path "
+    "(O(groups), never O(groups x buckets))")
+_MESH_TOPK = registry.counter(
+    "scan_mesh_topk_total",
+    "top-k queries served by the device-scored, winner-sliced mesh "
+    "path")
+# every way a round/plan declines the mesh, so an operator can tell a
+# misconfigured mesh from unsupported data
+MESH_FALLBACK_REASONS = (
+    "merge_impl",    # non-host_perm merge layouts keep the legacy path
+    "sum_overlap",   # a run's windows share a (group, bucket) sum cell
+    "count_bound",   # time_axis x capacity would overflow f32 counts
+    "grid_budget",   # round's transient grid exceeds max_grid_bytes
+    "lo_range",      # a window's bucket offset exceeds the query grid
+    "run_misaligned",  # a run's windows disagree on their first bucket
+    "mesh_error",    # a round dispatch raised (lost shard / kernel error)
+    "topk_by",       # ranking agg not requested (combine_top_k's rule)
+    "topk_router",   # near-data agents cover segments: no global score
+    "topk_decode",   # device-decode parts can't join device scoring
+    "topk_budget",   # two-phase window pinning exceeds the cache budget
+    "additive_topk",  # an additive score add was not provably exact
+    "mesh_decode_budget",  # a decode round exceeds upload/grid caps
+)
+_MESH_FALLBACKS = registry.counter(
+    "scan_mesh_fallback_total",
+    "mesh scans that left their preferred route, by reason: topk_* "
+    "reasons downgrade the egress-bounded winner-sliced top-k to "
+    "FULL-WIDTH MESH parts (still on the mesh); every other reason "
+    "re-runs that round on the single-device kernel")
+_MESH_FALLBACK_CHILDREN = {r: _MESH_FALLBACKS.labels(reason=r)
+                           for r in MESH_FALLBACK_REASONS}
+_MESH_AXIS_DEVICES = {
+    a: registry.gauge(
+        "scan_mesh_axis_devices",
+        "devices per scan-mesh axis (0 = mesh off)").labels(axis=a)
+    for a in ("time", "series")
+}
+
+
+def note_mesh_fallback(reason: str) -> None:
+    child = _MESH_FALLBACK_CHILDREN.get(reason)
+    if child is None:  # unknown reasons still count, labeled verbatim
+        child = _MESH_FALLBACKS.labels(reason=reason)
+        _MESH_FALLBACK_CHILDREN[reason] = child
+    child.inc()
+    trace_add(f"mesh_fallback_{reason}", 1)
+
+
+def mesh_fallback_counts() -> dict:
+    return {r: int(c.value) for r, c in _MESH_FALLBACK_CHILDREN.items()}
+
+
+class _MeshFallback(Exception):
+    """A mesh round declined dispatch for a counted reason — the caller
+    re-runs it on the single-device kernel."""
+
+    def __init__(self, reason: str):
+        super().__init__(reason)
+        self.reason = reason
+
+
+# prep sentinel marking a deferred decode plan in a mesh round's item
+# list (host windows carry a real prep tuple, DeviceParts None)
+_DECODE_PREP = object()
+
 # fused replay plans kept per reader (weakref-only entries)
 _REPLAY_SLOTS = 8
 # rows -> bytes conversion for the cache_max_rows knob: a typical engine
@@ -291,6 +383,11 @@ class ScanPlan:
     # pipeline, which the parts pump reads to run its rounds as a
     # background device stage
     pipeline_active: bool = False
+    # set alongside decode_spec on [scan.mesh] plans: the decode stage
+    # PLANS the dispatch (device_decode.plan_dispatch) but defers the
+    # upload — DecodePlans ride the windows lists into the mesh pump,
+    # which batches compatible plans into mesh decode rounds
+    decode_defer: bool = False
 
 
 class ParquetReader:
@@ -320,20 +417,48 @@ class ParquetReader:
         ensure(config.scan.decode.mode in DECODE_MODES,
                f"unknown [scan.decode] mode {config.scan.decode.mode!r}; "
                f"expected one of {DECODE_MODES}")
-        # the JAX package's device-decode check (mesh_devices = 1 still
-        # reaches it), then the port's own refusal: it runs one device,
-        # and a mesh config must not quietly run on it (multi-device is
-        # ROADMAP Queue A 11)
+        # conflicting mode COMBINATIONS fail at open too: mode="device"
+        # under the 1-D segment mesh would decline every query with a
+        # counted fallback
         ensure(not (config.scan.decode.mode == "device"
                     and config.scan.mesh_devices > 0),
                '[scan.decode] mode="device" cannot run on the legacy '
-               "1-D segment mesh ([scan] mesh_devices > 0)")
-        ensure(config.scan.mesh_devices <= 1
-               and not config.scan.mesh.enabled,
-               "multi-device scans ([scan] mesh_devices > 1 or "
-               "[scan.mesh] enabled = true) are not ported to the "
-               "PyTorch engine yet (ROADMAP Queue A 11); it runs on "
-               "one device")
+               "1-D segment mesh ([scan] mesh_devices > 0): the device "
+               "decode targets the reader's device or the 2-D "
+               "[scan.mesh] rounds — change the decode mode or the mesh "
+               "config")
+        # the meshes take their devices from parallel.mesh.local_devices
+        # of the reader's device type: every local card, or the list the
+        # tests (8 entries of cpu) and chip_smoke.py install
+        from horaedb_tpu_torch.parallel import mesh as mesh_mod
+
+        self.mesh = None
+        self._mesh_agg_fns: dict = {}
+        self._mesh_merge_fns: dict = {}
+        if config.scan.mesh_devices > 0:
+            self.mesh = mesh_mod.segment_mesh(
+                config.scan.mesh_devices,
+                devices=mesh_mod.local_devices(device))
+        # the 2-D (time, series) scan mesh ([scan.mesh]): segments shard
+        # along `time` (plan-order slot admission), group blocks along
+        # `series`, the segmented combine on the mesh — off reproduces
+        # the single-device path exactly
+        self.scan_mesh = None
+        self._mesh_run_fns: dict = {}
+        if config.scan.mesh.enabled:
+            ensure(config.scan.mesh_devices == 0,
+                   "[scan] mesh_devices and [scan.mesh] are mutually "
+                   "exclusive — the 2-D mesh supersedes the legacy 1-D "
+                   "segment mesh")
+            self.scan_mesh = mesh_mod.scan_mesh(
+                config.scan.mesh.time, config.scan.mesh.series,
+                devices=mesh_mod.local_devices(device))
+            _MESH_AXIS_DEVICES["time"].set(self.scan_mesh.shape["time"])
+            _MESH_AXIS_DEVICES["series"].set(
+                self.scan_mesh.shape["series"])
+        # live bytes of device-resident mesh top-k score state (the
+        # mesh_state ledger account's pull gauge; event-loop owned)
+        self._mesh_state_bytes = 0
         cache_bytes = (config.scan.cache_max_bytes
                        or config.scan.cache_max_rows * _CACHE_BYTES_PER_ROW)
         self.cache_budget_bytes = cache_bytes
@@ -403,6 +528,14 @@ class ParquetReader:
                 kind="parts_memo",
                 budget=config.scan.combine.memo_max_bytes,
                 owner=root_path),
+            # device-resident mesh top-k score state held for the
+            # two-pass ranking's duration; decode round stacks ride the
+            # stack_cache account above
+            memledger.register(
+                f"mesh_state:{root_path}",
+                lambda r: r._mesh_state_bytes, anchor=self,
+                kind="mesh_state", budget=config.scan.mesh.max_grid_bytes,
+                owner=root_path, host=not self.on_cuda),
         ]
 
     @property
@@ -419,9 +552,20 @@ class ParquetReader:
         self.scan_cache.clear()
         self.encoded_cache.clear()
         self.parts_memo.clear()
+        self._mesh_run_fns.clear()
+        self._mesh_agg_fns.clear()
+        self._mesh_merge_fns.clear()
+        if self.scan_mesh is not None:
+            # a closed table reports no phantom mesh (the gauges are
+            # process-global, last writer wins)
+            _MESH_AXIS_DEVICES["time"].set(0)
+            _MESH_AXIS_DEVICES["series"].set(0)
         for acct in self._mem_accounts:
             memledger.deregister(acct)
         self._mem_accounts = []
+        # the device plane's families are process-global like the mesh
+        # gauges: a closed table leaves them zeroed
+        deviceprof.profiler.clear()
         memledger.reset_device_high_water()
 
     def _scan_cache_resident_bytes(self) -> int:
@@ -480,6 +624,35 @@ class ParquetReader:
                 "hits": self._stack_cache_hits,
                 "misses": self._stack_cache_misses,
             },
+            "mesh": self.mesh_stats(),
+        }
+
+    def mesh_stats(self) -> dict:
+        """The /stats mesh section: axis shape, round/part volume, the
+        egress counter the top-k bound is asserted against, and every
+        counted fallback reason."""
+        from horaedb_tpu_torch.storage import pipeline as pipeline_mod
+
+        shape = None
+        if self.scan_mesh is not None:
+            shape = {"time": self.scan_mesh.shape["time"],
+                     "series": self.scan_mesh.shape["series"]}
+        return {
+            "enabled": self.scan_mesh is not None,
+            "shape": shape,
+            "segment_devices": 0 if self.mesh is None else self.mesh.size,
+            "devices": [str(d) for d in (
+                self.scan_mesh or self.mesh).devices]
+            if (self.scan_mesh or self.mesh) is not None else [],
+            "rounds": int(_MESH_ROUNDS.value),
+            "parts": int(_MESH_PARTS.value),
+            "part_cells": int(_MESH_PART_CELLS.value),
+            "score_cells": int(_MESH_SCORE_CELLS.value),
+            "topk_served": int(_MESH_TOPK.value),
+            "fallbacks": {r: int(c.value)
+                          for r, c in _MESH_FALLBACK_CHILDREN.items()
+                          if c.value},
+            "stalls": pipeline_mod.mesh_stall_counts(),
         }
 
     # ---- plan construction -------------------------------------------------
@@ -691,6 +864,14 @@ class ParquetReader:
                 to_read.append(seg)
             else:
                 cached[id(seg)] = windows
+        if self.mesh is not None:
+            inner = self._cached_windows_mesh(plan, cached, to_read)
+            try:
+                async for out in inner:
+                    yield out
+            finally:
+                await inner.aclose()
+            return
         plan.pipeline_active = (self.pipeline_on()
                                 and self._pipeline_has_io(plan, to_read))
         if plan.pipeline_active:
@@ -739,8 +920,9 @@ class ParquetReader:
     def pipeline_on(self) -> bool:
         """Whether cold scans run through the bounded producer/consumer
         pipeline (storage/pipeline.py); [scan.pipeline] enabled = false
-        keeps the sequential pump."""
-        return self.config.scan.pipeline.enabled
+        keeps the sequential pump.  Scans on the 1-D segment mesh keep
+        their own round scheduler (_cached_windows_mesh)."""
+        return self.config.scan.pipeline.enabled and self.mesh is None
 
     def _pipeline_has_io(self, plan: ScanPlan, to_read: list) -> bool:
         """Whether pipelining this scan can pay for itself: the pipeline
@@ -796,6 +978,199 @@ class ParquetReader:
             # them, draining any in-flight pool job before the caller
             # proceeds to table/engine teardown
             await pipe.aclose()
+
+    async def _cached_windows_mesh(self, plan: ScanPlan, cached: dict,
+                                   to_read: list):
+        """Segment-mesh twin of the pump ([scan] mesh_devices): windows
+        from DIFFERENT segments batch into rounds of mesh size.  Under
+        the default host_perm merge the windows arrive merged and
+        deduped on the host, and the mesh engages at the aggregate
+        stage (the sharded_remap_partials rounds of _flush_host_round);
+        under device_sort each round of unmerged windows runs as one
+        sharded_merge_dedup program (shard-local sort and dedup, no
+        collectives), whose outputs come back as host windows.
+        Segments still yield in plan order, each only after all its
+        windows' rounds have run."""
+        n_dev = self.mesh.size
+        # pinned for the whole scan: window prep and the round program
+        # must agree even if set_merge_impl flips mid-scan
+        scan_host_perm = merge_ops.merge_impl() == "host_perm"
+        feed = self._segment_feed(plan, to_read)
+        # buffer entries: [seg, windows (filled in round order),
+        #                  outstanding window count]
+        buffer: list[list] = []
+        pending: list = []
+
+        def run_round(round_items: list) -> None:
+            from horaedb_tpu_torch.parallel.scan import (
+                shard_leading_axis,
+                sharded_merge_dedup,
+            )
+
+            cap = max(it[3] for it in round_items)
+            names = list(round_items[0][1].keys())
+            stacks = {}
+            for name in names:
+                rows = np.zeros((n_dev, cap),
+                                dtype=round_items[0][1][name].dtype)
+                for d, (_e, cols, _n, wcap, _enc) in enumerate(round_items):
+                    rows[d, :wcap] = cols[name]
+                stacks[name] = shard_leading_axis(self.mesh, rows)
+            n_valid = np.zeros(n_dev, dtype=np.int32)
+            for d, it in enumerate(round_items):
+                n_valid[d] = it[2]
+            pk_names = self._pk_names_in(names)
+            value_names = [nm for nm in names
+                           if nm not in pk_names and nm != SEQ_COLUMN_NAME]
+            fn = self._mesh_merge_fns.get(len(pk_names))
+            if fn is None:
+                fn = sharded_merge_dedup(self.mesh, num_pks=len(pk_names))
+                self._mesh_merge_fns[len(pk_names)] = fn
+            out_pks, out_seq, out_vals, _valid, num_runs = fn(
+                tuple(stacks[nm] for nm in pk_names),
+                stacks[SEQ_COLUMN_NAME],
+                tuple(stacks[nm] for nm in value_names), n_valid)
+            # the merged windows live on the host, as host_perm's do
+            host = {nm: a.numpy() for nm, a in zip(pk_names, out_pks)}
+            host[SEQ_COLUMN_NAME] = out_seq.numpy()
+            host.update({nm: a.numpy() for nm, a in zip(value_names,
+                                                         out_vals)})
+            runs_host = num_runs.numpy()
+            for d, (entry, _cols, _n, _wcap, enc) in enumerate(round_items):
+                entry[1].append(encode.DeviceBatch(
+                    columns={nm: host[nm][d] for nm in names},
+                    encodings=enc, n_valid=int(runs_host[d]),
+                    capacity=cap))
+                entry[2] -= 1
+
+        async def enqueue(entry: list, descs: list) -> None:
+            if scan_host_perm:
+                entry[1].extend(descs)  # merged windows: no merge round
+                return
+            entry[2] += len(descs)
+            for cols, n_win, wcap, enc in descs:
+                pending.append((entry, cols, n_win, wcap, enc))
+            while len(pending) >= n_dev:
+                await self._run_pool(run_round, pending[:n_dev],
+                                     pool=plan.pool)
+                del pending[:n_dev]
+
+        def prepare(table):
+            if scan_host_perm:
+                return self._merge_segment(table, plan)
+            return self._unmerged_window_descs(table)
+
+        def done(seg0, windows):
+            if plan.use_cache and id(seg0) not in cached \
+                    and _cacheable_windows(windows):
+                self.scan_cache.put(self._cache_key(seg0, plan), windows)
+            return seg0, windows
+
+        try:
+            for seg in plan.segments:
+                deadline_checkpoint()  # between-segment cancellation
+                if id(seg) in cached:
+                    buffer.append([seg, cached[id(seg)], 0])
+                else:
+                    fseg, is_streamed, table, _read_s = \
+                        await feed.__anext__()
+                    ensure(fseg is seg, "segment feed out of plan order")
+                    entry = [seg, [], 0]
+                    buffer.append(entry)
+                    if is_streamed and scan_host_perm:
+                        windows, _read_s = await self._read_streamed_windows(
+                            seg, plan)
+                        await enqueue(entry, windows)
+                    elif is_streamed:
+                        # feed rounds window by window: at most a round's
+                        # worth of unmerged host windows is resident
+                        es_iter = await self._open_sidecar_stream(seg, plan)
+                        if es_iter is not None:
+                            try:
+                                async for es in es_iter:
+                                    await enqueue(entry, await self._run_pool(
+                                        prepare, es, pool=plan.pool))
+                            except Exception as exc:  # noqa: BLE001
+                                # windows already in mesh rounds can't be
+                                # retracted: fail to the outer replan
+                                raise Error("sidecar stream failed "
+                                            f"mid-mesh-round: {exc}") from exc
+                            finally:
+                                await es_iter.aclose()
+                        else:
+                            async for batch in self._stream_window_batches(
+                                    seg, plan):
+                                await enqueue(entry, await self._run_pool(
+                                    prepare, pa.Table.from_batches([batch]),
+                                    pool=plan.pool))
+                    elif table.num_rows:
+                        await enqueue(entry, await self._run_pool(
+                            prepare, table, pool=plan.pool))
+                    del table
+                while buffer and buffer[0][2] == 0:
+                    seg0, windows, _outstanding = buffer.pop(0)
+                    yield done(seg0, windows)
+            if pending:
+                # tail round: pad with empty windows bound to a discard
+                # entry so real segments' window lists stay exact
+                discard = [None, [], len(pending) - n_dev]
+                _e, cols0, _n, wcap0, enc0 = pending[-1]
+                tail = list(pending)
+                while len(tail) < n_dev:
+                    tail.append((discard, cols0, 0, wcap0, enc0))
+                await self._run_pool(run_round, tail, pool=plan.pool)
+                pending.clear()
+            while buffer:
+                seg0, windows, outstanding = buffer.pop(0)
+                ensure(outstanding == 0, "mesh merge round left windows")
+                yield done(seg0, windows)
+        finally:
+            await feed.aclose()
+
+    def _unmerged_window_descs(self, table) -> list:
+        """The device_sort layout's window prep: encode, cut PK-range
+        windows (partitioned on the first non-constant PK), pad — no
+        merge.  Returns [(padded host cols, n_win, capacity,
+        encodings)] for the segment mesh's merge rounds."""
+        if isinstance(table, sidecar.EncodedSegment):
+            es = sidecar.apply_leaves_host(table)
+            if es.n == 0:
+                return []
+            dev = _encoded_to_device_batch(es)
+            names = list(es.names)
+        else:
+            if table.num_rows == 0:
+                return []
+            batch = table.combine_chunks().to_batches()[0]
+            dev = encode.encode_batch(batch)
+            names = list(batch.schema.names)
+        pk_names = self._pk_names_in(names)
+        ensure(len(pk_names) == self.schema.num_primary_keys,
+               "projection lost primary key columns")
+        n = dev.n_valid
+        if n == 0:
+            return []
+        host_cols = {name: np.asarray(c)[:n]
+                     for name, c in dev.columns.items()}
+        if n <= self.config.scan.max_window_rows:
+            return [({kk: np.asarray(v) for kk, v in dev.columns.items()},
+                     n, dev.capacity, dev.encodings)]
+        part_name = next(
+            (nm for nm in pk_names
+             if host_cols[nm][0] != host_cols[nm][-1]
+             or not bool((host_cols[nm] == host_cols[nm][0]).all())),
+            pk_names[0])
+        descs = []
+        for sel in _plan_pk_windows(host_cols[part_name],
+                                    self.config.scan.max_window_rows):
+            if not len(sel):
+                continue
+            n_win = len(sel)
+            cap = encode.pad_capacity(n_win)
+            descs.append(({kk: np.pad(v[sel], (0, cap - n_win))
+                           for kk, v in host_cols.items()},
+                          n_win, cap, dev.encodings))
+        return descs
 
     async def _segment_feed(self, plan: ScanPlan,
                             segments: list[SegmentPlan]):
@@ -1319,6 +1694,8 @@ class ParquetReader:
             if decode:
                 part = self._dispatch_device_decode(table, plan)
                 if part is not None:
+                    # a DevicePart, or on a [scan.mesh] plan a DecodePlan
+                    # the mesh pump batches into decode rounds
                     return [part]
             table = sidecar.apply_leaves_host(table)
         elif decode:
@@ -1348,8 +1725,21 @@ class ParquetReader:
                                 plan: ScanPlan
                                 ) -> Optional[device_decode.DevicePart]:
         """One EncodedSegment through the device decode, finished; None
-        (the reason counted) when its layout can't ride it."""
+        (the reason counted) when its layout can't ride it.  A
+        [scan.mesh] plan (decode_defer) gets the segment's DecodePlan
+        instead: the mesh pump uploads and runs it in a decode round."""
         spec = plan.decode_spec
+        if plan.decode_defer:
+            got = device_decode.plan_dispatch(
+                es, spec, pk_names=self._pk_names_in(list(es.names)),
+                seq_name=SEQ_COLUMN_NAME, leaves=es.pending_leaves or [],
+                max_bytes=self.config.scan.decode.max_upload_bytes,
+                width=self._window_grid_width(spec),
+                pad_capacity=encode.pad_capacity)
+            if isinstance(got, str):
+                device_decode.note_fallback(got)
+                return None
+            return got
         got = device_decode.prepare_dispatch(
             es, spec, pk_names=self._pk_names_in(list(es.names)),
             seq_name=SEQ_COLUMN_NAME, leaves=es.pending_leaves or [],
@@ -1454,8 +1844,16 @@ class ParquetReader:
         The JAX package also declines on its XLA-CPU backend, where
         downloads are free and scatters slow.  That clause encodes
         XLA-CPU economics; the port's device="cpu" is a test mode, so
-        it has no such clause and its CPU tests keep the fused path."""
+        it has no such clause and its CPU tests keep the fused path.
+
+        A mesh declines it: the 1-D mesh's rounds and the device_sort
+        merge layout keep the per-round parts; [scan.mesh] supersedes the
+        single-device accumulator with the mesh's parts path."""
         if plan is not None and plan.parts_route:
+            return False
+        if self.mesh is not None or merge_ops.merge_impl() != "host_perm":
+            return False
+        if self.scan_mesh is not None:
             return False
         forced = os.environ.get("HORAEDB_FUSED_AGG", "")
         if forced == "1":
@@ -1497,6 +1895,11 @@ class ParquetReader:
             return False
         if mode == "auto" and (not self.on_cuda
                                or self._fused_agg_ok_base(plan)):
+            # auto + the 2-D scan mesh rides the mesh decode rounds
+            # (plan.decode_defer) on a CUDA reader
+            return False
+        if self.mesh is not None:
+            note("mesh")
             return False
         if plan.mode is not UpdateMode.OVERWRITE:
             note("append_mode")
@@ -1528,9 +1931,15 @@ class ParquetReader:
         Memo-served segments come first and are dropped from the scan
         plan, so a narrowed/refined range re-scans only the delta
         segments; callers fold parts in sorted segment order, so yield
-        order is free.  `top_k` is accepted for the multi-device
-        device-scored route, which the port does not have yet: on one
-        device every part goes to finalize_aggregate, which ranks."""
+        order is free.
+
+        [scan.mesh] plans route their local scans through the 2-D mesh
+        pump (same yield contract; a round the mesh declines runs on
+        the single-device kernel, its reason counted).  `top_k` there
+        enables the device-scored winner-sliced route, which bypasses
+        the memo (its parts are winner slices) and yields only after all
+        compute, so a compaction race replans from zero.  On one device
+        every part goes to finalize_aggregate, which ranks."""
         ensure(plan.mode is UpdateMode.OVERWRITE,
                "aggregate pushdown requires Overwrite mode")
         # device decode: an eligible plan threads the spec to the segment
@@ -1538,6 +1947,19 @@ class ParquetReader:
         # (a copy, so the caller's plan stays reusable)
         if self._device_decode_plan_ok(plan):
             plan = dc_replace(plan, decode_spec=spec)
+        use_mesh = self._mesh_plan_ok(plan)
+        if use_mesh:
+            # decode-eligible plans DEFER the dispatch: DecodePlans ride
+            # the windows lists into per-round mesh decode programs
+            plan = dc_replace(plan, decode_defer=plan.decode_spec is not None)
+            if top_k is not None and self._mesh_topk_ok(plan, spec, top_k):
+                pump = self._aggregate_topk_mesh(plan, spec, top_k)
+                try:
+                    async for out in pump:
+                        yield out
+                finally:
+                    await pump.aclose()
+                return
         memo = self.parts_memo
         use_memo = memo.enabled and plan.use_cache
         seg_keys: dict[int, tuple] = {}
@@ -1572,11 +1994,14 @@ class ParquetReader:
         if (router is not None and router.active
                 and plan.range is not None):
             covered, uncovered = router.split(plan.segments)
+        # local scans route through the mesh pump when [scan.mesh] is on
+        pump_fn = (self._aggregate_segments_mesh if use_mesh
+                   else self._aggregate_segments_pump)
         # every pump iteration below carries an explicit aclose on
         # abandonment: the pump's in-flight fetch/decode/device tasks
         # must not outlive a closed consumer into table teardown
         if not covered:
-            pump = self._aggregate_segments_pump(plan, spec, memo_store)
+            pump = pump_fn(plan, spec, memo_store)
             try:
                 async for out in pump:
                     yield out
@@ -1590,7 +2015,7 @@ class ParquetReader:
             router.gather(plan, spec, covered))
         try:
             if uncovered:
-                pump = self._aggregate_segments_pump(
+                pump = pump_fn(
                     dc_replace(plan, segments=list(uncovered)), spec,
                     memo_store)
                 try:
@@ -1614,7 +2039,7 @@ class ParquetReader:
             # through the exact local pump the unrouted scan uses —
             # direct store reads happen here and nowhere else on the
             # routed path
-            pump = self._aggregate_segments_pump(
+            pump = pump_fn(
                 dc_replace(plan, segments=list(failed)), spec, memo_store)
             try:
                 async for out in pump:
@@ -1641,7 +2066,8 @@ class ParquetReader:
         path's."""
         from horaedb_tpu_torch.storage import pipeline as pipeline_mod
 
-        batch_w = max(1, self.config.scan.agg_batch_windows)
+        batch_w = (self.mesh.size if self.mesh is not None
+                   else max(1, self.config.scan.agg_batch_windows))
         queue: list = []
         parts: dict[int, list] = {}
         pending: dict[int, int] = {}
@@ -1774,10 +2200,14 @@ class ParquetReader:
                         if host else ())
             return [(s, w.part) if prep is None else next(done)
                     for s, w, prep in items]
-        # pow2 width >= len(items): full rounds share one shape, tail
-        # rounds use narrower ones
-        batch_w = min(max(1, self.config.scan.agg_batch_windows),
-                      1 << (len(items) - 1).bit_length())
+        if self.mesh is not None:
+            # one window per segment-mesh slot
+            batch_w = self.mesh.size
+        else:
+            # pow2 width >= len(items): full rounds share one shape, tail
+            # rounds use narrower ones
+            batch_w = min(max(1, self.config.scan.agg_batch_windows),
+                          1 << (len(items) - 1).bit_length())
         round_values = np.unique(np.concatenate([it[2][0] for it in items]))
         g = len(round_values)
         g_pad = max(8, 1 << (g - 1).bit_length())
@@ -1789,26 +2219,53 @@ class ParquetReader:
                        for it in items)
         width = (self._window_grid_width(spec) if local_ok
                  else spec.num_buckets)
+        put = None
+        if self.mesh is not None:
+            from horaedb_tpu_torch.parallel.scan import shard_leading_axis
+
+            put = functools.partial(shard_leading_axis, self.mesh)
         (ts_s, gid_s, val_s, _nv_d, nv_h, remap_d, shift_d, lo_d,
          lo) = self._build_round_stacks(items, spec, plan, batch_w, cap,
                                         g_pad, width, round_values,
-                                        local_ok)
+                                        local_ok, put=put)
         t_dev = time.perf_counter()
         # rows past a window's own n_valid carry gid -1, so the round's
         # largest row count bounds every window
-        stacked = bucket_agg.bucket_window_partials(
-            ts_s, gid_s, val_s, remap_d, shift_d, lo_d, spec.num_buckets,
-            spec.bucket_ms, num_groups=g_pad, width=width, which=spec.which,
-            n_valid=int(nv_h.max()))
+        if self.mesh is not None:
+            # the program per grid shape, memoized like the JAX
+            # package's compiled shard_map closures
+            fn_key = (g_pad, width, spec.which)
+            fn = self._mesh_agg_fns.get(fn_key)
+            if fn is None:
+                from horaedb_tpu_torch.parallel.scan import (
+                    sharded_remap_partials,
+                )
+
+                fn = sharded_remap_partials(self.mesh, num_groups=g_pad,
+                                            num_buckets=width,
+                                            which=spec.which)
+                self._mesh_agg_fns[fn_key] = fn
+            stacked = fn(ts_s, gid_s, val_s, remap_d, shift_d, lo_d,
+                         spec.num_buckets, spec.bucket_ms,
+                         n_valid=int(nv_h.max()))
+            host = {k: v.numpy()[:len(items), :g]
+                    for k, v in stacked.items()}
+        else:
+            stacked = bucket_agg.bucket_window_partials(
+                ts_s, gid_s, val_s, remap_d, shift_d, lo_d,
+                spec.num_buckets, spec.bucket_ms, num_groups=g_pad,
+                width=width, which=spec.which, n_valid=int(nv_h.max()))
+            host = {k: deviceprof.download(v[:len(items), :g])
+                    for k, v in stacked.items()}
         _PARTS_ROUNDS.inc()
-        host = {k: v[:len(items), :g].cpu().numpy()
-                for k, v in stacked.items()}
         _PARTIALS_D2H_BYTES.inc(sum(int(v.nbytes) for v in host.values()))
         _observe_stage("device_aggregate", time.perf_counter() - t_dev)
         parts = []
         for d in range(len(items)):
             lo_w = int(lo[d])
-            w_eff = min(width, spec.num_buckets - lo_w)
+            # a window starting past the grid (a parquet-streamed chunk
+            # whose own epoch lies beyond the range) keeps no column
+            w_eff = max(0, min(width, spec.num_buckets - lo_w))
             grids = {k: v[d, :, :w_eff] for k, v in host.items()}
             if "last_ts" in grids:
                 # window-local last_ts -> range_start-relative, so parts
@@ -1818,6 +2275,826 @@ class ParquetReader:
                     grids["count"] > 0, lt + lo_w * spec.bucket_ms, lt)
             parts.append((items[d][0], (round_values, lo_w, grids)))
         return parts
+
+    # ---- the 2-D scan mesh ([scan.mesh]) ------------------------------------
+
+    def _mesh_plan_ok(self, plan: ScanPlan) -> bool:
+        """Plan-level [scan.mesh] routing gate; the per-round gates (sum
+        overlap, count bound, grid budget) live in _run_mesh_round and
+        fall back per round, each reason counted."""
+        if self.scan_mesh is None:
+            return False
+        if plan.mode is not UpdateMode.OVERWRITE:
+            return False
+        if merge_ops.merge_impl() != "host_perm":
+            # device_sort windows belong to the 1-D segment mesh; the
+            # 2-D scan consumes host-merged windows
+            note_mesh_fallback("merge_impl")
+            return False
+        return True
+
+    def _mesh_topk_ok(self, plan: ScanPlan, spec: AggregateSpec,
+                      tk) -> bool:
+        """Whether a top-k query takes the device-scored, winner-sliced
+        mesh route (egress bounded at O(k x buckets x aggs) per run).
+        Selection rankings (min/max/last) score exactly on the mesh;
+        additive ones (count/sum/avg) through the compensated (hi, lo)
+        plane, with a counted `additive_topk` downgrade when an add is
+        not provably exact.  Mixed-provenance scans (near-data partials,
+        device-decode parts) keep the full-parts route, still
+        mesh-combined."""
+        if tk.by not in ("min", "max", "last", "count", "sum", "avg") \
+                or not (tk.by == "count" or tk.by in set(spec.which)):
+            # combine_top_k's requested-agg rule (count always folds)
+            note_mesh_fallback("topk_by")
+            return False
+        if plan.decode_spec is not None:
+            note_mesh_fallback("topk_decode")
+            return False
+        router = self.scan_router
+        if (router is not None and router.active
+                and plan.range is not None
+                and router.split(plan.segments)[0]):
+            # agent-served segments never reach the device score state
+            note_mesh_fallback("topk_router")
+            return False
+        est_rows = sum(f.meta.num_rows
+                       for seg in plan.segments for f in seg.ssts)
+        if est_rows * _CACHE_BYTES_PER_ROW > self.cache_budget_bytes:
+            # two-phase: every window pins in host RAM until the winners
+            # are known (the fused path's budget discipline)
+            note_mesh_fallback("topk_budget")
+            return False
+        return True
+
+    @staticmethod
+    def _mesh_runs(items: list) -> list[list]:
+        """Consecutive same-segment slot runs of one round, as
+        [seg_start, first_slot, last_slot] triples (plan-order slot
+        admission keeps a segment's windows adjacent)."""
+        runs: list[list] = []
+        for i, (s, _w, _prep) in enumerate(items):
+            if runs and runs[-1][0] == s:
+                runs[-1][2] = i
+            else:
+                runs.append([s, i, i])
+        return runs
+
+    def _mesh_round_gates(self, items: list, runs: list,
+                          spec: AggregateSpec, g_pad: int, width: int,
+                          cap: int, local_ok: bool) -> None:
+        """Per-round exactness and budget gates; raises _MeshFallback
+        with the counted reason.  Only multi-slot runs combine on the
+        mesh, so the exactness gates apply to those alone."""
+        T = self.scan_mesh.shape["time"]
+        want = combine_mod.expand_which(spec.which)
+        multi = any(b > a for _s, a, b in runs)
+        if multi and local_ok:
+            # the cell-wise run combine is bucket-aligned only when
+            # every slot of a run shares its first bucket `lo`: the
+            # parquet-streamed fallback encodes each chunk with its OWN
+            # epoch, so those runs combine per window off the mesh
+            for _s, a, b in runs:
+                lo0 = max(0, items[a][2][2] // spec.bucket_ms)
+                for i in range(a + 1, b + 1):
+                    if max(0, items[i][2][2] // spec.bucket_ms) != lo0:
+                        raise _MeshFallback("run_misaligned")
+        if multi and T * cap >= (1 << 24):
+            # float32 integer adds stay exact below 2^24; a run's
+            # combined per-cell count is bounded by slots x capacity
+            raise _MeshFallback("count_bound")
+        if multi and "sum" in want:
+            # a group shared by two windows of one run would float32-add
+            # sum cells the host folds in float64.  With the group column
+            # the LEADING primary key, window group ranges are ordered,
+            # so only adjacent boundary values can repeat; any other
+            # group column can recur anywhere — every pair is checked
+            lead_pk = (self.schema.primary_key_names[0] == spec.group_col
+                       if self.schema.primary_key_names else False)
+            for _s, a, b in runs:
+                if lead_pk:
+                    for i in range(a, b):
+                        va, vb = items[i][2][0], items[i + 1][2][0]
+                        if len(va) > 0 and len(vb) > 0 and va[-1] == vb[0]:
+                            raise _MeshFallback("sum_overlap")
+                else:
+                    for i in range(a, b):
+                        for j in range(i + 1, b + 1):
+                            if np.intersect1d(items[i][2][0],
+                                              items[j][2][0]).size:
+                                raise _MeshFallback("sum_overlap")
+        naggs = len(want) + (1 if "last" in want else 0)
+        if g_pad * width * 4 * naggs > self.config.scan.mesh.max_grid_bytes:
+            raise _MeshFallback("grid_budget")
+
+    def _run_mesh_round(self, items: list, spec: AggregateSpec,
+                        plan: ScanPlan, group_space=None,
+                        download: bool = True, round_salt: int = 0):
+        """One round of host windows on the 2-D scan mesh: per-slot
+        window partials (series-sliced group blocks) plus the on-mesh
+        segmented time-axis combine (parallel.scan.mesh_run_partials).
+
+        download=True (the streaming pump): downloads each run TAIL's
+        combined grids and returns [(seg_start, part, repay)] entries
+        shaped like _flush_host_round's parts.  download=False (the
+        top-k passes): returns the mesh outputs and the run layout;
+        nothing leaves the mesh here."""
+        from horaedb_tpu_torch.parallel.scan import (
+            mesh_run_partials,
+            shard_time_axis,
+        )
+        from horaedb_tpu_torch.storage import pipeline as pipeline_mod
+
+        mesh = self.scan_mesh
+        T = mesh.shape["time"]
+        series = mesh.shape["series"]
+        ensure(len(items) <= T, "mesh round exceeds the time axis")
+        runs = self._mesh_runs(items)
+        cap = max(it[1].capacity for it in items)
+        if group_space is None:
+            group_space = np.unique(
+                np.concatenate([it[2][0] for it in items]))
+        g = len(group_space)
+        g_pad = max(8, series, 1 << (g - 1).bit_length())
+        local_ok = all(it[1].encodings[spec.ts_col].kind == "offset"
+                       for it in items)
+        width = (self._window_grid_width(spec) if local_ok
+                 else spec.num_buckets)
+        self._mesh_round_gates(items, runs, spec, g_pad, width, cap,
+                               local_ok)
+        space_fp = (g, hash(group_space.tobytes()))
+        # round_salt keeps consecutive rounds of one segment that share
+        # (seg0, T, cap, ...) apart in the stack cache
+        stack_key = self._round_stack_key(items[0][0], spec, plan, T, cap,
+                                          g_pad, width, space_fp) \
+            + (round_salt,)
+        (ts_s, gid_s, val_s, _nv_d, nv_h, remap_d, shift_d, lo_dev,
+         lo) = self._build_round_stacks(
+            items, spec, plan, T, cap, g_pad, width, group_space, local_ok,
+            stack_key=stack_key,
+            put=functools.partial(shard_time_axis, mesh),
+            key_salt=("mesh2",))
+        if any(int(lo[b]) >= spec.num_buckets for _s, _a, b in runs):
+            raise _MeshFallback("lo_range")
+        fn_key = (g_pad, width, spec.which)
+        fn = self._mesh_run_fns.get(fn_key)
+        if fn is None:
+            fn = mesh_run_partials(mesh, num_groups=g_pad,
+                                   num_buckets=width, which=spec.which)
+            self._mesh_run_fns[fn_key] = fn
+        # plan-order slot admission: slot i is item i; padding slots get
+        # unique negative ids so they never combine
+        seg_ids = -(np.arange(T, dtype=np.int32) + 1)
+        for ridx, (_s, a, b) in enumerate(runs):
+            seg_ids[a:b + 1] = ridx
+        t0 = time.perf_counter()
+        # the kernel's ordered-sum row bound is the round's largest
+        # window, as the single-device round passes it
+        out = fn(ts_s, gid_s, val_s, remap_d, shift_d, lo_dev,
+                 shard_time_axis(mesh, seg_ids), spec.num_buckets,
+                 spec.bucket_ms, n_valid=int(nv_h.max()))
+        _MESH_ROUNDS.inc()
+        if len(items) < T:
+            pipeline_mod.note_mesh_stall("time")
+        if g <= (series - 1) * (g_pad // series):
+            pipeline_mod.note_mesh_stall("series")
+        rows_per_shard = [int(it[1].n_valid) for it in items]
+        pad_rows = (T - len(items)) * cap \
+            + sum(cap - r for r in rows_per_shard)
+        if not download:
+            _observe_stage("mesh_aggregate", time.perf_counter() - t0)
+            deviceprof.record_round(
+                "mesh_run", slots=len(items), capacity=T,
+                rows_per_shard=rows_per_shard, padding_rows=pad_rows,
+                seconds=time.perf_counter() - t0)
+            return {"out": out, "runs": runs, "lo": lo, "g": g,
+                    "width": width}
+        entries: list = []
+        cells = 0
+        t_dl = time.perf_counter()
+        for s, a, b in runs:
+            lo_run, grids = self._slice_mesh_part(out, b, g, int(lo[b]),
+                                                  width, spec)
+            cells += sum(int(v.shape[0] * v.shape[1])
+                         for v in grids.values())
+            entries.append((s, (group_space, lo_run, grids), b - a + 1))
+        # the tail downloads synced the round: its device time lands
+        # here, and the downloads charged their own d2h bytes
+        deviceprof.observe_exec("mesh_run_partials",
+                                time.perf_counter() - t_dl)
+        _observe_stage("mesh_aggregate", time.perf_counter() - t0)
+        _MESH_PARTS.inc(len(entries))
+        _MESH_PART_CELLS.inc(cells)
+        deviceprof.record_round(
+            "mesh_run", slots=len(items), capacity=T,
+            rows_per_shard=rows_per_shard, padding_rows=pad_rows,
+            seconds=time.perf_counter() - t0)
+        return entries
+
+    @staticmethod
+    def _slice_mesh_part(out: dict, tail_slot: int, g: int, lo_run: int,
+                         width: int, spec: AggregateSpec):
+        """THE mesh part emission, shared by the streaming download and
+        the top-k winner pass: tail slot `tail_slot`'s combined grids
+        sliced to the real group count (g < 0 keeps every row, the
+        winner-sliced shape) and the query-clipped width, window-local
+        last_ts rebased to range_start-relative int64 — the emission
+        _flush_host_round's parts use."""
+        w_eff = max(0, min(width, spec.num_buckets - lo_run))
+        rows = slice(None) if g < 0 else slice(0, g)
+        grids = {k: np.ascontiguousarray(v.row(tail_slot)[rows, :w_eff])
+                 for k, v in out.items()}
+        if "last_ts" in grids:
+            lt = grids["last_ts"].astype(np.int64)
+            grids["last_ts"] = np.where(
+                grids["count"] > 0, lt + lo_run * spec.bucket_ms, lt)
+        return lo_run, grids
+
+    def _flush_mesh_round(self, items: list, spec: AggregateSpec,
+                          plan: ScanPlan, round_salt: int = 0) -> list:
+        """Pool-side mesh round flush: DevicePart entries pass through
+        in position, deferred DecodePlans run as mesh decode rounds,
+        host windows dispatch onto the mesh — falling back PER ROUND to
+        the single-device kernel (_flush_host_round) when a gate
+        declines or the dispatch raises, the reason counted.  Returns
+        [(seg_start, part_or_None, repaid_windows)]."""
+        out: list = []
+        host_items: list = []
+        deco_items: list = []
+        for s, w, prep in items:
+            if prep is None:
+                out.append((s, w.part, 1))
+            elif prep is _DECODE_PREP:
+                deco_items.append((s, w))
+            else:
+                host_items.append((s, w, prep))
+        if deco_items:
+            out.extend(self._run_mesh_decode_rounds(deco_items, spec))
+        if not host_items:
+            return out
+        try:
+            out.extend(self._run_mesh_round(host_items, spec, plan,
+                                            round_salt=round_salt))
+            return out
+        except _MeshFallback as f:
+            note_mesh_fallback(f.reason)
+        except Exception as exc:  # noqa: BLE001 — counted; the
+            # single-device rounds below reproduce the result
+            note_mesh_fallback("mesh_error")
+            logger.warning("mesh round failed (%s); re-running the round "
+                           "on the single-device kernel", exc)
+        # single-device rounds are capped at agg_batch_windows; a mesh
+        # chunk can be wider, so split it (per-window grids do not
+        # depend on the round's composition)
+        hb = max(1, self.config.scan.agg_batch_windows)
+        flushed: list = []
+        for i in range(0, len(host_items), hb):
+            flushed.extend(self._flush_host_round(host_items[i:i + hb],
+                                                  spec, plan))
+        out.extend((s, part, 1) for s, part in flushed)
+        return out
+
+    def _run_mesh_decode_rounds(self, deco: list,
+                                spec: AggregateSpec) -> list:
+        """Batch one flush's deferred DecodePlans into mesh decode
+        rounds: plans group by static_key in arrival order, and each
+        time-axis-wide chunk runs as ONE mesh dispatch.  A round that
+        declines (budget) or fails falls back PER ITEM to the standalone
+        dispatch (execute_plan): still device decode, just not
+        mesh-placed; reasons counted in scan_mesh_fallback_total."""
+        T = self.scan_mesh.shape["time"]
+        groups: dict = {}
+        order: list = []
+        for s, dp in deco:
+            k = dp.static_key()
+            if k not in groups:
+                groups[k] = []
+                order.append(k)
+            groups[k].append((s, dp))
+        entries: list = []
+        for k in order:
+            grp = groups[k]
+            for i in range(0, len(grp), T):
+                chunk = grp[i:i + T]
+                try:
+                    entries.extend(self._run_mesh_decode_round(chunk, spec))
+                    continue
+                except _MeshFallback as f:
+                    note_mesh_fallback(f.reason)
+                except Exception as exc:  # noqa: BLE001 — counted; the
+                    # per-segment dispatch reproduces the parts
+                    note_mesh_fallback("mesh_error")
+                    logger.warning("mesh decode round failed (%s); "
+                                   "running the per-segment dispatch", exc)
+                for s, dp in chunk:
+                    with device_decode._DISPATCH_LOCK:
+                        part = device_decode.execute_plan(
+                            dp, self.device).finalize()
+                    entries.append((s, part.part, 1))
+        return entries
+
+    def _run_mesh_decode_round(self, chunk: list,
+                               spec: AggregateSpec) -> list:
+        """ONE mesh program from stored bytes to combined run grids:
+        stack the chunk's raw encoded columns one segment per time slot,
+        run leaf filter + (k-way merge | sort | presorted) + keep-last
+        dedup + bucket aggregate + the segmented combine
+        (parallel.scan.mesh_decode_partials), then download run-TAIL
+        grids only.
+
+        Slot-local group codes ARE the round rows (identity remap):
+        consecutive same-segment slots share a seg id — and so combine
+        on the mesh — only when their dictionaries, first bucket, group
+        count and clipped width all match AND the combine is exact for
+        the requested aggregates (no additive sum cells, the count
+        bound); everything else gets its own id and comes back as its
+        own part, exactly what the standalone dispatches would emit."""
+        from horaedb_tpu_torch.parallel.scan import (
+            mesh_decode_partials,
+            shard_time_axis,
+        )
+        from horaedb_tpu_torch.storage import pipeline as pipeline_mod
+
+        mesh = self.scan_mesh
+        T = mesh.shape["time"]
+        series = mesh.shape["series"]
+        dps = [dp for _s, dp in chunk]
+        dp0 = dps[0]
+        cap = max(dp.cap for dp in dps)
+        g_pad = max(8, series, max(dp.g_pad for dp in dps))
+        width = max(dp.use_width for dp in dps)
+        want = combine_mod.expand_which(spec.which)
+        naggs = len(want) + (1 if "last" in want else 0)
+        ncol = len(dp0.upload_names)
+        if (T * cap * 4 * ncol > self.config.scan.decode.max_upload_bytes
+                or T * g_pad * width * 4 * naggs
+                > self.config.scan.mesh.max_grid_bytes):
+            raise _MeshFallback("mesh_decode_budget")
+        sharable = "sum" not in want and T * cap < (1 << 24)
+        seg_ids = -(np.arange(T, dtype=np.int32) + 1)
+        rid = -1
+        for i, (s, dp) in enumerate(chunk):
+            joined = False
+            if i and sharable:
+                ps, pdp = chunk[i - 1]
+                joined = (ps == s and pdp.lo == dp.lo
+                          and pdp.shift == dp.shift
+                          and pdp.g == dp.g and pdp.w_eff == dp.w_eff
+                          and np.array_equal(pdp.values, dp.values))
+            if not joined:
+                rid += 1
+            seg_ids[i] = rid
+        t0 = time.perf_counter()
+        put = functools.partial(shard_time_axis, mesh)
+        # decode round stacks ride the stack cache's LRU and weakref
+        # discipline, anchored on the cached EncodedSegments
+        ncst = len(dp0.consts)
+        stack_key = ("meshdecode", dp0.static_key(), cap, T,
+                     tuple((s, dp.shift, dp.lo, dp.es.n,
+                            tuple(c.tobytes() for c in dp.consts))
+                           for s, dp in chunk))
+        es_list = tuple(dp.es for dp in dps)
+        nv = np.zeros(T, dtype=np.int32)
+        for t, (_s, dp) in enumerate(chunk):
+            nv[t] = dp.es.n
+        cached = self._stack_cache_get(stack_key, es_list)
+        if cached is not None:
+            cols_dev = cached[:ncol]
+            consts_dev = cached[ncol:ncol + ncst]
+            offs_dev, shift_dev, lo_dev = cached[ncol + ncst:]
+            upload_bytes = 0
+        else:
+            # one (T, cap) matrix per upload column; padding slots all
+            # zero with n_valid 0 (every row invalid)
+            cols_np = [np.zeros((T, cap), dtype=dp0.es.columns[nm].dtype)
+                       for nm in dp0.upload_names]
+            shift_np = np.zeros(T, dtype=np.int32)
+            lo_np = np.zeros(T, dtype=np.int32)
+            consts_np = [np.tile(np.asarray(c, np.int32), (T, 1))
+                         for c in dp0.consts]
+            if dp0.route == "kway":
+                offs_np = np.full((T, dp0.num_runs + 1), cap,
+                                  dtype=np.int32)
+                offs_np[:, 0] = 0
+            else:
+                offs_np = np.zeros((T, 1), dtype=np.int32)
+            upload_bytes = sum(int(c.nbytes) for c in cols_np)
+            for t, (_s, dp) in enumerate(chunk):
+                n = dp.es.n
+                for j, nm in enumerate(dp0.upload_names):
+                    cols_np[j][t, :n] = dp.es.columns[nm]
+                shift_np[t] = dp.shift
+                lo_np[t] = dp.lo
+                for ci, c in enumerate(dp.consts):
+                    consts_np[ci][t] = c
+                if dp0.route == "kway":
+                    # rebuilt against the ROUND capacity: real run bounds,
+                    # the pad zone [n, cap) as its own run, trailing runs
+                    # empty at cap (the kway_merge_perm contract)
+                    rl = dp.es.run_lengths
+                    real = np.cumsum((0,) + tuple(rl))
+                    offs_np[t, :len(real)] = real
+                    offs_np[t, len(rl):] = cap
+                    offs_np[t, len(rl)] = n
+            cols_dev = tuple(put(c) for c in cols_np)
+            consts_dev = tuple(put(c) for c in consts_np)
+            offs_dev, shift_dev, lo_dev = (put(offs_np), put(shift_np),
+                                           put(lo_np))
+            self._stack_cache_put(
+                stack_key, es_list,
+                cols_dev + consts_dev + (offs_dev, shift_dev, lo_dev))
+        fn_key = ("decode", dp0.static_key(), g_pad, width)
+        fn = self._mesh_run_fns.get(fn_key)
+        if fn is None:
+            fn = mesh_decode_partials(
+                mesh, num_groups=g_pad, num_buckets=width,
+                which=spec.which, key_slots=dp0.key_slots,
+                num_pks=dp0.num_pks, group_pos=dp0.group_pos,
+                ts_pos=dp0.ts_pos, val_slot=dp0.val_slot,
+                leaf_prog=dp0.leaf_prog, route=dp0.route,
+                num_runs=dp0.num_runs)
+            self._mesh_run_fns[fn_key] = fn
+        out, _kept = fn(cols_dev, nv, consts_dev, offs_dev, shift_dev,
+                        lo_dev, put(seg_ids), spec.num_buckets,
+                        spec.bucket_ms)
+        _MESH_ROUNDS.inc()
+        if len(chunk) < T:
+            pipeline_mod.note_mesh_stall("time")
+        # run-tail emission, DecodeDispatch.finalize's shape: the tail
+        # plan's real group count and clipped width, window-local
+        # last_ts rebased to range-relative int64
+        entries: list = []
+        cells = 0
+        src_rows = 0
+        a = 0
+        t_dl = time.perf_counter()
+        for i in range(len(chunk)):
+            if i + 1 < len(chunk) and seg_ids[i + 1] == seg_ids[i]:
+                continue
+            s, dp = chunk[i]
+            grids = {k: np.ascontiguousarray(v.row(i)[:dp.g, :dp.w_eff])
+                     for k, v in out.items()}
+            if "last_ts" in grids:
+                lt = grids["last_ts"].astype(np.int64)
+                grids["last_ts"] = np.where(
+                    grids["count"] > 0, lt + dp.lo * spec.bucket_ms, lt)
+            cells += sum(int(v.shape[0] * v.shape[1])
+                         for v in grids.values())
+            src_rows += sum(dp2.es.n for _s2, dp2 in chunk[a:i + 1])
+            entries.append((s, (dp.values, dp.lo, grids), i - a + 1))
+            a = i + 1
+        deviceprof.observe_exec("mesh_decode_partials",
+                                time.perf_counter() - t_dl)
+        _MESH_PARTS.inc(len(entries))
+        _MESH_PART_CELLS.inc(cells)
+        deviceprof.record_round(
+            "mesh_decode", slots=len(chunk), capacity=T,
+            rows_per_shard=[int(dp.es.n) for _s, dp in chunk],
+            padding_rows=(T - len(chunk)) * cap
+            + sum(cap - int(dp.es.n) for _s, dp in chunk),
+            upload_bytes=upload_bytes, stack_hit=cached is not None,
+            seconds=time.perf_counter() - t0)
+        device_decode.observe_decode_stage(
+            time.perf_counter() - t0, rows=src_rows, nbytes=upload_bytes)
+        return entries
+
+    async def _aggregate_segments_mesh(self, plan: ScanPlan,
+                                       spec: AggregateSpec, memo_store):
+        """The mesh twin of _aggregate_segments_pump: the pipeline's
+        fetch/decode stages feed this device stage, which admits windows
+        to mesh time slots strictly in plan order and flushes rounds of
+        time-axis width.  Per-segment run parts come back through the
+        same yield/memo contract, so replans, the PartsMemo and the
+        sorted-segment fold are untouched."""
+        from horaedb_tpu_torch.storage import pipeline as pipeline_mod
+
+        batch_w = self.scan_mesh.shape["time"]
+        queue: list = []
+        parts: dict[int, list] = {}
+        pending: dict[int, int] = {}
+        arrived: deque = deque()
+        flush_task: Optional[asyncio.Task] = None
+        flush_ordinal = 0
+
+        def apply(flushed) -> None:
+            for seg_start, part, repay in flushed:
+                if part is not None:
+                    parts[seg_start].append(part)
+                pending[seg_start] -= repay
+
+        async def settle_flush() -> None:
+            nonlocal flush_task
+            if flush_task is None:
+                return
+            t, flush_task = flush_task, None
+            apply(await t)
+
+        async def flush_round(chunk: list, salt: int) -> list:
+            t0 = time.perf_counter()
+            out = await self._run_pool(self._flush_mesh_round, chunk, spec,
+                                       plan, salt, pool=plan.pool)
+            pipeline_mod.observe_stage(
+                "device", time.perf_counter() - t0,
+                rows=sum(w.n_valid for _s, w, _p in chunk))
+            return out
+
+        async def flush(k: int) -> None:
+            nonlocal flush_task, flush_ordinal
+            chunk = queue[:k]
+            del queue[:k]
+            salt = flush_ordinal
+            flush_ordinal += 1
+            if not plan.pipeline_active:
+                apply(await self._run_pool(self._flush_mesh_round, chunk,
+                                           spec, plan, salt,
+                                           pool=plan.pool))
+                return
+            # stage-boundary checkpoint: no new mesh round for an
+            # expired query (the in-flight one drains via settle)
+            deadline_checkpoint()
+            await settle_flush()
+            flush_task = asyncio.create_task(flush_round(chunk, salt))
+
+        def finished():
+            while arrived and pending[arrived[0]] == 0:
+                s0 = arrived.popleft()
+                seg_parts = parts.pop(s0)
+                memo_store(s0, seg_parts)
+                yield s0, seg_parts
+
+        try:
+            windows_iter = self._cached_windows(plan)
+            try:
+                async for seg, windows in windows_iter:
+                    s = seg.segment_start
+                    arrived.append(s)
+                    parts[s] = []
+                    pending[s] = 0
+
+                    def prep_windows(ws=windows):
+                        out = []
+                        for w in ws:
+                            _ROWS_SCANNED.inc(w.n_valid)
+                            if isinstance(w, device_decode.DecodePlan):
+                                # deferred decode: batched into mesh
+                                # decode rounds at flush time
+                                out.append((w, _DECODE_PREP))
+                                continue
+                            if isinstance(w, device_decode.DevicePart):
+                                if w.part is not None:
+                                    out.append((w, None))
+                                continue
+                            prep = self._window_groups(w, spec, plan)
+                            if prep is not None:
+                                out.append((w, prep))
+                        return out
+
+                    for w, prep in await self._run_pool(prep_windows,
+                                                        pool=plan.pool):
+                        queue.append((s, w, prep))
+                        pending[s] += 1
+                    while len(queue) >= batch_w:
+                        await flush(batch_w)
+                    for out in finished():
+                        yield out
+            except NotFoundError:
+                # a compaction race: the round in flight still lands and
+                # the segments it finishes are yielded, so the caller's
+                # replan re-reads only the segments left
+                await settle_flush()
+                for out in finished():
+                    yield out
+                raise
+            finally:
+                await windows_iter.aclose()
+            if queue:
+                await flush(len(queue))
+            await settle_flush()
+            for out in finished():
+                yield out
+        finally:
+            if flush_task is not None:
+                # a cancelled or failed scan drains its in-flight mesh
+                # round (the pool job runs to completion regardless), so
+                # no task outlives the scan
+                flush_task.cancel()
+                await asyncio.gather(flush_task, return_exceptions=True)
+
+    async def _aggregate_topk_mesh(self, plan: ScanPlan,
+                                   spec: AggregateSpec, tk):
+        """Egress-bounded top-k on the scan mesh, two passes over the
+        collected windows (two-phase like the fused path; the budget
+        gate in _mesh_topk_ok bounds the pinned rows):
+
+          score   every round's segmented-combined grids fold into a
+                  device-resident score state, and only a per-group
+                  (score, has) vector downloads: O(groups) bytes;
+          winners rank on the host with combine.rank_top_k (the tie
+                  order combine_top_k uses), then the rounds re-run
+                  from the stack cache and download ONLY the k winners'
+                  grid rows per run: O(k x buckets x aggs) per part.
+
+        Yields (seg_start, winner-sliced parts); finalize_aggregate's
+        combine_top_k then reproduces the full ranking restricted to the
+        winners.  A round-level decline (sum overlap, budget, mesh
+        error) downgrades the WHOLE query to full-width mesh parts."""
+        from horaedb_tpu_torch.parallel import scan as pscan
+
+        T = self.scan_mesh.shape["time"]
+        items: list = []
+        windows_iter = self._cached_windows(plan)
+        try:
+            async for seg, windows in windows_iter:
+                s = seg.segment_start
+
+                def prep_windows(ws=windows, s=s):
+                    out = []
+                    for w in ws:
+                        _ROWS_SCANNED.inc(w.n_valid)
+                        prep = self._window_groups(w, spec, plan)
+                        if prep is not None:
+                            out.append((s, w, prep))
+                    return out
+
+                items.extend(await self._run_pool(prep_windows,
+                                                  pool=plan.pool))
+        finally:
+            await windows_iter.aclose()
+        if not items:
+            return
+        # canonical fold order: sorted segment, window order within — the
+        # order finalize folds parts in
+        items.sort(key=lambda it: it[0])
+        all_values = np.unique(np.concatenate([it[2][0] for it in items]))
+        g = len(all_values)
+        series = self.scan_mesh.shape["series"]
+        g_pad = max(8, series, 1 << (g - 1).bit_length())
+        local_ok = all(it[1].encodings[spec.ts_col].kind == "offset"
+                       for it in items)
+        width = (self._window_grid_width(spec) if local_ok
+                 else spec.num_buckets)
+        chunks = [items[i:i + T] for i in range(0, len(items), T)]
+        additive = tk.by in ("count", "sum", "avg")
+        init = pscan.mesh_additive_init if additive else pscan.mesh_score_init
+        state = init(self.scan_mesh, g_pad, spec.num_buckets + width, tk.by)
+        # the score state is device-resident for the whole two-pass
+        # ranking: accounted (mesh_state) and freed on every exit path
+        state_bytes = sum(int(v.nbytes) for st in state for v in st.values())
+        self._mesh_state_bytes += state_bytes
+        downgrade = None
+        finished = None
+        try:
+            try:
+                for ci, chunk in enumerate(chunks):
+                    deadline_checkpoint()
+
+                    def score_round(chunk=chunk, ci=ci):
+                        got = self._run_mesh_round(
+                            chunk, spec, plan, group_space=all_values,
+                            download=False, round_salt=ci)
+                        out = got["out"]
+                        if additive:
+                            # TAIL slots only: a tail already holds its
+                            # whole run, prefixes would double-count
+                            tails = np.zeros(T, dtype=bool)
+                            for _s, _a, b in got["runs"]:
+                                tails[b] = True
+                            return pscan.mesh_additive_update(
+                                state, out["count"],
+                                out.get("sum", out["count"]), tails,
+                                got["lo"], by=tk.by)
+                        return pscan.mesh_score_update(
+                            state, out[tk.by], out["count"],
+                            out.get("last_ts") if tk.by == "last" else None,
+                            got["lo"], spec.bucket_ms, by=tk.by)
+
+                    state = await self._run_pool(score_round,
+                                                 pool=plan.pool)
+            except _MeshFallback as f:
+                downgrade = f.reason
+            except NotFoundError:
+                raise  # compaction race: the caller replans
+            except Exception as exc:  # noqa: BLE001 — counted downgrade
+                downgrade = "mesh_error"
+                logger.warning("mesh top-k scoring failed (%s); serving "
+                               "full-width parts", exc)
+            if downgrade is None:
+                def finish_scores():
+                    if not additive:
+                        sc, has = pscan.mesh_score_finalize(
+                            state, largest=tk.largest,
+                            num_buckets=spec.num_buckets)
+                        _MESH_SCORE_CELLS.inc(2 * g)
+                        return sc[:g].astype(np.float64), has[:g]
+                    fin = pscan.mesh_additive_finalize(
+                        state, by=tk.by, largest=tk.largest,
+                        num_buckets=spec.num_buckets)
+                    if fin["lossy"]:
+                        # an add was not provably exact: a counted
+                        # downgrade, never a drifted winner set
+                        return None
+                    if tk.by == "avg":
+                        # the card cannot divide bit-identically to the
+                        # host: avg downloads the (groups, buckets) pairs
+                        # and the host runs combine_top_k's formula
+                        cnt = (fin["cnt_hi"].astype(np.float64)
+                               + fin["cnt_lo"].astype(np.float64))[:g]
+                        sm = (fin["sum_hi"].astype(np.float64)
+                              + fin["sum_lo"].astype(np.float64))[:g]
+                        hs = fin["has"][:g]
+                        _MESH_SCORE_CELLS.inc(5 * cnt.size + g)
+                        with np.errstate(invalid="ignore", divide="ignore"):
+                            cell = sm / np.maximum(cnt, 1)
+                        fill = -np.inf if tk.largest else np.inf
+                        cell = np.where(hs, cell, fill)
+                        sc = (cell.max(axis=1) if tk.largest
+                              else cell.min(axis=1))
+                        return sc, hs.any(axis=1)
+                    sc = (fin["score_hi"].astype(np.float64)
+                          + fin["score_lo"].astype(np.float64))[:g]
+                    _MESH_SCORE_CELLS.inc(3 * g)
+                    return sc, fin["has_any"][:g]
+
+                finished = await self._run_pool(finish_scores,
+                                                pool=plan.pool)
+        finally:
+            state = None
+            self._mesh_state_bytes -= state_bytes
+        if downgrade is not None or finished is None:
+            note_mesh_fallback(downgrade or "additive_topk")
+            # full-width mesh parts through the normal chunk flush;
+            # finalize's combine_top_k ranks them
+            async for out in self._yield_chunks_as_parts(chunks, spec,
+                                                         plan):
+                yield out
+            return
+        scores, has_any = finished
+        kept = np.flatnonzero(has_any)
+        winners = combine_mod.rank_top_k(
+            [int(r) for r in kept], scores[kept], tk)
+        if not winners:
+            return
+        w_rows = np.asarray(sorted(winners), dtype=np.int64)
+        winner_values = all_values[w_rows]
+        seg_parts: dict[int, list] = {}
+        cells = 0
+        try:
+            for ci, chunk in enumerate(chunks):
+                deadline_checkpoint()
+
+                def winner_round(chunk=chunk, ci=ci):
+                    got = self._run_mesh_round(chunk, spec, plan,
+                                               group_space=all_values,
+                                               download=False,
+                                               round_salt=ci)
+                    sliced = pscan.mesh_take_rows(got["out"], w_rows)
+                    out = []
+                    for s, _a, b in got["runs"]:
+                        # the round's OWN grid width: a chunk whose ts
+                        # encodings forced full-range grids is wider
+                        lo_run, grids = self._slice_mesh_part(
+                            sliced, b, -1, int(got["lo"][b]),
+                            got["width"], spec)
+                        out.append((s, (winner_values, lo_run, grids)))
+                    return out
+
+                for s, part in await self._run_pool(winner_round,
+                                                    pool=plan.pool):
+                    seg_parts.setdefault(s, []).append(part)
+                    cells += sum(int(v.shape[0] * v.shape[1])
+                                 for v in part[2].values())
+        except NotFoundError:
+            raise  # compaction race: the caller replans
+        except Exception as exc:  # noqa: BLE001 — counted downgrade;
+            # nothing was yielded, so full-width parts replace the slices
+            note_mesh_fallback(exc.reason if isinstance(exc, _MeshFallback)
+                               else "mesh_error")
+            logger.warning("mesh top-k winner pass failed (%s); serving "
+                           "full-width parts", exc)
+            async for out in self._yield_chunks_as_parts(chunks, spec,
+                                                         plan):
+                yield out
+            return
+        _MESH_PART_CELLS.inc(cells)
+        _MESH_TOPK.inc()
+        for s in sorted(seg_parts):
+            yield s, seg_parts[s]
+
+    async def _yield_chunks_as_parts(self, chunks: list,
+                                     spec: AggregateSpec, plan: ScanPlan):
+        """The top-k mesh route's downgrade: flush the collected window
+        chunks through the normal mesh round (its per-round fallback
+        included) and yield per-segment full parts."""
+        seg_parts: dict[int, list] = {}
+        for ci, chunk in enumerate(chunks):
+            deadline_checkpoint()
+            flushed = await self._run_pool(self._flush_mesh_round, chunk,
+                                           spec, plan, ci, pool=plan.pool)
+            for s, part, _repay in flushed:
+                if part is not None:
+                    seg_parts.setdefault(s, []).append(part)
+        for s in sorted(seg_parts):
+            yield s, seg_parts[s]
 
     def finalize_aggregate(self, parts: list, spec: AggregateSpec,
                            top_k=None):
@@ -2223,7 +3500,8 @@ class ParquetReader:
                             plan: ScanPlan, batch_w: int, cap: int,
                             g_pad: int, width: int,
                             group_space: np.ndarray, local_ok: bool,
-                            stack_key: Optional[tuple] = None) -> tuple:
+                            stack_key: Optional[tuple] = None,
+                            put=None, key_salt: tuple = ()) -> tuple:
         """One round of host windows on the device, in two parts: the
         columns (ts, gid, val and n_valid, on the device and on the host)
         and the small arrays (remap, shift, lo on the device, lo on the
@@ -2233,28 +3511,33 @@ class ParquetReader:
         without one (the parts path, whose plans outgrow the cache's
         byte bound, so a byte LRU would evict each round before its
         reuse) the round is built uncached from numpy, one upload per
-        array.  Windows past len(items) pad the round with no-op rows
+        array.  An explicit `put` (the meshes: shard_leading_axis,
+        shard_time_axis) places the numpy stacks split over the mesh,
+        its cache entries keyed apart by `key_salt`.  Windows past len(items) pad the round with no-op rows
         (ts 0, gid -1, value 0, n_valid 0), the same bytes on either
         route.  Returns (ts, gid, val, n_valid, n_valid_host, remap,
         shift, lo, lo_host); the host copies bound the round's rows and
         columns without a device read."""
         cached = stack_key is not None
+        sharded = put is not None
         windows_now = tuple(it[1] for it in items)
         cols = small = None
         if cached:
+            stack_key = stack_key + key_salt
             col_key = self._col_stack_key(windows_now, spec, plan, batch_w,
-                                          cap)
+                                          cap) + key_salt
             cols = self._stack_cache_get(col_key, windows_now)
             small = self._stack_cache_get(stack_key, windows_now)
             if cols is not None and small is not None:
                 return cols + small
         t0 = time.perf_counter()
-        put = lambda a: encode.to_device(a, self.device)
+        if put is None:
+            put = lambda a: encode.to_device(a, self.device)
         if cols is None:
             n_valid = np.zeros(batch_w, dtype=np.int32)
             for d, (_s, w, _prep) in enumerate(items):
                 n_valid[d] = w.n_valid
-            if cached and self._devcol_stack_ok():
+            if cached and not sharded and self._devcol_stack_ok():
                 cols = self._stack_device_cols(items, spec, plan, batch_w,
                                                cap)
             else:

@@ -32,7 +32,8 @@ def test_the_scan_covers_every_port_module():
     """The walk below finds every module of the port, the parts path's,
     compaction's, the scrubber's, the device decode's, the WAL's, the
     rollups', the chunked layout's, the planes', the scan agents', the
-    cluster's, replication's and the server's included."""
+    cluster's, replication's, the server's, the device profiler's and
+    the meshes' (parallel/) included."""
     mods = _port_modules()
     for m in ("horaedb_tpu_torch.common.loops",
               "horaedb_tpu_torch.storage.combine",
@@ -80,7 +81,12 @@ def test_the_scan_covers_every_port_module():
               "horaedb_tpu_torch.server",
               "horaedb_tpu_torch.server.config",
               "horaedb_tpu_torch.server.main",
-              "horaedb_tpu_torch.server.__main__"):
+              "horaedb_tpu_torch.server.__main__",
+              "horaedb_tpu_torch.common.deviceprof",
+              "horaedb_tpu_torch.parallel",
+              "horaedb_tpu_torch.parallel.mesh",
+              "horaedb_tpu_torch.parallel.scan",
+              "horaedb_tpu_torch.parallel.multihost"):
         assert m in mods, m
 
 

@@ -502,7 +502,11 @@ def test_cache_stats_has_the_reference_sections():
 
     stats = asyncio.run(run())
     assert set(stats) == {"scan_cache", "encoded_cache", "pipeline",
-                          "stack_cache"}
+                          "stack_cache", "mesh"}
+    # the reference's mesh section, plus the port's device list
+    assert set(stats["mesh"]) - {"segment_devices", "devices"} == {
+        "enabled", "shape", "rounds", "parts", "part_cells", "score_cells",
+        "topk_served", "fallbacks", "stalls"}
     assert set(stats["encoded_cache"]) == set(
         RefEncodedSegmentCache(1).stats())
     assert set(stats["pipeline"]) == {"enabled", "depth", "inflight_bytes",

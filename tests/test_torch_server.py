@@ -11,9 +11,10 @@ partial grids are float32 like the port's and the sums byte-equal);
 bodies that hold times or process state (/metrics, /debug/*, /stats'
 memory) are compared by their shape.  Config: `load_config` of
 docs/example.toml gives equal dataclasses in both packages, and every
-validation case raises the same error in both.  Two parts are not
-ported and must fail loudly: GET /debug/device answers 501 and
-kind = "S3Like" refuses to start."""
+validation case raises the same error in both.  One part is not ported
+and must fail loudly: kind = "S3Like" refuses to start.  GET
+/debug/device answers 200 in both, with the same sections (the port's
+table adds its event-resolution counts)."""
 
 import asyncio
 import dataclasses
@@ -249,7 +250,7 @@ async def _session(pkg) -> list:
         st, body = await rec("get", "/debug/memory")
         out[-1] = ("get /debug/memory", st, sorted(body))
         st, body = await rec("get", "/debug/device")
-        out[-1] = ("get /debug/device", st, body)
+        out[-1] = ("get /debug/device", st, sorted(body))
         return out
     finally:
         await _close(client, state, engine)
@@ -263,16 +264,11 @@ def test_every_route_answers_as_the_jax_package():
     assert [r[0] for r in ref] == [p[0] for p in port]
     for r, p in zip(ref, port):
         if r[0] == "get /debug/device":
-            # the device profiler is not ported: 501 naming its
-            # ROADMAP item, where the JAX package serves its table
-            assert r[1] == 200
-            assert p[1] == 501 and "ROADMAP Queue A 10b" in p[2]["error"]
-            continue
-        if r[0] == "get /stats":
-            # the port's /stats has no deviceprof key, and nothing more
-            assert r[:4] == p[:4]
-            assert set(r[4]) - set(p[4]) == {"deviceprof"}
-            assert set(p[4]) <= set(r[4])
+            # both serve the device plane; the port's table adds the
+            # count of CUDA event pairs resolved and dropped
+            assert r[1] == p[1] == 200
+            assert set(p[2]) - set(r[2]) == {"events"}
+            assert set(r[2]) <= set(p[2])
             continue
         assert r == p, r[0]
     # the session reached real data, not only errors
@@ -430,9 +426,11 @@ def test_s3_parses_but_the_server_refuses_it(tmp_path):
 
 
 def test_mesh_config_loads_and_a_reader_refuses_it(tmp_path):
-    """The example's [scan.mesh] and mesh_devices load; a reader opened
-    with a mesh enabled (or more than one device) raises, naming the
-    ROADMAP item, rather than running on one device."""
+    """The example's [scan.mesh] and mesh_devices load.  A reader builds
+    its mesh over the local devices of its type — on a CPU reader with
+    no device list installed, the one host device: [scan.mesh] opens a
+    1 x 1 mesh — and refuses, as the JAX package does, a segment mesh
+    wider than the devices there are and the two meshes together."""
     from horaedb_tpu_torch.storage.config import StorageConfig, from_dict
 
     base = port_cfg.load_config(EXAMPLE).metric_engine.time_merge_storage
@@ -443,16 +441,23 @@ def test_mesh_config_loads_and_a_reader_refuses_it(tmp_path):
         return await MetricEngine.open("m", MemoryObjectStore(),
                                        config=cfg, device="cpu")
 
-    for scan in ({"mesh": {"enabled": True}}, {"mesh_devices": 2},
-                 {"mesh_devices": 2, "mesh": {"enabled": True}}):
-        with pytest.raises(Error, match="Queue A 11"):
+    for scan, match in (({"mesh_devices": 2}, "devices are available"),
+                        ({"mesh_devices": 1, "mesh": {"enabled": True}},
+                         "mutually exclusive")):
+        with pytest.raises(Error, match=match):
             run(open_with(scan))
 
-    async def fine():
-        eng = await open_with({"mesh_devices": 0})
-        await eng.close()
+    async def fine(scan):
+        eng = await open_with(scan)
+        try:
+            st = await eng.stats()
+            return {t["cache"]["mesh"]["enabled"]
+                    for t in st["tables"].values() if "cache" in t}
+        finally:
+            await eng.close()
 
-    run(fine())
+    assert run(fine({"mesh_devices": 0})) == {False}
+    assert run(fine({"mesh": {"enabled": True}})) == {True}
 
 
 async def _middleware_session(pkg) -> list:
