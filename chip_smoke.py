@@ -272,11 +272,44 @@ non-zero and prints no result line:
    sharded_remap_partials rounds), byte-equal to the control;
    multihost — a one-process NCCL group's global downsample over the
    first segment, byte-equal to the single-device answer.
-20. a JSON line of per-kernel numbers (with `wal_launches`,
+20. bench: `python -m horaedb_tpu_torch.bench` (the bench.py twin) in
+   a subprocess at bench.py's defaults, 10,000,000 rows and 20 iters:
+   BENCH_CONFIG=0, the kernel microbench (time_bucket_aggregate over the
+   rows as one batch, bucket_window_partials), and 1, the end-to-end
+   headline (config 1 on the fused route: true-cold queries, 20 cached
+   and 24 varied-range ones, a paired numpy baseline).  Each prints its
+   JSON line after its own numpy checks; the line must say backend
+   cuda, no fallback and this card's name and power limit; the
+   headline's cold query no replay and > 0 B up, every cached query a
+   replay with 0 B up; each line's kernel launches (counted in its
+   process) must hold its route's kernel; the microbench's p50 must not
+   fall below the device time of its call at the same inputs.
+21. suite: the bench suite's configs 2-10 (horaedb_tpu_torch/bench/
+   suite.py, the JAX package's suite.py:115-1475) at the CLI's defaults,
+   2,000,000 rows and 10 iters, each
+   checking itself against numpy, each result line printed with its
+   kernel launches counted from 0 around it (every config but 6 and 8
+   must launch one); configs 2, 8 and 9 write their disks under
+   .wal_smoke_* directories beside this script (removed after).
+22. s3: BASELINE config 1 at --rows through a MetricEngine over the
+   port's S3ObjectStore against FakeS3, an in-process SigV4-verifying
+   S3 endpoint on 127.0.0.1 (its own thread and loop): ingest, then a
+   second engine with the default StorageConfig, one true-cold avg at
+   1 min over the whole segments (device decode; bucket_window_partials
+   and kway_merge_perm launched, counted from 0 around it; no replay,
+   > 0 B up) and 5 repeats, every grid byte for byte the in-memory
+   parts leg's device-decode grid of the same query and against numpy;
+   GETs and bytes as the fake counts them.  Then `python -m
+   horaedb_tpu_torch.server` on a kind = "S3Like" config pointed at the
+   fake answers one /write and /query and exits 0 on SIGTERM.
+23. merge_dedup: merge_dedup_last (torch code) at the segment mesh's
+   shape, byte-equal to its CPU run, timed beside its bytes bound.
+24. a JSON line of per-kernel numbers (with `wal_launches`,
    `config4_launches`, the rollup, chunked, scanagent, server, cluster,
-   failover and mesh cells' launches beside `launches`, and the partials
-   entry's time at the chunked shape), the total seconds, the card line
-   again, and the last line {"ok": true, "device": {...}}.
+   failover, mesh, bench, suite and s3 cells' launches beside
+   `launches`, and the partials entry's time at the chunked shape),
+   every phase's seconds, the total seconds, the card line again, and
+   the last line {"ok": true, "device": {...}}.
 
 Needs one CUDA card; a missing card is a failure, never a CPU run.
 `--cards N` (N cards) runs only the build and the mesh phases, their
@@ -2033,7 +2066,10 @@ async def parts_phase(ba, mg, store, T0: int, per_host: int, hosts: int,
             f"copies/sets, device busy {prof['device_busy_us']!r} us; by "
             f"name: " + json.dumps(prof["busy_us_by_name"]))
         first = turns["device"][0]["numbers"]["launches"]
-        return {"launches": first["bucket_window_partials"],
+        cold = turns["device"][0]["cold"]
+        return {"cold_1min": {"tsids": cold["tsids"],
+                              "aggs": host_grids(cold)},
+                "launches": first["bucket_window_partials"],
                 "kway_launches": first["kway_merge_perm"],
                 "segments": len(plan.segments), "multi_sst_segments": multi,
                 "est_rows": est,
@@ -4827,6 +4863,83 @@ def check_config1(grids: dict, want: dict, order, what: str) -> None:
                                    err_msg=f"{what}: {k}")
 
 
+async def server_cli_leg(text: str, port: int, root: str, T0: int,
+                         tag: str) -> dict:
+    """`python -m horaedb_tpu_torch.server` in a subprocess from the
+    config `text` (written under `root`), listening on `port`: GET /
+    until it answers, one /write, a /query that returns the sample, and
+    SIGTERM, after which it must exit 0 with its engine on the card."""
+    import signal
+
+    import aiohttp
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out: dict = {}
+    toml = os.path.join(root, "server.toml")
+    with open(toml, "w") as f:
+        f.write(text)
+    session = aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600))
+
+    async def call(method, base, path, **kw):
+        async with session.request(method, base + path, **kw) as r:
+            body = await r.read()
+            if r.status != 200:
+                raise AssertionError(f"{path}: {r.status} {body[:300]!r}")
+            return body
+
+    t0 = time.perf_counter()
+    cli_log = open(os.path.join(root, "cli.log"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "horaedb_tpu_torch.server", "--config",
+         toml], cwd=here, stdout=cli_log, stderr=subprocess.STDOUT)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        for _ in range(600):
+            if proc.poll() is not None:
+                cli_log.seek(0)
+                raise AssertionError(
+                    f"{tag}: server CLI exited {proc.returncode}: "
+                    f"{cli_log.read()[-2000:]}")
+            try:
+                await call("GET", base, "/")
+                break
+            except (aiohttp.ClientError, AssertionError):
+                await asyncio.sleep(0.2)
+        else:
+            raise AssertionError(f"{tag}: server CLI never answered GET /")
+        out["cli_start_s"] = time.perf_counter() - t0
+        await call("POST", base, "/write", json={"samples": [
+            {"name": "cli", "labels": {"host": "a"},
+             "timestamp": T0, "value": 42.5}]})
+        body = json.loads(await call("POST", base, "/query", json={
+            "metric": "cli", "filters": {"host": "a"}, "start": T0,
+            "end": T0 + 1000}))
+        if body["values"] != [42.5]:
+            raise AssertionError(f"{tag}: server CLI: /query returned {body}")
+    finally:
+        await session.close()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise AssertionError(f"{tag}: server CLI ignored SIGTERM")
+    cli_log.seek(0)
+    log_tail = cli_log.read()
+    cli_log.close()
+    if rc != 0:
+        raise AssertionError(f"{tag}: server CLI exited {rc}: "
+                             f"{log_tail[-2000:]}")
+    if "device cuda" not in log_tail:
+        raise AssertionError(f"{tag}: server CLI: the engine did not open "
+                             "on the card")
+    out["cli_rc"] = rc
+    log(f"{tag}: CLI started in {out['cli_start_s']!r} s, wrote and read "
+        f"back one sample, exited {rc} on SIGTERM")
+    return out
+
+
 async def server_phase(ba, mg, rows: int) -> dict:
     """BASELINE config 1, unchanged, over HTTP: the port's server in
     process (ServerState + build_app on an AppRunner) from
@@ -4844,7 +4957,6 @@ async def server_phase(ba, mg, rows: int) -> dict:
     SIGTERM, after which it must exit 0."""
     import copy
     import shutil
-    import signal
 
     import aiohttp
     import numpy as np
@@ -5066,62 +5178,12 @@ async def server_phase(ba, mg, rows: int) -> dict:
 
         # the CLI: a subprocess from a copy of the config
         port = free_port()
-        toml = os.path.join(root, "server.toml")
         with open(os.path.join(here, "docs", "example.toml")) as f:
             text = f.read()
         text = text.replace("port = 5000", f"port = {port}", 1)
         text = text.replace('data_dir = "/tmp/horaedb-tpu-data"',
                             f'data_dir = "{os.path.join(root, "cli")}"', 1)
-        with open(toml, "w") as f:
-            f.write(text)
-        t0 = time.perf_counter()
-        cli_log = open(os.path.join(root, "cli.log"), "w+")
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "horaedb_tpu_torch.server", "--config",
-             toml], cwd=here, stdout=cli_log, stderr=subprocess.STDOUT)
-        base = f"http://127.0.0.1:{port}"
-        try:
-            for _ in range(600):
-                if proc.poll() is not None:
-                    cli_log.seek(0)
-                    raise AssertionError(
-                        f"server CLI exited {proc.returncode}: "
-                        f"{cli_log.read()[-2000:]}")
-                try:
-                    await get(base, "/")
-                    break
-                except (aiohttp.ClientError, AssertionError):
-                    await asyncio.sleep(0.2)
-            else:
-                raise AssertionError("server CLI never answered GET /")
-            out["cli_start_s"] = time.perf_counter() - t0
-            await post(base, "/write", json={"samples": [
-                {"name": "cli", "labels": {"host": "a"},
-                 "timestamp": T0, "value": 42.5}]})
-            body = json.loads(await post(base, "/query", json={
-                "metric": "cli", "filters": {"host": "a"}, "start": T0,
-                "end": T0 + 1000}))
-            if body["values"] != [42.5]:
-                raise AssertionError(f"server CLI: /query returned {body}")
-        finally:
-            proc.send_signal(signal.SIGTERM)
-            try:
-                rc = proc.wait(timeout=120)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait()
-                raise AssertionError("server CLI ignored SIGTERM")
-        cli_log.seek(0)
-        log_tail = cli_log.read()
-        cli_log.close()
-        if rc != 0:
-            raise AssertionError(f"server CLI exited {rc}: {log_tail[-2000:]}")
-        if "device cuda" not in log_tail:
-            raise AssertionError("server CLI: the engine did not open on "
-                                 "the card")
-        out["cli_rc"] = rc
-        log(f"server: CLI started in {out['cli_start_s']!r} s, wrote and "
-            f"read back one sample, exited {rc} on SIGTERM")
+        out.update(await server_cli_leg(text, port, root, T0, "server"))
         return out
     finally:
         await session.close()
@@ -6078,6 +6140,467 @@ def multihost_leg(ba, mg, d: dict) -> dict:
     return {"rows": n, "init_s": init_s, "ms": ms, "launches": got_launches}
 
 
+def bench_phase(rows: int = 10_000_000, iters: int = 20) -> dict:
+    """`python -m horaedb_tpu_torch.bench` in a subprocess at bench.py's
+    defaults (10,000,000 rows, 20 iters): BENCH_CONFIG=0 (the kernel
+    microbench) and 1 (the end-to-end headline).  Each prints one JSON
+    line on the card (backend cuda, no fallback, this card's name and
+    power limit) after its own numpy checks; the headline's cached
+    queries must be replay hits with 0 B up and its cold query none;
+    each line's kernel launches, counted in its process from 0, must
+    include its path's kernel.  The microbench's p50 must not fall below
+    the device time of its call at the same inputs."""
+    import numpy as np
+
+    from horaedb_tpu_torch.bench.tsbs import TsbsConfig, generate_cpu_arrays
+    from horaedb_tpu_torch.ops.downsample import time_bucket_aggregate
+    from horaedb_tpu_torch.ops.encode import to_device
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    card = card_line()
+    out: dict = {}
+    for config in (0, 1):
+        env = dict(os.environ, BENCH_CONFIG=str(config),
+                   BENCH_ROWS=str(rows), BENCH_ITERS=str(iters))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "horaedb_tpu_torch.bench"], cwd=here,
+            env=env, capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"bench: BENCH_CONFIG={config} exited "
+                                 f"{proc.returncode}: {proc.stderr[-3000:]}")
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        log(f"bench: BENCH_CONFIG={config} in {wall!r} s: {json.dumps(line)}")
+        if not (line["backend"] == "cuda" and line["fallback"] is False
+                and line["card"] == card):
+            raise AssertionError(f"bench: config {config} did not run on "
+                                 f"the card: {line}")
+        line["wall_s"] = wall
+        out[config] = line
+    micro, head = out[0], out[1]
+    if micro["launches"]["bucket_window_partials"] < iters + 1:
+        raise AssertionError(f"bench: the microbench launched "
+                             f"{micro['launches']}")
+    if head["launches"]["bucket_round_accumulate"] == 0:
+        raise AssertionError(f"bench: the headline's fused route launched "
+                             f"{head['launches']}")
+    if not (head["cached_replay_hits"] == head["cached_queries"] == iters
+            and head["cached_h2d_bytes"] == 0
+            and head["cold_replay_hits"] == 0
+            and head["cold_h2d_bytes"] > 0):
+        raise AssertionError(f"bench: the headline's cached queries were "
+                             f"not all replays or its cold query not cold: "
+                             f"{head}")
+    # the microbench's inputs again: its p50 (a synced wall time) must not
+    # fall below the call's device time
+    interval, hosts = 10_000, 100
+    span = (rows // hosts) * interval
+    cols = generate_cpu_arrays(TsbsConfig(
+        num_hosts=hosts, num_fields=1, interval_ms=interval, span_ms=span))
+    n = len(cols["ts"])
+    cap = 1 << (n - 1).bit_length()
+    dev = chip_device()
+    pad = lambda a, dt: to_device(np.pad(a.astype(dt), (0, cap - n)), dev)
+    args = (pad(cols["ts"] - 1_700_000_000_000, np.int32),
+            pad(cols["host_id"], np.int32), pad(cols["usage_user"],
+                                                np.float32))
+    kernel_ms = device_ms(lambda: time_bucket_aggregate(
+        *args, n, 60_000, num_groups=hosts, num_buckets=-(-span // 60_000),
+        which=("avg", "count"), device=dev), reps=20)
+    if micro["value"] < kernel_ms:
+        raise AssertionError(f"bench: the microbench's p50 "
+                             f"{micro['value']} ms is below its call's "
+                             f"device time {kernel_ms} ms: it timed the "
+                             f"launch only")
+    out["micro_device_ms"] = kernel_ms
+    log(f"bench: microbench p50 {micro['value']} ms >= the call's device "
+        f"time {kernel_ms!r} ms; headline cached p50 {head['value']} ms, "
+        f"cold p50 {head['cold_p50_ms']} ms, varied p50 "
+        f"{head['varied_p50_ms']} ms ({card})")
+    return {str(k): v for k, v in out.items()}
+
+
+def suite_phase(ba, mg, rows: int = 2_000_000, iters: int = 10) -> dict:
+    """The port's bench suite, configs 2-10, at the suite CLI's defaults
+    (2,000,000 rows, 10 iters), on the card; each runner checks itself
+    against numpy.  Config 8's stores
+    and WALs and config 2's and 9's disks go to .wal_smoke_* directories
+    beside this script (removed after).  Each config's kernel launches
+    are counted from 0 around it; every config that queries the engine
+    or aggregates on the card (all but 6, the manifest codec, and 8,
+    durable ingest) must launch one."""
+    from horaedb_tpu_torch.bench import suite
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    prov = suite.provenance("cuda")
+    out: dict = {}
+    for config, run in sorted(suite.RUNNERS.items()):
+        kw = {"scratch_dir": here} if config in suite.ON_DISK else {}
+        reset_all(ba, mg)
+        t0 = time.perf_counter()
+        result = run(rows, iters, **kw)
+        secs = time.perf_counter() - t0
+        result["launches"] = launches(ba, mg)
+        for k, v in prov.items():
+            result.setdefault(k, v)  # config 6 labels itself host work
+        result["wall_s"] = secs
+        log(f"suite: config {config} in {secs!r} s: {json.dumps(result)}")
+        if config not in (6, 8) and not any(result["launches"].values()):
+            raise AssertionError(f"suite: config {config} launched no "
+                                 "kernel")
+        if result["backend"] != ("host" if config == 6 else "cuda") \
+                or result["fallback"]:
+            raise AssertionError(f"suite: config {config} provenance "
+                                 f"{result['backend']}/{result['fallback']}")
+        out[str(config)] = result
+    if iters != 10 or rows != 2_000_000:
+        log(f"suite: cut to --rows {rows:,}, --iters {iters} (the CLI's "
+            "defaults are 2,000,000 and 10)")
+    return out
+
+
+class FakeS3:
+    """An S3-compatible endpoint on 127.0.0.1, in a thread and event
+    loop of its own, holding its objects in memory.  Every request's
+    SigV4 signature is recomputed from the raw request bytes and its
+    payload hash from the body; either mismatch answers 403.  It serves
+    PUT, GET (ranged too), HEAD, DELETE, ListObjectsV2 and multipart
+    uploads, and counts object GETs and the bytes they return."""
+
+    SECRET = "chip-smoke-secret"
+    REGION = "us-east-1"
+    BUCKET = "tsdb"
+    KEY_ID = "AKIACHIPSMOKE"
+
+    def __init__(self):
+        self.objects: dict = {}
+        self.uploads: dict = {}
+        self.requests = 0
+        self.gets = 0
+        self.get_bytes = 0
+        self.puts = 0
+        self.put_bytes = 0
+        self.bad = 0
+
+    def start(self) -> str:
+        import threading
+
+        from aiohttp import web
+
+        ready = threading.Event()
+
+        def serve():
+            self.loop = asyncio.new_event_loop()
+            asyncio.set_event_loop(self.loop)
+            app = web.Application(client_max_size=1 << 30)
+            app.router.add_route("*", "/{tail:.*}", self.handle)
+            self.runner = web.AppRunner(app, access_log=None)
+            self.loop.run_until_complete(self.runner.setup())
+            site = web.TCPSite(self.runner, "127.0.0.1", 0)
+            self.loop.run_until_complete(site.start())
+            self.port = self.runner.addresses[0][1]
+            ready.set()
+            self.loop.run_forever()
+
+        self.thread = threading.Thread(target=serve, daemon=True)
+        self.thread.start()
+        if not ready.wait(60):
+            raise AssertionError("fake S3 did not start")
+        return f"http://127.0.0.1:{self.port}"
+
+    def stop(self) -> None:
+        asyncio.run_coroutine_threadsafe(self.runner.cleanup(),
+                                         self.loop).result(60)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(60)
+
+    def snap(self) -> tuple:
+        return self.gets, self.get_bytes
+
+    def since(self, snap: tuple) -> dict:
+        return {"gets": self.gets - snap[0],
+                "get_bytes": self.get_bytes - snap[1]}
+
+    def signature_ok(self, request) -> bool:
+        import hashlib
+        import hmac
+
+        def mac(key: bytes, msg: str) -> bytes:
+            return hmac.new(key, msg.encode(), hashlib.sha256).digest()
+
+        auth = request.headers.get("Authorization", "")
+        if not auth.startswith("AWS4-HMAC-SHA256 "):
+            return False
+        parts = dict(p.strip().split("=", 1) for p in
+                     auth.removeprefix("AWS4-HMAC-SHA256 ").split(","))
+        scope = parts["Credential"].split("/", 1)[1]
+        signed = parts["SignedHeaders"]
+        path, _, query = request.raw_path.partition("?")
+        canonical = "\n".join([
+            request.method, path, query,
+            "".join(f"{h}:{request.headers[h].strip()}\n"
+                    for h in signed.split(";")),
+            signed, request.headers["x-amz-content-sha256"]])
+        to_sign = "\n".join([
+            "AWS4-HMAC-SHA256", request.headers["x-amz-date"], scope,
+            hashlib.sha256(canonical.encode()).hexdigest()])
+        k = mac(("AWS4" + self.SECRET).encode(), scope.split("/")[0])
+        for part in (self.REGION, "s3", "aws4_request"):
+            k = mac(k, part)
+        want = hmac.new(k, to_sign.encode(), hashlib.sha256).hexdigest()
+        return hmac.compare_digest(want, parts["Signature"])
+
+    async def handle(self, request):
+        import hashlib
+        from xml.sax.saxutils import escape
+
+        from aiohttp import web
+
+        self.requests += 1
+        body = await request.read()
+        if not self.signature_ok(request) or request.headers[
+                "x-amz-content-sha256"] != hashlib.sha256(body).hexdigest():
+            self.bad += 1
+            return web.Response(status=403)
+        bucket = f"/{self.BUCKET}"
+        if request.path == bucket:  # ListObjectsV2, 1,000 keys a page
+            prefix = request.query.get("prefix", "")
+            after = request.query.get("continuation-token", "")
+            keys = sorted(k for k in self.objects
+                          if k.startswith(prefix) and k > after)
+            page, rest = keys[:1000], keys[1000:]
+            token = (f"<NextContinuationToken>{escape(page[-1])}"
+                     f"</NextContinuationToken>" if rest else "")
+            contents = "".join(
+                f"<Contents><Key>{escape(k)}</Key><Size>"
+                f"{len(self.objects[k])}</Size></Contents>" for k in page)
+            xml = (f"<ListBucketResult><IsTruncated>"
+                   f"{'true' if rest else 'false'}</IsTruncated>{token}"
+                   f"{contents}</ListBucketResult>")
+            return web.Response(body=xml.encode(),
+                                content_type="application/xml")
+        key = request.path.removeprefix(bucket + "/")
+        q = request.query
+        if request.method == "POST" and "uploads" in q:
+            uid = f"up-{len(self.uploads)}-{self.requests}"
+            self.uploads[uid] = {}
+            return web.Response(body=(
+                f"<InitiateMultipartUploadResult><UploadId>{uid}</UploadId>"
+                f"</InitiateMultipartUploadResult>").encode())
+        if request.method == "PUT" and "uploadId" in q:
+            self.uploads[q["uploadId"]][int(q["partNumber"])] = body
+            return web.Response(headers={
+                "ETag": f'"{hashlib.md5(body).hexdigest()}"'})
+        if request.method == "POST" and "uploadId" in q:
+            parts = self.uploads.pop(q["uploadId"])
+            self.objects[key] = b"".join(parts[i] for i in sorted(parts))
+            return web.Response(body=b"<CompleteMultipartUploadResult/>")
+        if request.method == "DELETE" and "uploadId" in q:
+            self.uploads.pop(q["uploadId"], None)
+            return web.Response(status=204)
+        if request.method == "PUT":
+            self.puts += 1
+            self.put_bytes += len(body)
+            self.objects[key] = body
+            return web.Response()
+        if request.method in ("GET", "HEAD"):
+            data = self.objects.get(key)
+            if data is None:
+                return web.Response(status=404)
+            if request.method == "HEAD":
+                return web.Response(headers={
+                    "Content-Length": str(len(data))})
+            rng = request.headers.get("Range")
+            self.gets += 1
+            if rng:
+                lo, hi = rng.removeprefix("bytes=").split("-")
+                data = data[int(lo): int(hi) + 1]
+                self.get_bytes += len(data)
+                return web.Response(status=206, body=data)
+            self.get_bytes += len(data)
+            return web.Response(body=data)
+        if request.method == "DELETE":
+            self.objects.pop(key, None)
+            return web.Response(status=204)
+        return web.Response(status=405)
+
+
+async def s3_phase(ba, mg, rows: int, parts_cold: dict) -> dict:
+    """BASELINE config 1 over S3: the rows written through a MetricEngine
+    with the default StorageConfig over the port's S3ObjectStore, whose
+    endpoint is FakeS3 on 127.0.0.1 (SigV4 checked on every request).
+    One true-cold avg at 1 min over the whole segments (device decode,
+    launches counted from 0 around it) and 5 repeats; every grid byte
+    for byte the in-memory parts leg's device-decode grid of the same
+    query, and against numpy.  Then the server CLI on a kind = "S3Like"
+    config pointed at the same endpoint answers one /write and /query."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from horaedb_tpu_torch.metric_engine import MetricEngine
+    from horaedb_tpu_torch.metric_engine.types import Label, tsid_of
+    from horaedb_tpu_torch.objstore import S3ObjectStore, S3Options
+    from horaedb_tpu_torch.ops.encode import h2d_bytes
+    from horaedb_tpu_torch.storage.config import StorageConfig, from_dict
+    from horaedb_tpu_torch.storage.read import _REPLAY_HITS
+    from horaedb_tpu_torch.storage.types import TimeRange
+
+    d = config1_rows(rows)
+    hosts, interval, segment_ms = d["hosts"], d["interval"], d["segment_ms"]
+    per_host, T0, n, names = d["per_host"], d["T0"], d["n"], d["names"]
+    ts, host_id, vals = d["ts"], d["host_id"], d["vals"]
+    n_seg = -(-per_host * interval // segment_ms)
+    full = (T0, T0 + n_seg * segment_ms)
+    nb = n_seg * segment_ms // BMS
+    tsid_of_host = np.array([tsid_of("cpu", [Label("host", f"host_{i:03d}")])
+                             for i in range(hosts)], dtype=np.uint64)
+    order = np.argsort(tsid_of_host)
+    tsids = [int(t) for t in tsid_of_host[order]]
+    fake = FakeS3()
+    endpoint = fake.start()
+    root = scratch_dir("s3")
+    out: dict = {"rows": n, "endpoint": endpoint}
+    try:
+        store = S3ObjectStore(S3Options(
+            endpoint=endpoint, region=fake.REGION, bucket=fake.BUCKET,
+            access_key_id=fake.KEY_ID, secret_access_key=fake.SECRET,
+            prefix="bench"))
+        # ingest as the in-memory cell does (compaction held off), then
+        # query through a second engine with the default StorageConfig,
+        # as its parts leg does
+        e = await MetricEngine.open(
+            "bench", store, segment_ms=segment_ms,
+            config=from_dict(StorageConfig, {
+                "scheduler": {"schedule_interval": "1h"}}))
+        try:
+            out["ingest_s"] = await ingest_rows(e, host_id, ts, vals, names,
+                                                hosts)
+        finally:
+            await e.close()
+        e = await MetricEngine.open("bench", store, segment_ms=segment_ms,
+                                    config=StorageConfig())
+        try:
+            out["objects"] = len(fake.objects)
+            out["stored_bytes"] = sum(len(v) for v in fake.objects.values())
+            out["puts"], out["put_bytes"] = fake.puts, fake.put_bytes
+            log(f"s3: ingest {n:,} rows in {out['ingest_s']!r} s: "
+                f"{out['puts']} PUTs, {out['put_bytes']:,} B; "
+                f"{out['objects']} objects, {out['stored_bytes']:,} B")
+            reader = e.tables["data"].reader
+
+            async def query():
+                snap = fake.snap()
+                t0 = time.perf_counter()
+                res = await e.query_downsample(
+                    "cpu", [], TimeRange.new(*full), bucket_ms=BMS,
+                    aggs=("avg",))
+                torch.cuda.synchronize()
+                return res, (time.perf_counter() - t0) * 1e3, fake.since(snap)
+
+            true_cold(reader)
+            replays0, h2d0 = _REPLAY_HITS.value, h2d_bytes()
+            reset_all(ba, mg)
+            cold, cold_ms, cold_io = await query()
+            out["launches"] = launches(ba, mg)
+            out["cold"] = {"ms": cold_ms, **cold_io,
+                           "h2d_bytes": h2d_bytes() - h2d0,
+                           "replay_hits": int(_REPLAY_HITS.value - replays0)}
+            if not (out["launches"]["bucket_window_partials"] > 0
+                    and out["launches"]["kway_merge_perm"] > 0):
+                raise AssertionError(f"s3: the cold query's launches "
+                                     f"{out['launches']}")
+            if not (cold_io["gets"] > 0 and out["cold"]["h2d_bytes"] > 0
+                    and out["cold"]["replay_hits"] == 0):
+                raise AssertionError(f"s3: the cold query was not cold: "
+                                     f"{out['cold']}")
+            check_grid(cold, ts, host_id, vals, T0, nb, BMS, hosts, order,
+                       tsids, "s3: cold 1 min avg")
+            same_bytes(cold, parts_cold,
+                       "s3: cold 1 min avg vs the in-memory parts leg")
+            out["cached"] = []
+            for i in range(5):
+                res, ms, io = await query()
+                same_bytes(res, cold, f"s3: repeat {i}")
+                out["cached"].append({"ms": ms, **io})
+            log(f"s3: true-cold avg at 1 min {cold_ms!r} ms: "
+                f"{cold_io['gets']} GETs, {cold_io['get_bytes']:,} B from "
+                f"the fake, {out['cold']['h2d_bytes']:,} B up; launches "
+                f"{out['launches']}; grids byte-equal to the in-memory "
+                f"parts leg's device decode and matching numpy; 5 repeats "
+                f"{[c['ms'] for c in out['cached']]!r} ms, GETs "
+                f"{[c['gets'] for c in out['cached']]}, byte-equal")
+        finally:
+            await e.close()
+            await store.close()
+        port = free_port()
+        text = (f'port = {port}\n\n[metric_engine.object_store]\n'
+                f'kind = "S3Like"\n\n[metric_engine.object_store.s3]\n'
+                f'endpoint = "{endpoint}"\nregion = "{fake.REGION}"\n'
+                f'bucket = "{fake.BUCKET}"\nkey_id = "{fake.KEY_ID}"\n'
+                f'key_secret = "{fake.SECRET}"\nprefix = "cli"\n')
+        out.update(await server_cli_leg(text, port, root, T0, "s3"))
+        if fake.bad or not any(k.startswith("cli/") for k in fake.objects):
+            raise AssertionError(f"s3: {fake.bad} requests failed their "
+                                 "signature check, or the CLI stored "
+                                 "nothing")
+        out["requests"] = fake.requests
+    finally:
+        fake.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def merge_dedup_phase(mg) -> dict:
+    """merge_dedup_last (ops/merge.py: torch code, the JAX package's
+    _merge_dedup_impl; no kernel of its own) on the card at the segment
+    mesh's shape: one config 1 segment window, 72,000 rows in 131,072
+    slots (main_path_segment's keys: the data table's 4 PK columns and
+    __seq__) and one float32 value column.  Every output byte-equal to
+    its CPU run; the device time of back-to-back calls (CUDA events),
+    one call's time with its host work, and the bytes bound (each input
+    read once, each output written once)."""
+    import numpy as np
+    import torch
+
+    keys, _offs, _num_runs, n = main_path_segment()
+    cap = keys.shape[1]
+    vals = np.random.default_rng(13).random(cap).astype(np.float32)
+
+    def args(dev):
+        k = [torch.from_numpy(np.ascontiguousarray(c)).to(dev) for c in keys]
+        return tuple(k[:4]), k[4], (torch.from_numpy(vals).to(dev),)
+
+    def flat(out) -> list:
+        pk, seq, vs, valid, runs = out
+        return [t.cpu().numpy().tobytes()
+                for t in (*pk, seq, *vs, valid, runs.reshape(1))]
+
+    dev = torch.device("cuda")
+    per = keys.nbytes + vals.nbytes
+    copies = [args(dev) for _ in range(max(4, math.ceil(60e6 / per)))]
+    if flat(mg.merge_dedup_last(*copies[0], n)) != \
+            flat(mg.merge_dedup_last(*args("cpu"), n)):
+        raise AssertionError("merge_dedup_last: the card's run differs "
+                             "from the CPU's")
+    ms = device_ms([lambda c=c: mg.merge_dedup_last(*c, n)
+                    for c in copies], reps=20)
+    call_ms = cuda_ms(lambda: mg.merge_dedup_last(*copies[0], n), reps=20)
+    # in: 5 int32 key columns and the value column; out: the same six
+    # columns, the valid mask (1 B a slot) and the run count
+    nbytes = 2 * per + cap + 4
+    out = {"cap": cap, "n": n, "ms": ms, "call_ms": call_ms,
+           "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes"}
+    log(f"merge_dedup: merge_dedup_last at the segment mesh's shape "
+        f"({n:,} rows of {cap:,}): {ms!r} ms on the card ({call_ms!r} ms a "
+        f"call with its host work), bound {out['bound_ms']!r} ms "
+        f"({nbytes:,} B); byte-equal to its CPU run")
+    return out
+
+
 def load_merge_module(root: str):
     """ops/merge.py of another checkout at `root`, loaded under its own
     name and pointed at that checkout's csrc/merge_path.cu (it builds
@@ -6153,10 +6676,13 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"build: {line.strip()}")
 
+    phase_s: dict = {}
+
     def phase(name, fn, *a):
         t0 = time.perf_counter()
         out = fn(*a)
-        log(f"phase {name}: {time.perf_counter() - t0!r} s")
+        phase_s[name] = time.perf_counter() - t0
+        log(f"phase {name}: {phase_s[name]!r} s")
         return out
 
     if args.cards > 1:
@@ -6202,6 +6728,11 @@ def main() -> int:
     failover = phase("failover", asyncio.run, failover_phase(ba, mg))
     mesh = phase("meshes (mesh, mesh_topk, mesh_decode, segment_mesh, "
                  "multihost)", asyncio.run, mesh_phases(ba, mg, args.rows))
+    bench = phase("bench", bench_phase)
+    suite = phase("suite", suite_phase, ba, mg)
+    s3 = phase("s3", asyncio.run,
+               s3_phase(ba, mg, args.rows, e2e["parts"].pop("cold_1min")))
+    dedup = phase("merge_dedup", merge_dedup_phase, mg)
     kernels.append({
         "name": "kway_merge_perm", "route": "cuda",
         "source": "horaedb_tpu_torch/csrc/merge_path.cu",
@@ -6264,6 +6795,14 @@ def main() -> int:
         k["multihost_launches"] = mesh["multihost"]["launches"][k["name"]]
         k["failover_launches"] = {f"config{c}": r["launches"][k["name"]]
                                   for c, r in failover.items()}
+        # and in the bench subprocesses (each counted in its process from
+        # 0), per suite config (counted from 0 around it) and on the S3
+        # cell's true-cold query
+        k["bench_launches"] = {f"config{c}": bench[c]["launches"][k["name"]]
+                               for c in ("0", "1")}
+        k["suite_launches"] = {f"config{c}": r["launches"][k["name"]]
+                               for c, r in suite.items()}
+        k["s3_launches"] = s3["launches"][k["name"]]
         if k["name"] == "bucket_window_partials":
             # the chunked path's shape: W = 1, 10M valid rows
             k["chunked_shape"] = {
@@ -6274,16 +6813,21 @@ def main() -> int:
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
-            json.dump({"card": card, "kernels": kernels, "e2e": e2e,
+            json.dump({"card": card, "phase_s": phase_s,
+                       "kernels": kernels, "e2e": e2e,
                        "merge_kernel": merge_k, "determinism": determinism,
                        "compaction": compaction, "wal": wal,
                        "topk_ops": topk_ops, "config4": config4,
                        "rollup": rollup, "chunked": chunked,
                        "scanagent": scanagent, "server": server,
                        "cluster": cluster, "mesh": mesh,
+                       "bench": bench, "suite": suite, "s3": s3,
+                       "merge_dedup": dedup,
                        "failover": {str(k): v for k, v in failover.items()}},
                       f,
                       indent=1)
+    # every phase's seconds again, near the end where a cut log keeps them
+    log(f"phase seconds: {json.dumps(phase_s)}")
     log(f"total: {time.perf_counter() - t_start!r} s")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

@@ -1,6 +1,7 @@
 """Object-storage abstraction (ref: object_store 0.11 crate usage): an
-async ABC, a local-filesystem store, an in-memory store, and the
-retry / fault-injection / metrics middleware that wraps any of them."""
+async ABC, a local-filesystem store, an in-memory store, an
+S3-compatible store (objstore/s3.py), and the retry / fault-injection /
+metrics middleware that wraps any of them."""
 
 from horaedb_tpu_torch.objstore.api import NotFoundError, ObjectMeta, ObjectStore
 from horaedb_tpu_torch.objstore.local import LocalObjectStore
@@ -15,6 +16,7 @@ from horaedb_tpu_torch.objstore.middleware import (
     RetryPolicy,
     WrappedObjectStore,
 )
+from horaedb_tpu_torch.objstore.s3 import S3ObjectStore, S3Options, SigV4Signer
 
 __all__ = [
     "DeadlineExceededError",
@@ -29,5 +31,8 @@ __all__ = [
     "ObjectStore",
     "RetryPolicy",
     "RetryingObjectStore",
+    "S3ObjectStore",
+    "S3Options",
+    "SigV4Signer",
     "WrappedObjectStore",
 ]

@@ -3,10 +3,9 @@
 Same layered-TOML shape: port, test write-load generator knobs, and the
 metric-engine section holding the object-store choice plus the
 storage config.  Every section and every validation error is the JAX
-package's, so one TOML file loads alike in both.  One section is parsed
-and validated but not served yet: `kind = "S3Like"` (the S3 backend,
-objstore/s3.py, is still to be ported; the server refuses to start on
-it).
+package's, so one TOML file loads alike in both.  `kind = "S3Like"`
+selects objstore.s3.S3ObjectStore (endpoint, bucket and credentials
+validated at load time).
 """
 
 from __future__ import annotations
@@ -172,8 +171,7 @@ class TestConfig:
 @dataclass
 class S3Config:
     """S3-compatible backend settings (the keys the reference defines,
-    config.rs:82-160).  Parsed and validated; the port's S3 backend is
-    still to be ported, so the server refuses kind = "S3Like"."""
+    config.rs:82-160), served by objstore.s3.S3ObjectStore."""
 
     region: str = ""
     key_id: str = ""

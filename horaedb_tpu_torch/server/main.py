@@ -25,8 +25,9 @@ handlers only ever see numpy grids and Arrow tables, never a device
 tensor.  GET /debug/device serves the device profiler
 (common/deviceprof.py: per-seam calls, kernel launches, dispatch and
 device seconds, transfers, the mesh round timeline) and /stats its
-summary; [deviceprof] configures it.  Not served yet: `kind = "S3Like"`
-refuses to start (objstore/s3.py is ROADMAP Queue A 10c).
+summary; [deviceprof] configures it.  `kind = "S3Like"` serves the
+engine from an S3-compatible endpoint (objstore/s3.py) behind the same
+per-op store metrics.
 
 Run: python -m horaedb_tpu_torch.server --config docs/example.toml
      [--device cuda]
@@ -1667,10 +1668,17 @@ def _build_store(config: ServerConfig):
 
     oc = config.metric_engine.object_store
     if oc.kind == "S3Like":
-        raise Error("object store kind \"S3Like\" is not ported to the "
-                    "PyTorch server yet (objstore/s3.py, ROADMAP Queue "
-                    "A 10c); use kind = \"Local\"")
-    store = LocalObjectStore(oc.data_dir)
+        from horaedb_tpu_torch.objstore.s3 import S3ObjectStore, S3Options
+
+        # built inside the server's loop: the store's aiohttp session is
+        # made at its first request and belongs to that loop
+        store = S3ObjectStore(S3Options(
+            endpoint=oc.s3.endpoint, region=oc.s3.region or "us-east-1",
+            bucket=oc.s3.bucket, access_key_id=oc.s3.key_id,
+            secret_access_key=oc.s3.key_secret, prefix=oc.s3.prefix,
+            max_retries=oc.s3.max_retries))
+    else:
+        store = LocalObjectStore(oc.data_dir)
     # per-op objstore counters/latency histograms surface at /metrics
     return InstrumentedStore(store)
 

@@ -144,20 +144,22 @@ _STAGE_SECONDS = {
     s: registry.histogram("scan_stage_seconds",
                           "wall seconds per merge-scan plan stage"
                           ).labels(stage=s)
-    for s in ("segment_read", "merge", "stack_build", "device_aggregate",
-              "mesh_aggregate", "combine")
+    for s in ("segment_read", "sidecar_read", "parquet_read", "merge",
+              "stack_build", "device_aggregate", "mesh_aggregate",
+              "combine")
 }
 # rows and bytes of the segment reads by source: sidecar (tier 2 or the
-# store) or parquet; the read's seconds go to segment_read
+# store) or parquet; a read's seconds go to segment_read and to its
+# source's stage.  Rows entering the merge, bytes of built stacks.
 _STAGE_ROWS = {
     s: registry.counter("scan_stage_rows_total",
                         "rows entering each plan stage").labels(stage=s)
-    for s in ("sidecar_read", "parquet_read")
+    for s in ("sidecar_read", "parquet_read", "merge")
 }
 _STAGE_BYTES = {
     s: registry.counter("scan_stage_bytes_total",
                         "bytes entering each plan stage").labels(stage=s)
-    for s in ("sidecar_read", "parquet_read")
+    for s in ("sidecar_read", "parquet_read", "stack_build")
 }
 
 
@@ -166,6 +168,57 @@ def _observe_stage(stage: str, seconds: float) -> None:
     histogram and, when a request trace is ambient, its profile."""
     _STAGE_SECONDS[stage].observe(seconds)
     trace_add(f"stage_{stage}_ms", seconds * 1e3)
+
+
+# plan_stage_snapshot's stages: the JAX package's snapshot keys
+# (encode_merge is the port's merge stage), then the port's own
+_SNAPSHOT_STAGES = ("parquet_read", "sidecar_read", "encode_merge",
+                    "stack_build", "device_decode", "device_aggregate",
+                    "mesh_aggregate", "combine", "segment_read", "merge")
+_SNAPSHOT_ROWS = ("parquet_read", "sidecar_read", "encode_merge",
+                  "device_decode", "merge")
+_SNAPSHOT_BYTES = ("parquet_read", "sidecar_read", "stack_build",
+                   "device_decode")
+
+
+def plan_stage_snapshot() -> dict:
+    """Cumulative per-stage numbers; diff two snapshots to attribute a
+    query's time (the bench's cold-path profile).
+
+    The keys are the JAX package's (`{stage}_s`, `{stage}_calls`,
+    `{stage}_rows`, `{stage}_bytes`, and `pipeline_{stage}_*` for the
+    pipeline's fetch, decode and device stages) plus the port's own
+    stages: `segment_read_s`/`_calls` (a segment's read, whichever its
+    source), and `merge_s`/`_calls`/`_rows` (encode + host merge of a
+    segment's windows, which the JAX package calls encode_merge: the
+    encode_merge keys read the same numbers)."""
+    from horaedb_tpu_torch.storage import pipeline as pipeline_mod
+
+    def series(family, stage):
+        return family.labels(stage="merge" if stage == "encode_merge"
+                             else stage)
+
+    seconds = registry.histogram("scan_stage_seconds")
+    rows = registry.counter("scan_stage_rows_total")
+    nbytes = registry.counter("scan_stage_bytes_total")
+    out = {}
+    for s in _SNAPSHOT_STAGES:
+        h = series(seconds, s)
+        out[f"{s}_s"] = round(h.sum, 6)
+        out[f"{s}_calls"] = h.count
+    for s in _SNAPSHOT_ROWS:
+        out[f"{s}_rows"] = int(series(rows, s).value)
+    for s in _SNAPSHOT_BYTES:
+        out[f"{s}_bytes"] = int(series(nbytes, s).value)
+    stalls = pipeline_mod.stall_counts()
+    for s in pipeline_mod.PIPELINE_STAGES:
+        h = pipeline_mod.STAGE_SECONDS[s]
+        out[f"pipeline_{s}_s"] = round(h.sum, 6)
+        out[f"pipeline_{s}_calls"] = h.count
+        out[f"pipeline_stalls_{s}"] = stalls[s]
+        out[f"pipeline_{s}_rows"] = int(pipeline_mod.STAGE_ROWS[s].value)
+        out[f"pipeline_{s}_bytes"] = int(pipeline_mod.STAGE_BYTES[s].value)
+    return out
 
 
 _INCR_REMERGE = registry.counter(
@@ -1259,6 +1312,7 @@ class ParquetReader:
             table = await self._read_segment_table(seg, plan)
         read_s = time.perf_counter() - t0
         _observe_stage("segment_read", read_s)
+        _STAGE_SECONDS[stage].observe(read_s)
         _STAGE_ROWS[stage].inc(table.num_rows)
         _STAGE_BYTES[stage].inc(table.nbytes)
         trace_add(f"stage_{stage}_rows", table.num_rows)
@@ -1325,7 +1379,9 @@ class ParquetReader:
             return None
         if defer:
             es.pending_leaves = list(plan.prune_leaves or [])
-        _observe_stage("segment_read", time.perf_counter() - t0)
+        read_s = time.perf_counter() - t0
+        _observe_stage("segment_read", read_s)
+        _STAGE_SECONDS["sidecar_read"].observe(read_s)
         _STAGE_ROWS["sidecar_read"].inc(es.n)
         _STAGE_BYTES["sidecar_read"].inc(es.nbytes)
         trace_add("stage_sidecar_read_rows", es.n)
@@ -1705,6 +1761,7 @@ class ParquetReader:
                 return []
             return self._merge_batch(table.combine_chunks().to_batches()[0])
         t0 = time.perf_counter()
+        _STAGE_ROWS["merge"].inc(table.n)
         try:
             return self._merge_windows(_encoded_to_device_batch(table),
                                        list(table.names))
@@ -1715,6 +1772,7 @@ class ParquetReader:
         """Encode + host merge of one Arrow batch (a parquet segment, or
         one window of the parquet streamer)."""
         t0 = time.perf_counter()
+        _STAGE_ROWS["merge"].inc(batch.num_rows)
         try:
             return self._merge_windows(encode.encode_batch(batch),
                                        list(batch.schema.names))
@@ -3531,6 +3589,7 @@ class ParquetReader:
             if cols is not None and small is not None:
                 return cols + small
         t0 = time.perf_counter()
+        built_bytes = 0
         if put is None:
             put = lambda a: encode.to_device(a, self.device)
         if cols is None:
@@ -3549,6 +3608,7 @@ class ParquetReader:
                     gid_m[d, :w.capacity] = gid
                     val_m[d, :w.capacity] = w.columns[spec.value_col]
                 cols = (put(ts_m), put(gid_m), put(val_m))
+            built_bytes += sum(int(c.nbytes) for c in cols)
             cols = cols + (put(n_valid), n_valid)
             if cached:
                 self._stack_cache_put(col_key, windows_now, cols)
@@ -3562,9 +3622,11 @@ class ParquetReader:
                 if local_ok:
                     lo[d] = max(0, sh // spec.bucket_ms)
             small = (put(remap), put(shift), put(lo), lo)
+            built_bytes += sum(int(c.nbytes) for c in small[:3])
             if cached:
                 self._stack_cache_put(stack_key, windows_now, small)
         _observe_stage("stack_build", time.perf_counter() - t0)
+        _STAGE_BYTES["stack_build"].inc(built_bytes)
         return cols + small
 
     def _stack_device_cols(self, items: list, spec: AggregateSpec,

@@ -32,8 +32,8 @@ def test_the_scan_covers_every_port_module():
     """The walk below finds every module of the port, the parts path's,
     compaction's, the scrubber's, the device decode's, the WAL's, the
     rollups', the chunked layout's, the planes', the scan agents', the
-    cluster's, replication's, the server's, the device profiler's and
-    the meshes' (parallel/) included."""
+    cluster's, replication's, the server's, the device profiler's, the
+    meshes' (parallel/), the S3 store's and the bench's included."""
     mods = _port_modules()
     for m in ("horaedb_tpu_torch.common.loops",
               "horaedb_tpu_torch.storage.combine",
@@ -86,7 +86,13 @@ def test_the_scan_covers_every_port_module():
               "horaedb_tpu_torch.parallel",
               "horaedb_tpu_torch.parallel.mesh",
               "horaedb_tpu_torch.parallel.scan",
-              "horaedb_tpu_torch.parallel.multihost"):
+              "horaedb_tpu_torch.parallel.multihost",
+              "horaedb_tpu_torch.objstore.s3",
+              "horaedb_tpu_torch.bench",
+              "horaedb_tpu_torch.bench.tsbs",
+              "horaedb_tpu_torch.bench.suite",
+              "horaedb_tpu_torch.bench.headline",
+              "horaedb_tpu_torch.bench.__main__"):
         assert m in mods, m
 
 
@@ -266,6 +272,26 @@ def test_scanagent_cli_refuses_to_start_without_a_card(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert "needs a CUDA device" in out.stderr
+
+
+@pytest.mark.parametrize("entry", ["horaedb_tpu_torch.bench.__main__",
+                                   "horaedb_tpu_torch.bench.suite"])
+def test_bench_clis_refuse_to_run_without_a_card(entry):
+    """`python -m horaedb_tpu_torch.bench` and the suite's CLI default to
+    the card: without one they exit with the error and print no result
+    line."""
+    args = "[]" if entry.endswith("__main__") else "['--config', '6']"
+    code = (
+        "import torch\n"
+        "torch.cuda.is_available = lambda: False\n"
+        f"from {entry} import main\n"
+        f"main({args})\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, BENCH_CONFIG="6"))
+    assert out.returncode != 0
+    assert "needs a CUDA device" in out.stderr
+    assert out.stdout == ""
 
 
 def test_cluster_promote_and_server_refuse_cpu_fallback(monkeypatch,
