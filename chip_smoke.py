@@ -142,8 +142,9 @@ non-zero and prints no result line:
    pair_max_normalized on 10^6 seeded normal-range f32 triples
    (byte-equal).
 12. config4: BASELINE config 4, the JAX package's run_config4 shape (64
-   overlapping SSTs of --config4-rows / 64 rows, 64M by default and the
-   cut from 1B printed; 100 hosts as a string PK, one 1 h segment,
+   overlapping SSTs of --config4-rows / 64 rows, 32M by default (64M
+   until the bench suite's configs 11-23 joined the run) and the cut
+   from 1B printed; 100 hosts as a string PK, one 1 h segment,
    seed 0) through plan_query / execute_plan with a TopK stage (top 10
    by max, one 50-minute bucket).  The route is read from the gates and
    must be the reference's: the fused gate declines, device decode in
@@ -2577,12 +2578,6 @@ async def wal_ingest_leg() -> dict:
     return out
 
 
-def registry_snapshot() -> dict:
-    from horaedb_tpu_torch.utils import registry
-
-    return registry.snapshot()
-
-
 STAGE_SECONDS = 'scan_stage_seconds{stage="%s"}'
 
 
@@ -2590,20 +2585,6 @@ def series_label(key: str) -> str:
     """The label value of a one-label series key (`name{k="v"}`), or the
     bare name of an unlabelled one."""
     return key.split('"')[1] if "{" in key else key
-
-
-async def traced(coro):
-    """Run `coro` under a request trace; (its result, the trace's
-    counters)."""
-    from horaedb_tpu_torch.utils import tracing
-
-    trace = tracing.recorder.start("chip_smoke", forced=True)
-    try:
-        with tracing.trace_scope(trace):
-            out = await coro
-    finally:
-        done = tracing.recorder.finish(trace)
-    return out, done["counters"]
 
 
 def registry_value(name: str) -> float:
@@ -3299,7 +3280,7 @@ async def config4_phase(rows: int, ba, mg) -> dict:
     per_sst = max(1, rows // num_ssts)
     n = per_sst * num_ssts
     log(f"config 4 cut: {n:,} rows instead of 1,000,000,000 (host ingest "
-        f"time and host RAM of the check)")
+        f"time and host RAM of the check; the run's time limit)")
     T0 = (1_700_000_000_000 // 3_600_000) * 3_600_000
     schema = pa.schema([("host", pa.string()), ("ts", pa.int64()),
                         ("cpu", pa.float64())])
@@ -3657,382 +3638,98 @@ def pctl(xs, q) -> float:
     return float(np.percentile(np.asarray(xs) * 1e3, q))
 
 
-async def rollup_phase(ba, mg, per_host: int = 100_000) -> dict:
-    """The JAX package's bench config 11 (horaedb_tpu/bench/suite.py
-    run_config11) at 10,000,000 rows: 100 hosts, 10 s scrape, 100,000
-    samples a host (139 2 h segments), values U[0, 1) x 100 from seed
-    11, a standing (cpu, value) rollup at tiers 1m and 1h.  Ingest, the
-    roll_now() backfill, stats(), a cross-check per dashboard shape,
-    the rollup-served mix (12 rotating 6 h @ 1 m zooms and the
-    full-span @ 1 h overview, aggs avg, 12 repetitions, the tier
-    tables' window caches dropped before each query) with its store
-    GETs, the raw cold mix (3 repetitions, the data table's window
-    cache and tier 2 emptied before each query), a rollup-served top-k
-    and a late write that re-rolls one segment; launches counted from 0
-    around the backfill and around each mix."""
-    import numpy as np
-    import pyarrow as pa
-    import torch
+def suite_config(ba, mg, config: int, rows: int, iters: int,
+                 what: str) -> tuple:
+    """One bench suite runner on the card, its launches counted from 0
+    around it: (its result line, its `detail`; configs 2-10 have none).
+    Every config that queries the engine or aggregates on the card (all
+    but 6, the manifest codec, and 8, durable ingest) must launch a hand
+    kernel, and each reads as a card number (config 6 labels itself
+    host work)."""
+    from horaedb_tpu_torch.bench import suite
 
-    from horaedb_tpu_torch.common import ReadableDuration
-    from horaedb_tpu_torch.metric_engine import Label, MetricEngine, Sample
-    from horaedb_tpu_torch.metric_engine.types import tsid_of
-    from horaedb_tpu_torch.rollup import RollupConfig
-    from horaedb_tpu_torch.storage.config import StorageConfig, from_dict
-    from horaedb_tpu_torch.storage.plan import TopKSpec, apply_top_k
-    from horaedb_tpu_torch.storage.types import TimeRange
-
-    hosts, interval, segment_ms, hour = 100, 10_000, 2 * 3600 * 1000, 3_600_000
-    span = per_host * interval
-    segments = (span - interval) // segment_ms + 1
-    T0 = (1_700_000_000_000 // segment_ms) * segment_ms
-    n = per_host * hosts
-    rng = np.random.default_rng(11)
-    ts = T0 + np.repeat(np.arange(per_host, dtype=np.int64) * interval,
-                        hosts)
-    host_id = np.tile(np.arange(hosts, dtype=np.int32), per_host)
-    vals = (rng.random(n) * 100).astype(np.float64)
-    names = pa.array([f"host_{i:03d}" for i in range(hosts)])
-    tsid_of_host = np.array([tsid_of("cpu", [Label("host", f"host_{i:03d}")])
-                             for i in range(hosts)], dtype=np.uint64)
-    order = np.argsort(tsid_of_host)
-    tsids = [int(t) for t in tsid_of_host[order]]
-    zoom_ms = 6 * hour
-    over_span = (span // hour) * hour
-    zoom_starts = [T0 + k * ((span - zoom_ms) // 11 // hour * hour)
-                   for k in range(12)]
-    log("rollup: the JAX package's config 11 shape (suite.py:1477-1694) "
-        f"at {n:,} rows; store: in-memory with data-plane GET counts, then "
-        "the same objects behind the reference's seeded 25 ms latency "
-        "store (objstore/middleware.FaultInjectingStore), in turns")
-
-    cfg = from_dict(StorageConfig, {
-        "scheduler": {"schedule_interval": "1h"},
-        "scan": {"cache_max_rows": n * 4,
-                 "cache": {"tier2_max_bytes": 2 << 30}}})
-    # the standing query is registered after the ingest: a registered
-    # spec's writes wake the maintenance loop, which would roll
-    # segments while the ingest runs and leave the backfill a remainder
-    rollup_cfg = RollupConfig(enabled=True, tiers=["1m", "1h"], specs=[],
-                              roll_interval=ReadableDuration.parse("1h"))
-    store = counting_store()
-    res: dict = {"rows": n}
-    e = await MetricEngine.open("cfg11", store, segment_ms=segment_ms,
-                                config=cfg, rollup_config=rollup_cfg)
-    try:
-        res["ingest_s"] = await ingest_rows(e, host_id, ts, vals, names,
-                                            hosts)
-        log(f"rollup: ingest {n:,} rows in {res['ingest_s']!r} s")
-
-        reset_all(ba, mg)
-        t0 = time.perf_counter()
-        await e.rollups.register("cpu")
-        rolled = await e.rollups.roll_now()
-        res["backfill_s"] = time.perf_counter() - t0
-        res["backfill_launches"] = launches(ba, mg)
-        res["backfill_segments"] = rolled["cpu:value"]
-        log(f"rollup: backfill rolled {rolled['cpu:value']} segments in "
-            f"{res['backfill_s']!r} s; launches "
-            f"{json.dumps(res['backfill_launches'])}")
-        if rolled["cpu:value"] != segments:
-            raise AssertionError(f"rollup: backfill rolled "
-                                 f"{rolled['cpu:value']} segments, not "
-                                 f"{segments}")
-        if res["backfill_launches"]["bucket_window_partials"] < segments:
-            raise AssertionError("rollup: the backfill did not run the "
-                                 "partials kernel on every segment")
-        if not res["backfill_launches"]["kway_merge_perm"]:
-            raise AssertionError("rollup: the backfill's multi-SST "
-                                 "segments did not run kway_merge_perm")
-        st = await e.stats()
-        spec_st = st["rollups"]["specs"]["cpu:value"]
-        res["tiers"] = st["rollups"]["tiers"]
-        res["lag_seqs"] = spec_st["lag_seqs"]
-        res["coverage"] = spec_st["coverage"]
-        log(f"rollup: lag {spec_st['lag_seqs']}, coverage "
-            f"{spec_st['coverage']}; tiers {json.dumps(res['tiers'])}")
-        if spec_st["lag_seqs"] != 0 or spec_st["coverage"] != 1.0:
-            raise AssertionError("rollup: lag or coverage after backfill")
-
-        def zoom(k, use_rollup=True, eng=e):
-            s = zoom_starts[k % len(zoom_starts)]
-            return eng.query_downsample(
-                "cpu", [], TimeRange.new(s, s + zoom_ms), bucket_ms=60_000,
-                aggs=("avg",), use_rollup=use_rollup)
-
-        def over(_k, use_rollup=True, eng=e):
-            return eng.query_downsample(
-                "cpu", [], TimeRange.new(T0, T0 + over_span),
-                bucket_ms=hour, aggs=("avg",), use_rollup=use_rollup)
-
-        shapes = {"zoom": zoom, "overview": over}
-
-        def numpy_check(out, shape, k, what, rows=(ts, host_id, vals)):
-            s = zoom_starts[k % 12] if shape == "zoom" else T0
-            bms = 60_000 if shape == "zoom" else hour
-            nb = (zoom_ms if shape == "zoom" else over_span) // bms
-            check_grid(out, *rows, s, nb, bms, hosts, order, tsids, what)
-
-        # the cross-check, one query per shape: byte for byte a
-        # parts-route recompute; within tolerance of the default route
-        # (fused at this budget)
-        spec = e.rollups.specs[("cpu", "value")]
-        for shape, q in shapes.items():
-            served = await q(3)
-            os.environ["HORAEDB_FUSED_AGG"] = "0"
-            try:
-                parts = await q(3, use_rollup=False)
-            finally:
-                del os.environ["HORAEDB_FUSED_AGG"]
-            fused = await q(3, use_rollup=False)
-            torch.cuda.synchronize()
-            if not hasattr(fused["aggs"]["count"], "cpu"):
-                raise AssertionError(f"rollup: the default route of the "
-                                     f"{shape} did not take the fused path")
-            same_result_bytes(served, parts, f"rollup {shape} vs parts")
-            tolerance_match(served, fused, f"rollup {shape} vs fused")
-            numpy_check(served, shape, 3, f"rollup {shape}")
-            log(f"rollup: cross-check {shape}: served == parts recompute "
-                f"byte for byte ({host_grids(served)['avg'].dtype}), "
-                f"fused within tolerance, numpy checked")
-        served0 = spec.served_queries
-
-        def drop_tier_windows():
-            for t in e.rollups.tiers.values():
-                t.reader.drop_hbm_state()
-                t.reader.scan_cache.clear()
-
-        data_reader = e.tables["data"].reader
-
-        async def timed_mix(use_rollup, reps, reset):
-            times = {"zoom": [], "overview": []}
-            for i in range(reps):
-                for shape, q in shapes.items():
-                    reset()
-                    t0 = time.perf_counter()
-                    out = await q(i, use_rollup)
-                    torch.cuda.synchronize()
-                    times[shape].append(time.perf_counter() - t0)
-                    if i == 0 or shape == "zoom" and i < 12:
-                        numpy_check(out, shape, i,
-                                    f"rollup mix {shape} {i}")
-            return times
-
-        reset_all(ba, mg)
-        snap = store.snap()
-        roll_t = await timed_mix(True, 12, drop_tier_windows)
-        res["rollup_leg_gets"] = store.since(snap)
-        res["rollup_leg_launches"] = launches(ba, mg)
-        if spec.served_queries - served0 != 24:
-            raise AssertionError("rollup: not every mix query was "
-                                 "rollup-served")
-        if res["rollup_leg_gets"]["gets"] != 0:
-            raise AssertionError(f"rollup: the rollup leg made "
-                                 f"{res['rollup_leg_gets']} data-plane GETs")
-        reset_all(ba, mg)
-        snap = store.snap()
-        raw_t = await timed_mix(False, 3, lambda: true_cold(data_reader))
-        res["raw_cold_leg_gets"] = store.since(snap)
-        res["raw_cold_leg_launches"] = launches(ba, mg)
-        if not res["raw_cold_leg_launches"]["bucket_round_accumulate"]:
-            raise AssertionError("rollup: the raw cold mix did not run "
-                                 "the fused rounds")
-        for shape in ("zoom", "overview"):
-            res[f"rollup_{shape}_p50_ms"] = pctl(roll_t[shape], 50)
-            res[f"rollup_{shape}_p99_ms"] = pctl(roll_t[shape], 99)
-            res[f"raw_cold_{shape}_p50_ms"] = pctl(raw_t[shape], 50)
-            res[f"raw_cold_{shape}_p99_ms"] = pctl(raw_t[shape], 99)
-        mix_r = roll_t["zoom"] + roll_t["overview"]
-        mix_c = raw_t["zoom"] + raw_t["overview"]
-        res["rollup_mix_p50_ms"] = pctl(mix_r, 50)
-        res["rollup_mix_p99_ms"] = pctl(mix_r, 99)
-        res["raw_cold_mix_p50_ms"] = pctl(mix_c, 50)
-        res["raw_cold_mix_p99_ms"] = pctl(mix_c, 99)
-        res["mix_speedup_p50"] = (res["raw_cold_mix_p50_ms"]
-                                  / res["rollup_mix_p50_ms"])
-        log(f"rollup: rollup-served mix (24 queries) p50 "
-            f"{res['rollup_mix_p50_ms']!r} ms p99 "
-            f"{res['rollup_mix_p99_ms']!r} ms (zoom p50 "
-            f"{res['rollup_zoom_p50_ms']!r} p99 {res['rollup_zoom_p99_ms']!r}"
-            f", overview p50 {res['rollup_overview_p50_ms']!r} p99 "
-            f"{res['rollup_overview_p99_ms']!r}); data-plane GETs "
-            f"{json.dumps(res['rollup_leg_gets'])}; launches "
-            f"{json.dumps(res['rollup_leg_launches'])}")
-        log(f"rollup: raw cold mix (6 queries) p50 "
-            f"{res['raw_cold_mix_p50_ms']!r} ms p99 "
-            f"{res['raw_cold_mix_p99_ms']!r} ms (zoom p50 "
-            f"{res['raw_cold_zoom_p50_ms']!r}, overview p50 "
-            f"{res['raw_cold_overview_p50_ms']!r}); GETs "
-            f"{json.dumps(res['raw_cold_leg_gets'])}; launches "
-            f"{json.dumps(res['raw_cold_leg_launches'])}; mix p50 speedup "
-            f"{res['mix_speedup_p50']!r}x")
-
-        # where a served overview's time goes: the tier table's scan of
-        # the cells (stage seconds from the registry) against the whole
-        # query
-        drop_tier_windows()
-        before = {k: v for k, v in registry_snapshot().items()
-                  if k.startswith("scan_stage_seconds{")
-                  or (k.startswith("span_") and k.endswith("_seconds"))}
-        t0 = time.perf_counter()
-        await over(0)
-        total_s = time.perf_counter() - t0
-        after = registry_snapshot()
-        res["overview_breakdown_s"] = {
-            k: after[k] - v for k, v in before.items() if after[k] != v}
-        res["overview_breakdown_s"]["query"] = total_s
-        log(f"rollup: one served overview, seconds by span and stage "
-            f"(summed over concurrent reads): "
-            f"{json.dumps(res['overview_breakdown_s'])}")
-
-        # a rollup-served top-k equals apply_top_k of the served grid
-        rng_o = TimeRange.new(T0, T0 + over_span)
-        t0 = time.perf_counter()
-        tk = await e.query_topk("cpu", [], rng_o, hour, k=10, by="max")
-        res["topk_ms"] = (time.perf_counter() - t0) * 1e3
-        full = await e.query_downsample("cpu", [], rng_o, hour)
-        values, grids = apply_top_k(np.asarray(full["tsids"], np.uint64),
-                                    full["aggs"], TopKSpec(k=10, by="max"))
-        if tk["tsids"] != [int(t) for t in values] or sorted(
-                tk["aggs"]) != sorted(grids) or any(
-                tk["aggs"][k].tobytes() != grids[k].tobytes()
-                for k in grids):
-            raise AssertionError("rollup: served top-k != apply_top_k of "
-                                 "the served downsample")
-        log(f"rollup: served top-10 by max over the overview in "
-            f"{res['topk_ms']!r} ms, equal to apply_top_k of the served "
-            f"grid")
-
-        # a late write into one rolled segment: the next query serves
-        # cells plus a one-segment raw tail, then one segment re-rolls.
-        # write() wakes the maintenance loop; the manager's roll lock is
-        # held over the write and the query so the loop's pass cannot
-        # re-roll the segment before the query sees it dirty
-        late_ts = zoom_starts[5] + 30 * 60_000 + 7
-        ts2 = np.append(ts, late_ts)
-        hid2 = np.append(host_id, np.int32(7))
-        vals2 = np.append(vals, 123.25)
-        rng_z = TimeRange.new(zoom_starts[5], zoom_starts[5] + zoom_ms)
-        rolled0 = registry_value("rollup_segments_rolled_total")
-        async with e.rollups._roll_lock:
-            await e.write([Sample("cpu", [Label("host", "host_007")],
-                                  late_ts, 123.25)])
-            reset_all(ba, mg)
-            served, counters = await traced(e.query_downsample(
-                "cpu", [], rng_z, 60_000, aggs=("avg",)))
-            res["late_tail_launches"] = launches(ba, mg)
-        res["late_tail_segments"] = counters.get("rollup_tail_segments", 0)
-        if res["late_tail_segments"] != 1:
-            raise AssertionError(f"rollup: the query after the late write "
-                                 f"recomputed {res['late_tail_segments']} "
-                                 f"tail segments, not 1")
-        os.environ["HORAEDB_FUSED_AGG"] = "0"
-        try:
-            parts = await e.query_downsample("cpu", [], rng_z, 60_000,
-                                             aggs=("avg",), use_rollup=False)
-        finally:
-            del os.environ["HORAEDB_FUSED_AGG"]
-        fused = await e.query_downsample("cpu", [], rng_z, 60_000,
-                                         aggs=("avg",), use_rollup=False)
-        same_result_bytes(served, parts, "rollup late tail vs parts")
-        tolerance_match(served, fused, "rollup late tail vs fused")
-        check_grid(served, ts2, hid2, vals2, zoom_starts[5],
-                   zoom_ms // 60_000, 60_000, hosts, order, tsids,
-                   "rollup late tail")
-        # the loop's pass (woken by the write) or this one re-rolls the
-        # dirty segment, and nothing else
-        await e.rollups.roll_now()
-        res["late_write_rerolled"] = (
-            registry_value("rollup_segments_rolled_total") - rolled0)
-        if res["late_write_rerolled"] != 1:
-            raise AssertionError(f"rollup: the late write re-rolled "
-                                 f"{res['late_write_rerolled']} segments, "
-                                 f"not 1")
-        again, counters = await traced(e.query_downsample(
-            "cpu", [], rng_z, 60_000, aggs=("avg",)))
-        if counters.get("rollup_tail_segments", 0) != 0:
-            raise AssertionError("rollup: a tail after the re-roll")
-        same_result_bytes(again, served, "rollup after the re-roll")
-        log(f"rollup: late write served as cells + a 1-segment raw tail "
-            f"(launches {json.dumps(res['late_tail_launches'])}), "
-            f"byte-equal to the parts recompute; roll_now re-rolled 1 "
-            f"segment")
-        # the rows now hold the late write
-        res["latency_store"] = await rollup_latency_turns(
-            e, store, cfg, rollup_cfg, segment_ms, shapes,
-            lambda out, shape, k, what: numpy_check(
-                out, shape, k, what, rows=(ts2, hid2, vals2)))
-    finally:
-        await e.close()
-    return res
-
-
-async def rollup_latency_turns(e, store, cfg, rollup_cfg, segment_ms: int,
-                               shapes: dict, numpy_check,
-                               turns: int = 3) -> dict:
-    """Config 11 over the reference's seeded 25 ms store
-    (FaultInjectingStore(seed=11, latency_range=(0.025, 0.025)),
-    suite.py:1521,1592): a second engine on the same objects behind the
-    latency wrapper, its recovered rollup spec fully covering, and the
-    in-memory engine beside it, in turns — each turn a rollup-served
-    zoom and overview and a raw cold zoom and overview on each store.
-    Both stores' grids byte-equal; the mix p50 speedup of each."""
-    import torch
-
-    from horaedb_tpu_torch.metric_engine import MetricEngine
-    from horaedb_tpu_torch.objstore import FaultInjectingStore
-
-    lat_s = 0.025
-    slow = FaultInjectingStore(store, seed=11, latency_range=(lat_s, lat_s))
+    here = os.path.dirname(os.path.abspath(__file__))
+    kw = {"scratch_dir": here} if config in suite.ON_DISK else {}
+    detail: dict = {}
+    if config >= 11:
+        kw["detail"] = detail
+    reset_all(ba, mg)
     t0 = time.perf_counter()
-    e_lat = await MetricEngine.open("cfg11", slow, segment_ms=segment_ms,
-                                    config=cfg, rollup_config=rollup_cfg)
-    out = {"store_latency_ms": lat_s * 1e3, "turns": turns,
-           "open_s": time.perf_counter() - t0}
-    try:
-        st = (await e_lat.stats())["rollups"]["specs"]["cpu:value"]
-        if st["coverage"] != 1.0:
-            raise AssertionError("rollup 25 ms: the recovered spec does not "
-                                 "cover the data")
-        engines = {"memory": e, "latency": e_lat}
-        times = {(k, m): [] for k in engines for m in ("rollup", "raw")}
-        for i in range(turns):
-            for mode in ("rollup", "raw"):
-                got = {}
-                for k, eng in engines.items():
-                    for shape, q in shapes.items():
-                        if mode == "rollup":
-                            for t in eng.rollups.tiers.values():
-                                t.reader.drop_hbm_state()
-                                t.reader.scan_cache.clear()
-                        else:
-                            true_cold(eng.tables["data"].reader)
-                        t0 = time.perf_counter()
-                        got[k, shape] = await q(i, mode == "rollup", eng)
-                        torch.cuda.synchronize()
-                        times[k, mode].append(time.perf_counter() - t0)
-                for shape in shapes:
-                    cmp = (same_result_bytes if mode == "rollup"
-                           else tolerance_match)
-                    cmp(got["latency", shape], got["memory", shape],
-                        f"rollup 25 ms {mode} {shape} turn {i}")
-                    if i == 0:
-                        numpy_check(got["latency", shape], shape, i,
-                                    f"rollup 25 ms {mode} {shape}")
-        for k in engines:
-            r = pctl(times[k, "rollup"], 50)
-            c = pctl(times[k, "raw"], 50)
-            out[k] = {"rollup_mix_p50_ms": r, "raw_cold_mix_p50_ms": c,
-                      "mix_speedup_p50": c / r,
-                      "rollup_ms": [t * 1e3 for t in times[k, "rollup"]],
-                      "raw_cold_ms": [t * 1e3 for t in times[k, "raw"]]}
-            log(f"rollup {k} store, in turns: served mix p50 {r!r} ms, raw "
-                f"cold mix p50 {c!r} ms, speedup {c / r!r}x against the "
-                f"reference's 5x bar: {'met' if c / r >= 5 else 'not met'} "
-                f"({card_line()})")
-    finally:
-        await e_lat.close()
-    return out
+    result = suite.RUNNERS[config](rows, iters, **kw)
+    result["wall_s"] = time.perf_counter() - t0
+    result["launches"] = launches(ba, mg)
+    for k, v in suite.provenance("cuda").items():
+        result.setdefault(k, v)
+    log(f"{what}: config {config} in {result['wall_s']!r} s: "
+        f"{json.dumps(result)}")
+    if detail:
+        log(f"{what}: config {config} detail: "
+            f"{json.dumps(detail, default=str)}")
+    if result["backend"] != ("host" if config == 6 else "cuda") \
+            or result["fallback"]:
+        raise AssertionError(f"{what}: config {config} provenance "
+                             f"{result['backend']}/{result['fallback']}")
+    if config not in (6, 8) and not any(result["launches"].values()):
+        raise AssertionError(f"{what}: config {config} launched no kernel")
+    return result, detail
+
+
+def suite_own_process(config: int, rows: int, iters: int) -> tuple:
+    """One bench suite config through `python -m horaedb_tpu_torch.bench`
+    in a subprocess: its result line, with the kernels' launches counted
+    in its process from 0 (no `detail`)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, BENCH_CONFIG=str(config), BENCH_ROWS=str(rows),
+               BENCH_ITERS=str(iters))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "horaedb_tpu_torch.bench"],
+                          cwd=here, env=env, capture_output=True, text=True,
+                          timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"suite: config {config} exited "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    result["wall_s"] = time.perf_counter() - t0
+    log(f"suite: config {config} in its own process in "
+        f"{result['wall_s']!r} s: {json.dumps(result)}")
+    if result["backend"] != "cuda" or result["fallback"] \
+            or result["card"] != card_line():
+        raise AssertionError(f"suite: config {config} did not run on the "
+                             f"card: {result}")
+    if not any(result["launches"].values()):
+        raise AssertionError(f"suite: config {config} launched no kernel")
+    return result, {}
+
+
+def rollup_phase(ba, mg, rows: int = 10_000_000, iters: int = 10) -> dict:
+    """The bench suite's config 11 (suite.run_config11) at 10,000,000
+    rows: 100 hosts, 10 s scrape, 139 2 h segments, values from seed 11,
+    a standing (cpu, value) rollup at tiers 1m and 1h over the seeded
+    25 ms store.  The runner holds its own checks (the backfill rolls
+    every segment, 0 data-plane GETs on the served mix, served == a
+    parts-route recompute byte for byte and the default raw route within
+    rtol 1e-5, numpy, the served top-k, the late write's one-segment
+    tail and re-roll) and, on the card, its launch gates; here the raw
+    legs must take the fused route and the backfill's multi-SST
+    segments must run kway_merge_perm."""
+    result, detail = suite_config(ba, mg, 11, rows, iters, "rollup")
+    if set(detail["raw_routes"].values()) != {"fused"}:
+        raise AssertionError(f"rollup: the raw queries took "
+                             f"{detail['raw_routes']}, not the fused route")
+    if not detail["backfill_launches"]["kway_merge_perm"]:
+        raise AssertionError("rollup: the backfill's multi-SST segments "
+                             "did not run kway_merge_perm")
+    if any(detail["rollup_leg_launches"].values()):
+        raise AssertionError(f"rollup: the served mix launched "
+                             f"{detail['rollup_leg_launches']}")
+    log(f"rollup: served mix p50 {result['rollup_mix_p50_ms']!r} ms against "
+        f"raw cold {result['raw_cold_mix_p50_ms']!r} ms: "
+        f"{result['mix_speedup_p50']!r}x against the reference's 5x bar "
+        f"({'met' if result['mix_speedup_p50'] >= 5 else 'not met'}); the "
+        f"reference's byte check of served against raw would "
+        f"{'hold' if detail['reference_cross_check_holds'] else 'fail'} "
+        f"(raw routes {detail['raw_routes']}) ({card_line()})")
+    return {"result": result, **detail}
 
 
 async def chunked_phase(ba, mg, per_host: int = 100_000) -> dict:
@@ -4309,420 +4006,36 @@ def span_lines(node: dict, depth: int = 0, limit: int = 40) -> list:
     return lines
 
 
-async def scanagent_phase(ba, mg, dd, per_host: int = 100_000) -> dict:
-    """The JAX package's bench config 17 (suite.py run_config17): the
-    cold dashboard mix over a seeded 25 ms-latency store at config 1's
-    shape (100 hosts, 10 s scrape, 139 2 h segments, seed 17), the
-    coordinator's data table read through a data-byte counter.  Legs:
-    off (the default route: fused at a 4 x rows budget), off on the
-    parts route (HORAEDB_FUSED_AGG=0), agent (an AgentService on this
-    card, colocated with the raw inner store), agent_killed (the agent
-    closed: the per-segment fallback reads direct), and disk (a
-    LocalObjectStore: 0 coordinator segment reads on the agent route; a
-    dead-agent fallback that streams its SSTs).  Every rep is true cold
-    at the coordinator and at the agent."""
-    import shutil
-
-    import numpy as np
-    import pyarrow as pa
-    import torch
-
-    from horaedb_tpu_torch.metric_engine import Label, MetricEngine
-    from horaedb_tpu_torch.metric_engine.types import tsid_of
-    from horaedb_tpu_torch.objstore import (FaultInjectingStore,
-                                            LocalObjectStore,
-                                            MemoryObjectStore,
-                                            WrappedObjectStore)
-    from horaedb_tpu_torch.scanagent import (AgentService, AgentSpec,
-                                             ScanAgentConfig)
-    from horaedb_tpu_torch.scanagent import client as sa_client
-    from horaedb_tpu_torch.storage import parquet_io
-    from horaedb_tpu_torch.storage.config import StorageConfig, from_dict
-    from horaedb_tpu_torch.storage.types import TimeRange
-
-    class DataByteCounter(WrappedObjectStore):
-        """The coordinator's data-plane bytes: GETs and bytes of the
-        data table's .sst/.enc reads, buffered and streamed (the
-        reference's counter; it hides local_path, so the disk rung's
-        fallback reads go through the countable surface)."""
-
-        def __init__(self, inner, prefix: str):
-            super().__init__(inner)
-            self.prefix = prefix
-            self.data_bytes = 0
-            self.data_gets = 0
-            self.stream_ops = 0
-
-        def _is_data(self, path) -> bool:
-            p = str(path)
-            return p.startswith(self.prefix) and p.endswith((".sst", ".enc"))
-
-        async def _call(self, op: str, *args):
-            out = await super()._call(op, *args)
-            if op in ("get", "get_range") and self._is_data(args[0]):
-                self.data_gets += 1
-                self.data_bytes += len(out)
-            return out
-
-        async def _stream(self, op: str, path: str, chunk_size: int):
-            counted = self._is_data(path)
-            if counted:
-                self.data_gets += 1
-                self.stream_ops += 1
-            async for chunk in self.inner.get_stream(path, chunk_size):
-                if counted:
-                    self.data_bytes += len(chunk)
-                yield chunk
-
-    lat_s = 0.025
-    hosts, interval, segment_ms, hour = 100, 10_000, 2 * 3600 * 1000, 3_600_000
-    span = per_host * interval
-    T0 = (1_700_000_000_000 // segment_ms) * segment_ms
-    n = per_host * hosts
-    rng = np.random.default_rng(17)
-    ts = T0 + np.repeat(np.arange(per_host, dtype=np.int64) * interval,
-                        hosts)
-    host_id = np.tile(np.arange(hosts, dtype=np.int32), per_host)
-    vals = (rng.random(n) * 100).astype(np.float64)
-    names = pa.array([f"host_{i:03d}" for i in range(hosts)])
-    tsid_of_host = np.array([tsid_of("cpu", [Label("host", f"host_{i:03d}")])
-                             for i in range(hosts)], dtype=np.uint64)
-    order = np.argsort(tsid_of_host)
-    tsids = [int(t) for t in tsid_of_host[order]]
-    vals32 = vals.astype(np.float32)
-    zoom_ms = min(span, 6 * hour)
-    reps = 2
-    cfg = from_dict(StorageConfig, {
-        "scheduler": {"schedule_interval": "1h"},
-        "scan": {"cache_max_rows": n * 4}})
-    res: dict = {"rows": n, "store_latency_ms": lat_s * 1e3,
-                 "reps_per_leg": reps}
-    log(f"scanagent: the JAX package's config 17 (suite.py:2995-3300) at "
-        f"{n:,} rows, {span // segment_ms + 1} segments, store latency "
-        f"{lat_s * 1e3} ms (FaultInjectingStore, seed 17), {reps} true-cold "
-        f"reps a leg")
-
-    def queries(rep: int) -> list:
-        out = [(T0, span // hour, hour, ("avg",))]
-        for z in range(2):
-            lo = T0 + ((rep * 2 + z) * zoom_ms) % max(1, span - zoom_ms + 1)
-            out.append((lo, zoom_ms // 60_000, 60_000, ("avg", "max")))
-        return out
-
-    def numpy_check(got, lo, nb, bms, aggs, what):
-        check_grid(got, ts, host_id, vals, lo, nb, bms, hosts, order,
-                   tsids, what)
-        if "max" in aggs:
-            off = ts - lo
-            sel = (off >= 0) & (off < nb * bms)
-            cell = host_id[sel].astype(np.int64) * nb + off[sel] // bms
-            want = np.full(hosts * nb, -np.inf, dtype=np.float32)
-            np.maximum.at(want, cell, vals32[sel])
-            want = want.reshape(hosts, nb)[order].astype(np.float64)
-            got_max = host_grids(got)["max"].astype(np.float64)
-            occ = np.isfinite(want)
-            if not np.array_equal(got_max[occ], want[occ]):
-                raise AssertionError(f"{what}: max grid differs from numpy")
-
-    async def mix(e, rep: int, check: bool = False) -> list:
-        out = []
-        for lo, nb, bms, aggs in queries(rep):
-            got = await e.query_downsample(
-                "cpu", [], TimeRange.new(lo, lo + nb * bms), bucket_ms=bms,
-                aggs=aggs)
-            if check:
-                numpy_check(got, lo, nb, bms, aggs,
-                            f"scanagent rep {rep} {bms} ms")
-            out.append(got)
-        torch.cuda.synchronize()
-        return out
-
-    def snap_counters(prefix: str) -> dict:
-        return {k: v for k, v in registry_snapshot().items()
-                if k.startswith(prefix)}
-
-    async def timed_mix(e, counter, reset, label: str) -> dict:
-        times, results = [], []
-        partials0 = sa_client._PARTIAL_BYTES.value
-        bytes0, gets0 = counter.data_bytes, counter.data_gets
-        for rep in range(reps):
-            reset()
-            t0 = time.perf_counter()
-            results.append(await mix(e, rep))
-            times.append(time.perf_counter() - t0)
-        leg = {"p50_ms": pctl(times, 50), "ms": [t * 1e3 for t in times],
-               "store_data_bytes": counter.data_bytes - bytes0,
-               "store_data_gets": counter.data_gets - gets0,
-               "partial_bytes": int(sa_client._PARTIAL_BYTES.value
-                                    - partials0)}
-        leg["coordinator_bytes"] = (leg["store_data_bytes"]
-                                    + leg["partial_bytes"])
-        # every rep against numpy (outside the timed loop)
-        for rep, got in enumerate(results):
-            for (lo, nb, bms, aggs), out in zip(queries(rep), got):
-                numpy_check(out, lo, nb, bms, aggs,
-                            f"scanagent {label} rep {rep} {bms} ms")
-        log(f"scanagent {label}: p50 {leg['p50_ms']!r} ms, store data "
-            f"{leg['store_data_bytes']:,} B in {leg['store_data_gets']} GETs "
-            f"+ partials {leg['partial_bytes']:,} B = coordinator "
-            f"{leg['coordinator_bytes']:,} B ({card_line()})")
-        return {"leg": leg, "results": results}
-
-    def same_mix(a: list, b: list, what: str, exact: bool) -> None:
-        for rep, (xa, xb) in enumerate(zip(a, b)):
-            for q, (ra, rb) in enumerate(zip(xa, xb)):
-                (same_result_bytes if exact else tolerance_match)(
-                    ra, rb, f"{what} rep {rep} query {q}")
-
-    def mix_bytes(results: list) -> bytes:
-        # the reference's in-bench comparison: tsids, then every grid's
-        # bytes in key order
-        buf = bytearray()
-        for got in results:
-            for r in got:
-                buf += np.asarray(r["tsids"], dtype=np.uint64).tobytes()
-                g = host_grids(r)
-                for k in sorted(g):
-                    buf += g[k].tobytes()
-        return bytes(buf)
-
-    def cold_agent(agent):
-        for t in agent._tables.values():
-            true_cold(t.reader)
-
-    # the rows go straight into the inner store (ingest is not what this
-    # cell measures); every leg reads through the latency wrapper
-    inner = MemoryObjectStore()
-    e = await MetricEngine.open("cfg17", inner, segment_ms=segment_ms,
-                                config=cfg)
-    try:
-        res["ingest_s"] = await ingest_rows(e, host_id, ts, vals, names,
-                                            hosts)
-    finally:
-        await e.close()
-    log(f"scanagent: ingest {n:,} rows into the inner store in "
-        f"{res['ingest_s']!r} s ({card_line()})")
-    coord = DataByteCounter(FaultInjectingStore(
-        inner, seed=17, latency_range=(lat_s, lat_s)), prefix="cfg17/data/")
-    e = await MetricEngine.open("cfg17", coord, segment_ms=segment_ms,
-                                config=cfg)
-    try:
-        data = e.tables["data"]
-        reset_all(ba, mg)
-        off = await timed_mix(e, coord, lambda: true_cold(data.reader),
-                              "off")
-        res["off"] = off["leg"]
-        res["off"]["launches"] = launches(ba, mg)
-        res["off"]["route"] = ("fused" if res["off"]["launches"][
-            "bucket_round_accumulate"] else "parts")
-        os.environ["HORAEDB_FUSED_AGG"] = "0"
-        try:
-            reset_all(ba, mg)
-            off_parts = await timed_mix(
-                e, coord, lambda: true_cold(data.reader), "off_parts")
-            res["off_parts"] = off_parts["leg"]
-            res["off_parts"]["launches"] = launches(ba, mg)
-        finally:
-            del os.environ["HORAEDB_FUSED_AGG"]
-        if res["off_parts"]["launches"]["bucket_round_accumulate"]:
-            raise AssertionError("scanagent: the parts-route control ran "
-                                 "fused rounds")
-    finally:
-        await e.close()
-
-    # the agent serves aggregate partials only, so its reader decodes on
-    # the card ([scan.decode] mode = "device"): under "auto" a
-    # one-segment plan fits the fused budget and keeps host decode,
-    # though the agent never runs the fused route
-    agent_cfg = from_dict(StorageConfig, {"scan": {"decode": {
-        "mode": "device"}}})
-    agent = AgentService(inner, storage_config=agent_cfg)  # on this card
-    url = await agent.start()
-    sa_cfg = ScanAgentConfig(mode="on", num_slots=1,
-                             agents=(AgentSpec("shard0", url, (0,)),))
-    e = await MetricEngine.open("cfg17", coord, segment_ms=segment_ms,
-                                config=cfg, scanagent_config=sa_cfg)
-    try:
-        data = e.tables["data"]
-
-        def cold_both():
-            true_cold(data.reader)
-            cold_agent(agent)
-
-        req0 = snap_counters("scanagent_requests_total{")
-        fb0 = snap_counters("scanagent_fallback_total")
-        dec0 = sum(dd.fallback_counts().values())
-        reset_all(ba, mg)
-        served = await timed_mix(e, coord, cold_both, "agent")
-        res["agent"] = served["leg"]
-        res["agent"]["launches"] = launches(ba, mg)
-        res["agent"]["decode_fallbacks"] = (
-            sum(dd.fallback_counts().values()) - dec0)
-        res["agent"]["requests"] = {
-            k: v - req0.get(k, 0.0)
-            for k, v in snap_counters("scanagent_requests_total{").items()
-            if v != req0.get(k, 0.0)}
-        res["agent"]["fallbacks"] = {
-            k: v - fb0.get(k, 0.0)
-            for k, v in snap_counters("scanagent_fallback_total").items()
-            if v != fb0.get(k, 0.0)}
-        log(f"scanagent agent: launches {json.dumps(res['agent']['launches'])}"
-            f", decode fallbacks {res['agent']['decode_fallbacks']}, "
-            f"requests {json.dumps(res['agent']['requests'])}, fallbacks "
-            f"{json.dumps(res['agent']['fallbacks'])} ({card_line()})")
-        la = res["agent"]["launches"]
-        if not la["bucket_window_partials"] or not la["kway_merge_perm"]:
-            raise AssertionError("scanagent: the agent did not run "
-                                 "bucket_window_partials and kway_merge_perm")
-        if la["bucket_round_accumulate"]:
-            raise AssertionError("scanagent: the agent route ran fused "
-                                 "rounds")
-        if res["agent"]["decode_fallbacks"]:
-            raise AssertionError("scanagent: device decode fell back at the "
-                                 "agent")
-        if res["agent"]["fallbacks"] or res["agent"]["store_data_gets"]:
-            raise AssertionError("scanagent: the agent leg fell back to "
-                                 "direct reads")
-        same_mix(served["results"], off_parts["results"],
-                 "scanagent agent vs off_parts", exact=True)
-        same_mix(off["results"], served["results"],
-                 "scanagent off vs agent", exact=False)
-        same_mix(off["results"], off_parts["results"],
-                 "scanagent off vs off_parts", exact=False)
-        res["agent_byte_identical_to_off_parts"] = True
-        # the reference asserts agent == off byte for byte; here off
-        # takes the fused route, whose float32 sums are its own contract
-        res["agent_bytes_equal_fused_off"] = (
-            mix_bytes(served["results"]) == mix_bytes(off["results"]))
-        log(f"scanagent: agent grids byte-equal to the parts-route off leg; "
-            f"the reference's in-bench check against the fused off leg "
-            f"(byte equality) would "
-            f"{'hold' if res['agent_bytes_equal_fused_off'] else 'fail'}: "
-            f"the fused leg is within rtol 1e-5")
-        ratio = (res["off"]["coordinator_bytes"]
-                 / max(1, res["agent"]["coordinator_bytes"]))
-        res["bytes_reduction_x"] = ratio
-        res["bytes_reduction_x_parts"] = (
-            res["off_parts"]["coordinator_bytes"]
-            / max(1, res["agent"]["coordinator_bytes"]))
-        res["bar_bytes_reduction_met"] = bool(ratio >= 5.0)
-        log(f"scanagent: coordinator bytes off/agent {ratio!r}x (parts-route "
-            f"off/agent {res['bytes_reduction_x_parts']!r}x) against the "
-            f"reference's 5x bar: "
-            f"{'met' if ratio >= 5.0 else 'not met'}; p50 off "
-            f"{res['off']['p50_ms']!r} ms ({res['off']['route']}), off_parts "
-            f"{res['off_parts']['p50_ms']!r} ms, agent "
-            f"{res['agent']['p50_ms']!r} ms ({card_line()})")
-
-        # one stitched trace of an agent-served query: the routing span
-        # with the agent's spans under it
-        from horaedb_tpu_torch.utils import tracing
-
-        cold_both()
-        lo, nb, bms, aggs = queries(0)[0]
-        trace = tracing.recorder.start("/query", forced=True)
-        with tracing.trace_scope(trace):
-            await e.query_downsample("cpu", [],
-                                     TimeRange.new(lo, lo + nb * bms),
-                                     bucket_ms=bms, aggs=aggs)
-        done = tracing.recorder.finish(trace)
-        rpc = {s["span_id"] for s in done["spans"]
-               if s["name"] == "scanagent_rpc"}
-        under = [s for s in done["spans"] if s["name"] == "scanagent/scan"
-                 and s["parent_id"] in rpc]
-        res["trace"] = {"spans": len(done["spans"]), "rpc_spans": len(rpc),
-                        "agent_roots_under_rpc": len(under),
-                        "counters": done["counters"]}
-        if not rpc or len(under) != len(rpc):
-            raise AssertionError("scanagent: the agent's spans are not "
-                                 "stitched under the routing spans")
-        tree = tracing.span_tree(done)["tree"]
-        shown = {k: v for k, v in done["counters"].items()
-                 if k.startswith(("scanagent", "stage_device", "stage_fetch"))}
-        log("scanagent: stitched trace of one agent-served overview "
-            f"({len(done['spans'])} spans, {len(rpc)} routing spans, each "
-            f"with the agent's scanagent/scan under it); counters "
-            f"{json.dumps(shown)} ({card_line()})")
-        for line in span_lines(tree, limit=24):
-            log(f"scanagent trace: {line}")
-        res["ledger"] = ledger_report("the agent leg (config 17)")
-
-        fb0 = sa_client._FALLBACKS.total
-        await agent.close()
-        killed = await timed_mix(e, coord, lambda: true_cold(data.reader),
-                                 "agent_killed")
-        res["agent_killed"] = killed["leg"]
-        res["agent_killed"]["fallback_segments"] = int(
-            sa_client._FALLBACKS.total - fb0)
-        if not res["agent_killed"]["fallback_segments"]:
-            raise AssertionError("scanagent: no fallback with the agent dead")
-        same_mix(killed["results"], off_parts["results"],
-                 "scanagent agent_killed vs off_parts", exact=True)
-    finally:
-        await e.close()
-        await agent.close()
-
-    tmp = scratch_dir("cfg17")
-    disk_agent = None
-    try:
-        local = LocalObjectStore(tmp)
-        disk = DataByteCounter(local, prefix="cfg17d/data/")
-        e = await MetricEngine.open("cfg17d", disk, segment_ms=segment_ms,
-                                    config=cfg)
-        try:
-            res["disk_ingest_s"] = await ingest_rows(
-                e, host_id, ts, vals, names, hosts)
-        finally:
-            await e.close()
-        disk_agent = AgentService(local, storage_config=agent_cfg)
-        url = await disk_agent.start()
-        e = await MetricEngine.open(
-            "cfg17d", disk, segment_ms=segment_ms, config=cfg,
-            scanagent_config=ScanAgentConfig(
-                mode="on", num_slots=1,
-                agents=(AgentSpec("shard0", url, (0,)),)))
-        try:
-            data = e.tables["data"]
-
-            def cold_disk():
-                true_cold(data.reader)
-                cold_agent(disk_agent)
-
-            got = await timed_mix(e, disk, cold_disk, "disk")
-            res["disk"] = got["leg"]
-            same_mix(got["results"], off_parts["results"],
-                     "scanagent disk vs off_parts", exact=True)
-            if res["disk"]["store_data_gets"] != 0:
-                raise AssertionError("scanagent: the coordinator read "
-                                     "segments on the disk agent route")
-            await disk_agent.close()
-            old_min = parquet_io.STREAM_FETCH_MIN_BYTES
-            parquet_io.STREAM_FETCH_MIN_BYTES = 1
-            data.config.scan.use_sidecar = False
-            try:
-                true_cold(data.reader)
-                t0 = time.perf_counter()
-                fb = await mix(e, 0, check=True)
-                fb_ms = (time.perf_counter() - t0) * 1e3
-            finally:
-                parquet_io.STREAM_FETCH_MIN_BYTES = old_min
-                data.config.scan.use_sidecar = True
-            same_mix([fb], off_parts["results"][:1],
-                     "scanagent disk fallback vs off_parts", exact=True)
-            res["disk_fallback"] = {"ms": fb_ms,
-                                    "streamed_sst_reads": disk.stream_ops}
-            log(f"scanagent disk: dead-agent fallback {fb_ms!r} ms, "
-                f"{disk.stream_ops} streamed SST reads ({card_line()})")
-            if not disk.stream_ops:
-                raise AssertionError("scanagent: the dead-agent disk "
-                                     "fallback did not stream SSTs")
-        finally:
-            await e.close()
-    finally:
-        if disk_agent is not None:
-            await disk_agent.close()
-        shutil.rmtree(tmp, ignore_errors=True)
-    return res
+def scanagent_phase(ba, mg, rows: int = 10_000_000, iters: int = 5) -> dict:
+    """The bench suite's config 17 (suite.run_config17) at 10,000,000
+    rows over the seeded 25 ms store, 2 true-cold reps a leg: off (the
+    default route, fused at 4 x rows), off on the parts route (the
+    byte-for-byte control), agent (an AgentService on this card with
+    device decode), agent_killed and the disk rung.  The runner holds
+    the byte and rtol checks, numpy, the stitched trace and, on the
+    card, the agent's launch gates; here the memory ledger taken with
+    the agent's state resident must report live CUDA bytes."""
+    result, detail = suite_config(ba, mg, 17, rows, iters, "scanagent")
+    led = detail["ledger_after_agent_leg"]
+    devices = led["devices"]
+    log(f"ledger after the agent leg (config 17): rss {led['rss_bytes']:,} "
+        f"B, attributed {led['attributed_bytes']:,} B, unattributed "
+        f"{led['unattributed_bytes']:,} B; per kind "
+        f"{json.dumps(led['accounts'])}; device {json.dumps(devices)} "
+        f"({card_line()})")
+    if not devices or not all(
+            0 < d["bytes_in_use"] <= d["peak_bytes_in_use"] for d in devices):
+        raise AssertionError(f"ledger: no live CUDA device bytes reported "
+                             f"({devices})")
+    log(f"scanagent: coordinator bytes off/agent "
+        f"{result['bytes_reduction_x']!r}x against the reference's 5x bar "
+        f"({'met' if result['bar_bytes_reduction_met'] else 'not met'}); "
+        f"p50 off {result['off']['p50_ms']!r} ms ({detail['off_route']}), "
+        f"off_parts {detail['off_parts']['p50_ms']!r} ms, agent "
+        f"{result['agent']['p50_ms']!r} ms; the reference's byte check "
+        f"against the off leg would "
+        f"{'hold' if detail['reference_check_holds'] else 'fail'}")
+    return {"result": result, **detail}
 
 
 # ---- the server, the cluster and the failover drills -----------------------
@@ -4940,6 +4253,12 @@ async def server_cli_leg(text: str, port: int, root: str, T0: int,
     return out
 
 
+# the server phase's /query calls a node: one true cold and repeats.  Cut
+# from 6: each call returns ~196 MB of JSON at 10M rows, and the run's
+# time goes to the bench suite's configs 11-23
+SERVER_REPS = 2
+
+
 async def server_phase(ba, mg, rows: int) -> dict:
     """BASELINE config 1, unchanged, over HTTP: the port's server in
     process (ServerState + build_app on an AppRunner) from
@@ -4949,8 +4268,8 @@ async def server_phase(ba, mg, rows: int) -> dict:
     same store, in turns: the example's own scan budget (parts route:
     device decode, kway_merge_perm, bucket_window_partials) and the scan
     cache at 4 x rows (fused route and the replay).  Per node: POST
-    /query at 1 min over the whole range true cold and 5 repeats, each
-    beside the direct query_downsample in turns; /query_topk,
+    /query at 1 min over the whole range true cold and SERVER_REPS - 1
+    repeats, each beside the direct query_downsample in turns; /query_topk,
     /query_multi, /query_arrow, /label_values, /stats, /metrics and
     /admin/flush.  Then the CLI: `python -m horaedb_tpu_torch.server`
     from a copy of the config, one /write, a /query that returns it, and
@@ -4972,6 +4291,8 @@ async def server_phase(ba, mg, rows: int) -> dict:
     from horaedb_tpu_torch.storage.types import TimeRange
 
     here = os.path.dirname(os.path.abspath(__file__))
+    log(f"server: {SERVER_REPS} /query calls a node, one true cold and "
+        f"{SERVER_REPS - 1} repeats (cut from 6)")
     d = config1_rows(rows)
     hosts, interval, segment_ms = d["hosts"], d["interval"], d["segment_ms"]
     per_host, T0, n, names = d["per_host"], d["T0"], d["n"], d["names"]
@@ -5068,7 +4389,7 @@ async def server_phase(ba, mg, rows: int) -> dict:
             # queries, from GET /debug/device
             dev0 = seam_launches(json.loads(await get(base,
                                                       "/debug/device")))
-            for rep in range(6):
+            for rep in range(SERVER_REPS):
                 # each call's launches are counted from 0 around it
                 # alone, so the HTTP route's count owes nothing to the
                 # direct control that follows it
@@ -5310,335 +4631,12 @@ async def cluster_phase(ba, mg, rows: int) -> dict:
         await remote_engine.close()
 
 
-async def failover_drill(config: int, ba, mg) -> dict:
-    """The JAX package's bench config 20 (suite.py run_config20) or 21
-    (run_config21) at their own parameters on the card: 200,000 fixture
-    rows over 50 hosts, an open-loop Poisson schedule of dashboards
-    (/query, 1 h at 5 min buckets, 5/s) and single-sample /writes
-    (10/s) over a 12 s leg, the primary killed (listener gone, tables
-    aborted with no final flush) at 6 s, a 2 s lease TTL and the store
-    at FaultInjectingStore(seed) with 20 ms per op.  Config 20 promotes
-    through promote() under the harness (the control leg); config 21
-    lets a StandbyMonitor elect itself.  Every acked write must be read
-    back from the promoted node."""
-    import random as random_mod
-    import shutil
-
-    import aiohttp
-    import numpy as np
-    import pyarrow as pa
-
-    from horaedb_tpu_torch.cluster.replication import (
-        FailoverConfig, HttpWalSource, LeaseManager, LocalWalSource,
-        ReplicationConfig, ReplicationError, StandbyMonitor, WalFollower,
-        install_fence, promote)
-    from horaedb_tpu_torch.common import ReadableDuration
-    from horaedb_tpu_torch.metric_engine import MetricEngine
-    from horaedb_tpu_torch.objstore import (FaultInjectingStore,
-                                            MemoryObjectStore)
-    from horaedb_tpu_torch.server.config import ServerConfig
-    from horaedb_tpu_torch.server.main import ServerState
-    from horaedb_tpu_torch.storage.types import TimeRange
-    from horaedb_tpu_torch.wal.config import WalConfig
-
-    lat_s = 0.020
-    seed = config
-    segment_ms = 2 * 3600 * 1000
-    T0 = (1_700_000_000_000 // segment_ms) * segment_ms
-    leg_seconds = 12.0
-    kill_at = leg_seconds / 2.0
-    lease_ttl_ms = 2_000
-    grace_ms, jitter = 500, 0.5
-    n_fix, hosts, span = 200_000, 50, 3_600_000
-    TW0 = T0 + 3 * segment_ms
-    dash_q = {"metric": "app", "filters": {}, "start": T0,
-              "end": T0 + span, "bucket_ms": 300_000}
-
-    def write_req(i: int) -> dict:
-        return {"samples": [
-            {"name": "ingest", "labels": {"host": f"w{i % 8:02d}"},
-             "timestamp": TW0 + i * 1000, "value": float(i)}]}
-
-    def schedule(rng):
-        events = []
-
-        def poisson(rate, make):
-            t = 0.0
-            for i in range(int(leg_seconds * rate)):
-                t += rng.expovariate(rate)
-                events.append((t,) + make(i))
-
-        poisson(5.0, lambda i: ("/query", dash_q, -1))
-        poisson(10.0, lambda i: ("/write", write_req(i), i))
-        events.sort(key=lambda e: e[0])
-        return events
-
-    store = FaultInjectingStore(MemoryObjectStore(), seed=seed,
-                                latency_range=(lat_s, lat_s))
-    root = scratch_dir(f"failover{config}")
-    wal_dir = os.path.join(root, "wal")
-    mirror_dir = os.path.join(root, "mirror")
-    rng_np = np.random.default_rng(seed)
-    engine = await MetricEngine.open("metrics/region_0", store,
-                                     segment_ms=segment_ms)
-    per_host = n_fix // hosts
-    ts = T0 + np.repeat(np.arange(per_host, dtype=np.int64)
-                        * max(1, span // max(per_host, 1)), hosts)
-    ids = np.tile(np.arange(hosts, dtype=np.int32), per_host)
-    names = pa.array([f"host_{i:03d}" for i in range(hosts)])
-    await engine.write_arrow("cpu", ["host"], pa.record_batch({
-        "host": pa.DictionaryArray.from_arrays(pa.array(ids), names),
-        "timestamp": pa.array(ts, type=pa.int64()),
-        "value": pa.array(rng_np.random(len(ts)), type=pa.float64())}))
-    m = 20 * 360
-    await engine.write_arrow("app", ["host"], pa.record_batch({
-        "host": pa.array([f"app_{i % 20:02d}" for i in range(m)]),
-        "timestamp": pa.array(T0 + np.arange(m, dtype=np.int64) * 10_000
-                              % span, type=pa.int64()),
-        "value": pa.array(rng_np.random(m), type=pa.float64())}))
-    await engine.close()
-
-    wal_template = WalConfig(enabled=True, dir=wal_dir)
-    engine = await MetricEngine.open("metrics/region_0", store,
-                                     segment_ms=segment_ms,
-                                     wal_config=wal_template)
-    cfg = ServerConfig()
-    cfg.replication.enabled = True
-    cfg.replication.region = 0
-    cfg.replication.holder = "bench-primary"
-    cfg.replication.lease_ttl = ReadableDuration.from_millis(lease_ttl_ms)
-    cfg.replication.renew_interval = ReadableDuration.from_millis(500)
-    state = ServerState(engine, cfg)
-    await state.start_replication(store)
-    runner, base = await start_site(state)
-    poll = ReplicationConfig(poll_interval=ReadableDuration.from_millis(50))
-    if config == 20:
-        follower = WalFollower(HttpWalSource(base, "bench-follower",
-                                             timeout_s=5.0),
-                               mirror_dir, poll, region=0)
-        follower.start()
-    else:
-        # the standby tails the primary's durable log plane in process
-        follower = WalFollower(LocalWalSource(state.repl, "bench-standby"),
-                               mirror_dir, poll, region=0)
-    target = {"base": base}
-    lat: dict = {}
-    fail: dict = {}
-    acked: set = set()
-    new = {"engine": None, "lease": None, "runner": None}
-    # what the kill has already taken down (the finally closes the rest)
-    down = {"runner": False, "primary": False}
-    session = aiohttp.ClientSession(
-        connector=aiohttp.TCPConnector(limit=0),
-        timeout=aiohttp.ClientTimeout(total=10))
-    monitor = ship_task = None
-    stop_ship = asyncio.Event()
-
-    async def serve_promoted(engine_p, lease_p):
-        new["engine"], new["lease"] = engine_p, lease_p
-        lease_p.start_renewal(2.0, 10_000)
-        new["runner"], base2 = await start_site(
-            ServerState(engine_p, ServerConfig()))
-        target["base"] = base2
-        fail["failover_ms"] = (time.perf_counter() - fail["_t_kill"]) * 1e3
-        fail["epoch"] = lease_p.epoch
-
-    async def abort_primary():
-        down["primary"] = True
-        await state.stop_replication()
-        for t in engine.tables.values():
-            abort = getattr(t, "abort", None)
-            if abort is not None:
-                await abort()
-        engine._runtimes.close()
-
-    async def kill20():
-        await asyncio.sleep(kill_at)
-        fail["_t_kill"] = time.perf_counter()
-        down["runner"] = True
-        await runner.cleanup()
-        await follower.close()
-        # the durable log plane outlives the process: drain the
-        # committed tail into the mirror before replay
-        drain = WalFollower(LocalWalSource(state.repl, "bench-follower"),
-                            mirror_dir, region=0)
-        for _ in range(100):
-            await drain.poll_once()
-            if drain.lag() == 0:
-                break
-        else:
-            raise AssertionError(f"failover 20: mirror failed to drain: "
-                                 f"lag {drain.lag()}")
-        await drain.close()
-        fail["drain_ms"] = (time.perf_counter() - fail["_t_kill"]) * 1e3
-        await abort_primary()
-        mgr = LeaseManager(store, "metrics")
-        attempts = 0
-        while True:
-            attempts += 1
-            try:
-                engine_p, lease_p = await promote(
-                    "metrics", store, 0, mgr, "bench-follower", mirror_dir,
-                    wal_template, segment_ms=segment_ms,
-                    lease_ttl_ms=10_000, reason="primary_dead")
-                break
-            except ReplicationError:
-                # the dead primary's lease has not expired yet
-                await asyncio.sleep(0.05)
-        fail["lease_acquire_attempts"] = attempts
-        await serve_promoted(engine_p, lease_p)
-
-    async def kill21():
-        await asyncio.sleep(kill_at)
-        fail["_t_kill"] = time.perf_counter()
-        down["runner"] = True
-        await runner.cleanup()
-        await state.lease.stop_renewal()
-        stop_ship.set()
-        await ship_task
-        for _ in range(100):
-            await follower.poll_once()
-            if follower.lag() == 0:
-                break
-        else:
-            raise AssertionError(f"failover 21: mirror failed to drain: "
-                                 f"lag {follower.lag()}")
-        fail["drain_ms"] = (time.perf_counter() - fail["_t_kill"]) * 1e3
-        await abort_primary()
-
-    async def fire(at, path, payload, widx):
-        t0 = time.perf_counter()
-        try:
-            async with session.post(target["base"] + path,
-                                    json=payload) as r:
-                status = r.status
-                await r.read()
-        except asyncio.TimeoutError:
-            status = -1
-        except aiohttp.ClientError:
-            status = -2
-        dt = time.perf_counter() - t0
-        if status == 200 and widx >= 0:
-            acked.add(widx)
-        lat.setdefault("query" if path == "/query" else "write",
-                       []).append((at, dt, status))
-
-    try:
-        if config == 21:
-            monitor = StandbyMonitor(
-                follower, LeaseManager(store, "metrics"), 0,
-                "bench-standby",
-                FailoverConfig(
-                    enabled=True,
-                    grace=ReadableDuration.from_millis(grace_ms),
-                    jitter=jitter,
-                    check_interval=ReadableDuration.from_millis(100),
-                    fitness_wait=ReadableDuration.from_millis(100),
-                    cooldown=ReadableDuration.from_millis(1000)),
-                wal_template, segment_ms=segment_ms, lease_ttl_ms=10_000,
-                on_promoted=serve_promoted)
-            monitor.start()
-
-            async def shipper():
-                while not stop_ship.is_set():
-                    try:
-                        await follower.poll_once()
-                    except ReplicationError:
-                        return
-                    await asyncio.sleep(0.05)
-
-            ship_task = asyncio.create_task(shipper())
-        # unmeasured preamble: warm both request shapes
-        for path, payload in (("/query", dash_q),
-                              ("/write", write_req(10**9))):
-            async with session.post(base + path, json=payload) as r:
-                await r.read()
-        lat.clear()
-        acked.clear()
-        reset_all(ba, mg)
-        t_start = time.perf_counter()
-        ko = asyncio.create_task(kill20() if config == 20 else kill21())
-        tasks = []
-        for at, path, payload, widx in schedule(random_mod.Random(seed)):
-            delay = t_start + at - time.perf_counter()
-            if delay > 0:
-                await asyncio.sleep(delay)
-            tasks.append(asyncio.create_task(fire(at, path, payload,
-                                                  widx)))
-        await asyncio.gather(*tasks)
-        await ko
-        for _ in range(600):
-            if "failover_ms" in fail:
-                break
-            await asyncio.sleep(0.05)
-        if "failover_ms" not in fail:
-            raise AssertionError(f"failover {config}: nobody promoted: "
-                                 f"{monitor.election_state() if monitor else ''}")
-        # the leg's launches, read before the audit's own queries
-        leg_launches = launches(ba, mg)
-        # the acked-write audit against the promoted engine
-        got = {}
-        for h in range(8):
-            t = await new["engine"].query(
-                "ingest", [("host", f"w{h:02d}")],
-                TimeRange.new(TW0 - 1, TW0 + 10_000_000))
-            for ts_v, v in zip(t.column("timestamp").to_pylist(),
-                               t.column("value").to_pylist()):
-                got[(h, ts_v)] = v
-        lost = sum(1 for i in sorted(acked)
-                   if got.get((i % 8, TW0 + i * 1000)) != float(i))
-        fail.pop("_t_kill", None)
-        out = {"config": config, "rows": n_fix, "leg_seconds": leg_seconds,
-               "store_latency_ms": lat_s * 1e3,
-               "lease_ttl_ms": lease_ttl_ms, **fail,
-               "acked_writes": len(acked), "acked_write_loss": lost,
-               "launches": leg_launches}
-        if config == 21:
-            out.update({"grace_ms": grace_ms, "jitter": jitter,
-                        "harness_promote_calls": 0,
-                        "election_attempts": monitor.attempts,
-                        "election_outcome": (monitor.last_outcome or {}
-                                             ).get("outcome")})
-        for kind, ls in sorted(lat.items()):
-            for ph, sel in (("pre_kill", [x for x in ls if x[0] < kill_at]),
-                            ("post_kill", [x for x in ls
-                                           if x[0] >= kill_at])):
-                oks = [dt for _, dt, s in sel if s == 200]
-                codes: dict = {}
-                for _, _, s in sel:
-                    codes[str(s)] = codes.get(str(s), 0) + 1
-                out[f"{kind}_{ph}"] = {
-                    "n": len(sel), "ok": len(oks),
-                    "p99_ms": (float(np.percentile(np.asarray(oks) * 1e3,
-                                                   99)) if oks else None),
-                    "codes": codes}
-        return out
-    finally:
-        stop_ship.set()
-        if ship_task is not None and not ship_task.done():
-            ship_task.cancel()
-        await session.close()
-        if monitor is not None:
-            await monitor.close()
-        await follower.close()   # idempotent
-        if not down["runner"]:
-            await runner.cleanup()
-        if new["runner"] is not None:
-            await new["runner"].cleanup()
-        if new["lease"] is not None:
-            await new["lease"].stop_renewal()
-        if new["engine"] is not None:
-            install_fence(new["engine"], None)
-            await new["engine"].close()
-        if not down["primary"]:
-            # the drill failed before the kill: close the primary
-            await state.stop_replication()
-            await engine.close()
-        shutil.rmtree(root, ignore_errors=True)
-
-
-async def failover_phase(ba, mg) -> dict:
-    """Config 20, then config 21; after each drill every engine is
+def failover_phase(ba, mg, iters: int = 12) -> dict:
+    """The bench suite's configs 20 and 21 (suite.run_config20, 21) at
+    their own fixture (200,000 rows over 50 hosts) with `iters` s legs:
+    the kill at mid-leg, a 2 s lease TTL, a 20 ms store.  Every acked
+    write must be read back from the promoted node, config 21 must
+    promote inside its bound, and after each drill every engine is
     closed or aborted and the card's live bytes are back where they
     were."""
     import gc
@@ -5646,13 +4644,16 @@ async def failover_phase(ba, mg) -> dict:
     import torch
 
     out = {}
+    log(f"failover: {max(4.0, min(30.0, float(iters)))!r} s legs "
+        f"(iters {iters})")
     for config in (20, 21):
         gc.collect()
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
-        r = await failover_drill(config, ba, mg)
+        r, detail = suite_config(ba, mg, config, 200_000, iters, "failover")
         gc.collect()
         torch.cuda.synchronize()
+        r["leg_launches"] = detail["launches"]
         r["cuda_allocated_before"] = before
         r["cuda_allocated_after"] = torch.cuda.memory_allocated()
         if r["acked_write_loss"] != 0:
@@ -5662,17 +4663,10 @@ async def failover_phase(ba, mg) -> dict:
             raise AssertionError(
                 f"failover {config}: {r['cuda_allocated_after'] - before:,} "
                 f"B of CUDA memory outlive the drill")
-        if config == 21:
-            # detection + election + replay within the lease TTL, the
-            # worst-case jittered grace and a fixed 3 s slack (suite.py)
-            r["failover_bound_ms"] = (r["lease_ttl_ms"] + r["grace_ms"]
-                                      * (1.0 + r["jitter"]) + 3_000.0)
-            r["bar_failover_bound"] = r["failover_ms"] <= \
-                r["failover_bound_ms"]
-            if not r["bar_failover_bound"]:
-                raise AssertionError(
-                    f"failover 21: {r['failover_ms']!r} ms over the bound "
-                    f"{r['failover_bound_ms']!r} ms")
+        if config == 21 and not r["bar_failover_bound"]:
+            raise AssertionError(
+                f"failover 21: {r['failover_ms']!r} ms over the bound "
+                f"{r['failover_bound_ms']!r} ms")
         p99 = {k: r[k]["p99_ms"] for k in ("query_pre_kill",
                                            "query_post_kill",
                                            "write_pre_kill",
@@ -5685,8 +4679,8 @@ async def failover_phase(ba, mg) -> dict:
             f"{r['drain_ms']!r} ms){extra}; acked {r['acked_writes']}, "
             f"lost {r['acked_write_loss']}; p99 ms {p99}; codes "
             f"{ {k: r[k]['codes'] for k in p99} }; CUDA live bytes "
-            f"{before:,} -> {r['cuda_allocated_after']:,}; launches "
-            f"{r['launches']}")
+            f"{before:,} -> {r['cuda_allocated_after']:,}; leg launches "
+            f"{r['leg_launches']}")
         out[config] = r
     return out
 
@@ -6221,38 +5215,48 @@ def bench_phase(rows: int = 10_000_000, iters: int = 20) -> dict:
     return {str(k): v for k, v in out.items()}
 
 
-def suite_phase(ba, mg, rows: int = 2_000_000, iters: int = 10) -> dict:
-    """The port's bench suite, configs 2-10, at the suite CLI's defaults
-    (2,000,000 rows, 10 iters), on the card; each runner checks itself
-    against numpy.  Config 8's stores
-    and WALs and config 2's and 9's disks go to .wal_smoke_* directories
-    beside this script (removed after).  Each config's kernel launches
-    are counted from 0 around it; every config that queries the engine
-    or aggregates on the card (all but 6, the manifest codec, and 8,
-    durable ingest) must launch one."""
-    from horaedb_tpu_torch.bench import suite
+# the suite configs the suite phase runs; 11, 17, 20 and 21 run in the
+# rollup, scanagent and failover phases
+SUITE_PHASE_CONFIGS = (2, 3, 4, 5, 6, 7, 8, 9, 10, 12, 13, 14, 15, 16, 18,
+                       19, 22, 23)
+# the mesh configs, run on eight logical slots of this card
+SUITE_MESH_CONFIGS = (19, 22, 23)
+# config 18 measures the process's RSS against the memory ledger: it
+# runs where the CLI runs it, in a fresh process (`python -m
+# horaedb_tpu_torch.bench`), not after the allocator history of the
+# phases before it
+SUITE_OWN_PROCESS = (18,)
+# config 15's iters are its legs' seconds (three legs, clamped to 4-30):
+# at the CLI's 10 it takes ~70 s on an H100, at 4 ~35 s
+SUITE_ITERS = {15: 4}
 
-    here = os.path.dirname(os.path.abspath(__file__))
-    prov = suite.provenance("cuda")
+
+def suite_phase(ba, mg, rows: int = 2_000_000, iters: int = 10) -> dict:
+    """The port's bench suite at the suite CLI's defaults (2,000,000
+    rows, 10 iters), on the card: SUITE_PHASE_CONFIGS, each checking
+    itself in-bench (numpy, byte and rtol checks, its bars) and, on the
+    card, its launch gates.  The on-disk configs' stores and WALs go to
+    .wal_smoke_* directories beside this script (removed after).  Each
+    config's kernel launches are counted from 0 around it; the mesh
+    configs run on eight logical slots of this card, as the mesh phases
+    do."""
+    from horaedb_tpu_torch.parallel import mesh
+
     out: dict = {}
-    for config, run in sorted(suite.RUNNERS.items()):
-        kw = {"scratch_dir": here} if config in suite.ON_DISK else {}
-        reset_all(ba, mg)
-        t0 = time.perf_counter()
-        result = run(rows, iters, **kw)
-        secs = time.perf_counter() - t0
-        result["launches"] = launches(ba, mg)
-        for k, v in prov.items():
-            result.setdefault(k, v)  # config 6 labels itself host work
-        result["wall_s"] = secs
-        log(f"suite: config {config} in {secs!r} s: {json.dumps(result)}")
-        if config not in (6, 8) and not any(result["launches"].values()):
-            raise AssertionError(f"suite: config {config} launched no "
-                                 "kernel")
-        if result["backend"] != ("host" if config == 6 else "cuda") \
-                or result["fallback"]:
-            raise AssertionError(f"suite: config {config} provenance "
-                                 f"{result['backend']}/{result['fallback']}")
+    for config in SUITE_PHASE_CONFIGS:
+        slots = ([chip_device()] * 8 if config in SUITE_MESH_CONFIGS
+                 else None)
+        k = SUITE_ITERS.get(config, iters)
+        if k != iters:
+            log(f"suite: config {config} at iters {k} (cut from {iters})")
+        if config in SUITE_OWN_PROCESS:
+            result, detail = suite_own_process(config, rows, k)
+        else:
+            with mesh.local_devices_scope(slots):
+                result, detail = suite_config(ba, mg, config, rows, k,
+                                              "suite")
+        if detail:
+            result["detail"] = detail
         out[str(config)] = result
     if iters != 10 or rows != 2_000_000:
         log(f"suite: cut to --rows {rows:,}, --iters {iters} (the CLI's "
@@ -6623,7 +5627,7 @@ def main() -> int:
                     help="rows of the end-to-end phase (a cut is printed)")
     ap.add_argument("--json", default=None,
                     help="also write every number of the run to this file")
-    ap.add_argument("--config4-rows", type=int, default=64_000_000,
+    ap.add_argument("--config4-rows", type=int, default=32_000_000,
                     help="rows of the config 4 phase (64 SSTs; the cut "
                          "from 1B is printed; below 8,388,608 rows the "
                          "segment no longer streams and the phase fails "
@@ -6683,6 +5687,13 @@ def main() -> int:
         out = fn(*a)
         phase_s[name] = time.perf_counter() - t0
         log(f"phase {name}: {phase_s[name]!r} s")
+        if args.json:
+            # every phase's seconds so far, kept where a failed run
+            # still leaves them
+            os.makedirs(os.path.dirname(os.path.abspath(args.json)),
+                        exist_ok=True)
+            with open(args.json + ".phases", "w") as f:
+                json.dump(phase_s, f)
         return out
 
     if args.cards > 1:
@@ -6720,12 +5731,12 @@ def main() -> int:
     topk_ops = phase("topk ops", topk_ops_phase)
     config4 = phase("config4", asyncio.run,
                     config4_phase(args.config4_rows, ba, mg))
-    rollup = phase("rollup", asyncio.run, rollup_phase(ba, mg))
+    rollup = phase("rollup (config 11)", rollup_phase, ba, mg)
     chunked = phase("chunked", asyncio.run, chunked_phase(ba, mg))
-    scanagent = phase("scanagent", asyncio.run, scanagent_phase(ba, mg, dd))
+    scanagent = phase("scanagent (config 17)", scanagent_phase, ba, mg)
     server = phase("server", asyncio.run, server_phase(ba, mg, args.rows))
     cluster = phase("cluster", asyncio.run, cluster_phase(ba, mg, args.rows))
-    failover = phase("failover", asyncio.run, failover_phase(ba, mg))
+    failover = phase("failover (configs 20, 21)", failover_phase, ba, mg)
     mesh = phase("meshes (mesh, mesh_topk, mesh_decode, segment_mesh, "
                  "multihost)", asyncio.run, mesh_phases(ba, mg, args.rows))
     bench = phase("bench", bench_phase)
@@ -6760,9 +5771,9 @@ def main() -> int:
         # and on config 4's true-cold query (the round entry is not on
         # its path: 0)
         k["config4_launches"] = config4["launches"][k["name"]]
-        # and on the rollup cell: the backfill (139 segments x 2 tiers
-        # on the parts route), the rollup-served mix (no raw tail: 0)
-        # and the raw cold mix; and on one cold chunked query
+        # and on the rollup cell (config 11): the backfill (139 segments
+        # x 2 tiers on the parts route), the rollup-served mix (no raw
+        # tail: 0) and the raw cold mix; and on one cold chunked query
         k["rollup_backfill_launches"] = \
             rollup["backfill_launches"][k["name"]]
         k["rollup_mix_launches"] = rollup["rollup_leg_launches"][k["name"]]
@@ -6770,7 +5781,7 @@ def main() -> int:
             rollup["raw_cold_leg_launches"][k["name"]]
         k["chunked_launches"] = chunked["chunked_launches"][k["name"]]
         # and on config 17's agent leg (at the agent, on this card)
-        k["scanagent_launches"] = scanagent["agent"]["launches"][k["name"]]
+        k["scanagent_launches"] = scanagent["agent_launches"][k["name"]]
         # and on the server's two nodes (the true-cold HTTP /query
         # alone; the direct control's cold call beside it), the
         # cluster's first gather and both failover drills' traffic
@@ -6793,15 +5804,19 @@ def main() -> int:
         k["segment_mesh_launches"] = \
             mesh["segment_mesh"]["rep0"]["launches"][k["name"]]
         k["multihost_launches"] = mesh["multihost"]["launches"][k["name"]]
-        k["failover_launches"] = {f"config{c}": r["launches"][k["name"]]
+        k["failover_launches"] = {f"config{c}": r["leg_launches"][k["name"]]
                                   for c, r in failover.items()}
         # and in the bench subprocesses (each counted in its process from
         # 0), per suite config (counted from 0 around it) and on the S3
         # cell's true-cold query
         k["bench_launches"] = {f"config{c}": bench[c]["launches"][k["name"]]
                                for c in ("0", "1")}
-        k["suite_launches"] = {f"config{c}": r["launches"][k["name"]]
-                               for c, r in suite.items()}
+        k["suite_launches"] = {
+            f"config{c}": r["launches"][k["name"]]
+            for c, r in sorted({**suite, "11": rollup["result"],
+                                "17": scanagent["result"],
+                                **{str(c): r for c, r in failover.items()}
+                                }.items(), key=lambda kv: int(kv[0]))}
         k["s3_launches"] = s3["launches"][k["name"]]
         if k["name"] == "bucket_window_partials":
             # the chunked path's shape: W = 1, 10M valid rows
@@ -6810,6 +5825,7 @@ def main() -> int:
                 "plain_ms": chunked["plain_ms"],
                 "library_ms": chunked["library_ms"],
                 "max_abs_err": chunked["kernel_max_abs_err"]}
+    phase_s["total"] = time.perf_counter() - t_start
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:

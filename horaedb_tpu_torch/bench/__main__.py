@@ -7,12 +7,12 @@ twin on the PyTorch port.  Prints ONE JSON line:
 
 Env knobs (bench.py's, with its defaults): BENCH_ROWS (10_000_000),
 BENCH_ITERS (20), BENCH_CONFIG (1 = the end-to-end engine headline,
-0 = the device kernel microbench, 2-10 = horaedb_tpu_torch.bench.suite's
+0 = the device kernel microbench, 2-23 = horaedb_tpu_torch.bench.suite's
 RUNNERS), BENCH_HOSTS (100) and BENCH_AGG_WINDOWS (config 1's windows
-per aggregation round).  Configs 11-23 of the JAX suite are not ported
-yet (ROADMAP Queue A 12b) and raise.  The bench runs on the card; with
-no card it raises, and --device cpu runs it on the CPU with
-`fallback: true`.
+per aggregation round).  The on-disk configs (suite.ON_DISK) put their
+stores and WALs under the system's temporary directory.  The bench runs
+on the card; with no card it raises, and --device cpu runs it on the
+CPU with `fallback: true`.
 """
 
 from __future__ import annotations
@@ -42,12 +42,9 @@ def main(argv=None) -> None:
     try:
         config = int(raw)
     except ValueError:
-        raise Error(f"BENCH_CONFIG must be 0-10, got {raw!r}") from None
-    if 11 <= config <= 23:
-        raise Error(f"BENCH_CONFIG {config} is a JAX suite config not "
-                    "ported to horaedb_tpu_torch yet (ROADMAP Queue A 12b)")
+        raise Error(f"BENCH_CONFIG must be 0-23, got {raw!r}") from None
     if config not in (0, 1) and config not in RUNNERS:
-        raise Error(f"BENCH_CONFIG must be 0-10, got {config}")
+        raise Error(f"BENCH_CONFIG must be 0-23, got {config}")
     prov = provenance(args.device)  # raises before any work without a card
     if config == 1:
         result = run_engine_headline(rows, iters, device=args.device)

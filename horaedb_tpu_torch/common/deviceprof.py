@@ -21,6 +21,18 @@ tracing compiler, so its seams are the calls that put work on the card:
                    charged at the upload and download seams, with
                    per-trace twins
 
+A query trace's stage counters are HOST walls that do not overlap, as
+the JAX package's are, so their sum is the share of a stage's wall the
+ledger explains: stage_device_dispatch_ms is charged by the outermost
+seam of a thread only (a seam called inside another seam's body keeps
+its own ledger row, but its wall is already inside the outer one's);
+stage_device_exec_ms is the wall a path spends waiting on the device
+at a sync it makes anyway (observe_wait; downloads inside that span
+charge their bytes untimed); transfer seconds are the upload and
+download walls.  The event pairs' device seconds, which overlap those
+host walls, go to the seam's ledger row and to the trace's
+device_exec_ms twin, not to a stage counter.
+
 A seam keys each call by the shapes and dtypes of its tensors plus the
 values of its declared static arguments (the grid geometry a kernel is
 shaped by).  A burst of NEW distinct keys of one seam inside the sliding
@@ -78,8 +90,7 @@ _DISPATCH_SECONDS = registry.histogram(
     "host wall per seam call (argument checks, launch enqueue)")
 _EXEC_SECONDS = registry.histogram(
     "device_exec_seconds",
-    "device seconds per seam call from CUDA events (or measured at a "
-    "sync the path already makes, observe_exec)")
+    "device seconds per seam call from CUDA events")
 _TRANSFER_BYTES = registry.counter(
     "device_transfer_bytes_total",
     "bytes moved across the host/device boundary at the upload and "
@@ -88,6 +99,10 @@ _TRANSFER_SECONDS = registry.counter(
     "device_transfer_seconds_total",
     "wall seconds spent in instrumented host/device transfers, by "
     "direction (h2d|d2h; async uploads charge the enqueue wall)")
+
+# seam nesting depth per thread: only the outermost seam charges the
+# trace's dispatch wall
+_nesting = threading.local()
 
 # CUDA event pairs waiting for their stream to pass them; beyond this
 # many the oldest are dropped unresolved (counted in the snapshot)
@@ -126,12 +141,15 @@ def _call_key(args: tuple, kwargs: dict, static: tuple) -> tuple:
 
 
 def _cuda_device(x: Any, depth: int = 0):
-    """The device of the first CUDA tensor in an argument tree, or
-    None."""
+    """The device of the first CUDA tensor in an argument tree (a mesh
+    program's ShardedArray blocks included), or None."""
     dev = getattr(x, "device", None)
     if dev is not None and getattr(dev, "type", None) == "cuda":
         return dev
     if depth < 2:
+        blocks = getattr(x, "blocks", None)
+        if isinstance(blocks, list):
+            x = blocks
         if isinstance(x, (tuple, list)):
             for v in x:
                 d = _cuda_device(v, depth + 1)
@@ -293,6 +311,7 @@ class DeviceProfiler:
                        kwargs):
         key = _call_key(args, kwargs, static)
         dev = _cuda_device(args) or _cuda_device(kwargs)
+        depth = getattr(_nesting, "depth", 0)
         start = stream = None
         if dev is not None:
             import torch
@@ -301,7 +320,11 @@ class DeviceProfiler:
             start = torch.cuda.Event(enable_timing=True)
             start.record(stream)
         t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
+        _nesting.depth = depth + 1
+        try:
+            out = fn(*args, **kwargs)
+        finally:
+            _nesting.depth = depth
         wall = time.perf_counter() - t0
         end = None
         if start is not None:
@@ -316,7 +339,7 @@ class DeviceProfiler:
             if new:
                 rec._keys.add(key)
             if end is not None:
-                self._pending.append((rec, start, end))
+                self._pending.append((rec, start, end, not depth))
                 while len(self._pending) > _MAX_PENDING_EVENTS:
                     self._pending.popleft()
                     self._dropped_events += 1
@@ -326,7 +349,8 @@ class DeviceProfiler:
                                     _DISPATCH_SECONDS.labels(fn=rec.name))
         series[0].inc()
         series[1].observe(wall)
-        trace_add("stage_device_dispatch_ms", wall * 1e3)
+        if not depth:
+            trace_add("stage_device_dispatch_ms", wall * 1e3)
         if new:
             self._note_new_key(rec, key)
         return out
@@ -400,35 +424,32 @@ class DeviceProfiler:
         done = []
         with self._lock:
             while self._pending:
-                rec, start, end = self._pending[0]
+                rec, start, end, outer = self._pending[0]
                 if not end.query():
                     break
                 self._pending.popleft()
-                done.append((rec, start, end))
+                done.append((rec, start, end, outer))
             left = len(self._pending)
-        for rec, start, end in done:
+        for rec, start, end, outer in done:
             seconds = start.elapsed_time(end) / 1e3
             with self._lock:
                 rec.execs += 1
                 rec.exec_seconds += seconds
             _EXEC_SECONDS.labels(fn=rec.name).observe(seconds)
-            trace_add("stage_device_exec_ms", seconds * 1e3)
+            if outer:
+                trace_add("device_exec_ms", seconds * 1e3)
         return left
 
     # ---- the exec + transfer seams ----------------------------------------
 
-    def observe_exec(self, fn: str, seconds: float) -> None:
-        """Charge already-measured device-execution wall (seams that
-        time a dispatch+sync span themselves, at a sync they make
-        anyway)."""
-        if not self.enabled:
-            return
-        rec = self._record(fn)
-        with self._lock:
-            rec.execs += 1
-            rec.exec_seconds += seconds
-        _EXEC_SECONDS.labels(fn=fn).observe(seconds)
-        trace_add("stage_device_exec_ms", seconds * 1e3)
+    def observe_wait(self, seconds: float) -> None:
+        """Charge the wall a path spent waiting on the device, at a sync
+        it makes anyway (a mesh round's tail downloads), to the trace's
+        stage_device_exec_ms: the host wall the JAX package's
+        observe_exec charges there.  The work's device seconds are the
+        seam's event pair's."""
+        if self.enabled:
+            trace_add("stage_device_exec_ms", seconds * 1e3)
 
     def device_put(self, x, device):
         """A numpy array or host tensor onto `device`, with h2d
@@ -446,19 +467,21 @@ class DeviceProfiler:
                              seconds=time.perf_counter() - t0)
         return out
 
-    def download(self, t):
+    def download(self, t, timed: bool = True):
         """THE device-to-host seam: a tensor to a host numpy array, its
         bytes charged d2h (a CPU tensor's too, as device_put does).  The
         copy syncs the stream, so the pending event pairs it passed
-        resolve here."""
+        resolve here.  `timed=False` charges the bytes alone, for a
+        download inside a span that observe_wait charges whole."""
         import numpy as np
 
         if isinstance(t, np.ndarray):
             return t
         t0 = time.perf_counter()
         out = t.detach().cpu().numpy()
-        self.charge_transfer("d2h", int(out.nbytes),
-                             seconds=time.perf_counter() - t0)
+        self.charge_transfer(
+            "d2h", int(out.nbytes),
+            seconds=time.perf_counter() - t0 if timed else 0.0)
         return out
 
     def charge_transfer(self, direction: str, nbytes: int,
@@ -595,7 +618,7 @@ profiler = DeviceProfiler()
 # module-level aliases: call sites read `deviceprof.seam(...)`,
 # `deviceprof.download(...)`
 seam = profiler.seam
-observe_exec = profiler.observe_exec
+observe_wait = profiler.observe_wait
 device_put = profiler.device_put
 download = profiler.download
 charge_transfer = profiler.charge_transfer

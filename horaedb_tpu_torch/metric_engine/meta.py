@@ -98,6 +98,7 @@ class MetaIngest:
         self._clock = clock
         self._task: Optional[asyncio.Task] = None
         self._writing = False
+        self.paused = False  # bench A/B hook (config 12)
 
     async def start(self) -> None:
         if self.config.rollup and self._engine.rollups is not None:
@@ -107,7 +108,8 @@ class MetaIngest:
         self._task = loops.spawn(
             self._loop, name="meta-ingest", owner="meta",
             period_s=self.config.interval.seconds,
-            backlog=lambda: {"writing": self._writing})
+            backlog=lambda: {"paused": self.paused,
+                             "writing": self._writing})
 
     async def stop(self) -> None:
         if self._task is not None:
@@ -119,6 +121,8 @@ class MetaIngest:
         while True:
             await asyncio.sleep(interval)
             hb.beat()
+            if self.paused:
+                continue
             try:
                 await self.scrape_once()
                 hb.ok()

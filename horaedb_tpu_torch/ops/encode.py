@@ -70,6 +70,17 @@ def h2d_bytes() -> int:
     return int(_H2D_BYTES.value)
 
 
+def pad_to(arr: np.ndarray, cap: int) -> np.ndarray:
+    """`arr` zero-padded to `cap` rows, every byte written: a window's
+    memory accounts charge its padded width, and a calloc'd tail would
+    stay unmapped (not resident) until something first wrote it."""
+    out = np.empty(cap, dtype=arr.dtype)
+    n = len(arr)
+    out[:n] = arr
+    out[n:] = 0
+    return out
+
+
 def pad_capacity(n: int) -> int:
     """Static-shape bucket for n rows: next power of two, >= MIN_CAPACITY."""
     cap = MIN_CAPACITY
@@ -239,8 +250,7 @@ def encode_batch(batch: pa.RecordBatch, capacity: Optional[int] = None,
                f"column {name!r} contains nulls; device encoding carries no "
                "null mask — drop or fill nulls before writing")
         dev, enc = encode_column(col, name)
-        padded = np.zeros(cap, dtype=dev.dtype)
-        padded[:n] = dev
+        padded = pad_to(dev, cap)
         columns[name] = padded if device is None \
             else to_device(padded, device)
         encodings[name] = enc

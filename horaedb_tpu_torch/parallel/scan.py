@@ -39,6 +39,7 @@ be a sync.
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Optional
 
 import numpy as np
@@ -101,18 +102,19 @@ class ShardedArray:
     def block(self, *split_index: int):
         return self.blocks[self._owner(split_index)]
 
-    def row(self, t: int) -> np.ndarray:
+    def row(self, t: int, timed: bool = True) -> np.ndarray:
         """Global leading index `t` on the host (the download of one
         slot's rows; split series blocks concatenate along the next
-        axis)."""
+        axis).  `timed` as deviceprof.download takes it."""
         lead = self.mesh.shape[self.spec[0]]
         per = self.shape[0] // lead
         ti, r = divmod(int(t), per)
         if len(self.spec) == 1:
-            return deviceprof.download(self.block(ti)[r])
+            return deviceprof.download(self.block(ti)[r], timed)
         ser = self.mesh.shape[self.spec[1]]
-        return np.concatenate([deviceprof.download(self.block(ti, s)[r])
-                               for s in range(ser)], axis=0)
+        return np.concatenate(
+            [deviceprof.download(self.block(ti, s)[r], timed)
+             for s in range(ser)], axis=0)
 
     def numpy(self) -> np.ndarray:
         return np.stack([self.row(t) for t in range(self.shape[0])]) \
@@ -149,6 +151,44 @@ def _place(mesh: Mesh, arr, spec: tuple) -> ShardedArray:
                             (i - span[dev][0] + 1) * k]
               for dev, i in zip(mesh.devices, index)]
     return ShardedArray(mesh, blocks, (axis,), arr.shape)
+
+
+def stack_time_axis(mesh: Mesh, rows: list, cap: int,
+                    dtype) -> ShardedArray:
+    """The (time, cap) matrix whose slot t holds `rows[t]` zero-padded
+    to `cap` (slots past len(rows) all zero), placed as shard_time_axis
+    places it, but assembled on each device: every slot's real rows
+    upload straight into a zeroed device block, so no host stack is
+    built and no padding crosses the bus.  The whole assembly, the
+    blocks' allocation included, is charged as one h2d transfer of the
+    real rows' bytes."""
+    import torch
+
+    t0 = time.perf_counter()
+    n = mesh.shape[TIME_AXIS]
+    ax_pos = mesh.axis_names.index(TIME_AXIS)
+    index = [mesh.coords(slot)[ax_pos] for slot in range(mesh.size)]
+    span: dict = {}
+    for dev, i in zip(mesh.devices, index):
+        lo, hi = span.get(dev, (i, i))
+        span[dev] = (min(lo, i), max(hi, i))
+    tdtype = torch.from_numpy(np.zeros(0, dtype=dtype)).dtype
+    placed = {}
+    nbytes = 0
+    for dev, (lo, hi) in span.items():
+        blk = torch.zeros((hi - lo + 1, cap), dtype=tdtype, device=dev)
+        for t in range(lo, min(hi + 1, len(rows))):
+            if len(rows[t]):
+                src = torch.from_numpy(np.ascontiguousarray(rows[t]))
+                blk[t - lo, :len(src)].copy_(src)
+                nbytes += int(src.nbytes)
+        placed[dev] = blk
+    blocks = [placed[dev][i - span[dev][0]:i - span[dev][0] + 1]
+              for dev, i in zip(mesh.devices, index)]
+    out = ShardedArray(mesh, blocks, (TIME_AXIS,), (n, cap))
+    deviceprof.charge_transfer("h2d", nbytes,
+                               seconds=time.perf_counter() - t0)
+    return out
 
 
 def shard_leading_axis(mesh: Mesh, arr) -> ShardedArray:

@@ -622,16 +622,22 @@ class ParquetReader:
         memledger.reset_device_high_water()
 
     def _scan_cache_resident_bytes(self) -> int:
-        """Actual bytes the window cache holds: column buffers at their
-        padded widths plus MATERIALIZED memo bytes — the ledger's pull
-        gauge (scan_cache.total_bytes charges the worst-case memo
-        allowance up front instead)."""
+        """Actual host bytes the window cache holds: column buffers at
+        their padded widths plus MATERIALIZED memo bytes — the ledger's
+        pull gauge (scan_cache.total_bytes charges the worst-case memo
+        allowance up front instead).  A CUDA reader's per-window device
+        columns (the "dev_cols" memo) live on the card: they are not
+        host RSS, and memory_device_bytes covers them."""
         total = 0
         for windows in self.scan_cache.values():
             for w in windows:
                 total += sum(int(c.dtype.itemsize) * w.capacity
                              for c in w.columns.values())
                 total += int(w.memo_bytes)
+                if self.on_cuda:
+                    total -= sum(int(a.nbytes)
+                                 for key, cols in list(w.memo.items())
+                                 if key[0] == "dev_cols" for a in cols)
         return total
 
     def drop_hbm_state(self) -> None:
@@ -1290,6 +1296,24 @@ class ParquetReader:
         another), never on the event loop (ref: dedicated runtimes,
         storage.rs:91-104)."""
         return await parquet_io._run(self.runtimes, pool, fn, *args)
+
+    async def _run_round(self, fn, *args, pool: str) -> tuple:
+        """_run_pool for a pipeline device round: (result, seconds), the
+        seconds from the submit to the round's own end on its worker.
+        The pool-queue wait is the stage's; the event loop's delay in
+        resuming the caller afterwards is the consumer's (it is busy
+        with the fetch and decode stages), so it is left out."""
+        t0 = time.perf_counter()
+        end: list = []
+
+        def job():
+            try:
+                return fn(*args)
+            finally:
+                end.append(time.perf_counter())
+
+        out = await self._run_pool(job, pool=pool)
+        return out, end[0] - t0
 
     async def _read_segment_any(self, seg: SegmentPlan, plan: ScanPlan,
                                 runner=None):
@@ -2148,11 +2172,10 @@ class ParquetReader:
             # the stage's seconds are observed around the round itself
             # (pool-queue wait included), not dispatch-to-settle, which
             # would absorb the consumer's waits on fetch and decode
-            t0 = time.perf_counter()
-            out = await self._run_pool(self._flush_host_round, chunk, spec,
-                                       plan, pool=plan.pool)
+            out, seconds = await self._run_round(
+                self._flush_host_round, chunk, spec, plan, pool=plan.pool)
             pipeline_mod.observe_stage(
-                "device", time.perf_counter() - t0,
+                "device", seconds,
                 rows=sum(w.n_valid for _s, w, _p in chunk))
             return out
 
@@ -2532,14 +2555,14 @@ class ParquetReader:
         t_dl = time.perf_counter()
         for s, a, b in runs:
             lo_run, grids = self._slice_mesh_part(out, b, g, int(lo[b]),
-                                                  width, spec)
+                                                  width, spec, timed=False)
             cells += sum(int(v.shape[0] * v.shape[1])
                          for v in grids.values())
             entries.append((s, (group_space, lo_run, grids), b - a + 1))
-        # the tail downloads synced the round: its device time lands
-        # here, and the downloads charged their own d2h bytes
-        deviceprof.observe_exec("mesh_run_partials",
-                                time.perf_counter() - t_dl)
+        # the tail downloads synced the round: the wall spent waiting
+        # lands here, and the downloads charged their own d2h bytes
+        # (untimed: their wall is this span's)
+        deviceprof.observe_wait(time.perf_counter() - t_dl)
         _observe_stage("mesh_aggregate", time.perf_counter() - t0)
         _MESH_PARTS.inc(len(entries))
         _MESH_PART_CELLS.inc(cells)
@@ -2551,16 +2574,19 @@ class ParquetReader:
 
     @staticmethod
     def _slice_mesh_part(out: dict, tail_slot: int, g: int, lo_run: int,
-                         width: int, spec: AggregateSpec):
+                         width: int, spec: AggregateSpec,
+                         timed: bool = True):
         """THE mesh part emission, shared by the streaming download and
         the top-k winner pass: tail slot `tail_slot`'s combined grids
         sliced to the real group count (g < 0 keeps every row, the
         winner-sliced shape) and the query-clipped width, window-local
         last_ts rebased to range_start-relative int64 — the emission
-        _flush_host_round's parts use."""
+        _flush_host_round's parts use.  `timed=False` inside a span that
+        observe_wait charges whole."""
         w_eff = max(0, min(width, spec.num_buckets - lo_run))
         rows = slice(None) if g < 0 else slice(0, g)
-        grids = {k: np.ascontiguousarray(v.row(tail_slot)[rows, :w_eff])
+        grids = {k: np.ascontiguousarray(
+                     v.row(tail_slot, timed)[rows, :w_eff])
                  for k, v in out.items()}
         if "last_ts" in grids:
             lt = grids["last_ts"].astype(np.int64)
@@ -2670,6 +2696,7 @@ class ParquetReader:
         from horaedb_tpu_torch.parallel.scan import (
             mesh_decode_partials,
             shard_time_axis,
+            stack_time_axis,
         )
         from horaedb_tpu_torch.storage import pipeline as pipeline_mod
 
@@ -2722,10 +2749,15 @@ class ParquetReader:
             offs_dev, shift_dev, lo_dev = cached[ncol + ncst:]
             upload_bytes = 0
         else:
-            # one (T, cap) matrix per upload column; padding slots all
-            # zero with n_valid 0 (every row invalid)
-            cols_np = [np.zeros((T, cap), dtype=dp0.es.columns[nm].dtype)
-                       for nm in dp0.upload_names]
+            # one (T, cap) matrix per upload column, assembled on the
+            # device from each slot's column; padding slots all zero
+            # with n_valid 0 (every row invalid)
+            cols_dev = tuple(
+                stack_time_axis(mesh, [dp.es.columns[nm] for dp in dps],
+                                cap, dp0.es.columns[nm].dtype)
+                for nm in dp0.upload_names)
+            upload_bytes = sum(int(dp.es.columns[nm].nbytes)
+                               for dp in dps for nm in dp0.upload_names)
             shift_np = np.zeros(T, dtype=np.int32)
             lo_np = np.zeros(T, dtype=np.int32)
             consts_np = [np.tile(np.asarray(c, np.int32), (T, 1))
@@ -2736,11 +2768,8 @@ class ParquetReader:
                 offs_np[:, 0] = 0
             else:
                 offs_np = np.zeros((T, 1), dtype=np.int32)
-            upload_bytes = sum(int(c.nbytes) for c in cols_np)
             for t, (_s, dp) in enumerate(chunk):
                 n = dp.es.n
-                for j, nm in enumerate(dp0.upload_names):
-                    cols_np[j][t, :n] = dp.es.columns[nm]
                 shift_np[t] = dp.shift
                 lo_np[t] = dp.lo
                 for ci, c in enumerate(dp.consts):
@@ -2754,7 +2783,6 @@ class ParquetReader:
                     offs_np[t, :len(real)] = real
                     offs_np[t, len(rl):] = cap
                     offs_np[t, len(rl)] = n
-            cols_dev = tuple(put(c) for c in cols_np)
             consts_dev = tuple(put(c) for c in consts_np)
             offs_dev, shift_dev, lo_dev = (put(offs_np), put(shift_np),
                                            put(lo_np))
@@ -2790,7 +2818,8 @@ class ParquetReader:
             if i + 1 < len(chunk) and seg_ids[i + 1] == seg_ids[i]:
                 continue
             s, dp = chunk[i]
-            grids = {k: np.ascontiguousarray(v.row(i)[:dp.g, :dp.w_eff])
+            grids = {k: np.ascontiguousarray(
+                         v.row(i, timed=False)[:dp.g, :dp.w_eff])
                      for k, v in out.items()}
             if "last_ts" in grids:
                 lt = grids["last_ts"].astype(np.int64)
@@ -2801,8 +2830,7 @@ class ParquetReader:
             src_rows += sum(dp2.es.n for _s2, dp2 in chunk[a:i + 1])
             entries.append((s, (dp.values, dp.lo, grids), i - a + 1))
             a = i + 1
-        deviceprof.observe_exec("mesh_decode_partials",
-                                time.perf_counter() - t_dl)
+        deviceprof.observe_wait(time.perf_counter() - t_dl)
         _MESH_PARTS.inc(len(entries))
         _MESH_PART_CELLS.inc(cells)
         deviceprof.record_round(
@@ -2848,11 +2876,11 @@ class ParquetReader:
             apply(await t)
 
         async def flush_round(chunk: list, salt: int) -> list:
-            t0 = time.perf_counter()
-            out = await self._run_pool(self._flush_mesh_round, chunk, spec,
-                                       plan, salt, pool=plan.pool)
+            out, seconds = await self._run_round(
+                self._flush_mesh_round, chunk, spec, plan, salt,
+                pool=plan.pool)
             pipeline_mod.observe_stage(
-                "device", time.perf_counter() - t0,
+                "device", seconds,
                 rows=sum(w.n_valid for _s, w, _p in chunk))
             return out
 
@@ -3772,9 +3800,7 @@ def _encoded_to_device_batch(es: sidecar.EncodedSegment
     cap = encode.pad_capacity(es.n)
     columns = {}
     for name, arr in es.columns.items():
-        padded = np.zeros(cap, dtype=arr.dtype)
-        padded[:es.n] = arr
-        columns[name] = padded
+        columns[name] = encode.pad_to(arr, cap)
     return encode.DeviceBatch(columns=columns, encodings=es.encodings,
                               n_valid=es.n, capacity=cap)
 

@@ -81,12 +81,12 @@ def test_tsbs_record_batches_equal(case, region):
     assert port_tsbs.REGIONS == ref_tsbs.REGIONS
 
 
-def test_runners_are_the_suite_configs_2_to_10():
-    assert sorted(port_suite.RUNNERS) == list(range(2, 11))
-    assert set(port_suite.RUNNERS) <= set(ref_suite.RUNNERS)
+def test_runners_are_the_suite_configs_2_to_23():
+    assert sorted(port_suite.RUNNERS) == list(range(2, 24))
+    assert sorted(port_suite.RUNNERS) == sorted(ref_suite.RUNNERS)
 
 
-@pytest.mark.parametrize("config", sorted(port_suite.RUNNERS))
+@pytest.mark.parametrize("config", sorted(DETERMINISTIC))
 def test_runner_matches_the_jax_package(config):
     ref = ref_suite.RUNNERS[config](rows=20_000, iters=2)
     got = port_suite.RUNNERS[config](rows=20_000, iters=2, device="cpu")
@@ -199,10 +199,29 @@ def test_bench_main_raises_without_a_card(monkeypatch, capsys):
     assert capsys.readouterr().out == ""
 
 
-@pytest.mark.parametrize("config", [11, 17, 23])
-def test_bench_main_raises_on_unported_configs(monkeypatch, config):
-    monkeypatch.setenv("BENCH_CONFIG", str(config))
-    with pytest.raises(Error, match="A 12b"):
+@pytest.mark.parametrize("config", range(11, 24))
+def test_suite_runner_raises_without_a_card(monkeypatch, config):
+    _no_card(monkeypatch)
+    with pytest.raises(Error, match="CUDA"):
+        port_suite.RUNNERS[config](20_000, 2)
+
+
+def test_bench_main_runs_config_12_on_the_cpu(monkeypatch, capsys):
+    """BENCH_CONFIG=12 through `python -m horaedb_tpu_torch.bench
+    --device cpu`: one result line, labelled a CPU run."""
+    monkeypatch.setenv("BENCH_CONFIG", "12")
+    monkeypatch.setenv("BENCH_ROWS", "20000")
+    monkeypatch.setenv("BENCH_ITERS", "2")
+    port_main.main(["--device", "cpu"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["unit"] == "ms" and line["rows"] == 20_000
+    assert line["backend"] == "cpu" and line["fallback"] is True
+    assert not any(line["launches"].values())
+
+
+def test_bench_main_rejects_configs_past_23(monkeypatch):
+    monkeypatch.setenv("BENCH_CONFIG", "24")
+    with pytest.raises(Error, match="0-23"):
         port_main.main(["--device", "cpu"])
 
 

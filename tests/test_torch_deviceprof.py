@@ -9,9 +9,9 @@ have no counterpart.
 
 Where both packages take the same inputs (the round timeline, the storm
 episodes, the TOML), the JAX package runs beside the port and the two
-must agree.  On the CPU there are no CUDA events: device seconds come
-only from observe_exec there, so the cold-scan twin checks dispatch and
-transfer counters, not stage_device_exec_ms."""
+must agree.  On the CPU there are no CUDA events and so no device
+seconds, and the cold-scan twin checks dispatch and transfer counters,
+not stage_device_exec_ms."""
 
 import asyncio
 import contextlib
@@ -135,6 +135,39 @@ class TestSeamLedger:
         g(_t(4), 2)
         g(_t(4), 3)
         assert prof._record("unit_runtime").new_keys == 1
+
+    def test_nested_seam_charges_the_trace_once(self):
+        """A seam called inside another seam's body keeps its own ledger
+        row, but only the outermost seam charges the trace's dispatch
+        wall (the inner walls are inside it), also after an outer seam
+        raised."""
+        prof = DeviceProfiler()
+        inner = prof.seam(lambda x: x + 1, name="unit_inner")
+        outer = prof.seam(lambda x: inner(inner(inner(x))),
+                          name="unit_outer")
+
+        def fail(x):
+            inner(x)
+            raise ValueError("boom")
+
+        failing = prof.seam(fail, name="unit_failing")
+        rin = prof._record("unit_inner")
+        tracing.recorder.configure(enabled=True, sample_rate=1.0)
+        trace = tracing.recorder.start("/query")
+        with tracing.trace_scope(trace):
+            outer(_t(8))
+            with pytest.raises(ValueError):
+                failing(_t(8))
+            d0 = rin.dispatch_seconds
+            inner(_t(8))
+            top = rin.dispatch_seconds - d0
+        tracing.recorder.finish(trace)
+        assert rin.dispatches == 5
+        # a seam that raised recorded no call; its inner one did
+        assert prof._record("unit_failing").dispatches == 0
+        outer_s = prof._record("unit_outer").dispatch_seconds
+        assert trace.counters["stage_device_dispatch_ms"] == \
+            pytest.approx((outer_s + top) * 1e3)
 
     def test_decorator_forms_register(self):
         prof = DeviceProfiler()

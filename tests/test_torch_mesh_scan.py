@@ -621,6 +621,40 @@ def test_fallback_wider_than_host_round(runtimes):
     run(go())
 
 
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_stack_time_axis_is_the_placed_host_stack(dtype):
+    """The mesh decode round's column stacks, assembled on the device
+    from each slot's column, equal the zero-padded host stack that
+    shard_time_axis places, block for block, and charge only the real
+    rows' bytes as h2d."""
+    import torch
+
+    from horaedb_tpu_torch.common import deviceprof
+    from horaedb_tpu_torch.parallel import scan as pscan
+
+    mesh = mesh_mod.scan_mesh(time=4, series=2, devices=["cpu"] * 8)
+    rng = np.random.default_rng(SEED)
+    rows = [(rng.random(n) * 1000).astype(dtype) for n in (5, 0, 7)]
+    cap = 8
+    host = np.zeros((4, cap), dtype=dtype)
+    for t, r in enumerate(rows):
+        host[t, :len(r)] = r
+    prof = deviceprof.profiler
+    was = prof.enabled
+    prof.configure(enabled=True)
+    try:
+        h2d0 = prof.transfer["h2d"]["bytes"]
+        got = pscan.stack_time_axis(mesh, rows, cap, dtype)
+        assert prof.transfer["h2d"]["bytes"] - h2d0 == 12 * 4
+    finally:
+        prof.configure(enabled=was)
+    want = pscan.shard_time_axis(mesh, host)
+    assert got.shape == want.shape and got.spec == want.spec
+    for a, b in zip(got.blocks, want.blocks):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    np.testing.assert_array_equal(got.numpy(), host)
+
+
 def test_bad_mesh_shapes_rejected_at_open(runtimes):
     async def go():
         with pytest.raises(Error, match="power of two"):
