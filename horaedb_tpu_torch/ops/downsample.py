@@ -92,6 +92,25 @@ def combine_partial_pair(cur: dict, prev: dict) -> dict:
     return out
 
 
+def canonical_nan(a):
+    """`a` (a numpy array or a tensor) with every NaN as the quiet NaN
+    (0x7fc00000 in float32), the bits the JAX package's min and max grids
+    hold for a NaN sample.  The card's kernel leaves a NaN cell's min as
+    0xffffffff and its max as 0x7fffffff (the images that win its
+    integer folds), and torch's vectorised minimum and maximum may return
+    0xffffffff; the grids keep those bits through every fold and take
+    the quiet NaN at their three exits: read.fused_finalize,
+    read.ParquetReader.finalize_aggregate and finalize_aggregate here.
+    A negative NaN sample (0xffc00000) also reads 0x7fc00000, where the
+    JAX package keeps its sign (ROADMAP C 18)."""
+    if isinstance(a, np.ndarray):
+        nan = np.isnan(a)
+        return np.where(nan, a.dtype.type(np.nan), a) if nan.any() else a
+    import torch
+
+    return torch.where(torch.isnan(a), torch.full_like(a, float("nan")), a)
+
+
 def finalize_aggregate(partial: dict, which: tuple = ALL_AGGS) -> dict:
     """Combined partial grids -> user-facing aggregates.  Empty cells:
     count 0, sum 0, min +inf, max -inf, avg/last NaN."""
@@ -108,9 +127,9 @@ def finalize_aggregate(partial: dict, which: tuple = ALL_AGGS) -> dict:
         out["avg"] = torch.where(empty, nan,
                                  partial["sum"] / count.clamp(min=1.0))
     if "min" in partial and "min" in want:
-        out["min"] = partial["min"]
+        out["min"] = canonical_nan(partial["min"])
     if "max" in partial and "max" in want:
-        out["max"] = partial["max"]
+        out["max"] = canonical_nan(partial["max"])
     if "last" in partial and "last" in want:
         out["last"] = torch.where(empty, nan, partial["last"])
     return out

@@ -375,6 +375,18 @@ class RollupManager:
         self.wake()
         return spec
 
+    async def unregister(self, metric: str, field: str = "value") -> bool:
+        """Drop a standing query and delete its state object; False when
+        none was registered.  Its tier cells stay in the tier tables."""
+        spec = self.specs.pop((metric, field), None)
+        if spec is None:
+            return False
+        try:
+            await self.store.delete(self._state_path(spec))
+        except NotFoundError:
+            pass
+        return True
+
     def _state_path(self, spec: RollupSpec) -> str:
         return (f"{self.state_prefix}/"
                 f"{spec.metric_id:016x}_{spec.field_id:016x}.json")

@@ -288,8 +288,12 @@ def sparse_combine_parts(parts: list[tuple[np.ndarray, int, dict]],
                                                              values)
         _fold_part(acc, rows, slice(lo, lo + width), p)
     _TOUCHED.inc(touched)
+    trace_add("scan_combine_touched_cells", touched)
+    trace_add("scan_combine_grid_cells", g * num_buckets)
     out = _finalize_in_place(acc, requested, want)
     _MATERIALIZED.inc(g * num_buckets * len(out))
+    trace_add("scan_combine_materialized_cells",
+              g * num_buckets * len(out))
     return all_values, out
 
 
@@ -546,7 +550,8 @@ class PartsMemo:
     Event-loop owned, like the scan cache."""
 
     def __init__(self, max_bytes: int):
-        self.lru = ByteLRU(max_bytes, hits=_MEMO_HITS, misses=_MEMO_MISSES)
+        self.lru = ByteLRU(max_bytes, hits=_MEMO_HITS,
+                           misses=_MEMO_MISSES, trace_tier="parts_memo")
 
     @property
     def enabled(self) -> bool:
@@ -606,6 +611,7 @@ class PartsMemo:
                                             lt + delta, lt)
             out.append((values, nl + cut, grids))
         _MEMO_PARTS.inc(len(out))
+        trace_add("scan_combine_memo_parts", len(out))
         return out
 
     def store(self, seg_key: tuple, spec, pred_key: str,

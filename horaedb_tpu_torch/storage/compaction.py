@@ -44,7 +44,7 @@ from horaedb_tpu_torch.storage.types import (
     Timestamp,
     TimeRange,
 )
-from horaedb_tpu_torch.utils import registry
+from horaedb_tpu_torch.utils import WIDE_BUCKETS, op_trace, registry, span
 
 if TYPE_CHECKING:
     from horaedb_tpu_torch.storage.storage import CloudObjectStorage
@@ -220,6 +220,11 @@ class Executor:
         """TTL garbage collection: drop expired SSTs from the manifest,
         then best-effort delete the objects.  No rewrite, no memory gate
         (nothing is read)."""
+        with op_trace("ttl_gc", slow_s=120.0,
+                      expireds=len(task.expireds)):
+            await self._gc_expired_traced(task)
+
+    async def _gc_expired_traced(self, task: Task) -> None:
         ok = False
         try:
             to_deletes = [f.id for f in task.expireds]
@@ -236,6 +241,18 @@ class Executor:
                 self._unmark(task)
 
     async def _do_compaction(self, task: Task) -> None:
+        # each rewrite is a background op with its own trace tree (the
+        # store's GETs and bytes attribute to it); "slow" for a
+        # compaction is ten minutes, and the compaction.execute span's
+        # histogram takes the wide buckets, as rewrites outlast 10 s
+        with op_trace("compaction", slow_s=600.0,
+                      inputs=len(task.inputs), bytes=task.input_size):
+            with span("compaction.execute", buckets=WIDE_BUCKETS,
+                      inputs=len(task.inputs),
+                      expireds=len(task.expireds), bytes=task.input_size):
+                await self._do_compaction_traced(task)
+
+    async def _do_compaction_traced(self, task: Task) -> None:
         self._trigger_more()
         storage = self.storage
         time_range = task.inputs[0].meta.time_range

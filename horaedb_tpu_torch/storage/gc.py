@@ -40,7 +40,7 @@ from horaedb_tpu_torch.storage.manifest import (
 from horaedb_tpu_torch.storage.manifest.encoding import decode_manifest_update
 from horaedb_tpu_torch.storage.sidecar import SIDECAR_SUFFIX
 from horaedb_tpu_torch.storage.sst import DATA_PREFIX
-from horaedb_tpu_torch.utils import registry
+from horaedb_tpu_torch.utils import op_trace, registry
 
 logger = logging.getLogger(__name__)
 
@@ -86,6 +86,10 @@ class Scrubber:
     grace_period_s: float
     first_seen: dict[str, float] = field(default_factory=dict)
 
+    def _now(self) -> float:
+        """The grace clock (a seam tests replace)."""
+        return time.monotonic()
+
     async def referenced_ids(self) -> tuple[set[int], int]:
         """Union of the live manifest cache and a store-side fold of
         snapshot + deltas (add-all-then-delete-all, the merger's own
@@ -119,11 +123,18 @@ class Scrubber:
     async def scrub(self, grace_override_s: Optional[float] = None
                     ) -> ScrubReport:
         """One reconcile pass.  Never raises on per-object failures —
-        a failed delete is an orphan for the next pass."""
+        a failed delete is an orphan for the next pass.  Each pass is its
+        own op trace (the store's list/get/delete traffic attributes to
+        it), whether the scrub loop or POST /admin/scrub ran it."""
+        with op_trace("scrub", slow_s=120.0, root=self.root_path):
+            return await self._scrub_traced(grace_override_s)
+
+    async def _scrub_traced(self, grace_override_s: Optional[float]
+                            ) -> ScrubReport:
         grace = (self.grace_period_s if grace_override_s is None
                  else grace_override_s)
         report = ScrubReport()
-        now = time.monotonic()
+        now = self._now()
 
         refs, delta_files = await self.referenced_ids()
         report.referenced = len(refs)

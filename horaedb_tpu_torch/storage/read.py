@@ -115,7 +115,8 @@ from horaedb_tpu_torch.objstore import NotFoundError, ObjectStore
 from horaedb_tpu_torch.ops import bucket_agg, device_decode, encode
 from horaedb_tpu_torch.ops import filter as filter_ops
 from horaedb_tpu_torch.ops import merge as merge_ops
-from horaedb_tpu_torch.ops.downsample import ALL_AGGS, canonical_which
+from horaedb_tpu_torch.ops.downsample import (ALL_AGGS, canonical_nan,
+                                              canonical_which)
 from horaedb_tpu_torch.storage import combine as combine_mod
 from horaedb_tpu_torch.storage import parquet_io, sidecar
 from horaedb_tpu_torch.storage.config import StorageConfig, UpdateMode
@@ -132,10 +133,12 @@ from horaedb_tpu_torch.storage.types import (
     StorageSchema,
     TimeRange,
 )
-from horaedb_tpu_torch.utils import registry, trace_add
+from horaedb_tpu_torch.utils import active_trace, registry, trace_add
 
 logger = logging.getLogger(__name__)
 
+_SCAN_LATENCY = registry.histogram(
+    "storage_scan_seconds", "merge-scan latency per segment")
 _ROWS_SCANNED = registry.counter(
     "storage_rows_scanned_total", "rows produced by merge-scan")
 # one labeled family per unit (stage= label); per-query attribution
@@ -244,9 +247,26 @@ _REPLAY_MISSES = registry.counter(
     "scan_replay_misses_total", "fused-replay plan cache misses")
 _STACK_HITS = registry.counter(
     "scan_stack_cache_hits_total",
-    "round-stack LRU hits (column and remap/shift/lo entries)")
+    "per-range round-stack LRU hits (small remap/shift/lo entries)")
 _STACK_MISSES = registry.counter(
-    "scan_stack_cache_misses_total", "round-stack LRU misses")
+    "scan_stack_cache_misses_total",
+    "per-range round-stack LRU misses")
+_COLSTACK_HITS = registry.counter(
+    "scan_colstack_cache_hits_total",
+    "range-independent column-stack LRU hits (the big ts/gid/val "
+    "arrays — the expensive reuse)")
+_COLSTACK_MISSES = registry.counter(
+    "scan_colstack_cache_misses_total",
+    "range-independent column-stack LRU misses")
+
+
+def _stack_counters(key: tuple):
+    # the two entry families have different hit economics: conflating
+    # them would report ~50% on varied-range workloads even when the
+    # expensive column reuse is perfect
+    if key and key[0] == "colstack":
+        return _COLSTACK_HITS, _COLSTACK_MISSES
+    return _STACK_HITS, _STACK_MISSES
 
 # ---- mesh telemetry ([scan] mesh_devices, [scan.mesh]) ---------------------
 _MESH_ROUNDS = registry.counter(
@@ -658,6 +678,30 @@ class ParquetReader:
                     w.memo.clear()
                     w.memo_bytes = 0
 
+    def _mem_delta_marks(self) -> Optional[list]:
+        """Per-trace memory attribution: this reader's cache balances at
+        scan start; _mem_delta_attribute() adds the deltas to the trace
+        as mem_account_delta_<kind> counters, so a cold scan's trace
+        shows which tier its resident bytes landed in.  Reads the caches'
+        charged totals, integer reads only: this runs twice per traced
+        query.  None (no ambient trace, or the ledger disabled) skips
+        the bookwork."""
+        if not memledger.enabled or active_trace() is None:
+            return None
+        return [("scan_cache", self.scan_cache.total_bytes),
+                ("stack_cache", self._stack_cache_bytes),
+                ("encoded_cache", self.encoded_cache.total_bytes),
+                ("parts_memo", self.parts_memo.lru.total_bytes)]
+
+    def _mem_delta_attribute(self, marks: Optional[list]) -> None:
+        if not marks:
+            return
+        now = dict(self._mem_delta_marks() or ())
+        for kind, before in marks:
+            delta = now.get(kind, before) - before
+            if delta:
+                trace_add(f"mem_account_delta_{kind}", delta)
+
     def cache_stats(self) -> dict:
         """Every reader-owned cache tier's residency and effectiveness,
         one dict per tier, and the pipeline's settings and high-water."""
@@ -670,11 +714,17 @@ class ParquetReader:
                 "misses": self.scan_cache.misses,
             },
             "encoded_cache": self.encoded_cache.stats(),
+            "parts_memo": self.parts_memo.stats(),
             "pipeline": {
                 "enabled": self.pipeline_on(),
                 "depth": self.config.scan.pipeline.depth,
                 "inflight_bytes": self.config.scan.pipeline.inflight_bytes,
                 "high_water_bytes": self._pipeline_high_water,
+            },
+            "decode": {
+                "mode": self.config.scan.decode.mode,
+                "resolved": self._decode_mode(),
+                "max_upload_bytes": self.config.scan.decode.max_upload_bytes,
             },
             "stack_cache": {
                 "entries": len(self._stack_cache),
@@ -752,6 +802,7 @@ class ParquetReader:
     async def execute(self, plan: ScanPlan) -> AsyncIterator[pa.RecordBatch]:
         """Row scan: one Arrow batch per non-empty merge window, in
         segment order."""
+        marks = self._mem_delta_marks()
         seg_iter = self.execute_segments(plan)
         try:
             async for _seg_start, batch in seg_iter:
@@ -759,6 +810,7 @@ class ParquetReader:
                     yield batch
         finally:
             await seg_iter.aclose()
+            self._mem_delta_attribute(marks)
 
     async def execute_segments(self, plan: ScanPlan):
         """Row scan with segment attribution: (segment_start, batch) per
@@ -770,12 +822,12 @@ class ParquetReader:
         if plan.mode is not UpdateMode.OVERWRITE:
             feed = self._segment_feed(plan, plan.segments)
             try:
-                async for seg, is_streamed, table, _read_s in feed:
+                async for seg, is_streamed, table, read_s in feed:
                     # cooperative deadline checkpoint: an expired query
                     # aborts between segments, not after a full scan
                     deadline_checkpoint()
                     async for out in self._append_segment(
-                            seg, is_streamed, table, plan):
+                            seg, is_streamed, table, read_s, plan):
                         yield out
             finally:
                 # an abandoned consumer tears the prefetch down now
@@ -783,42 +835,53 @@ class ParquetReader:
             return
         windows_iter = self._cached_windows(plan)
         try:
-            async for seg, windows in windows_iter:
-                for w in windows:
+            async for seg, windows, read_s in windows_iter:
+                elapsed = 0.0  # decode work only: a yield suspends into
+                for w in windows:  # the consumer, not scan time
                     # per-window deadline checkpoint (the merge loop's
                     # cooperative cancellation point)
                     deadline_checkpoint()
+                    t0 = time.perf_counter()
                     part = await self._run_pool(
                         self._window_to_arrow, w,
                         list(seg.columns), plan, pool=plan.pool)
                     if part is not None and part.num_rows:
                         part = self._strip_builtin(part, plan)
+                    elapsed += time.perf_counter() - t0
+                    if part is not None and part.num_rows:
                         _ROWS_SCANNED.inc(part.num_rows)
                         yield seg.segment_start, part
+                _SCAN_LATENCY.observe(read_s + elapsed)
                 yield seg.segment_start, None
         finally:
             await windows_iter.aclose()
 
     async def _append_segment(self, seg: SegmentPlan, is_streamed: bool,
-                              table, plan: ScanPlan):
+                              table, read_s: float, plan: ScanPlan):
         """One Append-mode segment's host merge, streamed or bulk.
         Yields (segment_start, batch) parts, then the completion
         marker.  A streamed segment merges window by window, so the
         host bound holds for Append tables too."""
         if is_streamed:
+            spent = 0.0
             async for batch in self._stream_window_batches(
                     seg, plan, strict_no_replay=True):
                 deadline_checkpoint()
+                t0 = time.perf_counter()
                 part = await self._run_pool(
                     self._merge_segment_table,
                     pa.Table.from_batches([batch]), plan, pool=plan.pool)
+                spent += time.perf_counter() - t0
                 if part is not None and part.num_rows:
                     _ROWS_SCANNED.inc(part.num_rows)
                     yield seg.segment_start, part
+            _SCAN_LATENCY.observe(spent)
             yield seg.segment_start, None
             return
+        t0 = time.perf_counter()
         batch = await self._run_pool(self._merge_segment_table, table,
                                      plan, pool=plan.pool)
+        _SCAN_LATENCY.observe(read_s + (time.perf_counter() - t0))
         if batch is not None and batch.num_rows:
             _ROWS_SCANNED.inc(batch.num_rows)
             yield seg.segment_start, batch
@@ -906,7 +969,8 @@ class ParquetReader:
             tuple(seg.columns) + (plan.pushdown_key,))
 
     async def _cached_windows(self, plan: ScanPlan):
-        """Per segment, in plan order, yield (seg, post-merge windows) —
+        """Per segment, in plan order, yield (seg, post-merge windows,
+        read_seconds; 0.0 for a cached segment) —
         from the scan cache when the segment's (SST set, columns,
         pushdown) is unchanged, else by reading and merging it and
         populating the cache.  The reads run through the pipeline
@@ -956,13 +1020,13 @@ class ParquetReader:
                 # instead of finishing a doomed scan
                 deadline_checkpoint()
                 if id(seg) in cached:
-                    yield seg, cached[id(seg)]
+                    yield seg, cached[id(seg)], 0.0
                     continue
-                read_seg, is_streamed, table, _read_s = \
+                read_seg, is_streamed, table, read_s = \
                     await feed.__anext__()
                 ensure(read_seg is seg, "segment feed out of plan order")
                 if is_streamed:
-                    windows, _read_s = await self._read_streamed_windows(
+                    windows, read_s = await self._read_streamed_windows(
                         seg, plan)
                 elif table.num_rows:
                     windows = await self._run_pool(
@@ -972,7 +1036,7 @@ class ParquetReader:
                 del table
                 if plan.use_cache and _cacheable_windows(windows):
                     self.scan_cache.put(self._cache_key(seg, plan), windows)
-                yield seg, windows
+                yield seg, windows, read_s
         finally:
             await feed.aclose()
 
@@ -1025,13 +1089,13 @@ class ParquetReader:
                 # position as the pump's
                 deadline_checkpoint()
                 if id(seg) in cached:
-                    yield seg, cached[id(seg)]
+                    yield seg, cached[id(seg)], 0.0
                     continue
-                got, windows, _read_s = await pipe.next_segment()
+                got, windows, read_s = await pipe.next_segment()
                 ensure(got is seg, "scan pipeline out of plan order")
                 if plan.use_cache and _cacheable_windows(windows):
                     self.scan_cache.put(self._cache_key(seg, plan), windows)
-                yield seg, windows
+                yield seg, windows, read_s
         finally:
             # deterministic teardown: cancels the stage tasks and AWAITS
             # them, draining any in-flight pool job before the caller
@@ -1056,7 +1120,7 @@ class ParquetReader:
         scan_host_perm = merge_ops.merge_impl() == "host_perm"
         feed = self._segment_feed(plan, to_read)
         # buffer entries: [seg, windows (filled in round order),
-        #                  outstanding window count]
+        #                  outstanding window count, read seconds]
         buffer: list[list] = []
         pending: list = []
 
@@ -1119,25 +1183,25 @@ class ParquetReader:
                 return self._merge_segment(table, plan)
             return self._unmerged_window_descs(table)
 
-        def done(seg0, windows):
+        def done(seg0, windows, read_s):
             if plan.use_cache and id(seg0) not in cached \
                     and _cacheable_windows(windows):
                 self.scan_cache.put(self._cache_key(seg0, plan), windows)
-            return seg0, windows
+            return seg0, windows, read_s
 
         try:
             for seg in plan.segments:
                 deadline_checkpoint()  # between-segment cancellation
                 if id(seg) in cached:
-                    buffer.append([seg, cached[id(seg)], 0])
+                    buffer.append([seg, cached[id(seg)], 0, 0.0])
                 else:
-                    fseg, is_streamed, table, _read_s = \
+                    fseg, is_streamed, table, read_s = \
                         await feed.__anext__()
                     ensure(fseg is seg, "segment feed out of plan order")
-                    entry = [seg, [], 0]
+                    entry = [seg, [], 0, read_s]
                     buffer.append(entry)
                     if is_streamed and scan_host_perm:
-                        windows, _read_s = await self._read_streamed_windows(
+                        windows, entry[3] = await self._read_streamed_windows(
                             seg, plan)
                         await enqueue(entry, windows)
                     elif is_streamed:
@@ -1167,12 +1231,12 @@ class ParquetReader:
                             prepare, table, pool=plan.pool))
                     del table
                 while buffer and buffer[0][2] == 0:
-                    seg0, windows, _outstanding = buffer.pop(0)
-                    yield done(seg0, windows)
+                    seg0, windows, _outstanding, read_s = buffer.pop(0)
+                    yield done(seg0, windows, read_s)
             if pending:
                 # tail round: pad with empty windows bound to a discard
                 # entry so real segments' window lists stay exact
-                discard = [None, [], len(pending) - n_dev]
+                discard = [None, [], len(pending) - n_dev, 0.0]
                 _e, cols0, _n, wcap0, enc0 = pending[-1]
                 tail = list(pending)
                 while len(tail) < n_dev:
@@ -1180,9 +1244,9 @@ class ParquetReader:
                 await self._run_pool(run_round, tail, pool=plan.pool)
                 pending.clear()
             while buffer:
-                seg0, windows, outstanding = buffer.pop(0)
+                seg0, windows, outstanding, read_s = buffer.pop(0)
                 ensure(outstanding == 0, "mesh merge round left windows")
-                yield done(seg0, windows)
+                yield done(seg0, windows, read_s)
         finally:
             await feed.aclose()
 
@@ -1339,6 +1403,7 @@ class ParquetReader:
         _STAGE_SECONDS[stage].observe(read_s)
         _STAGE_ROWS[stage].inc(table.num_rows)
         _STAGE_BYTES[stage].inc(table.nbytes)
+        trace_add(f"stage_{stage}_ms", read_s * 1e3)
         trace_add(f"stage_{stage}_rows", table.num_rows)
         trace_add(f"stage_{stage}_bytes", table.nbytes)
         # tenant scan-byte budget: charged where the stage bytes are
@@ -1408,6 +1473,7 @@ class ParquetReader:
         _STAGE_SECONDS["sidecar_read"].observe(read_s)
         _STAGE_ROWS["sidecar_read"].inc(es.n)
         _STAGE_BYTES["sidecar_read"].inc(es.nbytes)
+        trace_add("stage_sidecar_read_ms", read_s * 1e3)
         trace_add("stage_sidecar_read_rows", es.n)
         trace_add("stage_sidecar_read_bytes", es.nbytes)
         charge_scan_bytes(es.nbytes)
@@ -1878,17 +1944,23 @@ class ParquetReader:
         picks: fused grids are tensors on the reader's device (last_ts a
         host float64 array), parts grids are the combine's host float64
         arrays."""
-        if self.fused_aggregate_ok(plan):
-            return await self.execute_aggregate_fused(plan, spec)
-        # collected per segment and folded in segment order: memo-served
-        # segments yield out of plan order, and the combine fold order
-        # is part of the bit-identity contract
-        done: dict[int, list] = {}
-        async for seg_start, seg_parts in self.aggregate_segments(plan,
-                                                                  spec):
-            done[seg_start] = seg_parts
-        parts = [p for s in sorted(done) for p in done[s]]
-        return self.finalize_aggregate(parts, spec)
+        marks = self._mem_delta_marks()
+        try:
+            if self.fused_aggregate_ok(plan):
+                return await self.execute_aggregate_fused(plan, spec)
+            # collected per segment and folded in segment order:
+            # memo-served segments yield out of plan order, and the
+            # combine fold order is part of the bit-identity contract
+            done: dict[int, list] = {}
+            async for seg_start, seg_parts in self.aggregate_segments(
+                    plan, spec):
+                done[seg_start] = seg_parts
+            parts = [p for s in sorted(done) for p in done[s]]
+            return self.finalize_aggregate(parts, spec)
+        finally:
+            # cold scans move megabytes into the cache tiers; the trace
+            # shows which account they landed in
+            self._mem_delta_attribute(marks)
 
     def router_covers(self, plan: ScanPlan) -> bool:
         """Whether the attached near-data router would serve any of
@@ -2203,7 +2275,8 @@ class ParquetReader:
         try:
             windows_iter = self._cached_windows(plan)
             try:
-                async for seg, windows in windows_iter:
+                async for seg, windows, read_s in windows_iter:
+                    t0 = time.perf_counter()
                     s = seg.segment_start
                     arrived.append(s)
                     parts[s] = []
@@ -2235,6 +2308,8 @@ class ParquetReader:
                         pending[s] += 1
                     while len(queue) >= batch_w:
                         await flush(batch_w)
+                    _SCAN_LATENCY.observe(read_s
+                                          + (time.perf_counter() - t0))
                     for out in finished():
                         yield out
             except NotFoundError:
@@ -2911,7 +2986,8 @@ class ParquetReader:
         try:
             windows_iter = self._cached_windows(plan)
             try:
-                async for seg, windows in windows_iter:
+                async for seg, windows, read_s in windows_iter:
+                    t0 = time.perf_counter()
                     s = seg.segment_start
                     arrived.append(s)
                     parts[s] = []
@@ -2941,6 +3017,8 @@ class ParquetReader:
                         pending[s] += 1
                     while len(queue) >= batch_w:
                         await flush(batch_w)
+                    _SCAN_LATENCY.observe(read_s
+                                          + (time.perf_counter() - t0))
                     for out in finished():
                         yield out
             except NotFoundError:
@@ -2990,7 +3068,7 @@ class ParquetReader:
         items: list = []
         windows_iter = self._cached_windows(plan)
         try:
-            async for seg, windows in windows_iter:
+            async for seg, windows, read_s in windows_iter:
                 s = seg.segment_start
 
                 def prep_windows(ws=windows, s=s):
@@ -3004,6 +3082,7 @@ class ParquetReader:
 
                 items.extend(await self._run_pool(prep_windows,
                                                   pool=plan.pool))
+                _SCAN_LATENCY.observe(read_s)
         finally:
             await windows_iter.aclose()
         if not items:
@@ -3221,6 +3300,11 @@ class ParquetReader:
                                                       top_k)
         finally:
             _observe_stage("combine", time.perf_counter() - t0)
+        # every parts-route grid leaves here: the kernel's and the
+        # folds' NaN bits become the reference's quiet NaN once
+        for k in ("min", "max"):
+            if k in grids:
+                grids[k] = canonical_nan(grids[k])
         if len(group_values) and "last_ts" in grids:
             grids["last_ts"] = grids["last_ts"] + spec.range_start
         return group_values, grids
@@ -3280,7 +3364,7 @@ class ParquetReader:
         seg_rows: list = []
         windows_iter = self._cached_windows(plan)
         try:
-            async for seg, windows in windows_iter:
+            async for seg, windows, read_s in windows_iter:
                 s = seg.segment_start
                 count_rows = counted is None or s not in counted
                 if counted is not None:
@@ -3301,6 +3385,8 @@ class ParquetReader:
                     seg_records.append((self._cache_key(seg, plan), tuple(
                         weakref.ref(w) for w in windows)))
                     seg_rows.append((s, sum(w.n_valid for w in windows)))
+                if count_rows:
+                    _SCAN_LATENCY.observe(read_s)
         finally:
             await windows_iter.aclose()
         if not items:
@@ -3495,6 +3581,7 @@ class ParquetReader:
         """The stack cache's arrays under `key`, or None.  An entry whose
         window weakrefs no longer name `windows_now` (a window evicted
         and re-read, or a changed composition) is dropped: a miss."""
+        hits, misses = _stack_counters(key)
         with self._stack_cache_lock:
             entry = self._stack_cache.get(key)
             if entry is not None:
@@ -3503,12 +3590,12 @@ class ParquetReader:
                         r() is w for r, w in zip(refs, windows_now)):
                     self._stack_cache.move_to_end(key)
                     self._stack_cache_hits += 1
-                    _STACK_HITS.inc()
+                    hits.inc()
                     return arrays
                 del self._stack_cache[key]
                 self._stack_cache_bytes -= nbytes
             self._stack_cache_misses += 1
-            _STACK_MISSES.inc()
+            misses.inc()
             return None
 
     def _stack_cache_put(self, key: tuple, windows_now: tuple,
@@ -3730,7 +3817,8 @@ def fused_round_accumulate(acc: dict, ts, gid, vals, remap, shift, lo,
 
 def fused_finalize(acc: dict, which: tuple) -> dict:
     """Finalize of the fused accumulator: min/max empty cells read
-    +/-inf, avg/last NaN; last_ts stays int32 (range-relative)."""
+    +/-inf, a NaN cell the quiet NaN (canonical_nan), avg/last NaN;
+    last_ts stays int32 (range-relative)."""
     import torch
 
     count = acc["count"]
@@ -3744,10 +3832,10 @@ def fused_finalize(acc: dict, which: tuple) -> dict:
         out["avg"] = torch.where(empty, nan, acc["sum"] / count.clamp(min=1.0))
     if "min" in acc and "min" in requested:
         out["min"] = torch.where(empty, torch.full_like(count, float("inf")),
-                                 acc["min"])
+                                 canonical_nan(acc["min"]))
     if "max" in acc and "max" in requested:
         out["max"] = torch.where(empty, torch.full_like(count, float("-inf")),
-                                 acc["max"])
+                                 canonical_nan(acc["max"]))
     if "last" in acc and "last" in requested:
         out["last"] = torch.where(empty, nan, acc["last"])
         out["last_ts"] = acc["last_ts"]

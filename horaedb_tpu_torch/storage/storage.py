@@ -22,6 +22,7 @@ The manifest plane reads and writes through `RetryingObjectStore`
 
 from __future__ import annotations
 
+import abc
 import asyncio
 import logging
 import time
@@ -70,7 +71,23 @@ class WriteResult:
     size: int
 
 
-class CloudObjectStorage:
+class TimeMergeStorage(abc.ABC):
+    """Engine facade (ref: storage.rs:76-89)."""
+
+    @abc.abstractmethod
+    def schema(self) -> StorageSchema: ...
+
+    @abc.abstractmethod
+    async def write(self, req: WriteRequest) -> WriteResult: ...
+
+    @abc.abstractmethod
+    def scan(self, req: ScanRequest) -> AsyncIterator[pa.RecordBatch]: ...
+
+    @abc.abstractmethod
+    async def compact(self) -> None: ...
+
+
+class CloudObjectStorage(TimeMergeStorage):
     def __init__(self, root_path: str, segment_duration_ms: int,
                  store: ObjectStore, user_schema: pa.Schema,
                  num_primary_keys: int, config: Optional[StorageConfig] = None,
@@ -360,50 +377,59 @@ class CloudObjectStorage:
         read.ScanPlan.parts_route)."""
         if first_plan is None:
             first_plan = await self.build_scan_plan(req)
-        parts_route = first_plan.parts_route
-        # a plan the near-data router covers takes the parts path: the
-        # fused accumulator needs every segment's windows host-resident
-        if (self.reader.fused_aggregate_ok(first_plan)
-                and not self.reader.router_covers(first_plan)):
-            from horaedb_tpu_torch.storage.plan import apply_top_k
+        # per-trace memory attribution (common/memledger.py): the trace
+        # records which cache tier a cold aggregate's bytes landed in
+        mem_marks = self.reader._mem_delta_marks()
+        try:
+            parts_route = first_plan.parts_route
+            # a plan the near-data router covers takes the parts path:
+            # the fused accumulator needs every segment's windows
+            # host-resident
+            if (self.reader.fused_aggregate_ok(first_plan)
+                    and not self.reader.router_covers(first_plan)):
+                from horaedb_tpu_torch.storage.plan import apply_top_k
 
-            counted: set = set()  # rows scanned count once per query
-            plan = first_plan
+                counted: set = set()  # rows scanned count once per query
+                plan = first_plan
+                for attempt in range(self._SCAN_RETRIES + 1):
+                    try:
+                        values, grids = \
+                            await self.reader.execute_aggregate_fused(
+                                plan, spec, counted=counted)
+                        if top_k is not None:
+                            values, grids = apply_top_k(values, grids,
+                                                        top_k)
+                        return values, grids
+                    except NotFoundError:
+                        if attempt == self._SCAN_RETRIES:
+                            raise
+                        logger.info("fused aggregate raced a compaction; "
+                                    "restarting")
+                        plan = await self.build_scan_plan(req)
+            done: dict[int, list] = {}
             for attempt in range(self._SCAN_RETRIES + 1):
+                # attempt 0 reuses the plan built for the fused gate
+                plan = first_plan if attempt == 0 \
+                    else await self.build_scan_plan(req,
+                                                    parts_route=parts_route)
+                plan.segments = [s for s in plan.segments
+                                 if s.segment_start not in done]
                 try:
-                    values, grids = \
-                        await self.reader.execute_aggregate_fused(
-                            plan, spec, counted=counted)
-                    if top_k is not None:
-                        values, grids = apply_top_k(values, grids, top_k)
-                    return values, grids
+                    async for seg_start, parts in \
+                            self.reader.aggregate_segments(plan, spec,
+                                                           top_k=top_k):
+                        done[seg_start] = parts
+                    break
                 except NotFoundError:
                     if attempt == self._SCAN_RETRIES:
                         raise
-                    logger.info("fused aggregate raced a compaction; "
-                                "restarting")
-                    plan = await self.build_scan_plan(req)
-        done: dict[int, list] = {}
-        for attempt in range(self._SCAN_RETRIES + 1):
-            # attempt 0 reuses the plan built for the fused gate
-            plan = first_plan if attempt == 0 \
-                else await self.build_scan_plan(req,
-                                                parts_route=parts_route)
-            plan.segments = [s for s in plan.segments
-                             if s.segment_start not in done]
-            try:
-                async for seg_start, parts in \
-                        self.reader.aggregate_segments(plan, spec,
-                                                       top_k=top_k):
-                    done[seg_start] = parts
-                break
-            except NotFoundError:
-                if attempt == self._SCAN_RETRIES:
-                    raise
-                logger.info("aggregate scan raced a compaction; "
-                            "replanning")
-        all_parts = [p for seg in sorted(done) for p in done[seg]]
-        return self.reader.finalize_aggregate(all_parts, spec, top_k=top_k)
+                    logger.info("aggregate scan raced a compaction; "
+                                "replanning")
+            all_parts = [p for seg in sorted(done) for p in done[seg]]
+            return self.reader.finalize_aggregate(all_parts, spec,
+                                                  top_k=top_k)
+        finally:
+            self.reader._mem_delta_attribute(mem_marks)
 
     async def build_scan_plan(self, req: ScanRequest,
                               keep_builtin: bool = False,
@@ -435,3 +461,7 @@ class CloudObjectStorage:
             return self.scan(qp.request, first_plan=qp.scan)
         return self.scan_aggregate(qp.request, qp.aggregate,
                                    first_plan=qp.scan, top_k=qp.top_k)
+
+    @property
+    def value_idxes(self) -> list[int]:
+        return self._schema.value_idxes

@@ -60,7 +60,8 @@ from horaedb_tpu_torch.storage.read import (
     plan_columns,
 )
 from horaedb_tpu_torch.storage.sst import SstFile
-from horaedb_tpu_torch.storage.storage import WriteRequest, WriteResult
+from horaedb_tpu_torch.storage.storage import (TimeMergeStorage, WriteRequest,
+                                               WriteResult)
 from horaedb_tpu_torch.utils import (WIDE_BUCKETS, op_trace, registry, span,
                                      trace_add)
 from horaedb_tpu_torch.wal.config import WalConfig
@@ -82,7 +83,7 @@ _ACK_LATENCY = registry.histogram(
     "ingest_ack_seconds", "write() latency to the WAL-fsync ack point")
 
 
-class IngestStorage:
+class IngestStorage(TimeMergeStorage):
     """WAL + memtable wrapper around a CloudObjectStorage.  Everything
     not ingest-related (schema, plan_query, manifest, reader, scrub,
     compaction) delegates to the wrapped storage."""
@@ -536,6 +537,18 @@ class IngestStorage:
             return await self.inner.execute_plan(qp2)
 
         return agg()
+
+    # ---- facade plumbing --------------------------------------------------
+
+    def schema(self):
+        return self.inner.schema()
+
+    async def compact(self) -> None:
+        await self.inner.compact()
+
+    @property
+    def value_idxes(self) -> list[int]:
+        return self.inner.value_idxes
 
     def memtable_segments(self) -> set[int]:
         """Segments with acked-but-unflushed rows (live + in-flight

@@ -186,3 +186,92 @@ def test_fused_acc_init_identities_match_reference():
     for k in ref:
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]))
         assert got[k].numpy().dtype == np.asarray(ref[k]).dtype
+
+
+NAN_T0, NAN_SEG, NAN_HOUR = 1_699_999_200_000, 2 * 3600_000, 3600_000
+# the float64 NaN samples as written: numpy's quiet NaN and its negative
+POS_NAN = float("nan")
+NEG_NAN = float(np.array([0xFFF8000000000000], np.uint64).view(np.float64)[0])
+
+
+def _nan_grids(route: str, nan_value: float) -> tuple:
+    """One series, values [1, NaN, 3, 2] at T0 + [0, 1 s, 2 s, 70 min],
+    min and max at 1 h over one 2 h segment, through both packages'
+    engines on `route`: "fused", "parts" (host decode) or "decode" (the
+    parts route with [scan.decode] mode = "device").  Returns (port,
+    reference) dicts of numpy grids."""
+    import asyncio
+
+    import pyarrow as pa
+
+    from horaedb_tpu.metric_engine import MetricEngine as RefEngine
+    from horaedb_tpu.objstore import MemoryObjectStore as RefStore
+    from horaedb_tpu.storage.config import StorageConfig as RefConfig
+    from horaedb_tpu.storage.types import TimeRange as RefRange
+    from horaedb_tpu_torch.metric_engine import MetricEngine as PortEngine
+    from horaedb_tpu_torch.objstore import MemoryObjectStore as PortStore
+    from horaedb_tpu_torch.storage.config import StorageConfig as PortConfig
+    from horaedb_tpu_torch.storage.types import TimeRange as PortRange
+
+    batch = pa.record_batch({
+        "host": pa.array(["a"] * 4),
+        "timestamp": pa.array(NAN_T0 + np.array([0, 1000, 2000, 4_200_000])),
+        "value": pa.array([1.0, nan_value, 3.0, 2.0])})
+
+    async def run(engine_cls, store_cls, range_cls, config_cls, **kw):
+        config = config_cls()
+        if route == "decode":
+            config.scan.decode.mode = "device"
+        e = await engine_cls.open("t", store_cls(), segment_ms=NAN_SEG,
+                                  config=config, **kw)
+        try:
+            await e.write_arrow("cpu", ["host"], batch)
+            out = await e.query_downsample(
+                "cpu", [], range_cls.new(NAN_T0, NAN_T0 + NAN_SEG),
+                NAN_HOUR, aggs=("min", "max"))
+        finally:
+            await e.close()
+        return {k: np.asarray(v.cpu().numpy() if hasattr(v, "cpu") else v)
+                for k, v in out["aggs"].items()}
+
+    ref = asyncio.run(run(RefEngine, RefStore, RefRange, RefConfig))
+    got = asyncio.run(run(PortEngine, PortStore, PortRange, PortConfig,
+                          device="cpu"))
+    return got, ref
+
+
+def _nan_bits(grid) -> int:
+    return int(np.asarray(grid, np.float32)[:, :1].view(np.uint32)[0, 0])
+
+
+@pytest.mark.parametrize("route", ["fused", "parts", "decode"])
+def test_nan_min_max_bits_match_reference(monkeypatch, route):
+    """A NaN sample makes its cell's min and max NaN with the reference's
+    bits, the quiet NaN 0x7fc00000, on the fused route and on the parts
+    route with host and with device decode: the grids' bytes are
+    compared, not their values (NaN equals NaN under assert_array_equal
+    whatever its bits)."""
+    monkeypatch.setenv("HORAEDB_FUSED_AGG", "1" if route == "fused" else "0")
+    monkeypatch.setenv("HORAEDB_HOST_AGG", "0")
+    got, ref = _nan_grids(route, POS_NAN)
+    for k in ("min", "max"):
+        assert np.isnan(got[k][0, 0]), k
+        assert got[k].dtype == ref[k].dtype, k
+        assert got[k].tobytes() == ref[k].tobytes(), k
+        assert _nan_bits(got[k]) == 0x7FC00000, k
+
+
+@pytest.mark.parametrize("route", ["fused", "parts"])
+def test_negative_nan_sign_is_not_kept(monkeypatch, route):
+    """The open part of ROADMAP C 18, pinned: a negative NaN sample
+    (0xffc00000) keeps its sign in the reference's min and max grids and
+    reads the quiet NaN 0x7fc00000 in the port's.  The other cell is
+    byte-equal.  When the port keeps the sign, this test is to become a
+    case of test_nan_min_max_bits_match_reference."""
+    monkeypatch.setenv("HORAEDB_FUSED_AGG", "1" if route == "fused" else "0")
+    monkeypatch.setenv("HORAEDB_HOST_AGG", "0")
+    got, ref = _nan_grids(route, NEG_NAN)
+    for k in ("min", "max"):
+        assert _nan_bits(ref[k]) == 0xFFC00000, k
+        assert _nan_bits(got[k]) == 0x7FC00000, k
+        assert got[k][:, 1:].tobytes() == ref[k][:, 1:].tobytes(), k

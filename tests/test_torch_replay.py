@@ -25,6 +25,7 @@ from test_torch_engine import _compare
 
 from horaedb_tpu.metric_engine import MetricEngine as RefEngine
 from horaedb_tpu.objstore import MemoryObjectStore as RefStore
+from horaedb_tpu.storage.combine import PartsMemo as RefPartsMemo
 from horaedb_tpu.storage.config import StorageConfig as RefConfig
 from horaedb_tpu.storage.config import from_dict as ref_from_dict
 from horaedb_tpu.storage.encoded_cache import \
@@ -501,8 +502,10 @@ def test_cache_stats_has_the_reference_sections():
             await e.close()
 
     stats = asyncio.run(run())
-    assert set(stats) == {"scan_cache", "encoded_cache", "pipeline",
-                          "stack_cache", "mesh"}
+    assert set(stats) == {"scan_cache", "encoded_cache", "parts_memo",
+                          "pipeline", "decode", "stack_cache", "mesh"}
+    assert set(stats["parts_memo"]) == set(RefPartsMemo(1).stats())
+    assert set(stats["decode"]) == {"mode", "resolved", "max_upload_bytes"}
     # the reference's mesh section, plus the port's device list
     assert set(stats["mesh"]) - {"segment_devices", "devices"} == {
         "enabled", "shape", "rounds", "parts", "part_cells", "score_cells",
