@@ -20,7 +20,9 @@ non-zero and prints no result line:
    times at that round (device time of back-to-back calls, CUDA
    events), the bound, the slice route of the first port (partial grids
    + per-window torch slice updates), the partials' one-pass float
-   atomic sum, and a one-call `index_add_` yardstick.
+   atomic sum, and a one-call `index_add_` yardstick; with --parent DIR,
+   that checkout's two entries at the same round in turns (avg set and
+   all aggregates).
 4. merge kernel: kway_merge_perm (csrc/merge_path.cu) byte for byte
    against its plain version and np.lexsort on (row, keys..., pad) on
    merge_cases: 2, 4, 8, 64 and 128 runs, empty runs, equal keys across
@@ -44,6 +46,13 @@ non-zero and prints no result line:
    launches and within rtol of the plain version; each entry's float
    atomic sum launched 5 times beside it and its distinct byte patterns
    counted; both entries' ordered and atomic sums timed at 1 h.
+   Then nan bits (Queue C 18): NAN_LEGS (+NaN, -NaN, both signs in one
+   cell, both signs across two segments under a 1-day bucket) on the
+   fused route and the parts route with device and with host decode;
+   sum, min and max must read the JAX package's bits from the CPU run of
+   tests/test_torch_nan_sign.py, and each leg must launch its route's
+   kernel; then both entries byte for byte against their plain versions
+   on a NaN-sign round, with the round's raw NaN images.
 6. end to end, fused: the north-star workload (BASELINE config 1 of
    bench.py: 10M rows, 100 hosts, 10 s scrape, 1 m buckets, 2 h
    segments, an in-memory object store, 1M-row write chunks) through
@@ -531,9 +540,11 @@ def partials_times(ba, stack, total: int, G: int, width: int,
     return out
 
 
-def kernel_phase(ba, fused) -> list:
+def kernel_phase(ba, fused, parent=None) -> list:
     """Both entries against their plain versions on the card, then their
-    times at the main path's round shape."""
+    times at the main path's round shape; with `parent` (another
+    checkout's bucket_agg module), that kernel's two entries and this
+    one's at the same round in turns: parent, this, this, parent."""
     import numpy as np
     import torch
 
@@ -745,6 +756,39 @@ def kernel_phase(ba, fused) -> list:
         for c in copies], reps=8)
     slice_ms = device_ms([slice_fn(c) for c in copies], reps=12)
     pt = partials_times(ba, main_stack, m_total, G, width, BMS)
+    # with `parent`: each entry, avg set and all aggregates, in turns
+    turns = {}
+    if parent is not None:
+        n_max = int(nv.max())
+        acc_all = fused.fused_acc_init(num_groups=G, num_buckets=m_total,
+                                       which=ALL_AGGS, device=dev)
+
+        def entry_ms(mod, wh):
+            a = acc if wh == which else acc_all
+            return {
+                "bucket_round_accumulate": device_ms([
+                    lambda c=c: mod._launch_round(
+                        a, *c, remap_d, shift_d, lo_d, m_total, BMS,
+                        num_groups=G, width=width, which=wh,
+                        n_valid=nv_d, lo_host=lo, n_valid_host=nv,
+                        ordered=True) for c in copies]),
+                "bucket_window_partials": device_ms([
+                    lambda c=c: mod._launch_partials(
+                        *c, remap_d, shift_d, lo_d, m_total, BMS,
+                        num_groups=G, width=width, which=wh,
+                        n_valid=n_max, ordered=True) for c in copies])}
+
+        for who in ("parent", "this", "this", "parent"):
+            for key, wh in (("avg", which), ("all_aggs", ALL_AGGS)):
+                t = entry_ms(parent if who == "parent" else ba, wh)
+                for name, ms in t.items():
+                    turns.setdefault(name, {}).setdefault(
+                        key, {"this": [], "parent": []})[who].append(ms)
+        for name, t in turns.items():
+            for key, v in t.items():
+                log(f"kernel:   {name} ({key}) at the main-path round, in "
+                    f"turns: this {v['this']!r} ms, parent {v['parent']!r} "
+                    f"ms")
 
     # yardsticks: one index_add_ of (1, v) pairs at precomputed cells
     # of the valid rows (the prologue is not part of the call)
@@ -803,14 +847,18 @@ def kernel_phase(ba, fused) -> list:
              ms_atomic_sum=pt["ms_atomic_sum"],
              ms_all_aggs_atomic_sum=pt["ms_all_aggs_atomic_sum"],
              random_input_ms=p_rand_ms,
-             random_input_call_ms=p_rand_call_ms),
+             random_input_call_ms=p_rand_call_ms,
+             **({"turns_ms": turns["bucket_window_partials"]}
+                if turns else {})),
         dict(common, name="bucket_round_accumulate", launches=0,
              also_replaces="horaedb_tpu/storage/read.py:4501",
              max_abs_err=worst["bucket_round_accumulate"], ms=r_ms,
              plain_ms=r_plain_ms, bound_ms=r_bound, library_ms=r_lib_ms,
              ms_all_aggs=r_all_ms, ms_atomic_sum=r_atomic_ms,
              call_ms=r_call_ms,
-             slice_route_ms=slice_ms),
+             slice_route_ms=slice_ms,
+             **({"turns_ms": turns["bucket_round_accumulate"]}
+                if turns else {})),
     ]
 
 
@@ -965,17 +1013,148 @@ def determinism_phase(ba, fused) -> dict:
     return out
 
 
-async def nan_phase(ba, mg) -> dict:
-    """Queue C 18 on the card: one series with values [1, NaN, 3, 2] at
-    T0 + [0, 1 s, 2 s, 70 min], min and max at 1 h over one 2 h segment,
-    on the fused route, on the parts route with device decode and on the
-    parts route with host decode.  The NaN cell must hold the quiet NaN
-    0x7fc00000 (the JAX package's bits), the other 2.0, in both grids;
-    each leg must have launched its route's kernel.  Each leg runs again
-    with a negative NaN sample (0xffc00000), whose cell must read
-    0x7fc00000 as on the CPU: the JAX package keeps the sign there, the
-    open part of ROADMAP C 18.  The raw bits of the kernel's NaN cells
-    (0xffffffff in min, 0x7fffffff in max) are recorded beside them."""
+# Queue C 18 on the card: the legs of nan_phase and the bits the JAX
+# package's engines give for them on the CPU (tests/test_torch_nan_sign.py
+# holds the port to the same bits there).  Rows are (ms after T0, value),
+# a value "+" / "-" the float64 NaN 0x7ff8000000000000 / its negative.
+# Expected: per route kind, the float32 bits of the first cell's sum, min
+# and max; the cell at 70 min (1 h legs) reads 2.0 in all three.
+_P, _N = "0x7fc00000", "0xffc00000"
+NAN_LEGS = (
+    ("+NaN", ((0, 1.0), (1000, "+"), (2000, 3.0), (4_200_000, 2.0)), False,
+     {"fused": (_P, _P, _P), "parts": (_P, _P, _P)}),
+    ("-NaN", ((0, 1.0), (1000, "-"), (2000, 3.0), (4_200_000, 2.0)), False,
+     {"fused": (_N, _N, _N), "parts": (_N, _N, _N)}),
+    ("both signs in one cell",
+     ((0, 1.0), (1000, "+"), (2000, "-"), (4_200_000, 2.0)), False,
+     {"fused": (_N, _P, _N), "parts": (_N, _P, _N)}),
+    # two 2 h segments under one 1-day bucket: the fused accumulator keeps
+    # the earlier NaN's sum; the parts route's numpy folds (the
+    # reference's own, 1 x 1 grids) make min and max the positive NaN
+    ("both signs across two segments",
+     ((0, 1.0), (1000, "+"), (7_201_000, "-"), (11_400_000, 2.0)), True,
+     {"fused": (_P, _P, _N), "parts": (_N, _P, _P)}),
+)
+
+
+def nan_kernel_case(ba, fused) -> dict:
+    """Both kernel entries against their plain versions on a NaN-sign
+    round, byte for byte in every field: cells with one NaN of each sign,
+    both signs in either order, payload NaNs (0x7fc00001, 0xffc00001 and
+    two payloads of one sign), +inf with -inf, a NaN with an infinity,
+    and one cell whose NaNs of both signs come from two windows (one
+    round cell).  Small integer values keep every finite sum exact in
+    any order.  Returns the round accumulator's raw NaN images of the
+    single-sign cells beside the decoded grids' bits."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda")
+    W, cap, G, width = 2, 256, 12, 1
+    ts = np.zeros((W, cap), np.int32)
+    gid = np.full((W, cap), -1, np.int32)
+    vals = np.zeros((W, cap), np.float32)
+    nan = {"+": 0x7FC00000, "-": 0xFFC00000, "+q": 0x7FC00001,
+           "-q": 0xFFC00001, "+q2": 0x7FC00002}
+    cells = [  # (group, [(window, value)])
+        (0, [(0, 1.0), (0, "+"), (0, 3.0)]),
+        (1, [(0, 1.0), (0, "-"), (0, 3.0)]),
+        (2, [(0, "+"), (0, 2.0), (0, "-")]),
+        (3, [(0, "-"), (0, "+"), (0, 2.0)]),
+        (4, [(0, "+q"), (0, 5.0)]),
+        (5, [(0, "-q"), (0, 5.0)]),
+        (6, [(0, "+q"), (0, "+q2"), (0, "+")]),
+        (7, [(0, np.inf), (0, 2.0), (0, -np.inf)]),
+        (8, [(0, np.inf), (0, "-"), (0, 1.0)]),
+        (9, [(0, 4.0), (0, "+"), (1, "-"), (1, 6.0)]),
+        (10, [(0, 7.0), (1, 8.0)]),
+    ]
+    fill = [0, 0]
+    for g, rows in cells:
+        for w, v in rows:
+            r = fill[w]
+            fill[w] += 1
+            ts[w, r], gid[w, r] = r, g
+            vals[w, r] = (_bits(nan[v]) if isinstance(v, str) else v)
+    nv = np.array(fill, np.int32)
+
+    def d(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    args = [d(ts), d(gid), d(vals), None, None, d(np.zeros(W, np.int32)),
+            1, BMS]
+    kw = dict(num_groups=G, width=width, which=ALL_AGGS)
+    out = {}
+
+    def same(got, ref, what):
+        for f in ref:
+            a, b = got[f].cpu(), ref[f].cpu()
+            if a.dtype != b.dtype or a.shape != b.shape or \
+                    a.numpy().tobytes() != b.numpy().tobytes():
+                raise AssertionError(f"nan kernel case: {what} field {f} "
+                                     f"not byte-equal to plain")
+
+    n = int(nv.max())
+    p_ref = ba.bucket_window_partials_plain(*args, n_valid=n, **kw)
+    p_got = ba.bucket_window_partials(*args, n_valid=n, **kw)
+    torch.cuda.synchronize()
+    same(p_got, p_ref, "partials")
+    acc_p = fused.fused_acc_init(num_groups=G, num_buckets=1,
+                                 which=ALL_AGGS, device=dev)
+    acc_k = fused.fused_acc_init(num_groups=G, num_buckets=1,
+                                 which=ALL_AGGS, device=dev)
+    ba.bucket_round_accumulate_plain(acc_p, *args, n_valid=d(nv),
+                                     lo_host=np.zeros(W, np.int32), **kw)
+    ba.bucket_round_accumulate(acc_k, *args, n_valid=d(nv),
+                               lo_host=np.zeros(W, np.int32),
+                               n_valid_host=nv, **kw)
+    torch.cuda.synchronize()
+    same(acc_k, acc_p, "round")
+
+    def hexes(t):
+        return [hex(int(x)) for x in t.cpu().numpy().reshape(-1)
+                .view(np.uint32)]
+
+    fin = fused.fused_finalize(acc_k, ALL_AGGS)
+    out["round_raw_images"] = {f: hexes(acc_k[f][:6, 0]) for f in
+                               ("min", "max")}
+    out["round_final"] = {f: hexes(fin[f][:, 0]) for f in
+                          ("sum", "min", "max")}
+    out["partials"] = {f: hexes(p_got[f][0, :, 0]) for f in
+                       ("sum", "min", "max")}
+    want_images = {"min": ["0xffc00000", "0xff800001", "0xffc00000",
+                           "0xffc00000", "0xffc00001", "0xff800002"],
+                   "max": ["0x7f800001", "0x7fc00000", "0x7fc00000",
+                           "0x7fc00000", "0x7f800002", "0x7fc00001"]}
+    if out["round_raw_images"] != want_images:
+        raise AssertionError(f"nan kernel case: raw images "
+                             f"{out['round_raw_images']}, want {want_images}")
+    want_final = {"min": [_P, _N, _P, _P, "0x7fc00001", "0xffc00001",
+                          "0x7fc00002", "0xff800000", "0xffc00000", _P,
+                          "0x40e00000", "0x7f800000"],
+                  "max": [_P, _N, _N, _N, "0x7fc00001", "0xffc00001",
+                          "0x7fc00002", "0x7f800000", "0xffc00000", _N,
+                          "0x41000000", "0xff800000"],
+                  "sum": [_P, _N, _N, _P, "0x7fc00001", "0xffc00001",
+                          _P, _N, _N, _P, "0x41700000", "0x0"]}
+    if out["round_final"] != want_final:
+        raise AssertionError(f"nan kernel case: round grids "
+                             f"{out['round_final']}, want {want_final}")
+    log(f"nan: both entries byte-equal to plain on the NaN-sign case; the "
+        f"round's raw images {out['round_raw_images']}; decoded "
+        f"{out['round_final']}")
+    return out
+
+
+async def nan_phase(ba, mg, fused) -> dict:
+    """Queue C 18 on the card: each leg of NAN_LEGS on the fused route,
+    on the parts route with device decode and on the parts route with
+    host decode, sum, min and max at 1 h over one 2 h segment (1 day over
+    two for the cross-segment leg).  Each grid's first cell must hold the
+    JAX package's bits (NAN_LEGS), the cell at 70 min 2.0; each leg must
+    have launched its route's kernel.  Then nan_kernel_case: both
+    entries byte-equal to their plain versions on a NaN-sign round, and
+    the kernel's raw NaN images."""
     import numpy as np
     import pyarrow as pa
     import torch
@@ -986,25 +1165,29 @@ async def nan_phase(ba, mg) -> dict:
     from horaedb_tpu_torch.storage.types import TimeRange
 
     seg, t0, hour = 2 * 3_600_000, 1_699_999_200_000, 3_600_000
-    neg_nan = float(np.array([0xFFF8000000000000], np.uint64)
-                    .view(np.float64)[0])
-    legs = (("fused", "1", "auto", "bucket_round_accumulate"),
-            ("parts, device decode", "0", "auto",
-             "bucket_window_partials"),
-            ("parts, host decode", "0", "host", "bucket_window_partials"))
+    sample = {"+": float(np.array([0x7FF8000000000000], np.uint64)
+                         .view(np.float64)[0]),
+              "-": float(np.array([0xFFF8000000000000], np.uint64)
+                         .view(np.float64)[0])}
+    routes = (("fused", "1", "auto", "bucket_round_accumulate", "fused"),
+              ("parts, device decode", "0", "auto",
+               "bucket_window_partials", "parts"),
+              ("parts, host decode", "0", "host", "bucket_window_partials",
+               "parts"))
     out: dict = {}
     old = os.environ.get("HORAEDB_FUSED_AGG")
     try:
-        for (name, fused, mode, kernel), (sign, sample) in (
-                (leg, s) for leg in legs
-                for s in (("", float("nan")), (", -NaN", neg_nan))):
-            name += sign
+        for (leg, rows, two_segs, want), (route, fused_env, mode, kernel,
+                                          kind) in (
+                (lg, r) for lg in NAN_LEGS for r in routes):
+            name = f"{leg} [{route}]"
             batch = pa.record_batch({
-                "host": pa.array(["a"] * 4),
-                "timestamp": pa.array(
-                    t0 + np.array([0, 1000, 2000, 4_200_000])),
-                "value": pa.array([1.0, sample, 3.0, 2.0])})
-            os.environ["HORAEDB_FUSED_AGG"] = fused
+                "host": pa.array(["a"] * len(rows)),
+                "timestamp": pa.array([t0 + t for t, _ in rows]),
+                "value": pa.array([sample.get(v, v) if isinstance(v, str)
+                                   else v for _, v in rows])})
+            span, bucket = (2 * seg, 24 * hour) if two_segs else (seg, hour)
+            os.environ["HORAEDB_FUSED_AGG"] = fused_env
             e = await MetricEngine.open(
                 "nan", MemoryObjectStore(), segment_ms=seg,
                 config=from_dict(StorageConfig, {
@@ -1014,44 +1197,35 @@ async def nan_phase(ba, mg) -> dict:
                 await e.write_arrow("cpu", ["host"], batch)
                 reset_all(ba, mg)
                 res = await e.query_downsample(
-                    "cpu", [], TimeRange.new(t0, t0 + seg), hour,
-                    aggs=("min", "max"))
+                    "cpu", [], TimeRange.new(t0, t0 + span), bucket,
+                    aggs=("sum", "min", "max"))
                 torch.cuda.synchronize()
                 n = launches(ba, mg)
             finally:
                 await e.close()
             grids = host_grids(res)
             bits = {k: [hex(int(b)) for b in grids[k].astype(np.float32)
-                        .view(np.uint32).reshape(-1)] for k in ("min", "max")}
+                        .view(np.uint32).reshape(-1)]
+                    for k in ("sum", "min", "max")}
             if not n[kernel]:
                 raise AssertionError(f"nan [{name}]: {kernel} not launched: "
                                      f"{n}")
-            for k in ("min", "max"):
-                if bits[k] != ["0x7fc00000", "0x40000000"]:
+            for k, w in zip(("sum", "min", "max"), want[kind]):
+                expect = [w] if two_segs else [w, "0x40000000"]
+                if bits[k] != expect:
                     raise AssertionError(f"nan [{name}]: {k} bits {bits[k]}, "
-                                         f"want 0x7fc00000 then 2.0")
+                                         f"want {expect}")
             out[name] = {"bits": bits, "dtype": str(grids["min"].dtype),
                          "launches": n}
-            log(f"nan [{name}]: min {bits['min']}, max {bits['max']} "
-                f"({grids['min'].dtype}); launches {n}")
+            log(f"nan [{name}]: sum {bits['sum']}, min {bits['min']}, max "
+                f"{bits['max']} ({grids['min'].dtype}); launches {n}")
     finally:
         if old is None:
             os.environ.pop("HORAEDB_FUSED_AGG", None)
         else:
             os.environ["HORAEDB_FUSED_AGG"] = old
-    # the kernel's own NaN images, before any grid exit canonicalises them
-    dev = torch.device("cuda")
-    ts = torch.tensor([[0, 1000, 2000, 3000]], dtype=torch.int32, device=dev)
-    gid = torch.zeros((1, 4), dtype=torch.int32, device=dev)
-    vals = torch.tensor([[1.0, float("nan"), 3.0, 2.0]], device=dev)
-    raw = ba.bucket_window_partials(ts, gid, vals, None, None, None, 1, hour,
-                                    num_groups=1, width=1,
-                                    which=("min", "max"))
-    out["kernel_raw_bits"] = {
-        k: hex(int(raw[k].cpu().numpy().view(np.uint32).reshape(-1)[0]))
-        for k in ("min", "max")}
-    log(f"nan: the kernel's raw NaN cells {out['kernel_raw_bits']}; every "
-        f"grid exit returns 0x7fc00000")
+    out["numpy"] = np.__version__
+    out["kernel_case"] = nan_kernel_case(ba, fused)
     return out
 
 
@@ -5703,19 +5877,17 @@ def merge_dedup_phase(mg) -> dict:
     return out
 
 
-def load_merge_module(root: str):
-    """ops/merge.py of another checkout at `root`, loaded under its own
-    name and pointed at that checkout's csrc/merge_path.cu (it builds
-    into this checkout's build directory, keyed by the source's
-    content)."""
+def load_parent_module(root: str, module: str, source: str):
+    """ops/<module>.py of another checkout at `root`, loaded under its
+    own name and pointed at that checkout's csrc/<source> (it builds into
+    this checkout's build directory, keyed by the source's content)."""
     import importlib.util
 
-    path = os.path.join(root, "horaedb_tpu_torch", "ops", "merge.py")
-    spec = importlib.util.spec_from_file_location("parent_merge", path)
+    path = os.path.join(root, "horaedb_tpu_torch", "ops", f"{module}.py")
+    spec = importlib.util.spec_from_file_location(f"parent_{module}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    mod.SOURCE = os.path.join(root, "horaedb_tpu_torch", "csrc",
-                              "merge_path.cu")
+    mod.SOURCE = os.path.join(root, "horaedb_tpu_torch", "csrc", source)
     return mod
 
 
@@ -5736,8 +5908,9 @@ def main() -> int:
                          "multi-process tier as N NCCL processes")
     ap.add_argument("--parent", default=None,
                     help="root of another checkout of this repo (e.g. a git "
-                         "archive of the parent commit): its merge kernel is "
-                         "timed beside this one, in turns")
+                         "archive of the parent commit): its merge and "
+                         "bucket-aggregate kernels are timed beside this "
+                         "checkout's, in turns")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -5767,8 +5940,12 @@ def main() -> int:
         mod.build()
         return time.perf_counter() - t0
 
-    parent = load_merge_module(args.parent) if args.parent else None
-    mods = (ba, mg, native) + ((parent,) if parent else ())
+    parent = parent_ba = None
+    if args.parent:
+        parent = load_parent_module(args.parent, "merge", "merge_path.cu")
+        parent_ba = load_parent_module(args.parent, "bucket_agg",
+                                       "bucket_agg.cu")
+    mods = (ba, mg, native) + ((parent, parent_ba) if parent else ())
     with ThreadPoolExecutor(max_workers=len(mods)) as pool:
         built = {mod: pool.submit(timed_build, mod) for mod in mods}
         built = {mod: f.result() for mod, f in built.items()}
@@ -5818,10 +5995,10 @@ def main() -> int:
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
 
-    kernels = phase("kernel", kernel_phase, ba, fused)
+    kernels = phase("kernel", kernel_phase, ba, fused, parent_ba)
     merge_k = phase("merge kernel", merge_kernel_phase, mg, dd, parent)
     determinism = phase("determinism", determinism_phase, ba, fused)
-    nan = phase("nan bits (C 18)", asyncio.run, nan_phase(ba, mg))
+    nan = phase("nan bits (C 18)", asyncio.run, nan_phase(ba, mg, fused))
     e2e = phase("end to end (fused, op, parts)", asyncio.run,
                 end_to_end(args.rows, ba, mg))
     compaction = phase("compaction", asyncio.run, compaction_phase(ba, mg))

@@ -32,7 +32,12 @@
 //     +inf keeps min F32_MAX, as in the reference), and `last` takes the
 //     round's value where its range-relative ts tg >= the accumulator's
 //     (the later round wins ties).
-// A NaN value makes its cell's min and max NaN in both epilogues.
+// A NaN value makes its cell's min and max NaN in both epilogues, with
+// the JAX package's sign rule (its CPU min and max order a positive NaN
+// below a negative one in min, above it in max): a cell's min is its
+// positive NaN if it has one, else its negative NaN; its max the other
+// way round.  See "NaN images" below.  A NaN value makes its cell's sum
+// that NaN's bits (see "Ordered sum").
 //
 // Bound: bytes.  Each valid row is read once (ts, gid, value: 12 B), and
 // each touched cell is read and written once per field; a handful of
@@ -68,10 +73,23 @@
 // - min/max into float storage use integer atomics on the float bits
 //   (atomicMin on the int for a clear sign bit, atomicMax on the
 //   unsigned for a set one), which orders floats exactly; in registers
-//   they are order-preserving int images.  A NaN
-//   enters as 0xFFFFFFFF (min) or 0x7FFFFFFF (max), whose images are
-//   INT32_MIN / INT32_MAX: they beat every other value, stay put, and
-//   decode back to a NaN.
+//   they are order-preserving int images.
+// - NaN images.  A NaN enters min and max as stored bits that win over
+//   every number, in the reference's order of signs, and that keep its
+//   22-bit payload q:
+//     min: +NaN -> 0xFFC00000 | q, -NaN -> 0xFF800001 + min(q, 2^22-2)
+//     max: -NaN -> 0x7FC00000 | q, +NaN -> 0x7F800001 + min(q, 2^22-2)
+//   so in min every +NaN beats every -NaN, which beats -inf, and in max
+//   every -NaN beats every +NaN, which beats +inf.  Both ranges are
+//   NaNs.  Among NaNs of one sign the larger payload wins (the
+//   reference keeps the first or last in its visiting order; the two
+//   agree when a cell's NaNs of one sign share their bits).  There are
+//   2^23 - 1 slots past each infinity for 2^23 quiet NaNs: the
+//   all-ones payload of the second sign decodes one below itself.  The
+//   partials entry decodes its grids to the NaNs' own bits in its
+//   finish pass; the round entry leaves the images in the accumulator,
+//   which storage/read.py::fused_finalize decodes (decode_min_images,
+//   decode_max_images in ops/bucket_agg.py).
 // - `last` is one 64-bit atomicMax on ((tg or tl) ^ 0x80000000) << 32 |
 //   (w * cap + row + 1): max ts, then later window, then later row.  The
 //   values live only for the round, so a second short pass over the
@@ -88,15 +106,22 @@
 // is associative:
 //   pass 1 (the accumulate core, sum left out) also takes each cell's
 //     exponent bound E = max frexp exponent of its finite non-zero
-//     values (atomicMax), and ORs NaN / +inf / -inf flags;
+//     values (atomicMax), and ORs +inf / -inf flags; a NaN row
+//     raises E to the marker kExNan and puts its row key into the
+//     cell's int64 sum (one atomicMax per NaN row): partials, the last
+//     NaN row of the window; round, the last NaN row of the first
+//     window with one;
 //   pass 2 reads the rows again and adds each finite value as the
 //     int64 q = rint(v * 2^(B - E)), |q| <= 2^B, run-length reduced
 //     like the other fields, with one 64-bit atomicAdd per run; B =
 //     62 - bits(the most rows one cell can take), so no cell's sum can
 //     overflow;
 //   a finish pass turns each cell's q_sum into float(q_sum * 2^(E - B)),
-//     or NaN / +-inf where the flags say so (NaN, or +inf with -inf,
-//     gives NaN).
+//     or +-inf where the flags say so; a NaN row makes it that row's
+//     value, bits as they are, and +inf with -inf (no NaN row) the NaN
+//     0xFFC00000.  That is the JAX package's sum on the CPU: its
+//     segment sum keeps a window's last NaN, its accumulator add keeps
+//     the earlier NaN, and x86 makes 0xFFC00000 of +inf + -inf.
 // Each value keeps at least B - 24 >= 6 bits below its own last bit
 // relative to the cell's largest value, so the sum is at least as close
 // to the exact one as a float32 sum in any order, and it is one fixed
@@ -106,7 +131,12 @@
 //   round: per-cell scratch of the round's columns [col0, col0 + span)
 //     (G x span cells, like the `last` key); a cell takes at most
 //     W x max_rows rows of the round; the finish pass adds the round's
-//     sum to the accumulator's float32 with one add.  The rounds of a
+//     sum to the accumulator's float32 with one add, a NaN accumulator
+//     staying as it is, a NaN round sum replacing a number, and
+//     opposite infinities giving 0xFFC00000, as the reference's add.
+//     One corner is not the reference's: where +inf and -inf of an
+//     earlier window of the round make the NaN before a NaN row of a
+//     later window, the round takes the NaN row's bits.  The rounds of a
 //     query run in order on one stream, so the accumulator's sum is one
 //     fixed function of each round's rows and the round order.
 // The cost is a second read of the rows.  `ordered = 0` keeps the
@@ -132,9 +162,13 @@ constexpr unsigned kFullMask = 0xFFFFFFFFu;
 // a finite non-zero value (frexp exponents lie in [-148, 128]), 0 for
 // none; special-value flags
 constexpr int kExpBias = 256;
-constexpr int kSpecNan = 1;
 constexpr int kSpecPosInf = 2;
 constexpr int kSpecNegInf = 4;
+// exponent image of a NaN row: above every finite one, so a cell's E
+// reads it when the cell has a NaN, and pass 2 then adds nothing
+constexpr int kExNan = 1 << 20;
+// the NaN the reference's CPU add makes of +inf + -inf
+constexpr unsigned kDefaultNan = 0xFFC00000u;
 
 struct Args {
   const int* ts;
@@ -189,13 +223,37 @@ __device__ __forceinline__ int ordered(int bits) {
   return bits >= 0 ? bits : bits ^ 0x7FFFFFFF;
 }
 
-// NaN canonicalised to the image that wins the min (INT32_MIN) / the
-// max (INT32_MAX); both decode back to a NaN
+// stored bits of a value in min / max (see "NaN images"): the value's
+// own bits, or its NaN image; min_image/max_image are their int images
+constexpr unsigned kPayload = 0x3FFFFFu;
+__device__ __forceinline__ unsigned min_store(float v) {
+  const unsigned u = __float_as_uint(v);
+  if (!isnan(v)) return u;
+  const unsigned q = u & kPayload;
+  return (u >> 31) ? 0xFF800001u + min(q, kPayload - 1) : 0xFFC00000u | q;
+}
+__device__ __forceinline__ unsigned max_store(float v) {
+  const unsigned u = __float_as_uint(v);
+  if (!isnan(v)) return u;
+  const unsigned q = u & kPayload;
+  return (u >> 31) ? 0x7FC00000u | q : 0x7F800001u + min(q, kPayload - 1);
+}
 __device__ __forceinline__ int min_image(float v) {
-  return ordered(isnan(v) ? (int)0xFFFFFFFFu : __float_as_int(v));
+  return ordered((int)min_store(v));
 }
 __device__ __forceinline__ int max_image(float v) {
-  return ordered(isnan(v) ? 0x7FFFFFFF : __float_as_int(v));
+  return ordered((int)max_store(v));
+}
+// stored min / max bits -> the NaN's own bits (numbers pass through)
+__device__ __forceinline__ unsigned min_decode(unsigned s) {
+  if (s >= 0xFFC00000u) return 0x7FC00000u | (s & kPayload);
+  if (s > 0xFF800000u) return 0xFFC00000u | (s - 0xFF800001u);
+  return s;
+}
+__device__ __forceinline__ unsigned max_decode(unsigned s) {
+  if (s >= 0x7FC00000u && s <= 0x7FFFFFFFu) return 0xFFC00000u | (s & kPayload);
+  if (s > 0x7F800000u && s < 0x7FC00000u) return 0x7FC00000u | (s - 0x7F800001u);
+  return s;
 }
 
 // exact float min/max on float storage through integer atomics
@@ -217,6 +275,7 @@ __device__ __forceinline__ int key_ts(unsigned long long k) {
 }
 
 __device__ __forceinline__ int exp_image(float v) {
+  if (isnan(v)) return kExNan;
   if (!isfinite(v) || v == 0.0f) return 0;
   int e;
   frexpf(v, &e);
@@ -224,7 +283,6 @@ __device__ __forceinline__ int exp_image(float v) {
 }
 
 __device__ __forceinline__ int special_bits(float v) {
-  if (isnan(v)) return kSpecNan;
   if (isinf(v)) return v > 0.0f ? kSpecPosInf : kSpecNegInf;
   return 0;
 }
@@ -311,19 +369,42 @@ struct AggOp {
     r.sp = kOrd ? __shfl_up_sync(kFullMask, x.sp, off) : 0;
     return r;
   }
-  __device__ __forceinline__ void emit(int lc, const T& x) const {
-    if (lc < 0) return;
-    long long cell, k = -1;
+  // accumulator cell and scratch cell (or -1) of window cell lc >= 0
+  __device__ __forceinline__ void cells(int lc, long long* cell,
+                                        long long* k) const {
+    *k = -1;
     if (kRound) {
       const int g = lc / a.width;
       const int c = lo_w + (lc - g * a.width);
-      cell = (long long)g * a.total + c;
+      *cell = (long long)g * a.total + c;
       if (c >= a.col0 && c < a.col0 + a.span)
-        k = (long long)g * a.span + (c - a.col0);
+        *k = (long long)g * a.span + (c - a.col0);
     } else {
-      cell = (long long)w * a.num_groups * a.width + lc;
-      k = cell;
+      *cell = (long long)w * a.num_groups * a.width + lc;
+      *k = *cell;
     }
+  }
+  // the ordered sum's NaN row key, one atomic per NaN row (they are
+  // rare, so the key stays out of the run-length reduction): partials,
+  // the row (max: the window's last NaN); round, the window flipped
+  // above the row in the window (max: the first window with a NaN, then
+  // its last NaN row)
+  static constexpr bool kNanKeys = kOrd;
+  __device__ __forceinline__ void note_nan(int lc, long long row) const {
+    if (lc < 0) return;
+    long long cell, k;
+    cells(lc, &cell, &k);
+    if (k < 0) return;
+    const unsigned long long nk =
+        kRound ? ((unsigned long long)(0xFFFF - w) << 32) |
+                     (unsigned long long)(row - (long long)w * a.cap + 1)
+               : (unsigned long long)(row + 1);
+    atomicMax(reinterpret_cast<unsigned long long*>(a.isum) + k, nk);
+  }
+  __device__ __forceinline__ void emit(int lc, const T& x) const {
+    if (lc < 0) return;
+    long long cell, k;
+    cells(lc, &cell, &k);
     atomicAdd(a.count + cell, x.cnt);
     if (!kOrd && (a.fields & kFieldSum)) atomicAdd(a.sum + cell, x.sum);
     if (kOrd && k >= 0) {
@@ -344,6 +425,8 @@ template <bool kRound>
 struct SumOp {
   using T = long long;
   static constexpr bool kIsRound = kRound;
+  static constexpr bool kNanKeys = false;
+  __device__ __forceinline__ void note_nan(int, long long) const {}
   const Args& a;
   int w, lo_w;
 
@@ -362,8 +445,10 @@ struct SumOp {
                                     int lc) const {
     const long long sc = scratch_cell(lc);
     if (sc < 0 || !isfinite(v) || v == 0.0f) return 0;
+    const int ex = __ldg(a.ex + sc);
+    if (ex >= kExNan) return 0;  // the cell's sum is its NaN row's value
     // |v| < 2^E for every finite value of the cell, so |q| <= 2^B
-    const int e = __ldg(a.ex + sc) - kExpBias;
+    const int e = ex - kExpBias;
     return __double2ll_rn(scalbn((double)v, a.sum_bits - e));
   }
   static __device__ __forceinline__ T combine(T x, T y) { return x + y; }
@@ -423,6 +508,7 @@ __device__ __forceinline__ void accumulate_tile(
     cell[k] = row_cell<Op::kIsRound>(a, remap_w, sh, lo_w, g4[k], ts4[k],
                                      &t);
     x[k] = op.make(v4[k], t, base + r0 + k, cell[k]);
+    if (Op::kNanKeys && isnan(v4[k])) op.note_nan(cell[k], base + r0 + k);
   }
 
   // the thread's own rows, run by run: the head run (from its first
@@ -519,12 +605,16 @@ __global__ void __launch_bounds__(kThreads) accumulate_kernel(const Args a) {
 }
 
 // a cell's ordered sum from its exponent image, special flags and int64
-// sum: NaN / +-inf where the flags say so, else q_sum * 2^(E - B)
+// sum: its NaN row's value (vals[nan_row]) where it has one, 0xFFC00000
+// for +inf with -inf, +-inf where the flags say so, else
+// q_sum * 2^(E - B)
 __device__ __forceinline__ float ordered_sum(int ex, int sp, long long q,
-                                             int sum_bits) {
-  if ((sp & kSpecNan) ||
-      (sp & (kSpecPosInf | kSpecNegInf)) == (kSpecPosInf | kSpecNegInf))
-    return __int_as_float(0x7FC00000);
+                                             int sum_bits,
+                                             const float* vals,
+                                             long long nan_row) {
+  if (ex >= kExNan) return vals[nan_row];
+  if ((sp & (kSpecPosInf | kSpecNegInf)) == (kSpecPosInf | kSpecNegInf))
+    return __uint_as_float(kDefaultNan);
   if (sp & kSpecPosInf) return __int_as_float(0x7F800000);
   if (sp & kSpecNegInf) return __int_as_float((int)0xFF800000u);
   return ex ? (float)scalbn((double)q, ex - kExpBias - sum_bits) : 0.0f;
@@ -549,19 +639,31 @@ __global__ void partials_init_kernel(long long cells, int fields, int ord,
   }
 }
 
-// partials: each cell's ordered sum (when `ord`) and its winning row ->
-// last, last_ts (when `last` is asked)
+// partials: each cell's ordered sum (when `ord`), its min / max NaN
+// images decoded, and its winning row -> last, last_ts (when `last` is
+// asked)
 __global__ void partials_finish_kernel(long long cells, int fields, int ord,
                                        int sum_bits, const int* __restrict__ ex,
                                        const int* __restrict__ sp,
                                        const long long* __restrict__ isum,
-                                       float* sum,
+                                       float* sum, float* mn, float* mx,
                                        const unsigned long long* __restrict__ key,
                                        const float* __restrict__ vals,
                                        float* last, int* last_ts) {
   for (long long c = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        c < cells; c += (long long)gridDim.x * blockDim.x) {
-    if (ord) sum[c] = ordered_sum(ex[c], sp[c], isum[c], sum_bits);
+    // a NaN cell's int64 sum holds its NaN row + 1
+    if (ord)
+      sum[c] = ordered_sum(ex[c], sp[c], isum[c], sum_bits, vals,
+                           isum[c] - 1);
+    // with the ordered sum, E marks the cells that hold a NaN: only
+    // those can hold a NaN image
+    if (!ord || ex[c] >= kExNan) {
+      if (fields & kFieldMin)
+        mn[c] = __uint_as_float(min_decode(__float_as_uint(mn[c])));
+      if (fields & kFieldMax)
+        mx[c] = __uint_as_float(max_decode(__float_as_uint(mx[c])));
+    }
     if (fields & kFieldLast) {
       const unsigned long long k = key[c];
       last[c] = k ? vals[(k & 0xFFFFFFFFull) - 1] : 0.0f;
@@ -570,12 +672,21 @@ __global__ void partials_finish_kernel(long long cells, int fields, int ord,
   }
 }
 
+// the reference's accumulator add: a NaN accumulator stays, a NaN round
+// sum replaces a number, opposite infinities give kDefaultNan
+__device__ __forceinline__ float acc_add(float acc, float r) {
+  if (isnan(acc)) return acc;
+  if (isnan(r)) return r;
+  if (isinf(acc) && isinf(r) && acc != r) return __uint_as_float(kDefaultNan);
+  return acc + r;
+}
+
 // round: each of the round's key cells -> its ordered sum added to the
-// accumulator's (one float add, where the round gave the cell a value),
-// and its `last` winner folded in where its ts >= the accumulator's
+// accumulator's (one add, where the round gave the cell a value), and
+// its `last` winner folded in where its ts >= the accumulator's
 __global__ void round_finish_kernel(long long cells, int span, int col0,
-                                    int total, int ord, int sum_bits,
-                                    const int* __restrict__ ex,
+                                    int total, int cap, int ord,
+                                    int sum_bits, const int* __restrict__ ex,
                                     const int* __restrict__ sp,
                                     const long long* __restrict__ isum,
                                     float* acc_sum,
@@ -586,8 +697,15 @@ __global__ void round_finish_kernel(long long cells, int span, int col0,
        i < cells; i += (long long)gridDim.x * blockDim.x) {
     const long long g = i / span;
     const long long cell = g * total + col0 + (i - g * span);
-    if (ord && (ex[i] | sp[i]))
-      acc_sum[cell] += ordered_sum(ex[i], sp[i], isum[i], sum_bits);
+    if (ord && (ex[i] | sp[i])) {
+      // a NaN cell's int64 sum holds (0xFFFF - w) << 32 | (row + 1)
+      const unsigned long long nk = (unsigned long long)isum[i];
+      const long long w = 0xFFFF - (long long)(nk >> 32);
+      const long long nan_row = w * cap + (long long)(nk & 0xFFFFFFFFull) - 1;
+      acc_sum[cell] = acc_add(acc_sum[cell],
+                              ordered_sum(ex[i], sp[i], isum[i], sum_bits,
+                                          vals, nan_row));
+    }
     if (!key) continue;
     const unsigned long long k = key[i];
     if (!k) continue;
@@ -676,12 +794,12 @@ Args make_args(const int* ts, const int* gid, const float* vals,
 // launch, 0 on success.
 
 // Partial grids: count, sum, min, max, last float32 and last_ts int32
-// outputs of W*G*width cells; key is an int64 scratch of the same cell
+// outputs of W*G*width cells (a NaN min / max as the NaN's own bits); key is an int64 scratch of the same cell
 // count (only touched when `last` is requested).  With `ordered` and a
 // sum asked, ex/sp (int32) and isum (int64) are per-cell scratch of the
 // ordered sum and sum_bits its B.  Launches: init, accumulate (twice
-// for the ordered sum), and a finish pass for the ordered sum and
-// `last`.
+// for the ordered sum), and a finish pass for the ordered sum, min /
+// max and `last`.
 extern "C" int horaedb_bucket_window_partials(
     const int* ts, const int* gid, const float* vals, const int* remap,
     int remap_len, const int* shift, const int* lo, int num_windows,
@@ -717,15 +835,15 @@ extern "C" int horaedb_bucket_window_partials(
     err = launch_accumulate<false>(a, kPassOrdSum, num_windows, n_valid, s);
     if (err) return err;
   }
-  if (!ord && !(fields & kFieldLast)) return 0;
+  if (!ord && !(fields & (kFieldMin | kFieldMax | kFieldLast))) return 0;
   partials_finish_kernel<<<grid_for(cells), kThreads, 0, s>>>(
-      cells, fields, ord, sum_bits, ex, sp, isum, sum, key_u, vals, last,
-      last_ts);
+      cells, fields, ord, sum_bits, ex, sp, isum, sum, mn, mx, key_u, vals,
+      last, last_ts);
   return (int)cudaGetLastError();
 }
 
 // One round folded into the query-global accumulator (G, total) in
-// place.  n_valid_w: per-window row counts (or null: max_rows rows in
+// place; a NaN min / max stays as its image (see "NaN images").  n_valid_w: per-window row counts (or null: max_rows rows in
 // every window); max_rows bounds the launch grid.  scratch: int64 cells
 // for the round's columns [col0, col0 + span), zeroed here: G x span of
 // `last` keys (when `last` is requested), then, with `ordered` and a
@@ -780,7 +898,7 @@ extern "C" int horaedb_bucket_round_accumulate(
   }
   if (!ord && !want_last) return 0;
   round_finish_kernel<<<grid_for(cells), kThreads, 0, s>>>(
-      cells, span, col0, total_buckets, ord, sum_bits, ex, sp, isum,
+      cells, span, col0, total_buckets, cap, ord, sum_bits, ex, sp, isum,
       acc_sum, key, vals, acc_last, acc_last_ts);
   return (int)cudaGetLastError();
 }

@@ -361,6 +361,137 @@ def _floor_div(a, b: int):
     return torch.div(a, b, rounding_mode="floor")
 
 
+# ---- NaN bits (csrc/bucket_agg.cu, "NaN images") -------------------------
+#
+# The JAX package's CPU min and max keep a NaN sample's sign and payload:
+# in min a positive NaN beats a negative one, in max the other way round,
+# and either beats every number.  The kernel folds min and max as integer
+# images of stored bits in which each NaN has its own slot in that order;
+# these are the same maps on int64 tensors of the unsigned float32 bits,
+# so the plain versions and the torch folds give the kernel's bits on any
+# device.  Its sum keeps a NaN's bits the way the reference's adds do.
+
+_PAYLOAD = 0x3FFFFF
+# the NaN the reference's CPU add makes of +inf + -inf
+DEFAULT_NAN_BITS = 0xFFC00000
+
+
+def _bits(v):
+    """float32 tensor -> int64 tensor of its unsigned bits."""
+    import torch
+
+    return v.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def _floats(u):
+    """int64 tensor of unsigned float32 bits -> float32 tensor."""
+    import torch
+
+    return ((u ^ 0x80000000) - 0x80000000).to(torch.int32).view(
+        torch.float32)
+
+
+# the stored-bit range of the winning NaN sign (min: +NaN, max: -NaN);
+# the other sign's range starts just past the infinity of nan_hi's sign
+_MIN_NAN_HI, _MAX_NAN_HI = 0xFFC00000, 0x7FC00000
+
+
+def _store(v, nan_hi: int):
+    """Stored bits of float32 values in min (nan_hi _MIN_NAN_HI) or max
+    (_MAX_NAN_HI): a NaN of the winning sign takes nan_hi | payload, one
+    of the other sign the slot past the infinity + payload (the all-ones
+    payload one below itself); numbers keep their bits."""
+    import torch
+
+    u = _bits(v)
+    q = u & _PAYLOAD
+    win = (u >> 31) != (nan_hi >> 31)
+    nan_lo = (nan_hi & 0x80000000) | 0x7F800001
+    img = torch.where(win, nan_hi | q, nan_lo + q.clamp(max=_PAYLOAD - 1))
+    return torch.where(torch.isnan(v), img, u)
+
+
+def _ordered(u):
+    """Unsigned stored bits -> order-preserving signed images (an
+    involution back through _unordered): integer order is float order."""
+    import torch
+
+    s = (u ^ 0x80000000) - 0x80000000
+    return torch.where(s >= 0, s, s ^ 0x7FFFFFFF)
+
+
+def _unordered(o):
+    import torch
+
+    return torch.where(o >= 0, o, o ^ 0x7FFFFFFF) & 0xFFFFFFFF
+
+
+def _decode(u, nan_hi: int):
+    """Inverse of _store on its images (numbers pass through)."""
+    import torch
+
+    nan_lo = (nan_hi & 0x80000000) | 0x7F800001
+    hi = (u >= nan_hi) & (u <= (nan_hi | _PAYLOAD))
+    lo = (u >= nan_lo) & (u < nan_hi)
+    return torch.where(hi, (nan_hi ^ 0x80000000) | (u & _PAYLOAD),
+                       torch.where(lo, nan_hi | (u - nan_lo), u))
+
+
+def decode_min_images(a):
+    """Float32 tensor of stored min bits (the round kernel's accumulator)
+    -> each NaN image as the NaN's own bits; numbers unchanged."""
+    return _floats(_decode(_bits(a), _MIN_NAN_HI))
+
+
+def decode_max_images(a):
+    return _floats(_decode(_bits(a), _MAX_NAN_HI))
+
+
+def min_order(v):
+    """Float32 values -> int64 keys whose integer min is the kernel's
+    min, NaN rule included (min_unorder inverts it): for folds of
+    decoded grids (nan_min) and for integer collectives."""
+    return _ordered(_store(v, _MIN_NAN_HI))
+
+
+def min_unorder(o):
+    return _floats(_decode(_unordered(o), _MIN_NAN_HI))
+
+
+def max_order(v):
+    return _ordered(_store(v, _MAX_NAN_HI))
+
+
+def max_unorder(o):
+    return _floats(_decode(_unordered(o), _MAX_NAN_HI))
+
+
+def nan_min(a, b):
+    """Elementwise min of float32 tensors with the kernel's NaN rule (a
+    +NaN beats a -NaN, which beats every number): the fold of partial
+    grids whose NaNs are their own bits."""
+    import torch
+
+    return min_unorder(torch.minimum(min_order(a), min_order(b)))
+
+
+def nan_max(a, b):
+    import torch
+
+    return max_unorder(torch.maximum(max_order(a), max_order(b)))
+
+
+def nan_add(a, b):
+    """a + b with the reference's CPU NaN bits on any device: a NaN `a`
+    stays, else a NaN `b`, opposite infinities give DEFAULT_NAN_BITS."""
+    import torch
+
+    dflt = _floats(torch.full(a.shape, DEFAULT_NAN_BITS, dtype=torch.int64,
+                              device=a.device))
+    s = torch.where(torch.isinf(a) & torch.isinf(b) & (a != b), dflt, a + b)
+    return torch.where(torch.isnan(a), a, torch.where(torch.isnan(b), b, s))
+
+
 def bucket_window_partials_plain(ts, gid_local, vals, remap, shift, lo,
                                  total_buckets: int, bucket_ms: int, *,
                                  num_groups: int, width: int, which: tuple,
@@ -369,7 +500,11 @@ def bucket_window_partials_plain(ts, gid_local, vals, remap, shift, lo,
     mirroring horaedb_tpu's window_local_partials -> partial_aggregate:
     segment sum/min/max into a grid with one overflow cell per window,
     and a two-pass `last` (max ts per cell, then max row at that ts).
-    n_valid may also be an int32 (W,) tensor of rows per window."""
+    min and max fold the kernel's integer NaN images and come out
+    decoded, and a NaN cell's sum is its last NaN row's value (+inf with
+    -inf, DEFAULT_NAN_BITS), as in the kernel, whose bits they equal on
+    every device.  n_valid may also be an int32 (W,) tensor of rows per
+    window."""
     import torch
 
     W, cap = ts.shape
@@ -413,18 +548,35 @@ def bucket_window_partials_plain(ts, gid_local, vals, remap, shift, lo,
     m = in_grid.reshape(-1)
     out = {"count": grid(torch.zeros(size, dtype=torch.float32, device=dev)
                          .index_add_(0, flat, m.to(torch.float32)))}
+
+    def seg_max(x, fill: int):
+        return torch.full((size,), fill, dtype=torch.int64, device=dev) \
+            .scatter_reduce_(0, flat, x, "amax")
+
     if "sum" in fields:
-        out["sum"] = grid(torch.zeros(size, dtype=torch.float32, device=dev)
-                          .index_add_(0, flat, torch.where(
-                              m, v, torch.zeros_like(v))))
-    if "min" in fields:
-        out["min"] = grid(torch.full((size,), float("inf"), device=dev)
-                          .scatter_reduce_(0, flat, torch.where(
-                              m, v, torch.full_like(v, _F32_MAX)), "amin"))
-    if "max" in fields:
-        out["max"] = grid(torch.full((size,), float("-inf"), device=dev)
-                          .scatter_reduce_(0, flat, torch.where(
-                              m, v, torch.full_like(v, -_F32_MAX)), "amax"))
+        fin = m & torch.isfinite(v)
+        s = torch.zeros(size, dtype=torch.float32, device=dev).index_add_(
+            0, flat, torch.where(fin, v, torch.zeros_like(v)))
+        # the window's last NaN row (flat index), and its infinities
+        nan_row = seg_max(torch.where(
+            m & torch.isnan(v), torch.arange(W * cap, device=dev), -1), -1)
+        pinf = seg_max((m & (v == float("inf"))).long(), 0) > 0
+        ninf = seg_max((m & (v == float("-inf"))).long(), 0) > 0
+        dflt = _floats(torch.full((size,), DEFAULT_NAN_BITS,
+                                  dtype=torch.int64, device=dev))
+        s = torch.where(pinf & ninf, dflt, torch.where(
+            pinf, torch.full_like(s, float("inf")), torch.where(
+                ninf, torch.full_like(s, float("-inf")), s)))
+        picked = v[nan_row.clamp(min=0)] if v.numel() else s
+        out["sum"] = grid(torch.where(nan_row >= 0, picked, s))
+    for f, order, unorder, fill, red in (
+            ("min", min_order, min_unorder, _F32_MAX, "amin"),
+            ("max", max_order, max_unorder, -_F32_MAX, "amax")):
+        if f in fields:
+            init = float("inf") if f == "min" else float("-inf")
+            img = order(torch.where(m, v, torch.full_like(v, fill)))
+            acc = order(torch.full((size,), init, device=dev))
+            out[f] = grid(unorder(acc.scatter_reduce_(0, flat, img, red)))
     if "last" in fields:
         tl = ts_local.reshape(-1)
         tmax = torch.full((size,), _I32_MIN, dtype=i32, device=dev) \
@@ -448,11 +600,16 @@ def bucket_window_partials_plain(ts, gid_local, vals, remap, shift, lo,
 def fold_window_partials(acc: dict, p: dict, lo_host, total_buckets: int,
                          bucket_ms: int, width: int) -> dict:
     """Scatter W window partial grids into the query-global accumulator,
-    in place: a slice update per window, in window order — count/sum
-    add, min/max fold, and `last` takes the window's value where its
+    in place: a slice update per window, in window order — count add,
+    sum add with the reference's NaN bits (nan_add), min/max fold in
+    the kernel's stored bits (the accumulator holds NaN images, as the
+    kernel's does), and `last` takes the window's value where its
     range-relative ts is >= the accumulator's (the later window wins
     ties)."""
     import torch
+
+    def fold(cur, part, order, op):
+        return _floats(_unordered(op(_ordered(_bits(cur)), order(part))))
 
     for d in range(p["count"].shape[0]):
         c0 = int(lo_host[d])
@@ -462,13 +619,16 @@ def fold_window_partials(acc: dict, p: dict, lo_host, total_buckets: int,
         cols = slice(c0, c0 + n)
         acc["count"][:, cols] += p["count"][d, :, :n]
         if "sum" in acc:
-            acc["sum"][:, cols] += p["sum"][d, :, :n]
+            acc["sum"][:, cols] = nan_add(acc["sum"][:, cols],
+                                          p["sum"][d, :, :n])
         if "min" in acc:
-            acc["min"][:, cols] = torch.minimum(acc["min"][:, cols],
-                                                p["min"][d, :, :n])
+            acc["min"][:, cols] = fold(acc["min"][:, cols],
+                                       p["min"][d, :, :n], min_order,
+                                       torch.minimum)
         if "max" in acc:
-            acc["max"][:, cols] = torch.maximum(acc["max"][:, cols],
-                                                p["max"][d, :, :n])
+            acc["max"][:, cols] = fold(acc["max"][:, cols],
+                                       p["max"][d, :, :n], max_order,
+                                       torch.maximum)
         if "last" in acc:
             cur_ts = acc["last_ts"][:, cols]
             cur_last = acc["last"][:, cols]

@@ -72,18 +72,20 @@ def combine_partial_pair(cur: dict, prev: dict) -> dict:
     the EARLIER prefix; ties on last_ts keep `cur` (the later window
     wins, the host fold's `>=` take in storage/combine.py).  Exact for
     count while a cell's count stays < 2^24, for min/max/last (selection
-    ops), and for sum only where one window contributes a cell — the
-    dispatcher's gates keep anything else off the mesh.  Returns new
-    tensors: neither input is written."""
+    ops; NaNs by the kernel's sign rule, bucket_agg.nan_min), and for
+    sum only where one window contributes a cell — the dispatcher's
+    gates keep anything else off the mesh; its NaN bits are the
+    reference's jnp add's (bucket_agg.nan_add).  Returns new tensors:
+    neither input is written."""
     import torch
 
     out = {"count": cur["count"] + prev["count"]}
     if "sum" in cur:
-        out["sum"] = cur["sum"] + prev["sum"]
+        out["sum"] = bucket_agg.nan_add(cur["sum"], prev["sum"])
     if "min" in cur:
-        out["min"] = torch.minimum(cur["min"], prev["min"])
+        out["min"] = bucket_agg.nan_min(cur["min"], prev["min"])
     if "max" in cur:
-        out["max"] = torch.maximum(cur["max"], prev["max"])
+        out["max"] = bucket_agg.nan_max(cur["max"], prev["max"])
     if "last" in cur:
         take_cur = cur["last_ts"] >= prev["last_ts"]
         out["last"] = torch.where(take_cur, cur["last"], prev["last"])
@@ -92,28 +94,20 @@ def combine_partial_pair(cur: dict, prev: dict) -> dict:
     return out
 
 
-def canonical_nan(a):
-    """`a` (a numpy array or a tensor) with every NaN as the quiet NaN
-    (0x7fc00000 in float32), the bits the JAX package's min and max grids
-    hold for a NaN sample.  The card's kernel leaves a NaN cell's min as
-    0xffffffff and its max as 0x7fffffff (the images that win its
-    integer folds), and torch's vectorised minimum and maximum may return
-    0xffffffff; the grids keep those bits through every fold and take
-    the quiet NaN at their three exits: read.fused_finalize,
-    read.ParquetReader.finalize_aggregate and finalize_aggregate here.
-    A negative NaN sample (0xffc00000) also reads 0x7fc00000, where the
-    JAX package keeps its sign (ROADMAP C 18)."""
-    if isinstance(a, np.ndarray):
-        nan = np.isnan(a)
-        return np.where(nan, a.dtype.type(np.nan), a) if nan.any() else a
+def mean(total, count):
+    """avg of a sum grid: a NaN sum keeps its bits (the reference's CPU
+    division does; the card's makes its own NaN)."""
     import torch
 
-    return torch.where(torch.isnan(a), torch.full_like(a, float("nan")), a)
+    return torch.where(torch.isnan(total), total,
+                       total / count.clamp(min=1.0))
 
 
 def finalize_aggregate(partial: dict, which: tuple = ALL_AGGS) -> dict:
     """Combined partial grids -> user-facing aggregates.  Empty cells:
-    count 0, sum 0, min +inf, max -inf, avg/last NaN."""
+    count 0, sum 0, min +inf, max -inf, avg/last NaN.  A NaN min or max
+    is the NaN's own bits already: bucket_window_partials decodes its
+    grids."""
     import torch
 
     want = set(which) | {"count"}
@@ -124,12 +118,11 @@ def finalize_aggregate(partial: dict, which: tuple = ALL_AGGS) -> dict:
     if "sum" in partial and "sum" in want:
         out["sum"] = partial["sum"]
     if "sum" in partial and "avg" in want:
-        out["avg"] = torch.where(empty, nan,
-                                 partial["sum"] / count.clamp(min=1.0))
+        out["avg"] = torch.where(empty, nan, mean(partial["sum"], count))
     if "min" in partial and "min" in want:
-        out["min"] = canonical_nan(partial["min"])
+        out["min"] = partial["min"]
     if "max" in partial and "max" in want:
-        out["max"] = canonical_nan(partial["max"])
+        out["max"] = partial["max"]
     if "last" in partial and "last" in want:
         out["last"] = torch.where(empty, nan, partial["last"])
     return out

@@ -139,6 +139,7 @@ def downsample_query_global(mesh: GlobalMesh, *, num_groups: int,
     import torch
     import torch.distributed as dist
 
+    from horaedb_tpu_torch.ops import bucket_agg
     from horaedb_tpu_torch.parallel import scan as pscan
 
     local = mesh.local
@@ -165,10 +166,14 @@ def downsample_query_global(mesh: GlobalMesh, *, num_groups: int,
             [torch.where(e, torch.full_like(p["last_ts"], r),
                          torch.full_like(p["last_ts"], -1))
              for e, r in zip(elig, ranks)], torch.maximum)
+        # min and max reduce as the kernel's integer keys, so a NaN keeps
+        # its sign across processes as it does across local shards
         out = {"count": _all_reduce(p["count"].clone(), R.SUM),
                "sum": _all_reduce(p["sum"].clone(), R.SUM),
-               "min": _all_reduce(p["min"].clone(), R.MIN),
-               "max": _all_reduce(p["max"].clone(), R.MAX)}
+               "min": bucket_agg.min_unorder(
+                   _all_reduce(bucket_agg.min_order(p["min"]), R.MIN)),
+               "max": bucket_agg.max_unorder(
+                   _all_reduce(bucket_agg.max_order(p["max"]), R.MAX))}
         g_ts = _all_reduce(p["last_ts"].clone(), R.MAX)
         mine = p["last_ts"] == g_ts
         g_rank = _all_reduce(torch.where(mine, l_rank,

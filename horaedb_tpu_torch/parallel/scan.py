@@ -236,18 +236,19 @@ def _reduce(tensors: list, op) -> "object":
 
 def _combine_partials(ps: list, ranks: Optional[list] = None) -> dict:
     """Cross-shard combination of partial aggregate grids (psum of
-    count and sum, pmin/pmax of min and max).  `last` goes to the shard
+    count and sum, pmin/pmax of min and max, NaNs by the kernel's rules:
+    bucket_agg.nan_add, nan_min, nan_max).  `last` goes to the shard
     holding the latest timestamp; a tie goes to the higher rank.  The
     result lives on rank 0's device."""
     import torch
 
     out = {"count": _reduce([p["count"] for p in ps], torch.add)}
     if "sum" in ps[0]:
-        out["sum"] = _reduce([p["sum"] for p in ps], torch.add)
+        out["sum"] = _reduce([p["sum"] for p in ps], bucket_agg.nan_add)
     if "min" in ps[0]:
-        out["min"] = _reduce([p["min"] for p in ps], torch.minimum)
+        out["min"] = _reduce([p["min"] for p in ps], bucket_agg.nan_min)
     if "max" in ps[0]:
-        out["max"] = _reduce([p["max"] for p in ps], torch.maximum)
+        out["max"] = _reduce([p["max"] for p in ps], bucket_agg.nan_max)
     if "last" in ps[0]:
         dev = ps[0]["count"].device
         ranks = list(range(len(ps))) if ranks is None else ranks

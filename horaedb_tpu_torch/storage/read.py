@@ -115,8 +115,8 @@ from horaedb_tpu_torch.objstore import NotFoundError, ObjectStore
 from horaedb_tpu_torch.ops import bucket_agg, device_decode, encode
 from horaedb_tpu_torch.ops import filter as filter_ops
 from horaedb_tpu_torch.ops import merge as merge_ops
-from horaedb_tpu_torch.ops.downsample import (ALL_AGGS, canonical_nan,
-                                              canonical_which)
+from horaedb_tpu_torch.ops.downsample import (ALL_AGGS, canonical_which,
+                                              mean)
 from horaedb_tpu_torch.storage import combine as combine_mod
 from horaedb_tpu_torch.storage import parquet_io, sidecar
 from horaedb_tpu_torch.storage.config import StorageConfig, UpdateMode
@@ -3300,11 +3300,6 @@ class ParquetReader:
                                                       top_k)
         finally:
             _observe_stage("combine", time.perf_counter() - t0)
-        # every parts-route grid leaves here: the kernel's and the
-        # folds' NaN bits become the reference's quiet NaN once
-        for k in ("min", "max"):
-            if k in grids:
-                grids[k] = canonical_nan(grids[k])
         if len(group_values) and "last_ts" in grids:
             grids["last_ts"] = grids["last_ts"] + spec.range_start
         return group_values, grids
@@ -3817,8 +3812,9 @@ def fused_round_accumulate(acc: dict, ts, gid, vals, remap, shift, lo,
 
 def fused_finalize(acc: dict, which: tuple) -> dict:
     """Finalize of the fused accumulator: min/max empty cells read
-    +/-inf, a NaN cell the quiet NaN (canonical_nan), avg/last NaN;
-    last_ts stays int32 (range-relative)."""
+    +/-inf, a NaN cell its NaN's own bits (the kernel's NaN images
+    decoded: bucket_agg.decode_min_images), avg/last NaN; last_ts stays
+    int32 (range-relative)."""
     import torch
 
     count = acc["count"]
@@ -3829,13 +3825,13 @@ def fused_finalize(acc: dict, which: tuple) -> dict:
     if "sum" in acc and "sum" in requested:
         out["sum"] = acc["sum"]
     if "sum" in acc and "avg" in requested:
-        out["avg"] = torch.where(empty, nan, acc["sum"] / count.clamp(min=1.0))
+        out["avg"] = torch.where(empty, nan, mean(acc["sum"], count))
     if "min" in acc and "min" in requested:
         out["min"] = torch.where(empty, torch.full_like(count, float("inf")),
-                                 canonical_nan(acc["min"]))
+                                 bucket_agg.decode_min_images(acc["min"]))
     if "max" in acc and "max" in requested:
         out["max"] = torch.where(empty, torch.full_like(count, float("-inf")),
-                                 canonical_nan(acc["max"]))
+                                 bucket_agg.decode_max_images(acc["max"]))
     if "last" in acc and "last" in requested:
         out["last"] = torch.where(empty, nan, acc["last"])
         out["last_ts"] = acc["last_ts"]

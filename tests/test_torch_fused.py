@@ -244,34 +244,23 @@ def _nan_bits(grid) -> int:
     return int(np.asarray(grid, np.float32)[:, :1].view(np.uint32)[0, 0])
 
 
+@pytest.mark.parametrize("sample,bits", [(POS_NAN, 0x7FC00000),
+                                         (NEG_NAN, 0xFFC00000)],
+                         ids=["nan", "neg_nan"])
 @pytest.mark.parametrize("route", ["fused", "parts", "decode"])
-def test_nan_min_max_bits_match_reference(monkeypatch, route):
+def test_nan_min_max_bits_match_reference(monkeypatch, route, sample, bits):
     """A NaN sample makes its cell's min and max NaN with the reference's
-    bits, the quiet NaN 0x7fc00000, on the fused route and on the parts
-    route with host and with device decode: the grids' bytes are
-    compared, not their values (NaN equals NaN under assert_array_equal
-    whatever its bits)."""
+    bits, its own sign kept (the quiet NaN 0x7fc00000, or 0xffc00000 for
+    a negative NaN sample), on the fused route and on the parts route
+    with host and with device decode: the grids' bytes are compared, not
+    their values (NaN equals NaN under assert_array_equal whatever its
+    bits).  tests/test_torch_nan_sign.py holds the rule on every route
+    and placement."""
     monkeypatch.setenv("HORAEDB_FUSED_AGG", "1" if route == "fused" else "0")
     monkeypatch.setenv("HORAEDB_HOST_AGG", "0")
-    got, ref = _nan_grids(route, POS_NAN)
+    got, ref = _nan_grids(route, sample)
     for k in ("min", "max"):
         assert np.isnan(got[k][0, 0]), k
         assert got[k].dtype == ref[k].dtype, k
         assert got[k].tobytes() == ref[k].tobytes(), k
-        assert _nan_bits(got[k]) == 0x7FC00000, k
-
-
-@pytest.mark.parametrize("route", ["fused", "parts"])
-def test_negative_nan_sign_is_not_kept(monkeypatch, route):
-    """The open part of ROADMAP C 18, pinned: a negative NaN sample
-    (0xffc00000) keeps its sign in the reference's min and max grids and
-    reads the quiet NaN 0x7fc00000 in the port's.  The other cell is
-    byte-equal.  When the port keeps the sign, this test is to become a
-    case of test_nan_min_max_bits_match_reference."""
-    monkeypatch.setenv("HORAEDB_FUSED_AGG", "1" if route == "fused" else "0")
-    monkeypatch.setenv("HORAEDB_HOST_AGG", "0")
-    got, ref = _nan_grids(route, NEG_NAN)
-    for k in ("min", "max"):
-        assert _nan_bits(ref[k]) == 0xFFC00000, k
-        assert _nan_bits(got[k]) == 0x7FC00000, k
-        assert got[k][:, 1:].tobytes() == ref[k][:, 1:].tobytes(), k
+        assert _nan_bits(got[k]) == bits, k
