@@ -1,0 +1,9 @@
+"""The share of the traced window in which no kernel, copy or set ran
+on the card: 1 - (union of device activity) / window, in percent, from
+the profiler's timeline (`perfbench/devtrace.py`)."""
+
+
+def read(r):
+    if r.trace is None or r.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - r.trace.busy_s / r.trace.window_s)
