@@ -21,9 +21,11 @@ from __future__ import annotations
 
 import asyncio
 import contextvars
-import functools
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable
+
+from horaedb_tpu_torch.utils.tracing import record_interval
 
 
 class Runtimes:
@@ -46,13 +48,31 @@ class Runtimes:
         The caller's contextvars context rides along (run_in_executor,
         unlike asyncio.to_thread, does not copy it) so request-scoped
         state — the ambient trace, deadline — stays visible to stage
-        attribution inside pool work."""
+        attribution inside pool work.  The hop's two waits are recorded
+        as intervals: `pool_queue` from the submit to the worker's
+        start, `loop_resume` from the worker's end to this coroutine
+        running again (the event loop's delay in resuming it)."""
         loop = asyncio.get_running_loop()
         ctx = contextvars.copy_context()
-        return await loop.run_in_executor(
-            self._pools[pool],
-            functools.partial(ctx.run,
-                              functools.partial(fn, *args, **kwargs)))
+        ran: list = []
+
+        def job():
+            ran.append(time.perf_counter_ns())
+            try:
+                return ctx.run(fn, *args, **kwargs)
+            finally:
+                ran.append(time.perf_counter_ns())
+
+        submitted = time.perf_counter_ns()
+        try:
+            return await loop.run_in_executor(self._pools[pool], job)
+        finally:
+            # a job cancelled before it started, or still running when
+            # its caller was cancelled, has no such wait
+            if len(ran) == 2:
+                resumed = time.perf_counter_ns()
+                record_interval("pool_queue", submitted, ran[0], pool=pool)
+                record_interval("loop_resume", ran[1], resumed, pool=pool)
 
     def close(self) -> None:
         # wait=True is load-bearing: shutdown(wait=False) leaves an

@@ -65,7 +65,7 @@ from horaedb_tpu_torch.storage.config import StorageConfig
 from horaedb_tpu_torch.storage.read import AggregateSpec, ScanRequest
 from horaedb_tpu_torch.storage.storage import CloudObjectStorage, WriteRequest
 from horaedb_tpu_torch.storage.types import TimeRange, Timestamp
-from horaedb_tpu_torch.utils import registry, span
+from horaedb_tpu_torch.utils import registry, span, tracing
 from horaedb_tpu_torch.wal import IngestStorage
 from horaedb_tpu_torch.metric_engine.types import (
     Label,
@@ -604,6 +604,9 @@ class MetricEngine:
         self = cls(tables, segment_ms, dev, chunked_data=chunked_data,
                    chunk_window_ms=chunk_window_ms)
         self._runtimes = shared_runtimes
+        # garbage-collector pauses on the span timeline while an engine
+        # is open (released with the pools in close())
+        tracing.watch_gc_pauses()
         if rollup_config is not None and rollup_config.enabled:
             from horaedb_tpu_torch.rollup import RollupManager
 
@@ -657,7 +660,7 @@ class MetricEngine:
     async def close(self) -> None:
         """Close the rollup tiers, then the five tables (their
         compaction schedulers and scrub loops stop first), then the
-        worker pools."""
+        worker pools and the engine's watch on GC pauses."""
         if self._scanagent_client is not None:
             await self._scanagent_client.close()
             self._scanagent_client = None
@@ -680,6 +683,7 @@ class MetricEngine:
         if self._runtimes is not None:
             self._runtimes.close()
             self._runtimes = None
+            tracing.unwatch_gc_pauses()
 
     async def stats(self) -> dict:
         """Data volume stored (rows, bytes and SSTs per table, from the
@@ -1179,9 +1183,10 @@ class MetricEngine:
                              range_start=int(time_range.start),
                              bucket_ms=bucket_ms, num_buckets=num_buckets,
                              which=tuple(aggs))
-        qp = await self.tables["data"].plan_query(
-            ScanRequest(range=time_range, predicate=pred), spec=spec,
-            top_k=top_k, parts_route=parts_route)
+        with span("plan"):
+            qp = await self.tables["data"].plan_query(
+                ScanRequest(range=time_range, predicate=pred), spec=spec,
+                top_k=top_k, parts_route=parts_route)
         group_values, grids = await self.tables["data"].execute_plan(qp)
         return {"tsids": [int(t) for t in group_values],
                 "num_buckets": num_buckets,
@@ -1264,7 +1269,7 @@ class MetricEngine:
         if covered:
             # per-field routing with ONE shared resolve: covered fields
             # read their rollup tier, the rest reuse (mid, tsids) below
-            with span("rollup_plan"):
+            with span("rollup_plan"), span("resolve"):
                 mid = await self.metric_manager.resolve(metric,
                                                         time_range)
                 tsids = (None if mid is None else
@@ -1285,9 +1290,10 @@ class MetricEngine:
                 return out
         parts = None
         if resolved is None:
-            parts = await self._data_pred_parts(metric, filters,
-                                                time_range,
-                                                ts_leaf=not aligned)
+            with span("resolve"):
+                parts = await self._data_pred_parts(metric, filters,
+                                                    time_range,
+                                                    ts_leaf=not aligned)
         for f in remaining:
             if resolved is not None:
                 pred = self._pred_from_resolved(resolved, f, time_range,

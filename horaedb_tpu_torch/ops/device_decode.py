@@ -52,6 +52,7 @@ from horaedb_tpu_torch.ops.filter import (
     _const_code_upper,
 )
 from horaedb_tpu_torch.utils import registry, trace_add
+from horaedb_tpu_torch.utils.tracing import record_interval
 
 # every way a plan or segment can decline the device decode, so an
 # operator can tell a misconfigured query from unsupported data
@@ -433,24 +434,24 @@ class DecodeDispatch:
     finalize() copies the grids to the host and shapes the part."""
 
     __slots__ = ("outs", "n_rows", "values", "lo", "w_eff", "bucket_ms",
-                 "t_dispatch", "upload_bytes", "src_rows")
+                 "t0_ns", "upload_bytes", "src_rows")
 
     def __init__(self, outs, n_rows, values, lo, w_eff, bucket_ms,
-                 t_dispatch, upload_bytes, src_rows):
+                 t0_ns, upload_bytes, src_rows):
         self.outs = outs
         self.n_rows = n_rows
         self.values = values
         self.lo = lo
         self.w_eff = w_eff
         self.bucket_ms = bucket_ms
-        self.t_dispatch = t_dispatch
+        # the dispatch's start: the stage runs from it to finalize's end
+        self.t0_ns = t0_ns
         self.upload_bytes = upload_bytes
         self.src_rows = src_rows
 
     def finalize(self) -> DevicePart:
         import torch
 
-        t0 = time.perf_counter()
         g, w = len(self.values), self.w_eff
         # as the host round emits: the real groups and the query-clipped
         # width, sliced on the card and packed with the kept-row count
@@ -473,14 +474,17 @@ class DecodeDispatch:
                 grids["count"] > 0, lt + self.lo * self.bucket_ms, lt)
         part = DevicePart(part=(self.values, self.lo, grids),
                           n_valid=int(host[-1]), nbytes=nbytes)
-        observe_decode_stage(self.t_dispatch + (time.perf_counter() - t0),
-                             rows=self.src_rows, nbytes=self.upload_bytes)
+        observe_decode_stage(self.t0_ns, rows=self.src_rows,
+                             nbytes=self.upload_bytes)
         return part
 
 
-def observe_decode_stage(seconds: float, rows: int, nbytes: int) -> None:
-    _STAGE_SECONDS.observe(seconds)
-    trace_add("stage_device_decode_ms", seconds * 1e3)
+def observe_decode_stage(t0_ns: int, rows: int, nbytes: int) -> None:
+    """Attribute the interval from `t0_ns` (time.perf_counter_ns()) to
+    now to the device decode stage."""
+    t1_ns = time.perf_counter_ns()
+    record_interval("device_decode", t0_ns, t1_ns, _STAGE_SECONDS)
+    trace_add("stage_device_decode_ms", (t1_ns - t0_ns) / 1e6)
     if rows:
         _STAGE_ROWS.inc(rows)
         trace_add("stage_device_decode_rows", rows)
@@ -649,7 +653,7 @@ def execute_plan(dp: DecodePlan, device) -> DecodeDispatch:
     import torch
 
     es = dp.es
-    t0 = time.perf_counter()
+    t0 = time.perf_counter_ns()
     # ONE host-to-device copy per segment: the stored rows of every
     # upload column (float32 as its int32 bits), the leaf constants and
     # the run offsets, packed; the columns' padding is zeroed on the card
@@ -677,7 +681,7 @@ def execute_plan(dp: DecodePlan, device) -> DecodeDispatch:
         which=dp.which, route=dp.route, num_runs=dp.num_runs)
     return DecodeDispatch(outs=outs, n_rows=n_rows, values=dp.values,
                           lo=dp.lo, w_eff=dp.w_eff, bucket_ms=dp.bucket_ms,
-                          t_dispatch=time.perf_counter() - t0,
+                          t0_ns=t0,
                           upload_bytes=int(flat.nbytes), src_rows=es.n)
 
 

@@ -48,6 +48,7 @@ from typing import Optional
 
 from horaedb_tpu_torch.common.deadline import checkpoint as deadline_checkpoint
 from horaedb_tpu_torch.utils import registry, trace_add
+from horaedb_tpu_torch.utils.tracing import record_interval
 
 # per-stage occupancy of the pipeline beside the plan stages of
 # storage/read.py (same family names): fetch ~= the segment reads,
@@ -130,9 +131,19 @@ def note_mesh_stall(axis: str) -> None:
     trace_add(f"mesh_stall_{axis}", 1)
 
 
-def observe_stage(stage: str, seconds: float, rows: int = 0,
-                  nbytes: int = 0) -> None:
+def observe_stage(stage: str, t0_ns: int, rows: int = 0, nbytes: int = 0,
+                  t1_ns: Optional[int] = None,
+                  seconds: Optional[float] = None) -> None:
+    """Attribute the interval [t0_ns, t1_ns or now) of
+    time.perf_counter_ns() to a pipeline stage; `seconds` charges less
+    than the whole interval where part of it is another stage's (a
+    streamed segment's reads)."""
+    if t1_ns is None:
+        t1_ns = time.perf_counter_ns()
+    if seconds is None:
+        seconds = (t1_ns - t0_ns) / 1e9
     STAGE_SECONDS[stage].observe(seconds)
+    record_interval(stage, t0_ns, t1_ns, None)
     trace_add(f"stage_{stage}_ms", seconds * 1e3)
     if rows:
         STAGE_ROWS[stage].inc(rows)
@@ -340,7 +351,7 @@ class ScanPipeline:
             # inside the try: the admission-time estimate must release
             # on this exit too
             deadline_checkpoint()
-            t0 = time.perf_counter()
+            t0 = time.perf_counter_ns()
             resident = self.reader._resident_segment_parts(seg, self.plan)
             if resident is not None:
                 # zero store I/O: assemble the tier-2-resident parts here
@@ -353,9 +364,10 @@ class ScanPipeline:
                 if es is not None:
                     nbytes = int(es.nbytes)
                     self.budget.charge(nbytes)
-                    read_s = time.perf_counter() - t0
-                    observe_stage("fetch", read_s, rows=int(es.n),
-                                  nbytes=nbytes)
+                    t1 = time.perf_counter_ns()
+                    read_s = (t1 - t0) / 1e9
+                    observe_stage("fetch", t0, rows=int(es.n),
+                                  nbytes=nbytes, t1_ns=t1)
                     return es, read_s, nbytes
                 # assembly failed: memoize the composition (the negative
                 # memo is event-loop owned — we are back on the loop)
@@ -372,8 +384,8 @@ class ScanPipeline:
                         seg, self.plan, runner=self._bounded_runner)
             nbytes = int(table.nbytes)
             self.budget.charge(nbytes)
-            observe_stage("fetch", time.perf_counter() - t0,
-                          rows=int(table.num_rows), nbytes=nbytes)
+            observe_stage("fetch", t0, rows=int(table.num_rows),
+                          nbytes=nbytes)
         finally:
             self.budget.release(est)
         return table, read_s, nbytes
@@ -406,7 +418,7 @@ class ScanPipeline:
         if not task.done():
             note_stall("decode")
         table, read_s, fetch_bytes = await task
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         if table.num_rows:
             windows = await self.reader._run_pool(
                 self.reader._merge_segment, table, self.plan,
@@ -418,8 +430,8 @@ class ScanPipeline:
         # swap the fetched representation's bytes for the windows'
         self.budget.charge(nbytes)
         self.budget.release(fetch_bytes)
-        observe_stage("decode", time.perf_counter() - t0,
-                      rows=sum(w.n_valid for w in windows), nbytes=nbytes)
+        observe_stage("decode", t0, rows=sum(w.n_valid for w in windows),
+                      nbytes=nbytes)
         return _Item(seg, windows, read_s, nbytes, True)
 
     async def _decode_streamed(self, seg) -> _Item:
@@ -427,13 +439,15 @@ class ScanPipeline:
         # by window (bounded materialization); they take no pipeline
         # slot so later bulk fetches keep overlapping them, and only
         # their finished windows charge the byte budget
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         windows, read_s = await self.reader._read_streamed_windows(
             seg, self.plan)
         nbytes = windows_nbytes(windows)
         self.budget.charge(nbytes)
-        observe_stage("decode", time.perf_counter() - t0 - read_s,
-                      rows=sum(w.n_valid for w in windows), nbytes=nbytes)
+        t1 = time.perf_counter_ns()
+        observe_stage("decode", t0, rows=sum(w.n_valid for w in windows),
+                      nbytes=nbytes, t1_ns=t1,
+                      seconds=(t1 - t0) / 1e9 - read_s)
         return _Item(seg, windows, read_s, nbytes, False)
 
     # ---- consumer API ------------------------------------------------------

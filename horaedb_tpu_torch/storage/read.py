@@ -134,6 +134,7 @@ from horaedb_tpu_torch.storage.types import (
     TimeRange,
 )
 from horaedb_tpu_torch.utils import active_trace, registry, trace_add
+from horaedb_tpu_torch.utils.tracing import record_interval
 
 logger = logging.getLogger(__name__)
 
@@ -149,7 +150,7 @@ _STAGE_SECONDS = {
                           ).labels(stage=s)
     for s in ("segment_read", "sidecar_read", "parquet_read", "merge",
               "stack_build", "device_aggregate", "mesh_aggregate",
-              "combine")
+              "combine", "window_prep", "fused_finish")
 }
 # rows and bytes of the segment reads by source: sidecar (tier 2 or the
 # store) or parquet; a read's seconds go to segment_read and to its
@@ -166,11 +167,16 @@ _STAGE_BYTES = {
 }
 
 
-def _observe_stage(stage: str, seconds: float) -> None:
-    """Attribute wall time to a plan stage: the cumulative registry
-    histogram and, when a request trace is ambient, its profile."""
-    _STAGE_SECONDS[stage].observe(seconds)
-    trace_add(f"stage_{stage}_ms", seconds * 1e3)
+def _observe_stage(stage: str, t0_ns: int,
+                   t1_ns: Optional[int] = None) -> None:
+    """Attribute the interval [t0_ns, t1_ns or now) of
+    time.perf_counter_ns() to a plan stage: the cumulative registry
+    histogram and, when a request trace is ambient, its profile and
+    its span timeline."""
+    if t1_ns is None:
+        t1_ns = time.perf_counter_ns()
+    record_interval(stage, t0_ns, t1_ns, _STAGE_SECONDS[stage])
+    trace_add(f"stage_{stage}_ms", (t1_ns - t0_ns) / 1e6)
 
 
 # plan_stage_snapshot's stages: the JAX package's snapshot keys
@@ -1362,22 +1368,22 @@ class ParquetReader:
         return await parquet_io._run(self.runtimes, pool, fn, *args)
 
     async def _run_round(self, fn, *args, pool: str) -> tuple:
-        """_run_pool for a pipeline device round: (result, seconds), the
-        seconds from the submit to the round's own end on its worker.
-        The pool-queue wait is the stage's; the event loop's delay in
-        resuming the caller afterwards is the consumer's (it is busy
-        with the fetch and decode stages), so it is left out."""
-        t0 = time.perf_counter()
+        """_run_pool for a pipeline device round: (result, t0_ns, t1_ns),
+        the interval from the submit to the round's own end on its
+        worker.  The pool-queue wait is the stage's; the event loop's
+        delay in resuming the caller afterwards is the consumer's (it is
+        busy with the fetch and decode stages), so it is left out."""
+        t0 = time.perf_counter_ns()
         end: list = []
 
         def job():
             try:
                 return fn(*args)
             finally:
-                end.append(time.perf_counter())
+                end.append(time.perf_counter_ns())
 
         out = await self._run_pool(job, pool=pool)
-        return out, end[0] - t0
+        return out, t0, end[0]
 
     async def _read_segment_any(self, seg: SegmentPlan, plan: ScanPlan,
                                 runner=None):
@@ -1389,7 +1395,7 @@ class ParquetReader:
         Shared by the pump's prefetch and the pipeline's fetch stage,
         which bounds the CPU-side deserialize concurrency via
         `runner`."""
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         table = None
         stage = "sidecar_read"
         if self._sidecar_plan_ok(plan):
@@ -1398,8 +1404,9 @@ class ParquetReader:
         if table is None:
             stage = "parquet_read"
             table = await self._read_segment_table(seg, plan)
-        read_s = time.perf_counter() - t0
-        _observe_stage("segment_read", read_s)
+        t1 = time.perf_counter_ns()
+        read_s = (t1 - t0) / 1e9
+        _observe_stage("segment_read", t0, t1)
         _STAGE_SECONDS[stage].observe(read_s)
         _STAGE_ROWS[stage].inc(table.num_rows)
         _STAGE_BYTES[stage].inc(table.nbytes)
@@ -1454,7 +1461,7 @@ class ParquetReader:
         assembly failed (the CALLER memoizes the composition on the
         event loop and falls back to parquet — the cache's negative
         memos are loop-owned)."""
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         defer = plan.decode_spec is not None
         try:
             es = sidecar.assemble_parts(
@@ -1468,8 +1475,9 @@ class ParquetReader:
             return None
         if defer:
             es.pending_leaves = list(plan.prune_leaves or [])
-        read_s = time.perf_counter() - t0
-        _observe_stage("segment_read", read_s)
+        t1 = time.perf_counter_ns()
+        read_s = (t1 - t0) / 1e9
+        _observe_stage("segment_read", t0, t1)
         _STAGE_SECONDS["sidecar_read"].observe(read_s)
         _STAGE_ROWS["sidecar_read"].inc(es.n)
         _STAGE_BYTES["sidecar_read"].inc(es.nbytes)
@@ -1850,24 +1858,24 @@ class ParquetReader:
             if table.num_rows == 0:
                 return []
             return self._merge_batch(table.combine_chunks().to_batches()[0])
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         _STAGE_ROWS["merge"].inc(table.n)
         try:
             return self._merge_windows(_encoded_to_device_batch(table),
                                        list(table.names))
         finally:
-            _observe_stage("merge", time.perf_counter() - t0)
+            _observe_stage("merge", t0)
 
     def _merge_batch(self, batch: pa.RecordBatch) -> list:
         """Encode + host merge of one Arrow batch (a parquet segment, or
         one window of the parquet streamer)."""
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         _STAGE_ROWS["merge"].inc(batch.num_rows)
         try:
             return self._merge_windows(encode.encode_batch(batch),
                                        list(batch.schema.names))
         finally:
-            _observe_stage("merge", time.perf_counter() - t0)
+            _observe_stage("merge", t0)
 
     def _dispatch_device_decode(self, es: sidecar.EncodedSegment,
                                 plan: ScanPlan
@@ -2244,10 +2252,10 @@ class ParquetReader:
             # the stage's seconds are observed around the round itself
             # (pool-queue wait included), not dispatch-to-settle, which
             # would absorb the consumer's waits on fetch and decode
-            out, seconds = await self._run_round(
+            out, t0, t1 = await self._run_round(
                 self._flush_host_round, chunk, spec, plan, pool=plan.pool)
             pipeline_mod.observe_stage(
-                "device", seconds,
+                "device", t0, t1_ns=t1,
                 rows=sum(w.n_valid for _s, w, _p in chunk))
             return out
 
@@ -2384,7 +2392,7 @@ class ParquetReader:
          lo) = self._build_round_stacks(items, spec, plan, batch_w, cap,
                                         g_pad, width, round_values,
                                         local_ok, put=put)
-        t_dev = time.perf_counter()
+        t_dev = time.perf_counter_ns()
         # rows past a window's own n_valid carry gid -1, so the round's
         # largest row count bounds every window
         if self.mesh is not None:
@@ -2415,7 +2423,7 @@ class ParquetReader:
                     for k, v in stacked.items()}
         _PARTS_ROUNDS.inc()
         _PARTIALS_D2H_BYTES.inc(sum(int(v.nbytes) for v in host.values()))
-        _observe_stage("device_aggregate", time.perf_counter() - t_dev)
+        _observe_stage("device_aggregate", t_dev)
         parts = []
         for d in range(len(items)):
             lo_w = int(lo[d])
@@ -2603,7 +2611,7 @@ class ParquetReader:
         seg_ids = -(np.arange(T, dtype=np.int32) + 1)
         for ridx, (_s, a, b) in enumerate(runs):
             seg_ids[a:b + 1] = ridx
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         # the kernel's ordered-sum row bound is the round's largest
         # window, as the single-device round passes it
         out = fn(ts_s, gid_s, val_s, remap_d, shift_d, lo_dev,
@@ -2618,11 +2626,11 @@ class ParquetReader:
         pad_rows = (T - len(items)) * cap \
             + sum(cap - r for r in rows_per_shard)
         if not download:
-            _observe_stage("mesh_aggregate", time.perf_counter() - t0)
+            _observe_stage("mesh_aggregate", t0)
             deviceprof.record_round(
                 "mesh_run", slots=len(items), capacity=T,
                 rows_per_shard=rows_per_shard, padding_rows=pad_rows,
-                seconds=time.perf_counter() - t0)
+                seconds=(time.perf_counter_ns() - t0) / 1e9)
             return {"out": out, "runs": runs, "lo": lo, "g": g,
                     "width": width}
         entries: list = []
@@ -2638,13 +2646,13 @@ class ParquetReader:
         # lands here, and the downloads charged their own d2h bytes
         # (untimed: their wall is this span's)
         deviceprof.observe_wait(time.perf_counter() - t_dl)
-        _observe_stage("mesh_aggregate", time.perf_counter() - t0)
+        _observe_stage("mesh_aggregate", t0)
         _MESH_PARTS.inc(len(entries))
         _MESH_PART_CELLS.inc(cells)
         deviceprof.record_round(
             "mesh_run", slots=len(items), capacity=T,
             rows_per_shard=rows_per_shard, padding_rows=pad_rows,
-            seconds=time.perf_counter() - t0)
+            seconds=(time.perf_counter_ns() - t0) / 1e9)
         return entries
 
     @staticmethod
@@ -2804,7 +2812,7 @@ class ParquetReader:
             if not joined:
                 rid += 1
             seg_ids[i] = rid
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         put = functools.partial(shard_time_axis, mesh)
         # decode round stacks ride the stack cache's LRU and weakref
         # discipline, anchored on the cached EncodedSegments
@@ -2914,9 +2922,9 @@ class ParquetReader:
             padding_rows=(T - len(chunk)) * cap
             + sum(cap - int(dp.es.n) for _s, dp in chunk),
             upload_bytes=upload_bytes, stack_hit=cached is not None,
-            seconds=time.perf_counter() - t0)
+            seconds=(time.perf_counter_ns() - t0) / 1e9)
         device_decode.observe_decode_stage(
-            time.perf_counter() - t0, rows=src_rows, nbytes=upload_bytes)
+            t0, rows=src_rows, nbytes=upload_bytes)
         return entries
 
     async def _aggregate_segments_mesh(self, plan: ScanPlan,
@@ -2951,11 +2959,11 @@ class ParquetReader:
             apply(await t)
 
         async def flush_round(chunk: list, salt: int) -> list:
-            out, seconds = await self._run_round(
+            out, t0, t1 = await self._run_round(
                 self._flush_mesh_round, chunk, spec, plan, salt,
                 pool=plan.pool)
             pipeline_mod.observe_stage(
-                "device", seconds,
+                "device", t0, t1_ns=t1,
                 rows=sum(w.n_valid for _s, w, _p in chunk))
             return out
 
@@ -3274,7 +3282,7 @@ class ParquetReader:
         and ranks with plan.apply_top_k, so the mode flag A/Bs the whole
         path."""
         mode = self.config.scan.combine.mode
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         try:
             if top_k is not None and mode != "dense":
                 # the pushdown drops all-empty groups before ranking,
@@ -3299,7 +3307,7 @@ class ParquetReader:
                     group_values, grids = apply_top_k(group_values, grids,
                                                       top_k)
         finally:
-            _observe_stage("combine", time.perf_counter() - t0)
+            _observe_stage("combine", t0)
         if len(group_values) and "last_ts" in grids:
             grids["last_ts"] = grids["last_ts"] + spec.range_start
         return group_values, grids
@@ -3324,7 +3332,14 @@ class ParquetReader:
         device, except `last_ts`, which comes back as host float64
         absolute ms (int64 range needed).  `counted`: segments whose rows
         an earlier attempt of the same query already counted (a restart
-        after a compaction race counts them once)."""
+        after a compaction race counts them once).
+
+        Stages: `window_prep` from the entry to the device dispatch (the
+        replay check, the windows, their prep and the group space, pool
+        hops included), `device_aggregate` on the worker, then
+        `fused_finish` here (the empty-group drop, which reads the
+        device, and the last_ts rebase)."""
+        t_prep = time.perf_counter_ns()
         replay_key = None
         if plan.use_cache:
             replay_key = self._replay_key(plan, spec)
@@ -3334,8 +3349,10 @@ class ParquetReader:
                 # cache here; only the device rounds go to the pool
                 grids = None
                 if self._replay_segments_valid(entry):
+                    _observe_stage("window_prep", t_prep)
                     grids = await self._run_pool(self._fused_replay, entry,
                                                  spec, pool=plan.pool)
+                    t_prep = time.perf_counter_ns()
                 if grids is not None:
                     self._replay_cache.move_to_end(replay_key)
                     self._replay_hits += 1
@@ -3348,9 +3365,7 @@ class ParquetReader:
                         _REPLAY_ROWS.inc(sum(r for _, r in fresh))
                         if counted is not None:
                             counted.update(s for s, _ in fresh)
-                    values, grids = _drop_empty_groups_dev(entry["values"],
-                                                           grids)
-                    return values, _fused_last_ts_to_abs(grids, spec)
+                    return _fused_finish(entry["values"], grids, spec)
                 self._replay_cache.pop(replay_key, None)
             self._replay_misses += 1
             _REPLAY_MISSES.inc()
@@ -3385,6 +3400,7 @@ class ParquetReader:
         finally:
             await windows_iter.aclose()
         if not items:
+            _observe_stage("window_prep", t_prep)
             empty = np.zeros((0, spec.num_buckets), dtype=np.float32)
             return np.asarray([]), {k: empty.copy() for k in
                                     set(spec.which) | {"count"}}
@@ -3426,6 +3442,7 @@ class ParquetReader:
                 i += len(chunk)
                 yield arrays
 
+        _observe_stage("window_prep", t_prep)
         grids = await self._run_pool(
             self._fused_run_device_rounds, build_rounds(), spec,
             g, g_pad, width)
@@ -3437,8 +3454,7 @@ class ParquetReader:
             self._replay_cache.move_to_end(replay_key)
             while len(self._replay_cache) > _REPLAY_SLOTS:
                 self._replay_cache.popitem(last=False)
-        all_values, grids = _drop_empty_groups_dev(all_values, grids)
-        return all_values, _fused_last_ts_to_abs(grids, spec)
+        return _fused_finish(all_values, grids, spec)
 
     def _replay_key(self, plan: ScanPlan, spec: AggregateSpec) -> tuple:
         """Identity of a fused aggregate over a plan: the per-segment
@@ -3487,10 +3503,12 @@ class ParquetReader:
         and the replay: acc init -> one accumulate per round -> finalize
         -> slice to g -> synchronize.  `rounds` is any iterable of stack
         tuples (a lazy generator on the full path, so stack building
-        overlaps the device's rounds)."""
+        overlaps the device's rounds).  The finalize through the
+        synchronize, the host waiting for the rounds, is also the first
+        interval of `fused_finish`."""
         import torch
 
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         acc = fused_acc_init(num_groups=g_pad, num_buckets=spec.num_buckets,
                              which=spec.which, device=self.device)
         for (ts_s, gid_s, val_s, nv_d, nv_h, remap_d, shift_d, lo_d,
@@ -3500,11 +3518,14 @@ class ParquetReader:
                                    spec.bucket_ms, num_groups=g_pad,
                                    width=width, which=spec.which,
                                    n_valid=nv_d, n_valid_host=nv_h)
+        t_fin = time.perf_counter_ns()
         final = fused_finalize(acc, spec.which)
         out = {k: v[:g] for k, v in final.items()}
         if self.on_cuda:
             torch.cuda.synchronize(self.device)
-        _observe_stage("device_aggregate", time.perf_counter() - t0)
+        t1 = time.perf_counter_ns()
+        _observe_stage("fused_finish", t_fin, t1)
+        _observe_stage("device_aggregate", t0, t1)
         return out
 
     def _window_groups(self, w: encode.DeviceBatch, spec: AggregateSpec,
@@ -3698,7 +3719,7 @@ class ParquetReader:
             small = self._stack_cache_get(stack_key, windows_now)
             if cols is not None and small is not None:
                 return cols + small
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         built_bytes = 0
         if put is None:
             put = lambda a: encode.to_device(a, self.device)
@@ -3735,7 +3756,7 @@ class ParquetReader:
             built_bytes += sum(int(c.nbytes) for c in small[:3])
             if cached:
                 self._stack_cache_put(stack_key, windows_now, small)
-        _observe_stage("stack_build", time.perf_counter() - t0)
+        _observe_stage("stack_build", t0)
         _STAGE_BYTES["stack_build"].inc(built_bytes)
         return cols + small
 
@@ -3842,6 +3863,17 @@ def group_has_data(count):
     """Per-group any-data mask — G bools, the only bytes the empty-group
     check downloads."""
     return (count > 0).any(dim=1)
+
+
+def _fused_finish(values: np.ndarray, grids: dict, spec: AggregateSpec):
+    """The fused route's result on the event loop: empty groups dropped
+    (a device-to-host read of the counts), last_ts made absolute; the
+    second interval of the `fused_finish` stage."""
+    t0 = time.perf_counter_ns()
+    values, grids = _drop_empty_groups_dev(values, grids)
+    out = values, _fused_last_ts_to_abs(grids, spec)
+    _observe_stage("fused_finish", t0)
+    return out
 
 
 def _drop_empty_groups_dev(values: np.ndarray, grids: dict):

@@ -12,6 +12,9 @@ request-scoped (docs/observability.md):
   its original behavior (enter/exit logs + a latency histogram) either
   way, so background loops (compaction, manifest merge) stay observable
   without a trace;
+- `record_interval(name, t0_ns, t1_ns)` records an interval measured
+  elsewhere (a plan stage, a worker-pool hop, a garbage-collector
+  pause) the same way, on the same clock;
 - `trace_add(name, n)` attributes counted work (object-store GETs and
   bytes, cache tier hits, per-stage wall time) to the active trace;
 - the trace context propagates across regions via the `X-Trace-Id`
@@ -28,13 +31,20 @@ worker pools via `common.runtimes` (which copies the contextvars
 context onto the pool thread), so stage attribution recorded inside
 parquet decode / merge workers still lands on the right trace.
 
+Every span carries `start_ns`/`end_ns` on `time.perf_counter_ns()`,
+the clock a device trace is placed against, and the recording thread;
+its `start_ms` is derived from the trace's anchor (its wall start and
+its perf_counter_ns start), so one wall-clock read serves a trace.
+
 Env: HORAEDB_TRACE=1 promotes span logs from DEBUG to INFO.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import contextvars
+import gc
 import json
 import logging
 import os
@@ -122,7 +132,7 @@ class Trace:
     slow threshold per-op via `slow_threshold_s`."""
 
     __slots__ = ("trace_id", "name", "kind", "op", "slow_threshold_s",
-                 "root_fields", "root_span_id", "start_ms", "_t0",
+                 "root_fields", "root_span_id", "start_ms", "t0_ns",
                  "spans", "counters", "finished", "_lock")
 
     def __init__(self, trace_id: str, name: str, kind: str = "query",
@@ -135,17 +145,26 @@ class Trace:
         self.slow_threshold_s = slow_threshold_s
         self.root_fields = dict(root_fields or {})
         self.root_span_id = _new_span_id()
+        # the anchor: wall ms and perf_counter_ns read together, so a
+        # span's start_ms follows from its start_ns
         self.start_ms = time.time() * 1e3
-        self._t0 = time.perf_counter()
-        self.spans: list[dict] = []
+        self.t0_ns = time.perf_counter_ns()
+        # span dicts; a local interval waits as a tuple (the arguments
+        # of `interval`) until finish() writes it out, so recording one
+        # costs the request little
+        self.spans: list = []
         self.counters: dict[str, float] = {}
         self.finished = False
         self._lock = threading.Lock()
 
-    def record(self, span_dict: dict) -> None:
+    def record_interval(self, span_id: Optional[str], parent_id: str,
+                        name: str, t0_ns: int, t1_ns: int, status: str,
+                        fields: dict, thread: int) -> None:
+        """Record one local interval (span_id None: minted at finish)."""
         with self._lock:
             if not self.finished:
-                self.spans.append(span_dict)
+                self.spans.append((span_id, parent_id, name, t0_ns, t1_ns,
+                                   status, fields, thread))
 
     def add(self, name: str, value: float = 1.0) -> None:
         with self._lock:
@@ -190,18 +209,35 @@ class Trace:
                     continue
                 self.counters[k] = self.counters.get(k, 0) + v
 
+    def interval(self, span_id: Optional[str], parent_id: str, name: str,
+                 t0_ns: int, t1_ns: int, status: str, fields: dict,
+                 thread: Optional[int] = None) -> dict:
+        """One span's record: the interval [t0_ns, t1_ns) of
+        time.perf_counter_ns(), with start_ms placed from the anchor."""
+        return {
+            "span_id": span_id or _new_span_id(), "parent_id": parent_id,
+            "name": name,
+            "start_ms": round(self.start_ms + (t0_ns - self.t0_ns) / 1e6,
+                              3),
+            "duration_ms": round((t1_ns - t0_ns) / 1e6, 3),
+            "status": status,
+            "fields": {k: _field(v) for k, v in fields.items()},
+            "start_ns": t0_ns, "end_ns": t1_ns,
+            "thread": threading.get_ident() if thread is None else thread,
+        }
+
     def finish(self, status: str = "ok") -> dict:
+        # pauses that struck during the request land before it closes
+        _file_gc_pauses()
         with self._lock:
             if self.finished:  # idempotent: first finish wins
                 return self.to_dict_locked()
-            duration_ms = (time.perf_counter() - self._t0) * 1e3
-            self.spans.append({
-                "span_id": self.root_span_id, "parent_id": "",
-                "name": self.name, "start_ms": round(self.start_ms, 3),
-                "duration_ms": round(duration_ms, 3), "status": status,
-                "fields": {k: _field(v)
-                           for k, v in self.root_fields.items()},
-            })
+            root = self.interval(self.root_span_id, "", self.name,
+                                 self.t0_ns, time.perf_counter_ns(), status,
+                                 self.root_fields)
+            self.spans = [self.interval(*s) if isinstance(s, tuple) else s
+                          for s in self.spans]
+            self.spans.append(root)
             self.finished = True
             return self.to_dict_locked()
 
@@ -503,6 +539,53 @@ def trace_add(name: str, value: float = 1.0) -> None:
         trace.add(name, value)
 
 
+# span_<name>_seconds, bound once per span name
+_SPAN_HISTOGRAMS: dict = {}
+
+
+def _span_histogram(name: str, buckets: Optional[tuple] = None):
+    h = _SPAN_HISTOGRAMS.get(name)
+    if h is None:
+        kw = {} if buckets is None else {"buckets": buckets}
+        h = registry.histogram(f"span_{name.replace('.', '_')}_seconds",
+                               f"span {name} duration", **kw)
+        _SPAN_HISTOGRAMS[name] = h
+    return h
+
+
+def _record(trace: Optional[Trace], histogram, name: str, t0_ns: int,
+            t1_ns: int, status: str, fields: dict,
+            span_id: Optional[str] = None, parent_id: str = "") -> None:
+    """The one recording path of spans and intervals: the duration
+    feeds `histogram` (None: none), and `trace`, if any, gets the
+    interval under `parent_id` (default: the current span)."""
+    if _gc_done:
+        _file_gc_pauses()
+    if histogram is not None:
+        histogram.observe((t1_ns - t0_ns) / 1e9)
+    if trace is not None and not trace.finished:
+        parent_id = (parent_id or _current_span_id.get()
+                     or trace.root_span_id)
+        trace.record_interval(span_id, parent_id, name, t0_ns, t1_ns,
+                              status, fields, threading.get_ident())
+
+
+_SPAN_SERIES = object()
+
+
+def record_interval(name: str, t0_ns: int, t1_ns: int,
+                    histogram=_SPAN_SERIES, **fields) -> None:
+    """Record an interval measured elsewhere — [t0_ns, t1_ns) of
+    time.perf_counter_ns() — as a finished span: its seconds feed
+    `histogram` (`span_<name>_seconds` unless a caller passes its own
+    series, as a plan stage does, or None), and the ambient trace, when
+    one is bound, records it under the current span."""
+    if histogram is _SPAN_SERIES:
+        histogram = _span_histogram(name)
+    _record(_current_trace.get(), histogram, name, t0_ns, t1_ns, "ok",
+            fields)
+
+
 @contextlib.contextmanager
 def span(name: str, buckets: Optional[tuple] = None, **fields) -> Iterator[None]:
     """Traced operation: logs enter/exit, observes a latency histogram
@@ -520,39 +603,89 @@ def span(name: str, buckets: Optional[tuple] = None, **fields) -> Iterator[None]
         span_id = _new_span_id()
         parent_id = _current_span_id.get() or trace.root_span_id
         tok_sid = _current_span_id.set(span_id)
-    t0 = time.perf_counter()
-    wall_ms = time.time() * 1e3
+    histogram = _span_histogram(name, buckets)
     if logger.isEnabledFor(_LEVEL):
         logger.log(_LEVEL, "-> %s %s", full,
                    " ".join(f"{k}={v}" for k, v in fields.items()))
     ok = False
+    t0 = time.perf_counter_ns()
     try:
         yield
         ok = True
     finally:
+        t1 = time.perf_counter_ns()
         _current_span.reset(token)
         if tok_sid is not None:
             _current_span_id.reset(tok_sid)
-        elapsed = time.perf_counter() - t0
         if logger.isEnabledFor(_LEVEL):
             if ok:
-                logger.log(_LEVEL, "<- %s %.1fms", full, elapsed * 1e3)
+                logger.log(_LEVEL, "<- %s %.1fms", full, (t1 - t0) / 1e6)
             else:
                 logger.log(_LEVEL, "<- %s FAILED after %.1fms", full,
-                           elapsed * 1e3)
+                           (t1 - t0) / 1e6)
         # failures are observed too — failure-path tail latency matters
-        hist_kwargs = {} if buckets is None else {"buckets": buckets}
-        registry.histogram(f"span_{name.replace('.', '_')}_seconds",
-                           f"span {name} duration",
-                           **hist_kwargs).observe(elapsed)
-        if span_id:
-            trace.record({
-                "span_id": span_id, "parent_id": parent_id, "name": name,
-                "start_ms": round(wall_ms, 3),
-                "duration_ms": round(elapsed * 1e3, 3),
-                "status": "ok" if ok else "error",
-                "fields": {k: _field(v) for k, v in fields.items()},
-            })
+        _record(trace if span_id else None, histogram, name, t0, t1,
+                "ok" if ok else "error", fields, span_id, parent_id)
+
+
+# ---- garbage-collector pauses ----------------------------------------------
+# A collection stops every thread of the process.  gc.callbacks run
+# inside it, wherever it struck — possibly while that thread holds a
+# trace's or a histogram's lock — so the callback only appends to a
+# deque (atomic) and the next recorded interval files the pause
+# (`_record`, `Trace.finish`).
+
+_GC_PAUSE = _span_histogram("gc_pause")
+_gc_start_ns = [0]
+_gc_done: collections.deque = collections.deque()
+_gc_users = 0
+_gc_users_lock = threading.Lock()
+
+
+def _on_gc(phase: str, info: dict) -> None:
+    if phase == "start":
+        _gc_start_ns[0] = time.perf_counter_ns()
+        return
+    _gc_done.append((_gc_start_ns[0], time.perf_counter_ns(),
+                     info["generation"], _current_trace.get(),
+                     _current_span_id.get(), threading.get_ident()))
+
+
+def _file_gc_pauses() -> None:
+    while _gc_done:
+        try:
+            t0, t1, generation, trace, parent, thread = _gc_done.popleft()
+        except IndexError:  # another thread filed the last one
+            return
+        _GC_PAUSE.observe((t1 - t0) / 1e9)
+        if trace is not None and not trace.finished:
+            trace.record_interval(None, parent or trace.root_span_id,
+                                  "gc_pause", t0, t1, "ok",
+                                  {"generation": generation}, thread)
+
+
+def watch_gc_pauses() -> None:
+    """Record every garbage collection of the process as a `gc_pause`
+    interval (its generation as a field) until the matching
+    unwatch_gc_pauses(); the callback is registered once however many
+    engines are open."""
+    global _gc_users
+    with _gc_users_lock:
+        _gc_users += 1
+        if _gc_users == 1:
+            gc.callbacks.append(_on_gc)
+
+
+def unwatch_gc_pauses() -> None:
+    """Release one watch_gc_pauses(); the last removes the callback."""
+    global _gc_users
+    with _gc_users_lock:
+        if _gc_users == 0:
+            return
+        _gc_users -= 1
+        if _gc_users == 0 and _on_gc in gc.callbacks:
+            gc.callbacks.remove(_on_gc)
+    _file_gc_pauses()
 
 
 def _field(v):

@@ -62,6 +62,9 @@ class FakeClock:
 
     monotonic = perf_counter = time = __call__
 
+    def perf_counter_ns(self) -> int:
+        return int(self.t * 1e9)
+
     def advance(self, dt: float) -> None:
         self.t += dt
 
@@ -138,6 +141,21 @@ def test_snapshot_keys_series_by_their_rendered_names():
 # ---------------------------------------------------------------------------
 
 
+# the port's spans also carry their interval on perf_counter_ns and the
+# recording thread (tests/test_torch_tracing_clock.py); the rest of a
+# span is the reference's
+PORT_SPAN_KEYS = ("start_ns", "end_ns", "thread")
+
+
+def without_clock_keys(done: dict) -> dict:
+    spans = []
+    for s in done["spans"]:
+        if "start_ns" in s:
+            assert s["start_ns"] <= s["end_ns"] and s["thread"]
+        spans.append({k: v for k, v in s.items() if k not in PORT_SPAN_KEYS})
+    return dict(done, spans=spans)
+
+
 def _trace_run(P, monkeypatch):
     clock = FakeClock(1_700_000_000.0)
     monkeypatch.setattr(P.tracing, "time", clock)
@@ -165,7 +183,7 @@ def _trace_run(P, monkeypatch):
             with P.tracing.span("combine"):
                 clock.advance(0.125)
                 raise ValueError("boom")
-    done = rec.finish(trace)
+    done = without_clock_keys(rec.finish(trace))
     big = dict(done, spans=done["spans"] * 60)
     return (done, P.tracing.export_payload(done),
             P.tracing.export_payload(big, limit=2000),
