@@ -9,6 +9,10 @@ aggregate plan an `EncodedSegment`'s columns upload raw (the stored rows
 cross, the padding is zeroed on the card) and the card runs, per
 segment:
 
+  row select   — on the host, before the upload and outside the dispatch
+                 lock: where the leaves drop rows of a segment (one
+                 field of a compacted segment of every field, a partial
+                 time range), only the survivors upload;
   leaf filter  — the plan's pushed PK-leaf conjunction evaluated in
                  ENCODED space (constants translated on the host with the
                  same ops.filter helpers the host mask uses);
@@ -104,6 +108,27 @@ _STAGE_BYTES = registry.counter(
 _D2H_BYTES = registry.counter(
     "scan_decode_d2h_bytes_total",
     "bytes of partial grids copied device-to-host by the device decode")
+# the host row selection of each planned dispatch (select_rows)
+SELECT_OUTCOMES = ("selected", "kept_all", "skipped")
+_SELECT = {
+    o: registry.counter(
+        "decode_host_select_total",
+        "device decode plans by their host row selection: selected (only "
+        "the leaves' survivors upload), kept_all (the leaves keep every "
+        "row: the columns upload as they are), skipped (no leaf can "
+        "drop a row)").labels(outcome=o)
+    for o in SELECT_OUTCOMES
+}
+_SELECT_ROWS = {
+    w: registry.counter(
+        "decode_host_select_rows_total",
+        "rows the host row selection masked (in) and kept (kept)"
+    ).labels(which=w)
+    for w in ("in", "kept")
+}
+_SELECT_SECONDS = registry.histogram(
+    "scan_stage_seconds", "wall seconds per merge-scan plan stage"
+).labels(stage="decode_select")
 
 
 def note_fallback(reason: str) -> None:
@@ -133,7 +158,6 @@ _IN_MAX_CODES = 64
 # beyond this many presorted runs the merge tree's log2(k) levels stop
 # beating the full sort: decline to the sort route (reason kway_runs)
 _KWAY_MAX_RUNS = 64
-
 
 class _EmptyMatch(Exception):
     """A leaf provably matches nothing (an Eq/In constant absent from the
@@ -412,6 +436,107 @@ def decode_aggregate(cols: tuple, n_valid: int, leaf_consts: tuple,
 
 
 # ---------------------------------------------------------------------------
+# host row selection
+# ---------------------------------------------------------------------------
+
+
+def _code_bounds(es, name: str, lead: str) -> Optional[tuple]:
+    """The least and greatest code of a column where the segment shows
+    them without a pass over its rows: a dict column's codes index its
+    dictionary, and the leading key column of (pk, seq)-sorted runs
+    holds its extremes at the runs' ends.  None elsewhere."""
+    enc = es.encodings[name]
+    if enc.kind == "dict":
+        return 0, len(enc.dictionary) - 1
+    if name != lead:
+        return None
+    rl = (es.n,) if es.source_runs == 1 else es.run_lengths
+    if not rl or sum(rl) != es.n:
+        return None
+    ends = np.cumsum(np.asarray(rl, dtype=np.int64))
+    starts = ends - np.asarray(rl, dtype=np.int64)
+    nonempty = ends > starts
+    col = es.columns[name]
+    return (int(col[starts[nonempty]].min()),
+            int(col[ends[nonempty] - 1].max()))
+
+
+def _keeps_all(op: int, c: np.ndarray, lo: int, hi: int) -> bool:
+    """Whether a compiled leaf holds for every code in [lo, hi]."""
+    if op == _OP_EQ:
+        return lo == hi == int(c[0])
+    if op == _OP_IN:
+        return hi - lo < len(c) and set(range(lo, hi + 1)) <= set(
+            c.tolist())
+    if op == _OP_LT:
+        return hi < int(c[0])
+    if op == _OP_LE:
+        return hi <= int(c[0])
+    if op == _OP_GT:
+        return lo > int(c[0])
+    if op == _OP_GE:
+        return lo >= int(c[0])
+    return lo >= int(c[0]) and hi < int(c[1])  # _OP_RANGE
+
+
+def select_rows(es, prog: tuple, consts: tuple, lead: str,
+                upload_names: list):
+    """The rows of `es` that its dispatch uploads, chosen on the host
+    from the compiled leaves: `es` itself (skipped: every leaf provably
+    keeps every row; kept_all: the mask keeps every row), a segment of
+    only the leaves' survivors in `upload_names` (selected), or None
+    when no row survives.
+
+    Exact: the leaves are PK-only, so the survivors are a subsequence of
+    each (pk, seq)-sorted run that keeps every row the card's mask would
+    keep, in order, with each equal-PK run whole; keep-last dedup sees
+    the same runs.  The card still evaluates the leaves over what is
+    uploaded, a no-op over selected rows."""
+    from horaedb_tpu_torch.storage import sidecar
+
+    live = []
+    for (name, op), c in zip(prog, consts) if es.n else ():
+        bounds = _code_bounds(es, name, lead)
+        if bounds is None or not _keeps_all(op, c, *bounds):
+            live.append((name, op, c))
+    if not live:
+        _SELECT["skipped"].inc()
+        return es
+    t0 = time.perf_counter_ns()
+    # equality leaves first, each later leaf over the earlier ones'
+    # survivors only: one field of ten is a tenth of the rows to test
+    live.sort(key=lambda leaf: leaf[1] not in (_OP_EQ, _OP_IN))
+    idx = None
+    for name, op, c in live:
+        col = es.columns[name] if idx is None else es.columns[name][idx]
+        m = np.isin(col, c) if op == _OP_IN else _leaf_mask(col, op, c)
+        idx = np.flatnonzero(m) if idx is None else idx[m]
+        if not len(idx):
+            break
+    kept = len(idx)
+    if kept == es.n:
+        outcome, rows = "kept_all", es
+    else:
+        outcome = "selected"
+        rows = sidecar.take_rows(es, idx, upload_names) if kept else None
+    t1 = time.perf_counter_ns()
+    record_interval("decode_select", t0, t1, _SELECT_SECONDS)
+    trace_add("stage_decode_select_ms", (t1 - t0) / 1e6)
+    _SELECT[outcome].inc()
+    _SELECT_ROWS["in"].inc(es.n)
+    _SELECT_ROWS["kept"].inc(kept)
+    return rows
+
+
+def select_counts() -> dict:
+    """decode_host_select_total by outcome, and the selected rows in and
+    kept."""
+    out = {o: c.value for o, c in _SELECT.items()}
+    out.update({f"rows_{w}": c.value for w, c in _SELECT_ROWS.items()})
+    return out
+
+
+# ---------------------------------------------------------------------------
 # plan / dispatch / finalize
 # ---------------------------------------------------------------------------
 
@@ -496,9 +621,11 @@ def observe_decode_stage(t0_ns: int, rows: int, nbytes: int) -> None:
 @dataclass
 class DecodePlan:
     """One segment's dispatch, PLANNED but not on the card yet: every
-    gate passed, leaves compiled, route decided, geometry computed."""
+    gate passed, leaves compiled, rows selected, route decided, geometry
+    computed."""
 
-    es: object
+    es: object                # the segment as read (the caches' anchor)
+    rows: object              # what uploads: `es`, or its selected rows
     cap: int
     shift: int
     lo: int
@@ -544,9 +671,13 @@ def plan_dispatch(es, spec, pk_names: list, seq_name: str,
                   leaves, max_bytes: int, width: int,
                   pad_capacity) -> "DecodePlan | DevicePart | str":
     """Validate one EncodedSegment against the device program's layout
-    and plan its dispatch WITHOUT touching the card.  Returns a
-    DecodePlan, a DevicePart (provably empty segment, no dispatch), or a
-    fallback reason (the caller counts it and takes the host path)."""
+    and plan its dispatch WITHOUT touching the card.  The deferred
+    leaves (`es.pending_leaves`) are compiled for the card and, where
+    they can drop a row, resolved on the host first (select_rows): the
+    capacity, the upload budget and the route follow the rows that
+    upload.  Returns a DecodePlan, a DevicePart (provably empty segment,
+    no dispatch), or a fallback reason (the caller counts it and takes
+    the host path)."""
     encs = es.encodings
     # layout gates, cheapest first
     for name in (spec.group_col, spec.ts_col, spec.value_col, seq_name,
@@ -568,7 +699,6 @@ def plan_dispatch(es, spec, pk_names: list, seq_name: str,
     shift = int(ts_enc.epoch) - spec.range_start
     if abs(shift) >= 2**31:
         return "range"
-    cap = pad_capacity(es.n)
 
     try:
         prog, consts = compile_leaves(leaves, encs)
@@ -591,6 +721,12 @@ def plan_dispatch(es, spec, pk_names: list, seq_name: str,
         if nm not in slot_of:
             slot_of[nm] = len(upload_names)
             upload_names.append(nm)
+
+    rows = select_rows(es, prog, consts, pk_names[0] if pk_names else "",
+                       upload_names)
+    if rows is None:
+        return DevicePart(part=None, n_valid=0, nbytes=0)
+    cap = pad_capacity(rows.n)
     # device-memory admission over the ACTUAL upload set
     if cap * 4 * len(upload_names) > max_bytes:
         return "budget"
@@ -601,17 +737,18 @@ def plan_dispatch(es, spec, pk_names: list, seq_name: str,
     route = "sorted"
     run_offsets = None
     num_runs = 0
-    key_arrs = [es.columns[nm] for nm in pk_names] + [es.columns[seq_name]]
-    if es.source_runs == 1:
+    key_arrs = [rows.columns[nm] for nm in pk_names] \
+        + [rows.columns[seq_name]]
+    if rows.source_runs == 1:
         route = "presorted"
         _SORT_SKIPPED["compacted"].inc()
     elif _lex_sorted_np(key_arrs):
         route = "presorted"
         _SORT_SKIPPED["checked"].inc()
     else:
-        rl = es.run_lengths
+        rl = rows.run_lengths
         offs = None
-        if rl and 1 < len(rl) <= _KWAY_MAX_RUNS and sum(rl) == es.n:
+        if rl and 1 < len(rl) <= _KWAY_MAX_RUNS and sum(rl) == rows.n:
             offs = np.cumsum(np.asarray((0,) + tuple(rl), dtype=np.int64))
             if not merge_ops.runs_lex_sorted_np(key_arrs, offs):
                 offs = None
@@ -622,7 +759,7 @@ def plan_dispatch(es, spec, pk_names: list, seq_name: str,
             num_runs = 1 << max(1, int(len(rl))).bit_length()
             run_offsets = np.full(num_runs + 1, cap, dtype=np.int32)
             run_offsets[:len(offs)] = offs
-            run_offsets[len(rl)] = es.n  # real runs end at n
+            run_offsets[len(rl)] = rows.n  # real runs end at n
             _SORT_SKIPPED["kway"].inc()
         else:
             note_fallback("kway_runs")
@@ -635,7 +772,7 @@ def plan_dispatch(es, spec, pk_names: list, seq_name: str,
     # a segment starting past the grid keeps no column
     w_eff = max(0, min(use_width, spec.num_buckets - lo))
     return DecodePlan(
-        es=es, cap=cap, shift=shift, lo=lo, local_ok=local_ok,
+        es=es, rows=rows, cap=cap, shift=shift, lo=lo, local_ok=local_ok,
         use_width=use_width, w_eff=w_eff, g=g, g_pad=g_pad,
         values=g_enc.dictionary, upload_names=upload_names,
         key_slots=tuple(slot_of[nm] for nm in key_names),
@@ -652,9 +789,9 @@ def execute_plan(dp: DecodePlan, device) -> DecodeDispatch:
     """Upload one planned segment to `device` and launch its dispatch."""
     import torch
 
-    es = dp.es
+    es = dp.rows
     t0 = time.perf_counter_ns()
-    # ONE host-to-device copy per segment: the stored rows of every
+    # ONE host-to-device copy per segment: the selected rows of every
     # upload column (float32 as its int32 bits), the leaf constants and
     # the run offsets, packed; the columns' padding is zeroed on the card
     n, k = es.n, len(dp.upload_names)
@@ -695,8 +832,9 @@ _DISPATCH_LOCK = threading.Lock()
 def prepare_dispatch(es, spec, pk_names: list, seq_name: str, leaves,
                      max_bytes: int, width: int, pad_capacity, device
                      ) -> "DevicePart | str":
-    """plan_dispatch, then (under the dispatch lock) execute_plan and
-    finalize: the segment's finished part, or a fallback reason."""
+    """plan_dispatch (its row selection included) on the caller's
+    thread, then (under the dispatch lock) execute_plan and finalize:
+    the segment's finished part, or a fallback reason."""
     dp = plan_dispatch(es, spec, pk_names, seq_name, leaves, max_bytes,
                        width, pad_capacity)
     if not isinstance(dp, DecodePlan):

@@ -1550,10 +1550,11 @@ class ParquetReader:
             # returned a row subset tied to this plan's leaves
             if res[1] == f.meta.num_rows:
                 self.encoded_cache.put(f.id, res[0], res[1])
-        # a device-decode plan DEFERS the exact leaf mask: the card
-        # evaluates the conjunction in encoded space, so the host never
-        # pays the mask and the per-column compaction (a per-segment
-        # fallback resolves the pending leaves on the host)
+        # a device-decode plan DEFERS the exact leaf mask to the
+        # dispatch's planning, which selects the surviving rows on the
+        # host where the leaves drop rows and leaves the rest to the
+        # card's encoded-space mask (a per-segment fallback resolves
+        # the pending leaves on the host)
         defer = plan.decode_spec is not None
         try:
             es = await runner(sidecar.assemble_parts, parts,
@@ -2815,16 +2816,18 @@ class ParquetReader:
         t0 = time.perf_counter_ns()
         put = functools.partial(shard_time_axis, mesh)
         # decode round stacks ride the stack cache's LRU and weakref
-        # discipline, anchored on the cached EncodedSegments
+        # discipline, anchored on the cached EncodedSegments as read (a
+        # plan's selected rows follow from its segment and its leaf
+        # constants, and their count is in the key)
         ncst = len(dp0.consts)
         stack_key = ("meshdecode", dp0.static_key(), cap, T,
-                     tuple((s, dp.shift, dp.lo, dp.es.n,
+                     tuple((s, dp.shift, dp.lo, dp.rows.n,
                             tuple(c.tobytes() for c in dp.consts))
                            for s, dp in chunk))
         es_list = tuple(dp.es for dp in dps)
         nv = np.zeros(T, dtype=np.int32)
         for t, (_s, dp) in enumerate(chunk):
-            nv[t] = dp.es.n
+            nv[t] = dp.rows.n
         cached = self._stack_cache_get(stack_key, es_list)
         if cached is not None:
             cols_dev = cached[:ncol]
@@ -2836,10 +2839,10 @@ class ParquetReader:
             # device from each slot's column; padding slots all zero
             # with n_valid 0 (every row invalid)
             cols_dev = tuple(
-                stack_time_axis(mesh, [dp.es.columns[nm] for dp in dps],
-                                cap, dp0.es.columns[nm].dtype)
+                stack_time_axis(mesh, [dp.rows.columns[nm] for dp in dps],
+                                cap, dp0.rows.columns[nm].dtype)
                 for nm in dp0.upload_names)
-            upload_bytes = sum(int(dp.es.columns[nm].nbytes)
+            upload_bytes = sum(int(dp.rows.columns[nm].nbytes)
                                for dp in dps for nm in dp0.upload_names)
             shift_np = np.zeros(T, dtype=np.int32)
             lo_np = np.zeros(T, dtype=np.int32)
@@ -2852,7 +2855,7 @@ class ParquetReader:
             else:
                 offs_np = np.zeros((T, 1), dtype=np.int32)
             for t, (_s, dp) in enumerate(chunk):
-                n = dp.es.n
+                n = dp.rows.n
                 shift_np[t] = dp.shift
                 lo_np[t] = dp.lo
                 for ci, c in enumerate(dp.consts):
@@ -2861,7 +2864,7 @@ class ParquetReader:
                     # rebuilt against the ROUND capacity: real run bounds,
                     # the pad zone [n, cap) as its own run, trailing runs
                     # empty at cap (the kway_merge_perm contract)
-                    rl = dp.es.run_lengths
+                    rl = dp.rows.run_lengths
                     real = np.cumsum((0,) + tuple(rl))
                     offs_np[t, :len(real)] = real
                     offs_np[t, len(rl):] = cap
@@ -2910,7 +2913,7 @@ class ParquetReader:
                     grids["count"] > 0, lt + dp.lo * spec.bucket_ms, lt)
             cells += sum(int(v.shape[0] * v.shape[1])
                          for v in grids.values())
-            src_rows += sum(dp2.es.n for _s2, dp2 in chunk[a:i + 1])
+            src_rows += sum(dp2.rows.n for _s2, dp2 in chunk[a:i + 1])
             entries.append((s, (dp.values, dp.lo, grids), i - a + 1))
             a = i + 1
         deviceprof.observe_wait(time.perf_counter() - t_dl)
@@ -2918,9 +2921,9 @@ class ParquetReader:
         _MESH_PART_CELLS.inc(cells)
         deviceprof.record_round(
             "mesh_decode", slots=len(chunk), capacity=T,
-            rows_per_shard=[int(dp.es.n) for _s, dp in chunk],
+            rows_per_shard=[int(dp.rows.n) for _s, dp in chunk],
             padding_rows=(T - len(chunk)) * cap
-            + sum(cap - int(dp.es.n) for _s, dp in chunk),
+            + sum(cap - int(dp.rows.n) for _s, dp in chunk),
             upload_bytes=upload_bytes, stack_hit=cached is not None,
             seconds=(time.perf_counter_ns() - t0) / 1e9)
         device_decode.observe_decode_stage(

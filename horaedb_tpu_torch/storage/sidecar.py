@@ -464,9 +464,11 @@ class EncodedSegment:
 
     `pending_leaves` is set (a list, possibly empty) when the read
     DEFERRED the exact leaf mask to the device-decode dispatch
-    (ops/device_decode.py), which evaluates the conjunction in encoded
-    space on the card; None means the leaves were applied here.  A host
-    fallback for a deferred segment calls apply_leaves_host first."""
+    (ops/device_decode.py): its planning selects the surviving rows on
+    the host where the leaves drop rows, and the card evaluates
+    the conjunction in encoded space over what is uploaded; None means
+    the leaves were applied here.  A host fallback for a deferred
+    segment calls apply_leaves_host first."""
 
     columns: dict
     encodings: dict
@@ -503,22 +505,37 @@ def apply_leaves_host(es: EncodedSegment) -> EncodedSegment:
     if not leaves:
         es.pending_leaves = None
         return es
-    cols = es.columns
-    run_lengths = es.run_lengths
     if es.n:
-        batch = encode.DeviceBatch(columns=cols, encodings=es.encodings,
+        batch = encode.DeviceBatch(columns=es.columns,
+                                   encodings=es.encodings,
                                    n_valid=es.n, capacity=es.n)
         mask = np.asarray(filter_ops.eval_predicate(
             filter_ops.And(tuple(leaves)), batch))
         if not mask.all():
-            cols = {nm: a[mask] for nm, a in cols.items()}
-            if run_lengths is not None:
-                starts = np.cumsum((0,) + tuple(run_lengths))
-                run_lengths = tuple(int(mask[a:b].sum())
-                                    for a, b in zip(starts[:-1], starts[1:]))
-    n = len(next(iter(cols.values()))) if cols else 0
-    return EncodedSegment(columns=cols, encodings=es.encodings, n=n,
-                          names=es.names, source_runs=es.source_runs,
+            return take_rows(es, np.flatnonzero(mask))
+    return EncodedSegment(columns=es.columns, encodings=es.encodings,
+                          n=es.n, names=es.names,
+                          source_runs=es.source_runs,
+                          run_lengths=es.run_lengths)
+
+
+def take_rows(es: EncodedSegment, idx: np.ndarray,
+              names: Optional[list] = None) -> EncodedSegment:
+    """The rows of `es` at the ascending indices `idx`, with nothing
+    pending: a subsequence of each run, so every run stays sorted, and
+    each run's survivors counted so the run boundaries stay valid (a run
+    may end empty).  `names` limits the columns gathered (every column
+    by default)."""
+    cols = {nm: es.columns[nm][idx]
+            for nm in (es.columns if names is None else names)}
+    run_lengths = es.run_lengths
+    if run_lengths is not None:
+        bounds = np.searchsorted(idx, np.cumsum((0,) + tuple(run_lengths)))
+        run_lengths = tuple(int(k) for k in np.diff(bounds))
+    return EncodedSegment(columns=cols, encodings=es.encodings,
+                          n=len(idx),
+                          names=es.names if names is None else list(names),
+                          source_runs=es.source_runs,
                           run_lengths=run_lengths)
 
 

@@ -18,7 +18,10 @@ mode):
   predicates with cross-SST duplicates; fallback reasons and routing
   counters equal the reference's on the same writes; the decode mode's
   validation, env override and "auto" on a CPU reader; the sidecar's
-  run bookkeeping."""
+  run bookkeeping;
+- the host row selection before the upload: port mode="device" against
+  mode="host" and against the dispatch without it, byte for byte, with
+  its outcome counted and the bytes up exact."""
 
 import asyncio
 import random
@@ -667,3 +670,217 @@ def test_assemble_and_deferred_leaves_keep_run_lengths():
     # the leaves applied at assemble count survivors per run too
     pruned = sidecar.assemble_parts(port_parts, names, [F.Eq("k", "a")])
     assert pruned.run_lengths == (1, 1) and pruned.n == 2
+
+
+# ---------------------------------------------------------------------------
+# host row selection before the upload
+# ---------------------------------------------------------------------------
+
+FIELDS = tuple(f"f{i}" for i in range(10))
+FSCHEMA = pa.schema([("h", pa.string()), ("f", pa.string()),
+                     ("ts", pa.int64()), ("v", pa.float64())])
+# the upload columns of an FSCHEMA plan: h, f, ts, the sequence, v
+UPLOAD_COLS = 5
+HOSTS = 6
+
+
+def _field_rows(rng, seg, fields, hosts=range(HOSTS), t_lo=0, t_hi=SEG):
+    """Rows of every (host, field) at 40 distinct times of [t_lo, t_hi)
+    of segment `seg`: one write of them is one sorted run."""
+    ticks = sorted(rng.sample(range(t_lo, t_hi, 15_000), 40))
+    return [(f"h{h}", f, seg * SEG + t, float(rng.randint(0, 10**6)))
+            for h in hosts for f in fields for t in ticks]
+
+
+def _sel_writes(case, rng):
+    """A case's writes (one list of rows per write: one SST each)."""
+    if case == "kway_empty_runs":
+        # three runs: f0-f4, then f5-f9, then f7 again on three hosts (new
+        # values over the second run's times); f7 empties the first run
+        # and leaves the other two interleaved
+        second = _field_rows(rng, 0, FIELDS[5:])
+        again = [(h, f, t, v + 1.0) for h, f, t, v in second
+                 if f == "f7" and h in ("h0", "h1", "h2")]
+        return [_field_rows(rng, 0, FIELDS[:5]), second, again]
+    if case == "all_true":
+        return [_field_rows(rng, 0, FIELDS[:1])]
+    if case == "empty":
+        # f3 only in the first half of segment 0; the query starts after
+        return [_field_rows(rng, 0, FIELDS[:3] + FIELDS[4:])
+                + _field_rows(rng, 0, FIELDS[3:4], t_hi=SEG // 2),
+                _field_rows(rng, 1, FIELDS)]
+    return [_field_rows(rng, 0, FIELDS), _field_rows(rng, 1, FIELDS)]
+
+
+# case -> (predicate, scan range, outcomes counted, max_upload_bytes)
+SEL_CASES = {
+    "compacted_one_field": (
+        lambda m: m.And((m.Eq("f", "f3"),
+                         m.TimeRangePred("ts", SEG // 3, SEG + SEG // 2))),
+        (SEG // 3, SEG + SEG // 2), {"selected": 2}, 256 << 20),
+    "kway_empty_runs": (
+        lambda m: m.Eq("f", "f7"), (0, SEG), {"selected": 1}, 256 << 20),
+    "all_true": (
+        lambda m: m.Eq("f", "f0"), (0, SEG), {"skipped": 1}, 256 << 20),
+    # a time leaf over every stored row: no code bound proves it, the
+    # mask keeps every row, and the columns upload as they are
+    "kept_all": (
+        lambda m: m.TimeRangePred("ts", 0, 2 * SEG), (0, 2 * SEG),
+        {"kept_all": 2}, 256 << 20),
+    "empty": (
+        lambda m: m.And((m.Eq("f", "f3"),
+                         m.TimeRangePred("ts", SEG // 2, 2 * SEG))),
+        (SEG // 2, 2 * SEG), {"selected": 2}, 256 << 20),
+    # a segment's whole upload (2,400 rows: 4,096 slots x 5 columns x 4
+    # B) is over the budget, its selection's (240 rows: 512 slots) under
+    "budget_fits_once_selected": (
+        lambda m: m.Eq("f", "f3"), (0, 2 * SEG), {"selected": 2}, 40_000),
+}
+
+
+def _stored_matches(writes, pred, lo, hi) -> int:
+    """Stored rows (every run's, before dedup) that `pred` keeps, counted
+    from the written rows alone."""
+    leaves = pred.children if isinstance(pred, F.And) else (pred,)
+
+    def keeps(row):
+        h, f, t, _v = row
+        for leaf in leaves:
+            if isinstance(leaf, F.Eq) and f != leaf.value:
+                return False
+            if isinstance(leaf, F.In) and f not in leaf.values:
+                return False
+            if isinstance(leaf, F.TimeRangePred) \
+                    and not leaf.start <= t < leaf.end:
+                return False
+        return lo // SEG * SEG <= t < hi
+
+    return sum(keeps(r) for rows in writes for r in rows)
+
+
+def _const_words(leaf) -> int:
+    """int32 constants a compiled leaf uploads."""
+    if isinstance(leaf, F.In):
+        return len(leaf.values)
+    return 2 if isinstance(leaf, F.TimeRangePred) else 1
+
+
+@pytest.mark.parametrize("case", list(SEL_CASES))
+def test_host_row_selection_matches_host_and_card(monkeypatch, case):
+    """A segment's deferred leaves resolved on the host before the
+    upload: the grids and counts are host decode's and the leaves-on-
+    the-card dispatch's byte for byte, and the JAX package's over the
+    same writes; the outcome is counted, and the bytes up are exactly
+    the kept rows' upload columns plus the leaf constants (and a k-way
+    segment's run offsets)."""
+    monkeypatch.setenv("HORAEDB_FUSED_AGG", "0")
+    pred_of, (lo, hi), outcomes, max_bytes = SEL_CASES[case]
+    pred = pred_of(F)
+    leaves = pred.children if isinstance(pred, F.And) else (pred,)
+    consts = 4 * sum(_const_words(lf) for lf in leaves)
+
+    async def go():
+        cfg = from_dict(StorageConfig, {
+            "scheduler": {"schedule_interval": "1h"},
+            "scan": {"decode": {"mode": "device",
+                                "max_upload_bytes": max_bytes}}})
+        cfg.manifest.merge_interval = ReadableDuration.parse("1h")
+        cfg.scrub.interval = ReadableDuration.parse("1h")
+        ref_cfg = ref_from_dict(RefConfig, {
+            "scheduler": {"schedule_interval": "1h"}})
+        ref_cfg.manifest.merge_interval = RefDuration.parse("1h")
+        ref_cfg.scrub.interval = RefDuration.parse("1h")
+        s = await CloudObjectStorage.open("db", SEG, MemoryObjectStore(),
+                                          FSCHEMA, 3, cfg, device="cpu")
+        ref = await RefStorage.open("db", SEG, RefStore(), FSCHEMA, 3,
+                                    ref_cfg)
+        try:
+            writes = _sel_writes(case, random.Random(4242))
+            for rows in writes:
+                h, f, t, v = zip(*rows)
+                batch = pa.record_batch(
+                    [pa.array(list(h)), pa.array(list(f)),
+                     pa.array(list(t), type=pa.int64()),
+                     pa.array(list(v), type=pa.float64())], schema=FSCHEMA)
+                await s.write(WriteRequest(batch,
+                                           TimeRange.new(min(t), max(t) + 1)))
+                await ref.write(RefWrite(batch,
+                                         RefRange.new(min(t), max(t) + 1)))
+            want = await ref.scan_aggregate(
+                RefRequest(range=RefRange.new(lo, hi), predicate=pred_of(RF)),
+                RefSpec(group_col="h", ts_col="ts", value_col="v",
+                        range_start=lo, bucket_ms=600_000,
+                        num_buckets=-(-(hi - lo) // 600_000),
+                        which=ALL_AGGS))
+            req = ScanRequest(range=TimeRange.new(lo, hi), predicate=pred)
+            spec = AggregateSpec(
+                group_col="h", ts_col="ts", value_col="v", range_start=lo,
+                bucket_ms=600_000, num_buckets=-(-(hi - lo) // 600_000),
+                which=ALL_AGGS)
+
+            async def scan(mode, select=True):
+                _clear(s)
+                s.config.scan.decode.mode = mode
+                # without the selection every row uploads and the card
+                # masks them, as before the host selected rows
+                monkeypatch.setattr(dd, "select_rows", select_rows
+                                    if select else lambda es, *a: es)
+                c0, b0, k0 = (dd.select_counts(), encode.h2d_bytes(),
+                              dd._SORT_SKIPPED["kway"].value)
+                f0 = dd.fallback_counts()["budget"]
+                out = await s.scan_aggregate(req, spec)
+                c1 = dd.select_counts()
+                return out, {k: c1[k] - c0[k] for k in c1}, \
+                    encode.h2d_bytes() - b0, \
+                    dd._SORT_SKIPPED["kway"].value - k0, \
+                    dd.fallback_counts()["budget"] - f0
+
+            dev, counted, up, kway, budget = await scan("device")
+            host = (await scan("host"))[0]
+            card, _c, card_up, _k, card_budget = await scan(
+                "device", select=False)
+            return writes, dev, counted, up, kway, budget, host, card, \
+                card_up, card_budget, want
+        finally:
+            await s.close()
+            await ref.close()
+
+    select_rows = dd.select_rows
+    (writes, dev, counted, up, kway, budget, host, card, card_up,
+     card_budget, want) = asyncio.run(go())
+    for other in (host, card):
+        assert np.array_equal(dev[0], other[0])
+        assert sorted(dev[1]) == sorted(other[1])
+        for k in dev[1]:
+            assert dev[1][k].tobytes() == other[1][k].tobytes(), k
+    assert np.array_equal(dev[0], want[0])
+    assert sorted(dev[1]) == sorted(want[1])
+    for k in want[1]:
+        w = np.asarray(want[1][k])
+        if k in ("sum", "avg"):
+            np.testing.assert_allclose(dev[1][k], w, rtol=1e-5, err_msg=k)
+        else:
+            assert dev[1][k].tobytes() == w.tobytes(), k
+    assert len(dev[0]) and dev[1]["count"].sum() > 0
+    assert {o: counted[o] for o in dd.SELECT_OUTCOMES if counted[o]} \
+        == outcomes
+    stored = sum(len(rows) for rows in writes)
+    matches = _stored_matches(writes, pred, lo, hi)
+    segments = sum(outcomes.values())
+    if "selected" in outcomes:
+        assert counted["rows_kept"] == matches
+        assert counted["rows_in"] == stored
+        # one dispatch per segment with a surviving row
+        dispatches = segments - (case == "empty")
+        offsets = 4 * (4 + 1) * kway  # three runs pad to 4: 5 offsets
+        assert up == matches * UPLOAD_COLS * 4 + dispatches * consts \
+            + offsets
+        assert up < card_up or card_budget
+    else:
+        assert up == card_up == stored * UPLOAD_COLS * 4 + segments * consts
+        assert counted["rows_in"] == (stored if "kept_all" in outcomes
+                                      else 0)
+    if case == "kway_empty_runs":
+        assert kway == 1
+    if case == "budget_fits_once_selected":
+        assert budget == 0 and card_budget == 2

@@ -10,8 +10,9 @@ within rtol 1e-5); the k-way merge route taken by multi-SST segments
 (kway_merge_perm dispatched inside the rounds, the full sort never
 paid); the additive top-k rankings served by the device score plane;
 the round budget downgrade (mesh_decode_budget) and a lost round
-(mesh_error), both counted and both still the controls' answer; the
-open-time mode conflict; and close() releasing the mesh state."""
+(mesh_error), both counted and both still the controls' answer; a
+round over host-selected plans of different capacities; the open-time
+mode conflict; and close() releasing the mesh state."""
 
 import asyncio
 import os
@@ -429,5 +430,62 @@ def test_close_evicts_mesh_decode_state(runtimes):
             await s.close()
         assert not s.reader._mesh_run_fns
         assert s.reader._mesh_state_bytes == 0
+
+    run(go())
+
+
+def test_mesh_decode_round_over_host_selected_plans(runtimes):
+    """One field of segments that hold ten: each plan uploads only its
+    selected rows, so a round's plans have different capacities; the
+    round's grids are the per-segment dispatch's and host decode's byte
+    for byte."""
+    from horaedb_tpu_torch.storage import config as cfg_mod
+
+    fschema = pa.schema([("h", pa.string()), ("f", pa.string()),
+                         ("ts", pa.int64()), ("v", pa.float64())])
+    fields = [f"f{i}" for i in range(10)]
+
+    async def go():
+        s = await CloudObjectStorage.open(
+            "db", SEGMENT_MS, MemoryObjectStore(), fschema, 3,
+            scan_cfg(cfg_mod), runtimes=runtimes, device="cpu")
+        try:
+            rng = random.Random(SEED + 11)
+            # f3 keeps 60, 360, 120 and 240 rows: 128 to 512 slots
+            for seg, ticks in enumerate((10, 60, 20, 40)):
+                times = sorted(rng.sample(range(0, SEGMENT_MS, 30_000),
+                                          ticks))
+                rows = [(f"h{h}", f, seg * SEGMENT_MS + t,
+                         float(rng.randint(0, 10**6)))
+                        for h in range(6) for f in fields for t in times]
+                h, f, t, v = zip(*rows)
+                await s.write(WriteRequest(pa.record_batch(
+                    [pa.array(list(h)), pa.array(list(f)),
+                     pa.array(list(t), type=pa.int64()),
+                     pa.array(list(v), type=pa.float64())],
+                    schema=fschema), TimeRange.new(min(t), max(t) + 1)))
+            lo, hi = 0, 4 * SEGMENT_MS
+            req = ScanRequest(range=TimeRange.new(lo, hi),
+                              predicate=F.Eq("f", "f3"))
+            spec = AggregateSpec(group_col="h", ts_col="ts", value_col="v",
+                                 range_start=lo, bucket_ms=600_000,
+                                 num_buckets=(hi - lo) // 600_000,
+                                 which=ALL_AGGS)
+            real = s.reader._run_mesh_decode_round
+            caps = []
+
+            def spy(chunk, spec_):
+                caps.append(sorted(dp.cap for _s, dp in chunk))
+                return real(chunk, spec_)
+
+            s.reader._run_mesh_decode_round = spy
+            selected0 = dd_mod.select_counts()["selected"]
+            rounds0 = read_mod._MESH_ROUNDS.value
+            await query_three(s, req, spec, ctx="selected plans")
+            assert dd_mod.select_counts()["selected"] - selected0 >= 4
+            assert read_mod._MESH_ROUNDS.value > rounds0
+            assert [128, 128, 256, 512] in caps
+        finally:
+            await s.close()
 
     run(go())
