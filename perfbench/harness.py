@@ -97,6 +97,8 @@ async def _run_cell(bench, name, seed, seconds, trace, device, t_start,
     rng = np.random.default_rng([s, 1])
     warm_rng = np.random.default_rng([s, 2])
     starts = loadgen.window_starts(traffic, config, rng, MAX_QUERIES)
+    draw_hosts = loadgen.host_drawer(traffic, config, [s, 3])
+    warm_hosts = loadgen.host_drawer(traffic, config, [s, 4])
     last_start = (config["start_ms"] + config["span_ms"]
                   - traffic["window_ms"])
 
@@ -112,13 +114,15 @@ async def _run_cell(bench, name, seed, seconds, trace, device, t_start,
         steps["data_ssts_per_segment"] = await deploy.ssts_per_segment(
             engine)
         t0 = time.perf_counter()
-        for start in (config["start_ms"], last_start):
-            await loadgen.issue(engine, traffic, fields, metric, start)
+        for j, start in enumerate((config["start_ms"], last_start)):
+            await loadgen.issue(engine, traffic, fields, metric, start,
+                                hosts=warm_hosts(j))
         warm = loadgen.window_starts(traffic, config, warm_rng,
                                      traffic["workers"])
         await asyncio.gather(*(loadgen.issue(engine, traffic, fields,
-                                             metric, int(w))
-                               for w in warm))
+                                             metric, int(w),
+                                             hosts=warm_hosts(2 + j))
+                               for j, w in enumerate(warm)))
         sync(device)
         steps["warm_s"] = time.perf_counter() - t0
         gc.collect()
@@ -129,7 +133,7 @@ async def _run_cell(bench, name, seed, seconds, trace, device, t_start,
         loop = await loadgen.closed_loop(
             engine, traffic, fields, metric, starts, seconds,
             keep=traffic["check_sample"], keep_seed=s ^ 0x5EED,
-            span=spans.span if trace else None)
+            span=spans.span if trace else None, draw_hosts=draw_hosts)
         sync(device)
         if trace:
             dtrace.stop()
@@ -169,7 +173,8 @@ async def _run_cell(bench, name, seed, seconds, trace, device, t_start,
             counters=delta(after[0], before[0]),
             stages=delta(after[1], before[1]), trace=summary,
             scan_work=roofline.field_scan_work(
-                config["scale"], traffic["window_ms"],
+                traffic.get("host_draw", config["scale"]),
+                traffic["window_ms"],
                 config["interval_ms"], traffic["bucket_ms"],
                 traffic["aggs"]),
             segment_rows=config["scale"] * (deploy.parse_duration_ms(
@@ -182,8 +187,9 @@ async def _run_cell(bench, name, seed, seconds, trace, device, t_start,
                                              "unit": m["unit"]}
 
     starts_of = {q.index: q.start_ms for q in queries}
+    hosts_of = {q.index: q.hosts for q in queries if q.hosts is not None}
     numbers = check.compare(loop.kept, starts_of, series_keys, data,
-                            traffic, metric)
+                            traffic, metric, hosts_of)
     correct, checks = check.judge(numbers, limits)
     correct = correct and failed == 0 and done_in_window > 0
     result = {

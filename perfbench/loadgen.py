@@ -8,10 +8,21 @@ A traffic file (`perfbench/traffic/<name>.json`) states:
 - `aggs`, `bucket_ms`, `window_ms`, `filters`: the query's shape;
 - `start_resolution_ms`: window starts are drawn uniformly from the
   data span at this resolution (TSBS draws random starts the same way);
-- `workers`: the closed loop's clients, each waiting for its reply.
+- `workers`: the closed loop's clients, each waiting for its reply;
+- `host_draw` (optional, n): each query names n distinct hosts, drawn
+  uniformly from the configuration's hosts with the query's own seeded
+  stream, as TSBS draws them (`getRandomHosts`); the warm-up draws its
+  sets from a stream of its own.  Without it a query reads every host.
+
+The drawn set goes to the engine in one call, as one matcher on
+`hostname` after the file's `filters` (TSBS issues one statement with
+the hosts OR'd): `("hostname", "host_7")` for n = 1, the form the
+engine takes today, and for n > 1 the tuple of the drawn names in the
+order drawn, `("hostname", ("host_7", "host_912", ...))`, which matches
+a series whose `hostname` is any of them.
 
 Every seed gives the same work in another order: each query covers
-`window_ms` of data at another start."""
+`window_ms` of data at another start, and of as many hosts."""
 
 from __future__ import annotations
 
@@ -19,8 +30,11 @@ import asyncio
 import random
 import time
 from dataclasses import dataclass, field
+from typing import Optional
 
 import numpy as np
+
+from perfbench import tsbs
 
 
 def query_fields(traffic: dict, config: dict) -> list:
@@ -37,6 +51,28 @@ def window_starts(traffic: dict, config: dict, rng: np.random.Generator,
     return config["start_ms"] + rng.integers(0, slots, n) * res
 
 
+def host_drawer(traffic: dict, config: dict, words: list):
+    """`draw(i)`: the hosts query `i` names, `host_draw` distinct host
+    indices in the order drawn from the stream seeded by `words + [i]`;
+    None for a mix without `host_draw`."""
+    n = traffic.get("host_draw")
+
+    def draw(i: int):
+        if n is None:
+            return None
+        rng = np.random.default_rng([*words, i])
+        return rng.choice(config["scale"], n, replace=False)
+
+    return draw
+
+
+def host_matcher(hosts) -> tuple:
+    """The one `hostname` matcher of a drawn set: a name for one host,
+    else the tuple of the names."""
+    names = tuple(tsbs.host_name(int(h)) for h in hosts)
+    return ("hostname", names[0] if len(names) == 1 else names)
+
+
 def host_result(out: dict) -> dict:
     """A result as the user reads it: host arrays, which waits for the
     device."""
@@ -48,24 +84,27 @@ def host_result(out: dict) -> dict:
 
 
 async def issue(engine, traffic: dict, fields: list, metric: str,
-                start_ms: int, span=None) -> dict:
-    """One query of the mix; returns {field: host result}.  `span(name)`,
-    when given, is a context manager wrapped around the engine call and
-    around the download of its result."""
+                start_ms: int, span=None, hosts=None) -> dict:
+    """One query of the mix; returns {field: host result}.  `hosts`, the
+    drawn host indices, adds their matcher; None reads every host.
+    `span(name)`, when given, is a context manager wrapped around the
+    engine call and around the download of its result."""
     import contextlib
 
     span = span or (lambda _name: contextlib.nullcontext())
     with span(traffic["entry"]):
-        out = await _call(engine, traffic, fields, metric, start_ms)
+        out = await _call(engine, traffic, fields, metric, start_ms, hosts)
     with span("to_host"):
         return {f: host_result(r) for f, r in out.items()}
 
 
-async def _call(engine, traffic, fields, metric, start_ms) -> dict:
+async def _call(engine, traffic, fields, metric, start_ms, hosts) -> dict:
     from horaedb_tpu_torch.storage.types import TimeRange
 
     tr = TimeRange.new(int(start_ms), int(start_ms) + traffic["window_ms"])
     filters = [tuple(f) for f in traffic["filters"]]
+    if hosts is not None:
+        filters.append(host_matcher(hosts))
     aggs = tuple(traffic["aggs"])
     if traffic["entry"] == "query_downsample":
         (f,) = fields
@@ -84,6 +123,8 @@ class Query:
     index: int
     start_ms: int
     issued: float
+    # the drawn host indices; None for every host
+    hosts: Optional[np.ndarray] = None
     done: float = 0.0
     error: str = ""
 
@@ -121,10 +162,12 @@ class LoopResult:
 
 async def closed_loop(engine, traffic: dict, fields: list, metric: str,
                       starts: np.ndarray, seconds: float, keep: int,
-                      keep_seed: int, span=None) -> LoopResult:
+                      keep_seed: int, span=None,
+                      draw_hosts=lambda _i: None) -> LoopResult:
     """`traffic["workers"]` clients, each issuing its next query as soon
-    as its last one returns, for `seconds`.  Queries issued before the
-    close all run to their end.  A uniform sample of `keep` completed
+    as its last one returns, for `seconds`; query `i` starts at
+    `starts[i]` and names the hosts `draw_hosts(i)`.  Queries issued
+    before the close all run to their end.  A uniform sample of `keep` completed
     queries (reservoir sampling from `keep_seed`) keeps its results for
     the check.  `span(name)`, when given, is a context manager wrapped
     around each engine call and each download."""
@@ -143,11 +186,12 @@ async def closed_loop(engine, traffic: dict, fields: list, metric: str,
             next_index += 1
             if i >= len(starts):
                 raise RuntimeError("the traffic ran out of window starts")
-            q = Query(i, int(starts[i]), time.perf_counter())
+            hosts = draw_hosts(i)
+            q = Query(i, int(starts[i]), time.perf_counter(), hosts)
             queries.append(q)
             try:
                 res = await issue(engine, traffic, fields, metric,
-                                  q.start_ms, span)
+                                  q.start_ms, span, hosts)
             except Exception as e:  # a failed query counts as failed
                 q.done = time.perf_counter()
                 q.error = f"{type(e).__name__}: {e}"

@@ -85,8 +85,12 @@ class TsbsConfig:
         return self.span_ms // self.interval_ms
 
 
+def host_name(i: int) -> str:
+    return f"host_{i}"
+
+
 def host_names(n: int) -> list[str]:
-    return [f"host_{i}" for i in range(n)]
+    return [host_name(i) for i in range(n)]
 
 
 @dataclass
